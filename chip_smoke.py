@@ -1,0 +1,534 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (dpst_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root, one H100
+
+Phases (each prints one JSON line; any failure exits non-zero and prints
+no result):
+  1. device   -- the card's name, and its name and power limit from
+                 nvidia-smi;
+  2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
+                 sm_90a) and reports the seconds;
+  3. kernels  -- each kernel against its plain PyTorch version on the card,
+                 at the shapes of the 512² config3 main path (K = 4 masks),
+                 with the stated tolerance, the kernel's time, the plain
+                 version's time, the computed bound and, where one PyTorch
+                 call computes the same function, that call's time; then
+                 each kernel at shapes that do not fill its tiles;
+  4. stylize  -- the main path through the public entry points:
+                 `prepare_constants` (timed alone), then `stylize` with
+                 PRESETS["config3"] on a seeded 512² pair and four band
+                 masks; launch counters are reset just before and read just
+                 after; checks the losses, the output, the counters and a
+                 bit-identical rerun; profiles ten steps (device time per
+                 step by kernel group, device busy share); then a 64² fp32
+                 run on the card against the same run on the CPU (the
+                 kernels' plain path);
+  5. the {"kernels": [...]} summary and the nvidia-smi line;
+  6. the last line: {"ok": true, "device": {...}}.
+It imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ITERS = 100            # main-path Adam steps (callback at ITERS // 2)
+RERUN_ITERS = 10       # the bit-identical rerun
+SIZE = 512
+K = 4
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC; fp32 CUDA cores
+GRAM_SHAPES = ((64, 262144), (128, 65536), (256, 16384), (512, 4096),
+               (512, 1024))                   # (C, P) of conv1_1..conv5_1
+POOL_SHAPES = ((64, 512, 512), (128, 256, 256), (256, 128, 128),
+               (512, 64, 64))                 # (C, H, W) into pool1..pool4
+# fp32 operations per pixel and channel of the matvec: pass 1 (box sums,
+# t, b = Λt, α, β) 97, pass 2 (box sums of α and β, the products) 40
+LAP_OPS_PER_PIXEL = 3 * 137
+POOL_OPS_PER_WINDOW = 13
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(phase: str, msg: str) -> None:
+    emit({"phase": phase, "ok": False, "error": msg})
+    print(f"chip_smoke: {phase} failed: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls (CUDA
+    events, after warm-up; L2 stays warm between calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |got − ref|, that over max |ref|)."""
+    err = float((got.float() - ref.float()).abs().max())
+    return err, err / max(float(ref.float().abs().max()), 1e-30)
+
+
+def check_lap(dev, gen):
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    img = torch.rand((SIZE, SIZE, 3), generator=gen, device=dev)
+    packed = lapc.pack_stats(lap.precompute_stats(img))
+    v3 = torch.rand((3, SIZE, SIZE), generator=gen, device=dev)
+    y = lapc.lap_matvec(packed, v3)
+    ref = lapc.lap_matvec_plain(packed, v3)
+    torch.cuda.synchronize()
+    err, rel = rel_err(y, ref)
+    tol = 1e-5
+    b, by = bound_ms(20 * SIZE * SIZE * 4, LAP_OPS_PER_PIXEL * SIZE * SIZE,
+                     "float32")
+    row = {"phase": "kernel", "name": "lap_matvec", "shape": [3, SIZE, SIZE],
+           "dtype": "float32", "max_abs_err": err, "rel_err": rel,
+           "tol_rel": tol, "ms": cuda_ms(lambda: lapc.lap_matvec(packed, v3)),
+           "plain_ms": cuda_ms(lambda: lapc.lap_matvec_plain(packed, v3),
+                               iters=5),
+           "bound_ms": b, "bound_by": by, "library_ms": None}
+    emit(row)
+    if not rel <= tol:
+        fail("kernels", f"lap_matvec rel err {rel} > {tol}")
+    return [row]
+
+
+def check_gram(dev, gen):
+    from dpst_tpu_torch.ops import gram_stream as gs
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        isz = 2 if dtype == "bfloat16" else 4
+        for c, p in GRAM_SHAPES:
+            f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
+            m = torch.rand((K, p), generator=gen, device=dev)
+            m2 = (m * m).to(cdt)
+            d = torch.randn((K, c, c), generator=gen, device=dev)
+            s = (d + d.transpose(1, 2)).to(cdt).contiguous()
+            ops = 2.0 * K * c * c * p
+            # forward: raw Grams in fp32 from identical bf16/fp32 operands
+            g = gs.gram_fwd(f, m2)
+            g_ref = gs.gram_fwd_plain(f, m2)
+            torch.cuda.synchronize()
+            err, rel = rel_err(g, g_ref)
+            # fp32 sums of up to 262144 products in two orders (cuBLAS's
+            # and the kernel's split-P order): 1.7e-4 of max|G| measured at
+            # conv1_1 on the H100 in both dtypes; the errors against a
+            # float64 product of the same operands show which side drifts
+            tol = 1e-3
+            fw64 = (f.unsqueeze(0) * m2.unsqueeze(1)).double()
+            g64 = torch.matmul(f.double(), fw64.transpose(1, 2))
+            err64 = {"kernel": rel_err(g.double(), g64)[1],
+                     "plain": rel_err(g_ref.double(), g64)[1]}
+            del fw64, g64
+            lib = lambda: torch.matmul(f, f.t().unsqueeze(0)
+                                       * m2.unsqueeze(2))
+            b, by = bound_ms((c * p + K * p) * isz + K * c * c * 4, ops,
+                             dtype)
+            row = {"phase": "kernel", "name": "gram_fwd", "shape": [c, p],
+                   "K": K, "dtype": dtype, "max_abs_err": err,
+                   "rel_err": rel, "tol_rel": tol, "rel_err_fp64": err64,
+                   "ms": cuda_ms(lambda: gs.gram_fwd(f, m2)),
+                   "plain_ms": cuda_ms(lambda: gs.gram_fwd_plain(f, m2),
+                                       iters=5),
+                   "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib)}
+            emit(row)
+            rows.append(row)
+            if not rel <= tol:
+                fail("kernels", f"gram_fwd {dtype} {c}x{p}: rel err {rel}")
+            # backward: dF in the compute dtype (bf16 output: <= 1 ulp)
+            out = gs.gram_bwd(f, m2, s)
+            out_ref = gs.gram_bwd_plain(f, m2, s)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, out_ref)
+            tol = 1e-2 if dtype == "bfloat16" else 1e-4
+            a = s.permute(1, 0, 2).reshape(c, K * c)
+            lib = lambda: torch.matmul(
+                a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
+            b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz, ops,
+                             dtype)
+            row = {"phase": "kernel", "name": "gram_bwd", "shape": [c, p],
+                   "K": K, "dtype": dtype, "max_abs_err": err,
+                   "rel_err": rel, "tol_rel": tol,
+                   "ms": cuda_ms(lambda: gs.gram_bwd(f, m2, s)),
+                   "plain_ms": cuda_ms(lambda: gs.gram_bwd_plain(f, m2, s),
+                                       iters=5),
+                   "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib)}
+            emit(row)
+            rows.append(row)
+            if not rel <= tol:
+                fail("kernels", f"gram_bwd {dtype} {c}x{p}: rel err {rel}")
+    return rows
+
+
+def tied_pool_input(c: int, h: int, w: int, dtype, dev, gen):
+    """Post-ReLU-like values on a coarse grid (many tied maxima), their 2×2
+    max pool and a cotangent."""
+    x = torch.relu(torch.round(torch.randn(
+        (c, h, w), generator=gen, device=dev) * 4) / 4).to(dtype)
+    y = F.max_pool2d(x[None], 2, 2)[0].contiguous()
+    g = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+    return x, y, g
+
+
+def check_pool(dev, gen):
+    from dpst_tpu_torch.ops import pool_cuda
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        isz = 2 if dtype == "bfloat16" else 4
+        for c, h, w in POOL_SHAPES:
+            x, y, g = tied_pool_input(c, h, w, getattr(torch, dtype), dev,
+                                      gen)
+            gx = pool_cuda.maxpool2_bwd(x, y, g)
+            ref = pool_cuda.maxpool2_bwd_plain(x, y, g)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(gx, ref))
+            n = c * h * w
+            b, by = bound_ms(2.5 * n * isz, POOL_OPS_PER_WINDOW * n / 4,
+                             dtype)
+            row = {"phase": "kernel", "name": "pool_bwd",
+                   "shape": [c, h, w], "dtype": dtype,
+                   "max_abs_err": rel_err(gx, ref)[0], "bit_equal": equal,
+                   "tol": "bit-exact",
+                   "ms": cuda_ms(lambda: pool_cuda.maxpool2_bwd(x, y, g)),
+                   "plain_ms": cuda_ms(
+                       lambda: pool_cuda.maxpool2_bwd_plain(x, y, g),
+                       iters=5),
+                   "bound_ms": b, "bound_by": by, "library_ms": None}
+            emit(row)
+            rows.append(row)
+            if not equal:
+                fail("kernels", f"pool_bwd {dtype} {c}x{h}x{w} not "
+                     f"bit-equal (max err {row['max_abs_err']})")
+    return rows
+
+
+def check_edges(dev, gen) -> None:
+    """Each kernel against its plain version at shapes that do not fill
+    its tiles (C not a multiple of 64 or of 8, odd P, odd pool sizes, an
+    image smaller than one Laplacian tile), with the tolerances above."""
+    from dpst_tpu_torch.ops import gram_stream as gs
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    from dpst_tpu_torch.ops import pool_cuda
+
+    errs = {}
+    for h, w in ((37, 53), (5, 7)):
+        img = torch.rand((h, w, 3), generator=gen, device=dev)
+        packed = lapc.pack_stats(lap.precompute_stats(img))
+        v3 = torch.rand((3, h, w), generator=gen, device=dev)
+        errs[f"lap_matvec {h}x{w}"] = (rel_err(
+            lapc.lap_matvec(packed, v3),
+            lapc.lap_matvec_plain(packed, v3))[1], 1e-5)
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        for c, p, k in ((96, 1000, 3), (8, 40, 1), (200, 3000, 5)):
+            f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
+            m2 = torch.rand((k, p), generator=gen, device=dev).to(cdt)
+            d = torch.randn((k, c, c), generator=gen, device=dev)
+            s = (d + d.transpose(1, 2)).to(cdt).contiguous()
+            errs[f"gram_fwd {dtype} {c}x{p} K={k}"] = (rel_err(
+                gs.gram_fwd(f, m2), gs.gram_fwd_plain(f, m2))[1], 1e-3)
+            errs[f"gram_bwd {dtype} {c}x{p} K={k}"] = (rel_err(
+                gs.gram_bwd(f, m2, s), gs.gram_bwd_plain(f, m2, s))[1],
+                1e-2 if dtype == "bfloat16" else 1e-4)
+        for c, h, w in ((3, 17, 15), (5, 16, 15), (2, 3, 3)):
+            x, y, g = tied_pool_input(c, h, w, cdt, dev, gen)
+            equal = torch.equal(pool_cuda.maxpool2_bwd(x, y, g),
+                                pool_cuda.maxpool2_bwd_plain(x, y, g))
+            errs[f"pool_bwd {dtype} {c}x{h}x{w}"] = (0.0 if equal else 1.0,
+                                                     0.0)
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_edges", "rel_err_and_tol": errs})
+    bad = [name for name, (e, tol) in errs.items() if not e <= tol]
+    if bad:
+        fail("kernel_edges", "beyond tolerance: " + ", ".join(bad))
+
+
+def band_masks(axis: int) -> np.ndarray:
+    m = np.zeros((K, SIZE, SIZE), np.float32)
+    band = SIZE // K
+    for k in range(K):
+        if axis == 0:
+            m[k, k * band:(k + 1) * band] = 1
+        else:
+            m[k, :, k * band:(k + 1) * band] = 1
+    return m
+
+
+def smooth_image(gen, dev, size: int) -> np.ndarray:
+    """A seeded photo-like image: low-frequency colour fields plus noise."""
+    low = torch.rand((1, 3, size // 32, size // 32), generator=gen,
+                     device=dev)
+    img = F.interpolate(low, size=(size, size), mode="bicubic",
+                        align_corners=False)[0].permute(1, 2, 0)
+    img = img + 0.05 * torch.randn((size, size, 3), generator=gen,
+                                   device=dev)
+    return (img.clamp(0, 1) * 255).contiguous().cpu().numpy()
+
+
+def run_main_path(dev, gen) -> dict:
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+
+    content = smooth_image(gen, dev, SIZE)
+    style = smooth_image(gen, dev, SIZE)
+    cmask, smask = band_masks(0), band_masks(1)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              iterations=ITERS,
+                              intermediate_interval=ITERS // 2)
+    params = vgg.get_params(seed=SEED, device=dev)
+
+    # precompute alone, through the public entry point
+    args = [torch.from_numpy(a).to(dev) for a in (content, style, cmask,
+                                                  smask)]
+    dpst_tpu_torch.prepare_constants(*args, cfg, params)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dpst_tpu_torch.prepare_constants(*args, cfg, params)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+
+    marks = {}
+
+    def callback(step, image, hist):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+
+    def run(cfg, callback=None):
+        return dpst_tpu_torch.stylize(
+            content, style, cfg, content_masks=cmask, style_masks=smask,
+            vgg_params=params, callback=callback, return_history=True)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, hist = run(cfg, callback)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    half = ITERS // 2
+    loop_its = half / (marks[ITERS] - marks[half])
+    emit({"phase": "stylize", "size": SIZE, "K": K, "iterations": ITERS,
+          "compute_dtype": cfg.compute_dtype,
+          "weights": ("weights/vgg19.npz" if os.path.exists(
+              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "precompute_s": precompute_s, "loop_it_s": loop_its,
+          "wall_s": wall_s, "first_row": hist[0].tolist(),
+          "last_row": hist[-1].tolist(), "launches": launches,
+          "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    need = {"lap_matvec": ITERS, "gram_fwd": 5 * ITERS,
+            "gram_bwd": 5 * ITERS, "pool_bwd": 4 * ITERS}
+    for name, lo in need.items():
+        if launches[name] < lo:
+            fail("stylize", f"{name} launched {launches[name]} times, "
+                 f"expected >= {lo}")
+    if not hist[-1, 0] < hist[0, 0]:
+        fail("stylize", f"total loss did not fall: {hist[0, 0]} -> "
+             f"{hist[-1, 0]}")
+    if not hist[:, 3].min() >= -1.0:
+        fail("stylize", f"photoreal term {hist[:, 3].min()} < -1")
+    if not (out.shape == (SIZE, SIZE, 3) and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 255.0):
+        fail("stylize", "output not finite (512, 512, 3) in [0, 255]")
+    if not np.isfinite(hist).all():
+        fail("stylize", "non-finite loss history")
+
+    # the same config again, shorter: the rows must be bit-identical
+    _, hist2 = run(dataclasses.replace(cfg, iterations=RERUN_ITERS))
+    identical = bool(np.array_equal(hist2, hist[:RERUN_ITERS]))
+    emit({"phase": "rerun", "iterations": RERUN_ITERS,
+          "bit_identical": identical})
+    if not identical:
+        fail("rerun", "history of the rerun differs")
+    profile_loop(run, cfg, 1e3 / loop_its)
+    return launches
+
+
+def kernel_group(name: str) -> str:
+    """Which part of a main-path step a device kernel belongs to."""
+    for key, group in (("gram_fwd", "gram_fwd"), ("gram_reduce", "gram_fwd"),
+                       ("gram_bwd", "gram_bwd"), ("pool2_bwd", "pool_bwd"),
+                       ("lap_matvec", "lap_matvec")):
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in ("conv", "xmma", "cudnn", "gemm", "sm90",
+                              "dgrad", "implicit")):
+        return "conv (cuDNN)"
+    if "max_pool" in low:
+        return "max_pool forward"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_loop(run, cfg, step_ms: float, warm: int = 5,
+                 steps: int = 10) -> None:
+    """Device time per main-path step by kernel group, from torch.profiler
+    over `steps` Adam steps after `warm` steps, and the device's busy share
+    against the unprofiled step time `step_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def callback(step, image, hist):
+        torch.cuda.synchronize()
+        if step == warm:
+            prof.start()
+        elif step == warm + steps:
+            prof.stop()
+
+    run(dataclasses.replace(cfg, iterations=warm + steps,
+                            intermediate_interval=warm), callback)
+    groups: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = kernel_group(ev.name)
+            groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
+    if not groups:
+        fail("profile", "torch.profiler recorded no device time")
+    per_step = {g: t / steps for g, t in sorted(groups.items(),
+                                                key=lambda kv: -kv[1])}
+    busy = sum(per_step.values())
+    emit({"phase": "profile", "steps": steps, "device_ms_per_step": per_step,
+          "device_busy_ms_per_step": busy, "step_ms_unprofiled": step_ms,
+          "device_busy_share": busy / step_ms})
+
+
+def run_small_reference(gen) -> None:
+    """64² fp32 run on the card against the same run on the CPU, where every
+    kernel wrapper takes its plain version."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    size, k = 64, 3
+    content = smooth_image(gen, gen.device, size)
+    style = smooth_image(gen, gen.device, size)
+    cm = np.zeros((k, size, size), np.float32)
+    sm = np.zeros((k, size, size), np.float32)
+    for i in range(k):
+        cm[i, i * size // k:(i + 1) * size // k] = 1
+        sm[i, :, i * size // k:(i + 1) * size // k] = 1
+    cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
+                                       regularization_weight=100.0)
+    params = vgg.init_params(SEED)
+    hists = {}
+    for where in ("cuda", "cpu"):
+        _, hists[where] = dpst_tpu_torch.stylize(
+            content, style, cfg, content_masks=cm, style_masks=sm,
+            vgg_params=params, return_history=True, device=where)
+    rel = np.abs(hists["cuda"] - hists["cpu"]) / np.maximum(
+        np.abs(hists["cpu"]).max(axis=0), 1e-30)
+    worst = float(rel.max())
+    tol = 1e-3
+    emit({"phase": "reference", "size": size, "K": k, "iterations": 5,
+          "compute_dtype": "float32", "max_rel_err_vs_cpu": worst,
+          "tol_rel": tol})
+    if not worst <= tol:
+        fail("reference", f"card vs CPU history rel err {worst} > {tol}")
+
+
+def summarize(rows: list, launches: dict) -> list:
+    """One entry per kernel: times and bounds summed over the shapes one
+    main-path step launches, in the main path's dtype (bf16; fp32 for the
+    Laplacian); max_abs_err over those shapes."""
+    meta = {
+        "lap_matvec": ("dpst_tpu_torch/csrc/lap_matvec.cu",
+                       "dpst_tpu/ops/laplacian_pallas.py:111", "float32"),
+        "gram_fwd": ("dpst_tpu_torch/csrc/gram.cu",
+                     "dpst_tpu/ops/gram_stream.py:93", "bfloat16"),
+        "gram_bwd": ("dpst_tpu_torch/csrc/gram.cu",
+                     "dpst_tpu/ops/gram_stream.py:110", "bfloat16"),
+        "pool_bwd": ("dpst_tpu_torch/csrc/pool_bwd.cu",
+                     "dpst_tpu/ops/pool_pallas.py:40", "bfloat16"),
+    }
+    out = []
+    for name, (src, replaces, dtype) in meta.items():
+        sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype]
+        t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
+        t_ops = sum(r["bound_ms"] for r in sel
+                    if r["bound_by"] == "operations")
+        libs = [r["library_ms"] for r in sel]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in sel),
+            "ms": sum(r["ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "bound_ms": t_bytes + t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": (None if any(v is None for v in libs)
+                           else sum(libs)),
+            "dtype": dtype, "shapes_per_step": len(sel)})
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import dpst_tpu_torch  # noqa: F401  (fails outside the repository)
+    from dpst_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    kernels.build(verbose=True)
+    kernels.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = check_lap(dev, gen)
+    rows += check_gram(dev, gen)
+    rows += check_pool(dev, gen)
+    check_edges(dev, gen)
+
+    # a generator of its own: the main path's images do not depend on
+    # what the kernel checks drew
+    main_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    launches = run_main_path(dev, main_gen)
+    run_small_reference(main_gen)
+
+    print(smi, flush=True)
+    emit({"kernels": summarize(rows, launches)})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,161 @@
+"""Public API of the port: `stylize(content, style, config=...) -> image`.
+
+Single-scale stylization with Adam: load → masks (given, or uniform when
+segmentation is off) → precompute (content features, masked style Grams,
+mask pyramid, coverage, Laplacian stats) → optimize → result. Entry points
+run on the CUDA card unless the caller passes `device="cpu"`; with no
+card and no device given they raise.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from . import optimize, segmentation
+from .config import StylizeConfig
+from .models import vgg
+from .ops import laplacian as lap
+from .ops import losses as losses_mod
+from .ops.laplacian_cuda import pack_stats
+from .ops.resize import resize_image
+from .utils import io
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA card; raise if there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU by default; pass "
+                "device='cpu' to run the plain PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _check_ported(cfg: StylizeConfig, masks_given: bool) -> None:
+    """Raise NotImplementedError for what this slice of the port lacks,
+    naming the ROADMAP.md queue-1 item that will port it."""
+    todo = []
+    if cfg.scales:
+        todo.append("scales != () (item 9: multi-scale)")
+    if cfg.optimizer == "lbfgs":
+        todo.append("optimizer='lbfgs' (item 10: L-BFGS)")
+    if cfg.post_smooth > 0:
+        todo.append("post_smooth > 0 (item 11: post-processing)")
+    if cfg.use_segmentation and not masks_given:
+        todo.append("use_segmentation=True without masks "
+                    "(item 12: segmentation)")
+    if cfg.laplacian_impl == "spmd":
+        todo.append("laplacian_impl='spmd' (item 15: multi-GPU)")
+    if cfg.checkpoint_dir or cfg.profile_dir or cfg.debug_nans:
+        todo.append("checkpoint_dir / profile_dir / debug_nans "
+                    "(item 16: CLI, checkpoint and runtime)")
+    if todo:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP.md queue 1): " + "; ".join(todo))
+
+
+@torch.no_grad()
+def prepare_constants(content: torch.Tensor, style: torch.Tensor,
+                      content_masks: torch.Tensor, style_masks: torch.Tensor,
+                      cfg: StylizeConfig, vgg_params: dict
+                      ) -> optimize.StylizeConstants:
+    """Everything the optimizer loop consumes, computed once: content
+    features, per-class masked style Grams, the content mask pyramid,
+    coverage weights and the packed matting-Laplacian stats. Tensors are
+    used on their own device."""
+    content = content.to(torch.float32)
+    style = style.to(torch.float32)
+    content_feats = vgg.extract_features(
+        vgg_params, content, cfg.content_layers, pooling=cfg.pooling,
+        compute_dtype=cfg.compute_dtype)
+    style_feats = vgg.extract_features(
+        vgg_params, style, cfg.style_layers, pooling=cfg.pooling,
+        compute_dtype=cfg.compute_dtype)
+    smask_pyr = segmentation.layer_masks(
+        style_masks, cfg.style_layers, cfg.mask_downsample)
+    gram_norm = "m1" if cfg.style_norm == "paper" else "m2"
+    style_grams = {
+        layer: losses_mod.masked_grams(
+            style_feats[layer], smask_pyr[layer],
+            compute_dtype=cfg.compute_dtype, norm=gram_norm)
+        for layer in cfg.style_layers}
+    cmask_pyr = segmentation.layer_masks(
+        content_masks, cfg.style_layers, cfg.mask_downsample)
+    coverage = segmentation.coverage_weights(content_masks)
+    lap_stats = None
+    if cfg.use_photorealism:
+        lap_stats = pack_stats(lap.precompute_stats(
+            content * (1.0 / 255.0), eps=cfg.matting_epsilon))
+    return optimize.StylizeConstants(
+        content_feats=content_feats, style_grams=style_grams,
+        masks=cmask_pyr, coverage=coverage, lap_stats=lap_stats)
+
+
+def _fit_masks(masks: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """Resize a (K, H, W) mask stack to the working resolution if needed."""
+    if masks.shape[1:] == tuple(hw):
+        return masks
+    resized = resize_image(torch.from_numpy(masks)[..., None], hw)[..., 0]
+    return torch.clamp(resized, 0.0, 1.0).numpy()
+
+
+def stylize(content, style, config: StylizeConfig | None = None, *,
+            size: int | tuple[int, int] | None = None,
+            content_masks: np.ndarray | None = None,
+            style_masks: np.ndarray | None = None,
+            vgg_params: dict | None = None,
+            callback: Callable | None = None,
+            return_history: bool = False,
+            device=None):
+    """Stylize `content` with the style of `style` (paths or HWC arrays).
+
+    `content_masks`/`style_masks` (K, H, W) give the aligned class masks;
+    without them `use_segmentation=False` runs one uniform class.
+    `vgg_params` is the port's weight dict (`models.vgg.params_from_numpy`
+    converts the JAX package's). `callback(step, image, history_chunk)`
+    fires every `cfg.intermediate_interval` steps. Returns a float32
+    [0,255] RGB (H, W, 3) np.ndarray (and the (iters, 5) loss history --
+    [total, content, style, photoreal, tv] per step -- if
+    `return_history`). `device=None` runs on the CUDA card.
+    """
+    cfg = config or StylizeConfig()
+    dev = resolve_device(device)
+    if (content_masks is None) != (style_masks is None):
+        raise ValueError(
+            "content_masks and style_masks must be provided together "
+            "(their class channels must be aligned); got only "
+            + ("content_masks" if style_masks is None else "style_masks"))
+    _check_ported(cfg, content_masks is not None)
+
+    content_np = io.load_image(content, size)
+    hw = content_np.shape[:2]
+    style_np = io.load_image(style, hw)
+    if content_masks is None:
+        content_masks = segmentation.uniform_masks(hw)
+        style_masks = segmentation.uniform_masks(style_np.shape[:2])
+    content_masks = _fit_masks(np.asarray(content_masks, np.float32), hw)
+    style_masks = _fit_masks(np.asarray(style_masks, np.float32),
+                             style_np.shape[:2])
+
+    if vgg_params is None:
+        vgg_params = vgg.get_params(seed=cfg.seed, device=dev)
+    vgg_params = {k: {n: t.to(dev) for n, t in p.items()}
+                  for k, p in vgg_params.items()}
+    weights = optimize.LossWeights.from_config(cfg)
+
+    content_t = torch.from_numpy(content_np).to(dev)
+    style_t = torch.from_numpy(style_np).to(dev)
+    consts = prepare_constants(
+        content_t, style_t, torch.from_numpy(content_masks).to(dev),
+        torch.from_numpy(style_masks).to(dev), cfg, vgg_params)
+    style_mean = torch.mean(style_t, dim=(0, 1), keepdim=True)
+    image = optimize.init_image(cfg, content_t, style_mean)
+    image, history = optimize.run(image, consts, weights, vgg_params, cfg,
+                                  callback=callback)
+    result = torch.clamp(image, 0.0, 255.0).cpu().numpy()
+    if return_history:
+        return result, history.cpu().numpy()
+    return result

@@ -1,0 +1,190 @@
+"""VGG-19 feature extractor (PyTorch, NCHW, cuDNN convolutions).
+
+The port's counterpart of `dpst_tpu/models/vgg.py`: Caffe-style BGR +
+ImageNet-mean preprocessing, the 16 3×3 convs truncated at the deepest
+requested tap, post-ReLU taps in the compute dtype.
+
+Two gradient conventions of the JAX package differ from PyTorch's
+defaults, so both are autograd Functions here:
+  * ReLU's gradient at exactly 0 is 0.5, as for `jnp.maximum(x, 0)`
+    (torch.relu gives 0);
+  * the 2×2 max pool splits its cotangent equally among tied maxima
+    (F.max_pool2d's backward gives it all to the first); its backward is
+    the CUDA kernel of `ops/pool_cuda.py` on CUDA tensors.
+
+The TPU lowerings of the JAX package (s2b strips, space-to-depth block 1,
+the BGR weight fold, post-activation pooling) are exact re-expressions of
+the same math and are not carried here.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.losses import torch_dtype
+from ..ops.pool_cuda import maxpool2_bwd
+
+# VGG-19 convolutional topology: block -> (num convs, out channels).
+VGG19_BLOCKS = ((2, 64), (2, 128), (4, 256), (4, 512), (4, 512))
+
+# Canonical layer order: conv1_1, conv1_2, pool1, conv2_1, ...
+LAYER_ORDER: tuple[str, ...] = tuple(
+    name
+    for b, (n, _) in enumerate(VGG19_BLOCKS, start=1)
+    for name in [f"conv{b}_{i}" for i in range(1, n + 1)] + [f"pool{b}"]
+)
+
+CONV_SHAPES: dict[str, tuple[int, int]] = {}
+_in_ch = 3
+for _b, (_n, _out) in enumerate(VGG19_BLOCKS, start=1):
+    for _i in range(1, _n + 1):
+        CONV_SHAPES[f"conv{_b}_{_i}"] = (_in_ch, _out)
+        _in_ch = _out
+
+# Caffe/ImageNet channel means in BGR order.
+BGR_MEANS = (103.939, 116.779, 123.68)
+
+_DEFAULT_WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "..",
+                                "weights", "vgg19.npz")
+
+
+def params_from_numpy(params: dict, device=None) -> dict:
+    """Weight bridge: {layer: {"w": HWIO array, "b": (Cout,)}} (the JAX
+    package's layout, as numpy arrays) -> {layer: {"w": OIHW, "b": (Cout,)}}
+    fp32 tensors on `device`."""
+    out = {}
+    for name, (cin, cout) in CONV_SHAPES.items():
+        w = np.asarray(params[name]["w"], np.float32)
+        b = np.asarray(params[name]["b"], np.float32)
+        if w.shape != (3, 3, cin, cout) or b.shape != (cout,):
+            raise ValueError(f"{name}: bad weight shapes {w.shape}, {b.shape}")
+        out[name] = {
+            "w": torch.from_numpy(np.ascontiguousarray(
+                w.transpose(3, 2, 0, 1))).to(device),
+            "b": torch.from_numpy(b.copy()).to(device)}
+    return out
+
+
+def load_params(path: str, device=None) -> dict:
+    """Load a `.npz` weight bundle: keys `<layer>_w` (3,3,Cin,Cout) HWIO and
+    `<layer>_b` (Cout,) -- the JAX package's bundle format."""
+    data = np.load(path)
+    return params_from_numpy(
+        {name: {"w": data[f"{name}_w"], "b": data[f"{name}_b"]}
+         for name in CONV_SHAPES}, device)
+
+
+def init_params(seed: int = 0, generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """He-normal init of all 16 convs from a seeded torch.Generator (on the
+    CPU, then moved to `device`). Not the JAX package's bits: its init
+    draws from JAX's PRNG."""
+    gen = generator if generator is not None else torch.Generator(
+        ).manual_seed(seed)
+    params = {}
+    for name, (cin, cout) in CONV_SHAPES.items():
+        w = torch.randn((cout, cin, 3, 3), generator=gen,
+                        dtype=torch.float32) * float(np.sqrt(2.0 / (9 * cin)))
+        params[name] = {"w": w.to(device),
+                        "b": torch.zeros(cout, dtype=torch.float32,
+                                         device=device)}
+    return params
+
+
+def get_params(weights_path: str | None = None, seed: int = 0,
+               device=None) -> dict:
+    """ImageNet weights if a bundle exists ($DPST_VGG_WEIGHTS or
+    weights/vgg19.npz), else the seeded random init."""
+    if weights_path is None:
+        weights_path = os.environ.get("DPST_VGG_WEIGHTS", _DEFAULT_WEIGHTS)
+    if weights_path and os.path.exists(weights_path):
+        return load_params(weights_path, device)
+    return init_params(seed, device=device)
+
+
+def preprocess(image: torch.Tensor) -> torch.Tensor:
+    """[0,255] RGB (H, W, 3) -> mean-subtracted BGR as a (1, 3, H, W) batch."""
+    bgr = image.to(torch.float32).flip(-1)
+    means = torch.tensor(BGR_MEANS, dtype=torch.float32, device=image.device)
+    return (bgr - means).permute(2, 0, 1)[None]
+
+
+class _Relu(torch.autograd.Function):
+    """max(x, 0) with gradient 1 above 0, 0 below and 0.5 at exactly 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.where(x == 0, g * 0.5,
+                                                 torch.zeros_like(g)))
+
+
+class _MaxPool2(torch.autograd.Function):
+    """2×2/2 max pool of a (1, C, H, W) batch with the tie-splitting
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = F.max_pool2d(x, 2, 2)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return maxpool2_bwd(x[0], y[0], g[0].contiguous())[None]
+
+
+def _pool(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "max":
+        return _MaxPool2.apply(x)
+    return F.avg_pool2d(x, 2, 2, divisor_override=1) * 0.25
+
+
+def set_exact_backends(compute_dtype) -> None:
+    """Backend flags every extraction sets on CUDA: fp32 convs and matmuls
+    without TF32 in fp32 mode (cuDNN defaults to TF32 for fp32 convs), and
+    deterministic cuDNN algorithms so that a rerun gives bit-identical
+    results."""
+    if torch_dtype(compute_dtype) == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def extract_features(params: dict, image: torch.Tensor,
+                     layers: tuple[str, ...], pooling: str = "max",
+                     compute_dtype="float32") -> dict:
+    """Run VGG-19 up to the deepest layer in `layers`.
+
+    params: {layer: {"w": OIHW, "b": (Cout,)}} (see params_from_numpy).
+    image: (H, W, 3) float RGB in [0, 255].
+    Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype
+    (NCHW planes of the one image: a tap is the contiguous (C, P) operand
+    of the Gram kernels).
+    """
+    cdt = torch_dtype(compute_dtype)
+    if image.device.type == "cuda":
+        set_exact_backends(cdt)
+    x = preprocess(image).to(cdt)
+    deepest = max(LAYER_ORDER.index(l) for l in layers)
+    taps = {}
+    for name in LAYER_ORDER[:deepest + 1]:
+        if name.startswith("pool"):
+            x = _pool(x, pooling)
+            continue
+        p = params[name]
+        x = F.conv2d(x, p["w"].to(cdt), padding=1)
+        x = _Relu.apply(x + p["b"].to(cdt)[:, None, None])
+        if name in layers:
+            taps[name] = x[0]
+    return taps

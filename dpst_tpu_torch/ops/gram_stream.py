@@ -1,0 +1,120 @@
+"""Masked Gram matrices with their one-pass analytic backward: CUDA kernels,
+plain versions and the autograd Function.
+
+The port's counterpart of `dpst_tpu/ops/gram_stream.py` (and of
+`losses._grams_raw_flat`, which computes the same function):
+
+    forward   G_k = F · (F ∘ m²_k)ᵀ              f (C, P), m² (K, P) -> (K, C, C)
+    backward  dF  = Σ_k S_k · (F ∘ m²_k),  S_k = dG_k + dG_kᵀ
+
+F is a VGG tap as its (C, P) NCHW planes, in the compute dtype; F ∘ m²_k
+is rounded to that dtype; every product accumulates in fp32; G is fp32,
+dF is in the compute dtype. Masks are constants of the optimization: the
+Function returns no gradient for them.
+
+Any C and any K are accepted (the TPU's s2d Gram kernel hard-coded C = 64;
+this one does not).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+_TILE = 64
+_DEPTH = 32
+_TARGET_BLOCKS = 4 * 132   # a few waves of blocks on the H100's 132 SMs
+
+
+def gram_fwd_plain(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch forward: (C, P) × (K, P) -> (K, C, C) fp32."""
+    fw = f.unsqueeze(0) * m2.unsqueeze(1)                  # (K, C, P) cdt
+    return torch.matmul(f.float(), fw.float().transpose(1, 2))
+
+
+def gram_bwd_plain(f: torch.Tensor, m2: torch.Tensor,
+                   s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch backward: dF (C, P) in f's dtype, from the symmetrized
+    cotangent s (K, C, C) in f's dtype."""
+    k, c, _ = s.shape
+    fw = (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(k * c, -1)  # (K·C, P)
+    a = s.permute(1, 0, 2).reshape(c, k * c)                    # (C, K·C)
+    return torch.matmul(a.float(), fw.float()).to(f.dtype)
+
+
+def fwd_splits(c: int, p: int, k: int) -> tuple[int, int]:
+    """(splits, chunk): how many blocks share one output tile's P range,
+    and how many pixels (a multiple of the tile depth) each covers."""
+    tiles = (-(-c // _TILE)) ** 2
+    splits = -(-_TARGET_BLOCKS // (tiles * k))
+    splits = max(1, min(splits, -(-p // 512)))
+    chunk = -(-p // splits)
+    chunk = -(-chunk // _DEPTH) * _DEPTH
+    return -(-p // chunk), chunk
+
+
+def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Raw masked Grams. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/gram.cu)."""
+    if f.dim() != 2 or m2.dim() != 2:
+        raise ValueError("gram_fwd takes f (C, P) and m2 (K, P)")
+    c, p = f.shape
+    k = m2.shape[0]
+    kernels.require(f, "f")
+    kernels.require(m2, "m2", (k, p), f.dtype)
+    if not kernels.on_cuda(f, m2):
+        return gram_fwd_plain(f, m2)
+    lib = kernels.library()
+    splits, chunk = fwd_splits(c, p, k)
+    out = torch.empty((k, c, c), dtype=torch.float32, device=f.device)
+    work = (torch.empty((splits, k, c, c), dtype=torch.float32,
+                        device=f.device) if splits > 1 else out)
+    rc = lib.dpst_gram_fwd(
+        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(work), kernels.ptr(out),
+        c, p, k, splits, chunk, kernels.DTYPE_CODES[f.dtype],
+        kernels.stream_ptr(f))
+    kernels.check(rc, "gram_fwd")
+    kernels.LAUNCHES["gram_fwd"] += 1
+    return out
+
+
+def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
+             s: torch.Tensor) -> torch.Tensor:
+    """dF of the raw masked Grams. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (csrc/gram.cu)."""
+    c, p = f.shape
+    k = m2.shape[0]
+    kernels.require(f, "f")
+    kernels.require(m2, "m2", (k, p), f.dtype)
+    kernels.require(s, "s", (k, c, c), f.dtype)
+    if not kernels.on_cuda(f, m2, s):
+        return gram_bwd_plain(f, m2, s)
+    lib = kernels.library()
+    out = torch.empty_like(f)
+    rc = lib.dpst_gram_bwd(
+        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(out),
+        c, p, k, kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
+    kernels.check(rc, "gram_bwd")
+    kernels.LAUNCHES["gram_bwd"] += 1
+    return out
+
+
+class GramRaw(torch.autograd.Function):
+    """Unnormalized masked Grams with the one-pass analytic backward."""
+
+    @staticmethod
+    def forward(ctx, f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(f, m2)
+        return gram_fwd(f, m2)
+
+    @staticmethod
+    def backward(ctx, d: torch.Tensor):
+        f, m2 = ctx.saved_tensors
+        d = d.float()
+        s = (d + d.transpose(1, 2)).to(f.dtype).contiguous()
+        return gram_bwd(f, m2, s), None
+
+
+def masked_grams_raw(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """(C, P) features × (K, P) m² weights -> (K, C, C) fp32, unnormalized."""
+    return GramRaw.apply(f, m2)

@@ -1,0 +1,167 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels are CUDA C++ for sm_90a under `dpst_tpu_torch/csrc/`. At first
+use on a CUDA tensor, `library()` compiles every `.cu` file there with
+`nvcc` (one process per source, all started together), links them into one
+`libdpst_kernels-<hash>.so` under `dpst_tpu_torch/_build/` and loads it
+with ctypes. The hash covers the sources and the flags, so a changed
+source is rebuilt and an unchanged one is loaded as built. Nothing here
+runs at import time, and nothing builds for CPU tensors: their wrappers
+take the kernels' plain PyTorch versions.
+
+Each kernel wrapper adds one to its entry in `LAUNCHES` where it launches
+its kernel, and nowhere else; `reset_launches()` sets all of them to 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "pool_bwd")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are built from "
+            f"{CSRC} on a machine with the CUDA toolkit")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile and link the kernels if the current sources are not built
+    yet; return the library's path. `verbose` adds `-Xptxas -v` (registers,
+    shared memory and spills per kernel) and prints the compiler's output."""
+    lib_path = BUILD_DIR / f"libdpst_kernels-{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed = []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            text = out.decode(errors="replace")
+            if verbose and text:
+                print(f"[nvcc {src.name}]\n{text}", flush=True)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+             str(tmp_lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n"
+                               + link.stdout.decode(errors="replace"))
+        os.replace(tmp_lib, lib_path)   # atomic: concurrent builds agree
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, p]
+        lib.dpst_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.dpst_gram_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        for fn in (lib.dpst_lap_matvec, lib.dpst_gram_fwd,
+                   lib.dpst_gram_bwd, lib.dpst_pool2_bwd):
+            fn.restype = ctypes.c_int
+        lib.dpst_error_string.argtypes = [i]
+        lib.dpst_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library().dpst_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"error {rc} ({msg})")
+
+
+def require(t: torch.Tensor, name: str, shape: tuple | None = None,
+            dtype: torch.dtype | None = None) -> None:
+    """Validate a tensor handed to a kernel wrapper."""
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {t.dtype} is not supported "
+                         "(float32 or bfloat16)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if every tensor is on a CUDA device, False if every one is on
+    the CPU; raises on a mix or on any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        devs = {t.device for t in tensors}
+        if len(devs) != 1:
+            raise ValueError(f"tensors on several CUDA devices: {devs}")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"unsupported device mix for a kernel: {kinds}")

@@ -1,0 +1,91 @@
+"""Loss terms: content, masked Gram style, total variation.
+
+The port's counterpart of `dpst_tpu/ops/losses.py`. VGG taps arrive as
+NCHW planes (C, H, W) of one image, so a tap is already the contiguous
+(C, P) operand of the Gram kernels. Every masked Gram, the style image's
+included, goes through `gram_stream.masked_grams_raw` (the CUDA kernels on
+CUDA tensors). All loss accumulation is fp32.
+"""
+from __future__ import annotations
+
+import torch
+
+from .gram_stream import masked_grams_raw
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[str(name)]
+
+
+def content_loss(feat_out: torch.Tensor, feat_content: torch.Tensor
+                 ) -> torch.Tensor:
+    """½·mean squared feature difference."""
+    d = feat_out.to(torch.float32) - feat_content.to(torch.float32)
+    return 0.5 * torch.mean(d * d)
+
+
+def masked_grams(feat: torch.Tensor, masks: torch.Tensor,
+                 eps: float = 1e-8, compute_dtype="float32",
+                 norm: str = "m2") -> torch.Tensor:
+    """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C).
+
+    G_k = (m_k∘F)(m_k∘F)ᵀ / max(n_k, eps), with n_k = Σ m_k² ("m2", the
+    default) or Σ m_k ("m1", the reference lineage's normalizer). Operands
+    are in `compute_dtype`; accumulation is fp32.
+    """
+    c = feat.shape[0]
+    k = masks.shape[0]
+    cdt = torch_dtype(compute_dtype)
+    f = feat.to(cdt).reshape(c, -1)
+    m2 = (masks * masks).to(cdt).reshape(k, -1).contiguous()
+    g = masked_grams_raw(f.contiguous(), m2)
+    m32 = masks.to(torch.float32)
+    n = (torch.sum(m32 * m32, dim=(1, 2)) if norm == "m2"
+         else torch.sum(m32, dim=(1, 2)))
+    return g / torch.clamp_min(n, eps)[:, None, None]
+
+
+def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
+                     out_masks: torch.Tensor, coverage: torch.Tensor,
+                     compute_dtype="float32",
+                     style_norm: str = "gatys") -> torch.Tensor:
+    """Masked Gram style loss of one VGG layer, summed over classes.
+
+    "gatys": Σ_k coverage_k / (4C²) · ‖G_out,k − G_style,k‖² with
+    Σm²-normalized Grams; "paper": Σ_k ½‖ΔG_k‖² with Σm-normalized Grams
+    and no coverage weights.
+    """
+    c = style_grams.shape[-1]
+    if style_norm == "paper":
+        scale, class_w, norm = 0.5, torch.ones_like(coverage), "m1"
+    else:
+        scale, class_w, norm = 1.0 / (4.0 * c * c), coverage, "m2"
+    g_o = masked_grams(feat_out, out_masks, compute_dtype=compute_dtype,
+                       norm=norm)
+    d = g_o - style_grams
+    per_class = torch.sum(d * d, dim=(1, 2))
+    return scale * torch.sum(class_w * per_class)
+
+
+def style_loss(feats_out: dict, style_grams: dict, out_masks: dict,
+               coverage: torch.Tensor, layer_weights: dict,
+               compute_dtype="float32",
+               style_norm: str = "gatys") -> torch.Tensor:
+    """Sum of per-layer masked style losses, weighted per layer."""
+    total = torch.zeros((), dtype=torch.float32, device=coverage.device)
+    for layer, w in layer_weights.items():
+        total = total + w * style_layer_loss(
+            feats_out[layer], style_grams[layer], out_masks[layer],
+            coverage, compute_dtype, style_norm)
+    return total
+
+
+def tv_loss(image: torch.Tensor) -> torch.Tensor:
+    """Anisotropic total variation on an (H, W, 3) image (mean-normalized)."""
+    dh = image[1:, :, :] - image[:-1, :, :]
+    dw = image[:, 1:, :] - image[:, :-1, :]
+    return torch.mean(dh * dh) + torch.mean(dw * dw)

@@ -1,0 +1,175 @@
+"""Image optimization loop (the hot path): loss, Adam, clip, history.
+
+The port's counterpart of `dpst_tpu/optimize.py` (single scale, Adam).
+PyTorch runs eagerly: each step is one VGG forward and input gradient,
+the content, masked-Gram style, photorealism and TV terms, one Adam update
+and the [0, 255] clip. The per-step loss history stays on the device and
+reaches the host once per segment.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .config import StylizeConfig
+from .models import vgg
+from .ops import laplacian as lap
+from .ops import losses
+
+HISTORY_TERMS = ("total", "content", "style", "photoreal", "tv")
+
+
+class LossWeights(NamedTuple):
+    content: float
+    style: float
+    reg: float
+    tv: float
+
+    @staticmethod
+    def from_config(cfg: StylizeConfig) -> "LossWeights":
+        return LossWeights(float(np.float32(cfg.content_weight)),
+                           float(np.float32(cfg.style_weight)),
+                           float(np.float32(cfg.regularization_weight)),
+                           float(np.float32(cfg.tv_weight)))
+
+
+class StylizeConstants(NamedTuple):
+    """Per-run precomputed device constants."""
+    content_feats: dict      # {layer: (C, h, w)} in the compute dtype
+    style_grams: dict        # {layer: (K, C, C)} fp32
+    masks: dict              # {layer: (K, h_l, w_l)} content-side masks
+    coverage: torch.Tensor   # (K,)
+    lap_stats: torch.Tensor | None  # (14, H, W) packed stats, or None
+
+
+def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
+    """Build loss(image, consts, weights, vgg_params) -> (total, terms),
+    with image (H, W, 3) in [0, 255] and terms the (5,) history row
+    [total, content, style, photoreal, tv]."""
+    style_lw = dict(zip(cfg.style_layers, cfg.style_layer_weights))
+    all_layers = tuple(dict.fromkeys(cfg.style_layers + cfg.content_layers))
+
+    def loss_fn(image: torch.Tensor, consts: StylizeConstants,
+                weights: LossWeights, vgg_params: dict):
+        feats = vgg.extract_features(
+            vgg_params, image, all_layers, pooling=cfg.pooling,
+            compute_dtype=cfg.compute_dtype)
+        zero = torch.zeros((), dtype=torch.float32, device=image.device)
+        l_content = zero
+        for layer in cfg.content_layers:
+            l_content = l_content + losses.content_loss(
+                feats[layer], consts.content_feats[layer])
+        l_style = losses.style_loss(
+            feats, consts.style_grams, consts.masks, consts.coverage,
+            style_lw, compute_dtype=cfg.compute_dtype,
+            style_norm=cfg.style_norm)
+        l_reg = (lap.photoreal_loss(consts.lap_stats, image)
+                 if consts.lap_stats is not None else zero)
+        l_tv = losses.tv_loss(image) if cfg.tv_weight else zero
+        total = (weights.content * l_content + weights.style * l_style
+                 + weights.reg * l_reg + weights.tv * l_tv)
+        terms = torch.stack([total, l_content, l_style, l_reg, l_tv])
+        return total, terms
+
+    return loss_fn
+
+
+class Adam:
+    """Adam as optax.adam computes it: μ and ν moving averages, bias
+    corrections 1 − b^t in fp32, eps outside the square root, then
+    p ← p − lr·μ̂/(√ν̂ + eps)."""
+
+    def __init__(self, cfg: StylizeConfig, params: torch.Tensor):
+        self.lr = cfg.learning_rate
+        self.b1, self.b2, self.eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
+        self.mu = torch.zeros_like(params)
+        self.nu = torch.zeros_like(params)
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+        self.mu = (1 - self.b1) * grad + self.b1 * self.mu
+        self.nu = (1 - self.b2) * (grad * grad) + self.b2 * self.nu
+        self.count += 1
+        bc1 = np.float32(1) - np.float32(self.b1) ** np.float32(self.count)
+        bc2 = np.float32(1) - np.float32(self.b2) ** np.float32(self.count)
+        mu_hat = self.mu / float(bc1)
+        nu_hat = self.nu / float(bc2)
+        update = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        return params + update
+
+
+def init_image(cfg: StylizeConfig, content: torch.Tensor,
+               style_mean: torch.Tensor | None = None) -> torch.Tensor:
+    """Initial output image per cfg.init_mode. "noise" draws from a
+    torch.Generator seeded with cfg.seed: it does not reproduce the JAX
+    package's bits."""
+    if cfg.init_mode == "content":
+        return content.to(torch.float32).clone()
+    if cfg.init_mode == "noise":
+        gen = torch.Generator().manual_seed(cfg.seed)
+        noise = torch.randn(content.shape, generator=gen,
+                            dtype=torch.float32).to(content.device)
+        return torch.clamp(127.5 + cfg.init_noise_scale * noise, 0.0, 255.0)
+    base = content.to(torch.float32)
+    mean_c = torch.mean(base, dim=(0, 1), keepdim=True)
+    mean_s = style_mean if style_mean is not None else mean_c
+    return torch.clamp(base - mean_c + mean_s, 0.0, 255.0)
+
+
+def run_segment(image: torch.Tensor, opt: Adam, consts: StylizeConstants,
+                weights: LossWeights, vgg_params: dict, n_steps: int,
+                cfg: StylizeConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """`n_steps` Adam steps. Returns (image, history (n_steps, 5)); each row
+    is taken at the image before that step's update."""
+    loss_fn = make_loss_fn(cfg)
+    rows = []
+    for _ in range(n_steps):
+        img = image.detach().requires_grad_(True)
+        total, terms = loss_fn(img, consts, weights, vgg_params)
+        (grad,) = torch.autograd.grad(total, img)
+        rows.append(terms.detach())
+        image = opt.step(image.detach(), grad)
+        if cfg.clip_pixels:
+            image = torch.clamp(image, 0.0, 255.0)
+    history = (torch.stack(rows) if rows else
+               torch.zeros((0, 5), dtype=torch.float32, device=image.device))
+    return image, history
+
+
+def run(image0: torch.Tensor, consts: StylizeConstants,
+        weights: LossWeights, vgg_params: dict, cfg: StylizeConfig,
+        iterations: int | None = None,
+        callback: Callable | None = None):
+    """Full optimization at one scale.
+
+    `callback(step, image, history_chunk)` fires every
+    `cfg.intermediate_interval` steps; with no callback the run is one
+    segment. Returns (final image (H, W, 3), (iterations, 5) history).
+    """
+    if cfg.optimizer != "adam":
+        raise NotImplementedError(
+            "optimizer='lbfgs' is not ported yet (ROADMAP.md queue 1, "
+            "item 10: L-BFGS)")
+    total_iters = cfg.iterations if iterations is None else iterations
+    interval = cfg.intermediate_interval if callback else 0
+    opt = Adam(cfg, image0)
+    image = image0
+    done = 0
+    histories = []
+    while done < total_iters:
+        n = total_iters - done if interval <= 0 else min(
+            interval, total_iters - done)
+        image, hist = run_segment(image, opt, consts, weights, vgg_params,
+                                  n, cfg)
+        done += n
+        histories.append(hist)
+        if callback is not None:
+            callback(done, image, hist)
+    history = (torch.cat(histories) if histories else
+               torch.zeros((0, 5), dtype=torch.float32, device=image0.device))
+    if not cfg.clip_pixels:
+        image = torch.clamp(image, 0.0, 255.0)
+    return image, history

@@ -1,0 +1,89 @@
+"""The port stands alone: it imports no JAX and names nothing of the JAX
+package, and its entry points run on the GPU unless told otherwise."""
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import dpst_tpu_torch
+from dpst_tpu_torch.ops import kernels
+
+PKG = pathlib.Path(dpst_tpu_torch.__file__).parent
+
+
+def test_runs_without_jax_in_a_subprocess():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import dpst_tpu_torch
+        from dpst_tpu_torch.models import vgg
+        img = np.random.default_rng(0).uniform(0, 255, (16, 16, 3))
+        cfg = dpst_tpu_torch.StylizeConfig(use_segmentation=False,
+                                           compute_dtype="float32",
+                                           iterations=2)
+        out, hist = dpst_tpu_torch.stylize(
+            img.astype(np.float32), img.astype(np.float32), cfg,
+            vgg_params=vgg.init_params(0), return_history=True,
+            device="cpu")
+        assert out.shape == (16, 16, 3) and hist.shape == (2, 5)
+        assert np.isfinite(hist).all()
+        assert "jax" not in sys.modules, "jax was imported"
+        assert not [m for m in sys.modules
+                    if m == "dpst_tpu" or m.startswith("dpst_tpu.")]
+        print("ok")
+    """)
+    root = str(PKG.parent)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_source_names_no_jax_package(path):
+    for name in _imported_modules(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "dpst_tpu", "optax", "flax"), (
+            f"{path.name} imports {name}")
+
+
+def test_stylize_without_cuda_and_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((16, 16, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dpst_tpu_torch.stylize(img, img)
+
+
+def test_kernel_wrappers_never_fall_back():
+    """A tensor that is neither on the CPU nor on CUDA is refused, never
+    quietly computed on another device."""
+    with pytest.raises(ValueError):
+        kernels.on_cuda(torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError):
+        kernels.on_cuda(torch.zeros(2), torch.zeros(2, device="meta"))
+    assert kernels.on_cuda(torch.zeros(2)) is False
+
+
+def test_build_hash_covers_sources():
+    srcs = {p.name for p in kernels._sources()}
+    assert srcs == {"gram.cu", "lap_matvec.cu", "pool_bwd.cu"}
+    assert len(kernels._digest()) == 16
+    assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
