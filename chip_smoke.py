@@ -10,12 +10,15 @@ no result):
   2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
                  sm_90a) and reports the seconds;
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the shapes of the 512² config3 main path (K = 4 masks),
-                 with the stated tolerance, the kernel's time, the plain
-                 version's time, the computed bound and, where one PyTorch
-                 call computes the same function, that call's time; then
-                 each kernel at shapes that do not fill its tiles;
-  4. stylize  -- the main path through the public entry points:
+                 at the shapes of the 512² config3 main path (K = 4 masks)
+                 and, for the fused bias+ReLU Gram pair, of conv1_1 at the
+                 1024² stage of config4, with the stated tolerance, the
+                 kernel's time, the plain version's time, the computed
+                 bound and, where one PyTorch call computes the same
+                 function (or, labelled, a yardstick call), that call's
+                 time; then each kernel at shapes that do not fill its
+                 tiles;
+  4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
                  masks; launch counters are reset just before and read just
@@ -24,8 +27,18 @@ no result):
                  step by kernel group, device busy share); then a 64² fp32
                  run on the card against the same run on the CPU (the
                  kernels' plain path);
-  5. the {"kernels": [...]} summary and the nvidia-smi line;
-  6. the last line: {"ok": true, "device": {...}}.
+  5. multiscale -- the second main path: `stylize` with PRESETS["config4"]
+                 (256² → 512² → 1024², 100 Adam steps per stage) on a
+                 seeded 1024² pair and four band masks, counters reset just
+                 before and read just after; checks the losses per stage,
+                 the output and that the counters equal what the schedule
+                 implies (the fused Gram pair at the 1024² stage only);
+                 precompute seconds and loop it/s per stage, peak memory;
+                 profiles ten steps of the 1024² stage; a short config4
+                 run twice (bit-identical); a 64² fp32 config4-shaped run
+                 on the fused route, card against CPU;
+  6. the {"kernels": [...]} summary and the nvidia-smi line;
+  7. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -52,6 +65,9 @@ GRAM_SHAPES = ((64, 262144), (128, 65536), (256, 16384), (512, 4096),
                (512, 1024))                   # (C, P) of conv1_1..conv5_1
 POOL_SHAPES = ((64, 512, 512), (128, 256, 256), (256, 128, 128),
                (512, 64, 64))                 # (C, H, W) into pool1..pool4
+MS_SIZE = 1024                                 # config4's native size
+MS_ITERS = (100, 100, 100)                     # Adam steps per config4 stage
+RELU_SHAPE = (64, MS_SIZE * MS_SIZE)           # (C, P) of conv1_1 at 1024²
 # fp32 operations per pixel and channel of the matvec: pass 1 (box sums,
 # t, b = Λt, α, β) 97, pass 2 (box sums of α and β, the products) 40
 LAP_OPS_PER_PIXEL = 3 * 137
@@ -189,6 +205,94 @@ def check_gram(dev, gen):
     return rows
 
 
+def relu_gram_input(c: int, p: int, k: int, dtype, dev, gen):
+    """A raw conv1_1-like tap z with about 1 % of entries at z = −b (exact
+    zeros of z + b, the relu′ = ½ case), its bias b, m² of K soft masks and
+    a symmetrized cotangent."""
+    b = (0.5 * torch.randn((c,), generator=gen, device=dev)).to(dtype)
+    z = torch.randn((c, p), generator=gen, device=dev).to(dtype)
+    tie = torch.rand((c, p), generator=gen, device=dev) < 0.01
+    z = torch.where(tie, -b[:, None].expand(c, p), z).contiguous()
+    m = torch.rand((k, p), generator=gen, device=dev)
+    m2 = (m * m).to(dtype)
+    d = torch.randn((k, c, c), generator=gen, device=dev)
+    s = (d + d.transpose(1, 2)).to(dtype).contiguous()
+    return z, b, m2, s
+
+
+def check_gram_relu(dev, gen):
+    """The fused bias+ReLU Gram pair at conv1_1 of the 1024² stage. No
+    PyTorch call computes bias + ReLU + masked Grams; the yardstick is the
+    gram_fwd / gram_bwd rows' torch.matmul on the already-cooked operand
+    relu(z + b), which does strictly less work."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    rows = []
+    c, p = RELU_SHAPE
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        isz = 2 if dtype == "bfloat16" else 4
+        z, b, m2, s = relu_gram_input(c, p, K, cdt, dev, gen)
+        zeros = int(((z.float() + b.float()[:, None]) == 0).sum())
+        ops = 2.0 * K * c * c * p
+        f = g2._cook(z, b)
+        g = g2.gram_relu_fwd(z, b, m2)
+        g_ref = g2.gram_relu_fwd_plain(z, b, m2)
+        torch.cuda.synchronize()
+        err, rel = rel_err(g, g_ref)
+        # as gram_fwd: fp32 sums of 1048576 products in two orders; the
+        # errors against a float64 product of the same operands show which
+        # side drifts
+        tol = 1e-3
+        fw64 = (f.unsqueeze(0) * m2.unsqueeze(1)).double()
+        g64 = torch.matmul(f.double(), fw64.transpose(1, 2))
+        err64 = {"kernel": rel_err(g.double(), g64)[1],
+                 "plain": rel_err(g_ref.double(), g64)[1]}
+        del fw64, g64
+        lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
+        bnd, by = bound_ms((c * p + K * p + c) * isz + K * c * c * 4, ops,
+                           dtype)
+        row = {"phase": "kernel", "name": "gram_relu_fwd", "shape": [c, p],
+               "K": K, "dtype": dtype, "exact_zeros": zeros,
+               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
+               "rel_err_fp64": err64,
+               "ms": cuda_ms(lambda: g2.gram_relu_fwd(z, b, m2)),
+               "plain_ms": cuda_ms(lambda: g2.gram_relu_fwd_plain(z, b, m2),
+                                   iters=5),
+               "bound_ms": bnd, "bound_by": by, "library_ms": cuda_ms(lib),
+               "library_call": "yardstick: gram_fwd's torch.matmul on "
+                               "relu(z + b), less work"}
+        emit(row)
+        rows.append(row)
+        if not rel <= tol:
+            fail("kernels", f"gram_relu_fwd {dtype} {c}x{p}: rel err {rel}")
+        out = g2.gram_relu_bwd(z, b, m2, s)
+        out_ref = g2.gram_relu_bwd_plain(z, b, m2, s)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, out_ref)
+        tol = 1e-2 if dtype == "bfloat16" else 1e-4
+        a = s.permute(1, 0, 2).reshape(c, K * c)
+        lib = lambda: torch.matmul(
+            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
+        bnd, by = bound_ms((2 * c * p + K * p + K * c * c + c) * isz, ops,
+                           dtype)
+        row = {"phase": "kernel", "name": "gram_relu_bwd", "shape": [c, p],
+               "K": K, "dtype": dtype, "exact_zeros": zeros,
+               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
+               "ms": cuda_ms(lambda: g2.gram_relu_bwd(z, b, m2, s)),
+               "plain_ms": cuda_ms(
+                   lambda: g2.gram_relu_bwd_plain(z, b, m2, s), iters=5),
+               "bound_ms": bnd, "bound_by": by, "library_ms": cuda_ms(lib),
+               "library_call": "yardstick: gram_bwd's torch.matmul on "
+                               "relu(z + b), less work"}
+        emit(row)
+        rows.append(row)
+        if not rel <= tol:
+            fail("kernels", f"gram_relu_bwd {dtype} {c}x{p}: rel err {rel}")
+        del z, b, m2, s, f, g, g_ref, out, out_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tied_pool_input(c: int, h: int, w: int, dtype, dev, gen):
     """Post-ReLU-like values on a coarse grid (many tied maxima), their 2×2
     max pool and a cotangent."""
@@ -235,6 +339,7 @@ def check_edges(dev, gen) -> None:
     """Each kernel against its plain version at shapes that do not fill
     its tiles (C not a multiple of 64 or of 8, odd P, odd pool sizes, an
     image smaller than one Laplacian tile), with the tolerances above."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
     from dpst_tpu_torch.ops import gram_stream as gs
     from dpst_tpu_torch.ops import laplacian as lap
     from dpst_tpu_torch.ops import laplacian_cuda as lapc
@@ -260,6 +365,14 @@ def check_edges(dev, gen) -> None:
             errs[f"gram_bwd {dtype} {c}x{p} K={k}"] = (rel_err(
                 gs.gram_bwd(f, m2, s), gs.gram_bwd_plain(f, m2, s))[1],
                 1e-2 if dtype == "bfloat16" else 1e-4)
+            z, b, m2, s = relu_gram_input(c, p, k, cdt, dev, gen)
+            errs[f"gram_relu_fwd {dtype} {c}x{p} K={k}"] = (rel_err(
+                g2.gram_relu_fwd(z, b, m2),
+                g2.gram_relu_fwd_plain(z, b, m2))[1], 1e-3)
+            errs[f"gram_relu_bwd {dtype} {c}x{p} K={k}"] = (rel_err(
+                g2.gram_relu_bwd(z, b, m2, s),
+                g2.gram_relu_bwd_plain(z, b, m2, s))[1],
+                1e-2 if dtype == "bfloat16" else 1e-4)
         for c, h, w in ((3, 17, 15), (5, 16, 15), (2, 3, 3)):
             x, y, g = tied_pool_input(c, h, w, cdt, dev, gen)
             equal = torch.equal(pool_cuda.maxpool2_bwd(x, y, g),
@@ -273,9 +386,9 @@ def check_edges(dev, gen) -> None:
         fail("kernel_edges", "beyond tolerance: " + ", ".join(bad))
 
 
-def band_masks(axis: int) -> np.ndarray:
-    m = np.zeros((K, SIZE, SIZE), np.float32)
-    band = SIZE // K
+def band_masks(axis: int, size: int = SIZE) -> np.ndarray:
+    m = np.zeros((K, size, size), np.float32)
+    band = size // K
     for k in range(K):
         if axis == 0:
             m[k, k * band:(k + 1) * band] = 1
@@ -329,6 +442,8 @@ def run_main_path(dev, gen) -> dict:
             content, style, cfg, content_masks=cmask, style_masks=smask,
             vgg_params=params, callback=callback, return_history=True)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     out, hist = run(cfg, callback)
@@ -368,13 +483,16 @@ def run_main_path(dev, gen) -> dict:
           "bit_identical": identical})
     if not identical:
         fail("rerun", "history of the rerun differs")
-    profile_loop(run, cfg, 1e3 / loop_its)
+    profile_loop(run, cfg, 1e3 / loop_its, "config3 512²")
     return launches
 
 
 def kernel_group(name: str) -> str:
     """Which part of a main-path step a device kernel belongs to."""
-    for key, group in (("gram_fwd", "gram_fwd"), ("gram_reduce", "gram_fwd"),
+    for key, group in (("gram_relu_fwd", "gram_relu_fwd"),
+                       ("gram_relu_bwd", "gram_relu_bwd"),
+                       ("gram_fwd", "gram_fwd"),
+                       ("gram_reduce", "gram_fwd (+ gram_relu_fwd's reduce)"),
                        ("gram_bwd", "gram_bwd"), ("pool2_bwd", "pool_bwd"),
                        ("lap_matvec", "lap_matvec")):
         if key in name:
@@ -388,11 +506,12 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile_loop(run, cfg, step_ms: float, warm: int = 5,
+def profile_loop(run, cfg, step_ms: float, label: str, warm: int = 5,
                  steps: int = 10) -> None:
-    """Device time per main-path step by kernel group, from torch.profiler
-    over `steps` Adam steps after `warm` steps, and the device's busy share
-    against the unprofiled step time `step_ms`."""
+    """Device time per step of the one-stage run `run(cfg)` by kernel
+    group, from torch.profiler over `steps` Adam steps after `warm` steps,
+    and the device's busy share against the unprofiled step time
+    `step_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -417,16 +536,19 @@ def profile_loop(run, cfg, step_ms: float, warm: int = 5,
     per_step = {g: t / steps for g, t in sorted(groups.items(),
                                                 key=lambda kv: -kv[1])}
     busy = sum(per_step.values())
-    emit({"phase": "profile", "steps": steps, "device_ms_per_step": per_step,
+    emit({"phase": "profile", "path": label, "steps": steps,
+          "device_ms_per_step": per_step,
           "device_busy_ms_per_step": busy, "step_ms_unprofiled": step_ms,
           "device_busy_share": busy / step_ms})
 
 
-def run_small_reference(gen) -> None:
-    """64² fp32 run on the card against the same run on the CPU, where every
-    kernel wrapper takes its plain version."""
+def run_small_reference(gen, cfg, label: str) -> dict:
+    """A 64² fp32 run of `cfg` on the card against the same run on the CPU,
+    where every kernel wrapper takes its plain version. Returns the launch
+    counts of the card's run."""
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
     size, k = 64, 3
     content = smooth_image(gen, gen.device, size)
     style = smooth_image(gen, gen.device, size)
@@ -435,49 +557,173 @@ def run_small_reference(gen) -> None:
     for i in range(k):
         cm[i, i * size // k:(i + 1) * size // k] = 1
         sm[i, :, i * size // k:(i + 1) * size // k] = 1
-    cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
-                                       regularization_weight=100.0)
     params = vgg.init_params(SEED)
     hists = {}
     for where in ("cuda", "cpu"):
+        kernels.reset_launches()
         _, hists[where] = dpst_tpu_torch.stylize(
             content, style, cfg, content_masks=cm, style_masks=sm,
             vgg_params=params, return_history=True, device=where)
+        if where == "cuda":
+            launches = dict(kernels.LAUNCHES)
     rel = np.abs(hists["cuda"] - hists["cpu"]) / np.maximum(
         np.abs(hists["cpu"]).max(axis=0), 1e-30)
     worst = float(rel.max())
     tol = 1e-3
-    emit({"phase": "reference", "size": size, "K": k, "iterations": 5,
-          "compute_dtype": "float32", "max_rel_err_vs_cpu": worst,
-          "tol_rel": tol})
+    emit({"phase": "reference", "path": label, "size": size, "K": k,
+          "iterations": len(hists["cpu"]), "compute_dtype": "float32",
+          "max_rel_err_vs_cpu": worst, "tol_rel": tol,
+          "card_launches": launches})
     if not worst <= tol:
-        fail("reference", f"card vs CPU history rel err {worst} > {tol}")
+        fail("reference", f"{label}: card vs CPU history rel err {worst} "
+             f"> {tol}")
+    return launches
+
+
+def run_multiscale(dev, gen) -> dict:
+    """The config4 path: 256² → 512² → 1024² with 100 Adam steps a stage."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import api
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+
+    content = smooth_image(gen, dev, MS_SIZE)
+    style = smooth_image(gen, dev, MS_SIZE)
+    cmask, smask = band_masks(0, MS_SIZE), band_masks(1, MS_SIZE)
+    half = MS_ITERS[0] // 2
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config4"],
+                              scale_iters=MS_ITERS,
+                              intermediate_interval=half)
+    stages = api._scale_schedule(cfg, (MS_SIZE, MS_SIZE))
+    if [st[:2] for st in stages] != [(MS_SIZE // d,) * 2 for d in (4, 2, 1)]:
+        fail("multiscale", f"unexpected schedule {stages}")
+    params = vgg.get_params(seed=SEED, device=dev)
+
+    # each stage's precompute alone (warm), through the stage function
+    full = [torch.from_numpy(a).to(dev) for a in (content, style, cmask,
+                                                  smask)]
+    precompute_s = []
+    for h, w, _ in stages:
+        api._prepare_stage(*full, params, (h, w), cfg)      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api._prepare_stage(*full, params, (h, w), cfg)
+        torch.cuda.synchronize()
+        precompute_s.append(time.perf_counter() - t0)
+    del full
+
+    marks = {}
+
+    def callback(step, image, hist):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+
+    def run(cfg, callback=None):
+        return dpst_tpu_torch.stylize(
+            content, style, cfg, content_masks=cmask, style_masks=smask,
+            vgg_params=params, callback=callback, return_history=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, hist = run(cfg, callback)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loop_its, ends, start = [], [], 0
+    for _, _, n in stages:
+        loop_its.append(half / (marks[start + n] - marks[start + half]))
+        ends.append((start, start + n))
+        start += n
+    emit({"phase": "multiscale", "size": MS_SIZE, "K": K,
+          "stages": [list(st) for st in stages],
+          "compute_dtype": cfg.compute_dtype,
+          "weights": ("weights/vgg19.npz" if os.path.exists(
+              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "precompute_s_per_stage": precompute_s,
+          "loop_it_s_per_stage": loop_its, "wall_s": wall_s,
+          "first_rows": [hist[a].tolist() for a, _ in ends],
+          "last_rows": [hist[b - 1].tolist() for _, b in ends],
+          "launches": launches, "max_memory_gb": peak_gb})
+    # what the schedule implies: every step launches the Laplacian once
+    # and the four pools once each; the style taps' Grams (5 per step, and
+    # 5 per stage's precompute) take gram_fwd/gram_bwd, except conv1_1 in
+    # the loop of the 1024² stage, which takes the fused pair
+    steps = sum(MS_ITERS)
+    fused = MS_ITERS[2]
+    need = {"lap_matvec": steps, "pool_bwd": 4 * steps,
+            "gram_fwd": 5 * len(stages) + 5 * steps - fused,
+            "gram_bwd": 5 * steps - fused,
+            "gram_relu_fwd": fused, "gram_relu_bwd": fused}
+    for name, n in need.items():
+        if launches[name] != n:
+            fail("multiscale", f"{name} launched {launches[name]} times, "
+                 f"the schedule implies {n}")
+    for a, b in ends:
+        if not hist[b - 1, 0] < hist[a, 0]:
+            fail("multiscale", f"total loss did not fall in steps {a}-{b}: "
+                 f"{hist[a, 0]} -> {hist[b - 1, 0]}")
+    if not hist[:, 3].min() >= -1.0:
+        fail("multiscale", f"photoreal term {hist[:, 3].min()} < -1")
+    if not (out.shape == (MS_SIZE, MS_SIZE, 3) and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 255.0):
+        fail("multiscale", "output not finite (1024, 1024, 3) in [0, 255]")
+    if not np.isfinite(hist).all():
+        fail("multiscale", "non-finite loss history")
+
+    # the 1024² stage alone: config4 at its native size, one stage
+    stage3 = dataclasses.replace(cfg, scales=(), scale_iters=())
+    profile_loop(run, stage3, 1e3 / loop_its[2], "config4 1024² stage")
+
+    # a short config4 run twice: the rows must be bit-identical
+    short = dataclasses.replace(cfg, scale_iters=(3, 3, 3))
+    _, h1 = run(short)
+    _, h2 = run(short)
+    identical = bool(np.array_equal(h1, h2))
+    emit({"phase": "rerun", "path": "config4", "scale_iters": [3, 3, 3],
+          "bit_identical": identical})
+    if not identical:
+        fail("rerun", "config4: history of the rerun differs")
+    return launches
 
 
 def summarize(rows: list, launches: dict) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
-    main-path step launches, in the main path's dtype (bf16; fp32 for the
-    Laplacian); max_abs_err over those shapes."""
+    step of its main path launches (512² config3 for the first four
+    kernels, the 1024² stage of config4 for the fused Gram pair), in the
+    main path's dtype (bf16; fp32 for the Laplacian); max_abs_err over
+    those shapes. `launches` sums the counts of both main-path runs,
+    `launches_by_path` gives each."""
     meta = {
         "lap_matvec": ("dpst_tpu_torch/csrc/lap_matvec.cu",
-                       "dpst_tpu/ops/laplacian_pallas.py:111", "float32"),
+                       "dpst_tpu/ops/laplacian_pallas.py:111", None,
+                       "float32"),
         "gram_fwd": ("dpst_tpu_torch/csrc/gram.cu",
-                     "dpst_tpu/ops/gram_stream.py:93", "bfloat16"),
+                     "dpst_tpu/ops/gram_stream.py:93", None, "bfloat16"),
         "gram_bwd": ("dpst_tpu_torch/csrc/gram.cu",
-                     "dpst_tpu/ops/gram_stream.py:110", "bfloat16"),
+                     "dpst_tpu/ops/gram_stream.py:110", None, "bfloat16"),
+        "gram_relu_fwd": ("dpst_tpu_torch/csrc/gram.cu",
+                          "dpst_tpu/ops/gram_s2d.py:231",
+                          "dpst_tpu/ops/gram_s2d.py:138", "bfloat16"),
+        "gram_relu_bwd": ("dpst_tpu_torch/csrc/gram.cu",
+                          "dpst_tpu/ops/gram_s2d.py:260",
+                          "dpst_tpu/ops/gram_s2d.py:175", "bfloat16"),
         "pool_bwd": ("dpst_tpu_torch/csrc/pool_bwd.cu",
-                     "dpst_tpu/ops/pool_pallas.py:40", "bfloat16"),
+                     "dpst_tpu/ops/pool_pallas.py:40", None, "bfloat16"),
     }
     out = []
-    for name, (src, replaces, dtype) in meta.items():
+    for name, (src, replaces, also, dtype) in meta.items():
         sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel
                     if r["bound_by"] == "operations")
         libs = [r["library_ms"] for r in sel]
-        out.append({
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in sel),
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
@@ -485,7 +731,12 @@ def summarize(rows: list, launches: dict) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": (None if any(v is None for v in libs)
                            else sum(libs)),
-            "dtype": dtype, "shapes_per_step": len(sel)})
+            "dtype": dtype, "shapes_per_step": len(sel)}
+        if also:
+            entry["also_replaces"] = also
+        if "library_call" in sel[0]:
+            entry["library_call"] = sel[0]["library_call"]
+        out.append(entry)
     return out
 
 
@@ -493,7 +744,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import dpst_tpu_torch  # noqa: F401  (fails outside the repository)
+    import dpst_tpu_torch  # fails outside the repository
     from dpst_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
@@ -514,14 +765,25 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = check_lap(dev, gen)
     rows += check_gram(dev, gen)
+    rows += check_gram_relu(dev, gen)
     rows += check_pool(dev, gen)
     check_edges(dev, gen)
 
-    # a generator of its own: the main path's images do not depend on
+    # generators of their own: the main paths' images do not depend on
     # what the kernel checks drew
     main_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    launches = run_main_path(dev, main_gen)
-    run_small_reference(main_gen)
+    launches = {"config3 512²": run_main_path(dev, main_gen)}
+    run_small_reference(main_gen, dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=5, regularization_weight=100.0),
+        "config3")
+    ms_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    launches["config4 256²→1024²"] = run_multiscale(dev, ms_gen)
+    ref = run_small_reference(ms_gen, dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", scales=(16, 32, 64), scale_iters=(2, 2, 2),
+        s2d_gram="pallas", block1_impl="s2d", regularization_weight=100.0),
+        "config4-shaped, fused route")
+    if not ref["gram_relu_fwd"] == ref["gram_relu_bwd"] == 6:
+        fail("reference", f"fused route not taken at every step: {ref}")
 
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)})

@@ -1,10 +1,11 @@
 """Public API of the port: `stylize(content, style, config=...) -> image`.
 
-Single-scale stylization with Adam: load → masks (given, or uniform when
-segmentation is off) → precompute (content features, masked style Grams,
-mask pyramid, coverage, Laplacian stats) → optimize → result. Entry points
-run on the CUDA card unless the caller passes `device="cpu"`; with no
-card and no device given they raise.
+Stylization with Adam: load → masks (given, or uniform when segmentation
+is off) → per scale of the schedule: resize to the stage size, precompute
+(content features, masked style Grams, mask pyramid, coverage, Laplacian
+stats), carry the image up from the stage before, optimize → result.
+Entry points run on the CUDA card unless the caller passes
+`device="cpu"`; with no card and no device given they raise.
 """
 from __future__ import annotations
 
@@ -38,8 +39,6 @@ def _check_ported(cfg: StylizeConfig, masks_given: bool) -> None:
     """Raise NotImplementedError for what this slice of the port lacks,
     naming the ROADMAP.md queue-1 item that will port it."""
     todo = []
-    if cfg.scales:
-        todo.append("scales != () (item 9: multi-scale)")
     if cfg.optimizer == "lbfgs":
         todo.append("optimizer='lbfgs' (item 10: L-BFGS)")
     if cfg.post_smooth > 0:
@@ -94,12 +93,70 @@ def prepare_constants(content: torch.Tensor, style: torch.Tensor,
         masks=cmask_pyr, coverage=coverage, lap_stats=lap_stats)
 
 
+def _prepare_stage(content: torch.Tensor, style: torch.Tensor,
+                   cmasks: torch.Tensor, smasks: torch.Tensor,
+                   vgg_params: dict, hw: tuple[int, int],
+                   cfg: StylizeConfig):
+    """One stage of the schedule: resize the full-resolution images and
+    masks to `hw` (only where the size differs; masks clipped to [0, 1])
+    and precompute the stage's constants. Returns (constants, the stage's
+    content image, the style image's (1, 1, 3) mean)."""
+    if tuple(content.shape[:2]) != tuple(hw):
+        content = resize_image(content, hw)
+        style = resize_image(style, hw)
+        cmasks = torch.clamp(resize_image(cmasks[..., None], hw)[..., 0],
+                             0.0, 1.0)
+        smasks = torch.clamp(resize_image(smasks[..., None], hw)[..., 0],
+                             0.0, 1.0)
+    consts = prepare_constants(content, style, cmasks, smasks, cfg,
+                               vgg_params)
+    style_mean = torch.mean(style, dim=(0, 1), keepdim=True)
+    return consts, content, style_mean
+
+
+def _carry_image(image: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """Upsample the running output to the next stage's size."""
+    return torch.clamp(resize_image(image, hw), 0.0, 255.0)
+
+
 def _fit_masks(masks: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     """Resize a (K, H, W) mask stack to the working resolution if needed."""
     if masks.shape[1:] == tuple(hw):
         return masks
     resized = resize_image(torch.from_numpy(masks)[..., None], hw)[..., 0]
     return torch.clamp(resized, 0.0, 1.0).numpy()
+
+
+def _scale_schedule(cfg: StylizeConfig, hw: tuple[int, int]
+                    ) -> list[tuple[int, int, int]]:
+    """[(H, W, iters)] per stage; no `scales` means one stage at the native
+    size. No stage exceeds the native size (larger scales clamp to it),
+    stages are multiples of 8 pixels, consecutive stages of one size merge
+    (their iterations summed), and the last stage is always the native
+    size, so the output has the requested shape."""
+    if not cfg.scales:
+        return [(hw[0], hw[1], cfg.iterations)]
+    stages: list[tuple[int, int, int]] = []
+    n = len(cfg.scales)
+    for i, s in enumerate(cfg.scales):
+        scale = min(1.0, s / max(hw))
+        if scale == 1.0:
+            h, w = hw
+        else:
+            h = max(8, int(round(hw[0] * scale / 8.0)) * 8)
+            w = max(8, int(round(hw[1] * scale / 8.0)) * 8)
+        if cfg.scale_iters:
+            iters = cfg.scale_iters[i]
+        else:
+            iters = max(1, int(round(
+                cfg.iterations * cfg.scale_iter_factor ** (n - 1 - i))))
+        if stages and stages[-1][:2] == (h, w):
+            stages[-1] = (h, w, stages[-1][2] + iters)
+        else:
+            stages.append((h, w, iters))
+    if stages[-1][:2] != tuple(hw):
+        stages.append((hw[0], hw[1], cfg.iterations))
+    return stages
 
 
 def stylize(content, style, config: StylizeConfig | None = None, *,
@@ -115,11 +172,13 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
     `content_masks`/`style_masks` (K, H, W) give the aligned class masks;
     without them `use_segmentation=False` runs one uniform class.
     `vgg_params` is the port's weight dict (`models.vgg.params_from_numpy`
-    converts the JAX package's). `callback(step, image, history_chunk)`
-    fires every `cfg.intermediate_interval` steps. Returns a float32
-    [0,255] RGB (H, W, 3) np.ndarray (and the (iters, 5) loss history --
-    [total, content, style, photoreal, tv] per step -- if
-    `return_history`). `device=None` runs on the CUDA card.
+    converts the JAX package's). `cfg.scales` runs a coarse-to-fine
+    schedule (`_scale_schedule`), each stage with a fresh Adam state.
+    `callback(step, image, history_chunk)` fires every
+    `cfg.intermediate_interval` steps, `step` counted across all stages.
+    Returns a float32 [0,255] RGB (H, W, 3) np.ndarray (and the (iters, 5)
+    loss history of all stages -- [total, content, style, photoreal, tv]
+    per step -- if `return_history`). `device=None` runs on the CUDA card.
     """
     cfg = config or StylizeConfig()
     dev = resolve_device(device)
@@ -146,16 +205,31 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
                   for k, p in vgg_params.items()}
     weights = optimize.LossWeights.from_config(cfg)
 
-    content_t = torch.from_numpy(content_np).to(dev)
-    style_t = torch.from_numpy(style_np).to(dev)
-    consts = prepare_constants(
-        content_t, style_t, torch.from_numpy(content_masks).to(dev),
-        torch.from_numpy(style_masks).to(dev), cfg, vgg_params)
-    style_mean = torch.mean(style_t, dim=(0, 1), keepdim=True)
-    image = optimize.init_image(cfg, content_t, style_mean)
-    image, history = optimize.run(image, consts, weights, vgg_params, cfg,
-                                  callback=callback)
+    content_full = torch.from_numpy(content_np).to(dev)
+    style_full = torch.from_numpy(style_np).to(dev)
+    cmask_full = torch.from_numpy(content_masks).to(dev)
+    smask_full = torch.from_numpy(style_masks).to(dev)
+
+    image = None
+    histories = []
+    steps_before = 0
+    for h, w, iters in _scale_schedule(cfg, hw):
+        consts, content_s, style_mean = _prepare_stage(
+            content_full, style_full, cmask_full, smask_full, vgg_params,
+            (h, w), cfg)
+        if image is None:
+            image = optimize.init_image(cfg, content_s, style_mean)
+        else:
+            image = _carry_image(image, (h, w))
+        stage_cb = None
+        if callback is not None:
+            stage_cb = (lambda step, img, hist, _off=steps_before:
+                        callback(_off + step, img, hist))
+        image, hist = optimize.run(image, consts, weights, vgg_params, cfg,
+                                   iterations=iters, callback=stage_cb)
+        histories.append(hist)
+        steps_before += iters
     result = torch.clamp(image, 0.0, 255.0).cpu().numpy()
     if return_history:
-        return result, history.cpu().numpy()
+        return result, torch.cat(histories).cpu().numpy()
     return result

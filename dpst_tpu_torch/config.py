@@ -4,13 +4,25 @@ The same frozen dataclass as the JAX package's `StylizeConfig`: the same
 field names, defaults and validation, so a config written for one package
 means the same run in the other.
 
-Fields that select a TPU lowering of the same math are accepted and are
-no-ops here: `s2b_strips`, `block1_impl`, `strip_gram`, `s2d_gram`,
-`stream12`, `stream12_impl`, `stream12_remat`, `stream12_conv2`, `remat`,
-`conv_impl`, `gram_impl`, `pool_impl` and `laplacian_impl` other than
-"spmd". The port always runs cuDNN convolutions, the masked-Gram kernels,
-the tie-splitting max-pool backward kernel and the Laplacian matvec
-kernel on CUDA tensors, and their plain PyTorch versions on CPU tensors.
+`s2d_gram` and `block1_impl` select the route of the block-1 style taps
+in the optimization loop, as they select the JAX package's TPU kernels
+(`optimize.fused_block1_taps`): where the TPU would feed them to its
+space-to-depth Gram kernel (`s2d_gram` "pallas", "pallas1" or "pallas2",
+or "auto" from 2^19 pixels; `block1_impl` not "conv", and "auto" only
+from 2^18 pixels), the port feeds the raw conv output and bias to its
+fused bias+ReLU Gram kernels (`ops/gram_s2d.py`); otherwise ("nd",
+"conv", a content tap at block 1, an odd size) the ReLU runs first and
+the masked-Gram kernels take the tap. `gram_impl`, `s2b_strips` and
+`strip_gram` take part in that decision as they do on the TPU. The
+precompute always takes the unfused route.
+
+The other fields that select a TPU lowering of the same math are
+accepted and are no-ops here: `stream12`, `stream12_impl`,
+`stream12_remat`, `stream12_conv2`, `remat`, `conv_impl`, `pool_impl` and
+`laplacian_impl` other than "spmd". The port always runs cuDNN
+convolutions, the masked-Gram kernels, the tie-splitting max-pool
+backward kernel and the Laplacian matvec kernel on CUDA tensors, and
+their plain PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -61,7 +73,8 @@ class StylizeConfig:
     style_norm: str = "gatys"
     pooling: str = "max"                 # "max" | "avg"
     compute_dtype: str = "bfloat16"      # conv / Gram operand dtype
-    # TPU lowering switches (no-ops in the port, see the module docstring)
+    # TPU lowering switches (see the module docstring for what each does
+    # in the port)
     conv_impl: str = "auto"
     gram_impl: str = "auto"
     pool_impl: str = "auto"

@@ -1,9 +1,9 @@
 // Masked Gram matrices, forward and backward, for any channel count C and
-// any class count K.
+// any class count K, in two variants that share their tiles:
 //
-// Replaces the TPU kernels dpst_tpu/ops/gram_stream.py:_fwd_kernel
-// (launched by _gram_fwd_call) and :_bwd_kernel (launched by
-// _gram_raw_bwd), and computes the function of
+// gram_fwd / gram_bwd replace the TPU kernels
+// dpst_tpu/ops/gram_stream.py:_fwd_kernel (launched by _gram_fwd_call) and
+// :_bwd_kernel (launched by _gram_raw_bwd), and compute the function of
 // dpst_tpu/ops/losses.py:_grams_raw_flat and its analytic VJP:
 //   forward   G_k = F . (F * m2_k)^T          f (C, P), m2 (K, P) -> (K, C, C)
 //   backward  dF  = sum_k S_k . (F * m2_k)     S_k = dG_k + dG_k^T  -> (C, P)
@@ -11,20 +11,40 @@
 // JAX package forms it), every product accumulates in fp32, G is fp32 and
 // dF is stored in the compute dtype.
 //
-// What bounds it on the H100: operations at the deep layers (2*K*C*C*P
-// with C up to 512) and bytes at conv1_1 (C = 64, P = 262144 at 512^2,
-// where the tap is read once for 2*64 operations per element). The design
-// keeps the (P, K*C) weighted block out of device memory: each block forms
-// its tile of F * m2_k in shared memory while it loads F. bf16 tiles run on
-// the tensor cores through warp-level mma (nvcuda::wmma, 16x16x16, fp32
-// accumulators); fp32 tiles run on the CUDA cores (fp32 has no exact
-// tensor-core path: TF32 would drop mantissa bits). Tiles are 64x64 with a
-// depth of 32; wgmma, TMA and pipelining are left for later work.
+// gram_relu_fwd / gram_relu_bwd replace the TPU kernels
+// dpst_tpu/ops/gram_s2d.py:_fwd_kernel2 and :_bwd_kernel2 (v2, launched by
+// _gram_s2d2_raw) and :_fwd_kernel and :_bwd_kernel (v1, _gram_s2d_raw),
+// which take the RAW block-1 conv output z (no bias) and the bias b:
+//   forward   F = round(max(z + b, 0)) (z + b in fp32), then G_k as above
+//   backward  dz = relu'(z + b) * sum_k (S_k . F) * m2_k
+// with relu' = 1 above 0, 0.5 at exactly 0 and 0 below (the subgradient of
+// jnp.maximum), the sum over k in fp32 in class order, and one rounding at
+// the end. The s2d parity grid, the 128-lane diagonal blocks and the mask
+// lane packing of the TPU kernels are layout devices and are not carried:
+// z is the (C, P) NCHW plane of the raw conv output, the masks the (K, P)
+// m2 stack, and any C is accepted (the TPU's v2 hard-codes C = 64). The
+// forward is gram_fwd with a bias+ReLU prologue where F enters shared
+// memory; the backward forms (S_k . F) per class on the tiles, then scales
+// by m2_k and relu' in fp32 on the output tile.
 //
-// The forward reduces over P, which is up to 262144 at 512^2, so P is
-// split across blocks. Each split writes its own fp32 partial and a second
+// What bounds them on the H100: operations at the deep layers (2*K*C*C*P
+// with C up to 512) and bytes at conv1_1 (C = 64, P = 262144 at 512^2 and
+// 1048576 at 1024^2, where the tap is read once for 2*64 operations per
+// element: at 1024^2, K = 4, bf16 the forward must read 143 MB, 0.043 ms,
+// against 34 GFLOP, 0.035 ms; the backward moves 277 MB, 0.083 ms). The
+// design keeps the (P, K*C) weighted block, and for the relu variants the
+// cooked tap, out of device memory: each block forms its tiles in shared
+// memory while it loads them. bf16 tiles run on the tensor cores through
+// warp-level mma (nvcuda::wmma, 16x16x16, fp32 accumulators); fp32 tiles
+// run on the CUDA cores (fp32 has no exact tensor-core path: TF32 would
+// drop mantissa bits). Tiles are 64x64 with a depth of 32; wgmma, TMA and
+// pipelining are left for later work.
+//
+// The forward reduces over P, which is 1048576 at 1024^2, so P is split
+// across blocks. Each split writes its own fp32 partial and a second
 // kernel sums the partials in a fixed order: no float atomics, so a rerun
-// gives bit-identical Grams.
+// gives bit-identical Grams. Offsets into (C, P), (K, P) and the split
+// workspace are 64-bit (C * P is 2^26 at 1024^2 and grows 16x by 4096^2).
 #include <mma.h>
 
 #include "dpst_common.cuh"
@@ -134,12 +154,26 @@ struct TileMma<__nv_bfloat16> {
   }
 };
 
+// F as the kernels read it: the tap itself, or relu(z + b) of the raw conv
+// output rounded to T, with z + b formed in fp32.
+template <typename T, bool RELU>
+__device__ __forceinline__ T load_f(const T* __restrict__ f,
+                                    const T* __restrict__ bias, int c,
+                                    size_t idx) {
+  if constexpr (RELU)
+    return from_f<T>(fmaxf(to_f(f[idx]) + to_f(bias[c]), 0.0f));
+  else
+    return f[idx];
+}
+
 // Forward: block (tile, k, split) computes the (i0, j0) tile of G_k over
 // the pixels [split * chunk, min(P, (split + 1) * chunk)).
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gram_fwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
-                float* __restrict__ out, int C, int P, int K, int chunk) {
+template <typename T, bool RELU>
+__device__ __forceinline__ void gram_fwd_tile(const T* __restrict__ f,
+                                              const T* __restrict__ bias,
+                                              const T* __restrict__ m2,
+                                              float* __restrict__ out, int C,
+                                              int P, int K, int chunk) {
   constexpr int LDA = TileMma<T>::LDA, LDB = TileMma<T>::LDB;
   __shared__ __align__(128) T as[TM * LDA];
   __shared__ __align__(128) T bs[TK * LDB];
@@ -159,15 +193,20 @@ gram_fwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
     // A = rows i0.. of F
     for (int e = threadIdx.x; e < TM * TK; e += NT) {
       const int r = e / TK, kk = e % TK, i = i0 + r, p = p0 + kk;
-      as[r * LDA + kk] = (i < C && p < pe) ? f[static_cast<size_t>(i) * P + p] : zero;
+      as[r * LDA + kk] =
+          (i < C && p < pe)
+              ? load_f<T, RELU>(f, bias, i, static_cast<size_t>(i) * P + p)
+              : zero;
     }
     // B[kk][c] = F[j0 + c][p] * m2_k[p] rounded to T (p = p0 + kk): rows
     // j0.. of the weighted operand, transposed
     for (int e = threadIdx.x; e < TN * TK; e += NT) {
       const int c = e / TK, kk = e % TK, j = j0 + c, p = p0 + kk;
       T val = zero;
-      if (j < C && p < pe)
-        val = from_f<T>(to_f(f[static_cast<size_t>(j) * P + p]) * to_f(mk[p]));
+      if (j < C && p < pe) {
+        const T fj = load_f<T, RELU>(f, bias, j, static_cast<size_t>(j) * P + p);
+        val = from_f<T>(to_f(fj) * to_f(mk[p]));
+      }
       bs[kk * LDB + c] = val;
     }
     __syncthreads();
@@ -181,6 +220,21 @@ gram_fwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
     const int r = e / TN, c = e % TN, i = i0 + r, j = j0 + c;
     if (i < C && j < C) o[static_cast<size_t>(i) * C + j] = cs[r * LDC + c];
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gram_fwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
+                float* __restrict__ out, int C, int P, int K, int chunk) {
+  gram_fwd_tile<T, false>(f, nullptr, m2, out, C, P, K, chunk);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gram_relu_fwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
+                     const T* __restrict__ m2, float* __restrict__ out, int C,
+                     int P, int K, int chunk) {
+  gram_fwd_tile<T, true>(z, bias, m2, out, C, P, K, chunk);
 }
 
 // Sum the per-split partials in a fixed order (deterministic).
@@ -245,15 +299,90 @@ gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
   }
 }
 
+// Relu backward: block (p tile, c tile) computes
+// dz[c0.., p0..] = relu'(z + b) * sum_k m2_k[p] * (S_k . F)[c][p], with
+// F = relu(z + b) rounded to T. Each class's product is accumulated on the
+// tiles, then scaled by m2_k and summed in fp32 on the output tile, which
+// each thread holds PER values of.
 template <typename T>
-void launch_fwd(const void* f, const void* m2, float* work, float* out, int C,
-                int P, int K, int splits, int chunk, cudaStream_t st) {
+__global__ void __launch_bounds__(NT)
+gram_relu_bwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
+                     const T* __restrict__ m2, const T* __restrict__ s,
+                     T* __restrict__ out, int C, int P, int K) {
+  constexpr int LDA = TileMma<T>::LDA, LDB = TileMma<T>::LDB;
+  constexpr int PER = TM * TN / NT;
+  __shared__ __align__(128) T as[TM * LDA];
+  __shared__ __align__(128) T bs[TK * LDB];
+  __shared__ __align__(128) float cs[TM * LDC];
+
+  const int p0 = blockIdx.x * TN, c0 = blockIdx.y * TM;
+  const T zero = from_f<T>(0.0f);
+  float acc[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) acc[i] = 0.0f;
+
+  TileMma<T> mma;
+  for (int k = 0; k < K; ++k) {
+    const T* sk = s + static_cast<size_t>(k) * C * C;
+    mma.init();
+    for (int j0 = 0; j0 < C; j0 += TK) {
+      // A[rr][kk] = S_k[c0 + rr][j0 + kk]
+      for (int e = threadIdx.x; e < TM * TK; e += NT) {
+        const int rr = e / TK, kk = e % TK, c = c0 + rr, j = j0 + kk;
+        as[rr * LDA + kk] =
+            (c < C && j < C) ? sk[static_cast<size_t>(c) * C + j] : zero;
+      }
+      // B[kk][pp] = F[j0 + kk][p0 + pp]
+      for (int e = threadIdx.x; e < TK * TN; e += NT) {
+        const int kk = e / TN, pp = e % TN, j = j0 + kk, p = p0 + pp;
+        bs[kk * LDB + pp] =
+            (j < C && p < P)
+                ? load_f<T, true>(z, bias, j, static_cast<size_t>(j) * P + p)
+                : zero;
+      }
+      __syncthreads();
+      mma.step(as, bs);
+      __syncthreads();
+    }
+    mma.store(cs);
+    __syncthreads();
+    const T* mk = m2 + static_cast<size_t>(k) * P;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = threadIdx.x + i * NT, rr = e / TN, pp = e % TN;
+      const int p = p0 + pp;
+      if (p < P)  // rounded product, then rounded sum: no fma contraction
+        acc[i] = __fadd_rn(acc[i], __fmul_rn(cs[rr * LDC + pp], to_f(mk[p])));
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = threadIdx.x + i * NT, rr = e / TN, pp = e % TN;
+    const int c = c0 + rr, p = p0 + pp;
+    if (c < C && p < P) {
+      const size_t idx = static_cast<size_t>(c) * P + p;
+      const float x = to_f(z[idx]) + to_f(bias[c]);
+      const float d = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+      out[idx] = from_f<T>(acc[i] * d);
+    }
+  }
+}
+
+template <typename T, bool RELU>
+void launch_fwd(const void* f, const void* bias, const void* m2, float* work,
+                float* out, int C, int P, int K, int splits, int chunk,
+                cudaStream_t st) {
   const int tiles = (C + TN - 1) / TN;
   const dim3 grid(tiles * tiles, K, splits);
   float* dst = splits == 1 ? out : work;
-  gram_fwd_kernel<T><<<grid, NT, 0, st>>>(static_cast<const T*>(f),
-                                          static_cast<const T*>(m2), dst, C, P,
-                                          K, chunk);
+  const T* ft = static_cast<const T*>(f);
+  const T* mt = static_cast<const T*>(m2);
+  if constexpr (RELU)
+    gram_relu_fwd_kernel<T><<<grid, NT, 0, st>>>(
+        ft, static_cast<const T*>(bias), mt, dst, C, P, K, chunk);
+  else
+    gram_fwd_kernel<T><<<grid, NT, 0, st>>>(ft, mt, dst, C, P, K, chunk);
   if (splits > 1) {
     const long long n = static_cast<long long>(K) * C * C;
     gram_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
@@ -270,6 +399,17 @@ void launch_bwd(const void* f, const void* m2, const void* s, void* out,
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
 }
 
+template <typename T>
+void launch_relu_bwd(const void* z, const void* bias, const void* m2,
+                     const void* s, void* out, int C, int P, int K,
+                     cudaStream_t st) {
+  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM);
+  gram_relu_bwd_kernel<T><<<grid, NT, 0, st>>>(
+      static_cast<const T*>(z), static_cast<const T*>(bias),
+      static_cast<const T*>(m2), static_cast<const T*>(s),
+      static_cast<T*>(out), C, P, K);
+}
+
 }  // namespace
 
 // work: (splits, K, C, C) fp32 scratch, unused when splits == 1;
@@ -282,9 +422,11 @@ extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
   if (dtype == DPST_DTYPE_F32)
-    launch_fwd<float>(f, m2, w, o, C, P, K, splits, chunk, st);
+    launch_fwd<float, false>(f, nullptr, m2, w, o, C, P, K, splits, chunk,
+                             st);
   else if (dtype == DPST_DTYPE_BF16)
-    launch_fwd<__nv_bfloat16>(f, m2, w, o, C, P, K, splits, chunk, st);
+    launch_fwd<__nv_bfloat16, false>(f, nullptr, m2, w, o, C, P, K, splits,
+                                     chunk, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -300,6 +442,42 @@ extern "C" int dpst_gram_bwd(const void* f, const void* m2, const void* s,
     launch_bwd<float>(f, m2, s, out, C, P, K, st);
   else if (dtype == DPST_DTYPE_BF16)
     launch_bwd<__nv_bfloat16>(f, m2, s, out, C, P, K, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z: (C, P) raw conv output, bias: (C,), both in the compute dtype; work
+// and out as for dpst_gram_fwd.
+extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
+                                  const void* m2, void* work, void* out,
+                                  int C, int P, int K, int splits, int chunk,
+                                  int dtype, void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(work);
+  float* o = static_cast<float*>(out);
+  if (dtype == DPST_DTYPE_F32)
+    launch_fwd<float, true>(z, bias, m2, w, o, C, P, K, splits, chunk, st);
+  else if (dtype == DPST_DTYPE_BF16)
+    launch_fwd<__nv_bfloat16, true>(z, bias, m2, w, o, C, P, K, splits, chunk,
+                                    st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// s: (K, C, C) symmetrized cotangent in the compute dtype; out: dz (C, P).
+extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
+                                  const void* m2, const void* s, void* out,
+                                  int C, int P, int K, int dtype,
+                                  void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DPST_DTYPE_F32)
+    launch_relu_bwd<float>(z, bias, m2, s, out, C, P, K, st);
+  else if (dtype == DPST_DTYPE_BF16)
+    launch_relu_bwd<__nv_bfloat16>(z, bias, m2, s, out, C, P, K, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

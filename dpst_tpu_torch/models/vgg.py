@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.gram_s2d import RawTap
 from ..ops.losses import torch_dtype
 from ..ops.pool_cuda import maxpool2_bwd
 
@@ -163,14 +164,19 @@ def set_exact_backends(compute_dtype) -> None:
 
 def extract_features(params: dict, image: torch.Tensor,
                      layers: tuple[str, ...], pooling: str = "max",
-                     compute_dtype="float32") -> dict:
+                     compute_dtype="float32",
+                     raw_taps: tuple[str, ...] = ()) -> dict:
     """Run VGG-19 up to the deepest layer in `layers`.
 
     params: {layer: {"w": OIHW, "b": (Cout,)}} (see params_from_numpy).
     image: (H, W, 3) float RGB in [0, 255].
     Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype
     (NCHW planes of the one image: a tap is the contiguous (C, P) operand
-    of the Gram kernels).
+    of the Gram kernels). A layer also in `raw_taps` is returned as a
+    `RawTap` of its raw conv output and its bias (the counterpart of the
+    JAX package's `S2dTap`), for the fused bias+ReLU Gram; the forward
+    still goes on through the ReLU, so the raw output gets the gradients
+    of both consumers.
     """
     cdt = torch_dtype(compute_dtype)
     if image.device.type == "cuda":
@@ -183,8 +189,11 @@ def extract_features(params: dict, image: torch.Tensor,
             x = _pool(x, pooling)
             continue
         p = params[name]
-        x = F.conv2d(x, p["w"].to(cdt), padding=1)
-        x = _Relu.apply(x + p["b"].to(cdt)[:, None, None])
-        if name in layers:
+        z = F.conv2d(x, p["w"].to(cdt), padding=1)
+        b = p["b"].to(cdt)
+        x = _Relu.apply(z + b[:, None, None])
+        if name in raw_taps:
+            taps[name] = RawTap(z[0], b)
+        elif name in layers:
             taps[name] = x[0]
     return taps

@@ -1,0 +1,137 @@
+"""Masked Grams of relu(z + b) taken from the raw block-1 conv output: the
+fused bias+ReLU CUDA kernels, their plain versions and the autograd
+Function.
+
+The port's counterpart of `dpst_tpu/ops/gram_s2d.py`, whose v2 kernels
+(`_fwd_kernel2`, `_bwd_kernel2`, `s2d_gram="pallas"` and "auto") and v1
+kernels (`_fwd_kernel`, `_bwd_kernel`, `"pallas1"`) compute one function:
+
+    forward   F = round(max(z + b, 0)),   G_k = F · (F ∘ m²_k)ᵀ
+    backward  dz = relu′(z + b) ∘ Σ_k (S_k · F) ∘ m²_k,   S_k = dG_k + dG_kᵀ
+
+z is the raw conv output (no bias) as its (C, P) NCHW planes and b the (C,)
+bias, both in the compute dtype; z + b is formed in fp32 and F rounded to
+the compute dtype; relu′ is 1 above 0, ½ at exactly 0 and 0 below (the
+subgradient of `jnp.maximum`, as `models.vgg._Relu` has it); the sum over
+classes is fp32 in class order, rounded once. No gradient flows to b or
+to the masks.
+
+The TPU kernels read the tap as a space-to-depth parity grid, contract it
+in two-half 128-lane diagonal blocks and pack the masks into lanes. Those
+are layout devices of the TPU and are not carried: the operands here are
+the ones `gram_stream` takes, and any C and any K are accepted.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import kernels
+from .gram_stream import gram_fwd_plain, launch_fwd, normalize
+
+
+class RawTap(NamedTuple):
+    """A VGG tap taken before its bias and ReLU: the raw conv output z
+    (C, H, W) and the bias b (C,), both in the compute dtype."""
+    z: torch.Tensor
+    b: torch.Tensor
+
+
+def _cook(z: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu(z + b) with z + b formed in fp32, rounded to z's dtype."""
+    return torch.clamp_min(z.float() + b.float()[:, None], 0).to(z.dtype)
+
+
+def _relu_grad(z: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu′(z + b) in fp32: 1 above 0, ½ at exactly 0, 0 below."""
+    x = z.float() + b.float()[:, None]
+    return (x > 0).float() + 0.5 * (x == 0).float()
+
+
+def gram_relu_fwd_plain(z: torch.Tensor, b: torch.Tensor,
+                        m2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch forward: (C, P) raw tap, (C,) bias × (K, P) m² ->
+    (K, C, C) fp32."""
+    return gram_fwd_plain(_cook(z, b), m2)
+
+
+def gram_relu_bwd_plain(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
+                        s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch backward: dz (C, P) in z's dtype, from the symmetrized
+    cotangent s (K, C, C) in z's dtype."""
+    f = _cook(z, b).float()
+    acc = torch.zeros(f.shape, dtype=torch.float32, device=z.device)
+    for k in range(s.shape[0]):
+        acc = acc + torch.matmul(s[k].float(), f) * m2[k].float()
+    return (acc * _relu_grad(z, b)).to(z.dtype)
+
+
+def _check(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor) -> None:
+    if z.dim() != 2 or m2.dim() != 2:
+        raise ValueError("gram_relu takes z (C, P), b (C,) and m2 (K, P)")
+    c, p = z.shape
+    kernels.require(z, "z")
+    kernels.require(b, "b", (c,), z.dtype)
+    kernels.require(m2, "m2", (m2.shape[0], p), z.dtype)
+
+
+def gram_relu_fwd(z: torch.Tensor, b: torch.Tensor,
+                  m2: torch.Tensor) -> torch.Tensor:
+    """Raw masked Grams of relu(z + b). CPU tensors take the plain version;
+    CUDA tensors launch the kernel (csrc/gram.cu)."""
+    _check(z, b, m2)
+    if not kernels.on_cuda(z, b, m2):
+        return gram_relu_fwd_plain(z, b, m2)
+    return launch_fwd("gram_relu_fwd", (z, b, m2), *z.shape, m2.shape[0])
+
+
+def gram_relu_bwd(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
+                  s: torch.Tensor) -> torch.Tensor:
+    """dz of the raw masked Grams of relu(z + b). CPU tensors take the
+    plain version; CUDA tensors launch the kernel (csrc/gram.cu)."""
+    _check(z, b, m2)
+    c, p = z.shape
+    k = m2.shape[0]
+    kernels.require(s, "s", (k, c, c), z.dtype)
+    if not kernels.on_cuda(z, b, m2, s):
+        return gram_relu_bwd_plain(z, b, m2, s)
+    out = torch.empty_like(z)
+    rc = kernels.library().dpst_gram_relu_bwd(
+        kernels.ptr(z), kernels.ptr(b), kernels.ptr(m2), kernels.ptr(s),
+        kernels.ptr(out), c, p, k, kernels.DTYPE_CODES[z.dtype],
+        kernels.stream_ptr(z))
+    kernels.check(rc, "gram_relu_bwd")
+    kernels.LAUNCHES["gram_relu_bwd"] += 1
+    return out
+
+
+class GramReluRaw(torch.autograd.Function):
+    """Unnormalized masked Grams of relu(z + b) with the one-pass analytic
+    backward; gradient to z only."""
+
+    @staticmethod
+    def forward(ctx, z: torch.Tensor, b: torch.Tensor,
+                m2: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(z, b, m2)
+        return gram_relu_fwd(z, b, m2)
+
+    @staticmethod
+    def backward(ctx, d: torch.Tensor):
+        z, b, m2 = ctx.saved_tensors
+        d = d.float()
+        s = (d + d.transpose(1, 2)).to(z.dtype).contiguous()
+        return gram_relu_bwd(z, b, m2, s), None, None
+
+
+def masked_grams_relu(z: torch.Tensor, b: torch.Tensor, masks: torch.Tensor,
+                      eps: float = 1e-8, norm: str = "m2") -> torch.Tensor:
+    """All K masked Grams of relu(z + b): (C, H, W) raw tap and (C,) bias ×
+    (K, H, W) masks -> (K, C, C), normalized like `losses.masked_grams`.
+    The operands stay in z's dtype (the compute dtype the tap was made
+    in); b is rounded to it."""
+    c, k = z.shape[0], masks.shape[0]
+    m2 = (masks * masks).to(z.dtype).reshape(k, -1).contiguous()
+    g = GramReluRaw.apply(z.reshape(c, -1).contiguous(),
+                          b.to(z.dtype).contiguous(), m2)
+    return normalize(g, masks, norm, eps)

@@ -64,17 +64,25 @@ def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     kernels.require(m2, "m2", (k, p), f.dtype)
     if not kernels.on_cuda(f, m2):
         return gram_fwd_plain(f, m2)
-    lib = kernels.library()
+    return launch_fwd("gram_fwd", (f, m2), c, p, k)
+
+
+def launch_fwd(name: str, operands: tuple, c: int, p: int,
+               k: int) -> torch.Tensor:
+    """Launch the split-P forward kernel `name` ("gram_fwd" or
+    "gram_relu_fwd", csrc/gram.cu) on CUDA operands whose first is the
+    (C, P) tap; returns the (K, C, C) fp32 Grams."""
+    f = operands[0]
     splits, chunk = fwd_splits(c, p, k)
     out = torch.empty((k, c, c), dtype=torch.float32, device=f.device)
     work = (torch.empty((splits, k, c, c), dtype=torch.float32,
                         device=f.device) if splits > 1 else out)
-    rc = lib.dpst_gram_fwd(
-        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(work), kernels.ptr(out),
+    rc = getattr(kernels.library(), "dpst_" + name)(
+        *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out),
         c, p, k, splits, chunk, kernels.DTYPE_CODES[f.dtype],
         kernels.stream_ptr(f))
-    kernels.check(rc, "gram_fwd")
-    kernels.LAUNCHES["gram_fwd"] += 1
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
@@ -118,3 +126,14 @@ class GramRaw(torch.autograd.Function):
 def masked_grams_raw(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     """(C, P) features × (K, P) m² weights -> (K, C, C) fp32, unnormalized."""
     return GramRaw.apply(f, m2)
+
+
+def normalize(g: torch.Tensor, masks: torch.Tensor, norm: str = "m2",
+              eps: float = 1e-8) -> torch.Tensor:
+    """Raw (K, C, C) Grams over max(n_k, eps), with n_k = Σ m_k² ("m2") or
+    Σ m_k ("m1") of the fp32 (K, ...) masks."""
+    m32 = masks.to(torch.float32)
+    dims = tuple(range(1, m32.dim()))
+    n = (torch.sum(m32 * m32, dim=dims) if norm == "m2"
+         else torch.sum(m32, dim=dims))
+    return g / torch.clamp_min(n, eps)[:, None, None]

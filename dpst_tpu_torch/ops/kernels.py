@@ -30,7 +30,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "pool_bwd")
+KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
+           "gram_relu_bwd", "pool_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,9 +113,12 @@ def library() -> ctypes.CDLL:
         lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, p]
         lib.dpst_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.dpst_gram_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dpst_gram_relu_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.dpst_gram_relu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         for fn in (lib.dpst_lap_matvec, lib.dpst_gram_fwd,
-                   lib.dpst_gram_bwd, lib.dpst_pool2_bwd):
+                   lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
+                   lib.dpst_gram_relu_bwd, lib.dpst_pool2_bwd):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p

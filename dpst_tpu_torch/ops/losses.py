@@ -4,13 +4,15 @@ The port's counterpart of `dpst_tpu/ops/losses.py`. VGG taps arrive as
 NCHW planes (C, H, W) of one image, so a tap is already the contiguous
 (C, P) operand of the Gram kernels. Every masked Gram, the style image's
 included, goes through `gram_stream.masked_grams_raw` (the CUDA kernels on
-CUDA tensors). All loss accumulation is fp32.
+CUDA tensors), except the block-1 taps that the optimizer routes as raw
+taps to `gram_s2d.masked_grams_relu`. All loss accumulation is fp32.
 """
 from __future__ import annotations
 
 import torch
 
-from .gram_stream import masked_grams_raw
+from .gram_s2d import RawTap, masked_grams_relu
+from .gram_stream import masked_grams_raw, normalize
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,11 +44,7 @@ def masked_grams(feat: torch.Tensor, masks: torch.Tensor,
     cdt = torch_dtype(compute_dtype)
     f = feat.to(cdt).reshape(c, -1)
     m2 = (masks * masks).to(cdt).reshape(k, -1).contiguous()
-    g = masked_grams_raw(f.contiguous(), m2)
-    m32 = masks.to(torch.float32)
-    n = (torch.sum(m32 * m32, dim=(1, 2)) if norm == "m2"
-         else torch.sum(m32, dim=(1, 2)))
-    return g / torch.clamp_min(n, eps)[:, None, None]
+    return normalize(masked_grams_raw(f.contiguous(), m2), masks, norm, eps)
 
 
 def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
@@ -54,6 +52,10 @@ def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
                      compute_dtype="float32",
                      style_norm: str = "gatys") -> torch.Tensor:
     """Masked Gram style loss of one VGG layer, summed over classes.
+
+    `feat_out` is a (C, H, W) tap, or a `RawTap` of the raw conv output and
+    its bias, whose Grams of relu(z + b) take the fused bias+ReLU kernels
+    (`ops/gram_s2d.py`).
 
     "gatys": Σ_k coverage_k / (4C²) · ‖G_out,k − G_style,k‖² with
     Σm²-normalized Grams; "paper": Σ_k ½‖ΔG_k‖² with Σm-normalized Grams
@@ -64,8 +66,11 @@ def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
         scale, class_w, norm = 0.5, torch.ones_like(coverage), "m1"
     else:
         scale, class_w, norm = 1.0 / (4.0 * c * c), coverage, "m2"
-    g_o = masked_grams(feat_out, out_masks, compute_dtype=compute_dtype,
-                       norm=norm)
+    if isinstance(feat_out, RawTap):
+        g_o = masked_grams_relu(feat_out.z, feat_out.b, out_masks, norm=norm)
+    else:
+        g_o = masked_grams(feat_out, out_masks, compute_dtype=compute_dtype,
+                           norm=norm)
     d = g_o - style_grams
     per_class = torch.sum(d * d, dim=(1, 2))
     return scale * torch.sum(class_w * per_class)

@@ -1,9 +1,9 @@
 """Image optimization loop (the hot path): loss, Adam, clip, history.
 
-The port's counterpart of `dpst_tpu/optimize.py` (single scale, Adam).
-PyTorch runs eagerly: each step is one VGG forward and input gradient,
-the content, masked-Gram style, photorealism and TV terms, one Adam update
-and the [0, 255] clip. The per-step loss history stays on the device and
+The port's counterpart of `dpst_tpu/optimize.py` (one scale, Adam; the
+multi-scale schedule is `api.stylize`'s). PyTorch runs eagerly: each step
+is one VGG forward and input gradient, the content, masked-Gram style,
+photorealism and TV terms, one Adam update and the [0, 255] clip. The per-step loss history stays on the device and
 reaches the host once per segment.
 """
 from __future__ import annotations
@@ -44,6 +44,105 @@ class StylizeConstants(NamedTuple):
     lap_stats: torch.Tensor | None  # (14, H, W) packed stats, or None
 
 
+# Routing of the block-1 style taps, as the JAX package routes them on a
+# TPU (dpst_tpu/optimize.py:_s2d_gram_kernel and :_block1_s2d_ok, with the
+# TPU branches of the resolvers they call): where the TPU takes the
+# space-to-depth block 1 with its streamed Gram kernel (gram_s2d), the port
+# takes its fused bias+ReLU Gram kernels (ops/gram_s2d.py); everywhere else
+# (the TPU's nd consumption, or its direct convs) the unfused route, ReLU
+# then the masked Gram kernels.
+_FUSED_MAX_ELEMENTS = 1 << 29   # dpst_tpu/ops/losses.py:_FUSED_MAX_ELEMENTS
+_S2B_HALO = 8                   # dpst_tpu/models/vgg.py:_S2B_HALO
+
+
+def _gram_route_fused(h: int, w: int, k: int, c: int, gram_impl: str) -> bool:
+    """Would a TPU route this layer's masked Gram to the fused XLA dot
+    (dpst_tpu/ops/losses.py:gram_route)?"""
+    if gram_impl in ("stream", "hybrid", "pallas", "dotg"):
+        return False
+    return h * w * k * c <= _FUSED_MAX_ELEMENTS
+
+
+def _resolve_block1(block1_impl: str, h: int, w: int) -> bool:
+    """dpst_tpu/models/vgg.py:_resolve_block1 on a TPU: space-to-depth
+    block 1 when asked, or by default from 2^18 pixels."""
+    return block1_impl == "s2d" or (block1_impl == "auto"
+                                    and h * w >= 2 ** 18)
+
+
+def _s2b_active(s2b_strips: int, h: int, w: int, layers) -> bool:
+    """dpst_tpu/models/vgg.py:s2b_active on a TPU: would the strip
+    decomposition of blocks 1-2 run?"""
+    n = s2b_strips
+    if n == -1:
+        n = 0 if h % 64 or h * w < 512 * 512 else h // 64
+    if n <= 1 or h % n:
+        return False
+    hs = h // n
+    return (hs % 4 == 0 and hs >= 4 * _S2B_HALO
+            and max(vgg.LAYER_ORDER.index(l) for l in layers)
+            > vgg.LAYER_ORDER.index("pool2"))
+
+
+def _s2d_gram_kernel(cfg: StylizeConfig, h: int, w: int, k: int) -> bool:
+    """Does `s2d_gram` select the Gram kernel of the block-1 taps at an
+    h × w image with k classes? "pallas", "pallas1" and "pallas2" always
+    (v1 and v2 compute one function, which the fused kernels serve); "auto"
+    from 2^19 pixels, or where the conv1_1 Gram is not fused-routed; "nd"
+    never."""
+    if cfg.s2d_gram in ("pallas", "pallas1", "pallas2"):
+        return True
+    if cfg.s2d_gram == "auto":
+        if h * w >= 2 ** 19:
+            return True
+        c = vgg.VGG19_BLOCKS[0][1]
+        return not _gram_route_fused(h, w, k, c, cfg.gram_impl)
+    return False
+
+
+def _block1_s2d_ok(cfg: StylizeConfig, image_shape, all_layers,
+                   b1_layers, mask_shapes: dict) -> bool:
+    """Would a TPU take the space-to-depth block 1 for these taps? Only if
+    `block1_impl` resolves to it, h and w are even, the strips (if any)
+    feed their Grams in flat form, and every block-1 tap is style-only with
+    a Gram the s2d tap can feed (fused-routed, or the Gram kernel's)."""
+    h, w = image_shape[:2]
+    if not _resolve_block1(cfg.block1_impl, h, w) or h % 2 or w % 2:
+        return False
+    if (_s2b_active(cfg.s2b_strips, h, w, all_layers)
+            and cfg.strip_gram == "interior"):
+        return False
+    for l in b1_layers:
+        if l not in cfg.style_layers or l in cfg.content_layers:
+            return False
+        k, hl, wl = mask_shapes[l]
+        c = vgg.VGG19_BLOCKS[0][1]
+        if (not _gram_route_fused(hl, wl, k, c, cfg.gram_impl)
+                and not _s2d_gram_kernel(cfg, h, w, k)):
+            return False
+    return True
+
+
+def fused_block1_taps(cfg: StylizeConfig, image_shape,
+                      masks: dict) -> tuple[str, ...]:
+    """The block-1 style taps that take the fused bias+ReLU Gram kernels
+    at this image size: all of them where a TPU would feed them to its
+    s2d Gram kernel, else none."""
+    all_layers = tuple(dict.fromkeys(cfg.style_layers + cfg.content_layers))
+    b1_layers = tuple(l for l in all_layers if l in ("conv1_1", "conv1_2"))
+    if not b1_layers:
+        return ()
+    mask_shapes = {l: tuple(masks[l].shape) for l in b1_layers
+                   if l in masks}
+    if not _block1_s2d_ok(cfg, image_shape, all_layers, b1_layers,
+                          mask_shapes):
+        return ()
+    h, w = image_shape[:2]
+    if not _s2d_gram_kernel(cfg, h, w, mask_shapes[b1_layers[0]][0]):
+        return ()
+    return b1_layers
+
+
 def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
     """Build loss(image, consts, weights, vgg_params) -> (total, terms),
     with image (H, W, 3) in [0, 255] and terms the (5,) history row
@@ -55,7 +154,8 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
                 weights: LossWeights, vgg_params: dict):
         feats = vgg.extract_features(
             vgg_params, image, all_layers, pooling=cfg.pooling,
-            compute_dtype=cfg.compute_dtype)
+            compute_dtype=cfg.compute_dtype,
+            raw_taps=fused_block1_taps(cfg, image.shape, consts.masks))
         zero = torch.zeros((), dtype=torch.float32, device=image.device)
         l_content = zero
         for layer in cfg.content_layers:

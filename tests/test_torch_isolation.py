@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import dpst_tpu_torch
-from dpst_tpu_torch.ops import kernels
+from dpst_tpu_torch.ops import gram_s2d, kernels
 
 PKG = pathlib.Path(dpst_tpu_torch.__file__).parent
 
@@ -80,6 +80,16 @@ def test_kernel_wrappers_never_fall_back():
     with pytest.raises(ValueError):
         kernels.on_cuda(torch.zeros(2), torch.zeros(2, device="meta"))
     assert kernels.on_cuda(torch.zeros(2)) is False
+    # the fused bias+ReLU Gram wrappers refuse them too
+    for dev_b in ("meta", "cpu"):
+        z, m2 = torch.zeros(4, 8, device="meta"), torch.zeros(2, 8)
+        b, s = torch.zeros(4, device=dev_b), torch.zeros(2, 4, 4)
+        before = dict(kernels.LAUNCHES)
+        with pytest.raises(ValueError):
+            gram_s2d.gram_relu_fwd(z, b, m2)
+        with pytest.raises(ValueError):
+            gram_s2d.gram_relu_bwd(z, b, m2, s)
+        assert kernels.LAUNCHES == before
 
 
 def test_build_hash_covers_sources():

@@ -134,7 +134,7 @@ def test_callback_cadence_and_segments(params):
 
 
 @pytest.mark.parametrize("kw,masks", [
-    ({"scales": (256,)}, True),
+    ({"debug_nans": True}, True),
     ({"optimizer": "lbfgs"}, True),
     ({"post_smooth": 2}, True),
     ({"use_segmentation": True}, False),
