@@ -10,14 +10,16 @@ no result):
   2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
                  sm_90a) and reports the seconds;
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the shapes of the 512² config3 main path (K = 4 masks)
-                 and, for the fused bias+ReLU Gram pair, of conv1_1 at the
-                 1024² stage of config4, with the stated tolerance, the
-                 kernel's time, the plain version's time, the computed
-                 bound and, where one PyTorch call computes the same
-                 function (or, labelled, a yardstick call), that call's
-                 time; then each kernel at shapes that do not fill its
-                 tiles;
+                 at the shapes of the 512² config3 main path (K = 4 masks),
+                 for the fused bias+ReLU Gram pair of conv1_1 at the 1024²
+                 stage of config4, and for conv3x3 (forward and input
+                 gradient, bf16 and fp32) and gram_wbwd (soft masks) at the
+                 shapes of the 512² pallas route, with the stated
+                 tolerance, the kernel's time, the plain version's time,
+                 the computed bound and, where one PyTorch call computes
+                 the same function (cuDNN for the conv; or, labelled, a
+                 yardstick call), that call's time; then each kernel at
+                 shapes that do not fill its tiles;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -37,14 +39,21 @@ no result):
                  profiles ten steps of the 1024² stage; a short config4
                  run twice (bit-identical); a 64² fp32 config4-shaped run
                  on the fused route, card against CPU;
-  6. the {"kernels": [...]} summary and the nvidia-smi line;
-  7. the last line: {"ok": true, "device": {...}}.
+  6. pallas route -- the third main path: `stylize` with PRESETS["config3"]
+                 and conv_impl="pallas", gram_impl="pallas" at 512² (100
+                 Adam steps, four band masks), counters reset just before
+                 and read just after and held to what the route implies;
+                 losses, output, a bit-identical rerun, a profile of ten
+                 steps, and a 64² fp32 run of the route, card against CPU;
+  7. the {"kernels": [...]} summary and the nvidia-smi line;
+  8. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,6 +74,12 @@ GRAM_SHAPES = ((64, 262144), (128, 65536), (256, 16384), (512, 4096),
                (512, 1024))                   # (C, P) of conv1_1..conv5_1
 POOL_SHAPES = ((64, 512, 512), (128, 256, 256), (256, 128, 128),
                (512, 64, 64))                 # (C, H, W) into pool1..pool4
+# (Cin, Cout, H = W) of conv1_2 … conv5_1 at 512², the convs that
+# conv_impl="pallas" sends to the conv3x3 kernel (conv1_1 stays on cuDNN)
+CONV_SHAPES = ((64, 64, 512), (64, 128, 256), (128, 128, 256),
+               (128, 256, 128), (256, 256, 128), (256, 256, 128),
+               (256, 256, 128), (256, 512, 64), (512, 512, 64),
+               (512, 512, 64), (512, 512, 64), (512, 512, 32))
 MS_SIZE = 1024                                 # config4's native size
 MS_ITERS = (100, 100, 100)                     # Adam steps per config4 stage
 RELU_SHAPE = (64, MS_SIZE * MS_SIZE)           # (C, P) of conv1_1 at 1024²
@@ -110,6 +125,16 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     """(max |got − ref|, that over max |ref|)."""
     err = float((got.float() - ref.float()).abs().max())
     return err, err / max(float(ref.float().abs().max()), 1e-30)
+
+
+def out_tol(ref: torch.Tensor, dtype: str) -> float:
+    """Tolerance relative to max|ref| of an output rounded once from fp32
+    sums taken in two orders: one bf16 ulp at max|ref| in bf16 (at most
+    2^-7 = 7.8e-3), 1e-5 in fp32."""
+    if dtype == "float32":
+        return 1e-5
+    top = max(float(ref.float().abs().max()), 1e-30)
+    return 2.0 ** (math.floor(math.log2(top)) - 7) / top
 
 
 def check_lap(dev, gen):
@@ -202,6 +227,114 @@ def check_gram(dev, gen):
             rows.append(row)
             if not rel <= tol:
                 fail("kernels", f"gram_bwd {dtype} {c}x{p}: rel err {rel}")
+    return rows
+
+
+def check_gram_wbwd(dev, gen):
+    """The Gram backward that weights by m² after the product, at the taps
+    conv1_1 … conv5_1 of 512² with soft masks (where the weighting enters
+    only shows under masks other than 0/1). On the conv_impl="pallas",
+    gram_impl="pallas" path one step launches it at conv2_1 … conv5_1
+    (conv1_1 takes the fused pair); the conv1_1 row is not summed into its
+    step. No PyTorch call computes it: the yardstick is gram_bwd's
+    torch.matmul, which weights before the product."""
+    from dpst_tpu_torch.ops import gram_pallas as gp
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        isz = 2 if dtype == "bfloat16" else 4
+        for c, p in GRAM_SHAPES:
+            f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
+            m = torch.rand((K, p), generator=gen, device=dev)
+            m2 = (m * m).to(cdt)
+            d = torch.randn((K, c, c), generator=gen, device=dev)
+            s = (d + d.transpose(1, 2)).to(cdt).contiguous()
+            out = gp.gram_wbwd(f, m2, s)
+            ref = gp.gram_wbwd_plain(f, m2, s)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref)
+            tol = out_tol(ref, dtype)
+            a = s.permute(1, 0, 2).reshape(c, K * c)
+            lib = lambda: torch.matmul(
+                a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
+            b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz,
+                             2.0 * K * c * c * p, dtype)
+            row = {"phase": "kernel", "name": "gram_wbwd", "shape": [c, p],
+                   "K": K, "dtype": dtype, "masks": "soft",
+                   "in_step": c != 64, "max_abs_err": err, "rel_err": rel,
+                   "tol_rel": tol,
+                   "ms": cuda_ms(lambda: gp.gram_wbwd(f, m2, s)),
+                   "plain_ms": cuda_ms(lambda: gp.gram_wbwd_plain(f, m2, s),
+                                       iters=5),
+                   "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib),
+                   "library_call": "yardstick: gram_bwd's torch.matmul, "
+                                   "weighting before the product"}
+            emit(row)
+            rows.append(row)
+            if not rel <= tol:
+                fail("kernels", f"gram_wbwd {dtype} {c}x{p}: rel err {rel} "
+                     f"> {tol}")
+    return rows
+
+
+def conv_operands(cin: int, cout: int, h: int, w: int, dtype, dev, gen):
+    """A (Cin, H, W) input, He-scaled OIHW weights and a (Cout, H, W)
+    cotangent in `dtype`."""
+    x = torch.randn((cin, h, w), generator=gen, device=dev).to(dtype)
+    wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+          * math.sqrt(2.0 / (9 * cin))).to(dtype)
+    g = torch.randn((cout, h, w), generator=gen, device=dev).to(dtype)
+    return x, wt, g
+
+
+def check_conv(dev, gen):
+    """The 3×3 conv kernel against its plain version at the 12 convs of
+    the 512² path and their 12 input gradients (the kernel on the flipped,
+    transposed weights), bf16 and fp32. library_ms: cuDNN through
+    F.conv2d (forward) and torch.nn.grad.conv2d_input (input gradient),
+    with the port's cuDNN flags (deterministic, no TF32 in fp32)."""
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import conv_cuda as cc
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        isz = 2 if dtype == "bfloat16" else 4
+        vgg.set_exact_backends(cdt)
+        for cin, cout, hw in CONV_SHAPES:
+            x, wt, g = conv_operands(cin, cout, hw, hw, cdt, dev, gen)
+            ft = cc.flip_transpose_weights(wt)
+            cases = (
+                ("forward", x, wt, "F.conv2d",
+                 lambda: F.conv2d(x[None], wt, padding=1)),
+                ("input_grad", g, ft, "torch.nn.grad.conv2d_input",
+                 lambda: torch.nn.grad.conv2d_input(
+                     (1, cin, hw, hw), wt, g[None], padding=1)))
+            for direction, a, b, lib_name, lib in cases:
+                y = cc.conv3x3_same(a, b)
+                ref = cc.conv3x3_plain(a, b)
+                torch.cuda.synchronize()
+                err, rel = rel_err(y, ref)
+                tol = out_tol(ref, dtype)
+                k_in, k_out = b.shape[1], b.shape[0]
+                bnd, by = bound_ms(
+                    ((k_in + k_out) * hw * hw + 9 * k_in * k_out) * isz,
+                    2.0 * 9 * k_in * k_out * hw * hw, dtype)
+                row = {"phase": "kernel", "name": "conv3x3",
+                       "direction": direction, "shape": [k_in, k_out, hw, hw],
+                       "dtype": dtype, "max_abs_err": err, "rel_err": rel,
+                       "tol_rel": tol,
+                       "ms": cuda_ms(lambda: cc.conv3x3_same(a, b)),
+                       "plain_ms": cuda_ms(lambda: cc.conv3x3_plain(a, b),
+                                           iters=5),
+                       "bound_ms": bnd, "bound_by": by,
+                       "library_ms": cuda_ms(lib), "library_call": lib_name}
+                emit(row)
+                rows.append(row)
+                if not rel <= tol:
+                    fail("kernels", f"conv3x3 {direction} {dtype} "
+                         f"{k_in}->{k_out} at {hw}²: rel err {rel} > {tol}")
+            del x, wt, g, ft, y, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -338,7 +471,10 @@ def check_pool(dev, gen):
 def check_edges(dev, gen) -> None:
     """Each kernel against its plain version at shapes that do not fill
     its tiles (C not a multiple of 64 or of 8, odd P, odd pool sizes, an
-    image smaller than one Laplacian tile), with the tolerances above."""
+    image smaller than one Laplacian tile, conv images smaller than one
+    tile or ragged in H, W, Cin and Cout), with the tolerances above."""
+    from dpst_tpu_torch.ops import conv_cuda as cc
+    from dpst_tpu_torch.ops import gram_pallas as gp
     from dpst_tpu_torch.ops import gram_s2d as g2
     from dpst_tpu_torch.ops import gram_stream as gs
     from dpst_tpu_torch.ops import laplacian as lap
@@ -365,6 +501,9 @@ def check_edges(dev, gen) -> None:
             errs[f"gram_bwd {dtype} {c}x{p} K={k}"] = (rel_err(
                 gs.gram_bwd(f, m2, s), gs.gram_bwd_plain(f, m2, s))[1],
                 1e-2 if dtype == "bfloat16" else 1e-4)
+            ref = gp.gram_wbwd_plain(f, m2, s)
+            errs[f"gram_wbwd {dtype} {c}x{p} K={k}"] = (rel_err(
+                gp.gram_wbwd(f, m2, s), ref)[1], out_tol(ref, dtype))
             z, b, m2, s = relu_gram_input(c, p, k, cdt, dev, gen)
             errs[f"gram_relu_fwd {dtype} {c}x{p} K={k}"] = (rel_err(
                 g2.gram_relu_fwd(z, b, m2),
@@ -373,6 +512,16 @@ def check_edges(dev, gen) -> None:
                 g2.gram_relu_bwd(z, b, m2, s),
                 g2.gram_relu_bwd_plain(z, b, m2, s))[1],
                 1e-2 if dtype == "bfloat16" else 1e-4)
+        for cin, cout, h, w in ((24, 40, 37, 53), (512, 512, 4, 4),
+                                (8, 16, 4, 4)):
+            x, wt, g = conv_operands(cin, cout, h, w, cdt, dev, gen)
+            ft = cc.flip_transpose_weights(wt)
+            for direction, a, b in (("forward", x, wt),
+                                    ("input_grad", g, ft)):
+                ref = cc.conv3x3_plain(a, b)
+                errs[f"conv3x3 {direction} {dtype} {cin}->{cout} {h}x{w}"] = (
+                    rel_err(cc.conv3x3_same(a, b), ref)[1],
+                    out_tol(ref, dtype))
         for c, h, w in ((3, 17, 15), (5, 16, 15), (2, 3, 3)):
             x, y, g = tied_pool_input(c, h, w, cdt, dev, gen)
             equal = torch.equal(pool_cuda.maxpool2_bwd(x, y, g),
@@ -408,7 +557,13 @@ def smooth_image(gen, dev, size: int) -> np.ndarray:
     return (img.clamp(0, 1) * 255).contiguous().cpu().numpy()
 
 
-def run_main_path(dev, gen) -> dict:
+def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
+    """One single-scale main path at SIZE² on a seeded pair with the four
+    band masks: `prepare_constants` alone (warm, timed), then `stylize`
+    with the launch counters reset just before and read just after (and
+    handed to `check_launches(launches)`, which returns the failures);
+    checks the losses and the output, a bit-identical rerun of RERUN_ITERS
+    steps, and profiles ten steps."""
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
@@ -416,9 +571,6 @@ def run_main_path(dev, gen) -> dict:
     content = smooth_image(gen, dev, SIZE)
     style = smooth_image(gen, dev, SIZE)
     cmask, smask = band_masks(0), band_masks(1)
-    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
-                              iterations=ITERS,
-                              intermediate_interval=ITERS // 2)
     params = vgg.get_params(seed=SEED, device=dev)
 
     # precompute alone, through the public entry point
@@ -430,6 +582,7 @@ def run_main_path(dev, gen) -> dict:
     dpst_tpu_torch.prepare_constants(*args, cfg, params)
     torch.cuda.synchronize()
     precompute_s = time.perf_counter() - t0
+    del args
 
     marks = {}
 
@@ -451,40 +604,94 @@ def run_main_path(dev, gen) -> dict:
     launches = dict(kernels.LAUNCHES)
     half = ITERS // 2
     loop_its = half / (marks[ITERS] - marks[half])
-    emit({"phase": "stylize", "size": SIZE, "K": K, "iterations": ITERS,
-          "compute_dtype": cfg.compute_dtype,
+    emit({"phase": "stylize", "path": label, "size": SIZE, "K": K,
+          "iterations": ITERS, "compute_dtype": cfg.compute_dtype,
+          "conv_impl": cfg.conv_impl, "gram_impl": cfg.gram_impl,
           "weights": ("weights/vgg19.npz" if os.path.exists(
               vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
           "precompute_s": precompute_s, "loop_it_s": loop_its,
           "wall_s": wall_s, "first_row": hist[0].tolist(),
           "last_row": hist[-1].tolist(), "launches": launches,
           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    need = {"lap_matvec": ITERS, "gram_fwd": 5 * ITERS,
-            "gram_bwd": 5 * ITERS, "pool_bwd": 4 * ITERS}
-    for name, lo in need.items():
-        if launches[name] < lo:
-            fail("stylize", f"{name} launched {launches[name]} times, "
-                 f"expected >= {lo}")
+    bad = check_launches(launches)
+    if bad:
+        fail("stylize", f"{label}: " + "; ".join(bad))
     if not hist[-1, 0] < hist[0, 0]:
-        fail("stylize", f"total loss did not fall: {hist[0, 0]} -> "
-             f"{hist[-1, 0]}")
+        fail("stylize", f"{label}: total loss did not fall: {hist[0, 0]} "
+             f"-> {hist[-1, 0]}")
     if not hist[:, 3].min() >= -1.0:
-        fail("stylize", f"photoreal term {hist[:, 3].min()} < -1")
+        fail("stylize", f"{label}: photoreal term {hist[:, 3].min()} < -1")
     if not (out.shape == (SIZE, SIZE, 3) and np.isfinite(out).all()
             and out.min() >= 0.0 and out.max() <= 255.0):
-        fail("stylize", "output not finite (512, 512, 3) in [0, 255]")
+        fail("stylize", f"{label}: output not finite (512, 512, 3) in "
+             "[0, 255]")
     if not np.isfinite(hist).all():
-        fail("stylize", "non-finite loss history")
+        fail("stylize", f"{label}: non-finite loss history")
 
     # the same config again, shorter: the rows must be bit-identical
     _, hist2 = run(dataclasses.replace(cfg, iterations=RERUN_ITERS))
     identical = bool(np.array_equal(hist2, hist[:RERUN_ITERS]))
-    emit({"phase": "rerun", "iterations": RERUN_ITERS,
+    emit({"phase": "rerun", "path": label, "iterations": RERUN_ITERS,
           "bit_identical": identical})
     if not identical:
-        fail("rerun", "history of the rerun differs")
-    profile_loop(run, cfg, 1e3 / loop_its, "config3 512²")
+        fail("rerun", f"{label}: history of the rerun differs")
+    profile_loop(run, cfg, 1e3 / loop_its, label)
     return launches
+
+
+def run_main_path(dev, gen) -> dict:
+    """The first main path: PRESETS["config3"] at 512² (cuDNN convs, the
+    fused Gram route)."""
+    import dpst_tpu_torch
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              iterations=ITERS,
+                              intermediate_interval=ITERS // 2)
+
+    def check(launches):
+        need = {"lap_matvec": ITERS, "gram_fwd": 5 * ITERS,
+                "gram_bwd": 5 * ITERS, "pool_bwd": 4 * ITERS}
+        bad = [f"{name} launched {launches[name]} times, expected >= {lo}"
+               for name, lo in need.items() if launches[name] < lo]
+        bad += [f"{name} launched {launches[name]} times, expected 0"
+                for name in ("conv3x3", "gram_wbwd") if launches[name]]
+        return bad
+
+    return run_single_scale(dev, gen, cfg, "config3 512²", check)
+
+
+def pallas_route_launches(steps: int) -> dict:
+    """What the config3 route with conv_impl="pallas", gram_impl="pallas"
+    launches at 512², K = 4, precompute included. Per step: conv1_2 …
+    conv5_1 forward and their input gradients (24 conv3x3); the style taps
+    conv2_1 … conv5_1 on the Pallas Gram route (gram_fwd, gram_wbwd), and
+    conv1_1 on the fused bias+ReLU pair (the route is no longer "fused",
+    so a TPU's s2d Gram kernel takes it); one Laplacian matvec; four pool
+    backwards. Precompute: 9 convs of the content (to conv4_2) and 12 of
+    the style (to conv5_1), and the five style Grams on the fused route
+    (gram_fwd)."""
+    return {"conv3x3": 24 * steps + 9 + 12, "gram_fwd": 4 * steps + 5,
+            "gram_wbwd": 4 * steps, "gram_relu_fwd": steps,
+            "gram_relu_bwd": steps, "gram_bwd": 0, "lap_matvec": steps,
+            "pool_bwd": 4 * steps}
+
+
+def run_pallas_route(dev, gen) -> dict:
+    """The third main path: PRESETS["config3"] with conv_impl="pallas" and
+    gram_impl="pallas" at 512²; the counters must equal what the route
+    implies."""
+    import dpst_tpu_torch
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              conv_impl="pallas", gram_impl="pallas",
+                              iterations=ITERS,
+                              intermediate_interval=ITERS // 2)
+    need = pallas_route_launches(ITERS)
+
+    def check(launches):
+        return [f"{name} launched {launches[name]} times, the route implies "
+                f"{n}" for name, n in need.items() if launches[name] != n]
+
+    return run_single_scale(dev, gen, cfg, "config3 pallas route 512²",
+                            check)
 
 
 def kernel_group(name: str) -> str:
@@ -493,8 +700,10 @@ def kernel_group(name: str) -> str:
                        ("gram_relu_bwd", "gram_relu_bwd"),
                        ("gram_fwd", "gram_fwd"),
                        ("gram_reduce", "gram_fwd (+ gram_relu_fwd's reduce)"),
+                       ("gram_wbwd", "gram_wbwd"),
                        ("gram_bwd", "gram_bwd"), ("pool2_bwd", "pool_bwd"),
-                       ("lap_matvec", "lap_matvec")):
+                       ("lap_matvec", "lap_matvec"),
+                       ("conv3x3", "conv3x3")):
         if key in name:
             return group
     low = name.lower()
@@ -649,13 +858,15 @@ def run_multiscale(dev, gen) -> dict:
     # what the schedule implies: every step launches the Laplacian once
     # and the four pools once each; the style taps' Grams (5 per step, and
     # 5 per stage's precompute) take gram_fwd/gram_bwd, except conv1_1 in
-    # the loop of the 1024² stage, which takes the fused pair
+    # the loop of the 1024² stage, which takes the fused pair; the convs
+    # stay on cuDNN and no Gram takes the weighted-after backward
     steps = sum(MS_ITERS)
     fused = MS_ITERS[2]
     need = {"lap_matvec": steps, "pool_bwd": 4 * steps,
             "gram_fwd": 5 * len(stages) + 5 * steps - fused,
             "gram_bwd": 5 * steps - fused,
-            "gram_relu_fwd": fused, "gram_relu_bwd": fused}
+            "gram_relu_fwd": fused, "gram_relu_bwd": fused,
+            "conv3x3": 0, "gram_wbwd": 0}
     for name, n in need.items():
         if launches[name] != n:
             fail("multiscale", f"{name} launched {launches[name]} times, "
@@ -691,16 +902,18 @@ def run_multiscale(dev, gen) -> dict:
 def summarize(rows: list, launches: dict) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
     step of its main path launches (512² config3 for the first four
-    kernels, the 1024² stage of config4 for the fused Gram pair), in the
-    main path's dtype (bf16; fp32 for the Laplacian); max_abs_err over
-    those shapes. `launches` sums the counts of both main-path runs,
-    `launches_by_path` gives each."""
+    kernels, the 1024² stage of config4 for the fused Gram pair, the 512²
+    pallas route for conv3x3 and gram_wbwd), in the main path's dtype
+    (bf16; fp32 for the Laplacian); max_abs_err over those shapes.
+    `launches` sums the counts of all main-path runs, `launches_by_path`
+    gives each."""
     meta = {
         "lap_matvec": ("dpst_tpu_torch/csrc/lap_matvec.cu",
                        "dpst_tpu/ops/laplacian_pallas.py:111", None,
                        "float32"),
         "gram_fwd": ("dpst_tpu_torch/csrc/gram.cu",
-                     "dpst_tpu/ops/gram_stream.py:93", None, "bfloat16"),
+                     "dpst_tpu/ops/gram_stream.py:93",
+                     "dpst_tpu/ops/gram_pallas.py:41", "bfloat16"),
         "gram_bwd": ("dpst_tpu_torch/csrc/gram.cu",
                      "dpst_tpu/ops/gram_stream.py:110", None, "bfloat16"),
         "gram_relu_fwd": ("dpst_tpu_torch/csrc/gram.cu",
@@ -709,12 +922,18 @@ def summarize(rows: list, launches: dict) -> list:
         "gram_relu_bwd": ("dpst_tpu_torch/csrc/gram.cu",
                           "dpst_tpu/ops/gram_s2d.py:260",
                           "dpst_tpu/ops/gram_s2d.py:175", "bfloat16"),
+        "gram_wbwd": ("dpst_tpu_torch/csrc/gram.cu",
+                      "dpst_tpu/ops/gram_pallas.py:66",
+                      "dpst_tpu/ops/gram_stream.py:110", "bfloat16"),
         "pool_bwd": ("dpst_tpu_torch/csrc/pool_bwd.cu",
                      "dpst_tpu/ops/pool_pallas.py:40", None, "bfloat16"),
+        "conv3x3": ("dpst_tpu_torch/csrc/conv3x3.cu",
+                    "dpst_tpu/ops/conv_pallas.py:62", None, "bfloat16"),
     }
     out = []
     for name, (src, replaces, also, dtype) in meta.items():
-        sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype]
+        sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype
+               and r.get("in_step", True)]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel
                     if r["bound_by"] == "operations")
@@ -767,6 +986,8 @@ def main() -> int:
     rows += check_gram(dev, gen)
     rows += check_gram_relu(dev, gen)
     rows += check_pool(dev, gen)
+    rows += check_gram_wbwd(dev, gen)
+    rows += check_conv(dev, gen)
     check_edges(dev, gen)
 
     # generators of their own: the main paths' images do not depend on
@@ -784,6 +1005,14 @@ def main() -> int:
         "config4-shaped, fused route")
     if not ref["gram_relu_fwd"] == ref["gram_relu_bwd"] == 6:
         fail("reference", f"fused route not taken at every step: {ref}")
+    pl_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    launches["config3 pallas route 512²"] = run_pallas_route(dev, pl_gen)
+    ref = run_small_reference(pl_gen, dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=5, regularization_weight=100.0,
+        conv_impl="pallas", gram_impl="pallas"), "config3 pallas route")
+    # 64² is below the fused block-1 route: all five taps take gram_wbwd
+    if not (ref["conv3x3"] == 24 * 5 + 21 and ref["gram_wbwd"] == 25):
+        fail("reference", f"pallas route not taken at every step: {ref}")
 
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)})

@@ -62,17 +62,18 @@ def prepare_constants(content: torch.Tensor, style: torch.Tensor,
                       cfg: StylizeConfig, vgg_params: dict
                       ) -> optimize.StylizeConstants:
     """Everything the optimizer loop consumes, computed once: content
-    features, per-class masked style Grams, the content mask pyramid,
-    coverage weights and the packed matting-Laplacian stats. Tensors are
-    used on their own device."""
+    features, per-class masked style Grams (on the fused route whatever
+    `gram_impl` says, as the JAX package computes them), the content mask
+    pyramid, coverage weights and the packed matting-Laplacian stats.
+    Tensors are used on their own device."""
     content = content.to(torch.float32)
     style = style.to(torch.float32)
     content_feats = vgg.extract_features(
         vgg_params, content, cfg.content_layers, pooling=cfg.pooling,
-        compute_dtype=cfg.compute_dtype)
+        compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl)
     style_feats = vgg.extract_features(
         vgg_params, style, cfg.style_layers, pooling=cfg.pooling,
-        compute_dtype=cfg.compute_dtype)
+        compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl)
     smask_pyr = segmentation.layer_masks(
         style_masks, cfg.style_layers, cfg.mask_downsample)
     gram_norm = "m1" if cfg.style_norm == "paper" else "m2"

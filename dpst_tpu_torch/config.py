@@ -16,13 +16,22 @@ the masked-Gram kernels take the tap. `gram_impl`, `s2b_strips` and
 `strip_gram` take part in that decision as they do on the TPU. The
 precompute always takes the unfused route.
 
+`conv_impl="pallas"` runs every conv but conv1_1 (Cin ≥ 8) and its input
+gradient on the port's 3×3 conv kernel (`conv3x3`, `ops/conv_cuda.py`)
+in the loop and in the precompute; every other value runs cuDNN.
+`gram_impl` resolves per layer as on the TPU (`ops/losses.gram_route`):
+"pallas", "stream" and "hybrid", and "auto" past 2^29 elements of the
+weighted block, take the Gram backward that weights by m² after the
+product (`gram_wbwd`, `ops/gram_pallas.py`); the fused route keeps
+`gram_bwd`. The style image's Grams stay on the fused route.
+
 The other fields that select a TPU lowering of the same math are
 accepted and are no-ops here: `stream12`, `stream12_impl`,
-`stream12_remat`, `stream12_conv2`, `remat`, `conv_impl`, `pool_impl` and
-`laplacian_impl` other than "spmd". The port always runs cuDNN
-convolutions, the masked-Gram kernels, the tie-splitting max-pool
-backward kernel and the Laplacian matvec kernel on CUDA tensors, and
-their plain PyTorch versions on CPU tensors.
+`stream12_remat`, `stream12_conv2`, `remat`, `pool_impl` and
+`laplacian_impl` other than "spmd". The port always runs the masked-Gram
+kernels, the tie-splitting max-pool backward kernel and the Laplacian
+matvec kernel on CUDA tensors, and their plain PyTorch versions on CPU
+tensors.
 """
 from __future__ import annotations
 

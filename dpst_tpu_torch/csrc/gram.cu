@@ -1,5 +1,5 @@
 // Masked Gram matrices, forward and backward, for any channel count C and
-// any class count K, in two variants that share their tiles:
+// any class count K, in variants that share their tiles:
 //
 // gram_fwd / gram_bwd replace the TPU kernels
 // dpst_tpu/ops/gram_stream.py:_fwd_kernel (launched by _gram_fwd_call) and
@@ -26,6 +26,17 @@
 // forward is gram_fwd with a bias+ReLU prologue where F enters shared
 // memory; the backward forms (S_k . F) per class on the tiles, then scales
 // by m2_k and relu' in fp32 on the output tile.
+//
+// gram_wbwd replaces the TPU kernels dpst_tpu/ops/gram_pallas.py:_bwd_kernel
+// (launched by _bwd_call) and dpst_tpu/ops/gram_stream.py:_bwd_kernel,
+// which weight by m2_k after the product instead of before it:
+//   backward  dF = sum_k (S_k . F) * m2_k
+// with each class's product in fp32, scaled by m2_k in fp32, summed in
+// class order and rounded once. It is gram_relu_bwd's body with the
+// bias+ReLU prologue and the relu' epilogue switched off. The forward of
+// those routes (gram_pallas.py:_fwd_kernel, gram_stream.py:_fwd_kernel)
+// rounds F * m2_k to the compute dtype and accumulates in fp32: gram_fwd's
+// function, up to the transpose of each G_k, which the wrapper takes.
 //
 // What bounds them on the H100: operations at the deep layers (2*K*C*C*P
 // with C up to 512) and bytes at conv1_1 (C = 64, P = 262144 at 512^2 and
@@ -299,16 +310,19 @@ gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
   }
 }
 
-// Relu backward: block (p tile, c tile) computes
-// dz[c0.., p0..] = relu'(z + b) * sum_k m2_k[p] * (S_k . F)[c][p], with
-// F = relu(z + b) rounded to T. Each class's product is accumulated on the
-// tiles, then scaled by m2_k and summed in fp32 on the output tile, which
-// each thread holds PER values of.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gram_relu_bwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
-                     const T* __restrict__ m2, const T* __restrict__ s,
-                     T* __restrict__ out, int C, int P, int K) {
+// Class-weighted backward: block (p tile, c tile) computes
+// out[c0.., p0..] = sum_k m2_k[p] * (S_k . F)[c][p]. Each class's product
+// is accumulated on the tiles, then scaled by m2_k and summed in fp32 on
+// the output tile, which each thread holds PER values of. With RELU, F =
+// relu(z + b) rounded to T and the sum is multiplied by relu'(z + b)
+// (gram_relu_bwd); without, F is the tap itself (gram_wbwd).
+template <typename T, bool RELU>
+__device__ __forceinline__ void gram_cls_bwd_tile(const T* __restrict__ z,
+                                                  const T* __restrict__ bias,
+                                                  const T* __restrict__ m2,
+                                                  const T* __restrict__ s,
+                                                  T* __restrict__ out, int C,
+                                                  int P, int K) {
   constexpr int LDA = TileMma<T>::LDA, LDB = TileMma<T>::LDB;
   constexpr int PER = TM * TN / NT;
   __shared__ __align__(128) T as[TM * LDA];
@@ -337,7 +351,7 @@ gram_relu_bwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
         const int kk = e / TN, pp = e % TN, j = j0 + kk, p = p0 + pp;
         bs[kk * LDB + pp] =
             (j < C && p < P)
-                ? load_f<T, true>(z, bias, j, static_cast<size_t>(j) * P + p)
+                ? load_f<T, RELU>(z, bias, j, static_cast<size_t>(j) * P + p)
                 : zero;
       }
       __syncthreads();
@@ -362,11 +376,31 @@ gram_relu_bwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
     const int c = c0 + rr, p = p0 + pp;
     if (c < C && p < P) {
       const size_t idx = static_cast<size_t>(c) * P + p;
-      const float x = to_f(z[idx]) + to_f(bias[c]);
-      const float d = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
-      out[idx] = from_f<T>(acc[i] * d);
+      if constexpr (RELU) {
+        const float x = to_f(z[idx]) + to_f(bias[c]);
+        const float d = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+        out[idx] = from_f<T>(acc[i] * d);
+      } else {
+        out[idx] = from_f<T>(acc[i]);
+      }
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gram_relu_bwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
+                     const T* __restrict__ m2, const T* __restrict__ s,
+                     T* __restrict__ out, int C, int P, int K) {
+  gram_cls_bwd_tile<T, true>(z, bias, m2, s, out, C, P, K);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+gram_wbwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
+                 const T* __restrict__ s, T* __restrict__ out, int C, int P,
+                 int K) {
+  gram_cls_bwd_tile<T, false>(f, nullptr, m2, s, out, C, P, K);
 }
 
 template <typename T, bool RELU>
@@ -395,6 +429,15 @@ void launch_bwd(const void* f, const void* m2, const void* s, void* out,
                 int C, int P, int K, cudaStream_t st) {
   const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM);
   gram_bwd_kernel<T><<<grid, NT, 0, st>>>(
+      static_cast<const T*>(f), static_cast<const T*>(m2),
+      static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
+}
+
+template <typename T>
+void launch_wbwd(const void* f, const void* m2, const void* s, void* out,
+                 int C, int P, int K, cudaStream_t st) {
+  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM);
+  gram_wbwd_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const T*>(f), static_cast<const T*>(m2),
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
 }
@@ -478,6 +521,23 @@ extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
     launch_relu_bwd<float>(z, bias, m2, s, out, C, P, K, st);
   else if (dtype == DPST_DTYPE_BF16)
     launch_relu_bwd<__nv_bfloat16>(z, bias, m2, s, out, C, P, K, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f: (C, P) tap, m2: (K, P), s: (K, C, C) symmetrized cotangent, all in the
+// compute dtype; out: dF (C, P) = sum_k (S_k . F) * m2_k, each class's
+// product in fp32, weighted after the product.
+extern "C" int dpst_gram_wbwd(const void* f, const void* m2, const void* s,
+                              void* out, int C, int P, int K, int dtype,
+                              void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DPST_DTYPE_F32)
+    launch_wbwd<float>(f, m2, s, out, C, P, K, st);
+  else if (dtype == DPST_DTYPE_BF16)
+    launch_wbwd<__nv_bfloat16>(f, m2, s, out, C, P, K, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

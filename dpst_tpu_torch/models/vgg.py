@@ -1,8 +1,11 @@
-"""VGG-19 feature extractor (PyTorch, NCHW, cuDNN convolutions).
+"""VGG-19 feature extractor (PyTorch, NCHW).
 
 The port's counterpart of `dpst_tpu/models/vgg.py`: Caffe-style BGR +
 ImageNet-mean preprocessing, the 16 3×3 convs truncated at the deepest
-requested tap, post-ReLU taps in the compute dtype.
+requested tap, post-ReLU taps in the compute dtype. The convs run on
+cuDNN, or with `conv_impl="pallas"` (Cin ≥ 8, so every conv but conv1_1)
+on the port's own 3×3 conv kernel (`ops/conv_cuda.py`), whose input
+gradient is the same kernel on the flipped, transposed weights.
 
 Two gradient conventions of the JAX package differ from PyTorch's
 defaults, so both are autograd Functions here:
@@ -24,8 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.conv_cuda import conv3x3_same, flip_transpose_weights
 from ..ops.gram_s2d import RawTap
-from ..ops.losses import torch_dtype
+from ..ops.kernels import torch_dtype
 from ..ops.pool_cuda import maxpool2_bwd
 
 # VGG-19 convolutional topology: block -> (num convs, out channels).
@@ -144,6 +148,31 @@ class _MaxPool2(torch.autograd.Function):
         return maxpool2_bwd(x[0], y[0], g[0].contiguous())[None]
 
 
+class _Conv3x3(torch.autograd.Function):
+    """SAME 3×3 conv of a (1, Cin, H, W) batch on the port's kernel. The
+    VGG weights are constants of the optimization: the backward is the
+    input gradient only, the same kernel on the flipped, transposed
+    weights, and no gradient flows to the weights."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return conv3x3_same(x[0].contiguous(), w)[None]
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return conv3x3_same(g[0].contiguous(),
+                            flip_transpose_weights(w))[None], None
+
+
+def _use_pallas_conv(conv_impl: str, cin: int) -> bool:
+    """`dpst_tpu/models/vgg.py:_use_pallas_conv`: the conv kernel only for
+    `conv_impl="pallas"`, and only from 8 input channels (conv1_1's 3-deep
+    contraction stays on cuDNN)."""
+    return conv_impl == "pallas" and cin >= 8
+
+
 def _pool(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "max":
         return _MaxPool2.apply(x)
@@ -164,7 +193,7 @@ def set_exact_backends(compute_dtype) -> None:
 
 def extract_features(params: dict, image: torch.Tensor,
                      layers: tuple[str, ...], pooling: str = "max",
-                     compute_dtype="float32",
+                     compute_dtype="float32", conv_impl: str = "auto",
                      raw_taps: tuple[str, ...] = ()) -> dict:
     """Run VGG-19 up to the deepest layer in `layers`.
 
@@ -172,11 +201,12 @@ def extract_features(params: dict, image: torch.Tensor,
     image: (H, W, 3) float RGB in [0, 255].
     Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype
     (NCHW planes of the one image: a tap is the contiguous (C, P) operand
-    of the Gram kernels). A layer also in `raw_taps` is returned as a
-    `RawTap` of its raw conv output and its bias (the counterpart of the
-    JAX package's `S2dTap`), for the fused bias+ReLU Gram; the forward
-    still goes on through the ReLU, so the raw output gets the gradients
-    of both consumers.
+    of the Gram kernels). `conv_impl` picks the conv of every layer but
+    conv1_1 (see the module docstring). A layer also in `raw_taps` is
+    returned as a `RawTap` of its raw conv output and its bias (the
+    counterpart of the JAX package's `S2dTap`), for the fused bias+ReLU
+    Gram; the forward still goes on through the ReLU, so the raw output
+    gets the gradients of both consumers.
     """
     cdt = torch_dtype(compute_dtype)
     if image.device.type == "cuda":
@@ -189,7 +219,11 @@ def extract_features(params: dict, image: torch.Tensor,
             x = _pool(x, pooling)
             continue
         p = params[name]
-        z = F.conv2d(x, p["w"].to(cdt), padding=1)
+        w = p["w"].to(cdt)
+        if _use_pallas_conv(conv_impl, x.shape[1]):
+            z = _Conv3x3.apply(x, w)
+        else:
+            z = F.conv2d(x, w, padding=1)
         b = p["b"].to(cdt)
         x = _Relu.apply(z + b[:, None, None])
         if name in raw_taps:

@@ -1,0 +1,116 @@
+"""Masked Grams whose backward weights by m² after the product: the
+`gram_wbwd` CUDA kernel, its plain version and the autograd Function.
+
+The port's counterpart of `dpst_tpu/ops/gram_pallas.py` (`gram_impl=
+"pallas"`), and of the streamed Grams of `dpst_tpu/ops/gram_stream.py`
+(`"stream"`, `"hybrid"`, and `"auto"` past the fused size bound), whose
+backward kernels compute the same function:
+
+    forward   G_k[i, j] = Σ_p round(F_ip · m²_kp) · F_jp
+    backward  dF = Σ_k (S_k · F) ∘ m²_k,   S_k = round(dG_k + dG_kᵀ)
+
+F is a VGG tap as its (C, P) NCHW planes in the compute dtype. The forward
+is `gram_stream.gram_fwd`'s function with each G_k transposed (the TPU
+kernels put the weighted operand on the left; the fused route and
+`gram_fwd` on the right). The backward differs from `gram_stream.gram_bwd`
+in where m² enters: each class's product S_k · F is accumulated in fp32,
+then multiplied by m²_k in fp32 and summed over k in class order, and the
+sum is rounded once, where `gram_bwd` rounds F ∘ m²_k to the compute dtype
+before one product. Masks are constants of the optimization: no gradient
+flows to them.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .gram_stream import gram_fwd, normalize
+from .kernels import torch_dtype
+
+
+def class_sum_plain(f: torch.Tensor, m2: torch.Tensor,
+                    s: torch.Tensor) -> torch.Tensor:
+    """Σ_k (S_k · F) ∘ m²_k in fp32, each class's product in fp32, weighted
+    after the product and summed in class order: (C, P) × (K, P) × (K, C,
+    C) -> (C, P) fp32."""
+    f32 = f.float()
+    acc = torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+    for k in range(s.shape[0]):
+        acc = acc + torch.matmul(s[k].float(), f32) * m2[k].float()
+    return acc
+
+
+def gram_wbwd_plain(f: torch.Tensor, m2: torch.Tensor,
+                    s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch backward: dF (C, P) in f's dtype, from the symmetrized
+    cotangent s (K, C, C) in f's dtype."""
+    return class_sum_plain(f, m2, s).to(f.dtype)
+
+
+def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,
+              s: torch.Tensor) -> torch.Tensor:
+    """dF of the masked Grams, weighted after the product. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (csrc/gram.cu)."""
+    if f.dim() != 2 or m2.dim() != 2:
+        raise ValueError("gram_wbwd takes f (C, P), m2 (K, P), s (K, C, C)")
+    c, p = f.shape
+    k = m2.shape[0]
+    kernels.require(f, "f")
+    kernels.require(m2, "m2", (k, p), f.dtype)
+    kernels.require(s, "s", (k, c, c), f.dtype)
+    if not kernels.on_cuda(f, m2, s):
+        return gram_wbwd_plain(f, m2, s)
+    out = torch.empty_like(f)
+    rc = kernels.library().dpst_gram_wbwd(
+        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(out),
+        c, p, k, kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
+    kernels.check(rc, "gram_wbwd")
+    kernels.LAUNCHES["gram_wbwd"] += 1
+    return out
+
+
+class WeightedGrams(torch.autograd.Function):
+    """Unnormalized masked Grams G_k = F · (F ∘ m²_k)ᵀ (`gram_fwd`) with
+    the backward that weights after the product (`gram_wbwd`)."""
+
+    @staticmethod
+    def forward(ctx, f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(f, m2)
+        return gram_fwd(f, m2)
+
+    @staticmethod
+    def backward(ctx, d: torch.Tensor):
+        f, m2 = ctx.saved_tensors
+        d = d.float()
+        s = (d + d.transpose(1, 2)).to(f.dtype).contiguous()
+        return gram_wbwd(f, m2, s), None
+
+
+def weighted_grams(f: torch.Tensor, m2: torch.Tensor,
+                   weighted_left: bool = True) -> torch.Tensor:
+    """(C, P) features × (K, P) m² -> (K, C, C) fp32, unnormalized.
+    `weighted_left` puts the rounded F ∘ m²_k on the left of each product,
+    as the TPU's Pallas and streamed kernels do; False keeps `gram_fwd`'s
+    orientation, the fused forward's (`gram_impl="hybrid"`)."""
+    g = WeightedGrams.apply(f, m2)
+    return g.transpose(1, 2) if weighted_left else g
+
+
+def masked_grams_pallas(feat: torch.Tensor, masks: torch.Tensor,
+                        eps: float = 1e-8, compute_dtype="float32",
+                        norm: str = "m2",
+                        weighted_left: bool = True) -> torch.Tensor:
+    """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C),
+    normalized by max(Σ m², eps) ("m2") or max(Σ m, eps) ("m1"), operands in
+    `compute_dtype`, accumulation in fp32."""
+    c, k = feat.shape[0], masks.shape[0]
+    cdt = torch_dtype(compute_dtype)
+    f = feat.to(cdt).reshape(c, -1).contiguous()
+    m2 = (masks * masks).to(cdt).reshape(k, -1).contiguous()
+    return normalize(weighted_grams(f, m2, weighted_left), masks, norm, eps)
+
+
+def use_pallas(h: int, w: int, k: int, c: int, impl: str) -> bool:
+    """`dpst_tpu/ops/gram_pallas.py:use_pallas`: only an explicit
+    `gram_impl="pallas"` selects this route."""
+    return impl == "pallas"

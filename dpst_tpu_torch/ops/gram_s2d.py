@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from . import kernels
+from .gram_pallas import class_sum_plain
 from .gram_stream import gram_fwd_plain, launch_fwd, normalize
 
 
@@ -60,10 +61,7 @@ def gram_relu_bwd_plain(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
                         s: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch backward: dz (C, P) in z's dtype, from the symmetrized
     cotangent s (K, C, C) in z's dtype."""
-    f = _cook(z, b).float()
-    acc = torch.zeros(f.shape, dtype=torch.float32, device=z.device)
-    for k in range(s.shape[0]):
-        acc = acc + torch.matmul(s[k].float(), f) * m2[k].float()
+    acc = class_sum_plain(_cook(z, b), m2, s)
     return (acc * _relu_grad(z, b)).to(z.dtype)
 
 

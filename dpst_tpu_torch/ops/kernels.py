@@ -31,12 +31,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
-           "gram_relu_bwd", "pool_bwd")
+           "gram_relu_bwd", "gram_wbwd", "pool_bwd", "conv3x3")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _lib = None
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A config's compute dtype ("float32", "bfloat16" or a torch dtype)."""
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[str(name)]
 
 
 def reset_launches() -> None:
@@ -115,10 +123,13 @@ def library() -> ctypes.CDLL:
         lib.dpst_gram_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_gram_relu_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.dpst_gram_relu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.dpst_gram_wbwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dpst_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p]
         for fn in (lib.dpst_lap_matvec, lib.dpst_gram_fwd,
                    lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
-                   lib.dpst_gram_relu_bwd, lib.dpst_pool2_bwd):
+                   lib.dpst_gram_relu_bwd, lib.dpst_gram_wbwd,
+                   lib.dpst_pool2_bwd, lib.dpst_conv3x3):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p

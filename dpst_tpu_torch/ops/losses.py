@@ -2,25 +2,23 @@
 
 The port's counterpart of `dpst_tpu/ops/losses.py`. VGG taps arrive as
 NCHW planes (C, H, W) of one image, so a tap is already the contiguous
-(C, P) operand of the Gram kernels. Every masked Gram, the style image's
-included, goes through `gram_stream.masked_grams_raw` (the CUDA kernels on
-CUDA tensors), except the block-1 taps that the optimizer routes as raw
-taps to `gram_s2d.masked_grams_relu`. All loss accumulation is fp32.
+(C, P) operand of the Gram kernels. `gram_route` resolves `gram_impl` per
+layer as the JAX package does on a TPU: the fused route (and "dotg" and
+"scan") takes `gram_stream.masked_grams_raw`, whose backward weights by m²
+before the product (`gram_fwd`, `gram_bwd`); "pallas", "stream" and
+"hybrid" take `gram_pallas.masked_grams_pallas`, whose backward weights
+after it (`gram_fwd`, `gram_wbwd`). The style image's Grams always take
+the fused route; the block-1 taps that the optimizer routes as raw taps
+take `gram_s2d.masked_grams_relu`. All loss accumulation is fp32.
 """
 from __future__ import annotations
 
 import torch
 
+from .gram_pallas import masked_grams_pallas, use_pallas
 from .gram_s2d import RawTap, masked_grams_relu
 from .gram_stream import masked_grams_raw, normalize
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def torch_dtype(name) -> torch.dtype:
-    if isinstance(name, torch.dtype):
-        return name
-    return _DTYPES[str(name)]
+from .kernels import torch_dtype
 
 
 def content_loss(feat_out: torch.Tensor, feat_content: torch.Tensor
@@ -47,14 +45,49 @@ def masked_grams(feat: torch.Tensor, masks: torch.Tensor,
     return normalize(masked_grams_raw(f.contiguous(), m2), masks, norm, eps)
 
 
+# dpst_tpu/ops/losses.py:_FUSED_MAX_ELEMENTS: the largest (P, K·C) weighted
+# block the TPU's fused route forms; past it "auto" streams the Gram
+FUSED_MAX_ELEMENTS = 1 << 29
+
+
+def gram_route(h: int, w: int, k: int, c: int, gram_impl: str) -> str:
+    """The masked-Gram route of one layer shape, as `dpst_tpu/ops/losses.py:
+    gram_route` resolves it on a TPU: "stream" when asked, or for "auto"
+    past FUSED_MAX_ELEMENTS; "hybrid", "pallas" and "dotg" when asked; else
+    "fused" up to the bound and "scan" past it."""
+    size = h * w * k * c
+    if gram_impl == "stream" or (gram_impl == "auto"
+                                 and size > FUSED_MAX_ELEMENTS):
+        return "stream"
+    if gram_impl == "hybrid":
+        return "hybrid"
+    if use_pallas(h, w, k, c, gram_impl):
+        return "pallas"
+    if gram_impl == "dotg":
+        return "dotg"
+    return "fused" if size <= FUSED_MAX_ELEMENTS else "scan"
+
+
+def route_grams(route: str, feat: torch.Tensor, masks: torch.Tensor,
+                compute_dtype="float32", norm: str = "m2") -> torch.Tensor:
+    """The masked Grams of `feat` by the Gram route `route`."""
+    if route in ("pallas", "stream", "hybrid"):
+        return masked_grams_pallas(feat, masks, compute_dtype=compute_dtype,
+                                   norm=norm,
+                                   weighted_left=route != "hybrid")
+    return masked_grams(feat, masks, compute_dtype=compute_dtype, norm=norm)
+
+
 def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
                      out_masks: torch.Tensor, coverage: torch.Tensor,
                      compute_dtype="float32",
-                     style_norm: str = "gatys") -> torch.Tensor:
+                     style_norm: str = "gatys",
+                     gram_impl: str = "auto") -> torch.Tensor:
     """Masked Gram style loss of one VGG layer, summed over classes.
 
-    `feat_out` is a (C, H, W) tap, or a `RawTap` of the raw conv output and
-    its bias, whose Grams of relu(z + b) take the fused bias+ReLU kernels
+    `feat_out` is a (C, H, W) tap, whose Grams take `gram_route`'s route
+    for `gram_impl`, or a `RawTap` of the raw conv output and its bias,
+    whose Grams of relu(z + b) take the fused bias+ReLU kernels
     (`ops/gram_s2d.py`).
 
     "gatys": Σ_k coverage_k / (4C²) · ‖G_out,k − G_style,k‖² with
@@ -69,8 +102,9 @@ def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
     if isinstance(feat_out, RawTap):
         g_o = masked_grams_relu(feat_out.z, feat_out.b, out_masks, norm=norm)
     else:
-        g_o = masked_grams(feat_out, out_masks, compute_dtype=compute_dtype,
-                           norm=norm)
+        route = gram_route(*feat_out.shape[1:], out_masks.shape[0], c,
+                           gram_impl)
+        g_o = route_grams(route, feat_out, out_masks, compute_dtype, norm)
     d = g_o - style_grams
     per_class = torch.sum(d * d, dim=(1, 2))
     return scale * torch.sum(class_w * per_class)
@@ -79,13 +113,14 @@ def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
 def style_loss(feats_out: dict, style_grams: dict, out_masks: dict,
                coverage: torch.Tensor, layer_weights: dict,
                compute_dtype="float32",
-               style_norm: str = "gatys") -> torch.Tensor:
+               style_norm: str = "gatys",
+               gram_impl: str = "auto") -> torch.Tensor:
     """Sum of per-layer masked style losses, weighted per layer."""
     total = torch.zeros((), dtype=torch.float32, device=coverage.device)
     for layer, w in layer_weights.items():
         total = total + w * style_layer_loss(
             feats_out[layer], style_grams[layer], out_masks[layer],
-            coverage, compute_dtype, style_norm)
+            coverage, compute_dtype, style_norm, gram_impl)
     return total
 
 

@@ -51,16 +51,7 @@ class StylizeConstants(NamedTuple):
 # takes its fused bias+ReLU Gram kernels (ops/gram_s2d.py); everywhere else
 # (the TPU's nd consumption, or its direct convs) the unfused route, ReLU
 # then the masked Gram kernels.
-_FUSED_MAX_ELEMENTS = 1 << 29   # dpst_tpu/ops/losses.py:_FUSED_MAX_ELEMENTS
 _S2B_HALO = 8                   # dpst_tpu/models/vgg.py:_S2B_HALO
-
-
-def _gram_route_fused(h: int, w: int, k: int, c: int, gram_impl: str) -> bool:
-    """Would a TPU route this layer's masked Gram to the fused XLA dot
-    (dpst_tpu/ops/losses.py:gram_route)?"""
-    if gram_impl in ("stream", "hybrid", "pallas", "dotg"):
-        return False
-    return h * w * k * c <= _FUSED_MAX_ELEMENTS
 
 
 def _resolve_block1(block1_impl: str, h: int, w: int) -> bool:
@@ -96,7 +87,7 @@ def _s2d_gram_kernel(cfg: StylizeConfig, h: int, w: int, k: int) -> bool:
         if h * w >= 2 ** 19:
             return True
         c = vgg.VGG19_BLOCKS[0][1]
-        return not _gram_route_fused(h, w, k, c, cfg.gram_impl)
+        return losses.gram_route(h, w, k, c, cfg.gram_impl) != "fused"
     return False
 
 
@@ -117,7 +108,7 @@ def _block1_s2d_ok(cfg: StylizeConfig, image_shape, all_layers,
             return False
         k, hl, wl = mask_shapes[l]
         c = vgg.VGG19_BLOCKS[0][1]
-        if (not _gram_route_fused(hl, wl, k, c, cfg.gram_impl)
+        if (losses.gram_route(hl, wl, k, c, cfg.gram_impl) != "fused"
                 and not _s2d_gram_kernel(cfg, h, w, k)):
             return False
     return True
@@ -154,7 +145,7 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
                 weights: LossWeights, vgg_params: dict):
         feats = vgg.extract_features(
             vgg_params, image, all_layers, pooling=cfg.pooling,
-            compute_dtype=cfg.compute_dtype,
+            compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl,
             raw_taps=fused_block1_taps(cfg, image.shape, consts.masks))
         zero = torch.zeros((), dtype=torch.float32, device=image.device)
         l_content = zero
@@ -164,7 +155,7 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
         l_style = losses.style_loss(
             feats, consts.style_grams, consts.masks, consts.coverage,
             style_lw, compute_dtype=cfg.compute_dtype,
-            style_norm=cfg.style_norm)
+            style_norm=cfg.style_norm, gram_impl=cfg.gram_impl)
         l_reg = (lap.photoreal_loss(consts.lap_stats, image)
                  if consts.lap_stats is not None else zero)
         l_tv = losses.tv_loss(image) if cfg.tv_weight else zero

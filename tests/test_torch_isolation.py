@@ -94,6 +94,6 @@ def test_kernel_wrappers_never_fall_back():
 
 def test_build_hash_covers_sources():
     srcs = {p.name for p in kernels._sources()}
-    assert srcs == {"gram.cu", "lap_matvec.cu", "pool_bwd.cu"}
+    assert srcs == {"conv3x3.cu", "gram.cu", "lap_matvec.cu", "pool_bwd.cu"}
     assert len(kernels._digest()) == 16
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
