@@ -45,8 +45,20 @@ no result):
                  and read just after and held to what the route implies;
                  losses, output, a bit-identical rerun, a profile of ten
                  steps, and a 64² fp32 run of the route, card against CPU;
-  7. the {"kernels": [...]} summary and the nvidia-smi line;
-  8. the last line: {"ok": true, "device": {...}}.
+  7. stream12 -- the fourth main path: `stylize` with PRESETS["config3"]
+                 and stream12_impl="pallas" at 4096² (config6 of bench.py:
+                 blocks 1-2 streamed in bands through the four block12
+                 entry points, whose kernels phase checks them at 256 x
+                 4096, K = 4, at edge shapes and with tied maxima, and
+                 times them at 4096²), 10 Adam steps, four band masks;
+                 counters held to what the route implies; precompute
+                 seconds, loop it/s and the loop's peak memory; a profile;
+                 the standard path (stream12=0) at 4096² for 3 steps with
+                 its device time and loop peak, which must be above the
+                 route's; a bit-identical rerun at 1024² (stream12=8); a
+                 256² fp32 run of the route, card against CPU;
+  8. the {"kernels": [...]} summary and the nvidia-smi line;
+  9. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -87,6 +99,20 @@ RELU_SHAPE = (64, MS_SIZE * MS_SIZE)           # (C, P) of conv1_1 at 1024²
 # t, b = Λt, α, β) 97, pass 2 (box sums of α and β, the products) 40
 LAP_OPS_PER_PIXEL = 3 * 137
 POOL_OPS_PER_WINDOW = 13
+B12_SIZE = 4096                                # config6 (bench.py): 4096²
+B12_ITERS = 10                                 # Adam steps of the route
+B12_STD_ITERS = 3                              # the standard path beside it
+# (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
+# shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
+# bands), avg pooling, one band with tied maxima, and five classes; the
+# 4096² step shape is checked where it is timed
+B12_CASES = ((256, 4096, 4, "bfloat16", "max", False),
+             (512, 4096, 4, "bfloat16", "max", False),
+             (256, 4096, 4, "float32", "max", False),
+             (256, 4096, 4, "float32", "avg", False),
+             (32, 256, 1, "bfloat16", "max", True),
+             (32, 256, 1, "float32", "max", True),
+             (64, 256, 5, "bfloat16", "max", False))
 
 
 def emit(obj) -> None:
@@ -535,6 +561,290 @@ def check_edges(dev, gen) -> None:
         fail("kernel_edges", "beyond tolerance: " + ", ".join(bad))
 
 
+def b12_forward_input(h: int, w: int, k: int, dev, gen, ties: bool = False):
+    """A preprocessed-range image (3, H, W) fp32 (constant on 8 × 8 patches
+    with `ties`, so that pooled windows hold tied maxima), m1² (K, H, W)
+    and m2² (K, H/2, W/2) of soft masks."""
+    if ties:
+        x = (torch.rand((3, h // 8, w // 8), generator=gen, device=dev)
+             * 250 - 120).repeat_interleave(8, 1).repeat_interleave(8, 2)
+    else:
+        x = torch.rand((3, h, w), generator=gen, device=dev) * 250 - 120
+    m1 = torch.rand((k, h, w), generator=gen, device=dev) ** 2
+    m2 = torch.rand((k, h // 2, w // 2), generator=gen, device=dev) ** 2
+    return x.contiguous(), m1, m2
+
+
+def b12_shallow_input(h: int, w: int, k: int, wts: tuple, dtype, dev, gen):
+    """Inputs of the shallow backward on which both versions recompute
+    conv1_2 exactly: a11 of small integers (0…3, many zeros), conv1_2's
+    weights in {−1, 0, 1} and integer biases, so every fp32 sum is exact
+    and tied maxima tie on both sides; a dp1 cotangent and s1."""
+    a11 = torch.randint(0, 4, (64, h, w), generator=gen, device=dev)
+    w12 = torch.randint(-1, 2, (64, 64, 3, 3), generator=gen, device=dev)
+    b12 = torch.randint(-8, 9, (64,), generator=gen, device=dev)
+    wts = (wts[0], wts[1], w12.to(dtype), b12.float()) + wts[4:]
+    dp1 = torch.randn((64, h // 2, w // 2), generator=gen,
+                      device=dev).to(dtype)
+    dg1 = torch.randn((k, 64, 64), generator=gen, device=dev)
+    return a11.to(dtype), dp1, wts, dg1
+
+
+def b12_work(h: int, w: int, k: int, isz: int) -> dict:
+    """(bytes, operations) each block12 entry point must move and do at an
+    H × W image with K classes: inputs read once, outputs written once;
+    the convs at their real channel counts over the image (no halo), the
+    Grams and Gram cotangents, no recompute beyond what the function is."""
+    p, p2 = h * w, h * w // 4
+    conv = lambda cin, cout, n: 2.0 * 9 * cin * cout * n
+    fwd_ops = (conv(3, 64, p) + conv(64, 64, p) + conv(64, 128, p2)
+               + conv(128, 128, p2) + 2.0 * k * (64 * 64 * p
+                                                 + 128 * 128 * p2))
+    fwd_bytes = (3 * p * 4 + k * (p + p2) * 4 + k * (64 * 64 + 128 * 128) * 4
+                 + 128 * p // 16 * isz)
+    res_bytes = (64 * p + 2 * 128 * p2) * isz
+    deep_ops = conv(128, 128, p2) + conv(64, 128, p2) + 2.0 * k * 128 * 128 * p2
+    deep_bytes = ((2 * 128 * p2 + 128 * p // 16 + 64 * p2) * isz
+                  + k * p2 * 4 + k * 128 * 128 * isz)
+    shallow_ops = (2 * conv(64, 64, p) + conv(3, 64, p)
+                   + 2.0 * k * 64 * 64 * p)
+    shallow_bytes = ((64 * p + 64 * p2) * isz + k * p * 4 + 3 * p * 4
+                     + k * 64 * 64 * isz)
+    return {"block12_fwd": (fwd_bytes, fwd_ops),
+            "block12_fwd_res": (fwd_bytes + res_bytes, fwd_ops),
+            "block12_bwd_deep": (deep_bytes, deep_ops),
+            "block12_bwd_shallow": (shallow_bytes, shallow_ops)}
+
+
+def b12_cudnn(h: int, w: int, params: dict, dtype) -> dict:
+    """Labelled yardsticks that do less work than each entry point: cuDNN
+    on the same convs at the same shapes (no bias, ReLU, pools, masks or
+    Grams). Forward: conv1_1 … conv2_2; deep backward: the input gradients
+    of conv2_2 and conv2_1; shallow backward: the conv1_2 forward and the
+    input gradients of conv1_2 and conv1_1."""
+    dev = params["conv1_1"]["w"].device
+    wt = {n: params[n]["w"].to(dtype) for n in ("conv1_1", "conv1_2",
+                                                 "conv2_1", "conv2_2")}
+    x0 = torch.zeros((1, 3, h, w), dtype=dtype, device=dev)
+    x1 = torch.zeros((1, 64, h, w), dtype=dtype, device=dev)
+    x2 = torch.zeros((1, 64, h // 2, w // 2), dtype=dtype, device=dev)
+    x3 = torch.zeros((1, 128, h // 2, w // 2), dtype=dtype, device=dev)
+    grad_in = torch.nn.grad.conv2d_input
+
+    def fwd():
+        F.conv2d(x0, wt["conv1_1"], padding=1)
+        F.conv2d(x1, wt["conv1_2"], padding=1)
+        F.conv2d(x2, wt["conv2_1"], padding=1)
+        F.conv2d(x3, wt["conv2_2"], padding=1)
+
+    def deep():
+        grad_in(x3.shape, wt["conv2_2"], x3, padding=1)
+        grad_in(x2.shape, wt["conv2_1"], x3, padding=1)
+
+    def shallow():
+        F.conv2d(x1, wt["conv1_2"], padding=1)
+        grad_in(x1.shape, wt["conv1_2"], x1, padding=1)
+        grad_in(x0.shape, wt["conv1_1"], x1, padding=1)
+
+    ms = {name: cuda_ms(fn, warmup=2, iters=5) for name, fn in (
+        ("fwd", fwd), ("deep", deep), ("shallow", shallow))}
+    return {"block12_fwd": ms["fwd"], "block12_fwd_res": ms["fwd"],
+            "block12_bwd_deep": ms["deep"],
+            "block12_bwd_shallow": ms["shallow"]}
+
+
+B12_YARDSTICK = {
+    "block12_fwd": "yardstick: cuDNN conv1_1…conv2_2 forward, less work",
+    "block12_fwd_res": "yardstick: cuDNN conv1_1…conv2_2 forward, less work",
+    "block12_bwd_deep": "yardstick: cuDNN input gradients of conv2_2 and "
+                        "conv2_1, less work",
+    "block12_bwd_shallow": "yardstick: cuDNN conv1_2 forward and input "
+                           "gradients of conv1_2 and conv1_1, less work"}
+
+
+B12_OUTS = {"block12_fwd": ("g1", "g2", "p2"),
+            "block12_fwd_res": ("g1", "g2", "p2", "a11", "a21", "a22"),
+            "block12_bwd_deep": ("dp1",), "block12_bwd_shallow": ("dx",)}
+
+
+def b12_compare(name: str, got, ref, dtype: str, case: str,
+                real_a11: bool = False) -> dict:
+    """{"<entry point> <output> <case>": (err, tol, max_abs_err)} of one
+    entry point's outputs against its plain version's. err is max|got −
+    ref| / max|ref| with the tolerances: Gram sums 1e-3 (fp32 sums of up
+    to 131072 products in two orders, as gram_fwd); activations, pool2 and
+    dp1 1e-5 in fp32 and two bf16 ulps at max|ref| in bf16 (a rounding on
+    the other side, which can move the next layer's rounding once more);
+    dx 1e-5 in fp32, 1e-2 in bf16 (dz12 and dz11 are rounded to bf16 on
+    the way). With `real_a11` (dx from the forward's a11, the deep
+    backward's dp1 and the real conv1_2 weights) err is ‖got − ref‖₂ /
+    ‖ref‖₂ instead, within 2e-3: both versions recompute conv1_2 in fp32 in
+    their own orders, and where a value sits within that rounding of 0
+    (relu′) or of its window's max, they send a dp1 value (up to ~1e4
+    here) to different pixels."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    fp32 = dtype == "float32"
+    out = {}
+    for what, g, r in zip(B12_OUTS[name], got, ref):
+        err, rel = rel_err(g, r)
+        if what[0] == "g":
+            tol = 1e-3
+        elif what == "dx" and real_a11:
+            what += " (forward's a11, real weights, rel L2)"
+            rel = float(torch.linalg.vector_norm(g.float() - r.float())
+                        / torch.linalg.vector_norm(r.float()))
+            tol = 2e-3
+        elif what == "dx":
+            tol = 1e-5 if fp32 else 1e-2
+        else:
+            tol = 1e-5 if fp32 else 2 * out_tol(r, dtype)
+        out[f"{name} {what} {case}"] = (rel, tol, err)
+    return out
+
+
+def check_block12_case(h, w, k, dtype, pooling, ties, dev, gen, params):
+    """The four block12 entry points against their plain versions at one
+    shape, the shallow backward twice: on inputs where both versions
+    recompute conv1_2 exactly, and on the forward's a11 with the real
+    weights. Returns `b12_compare`'s entries."""
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    cdt = getattr(torch, dtype)
+    kw = dict(pooling=pooling, compute_dtype=dtype)
+    case = f"{h}x{w} K={k} {dtype} {pooling}" + (" ties" if ties else "")
+    wts = b12.pack_weights(params, dtype)
+    x, m1, m2 = b12_forward_input(h, w, k, dev, gen, ties)
+    got = b12.block12_fwd_res(x, m1, m2, wts, **kw)
+    ref = b12.block12_fwd_plain(x, m1, m2, wts, pooling, dtype, True)
+    out = b12_compare("block12_fwd_res", got, ref, dtype, case)
+    out.update(b12_compare("block12_fwd", b12.block12_fwd(x, m1, m2, wts, **kw),
+                           ref[:3], dtype, case))
+    _, _, _, a11, a21, a22 = got
+    dg2 = torch.randn((k, 128, 128), generator=gen, device=dev)
+    dp2 = torch.randn((128, h // 4, w // 4), generator=gen,
+                      device=dev).to(cdt)
+    s2 = b12.symmetrize(dg2, dtype)
+    dp1 = b12.block12_bwd_deep(a21, a22, dp2, m2, s2, wts, **kw)
+    out.update(b12_compare(
+        "block12_bwd_deep", dp1,
+        b12.block12_bwd_deep_plain(a21, a22, dp2, m2, s2, wts, pooling, dtype),
+        dtype, case))
+    a11s, dp1s, wts_s, dg1 = b12_shallow_input(h, w, k, wts, cdt, dev, gen)
+    s1 = b12.symmetrize(dg1, dtype)
+    out.update(b12_compare(
+        "block12_bwd_shallow",
+        b12.block12_bwd_shallow(a11s, dp1s, m1, s1, wts_s, **kw),
+        b12.block12_bwd_shallow_plain(a11s, dp1s, m1, s1, wts_s, pooling,
+                                      dtype), dtype, case))
+    out.update(b12_compare(
+        "block12_bwd_shallow",
+        b12.block12_bwd_shallow(a11, dp1, m1, s1, wts, **kw),
+        b12.block12_bwd_shallow_plain(a11, dp1, m1, s1, wts, pooling, dtype),
+        dtype, case, real_a11=True))
+    torch.cuda.synchronize()
+    return out
+
+
+def timed_once(fn):
+    """(fn(), the device ms of that one call), by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_block12(dev, gen):
+    """The block12 entry points against their plain versions at B12_CASES
+    (one of which spans more than one group of bands), then at the 4096²
+    step shape of config6 (K = 4, bf16, max pooling): each output against
+    the plain version's, and each entry point's kernel time, plain time,
+    bound and cuDNN yardstick."""
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    if not any(h // b12.TB > b12.group_bands(h, w) for h, w, *_ in B12_CASES):
+        fail("kernels", "no block12 case spans two groups of bands")
+    params = vgg.init_params(SEED, device=dev)
+    errs = {}
+    for h, w, k, dtype, pooling, ties in B12_CASES:
+        errs.update(check_block12_case(h, w, k, dtype, pooling, ties, dev,
+                                       gen, params))
+        torch.cuda.empty_cache()
+
+    # the step shape: outputs held to the plain versions' (timed once),
+    # then the kernels timed
+    h = w = B12_SIZE
+    k, dtype, pooling = K, "bfloat16", "max"
+    case = f"{h}x{w} K={k} {dtype} {pooling}"
+    cdt = torch.bfloat16
+    kw = dict(pooling=pooling, compute_dtype=dtype)
+    wts = b12.pack_weights(params, dtype)
+    x, m1, m2 = b12_forward_input(h, w, k, dev, gen)
+    dp2 = torch.randn((128, h // 4, w // 4), generator=gen,
+                      device=dev).to(cdt)
+    s1 = b12.symmetrize(torch.randn((k, 64, 64), generator=gen, device=dev),
+                        dtype)
+    s2 = b12.symmetrize(torch.randn((k, 128, 128), generator=gen,
+                                    device=dev), dtype)
+    res = {}
+    calls = {
+        "block12_fwd": (lambda: b12.block12_fwd(x, m1, m2, wts, **kw),
+                        lambda: b12.block12_fwd_plain(
+                            x, m1, m2, wts, pooling, dtype, False)),
+        "block12_fwd_res": (lambda: b12.block12_fwd_res(x, m1, m2, wts, **kw),
+                            lambda: b12.block12_fwd_plain(
+                                x, m1, m2, wts, pooling, dtype, True)),
+        "block12_bwd_deep": (lambda: b12.block12_bwd_deep(
+            *res["a21_a22"], dp2, m2, s2, wts, **kw),
+            lambda: b12.block12_bwd_deep_plain(
+                *res["a21_a22"], dp2, m2, s2, wts, pooling, dtype)),
+        "block12_bwd_shallow": (lambda: b12.block12_bwd_shallow(
+            res["a11"], res["dp1"], m1, s1, wts, **kw),
+            lambda: b12.block12_bwd_shallow_plain(
+                res["a11"], res["dp1"], m1, s1, wts, pooling, dtype)),
+    }
+    plain_ms = {}
+    for name, (kernel, plain) in calls.items():
+        ref, plain_ms[name] = timed_once(plain)
+        got = kernel()
+        errs.update(b12_compare(name, got, ref, dtype, case,
+                                real_a11=name == "block12_bwd_shallow"))
+        if name == "block12_fwd_res":
+            res["a11"], res["a21_a22"] = got[3], got[4:]
+        elif name == "block12_bwd_deep":
+            res["dp1"] = got
+        del ref
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_block12", "rel_err_tol_abs_err": errs})
+    bad = [name for name, (e, tol, _) in errs.items() if not e <= tol]
+    if bad:
+        fail("kernels", "block12 beyond tolerance: " + ", ".join(bad))
+
+    work = b12_work(h, w, k, 2)
+    library = b12_cudnn(h, w, params, cdt)
+    rows = []
+    for name, (kernel, plain) in calls.items():
+        nbytes, ops = work[name]
+        bnd, by = bound_ms(nbytes, ops, dtype)
+        case_errs = [v for n, v in errs.items()
+                     if n.startswith(name + " ") and "bfloat16" in n]
+        row = {"phase": "kernel", "name": name, "shape": [h, w], "K": k,
+               "dtype": dtype, "pooling": pooling,
+               "max_abs_err": max(v[2] for v in case_errs),
+               "ms": cuda_ms(kernel, warmup=1, iters=3),
+               "plain_ms": plain_ms[name],
+               "bound_ms": bnd, "bound_by": by, "gflop": ops / 1e9,
+               "gbytes": nbytes / 1e9, "library_ms": library[name],
+               "library_call": B12_YARDSTICK[name]}
+        emit(row)
+        rows.append(row)
+    del x, m1, m2, dp2, res
+    torch.cuda.empty_cache()
+    return rows
+
+
 def band_masks(axis: int, size: int = SIZE) -> np.ndarray:
     m = np.zeros((K, size, size), np.float32)
     band = size // K
@@ -555,6 +865,18 @@ def smooth_image(gen, dev, size: int) -> np.ndarray:
     img = img + 0.05 * torch.randn((size, size, 3), generator=gen,
                                    device=dev)
     return (img.clamp(0, 1) * 255).contiguous().cpu().numpy()
+
+
+def textured_image(gen, dev, size: int) -> np.ndarray:
+    """A seeded style photo with texture: `smooth_image` plus per-pixel
+    noise of 40 grey levels. At 4096² two smooth images of random colour
+    fields have nearly the same masked Gram statistics, and the
+    photorealism term (λ = 1e4 on a sum over 16.7 M pixels) then
+    outweighs the style term after Adam's first step; a textured style
+    gives the style term its weight, as a real style photo does."""
+    img = torch.from_numpy(smooth_image(gen, dev, size)).to(dev)
+    img = img + 40.0 * torch.randn(img.shape, generator=gen, device=dev)
+    return img.clamp(0, 255).contiguous().cpu().numpy()
 
 
 def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
@@ -635,7 +957,7 @@ def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
           "bit_identical": identical})
     if not identical:
         fail("rerun", f"{label}: history of the rerun differs")
-    profile_loop(run, cfg, 1e3 / loop_its, label)
+    emit_profile(label, 5, 10, run, cfg, 1e3 / loop_its)
     return launches
 
 
@@ -695,8 +1017,17 @@ def run_pallas_route(dev, gen) -> dict:
 
 
 def kernel_group(name: str) -> str:
-    """Which part of a main-path step a device kernel belongs to."""
-    for key, group in (("gram_relu_fwd", "gram_relu_fwd"),
+    """Which part of a main-path step a device kernel belongs to. The
+    block12 entry points share their kernels: their groups are by stage."""
+    for key, group in (("block12_gram_df", "block12_* Gram cotangent"),
+                       ("block12_gram", "block12_* Gram partials"),
+                       ("block12_pool_bwd", "block12_* pool backward"),
+                       ("block12_pool", "block12_* pool forward"),
+                       ("block12_gather", "block12_* band copies"),
+                       ("block12_scatter", "block12_* band copies"),
+                       ("EpiBiasRelu", "block12_* convs (bias+ReLU)"),
+                       ("EpiF32", "block12_* convs (input gradient)"),
+                       ("gram_relu_fwd", "gram_relu_fwd"),
                        ("gram_relu_bwd", "gram_relu_bwd"),
                        ("gram_fwd", "gram_fwd"),
                        ("gram_reduce", "gram_fwd (+ gram_relu_fwd's reduce)"),
@@ -715,26 +1046,31 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile_loop(run, cfg, step_ms: float, label: str, warm: int = 5,
-                 steps: int = 10) -> None:
-    """Device time per step of the one-stage run `run(cfg)` by kernel
-    group, from torch.profiler over `steps` Adam steps after `warm` steps,
-    and the device's busy share against the unprofiled step time
-    `step_ms`."""
+def profile_loop(run, cfg, first: int, steps: int):
+    """Run `run(cfg, callback)` for first + steps Adam steps and profile
+    steps first+1 … first+steps by kernel group with torch.profiler; the
+    peak memory is reset at step `first`. Returns (device ms per step by
+    group, busy ms per step, step ms with the profiler on, peak GB of the
+    profiled steps, the run's history)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
 
     def callback(step, image, hist):
         torch.cuda.synchronize()
-        if step == warm:
+        marks[step] = time.perf_counter()
+        if step == first:
+            torch.cuda.reset_peak_memory_stats()
             prof.start()
-        elif step == warm + steps:
+        elif step == first + steps:
             prof.stop()
 
-    run(dataclasses.replace(cfg, iterations=warm + steps,
-                            intermediate_interval=warm), callback)
+    _, hist = run(dataclasses.replace(
+        cfg, iterations=first + steps,
+        intermediate_interval=math.gcd(first, steps)), callback)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     groups: dict[str, float] = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -744,21 +1080,28 @@ def profile_loop(run, cfg, step_ms: float, label: str, warm: int = 5,
         fail("profile", "torch.profiler recorded no device time")
     per_step = {g: t / steps for g, t in sorted(groups.items(),
                                                 key=lambda kv: -kv[1])}
-    busy = sum(per_step.values())
+    step_ms = (marks[first + steps] - marks[first]) * 1e3 / steps
+    return per_step, sum(per_step.values()), step_ms, peak, hist
+
+
+def emit_profile(label: str, first: int, steps: int, run, cfg,
+                 step_ms: float) -> None:
+    """`profile_loop`'s groups and the device's busy share against the
+    unprofiled step time `step_ms`."""
+    per_step, busy, _, _, _ = profile_loop(run, cfg, first, steps)
     emit({"phase": "profile", "path": label, "steps": steps,
-          "device_ms_per_step": per_step,
-          "device_busy_ms_per_step": busy, "step_ms_unprofiled": step_ms,
-          "device_busy_share": busy / step_ms})
+          "device_ms_per_step": per_step, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms})
 
 
-def run_small_reference(gen, cfg, label: str) -> dict:
-    """A 64² fp32 run of `cfg` on the card against the same run on the CPU,
-    where every kernel wrapper takes its plain version. Returns the launch
-    counts of the card's run."""
+def run_small_reference(gen, cfg, label: str, size: int = 64,
+                        k: int = 3) -> dict:
+    """A small fp32 run of `cfg` (64² unless `size`) on the card against the
+    same run on the CPU, where every kernel wrapper takes its plain
+    version. Returns the launch counts of the card's run."""
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
-    size, k = 64, 3
     content = smooth_image(gen, gen.device, size)
     style = smooth_image(gen, gen.device, size)
     cm = np.zeros((k, size, size), np.float32)
@@ -885,7 +1228,7 @@ def run_multiscale(dev, gen) -> dict:
 
     # the 1024² stage alone: config4 at its native size, one stage
     stage3 = dataclasses.replace(cfg, scales=(), scale_iters=())
-    profile_loop(run, stage3, 1e3 / loop_its[2], "config4 1024² stage")
+    emit_profile("config4 1024² stage", 5, 10, run, stage3, 1e3 / loop_its[2])
 
     # a short config4 run twice: the rows must be bit-identical
     short = dataclasses.replace(cfg, scale_iters=(3, 3, 3))
@@ -899,12 +1242,166 @@ def run_multiscale(dev, gen) -> dict:
     return launches
 
 
+def stream12_launches(steps: int) -> dict:
+    """What config6 launches at 4096², K = 4, precompute included. Per
+    step: the three block12 entry points once each (blocks 1-2 with the
+    conv1_1 and conv2_1 Grams); the tail's style taps conv3_1 (2^30
+    elements of the weighted block, past 2^29: "stream", so gram_fwd +
+    gram_wbwd), conv4_1 and conv5_1 (fused: gram_fwd + gram_bwd); pool3
+    and pool4 backward; one Laplacian matvec. Precompute: the five style
+    Grams (gram_fwd). Nothing else."""
+    return {"block12_fwd_res": steps, "block12_bwd_deep": steps,
+            "block12_bwd_shallow": steps, "block12_fwd": 0,
+            "gram_fwd": 5 + 3 * steps, "gram_wbwd": steps,
+            "gram_bwd": 2 * steps, "pool_bwd": 2 * steps,
+            "lap_matvec": steps, "gram_relu_fwd": 0, "gram_relu_bwd": 0,
+            "conv3x3": 0}
+
+
+def run_stream12(dev, gen) -> dict:
+    """The fourth main path: config6 (bench.py), PRESETS["config3"] with
+    stream12_impl="pallas" at 4096² (stream12=-1: 32 strips by the TPU's
+    rule; blocks 1-2 on the block12 kernels), K = 4 band masks, bf16, a
+    smooth content image and a textured style image, B12_ITERS Adam steps;
+    counters reset just before and read just after, held to what the route
+    implies; the loop's peak memory (reset after the first step). Then its
+    profile, the standard path (stream12=0) at the same size for
+    1 + B12_STD_ITERS steps, profiled after the first, with its loop peak
+    and its history rows held to the route's, and a bit-identical rerun at
+    1024² with stream12=8."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+
+    size = B12_SIZE
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              stream12_impl="pallas", iterations=B12_ITERS,
+                              intermediate_interval=1)
+    if optimize.block12_route(cfg, (size, size, 3)) != "kernel":
+        fail("stream12", "config6 does not take the block12 kernels")
+    content = smooth_image(gen, dev, size)
+    style = textured_image(gen, dev, size)
+    cmask, smask = band_masks(0, size), band_masks(1, size)
+    params = vgg.get_params(seed=SEED, device=dev)
+
+    args = [torch.from_numpy(a).to(dev) for a in (content, style, cmask,
+                                                  smask)]
+    dpst_tpu_torch.prepare_constants(*args, cfg, params)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dpst_tpu_torch.prepare_constants(*args, cfg, params)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+    del args
+    torch.cuda.empty_cache()
+
+    def run(cfg, callback=None, content=content, style=style, cmask=cmask,
+            smask=smask):
+        return dpst_tpu_torch.stylize(
+            content, style, cfg, content_masks=cmask, style_masks=smask,
+            vgg_params=params, callback=callback, return_history=True)
+
+    marks = {}
+
+    def callback(step, image, hist):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, hist = run(cfg, callback)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    half = B12_ITERS // 2
+    loop_its = (B12_ITERS - half) / (marks[B12_ITERS] - marks[half])
+    need = stream12_launches(B12_ITERS)
+    emit({"phase": "stream12", "path": "config6 4096²", "size": size, "K": K,
+          "iterations": B12_ITERS, "compute_dtype": cfg.compute_dtype,
+          "strips": vgg.stream12_strips(cfg.stream12, size, size),
+          "weights": ("weights/vgg19.npz" if os.path.exists(
+              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "precompute_s": precompute_s, "loop_it_s": loop_its,
+          "wall_s": wall_s, "first_row": hist[0].tolist(),
+          "last_row": hist[-1].tolist(), "launches": launches,
+          "launches_implied": need, "loop_peak_gb": peak_gb})
+    bad = [f"{name} launched {launches[name]} times, the route implies {n}"
+           for name, n in need.items() if launches[name] != n]
+    if bad:
+        fail("stream12", "; ".join(bad))
+    if not hist[-1, 0] < hist[0, 0]:
+        fail("stream12", f"total loss did not fall: {hist[0, 0]} -> "
+             f"{hist[-1, 0]}")
+    if not hist[:, 3].min() >= -1.0:
+        fail("stream12", f"photoreal term {hist[:, 3].min()} < -1")
+    if not (out.shape == (size, size, 3) and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 255.0):
+        fail("stream12", "output not finite (4096, 4096, 3) in [0, 255]")
+    if not np.isfinite(hist).all():
+        fail("stream12", "non-finite loss history")
+
+    emit_profile("config6 4096² (stream12 route)", 2, 4, run, cfg,
+                 1e3 / loop_its)
+
+    std = dataclasses.replace(cfg, stream12=0)
+    if optimize.block12_route(std, (size, size, 3)) != "standard":
+        fail("stream12", "stream12=0 does not take the standard path")
+    kernels.reset_launches()
+    per_step_s, busy_s, step_ms_s, peak_s, hist_s = profile_loop(
+        run, std, 1, B12_STD_ITERS)
+    emit({"phase": "standard_4096", "path": "config3 4096² stream12=0",
+          "steps": B12_STD_ITERS, "device_ms_per_step": per_step_s,
+          "device_busy_ms_per_step": busy_s, "step_ms_profiled": step_ms_s,
+          "loop_peak_gb": peak_s, "route_loop_peak_gb": peak_gb,
+          "first_row": hist_s[0].tolist(),
+          "route_first_row": hist[0].tolist(),
+          "launches": dict(kernels.LAUNCHES)})
+    if kernels.LAUNCHES["block12_fwd_res"]:
+        fail("stream12", "the standard path launched block12 kernels")
+    # the same loss on the same inputs: the route's first rows against the
+    # standard path's, each column within 1e-2 of its largest value (bf16
+    # convs, Grams and pools rounded at other points on the two paths)
+    n = len(hist_s)
+    dev_rows = np.abs(hist[:n] - hist_s) / np.maximum(
+        np.abs(hist_s).max(axis=0), 1e-30)
+    emit({"phase": "route_vs_standard", "rows": n,
+          "max_rel_err_per_column": dev_rows.max(axis=0).tolist(),
+          "tol_rel": 1e-2})
+    if not dev_rows.max() <= 1e-2:
+        fail("stream12", f"route and standard path differ: "
+             f"{dev_rows.max(axis=0).tolist()}")
+    if not peak_gb < peak_s:
+        fail("stream12", f"the route's loop peak {peak_gb} GB is not below "
+             f"the standard path's {peak_s} GB: the bands are not streaming")
+
+    # a short run at 1024² with stream12=8, twice: bit-identical rows
+    small = 1024
+    c1, s1 = smooth_image(gen, dev, small), smooth_image(gen, dev, small)
+    m1, m2 = band_masks(0, small), band_masks(1, small)
+    short = dataclasses.replace(cfg, stream12=8, iterations=3)
+    if optimize.block12_route(short, (small, small, 3)) != "kernel":
+        fail("rerun", "1024² with stream12=8 does not take the kernels")
+    _, h1 = run(short, content=c1, style=s1, cmask=m1, smask=m2)
+    _, h2 = run(short, content=c1, style=s1, cmask=m1, smask=m2)
+    identical = bool(np.array_equal(h1, h2))
+    emit({"phase": "rerun", "path": "stream12 route 1024²", "iterations": 3,
+          "bit_identical": identical})
+    if not identical:
+        fail("rerun", "stream12 route: history of the rerun differs")
+    return launches
+
+
 def summarize(rows: list, launches: dict) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
     step of its main path launches (512² config3 for the first four
     kernels, the 1024² stage of config4 for the fused Gram pair, the 512²
-    pallas route for conv3x3 and gram_wbwd), in the main path's dtype
-    (bf16; fp32 for the Laplacian); max_abs_err over those shapes.
+    pallas route for conv3x3 and gram_wbwd, the 4096² config6 step for the
+    block12 entry points), in the main path's dtype (bf16; fp32 for the
+    Laplacian); max_abs_err over those shapes (for block12, over its bf16
+    checks).
     `launches` sums the counts of all main-path runs, `launches_by_path`
     gives each."""
     meta = {
@@ -929,6 +1426,18 @@ def summarize(rows: list, launches: dict) -> list:
                      "dpst_tpu/ops/pool_pallas.py:40", None, "bfloat16"),
         "conv3x3": ("dpst_tpu_torch/csrc/conv3x3.cu",
                     "dpst_tpu/ops/conv_pallas.py:62", None, "bfloat16"),
+        "block12_fwd": ("dpst_tpu_torch/csrc/block12.cu",
+                        "dpst_tpu/ops/block12_pallas.py:216", None,
+                        "bfloat16"),
+        "block12_fwd_res": ("dpst_tpu_torch/csrc/block12.cu",
+                            "dpst_tpu/ops/block12_pallas.py:570", None,
+                            "bfloat16"),
+        "block12_bwd_deep": ("dpst_tpu_torch/csrc/block12.cu",
+                             "dpst_tpu/ops/block12_pallas.py:355", None,
+                             "bfloat16"),
+        "block12_bwd_shallow": ("dpst_tpu_torch/csrc/block12.cu",
+                                "dpst_tpu/ops/block12_pallas.py:379", None,
+                                "bfloat16"),
     }
     out = []
     for name, (src, replaces, also, dtype) in meta.items():
@@ -989,6 +1498,7 @@ def main() -> int:
     rows += check_gram_wbwd(dev, gen)
     rows += check_conv(dev, gen)
     check_edges(dev, gen)
+    rows += check_block12(dev, gen)
 
     # generators of their own: the main paths' images do not depend on
     # what the kernel checks drew
@@ -1013,6 +1523,14 @@ def main() -> int:
     # 64² is below the fused block-1 route: all five taps take gram_wbwd
     if not (ref["conv3x3"] == 24 * 5 + 21 and ref["gram_wbwd"] == 25):
         fail("reference", f"pallas route not taken at every step: {ref}")
+    s12_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    launches["config6 4096² stream12 route"] = run_stream12(dev, s12_gen)
+    ref = run_small_reference(s12_gen, dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=2, regularization_weight=100.0,
+        stream12=8, stream12_impl="pallas"), "stream12 route", size=256)
+    if not (ref["block12_fwd_res"] == ref["block12_bwd_deep"]
+            == ref["block12_bwd_shallow"] == 2 and ref["block12_fwd"] == 0):
+        fail("reference", f"stream12 route not taken at every step: {ref}")
 
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)})

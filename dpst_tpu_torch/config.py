@@ -25,13 +25,31 @@ weighted block, take the Gram backward that weights by m² after the
 product (`gram_wbwd`, `ops/gram_pallas.py`); the fused route keeps
 `gram_bwd`. The style image's Grams stay on the fused route.
 
+`stream12` and `stream12_impl` route blocks 1-2 as on the TPU
+(`optimize.block12_route`). They stream where `stream12` resolves to
+strips (-1: above 3072² pixels, h // 128 strips, or h // 64; N: N strips)
+that `models/vgg.stream12_compatible` takes (strips of a height that is a
+multiple of 4 and at least 32, w % 4 == 0, a tap past pool2) and every
+block-1/2 tap is a style tap and no content tap. Then, with
+`stream12_impl="pallas"`, block-1/2 taps exactly (conv1_1, conv2_1),
+w % 256 == 0 and h % 32 == 0, blocks 1-2 run on the block12 kernels
+(`ops/block12_pallas.py`): bands of 32 rows, the Gram sums of conv1_1 and
+conv2_1 and pool2, no block-1/2 activation at full resolution but three
+residuals; the tail (`vgg.extract_tail`) goes on from pool2. Otherwise
+(`stream12_impl="scan"`, or a gate fails) the port keeps its standard path:
+the TPU's strip scan is a memory lowering it does not carry. But the
+block-1/2 style taps then take the fused Gram route (`gram_fwd`,
+`gram_bwd`, m² applied before the product) whatever `gram_impl` says, as
+the scan forms its per-strip Grams, and no block-1 tap takes the fused
+bias+ReLU kernels. config6 of the JAX package's bench.py is PRESETS
+["config3"] with `stream12_impl="pallas"` at 4096²: 32 strips, the kernels.
+
 The other fields that select a TPU lowering of the same math are
-accepted and are no-ops here: `stream12`, `stream12_impl`,
-`stream12_remat`, `stream12_conv2`, `remat`, `pool_impl` and
-`laplacian_impl` other than "spmd". The port always runs the masked-Gram
-kernels, the tie-splitting max-pool backward kernel and the Laplacian
-matvec kernel on CUDA tensors, and their plain PyTorch versions on CPU
-tensors.
+accepted and are no-ops here: `stream12_remat`, `stream12_conv2`,
+`remat`, `pool_impl` and `laplacian_impl` other than "spmd". The port
+always runs the masked-Gram kernels, the tie-splitting max-pool backward
+kernel and the Laplacian matvec kernel on CUDA tensors, and their plain
+PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 

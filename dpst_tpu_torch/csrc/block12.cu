@@ -1,0 +1,639 @@
+// VGG-19 blocks 1-2 streamed in bands of rows: conv1_1 -> conv1_2 -> pool1
+// -> conv2_1 -> conv2_2 -> pool2 with the masked Gram sums of conv1_1 and
+// conv2_1, and the backward of all of it to the preprocessed image, without
+// a block-1/2 activation at full resolution.
+//
+// Replaces the TPU kernels of dpst_tpu/ops/block12_pallas.py:
+//   dpst_block12_fwd, save_res = 0   _fwd_kernel          (block12_fwd)
+//   dpst_block12_fwd, save_res = 1   _fwd_res_kernel      (block12_fwd_res)
+//   dpst_block12_bwd_deep            _bwd_deep_kernel     (block12_bwd, B2)
+//   dpst_block12_bwd_shallow         _bwd_shallow_kernel  (block12_bwd, B1)
+// and computes their functions with their rounding points:
+//   * every forward conv sums in fp32, adds the bias in fp32, takes the
+//     ReLU, zeroes the rows outside the global image and rounds once to the
+//     compute dtype T; the image enters in fp32 and is rounded to T once;
+//     rows outside the image are zero in preprocessed space;
+//   * max pool is exact; avg pool is ((a + b) + c) + d rounded to T after
+//     each add, then * 0.25;
+//   * the Gram partials: G_k[i][j] = sum_p f[i][p] * round_T(round_T(m2_k[p])
+//     * f[j][p]) over the band's own rows, fp32 sums, added to the result in
+//     band order;
+//   * the backward: the pool backward splits a max among tied maxima
+//     (compare in fp32, q = dp / ties in fp32, one rounding after the
+//     product) and multiplies by relu' = (a > 0); the input-gradient convs
+//     keep fp32; the Gram cotangent sum_k round_T(dG_k + dG_k^T) .
+//     round_T(round_T(m2_k) * f) is fp32; da = conv_T + gram in fp32, times
+//     relu', rounded once; dp1 is rounded to T, dx stays fp32.
+//
+// Design. The TPU kernel holds a whole 32-row tile of all four layers in
+// VMEM; one such tile at W = 4096 is 16 MB of conv1_1 activations against
+// the H100's 227 KB of shared memory. So each entry point walks the image
+// in bands of TB = 32 own rows (the TPU's tb_f / tb_b) with the TPU
+// kernel's halo (8 rows at full resolution, 4 at half, 2 at quarter) and
+// recomputes the halo as it does. A group of `group` consecutive bands is
+// processed at once, each band's rows (own rows plus halo) stacked one band
+// after another in a scratch the wrapper allocates for that group only
+// (the launches then fill the card). For a group, each stage is one launch
+// on the current stream: the band copies (gather with zero fill and a cast,
+// scatter of the own rows), the 3x3 conv tile of conv3x3_tile.cuh with its
+// bias+ReLU+row-mask epilogue (forward) or its fp32 epilogue (input
+// gradients), the 2x2 pool forward, the pool backward with relu', the Gram
+// partials (the gram_fwd tile of gram_tile.cuh, P split within each band)
+// and the Gram cotangent (the gram_bwd tile, whose epilogue adds the conv
+// term, multiplies by relu' and rounds). A conv reading the stacked bands
+// sees the next band's first row where the TPU kernel sees a zero pad:
+// both only reach rows of the halo that the shrinking valid region drops
+// before the own rows. The Gram partials go to one slot per (band, split)
+// and are summed slot by slot in band order into the result: no float
+// atomics, so a rerun is bit-identical.
+//
+// What bounds it on the H100: operations. A 4096^2 forward does 2 * 9 * P
+// * (3 * 64 + 64 * 64 + (64 * 128 + 128 * 128) / 4) = 3.2 TFLOP of convs
+// (3.2 ms at the bf16 peak; more with the recomputed halo, 50 % at TB =
+// 32), the Grams 0.1 TFLOP; it reads 0.5 GB of image and masks. The conv
+// tile runs at 60 TFLOP/s on these shapes (PERF.md), and conv1_1's three
+// input channels fill a 32-channel stage. wgmma, TMA and a fusion of the
+// stages into one kernel are left for later work. Every offset is 64-bit
+// and every entry point returns cudaGetLastError() after its last launch,
+// or the first error of an earlier one.
+#include <algorithm>
+
+#include "conv3x3_tile.cuh"
+#include "gram_tile.cuh"
+
+namespace {
+
+using dpst::from_f;
+using dpst::to_f;
+
+constexpr int TB = 32;            // own rows of a band (block12_pallas.TB)
+constexpr int HALO = 8;           // full-resolution halo rows on each side
+constexpr int GRAM_CHUNK = 4096;  // pixels of a Gram split (a multiple of 32)
+constexpr int EW_THREADS = 256;
+constexpr int EW_BLOCKS = 132 * 16;
+
+#define B12_TRY(expr)              \
+  do {                             \
+    const int rc_ = (expr);        \
+    if (rc_ != 0) return rc_;      \
+  } while (0)
+
+inline int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// dst (C, NB * R, W): row r of band b is row (band0 + b) * tb - halo + r of
+// src (C, Hs, W), cast to To, or zero outside [0, Hs).
+template <typename Ti, typename To>
+__global__ void block12_gather_kernel(const Ti* __restrict__ src,
+                                      To* __restrict__ dst, int C, int Hs,
+                                      int W, int NB, int R, int tb, int halo,
+                                      int band0) {
+  const long long rows = static_cast<long long>(NB) * R;
+  const long long total = C * rows * W;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int x = static_cast<int>(idx % W);
+    const long long t = idx / W;
+    const int row = static_cast<int>(t % rows);
+    const long long c = t / rows;
+    const int g = (band0 + row / R) * tb - halo + row % R;
+    To v = from_f<To>(0.0f);
+    if (g >= 0 && g < Hs)
+      v = from_f<To>(to_f(src[(c * Hs + g) * W + x]));
+    dst[idx] = v;
+  }
+}
+
+// dst (C, Hd, W) rows (band0 + b) * tb + [0, tb) = src (C, NB * R, W) rows
+// b * R + halo + [0, tb), cast to To.
+template <typename Ti, typename To>
+__global__ void block12_scatter_kernel(const Ti* __restrict__ src,
+                                       To* __restrict__ dst, int C, int Hd,
+                                       int W, int NB, int R, int tb, int halo,
+                                       int band0) {
+  const long long total = static_cast<long long>(C) * NB * tb * W;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int x = static_cast<int>(idx % W);
+    long long t = idx / W;
+    const int r = static_cast<int>(t % tb);
+    t /= tb;
+    const int b = static_cast<int>(t % NB);
+    const long long c = t / NB;
+    const long long srow = c * NB * R + static_cast<long long>(b) * R + halo + r;
+    const long long drow = c * Hd + static_cast<long long>(band0 + b) * tb + r;
+    dst[drow * W + x] = from_f<To>(to_f(src[srow * W + x]));
+  }
+}
+
+// 2x2/2 pool of x (C, H, W), H and W even -> y (C, H/2, W/2).
+template <typename T, bool AVG>
+__global__ void block12_pool_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                    int C, int H, int W) {
+  const int h2 = H / 2, w2 = W / 2;
+  const long long total = static_cast<long long>(C) * h2 * w2;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int j = static_cast<int>(idx % w2);
+    const long long t = idx / w2;
+    const int i = static_cast<int>(t % h2);
+    const long long c = t / h2;
+    const long long base = (c * H + 2 * i) * W + 2 * j;
+    const float a = to_f(x[base]), b = to_f(x[base + 1]);
+    const float cc = to_f(x[base + W]), d = to_f(x[base + W + 1]);
+    if constexpr (AVG) {
+      T s = from_f<T>(a + b);
+      s = from_f<T>(to_f(s) + cc);
+      s = from_f<T>(to_f(s) + d);
+      y[idx] = from_f<T>(to_f(s) * 0.25f);
+    } else {
+      y[idx] = from_f<T>(fmaxf(fmaxf(a, b), fmaxf(cc, d)));
+    }
+  }
+}
+
+// Pool backward times relu': dz (C, H, W) from dp (C, H/2, W/2) and the
+// pre-pool activation x (C, H, W), zero where x <= 0.
+template <typename T, bool AVG>
+__global__ void block12_pool_bwd_kernel(const T* __restrict__ dp,
+                                        const T* __restrict__ x,
+                                        T* __restrict__ dz, int C, int H,
+                                        int W) {
+  const int h2 = H / 2, w2 = W / 2;
+  const long long total = static_cast<long long>(C) * h2 * w2;
+  const T zero = from_f<T>(0.0f);
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int j = static_cast<int>(idx % w2);
+    const long long t = idx / w2;
+    const int i = static_cast<int>(t % h2);
+    const long long c = t / h2;
+    const long long o[4] = {(c * H + 2 * i) * W + 2 * j,
+                            (c * H + 2 * i) * W + 2 * j + 1,
+                            (c * H + 2 * i + 1) * W + 2 * j,
+                            (c * H + 2 * i + 1) * W + 2 * j + 1};
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = to_f(x[o[q]]);
+    const float g = to_f(dp[idx]);
+    float e[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    float qv;
+    if constexpr (AVG) {
+      qv = g * 0.25f;
+    } else {
+      const float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) e[q] = v[q] == m ? 1.0f : 0.0f;
+      qv = g / (((e[0] + e[1]) + e[2]) + e[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      dz[o[q]] = v[q] > 0.0f ? from_f<T>(qv * e[q]) : zero;
+  }
+}
+
+// Gram partials of a group: block (tile, k, b * S + s) sums the pixels
+// [s * chunk, min(P_b, (s + 1) * chunk)) of band b's own rows, P_b = tb * W,
+// into work[((b * S + s) * K + k)]. f is the stacked (C, NB * R, W) tap,
+// m the global (K, Hg, W) fp32 m^2.
+template <typename T>
+__global__ void __launch_bounds__(gram::NT)
+block12_gram_kernel(const T* __restrict__ f, const float* __restrict__ m,
+                    float* __restrict__ work, int C, int K, int W, int NB,
+                    int R, int tb, int halo, int Hg, int band0, int S,
+                    int chunk) {
+  const int tiles = (C + gram::TN - 1) / gram::TN;
+  const int i0 = (blockIdx.x / tiles) * gram::TM;
+  const int j0 = (blockIdx.x % tiles) * gram::TN;
+  const int k = blockIdx.y, b = blockIdx.z / S, s = blockIdx.z % S;
+  const int pb = s * chunk;
+  const int pe = min(tb * W, pb + chunk);
+  const size_t ldf = static_cast<size_t>(NB) * R * W;
+  const T* fb = f + (static_cast<size_t>(b) * R + halo) * W;
+  const float* mb = m + (static_cast<size_t>(k) * Hg +
+                         static_cast<size_t>(band0 + b) * tb) * W;
+  float* o = work + (static_cast<size_t>(blockIdx.z) * K + k) * C * C;
+  gram::gram_fwd_tile<T, false, float>(fb, ldf, nullptr, mb, o, C, i0, j0, pb,
+                                       pe);
+}
+
+__global__ void block12_gram_reduce_kernel(const float* __restrict__ work,
+                                           float* __restrict__ out,
+                                           int splits, long long n, int init) {
+  gram::reduce_body(work, out, splits, n, init);
+}
+
+// dz = round_T((t + gram) * (a > 0)): the Gram cotangent's epilogue adds the
+// fp32 conv term t and applies relu' of the tap a itself.
+template <typename T>
+struct DzEpi {
+  const float* t;
+  const T* a;
+  T* dz;
+  __device__ __forceinline__ void operator()(size_t idx, float acc) const {
+    dz[idx] = from_f<T>((t[idx] + acc) * (to_f(a[idx]) > 0.0f ? 1.0f : 0.0f));
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(gram::NT)
+block12_gram_df_kernel(const T* __restrict__ a, const float* __restrict__ m,
+                       const T* __restrict__ s, const float* __restrict__ t,
+                       T* __restrict__ dz, int C, int P, int K) {
+  gram::gram_bwd_tile<T, float>(a, m, s, DzEpi<T>{t, a, dz}, C, P, K,
+                                blockIdx.x * gram::TN, blockIdx.y * gram::TM);
+}
+
+// --- launch helpers ----------------------------------------------------------
+
+template <typename Ti, typename To>
+int gather(const void* src, void* dst, int C, int Hs, int W, int NB, int R,
+           int tb, int halo, int band0, cudaStream_t st) {
+  const long long n = static_cast<long long>(C) * NB * R * W;
+  block12_gather_kernel<Ti, To><<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
+                                  EW_THREADS, 0, st>>>(
+      static_cast<const Ti*>(src), static_cast<To*>(dst), C, Hs, W, NB, R, tb,
+      halo, band0);
+  return last_error();
+}
+
+template <typename Ti, typename To>
+int scatter(const void* src, void* dst, int C, int Hd, int W, int NB, int R,
+            int tb, int halo, int band0, cudaStream_t st) {
+  const long long n = static_cast<long long>(C) * NB * tb * W;
+  block12_scatter_kernel<Ti, To><<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
+                                   EW_THREADS, 0, st>>>(
+      static_cast<const Ti*>(src), static_cast<To*>(dst), C, Hd, W, NB, R, tb,
+      halo, band0);
+  return last_error();
+}
+
+template <typename T>
+int pool(const T* x, T* y, int C, int H, int W, bool avg, cudaStream_t st) {
+  const long long n = static_cast<long long>(C) * (H / 2) * (W / 2);
+  const int blocks = dpst::grid_for(n, EW_THREADS, EW_BLOCKS);
+  if (avg)
+    block12_pool_kernel<T, true><<<blocks, EW_THREADS, 0, st>>>(x, y, C, H, W);
+  else
+    block12_pool_kernel<T, false><<<blocks, EW_THREADS, 0, st>>>(x, y, C, H, W);
+  return last_error();
+}
+
+template <typename T>
+int pool_bwd(const T* dp, const T* x, T* dz, int C, int H, int W, bool avg,
+             cudaStream_t st) {
+  const long long n = static_cast<long long>(C) * (H / 2) * (W / 2);
+  const int blocks = dpst::grid_for(n, EW_THREADS, EW_BLOCKS);
+  if (avg)
+    block12_pool_bwd_kernel<T, true><<<blocks, EW_THREADS, 0, st>>>(dp, x, dz, C,
+                                                                    H, W);
+  else
+    block12_pool_bwd_kernel<T, false><<<blocks, EW_THREADS, 0, st>>>(dp, x, dz,
+                                                                     C, H, W);
+  return last_error();
+}
+
+// Forward conv of a stacked group with the bias+ReLU+row-mask epilogue.
+template <typename T>
+int conv_fwd(const T* x, const void* w, const float* bias, T* y, int Cin,
+             int Cout, int rows, int W, conv::BandRows br, cudaStream_t st) {
+  return conv::launch<T>(x, w, conv::EpiBiasRelu<T>{y, bias, br}, Cin, Cout,
+                         rows, W, st);
+}
+
+// Input-gradient conv (flipped, transposed weights ft) with fp32 output.
+template <typename T>
+int conv_bwd(const T* dz, const void* ft, float* y, int Cin, int Cout,
+             int rows, int W, cudaStream_t st) {
+  return conv::launch<T>(dz, ft, conv::EpiF32{y}, Cin, Cout, rows, W, st);
+}
+
+int gram_splits(int p) { return (p + GRAM_CHUNK - 1) / GRAM_CHUNK; }
+
+template <typename T>
+int gram_partials(const T* f, const float* m, float* work, float* out, int C,
+                  int K, int W, int NB, int R, int tb, int halo, int Hg,
+                  int band0, cudaStream_t st) {
+  const int S = gram_splits(tb * W);
+  const int tiles = (C + gram::TN - 1) / gram::TN;
+  const dim3 grid(tiles * tiles, K, NB * S);
+  block12_gram_kernel<T><<<grid, gram::NT, 0, st>>>(
+      f, m, work, C, K, W, NB, R, tb, halo, Hg, band0, S, GRAM_CHUNK);
+  B12_TRY(last_error());
+  const long long n = static_cast<long long>(K) * C * C;
+  block12_gram_reduce_kernel<<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
+                               EW_THREADS, 0, st>>>(work, out, NB * S, n,
+                                                    band0 == 0 ? 1 : 0);
+  return last_error();
+}
+
+template <typename T>
+int gram_df(const T* a, const float* m, const T* s, const float* t, T* dz,
+            int C, long long P, int K, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((P + gram::TN - 1) / gram::TN),
+                  (C + gram::TM - 1) / gram::TM);
+  block12_gram_df_kernel<T><<<grid, gram::NT, 0, st>>>(
+      a, m, s, t, dz, C, static_cast<int>(P), K);
+  return last_error();
+}
+
+// --- scratch -----------------------------------------------------------------
+
+// Carves a scratch region into 256-byte aligned buffers; with base ==
+// nullptr it only counts the bytes.
+struct Carve {
+  unsigned char* base;
+  size_t used = 0;
+  template <typename U>
+  U* take(long long n) {
+    const size_t at = used;
+    used += (static_cast<size_t>(n) * sizeof(U) + 255) / 256 * 256;
+    return base ? reinterpret_cast<U*>(base + at) : nullptr;
+  }
+};
+
+struct Geom {
+  int K, H, W, NB;
+  int R0() const { return TB + 2 * HALO; }
+  int R1() const { return R0() / 2; }
+  int R2() const { return R0() / 4; }
+  long long P0() const { return static_cast<long long>(NB) * R0() * W; }
+  long long P1() const { return static_cast<long long>(NB) * R1() * (W / 2); }
+  long long P2() const { return static_cast<long long>(NB) * R2() * (W / 4); }
+};
+
+template <typename T>
+struct FwdScratch {
+  T *xe, *a11, *a12, *p1, *a21, *a22, *p2;
+  float* work;
+  FwdScratch(Carve& cv, const Geom& g) {
+    xe = cv.take<T>(3 * g.P0());
+    a11 = cv.take<T>(64 * g.P0());
+    a12 = cv.take<T>(64 * g.P0());
+    p1 = cv.take<T>(64 * g.P1());
+    a21 = cv.take<T>(128 * g.P1());
+    a22 = cv.take<T>(128 * g.P1());
+    p2 = cv.take<T>(128 * g.P2());
+    const long long w1 = static_cast<long long>(g.NB) * gram_splits(TB * g.W) * g.K * 64 * 64;
+    const long long w2 = static_cast<long long>(g.NB) * gram_splits(TB / 2 * (g.W / 2)) *
+                         g.K * 128 * 128;
+    work = cv.take<float>(w1 > w2 ? w1 : w2);
+  }
+};
+
+template <typename T>
+struct DeepScratch {
+  T *a21, *a22, *dp2, *dz;
+  float *m2, *t;
+  DeepScratch(Carve& cv, const Geom& g) {
+    a21 = cv.take<T>(128 * g.P1());
+    a22 = cv.take<T>(128 * g.P1());
+    dp2 = cv.take<T>(128 * g.P2());
+    dz = cv.take<T>(128 * g.P1());       // dz22, then dz21
+    m2 = cv.take<float>(g.K * g.P1());
+    t = cv.take<float>(128 * g.P1());    // conv2_2's input gradient, then dp1
+  }
+};
+
+template <typename T>
+struct ShallowScratch {
+  T *a11, *dp1, *a12, *dz;
+  float *m1, *t;
+  ShallowScratch(Carve& cv, const Geom& g) {
+    a11 = cv.take<T>(64 * g.P0());
+    dp1 = cv.take<T>(64 * g.P1());
+    a12 = cv.take<T>(64 * g.P0());
+    dz = cv.take<T>(64 * g.P0());        // dz12, then dz11
+    m1 = cv.take<float>(g.K * g.P0());
+    t = cv.take<float>(64 * g.P0());     // conv1_2's input gradient, then dx
+  }
+};
+
+// --- the three passes --------------------------------------------------------
+
+template <typename T>
+int run_fwd(const float* x, const float* m1, const float* m2,
+            const void* const* w, const float* const* b, float* g1, float* g2,
+            T* p2, T* a11, T* a21, T* a22, void* scratch, const Geom& g,
+            bool avg, bool save_res, cudaStream_t st) {
+  Carve cv{static_cast<unsigned char*>(scratch)};
+  FwdScratch<T> s(cv, g);
+  const int H = g.H, W = g.W, tb = TB, K = g.K;
+  const int R0 = g.R0(), R1 = g.R1(), R2 = g.R2();
+  for (int band0 = 0; band0 < H / tb; band0 += g.NB) {
+    const int NB = std::min(g.NB, H / tb - band0);
+    const conv::BandRows rows0{R0, tb, HALO, H, band0};
+    const conv::BandRows rows1{R1, tb / 2, HALO / 2, H / 2, band0};
+    B12_TRY((gather<float, T>(x, s.xe, 3, H, W, NB, R0, tb, HALO, band0, st)));
+    B12_TRY(conv_fwd<T>(s.xe, w[0], b[0], s.a11, 3, 64, NB * R0, W, rows0, st));
+    B12_TRY(conv_fwd<T>(s.a11, w[1], b[1], s.a12, 64, 64, NB * R0, W, rows0, st));
+    B12_TRY(pool<T>(s.a12, s.p1, 64, NB * R0, W, avg, st));
+    B12_TRY(conv_fwd<T>(s.p1, w[2], b[2], s.a21, 64, 128, NB * R1, W / 2, rows1, st));
+    B12_TRY(conv_fwd<T>(s.a21, w[3], b[3], s.a22, 128, 128, NB * R1, W / 2, rows1, st));
+    B12_TRY(pool<T>(s.a22, s.p2, 128, NB * R1, W / 2, avg, st));
+    B12_TRY((scatter<T, T>(s.p2, p2, 128, H / 4, W / 4, NB, R2, tb / 4, HALO / 4,
+                           band0, st)));
+    B12_TRY(gram_partials<T>(s.a11, m1, s.work, g1, 64, K, W, NB, R0, tb, HALO,
+                             H, band0, st));
+    B12_TRY(gram_partials<T>(s.a21, m2, s.work, g2, 128, K, W / 2, NB, R1, tb / 2,
+                             HALO / 2, H / 2, band0, st));
+    if (save_res) {
+      B12_TRY((scatter<T, T>(s.a11, a11, 64, H, W, NB, R0, tb, HALO, band0, st)));
+      B12_TRY((scatter<T, T>(s.a21, a21, 128, H / 2, W / 2, NB, R1, tb / 2,
+                             HALO / 2, band0, st)));
+      B12_TRY((scatter<T, T>(s.a22, a22, 128, H / 2, W / 2, NB, R1, tb / 2,
+                             HALO / 2, band0, st)));
+    }
+  }
+  return last_error();
+}
+
+template <typename T>
+int run_bwd_deep(const T* a21, const T* a22, const T* dp2, const float* m2,
+                 const T* s2, const void* ft21, const void* ft22, T* dp1,
+                 void* scratch, const Geom& g, bool avg, cudaStream_t st) {
+  Carve cv{static_cast<unsigned char*>(scratch)};
+  DeepScratch<T> s(cv, g);
+  const int H2 = g.H / 2, W2 = g.W / 2, tb2 = TB / 2, K = g.K;
+  const int R1 = g.R1(), R2 = g.R2();
+  for (int band0 = 0; band0 < g.H / TB; band0 += g.NB) {
+    const int NB = std::min(g.NB, g.H / TB - band0);
+    const long long P = static_cast<long long>(NB) * R1 * W2;
+    B12_TRY((gather<T, T>(a21, s.a21, 128, H2, W2, NB, R1, tb2, HALO / 2, band0, st)));
+    B12_TRY((gather<T, T>(a22, s.a22, 128, H2, W2, NB, R1, tb2, HALO / 2, band0, st)));
+    B12_TRY((gather<T, T>(dp2, s.dp2, 128, H2 / 2, W2 / 2, NB, R2, tb2 / 2,
+                          HALO / 4, band0, st)));
+    B12_TRY((gather<float, float>(m2, s.m2, K, H2, W2, NB, R1, tb2, HALO / 2,
+                                  band0, st)));
+    B12_TRY(pool_bwd<T>(s.dp2, s.a22, s.dz, 128, NB * R1, W2, avg, st));
+    B12_TRY(conv_bwd<T>(s.dz, ft22, s.t, 128, 128, NB * R1, W2, st));
+    B12_TRY(gram_df<T>(s.a21, s.m2, s2, s.t, s.dz, 128, P, K, st));
+    B12_TRY(conv_bwd<T>(s.dz, ft21, s.t, 128, 64, NB * R1, W2, st));
+    B12_TRY((scatter<float, T>(s.t, dp1, 64, H2, W2, NB, R1, tb2, HALO / 2,
+                               band0, st)));
+  }
+  return last_error();
+}
+
+template <typename T>
+int run_bwd_shallow(const T* a11, const T* dp1, const float* m1, const T* s1,
+                    const void* ft11, const void* ft12, const void* w12,
+                    const float* b12, float* dx, void* scratch, const Geom& g,
+                    bool avg, cudaStream_t st) {
+  Carve cv{static_cast<unsigned char*>(scratch)};
+  ShallowScratch<T> s(cv, g);
+  const int H = g.H, W = g.W, tb = TB, K = g.K;
+  const int R0 = g.R0(), R1 = g.R1();
+  for (int band0 = 0; band0 < H / tb; band0 += g.NB) {
+    const int NB = std::min(g.NB, H / tb - band0);
+    const long long P = static_cast<long long>(NB) * R0 * W;
+    const conv::BandRows rows0{R0, tb, HALO, H, band0};
+    B12_TRY((gather<T, T>(a11, s.a11, 64, H, W, NB, R0, tb, HALO, band0, st)));
+    B12_TRY((gather<T, T>(dp1, s.dp1, 64, H / 2, W / 2, NB, R1, tb / 2, HALO / 2,
+                          band0, st)));
+    B12_TRY((gather<float, float>(m1, s.m1, K, H, W, NB, R0, tb, HALO, band0, st)));
+    B12_TRY(conv_fwd<T>(s.a11, w12, b12, s.a12, 64, 64, NB * R0, W, rows0, st));
+    B12_TRY(pool_bwd<T>(s.dp1, s.a12, s.dz, 64, NB * R0, W, avg, st));
+    B12_TRY(conv_bwd<T>(s.dz, ft12, s.t, 64, 64, NB * R0, W, st));
+    B12_TRY(gram_df<T>(s.a11, s.m1, s1, s.t, s.dz, 64, P, K, st));
+    B12_TRY(conv_bwd<T>(s.dz, ft11, s.t, 64, 3, NB * R0, W, st));
+    B12_TRY((scatter<float, float>(s.t, dx, 3, H, W, NB, R0, tb, HALO, band0, st)));
+  }
+  return last_error();
+}
+
+template <typename T>
+void count_scratch(int which, Carve& cv, const Geom& g) {
+  if (which == 0) {
+    FwdScratch<T> s(cv, g);
+  } else if (which == 1) {
+    DeepScratch<T> s(cv, g);
+  } else {
+    ShallowScratch<T> s(cv, g);
+  }
+}
+
+bool bad_geometry(int K, int H, int W, int group) {
+  return K < 1 || H < TB || H % TB || W < 4 || W % 4 || group < 1;
+}
+
+}  // namespace
+
+// Bytes of scratch an entry point needs: which = 0 forward, 1 deep backward,
+// 2 shallow backward; dtype as for the entry points.
+extern "C" size_t dpst_block12_scratch_bytes(int which, int K, int H, int W,
+                                             int group, int dtype) {
+  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  Carve cv{nullptr};
+  if (dtype == DPST_DTYPE_F32)
+    count_scratch<float>(which, cv, g);
+  else
+    count_scratch<__nv_bfloat16>(which, cv, g);
+  return cv.used;
+}
+
+// x (3, H, W) fp32 preprocessed image; m1 (K, H, W) and m2 (K, H/2, W/2)
+// fp32 m^2; w11..w22 OIHW in the compute dtype, b11..b22 fp32; g1 (K, 64,
+// 64) and g2 (K, 128, 128) fp32 Gram sums; p2 (128, H/4, W/4); with
+// save_res also a11 (64, H, W), a21 and a22 (128, H/2, W/2), else those
+// may be null.
+extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
+                                const void* w11, const void* b11,
+                                const void* w12, const void* b12,
+                                const void* w21, const void* b21,
+                                const void* w22, const void* b22, void* g1,
+                                void* g2, void* p2, void* a11, void* a21,
+                                void* a22, void* scratch, int K, int H, int W,
+                                int group, int avg, int save_res, int dtype,
+                                void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (bad_geometry(K, H, W, group))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* w[4] = {w11, w12, w21, w22};
+  const float* b[4] = {static_cast<const float*>(b11), static_cast<const float*>(b12),
+                       static_cast<const float*>(b21), static_cast<const float*>(b22)};
+  const float* xf = static_cast<const float*>(x);
+  const float* m1f = static_cast<const float*>(m1);
+  const float* m2f = static_cast<const float*>(m2);
+  float* g1f = static_cast<float*>(g1);
+  float* g2f = static_cast<float*>(g2);
+  if (dtype == DPST_DTYPE_F32)
+    return run_fwd<float>(xf, m1f, m2f, w, b, g1f, g2f, static_cast<float*>(p2),
+                          static_cast<float*>(a11), static_cast<float*>(a21),
+                          static_cast<float*>(a22), scratch, g, avg != 0,
+                          save_res != 0, st);
+  if (dtype == DPST_DTYPE_BF16)
+    return run_fwd<__nv_bfloat16>(
+        xf, m1f, m2f, w, b, g1f, g2f, static_cast<__nv_bfloat16*>(p2),
+        static_cast<__nv_bfloat16*>(a11), static_cast<__nv_bfloat16*>(a21),
+        static_cast<__nv_bfloat16*>(a22), scratch, g, avg != 0, save_res != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a21, a22 (128, H/2, W/2) and dp2 (128, H/4, W/4) in the compute dtype;
+// m2 (K, H/2, W/2) fp32; s2 (K, 128, 128) = round_T(dG2 + dG2^T); ft21
+// (64, 128, 3, 3) and ft22 (128, 128, 3, 3) flipped, transposed weights;
+// dp1 (64, H/2, W/2) in the compute dtype.
+extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
+                                     const void* dp2, const void* m2,
+                                     const void* s2, const void* ft21,
+                                     const void* ft22, void* dp1,
+                                     void* scratch, int K, int H, int W,
+                                     int group, int avg, int dtype,
+                                     void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (bad_geometry(K, H, W, group))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m2f = static_cast<const float*>(m2);
+  if (dtype == DPST_DTYPE_F32)
+    return run_bwd_deep<float>(
+        static_cast<const float*>(a21), static_cast<const float*>(a22),
+        static_cast<const float*>(dp2), m2f, static_cast<const float*>(s2), ft21,
+        ft22, static_cast<float*>(dp1), scratch, g, avg != 0, st);
+  if (dtype == DPST_DTYPE_BF16)
+    return run_bwd_deep<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(a21), static_cast<const __nv_bfloat16*>(a22),
+        static_cast<const __nv_bfloat16*>(dp2), m2f,
+        static_cast<const __nv_bfloat16*>(s2), ft21, ft22,
+        static_cast<__nv_bfloat16*>(dp1), scratch, g, avg != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a11 (64, H, W) and dp1 (64, H/2, W/2) in the compute dtype; m1 (K, H, W)
+// fp32; s1 (K, 64, 64) = round_T(dG1 + dG1^T); ft11 (3, 64, 3, 3) and ft12
+// (64, 64, 3, 3) flipped, transposed weights; w12 (64, 64, 3, 3) and b12
+// (64,) fp32 to recompute conv1_2; dx (3, H, W) fp32.
+extern "C" int dpst_block12_bwd_shallow(const void* a11, const void* dp1,
+                                        const void* m1, const void* s1,
+                                        const void* ft11, const void* ft12,
+                                        const void* w12, const void* b12,
+                                        void* dx, void* scratch, int K, int H,
+                                        int W, int group, int avg, int dtype,
+                                        void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (bad_geometry(K, H, W, group))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m1f = static_cast<const float*>(m1);
+  const float* b12f = static_cast<const float*>(b12);
+  float* dxf = static_cast<float*>(dx);
+  if (dtype == DPST_DTYPE_F32)
+    return run_bwd_shallow<float>(
+        static_cast<const float*>(a11), static_cast<const float*>(dp1), m1f,
+        static_cast<const float*>(s1), ft11, ft12, w12, b12f, dxf, scratch, g,
+        avg != 0, st);
+  if (dtype == DPST_DTYPE_BF16)
+    return run_bwd_shallow<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(a11), static_cast<const __nv_bfloat16*>(dp1),
+        m1f, static_cast<const __nv_bfloat16*>(s1), ft11, ft12, w12, b12f, dxf,
+        scratch, g, avg != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -49,195 +49,51 @@
 // warp-level mma (nvcuda::wmma, 16x16x16, fp32 accumulators); fp32 tiles
 // run on the CUDA cores (fp32 has no exact tensor-core path: TF32 would
 // drop mantissa bits). Tiles are 64x64 with a depth of 32; wgmma, TMA and
-// pipelining are left for later work.
+// pipelining are left for later work. The forward tile and the backward
+// tile of gram_bwd live in gram_tile.cuh, shared with block12.cu.
 //
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second
 // kernel sums the partials in a fixed order: no float atomics, so a rerun
 // gives bit-identical Grams. Offsets into (C, P), (K, P) and the split
 // workspace are 64-bit (C * P is 2^26 at 1024^2 and grows 16x by 4096^2).
-#include <mma.h>
-
-#include "dpst_common.cuh"
+#include "gram_tile.cuh"
 
 namespace {
 
 using dpst::from_f;
 using dpst::to_f;
-
-constexpr int TM = 64;   // output tile rows
-constexpr int TN = 64;   // output tile columns
-constexpr int TK = 32;   // reduction depth per stage
-constexpr int NT = 128;  // threads per block (4 warps)
-
-template <typename T>
-struct Pad;
-template <>
-struct Pad<float> {
-  static constexpr int A = 1, B = 4;
-};
-template <>
-struct Pad<__nv_bfloat16> {  // wmma wants ld % 8 == 0 and 32-byte rows
-  static constexpr int A = 8, B = 8;
-};
-
-constexpr int LDC = TN + 4;
-
-// C tile (TM x TN, fp32) += A tile (TM x TK) . B tile (TK x TN).
-template <typename T>
-struct TileMma;
-
-template <>
-struct TileMma<float> {
-  static constexpr int LDA = TK + Pad<float>::A, LDB = TN + Pad<float>::B;
-  float acc[8][4];
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-  // thread (ty, tx) owns rows ty + 8i and columns tx + 16j
-  __device__ void step(const float* as, const float* bs) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = as[(ty + 8 * i) * LDA + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[kk * LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* cs) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cs[(ty + 8 * i) * LDC + tx + 16 * j] = acc[i][j];
-  }
-};
-
-template <>
-struct TileMma<__nv_bfloat16> {
-  static constexpr int LDA = TK + Pad<__nv_bfloat16>::A;
-  static constexpr int LDB = TN + Pad<__nv_bfloat16>::B;
-  // warp w owns the 32x32 quarter (w / 2, w % 2): 2x2 fragments of 16x16
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-  }
-  __device__ void step(const __nv_bfloat16* as, const __nv_bfloat16* bs) {
-    using namespace nvcuda;
-    const int w = threadIdx.x / 32, wr = w / 2, wc = w % 2;
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], as + (wr * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * LDB + wc * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* cs) {
-    using namespace nvcuda;
-    const int w = threadIdx.x / 32, wr = w / 2, wc = w % 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16,
-                                acc[i][j], LDC, wmma::mem_row_major);
-  }
-};
-
-// F as the kernels read it: the tap itself, or relu(z + b) of the raw conv
-// output rounded to T, with z + b formed in fp32.
-template <typename T, bool RELU>
-__device__ __forceinline__ T load_f(const T* __restrict__ f,
-                                    const T* __restrict__ bias, int c,
-                                    size_t idx) {
-  if constexpr (RELU)
-    return from_f<T>(fmaxf(to_f(f[idx]) + to_f(bias[c]), 0.0f));
-  else
-    return f[idx];
-}
+using gram::LDC;
+using gram::NT;
+using gram::TileMma;
+using gram::TK;
+using gram::TM;
+using gram::TN;
+using gram::load_f;
 
 // Forward: block (tile, k, split) computes the (i0, j0) tile of G_k over
 // the pixels [split * chunk, min(P, (split + 1) * chunk)).
 template <typename T, bool RELU>
-__device__ __forceinline__ void gram_fwd_tile(const T* __restrict__ f,
-                                              const T* __restrict__ bias,
-                                              const T* __restrict__ m2,
-                                              float* __restrict__ out, int C,
-                                              int P, int K, int chunk) {
-  constexpr int LDA = TileMma<T>::LDA, LDB = TileMma<T>::LDB;
-  __shared__ __align__(128) T as[TM * LDA];
-  __shared__ __align__(128) T bs[TK * LDB];
-  __shared__ __align__(128) float cs[TM * LDC];
-
+__device__ __forceinline__ void gram_fwd_block(const T* __restrict__ f,
+                                               const T* __restrict__ bias,
+                                               const T* __restrict__ m2,
+                                               float* __restrict__ out, int C,
+                                               int P, int K, int chunk) {
   const int tiles = (C + TN - 1) / TN;
   const int i0 = (blockIdx.x / tiles) * TM, j0 = (blockIdx.x % tiles) * TN;
   const int k = blockIdx.y, split = blockIdx.z;
   const int pb = split * chunk;
   const int pe = min(P, pb + chunk);
-  const T* mk = m2 + static_cast<size_t>(k) * P;
-  const T zero = from_f<T>(0.0f);
-
-  TileMma<T> mma;
-  mma.init();
-  for (int p0 = pb; p0 < pe; p0 += TK) {
-    // A = rows i0.. of F
-    for (int e = threadIdx.x; e < TM * TK; e += NT) {
-      const int r = e / TK, kk = e % TK, i = i0 + r, p = p0 + kk;
-      as[r * LDA + kk] =
-          (i < C && p < pe)
-              ? load_f<T, RELU>(f, bias, i, static_cast<size_t>(i) * P + p)
-              : zero;
-    }
-    // B[kk][c] = F[j0 + c][p] * m2_k[p] rounded to T (p = p0 + kk): rows
-    // j0.. of the weighted operand, transposed
-    for (int e = threadIdx.x; e < TN * TK; e += NT) {
-      const int c = e / TK, kk = e % TK, j = j0 + c, p = p0 + kk;
-      T val = zero;
-      if (j < C && p < pe) {
-        const T fj = load_f<T, RELU>(f, bias, j, static_cast<size_t>(j) * P + p);
-        val = from_f<T>(to_f(fj) * to_f(mk[p]));
-      }
-      bs[kk * LDB + c] = val;
-    }
-    __syncthreads();
-    mma.step(as, bs);
-    __syncthreads();
-  }
-  mma.store(cs);
-  __syncthreads();
-  float* o = out + (static_cast<size_t>(split) * K + k) * C * C;
-  for (int e = threadIdx.x; e < TM * TN; e += NT) {
-    const int r = e / TN, c = e % TN, i = i0 + r, j = j0 + c;
-    if (i < C && j < C) o[static_cast<size_t>(i) * C + j] = cs[r * LDC + c];
-  }
+  gram::gram_fwd_tile<T, RELU, T>(
+      f, static_cast<size_t>(P), bias, m2 + static_cast<size_t>(k) * P,
+      out + (static_cast<size_t>(split) * K + k) * C * C, C, i0, j0, pb, pe);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_fwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
                 float* __restrict__ out, int C, int P, int K, int chunk) {
-  gram_fwd_tile<T, false>(f, nullptr, m2, out, C, P, K, chunk);
+  gram_fwd_block<T, false>(f, nullptr, m2, out, C, P, K, chunk);
 }
 
 template <typename T>
@@ -245,69 +101,33 @@ __global__ void __launch_bounds__(NT)
 gram_relu_fwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
                      const T* __restrict__ m2, float* __restrict__ out, int C,
                      int P, int K, int chunk) {
-  gram_fwd_tile<T, true>(z, bias, m2, out, C, P, K, chunk);
+  gram_fwd_block<T, true>(z, bias, m2, out, C, P, K, chunk);
 }
 
 // Sum the per-split partials in a fixed order (deterministic).
 __global__ void gram_reduce_kernel(const float* __restrict__ work,
                                    float* __restrict__ out, int splits,
                                    long long n) {
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < n; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float s = 0.0f;
-    for (int sp = 0; sp < splits; ++sp) s += work[sp * n + idx];
-    out[idx] = s;
-  }
+  gram::reduce_body(work, out, splits, n, 1);
 }
 
 // Backward: block (p tile, c tile) computes dF[c0.., p0..] =
-// sum over r = (k, c') of S[k][c][c'] * (F[c'][p] * m2[k][p]).
+// sum over r = (k, c') of S[k][c][c'] * (F[c'][p] * m2[k][p]), rounded once.
+template <typename T>
+struct StoreRound {
+  T* out;
+  __device__ __forceinline__ void operator()(size_t idx, float acc) const {
+    out[idx] = from_f<T>(acc);
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
                 const T* __restrict__ s, T* __restrict__ out, int C, int P,
                 int K) {
-  constexpr int LDA = TileMma<T>::LDA, LDB = TileMma<T>::LDB;
-  __shared__ __align__(128) T as[TM * LDA];
-  __shared__ __align__(128) T bs[TK * LDB];
-  __shared__ __align__(128) float cs[TM * LDC];
-
-  const int p0 = blockIdx.x * TN, c0 = blockIdx.y * TM;
-  const int R = K * C;
-  const T zero = from_f<T>(0.0f);
-
-  TileMma<T> mma;
-  mma.init();
-  for (int r0 = 0; r0 < R; r0 += TK) {
-    // A[rr][kk] = S[k][c0 + rr][c'] with (k, c') = divmod(r0 + kk, C)
-    for (int e = threadIdx.x; e < TM * TK; e += NT) {
-      const int rr = e / TK, kk = e % TK, c = c0 + rr, r = r0 + kk;
-      T val = zero;
-      if (c < C && r < R)
-        val = s[(static_cast<size_t>(r / C) * C + c) * C + (r % C)];
-      as[rr * LDA + kk] = val;
-    }
-    // B[kk][pp] = F[c'][p] * m2[k][p], rounded to T
-    for (int e = threadIdx.x; e < TK * TN; e += NT) {
-      const int kk = e / TN, pp = e % TN, r = r0 + kk, p = p0 + pp;
-      T val = zero;
-      if (r < R && p < P)
-        val = from_f<T>(to_f(f[static_cast<size_t>(r % C) * P + p]) *
-                        to_f(m2[static_cast<size_t>(r / C) * P + p]));
-      bs[kk * LDB + pp] = val;
-    }
-    __syncthreads();
-    mma.step(as, bs);
-    __syncthreads();
-  }
-  mma.store(cs);
-  __syncthreads();
-  for (int e = threadIdx.x; e < TM * TN; e += NT) {
-    const int rr = e / TN, pp = e % TN, c = c0 + rr, p = p0 + pp;
-    if (c < C && p < P)
-      out[static_cast<size_t>(c) * P + p] = from_f<T>(cs[rr * LDC + pp]);
-  }
+  gram::gram_bwd_tile<T, T>(f, m2, s, StoreRound<T>{out}, C, P, K,
+                            blockIdx.x * TN, blockIdx.y * TM);
 }
 
 // Class-weighted backward: block (p tile, c tile) computes

@@ -117,6 +117,16 @@ def preprocess(image: torch.Tensor) -> torch.Tensor:
     return (bgr - means).permute(2, 0, 1)[None]
 
 
+def preprocess_noflip(image: torch.Tensor) -> torch.Tensor:
+    """[0,255] RGB (H, W, 3) -> the (3, H, W) fp32 planes of the means
+    subtracted in RGB order (`dpst_tpu/models/vgg.py:_preprocess_noflip`);
+    the BGR flip is folded into conv1_1's weights instead
+    (`ops/block12_pallas.pack_weights`)."""
+    means = torch.tensor(BGR_MEANS[::-1], dtype=torch.float32,
+                         device=image.device)
+    return (image.to(torch.float32) - means).permute(2, 0, 1).contiguous()
+
+
 class _Relu(torch.autograd.Function):
     """max(x, 0) with gradient 1 above 0, 0 below and 0.5 at exactly 0."""
 
@@ -191,6 +201,30 @@ def set_exact_backends(compute_dtype) -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def _run_layers(params: dict, x: torch.Tensor, names, layers, pooling: str,
+                cdt, conv_impl: str, raw_taps=()) -> dict:
+    """Run the layers `names` (in LAYER_ORDER) on the (1, C, H, W) batch x;
+    returns the taps of those in `layers` (see extract_features)."""
+    taps = {}
+    for name in names:
+        if name.startswith("pool"):
+            x = _pool(x, pooling)
+            continue
+        p = params[name]
+        w = p["w"].to(cdt)
+        if _use_pallas_conv(conv_impl, x.shape[1]):
+            z = _Conv3x3.apply(x, w)
+        else:
+            z = F.conv2d(x, w, padding=1)
+        b = p["b"].to(cdt)
+        x = _Relu.apply(z + b[:, None, None])
+        if name in raw_taps:
+            taps[name] = RawTap(z[0], b)
+        elif name in layers:
+            taps[name] = x[0]
+    return taps
+
+
 def extract_features(params: dict, image: torch.Tensor,
                      layers: tuple[str, ...], pooling: str = "max",
                      compute_dtype="float32", conv_impl: str = "auto",
@@ -211,23 +245,57 @@ def extract_features(params: dict, image: torch.Tensor,
     cdt = torch_dtype(compute_dtype)
     if image.device.type == "cuda":
         set_exact_backends(cdt)
-    x = preprocess(image).to(cdt)
     deepest = max(LAYER_ORDER.index(l) for l in layers)
-    taps = {}
-    for name in LAYER_ORDER[:deepest + 1]:
-        if name.startswith("pool"):
-            x = _pool(x, pooling)
-            continue
-        p = params[name]
-        w = p["w"].to(cdt)
-        if _use_pallas_conv(conv_impl, x.shape[1]):
-            z = _Conv3x3.apply(x, w)
-        else:
-            z = F.conv2d(x, w, padding=1)
-        b = p["b"].to(cdt)
-        x = _Relu.apply(z + b[:, None, None])
-        if name in raw_taps:
-            taps[name] = RawTap(z[0], b)
-        elif name in layers:
-            taps[name] = x[0]
-    return taps
+    return _run_layers(params, preprocess(image).to(cdt),
+                       LAYER_ORDER[:deepest + 1], layers, pooling, cdt,
+                       conv_impl, raw_taps)
+
+
+def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
+                 pooling: str = "max", compute_dtype="float32",
+                 conv_impl: str = "auto") -> dict:
+    """Run VGG-19 from the pool2 output x (1, 128, H/4, W/4) to the deepest
+    layer in `layers` (`dpst_tpu/models/vgg.py:extract_tail`): the
+    continuation of the streamed blocks 1-2, with extract_features' convs,
+    ReLU and pools. Returns {layer: (C_l, H_l, W_l)} taps."""
+    cdt = torch_dtype(compute_dtype)
+    if x.device.type == "cuda":
+        set_exact_backends(cdt)
+    start = LAYER_ORDER.index("pool2") + 1
+    if min(LAYER_ORDER.index(l) for l in layers) < start:
+        raise ValueError("extract_tail: a tap before pool2")
+    deepest = max(LAYER_ORDER.index(l) for l in layers)
+    return _run_layers(params, x.to(cdt), LAYER_ORDER[start:deepest + 1],
+                       layers, pooling, cdt, conv_impl)
+
+
+# --- blocks 1-2 streamed (the stream12 route) ---------------------------------
+
+S2B_HALO = 8                    # dpst_tpu/models/vgg.py:_S2B_HALO
+
+
+def stream12_strips(stream12: int, h: int, w: int) -> int:
+    """`dpst_tpu/models/vgg.py:stream12_strips` as it resolves on a TPU: -1
+    streams above 3072² pixels, in strips of 128 rows where h allows (else
+    64, else not at all); 0 is off; N is N strips."""
+    if stream12 != -1:
+        return stream12
+    if h * w <= 3072 * 3072:
+        return 0
+    if h % 128 == 0:
+        return h // 128
+    return h // 64 if h % 64 == 0 else 0
+
+
+def stream12_compatible(layers, strips: int, image_shape) -> bool:
+    """`dpst_tpu/models/vgg.py:stream12_compatible`: at least two strips
+    that divide h, of a height that is a multiple of 4 and at least
+    4 × S2B_HALO, w a multiple of 4, and a tap past pool2."""
+    if strips <= 1 or len(image_shape) != 3:
+        return False
+    h, w, _ = image_shape
+    hs = h // strips
+    return (h % strips == 0 and hs % 4 == 0 and hs >= 4 * S2B_HALO
+            and w % 4 == 0
+            and max(LAYER_ORDER.index(l) for l in layers)
+            > LAYER_ORDER.index("pool2"))

@@ -1,0 +1,438 @@
+"""VGG-19 blocks 1-2 streamed in bands of rows, with the masked Gram sums of
+conv1_1 and conv2_1: CUDA kernels, plain versions and the autograd Function.
+
+The port's counterpart of `dpst_tpu/ops/block12_pallas.py` (the
+`stream12_impl="pallas"` route). The forward runs conv1_1 → conv1_2 →
+pool1 → conv2_1 → conv2_2 → pool2 on the preprocessed image and returns
+
+    g1 (K, 64, 64) and g2 (K, 128, 128)   fp32 Gram SUMS (unnormalized),
+                                          G_k = f · (round(m²_k) ∘ f)ᵀ
+    p2 (128, H/4, W/4)                    in the compute dtype
+
+and, for the backward, the residuals a11 (64, H, W), a21 and a22 (128,
+H/2, W/2). The backward gives the image cotangent dx (3, H, W) fp32 from
+(dg1, dg2, dp2): `block12_bwd_deep` (pool2 → conv2_2 → conv2_1 and the
+conv2_1 Gram term → dp1) then `block12_bwd_shallow` (conv1_2 recomputed
+from a11, then pool1 → conv1_2 → conv1_1 and the conv1_1 Gram term → dx).
+Every function walks the image in bands of TB = 32 own rows (the TPU's
+`tb_f` / `tb_b`) with a halo of 8
+rows at full resolution (4 at half, 2 at quarter), recomputed per band, and
+adds the Gram partials of the bands in band order; no block-1/2 activation
+but the three residuals exists at full resolution.
+
+Rounding points are the TPU kernel's (see `csrc/block12.cu`): forward convs
+sum in fp32, add the bias in fp32, ReLU, zero the rows outside the image and
+round once; the image is rounded to the compute dtype once; avg pool adds
+((a + b) + c) + d in the compute dtype, then × 0.25; the pool backward
+splits among ties in fp32 and rounds once; relu′ is (a > 0); the
+input-gradient convs and the Gram cotangent stay fp32 until da is rounded
+after relu′; dp1 is rounded, dx is fp32.
+
+Layout: channel-major planes, as the TPU kernel's. The image enters as the
+`preprocess_noflip` planes (RGB order, means subtracted) and `pack_weights`
+flips conv1_1's input channels, as the JAX package does.
+
+CPU tensors take the plain versions, which walk the same bands in the same
+order; CUDA tensors launch `csrc/block12.cu` or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .conv_cuda import conv3x3_acc, flip_transpose_weights
+from .kernels import torch_dtype
+
+TB = 32                      # own rows of a band, as csrc/block12.cu's TB
+HALO = 8                     # full-resolution halo rows on each side
+B12 = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")
+_CINOUT = {"conv1_1": (3, 64), "conv1_2": (64, 64), "conv2_1": (64, 128),
+           "conv2_2": (128, 128)}
+# Own pixels of the group of bands the kernels process at once: the scratch
+# holds one group (about 0.7 GB in bf16 at W = 4096, 8 bands of 32 rows)
+GROUP_PIXELS = 1 << 20
+
+
+def pack_weights(params: dict, compute_dtype) -> tuple:
+    """(w11, b11, w12, b12, w21, b21, w22, b22): OIHW weights in the
+    compute dtype, fp32 biases; conv1_1's input channels flipped so that it
+    reads the RGB-ordered `preprocess_noflip` image."""
+    cdt = torch_dtype(compute_dtype)
+    out = []
+    for name in B12:
+        w = params[name]["w"]
+        if name == "conv1_1":
+            w = w.flip(1)
+        out.append(w.to(cdt).contiguous())
+        out.append(params[name]["b"].to(torch.float32).contiguous())
+    return tuple(out)
+
+
+def group_bands(h: int, w: int) -> int:
+    """Bands the kernels process at once at an h × w image."""
+    return max(1, min(h // TB, GROUP_PIXELS // (TB * w)))
+
+
+# --- plain versions -----------------------------------------------------------
+
+def _band(x: torch.Tensor, i: int, tbl: int, halo: int) -> torch.Tensor:
+    """Rows [i·tbl − halo, i·tbl + tbl + halo) of (C, Hl, W), zero outside."""
+    c, hl, w = x.shape
+    lo, hi = i * tbl - halo, (i + 1) * tbl + halo
+    out = x.new_zeros((c, hi - lo, w))
+    a, b = max(lo, 0), min(hi, hl)
+    out[:, a - lo:b - lo] = x[:, a:b]
+    return out
+
+
+def _row_mask(i: int, tbl: int, halo: int, hl: int, r: int,
+              device) -> torch.Tensor:
+    """(1, r, 1) fp32: 1 on the band's rows inside the image of hl rows."""
+    g = i * tbl - halo + torch.arange(r, device=device)
+    return ((g >= 0) & (g < hl)).to(torch.float32)[None, :, None]
+
+
+def _conv_bias_relu(x, w, b, rowmask, cdt):
+    acc = conv3x3_acc(x, w) + b.to(torch.float32)[:, None, None]
+    return (torch.clamp_min(acc, 0.0) * rowmask).to(cdt)
+
+
+def _quads(x: torch.Tensor):
+    """The four corners of each 2×2 window: rows 2i / 2i+1, columns 2j /
+    2j+1."""
+    return x[:, 0::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 0::2], x[:, 1::2, 1::2]
+
+
+def _pool(x: torch.Tensor, pooling: str) -> torch.Tensor:
+    a, b, c, d = _quads(x)
+    if pooling == "max":
+        return torch.maximum(torch.maximum(a, b), torch.maximum(c, d))
+    return (((a + b) + c) + d) * 0.25
+
+
+def _pool_bwd(dp: torch.Tensor, x_pre: torch.Tensor, pooling: str, cdt):
+    """(C, R/2, W/2) cotangent and (C, R, W) pre-pool activation -> (C, R, W)
+    in cdt: ties share the max's cotangent, computed in fp32, one cast."""
+    q = dp.to(torch.float32)
+    if pooling == "avg":
+        parts = [q * 0.25] * 4
+    else:
+        quads = [t.to(torch.float32) for t in _quads(x_pre)]
+        m = torch.maximum(torch.maximum(quads[0], quads[1]),
+                          torch.maximum(quads[2], quads[3]))
+        eq = [(t == m).to(torch.float32) for t in quads]
+        q = q / (((eq[0] + eq[1]) + eq[2]) + eq[3])
+        parts = [q * e for e in eq]
+    out = torch.empty(x_pre.shape, dtype=torch.float32, device=dp.device)
+    for (r, c), part in zip(((0, 0), (0, 1), (1, 0), (1, 1)), parts):
+        out[:, r::2, c::2] = part
+    return out.to(cdt)
+
+
+def _relu_grad(a: torch.Tensor) -> torch.Tensor:
+    """relu′ of a post-ReLU activation: 1 where a > 0, else 0 (fp32)."""
+    return (a.to(torch.float32) > 0).to(torch.float32)
+
+
+def _partial_gram(f: torch.Tensor, msq: torch.Tensor, cdt) -> torch.Tensor:
+    """(C, r, W) tap × (K, r, W) fp32 m² -> (K, C, C) fp32 sums
+    G_k = f · (round(m²_k) ∘ f)ᵀ, the weighted operand in cdt."""
+    c = f.shape[0]
+    f2 = f.reshape(c, -1)
+    f32 = f2.to(torch.float32)
+    return torch.stack([
+        torch.matmul(f32, (msq[k].to(cdt).reshape(1, -1) * f2)
+                     .to(torch.float32).t())
+        for k in range(msq.shape[0])])
+
+
+def _gram_df(f: torch.Tensor, msq: torch.Tensor, s: torch.Tensor, cdt):
+    """Σ_k s_k · (round(m²_k) ∘ f) in fp32, classes summed in order; s (K,
+    C, C) is the symmetrized cotangent in cdt."""
+    c, r, w = f.shape
+    out = torch.zeros((c, r * w), dtype=torch.float32, device=f.device)
+    for k in range(s.shape[0]):
+        fw = (msq[k].to(cdt)[None] * f).reshape(c, r * w)
+        out = out + torch.matmul(s[k].to(torch.float32), fw.to(torch.float32))
+    return out.reshape(c, r, w)
+
+
+def block12_fwd_plain(x, m1sq, m2sq, weights, pooling="max",
+                      compute_dtype="bfloat16", save_res=True):
+    """Plain PyTorch forward, band by band: (g1, g2, p2) and with
+    `save_res` also (a11, a21, a22)."""
+    cdt = torch_dtype(compute_dtype)
+    w11, b11, w12, b12, w21, b21, w22, b22 = weights
+    h = x.shape[1]
+    k = m1sq.shape[0]
+    dev = x.device
+    g1 = torch.zeros((k, 64, 64), dtype=torch.float32, device=dev)
+    g2 = torch.zeros((k, 128, 128), dtype=torch.float32, device=dev)
+    p2s, a11s, a21s, a22s = [], [], [], []
+    for i in range(h // TB):
+        xe = _band(x, i, TB, HALO).to(cdt)
+        r0 = xe.shape[1]
+        rm0 = _row_mask(i, TB, HALO, h, r0, dev)
+        rm1 = _row_mask(i, TB // 2, HALO // 2, h // 2, r0 // 2, dev)
+        a11 = _conv_bias_relu(xe, w11, b11, rm0, cdt)
+        a12 = _conv_bias_relu(a11, w12, b12, rm0, cdt)
+        a21 = _conv_bias_relu(_pool(a12, pooling), w21, b21, rm1, cdt)
+        a22 = _conv_bias_relu(a21, w22, b22, rm1, cdt)
+        p2 = _pool(a22, pooling)
+        f11 = a11[:, HALO:HALO + TB]
+        f21 = a21[:, HALO // 2:HALO // 2 + TB // 2]
+        g1 = g1 + _partial_gram(f11, m1sq[:, i * TB:(i + 1) * TB], cdt)
+        g2 = g2 + _partial_gram(
+            f21, m2sq[:, i * TB // 2:(i + 1) * TB // 2], cdt)
+        p2s.append(p2[:, HALO // 4:HALO // 4 + TB // 4])
+        if save_res:
+            a11s.append(f11)
+            a21s.append(f21)
+            a22s.append(a22[:, HALO // 2:HALO // 2 + TB // 2])
+    out = (g1, g2, torch.cat(p2s, dim=1))
+    if save_res:
+        out += tuple(torch.cat(t, dim=1) for t in (a11s, a21s, a22s))
+    return out
+
+
+def block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights, pooling="max",
+                           compute_dtype="bfloat16"):
+    """Plain PyTorch deep backward: dp1 (64, H/2, W/2) in cdt."""
+    cdt = torch_dtype(compute_dtype)
+    ft21 = flip_transpose_weights(weights[4])
+    ft22 = flip_transpose_weights(weights[6])
+    h2 = a21.shape[1]
+    tb2, h1 = TB // 2, HALO // 2
+    outs = []
+    for i in range(2 * h2 // TB):
+        a21e = _band(a21, i, tb2, h1)
+        a22e = _band(a22, i, tb2, h1)
+        dp2e = _band(dp2, i, TB // 4, HALO // 4)
+        m2e = _band(m2sq, i, tb2, h1)
+        dz22 = _pool_bwd(dp2e, a22e, pooling, cdt) * _relu_grad(a22e).to(cdt)
+        da21 = conv3x3_acc(dz22, ft22) + _gram_df(a21e, m2e, s2, cdt)
+        dz21 = (da21 * _relu_grad(a21e)).to(cdt)
+        outs.append(conv3x3_acc(dz21, ft21)[:, h1:h1 + tb2].to(cdt))
+    return torch.cat(outs, dim=1)
+
+
+def block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights, pooling="max",
+                              compute_dtype="bfloat16"):
+    """Plain PyTorch shallow backward: dx (3, H, W) fp32."""
+    cdt = torch_dtype(compute_dtype)
+    ft11 = flip_transpose_weights(weights[0])
+    ft12 = flip_transpose_weights(weights[2])
+    h = a11.shape[1]
+    outs = []
+    for i in range(h // TB):
+        a11e = _band(a11, i, TB, HALO)
+        dp1e = _band(dp1, i, TB // 2, HALO // 2)
+        m1e = _band(m1sq, i, TB, HALO)
+        rm0 = _row_mask(i, TB, HALO, h, a11e.shape[1], a11.device)
+        a12e = _conv_bias_relu(a11e, weights[2], weights[3], rm0, cdt)
+        dz12 = _pool_bwd(dp1e, a12e, pooling, cdt) * _relu_grad(a12e).to(cdt)
+        da11 = conv3x3_acc(dz12, ft12) + _gram_df(a11e, m1e, s1, cdt)
+        dz11 = (da11 * _relu_grad(a11e)).to(cdt)
+        outs.append(conv3x3_acc(dz11, ft11)[:, HALO:HALO + TB])
+    return torch.cat(outs, dim=1)
+
+
+# --- kernel wrappers ----------------------------------------------------------
+
+def _check_geometry(h: int, w: int, pooling: str) -> None:
+    if h % TB or w % 4:
+        raise ValueError(f"block12: needs H % {TB} == 0 and W % 4 == 0; "
+                         f"got H={h}, W={w}")
+    if pooling not in ("max", "avg"):
+        raise ValueError(f"block12: unknown pooling {pooling!r}")
+
+
+def _check_weights(weights: tuple, cdt) -> None:
+    if len(weights) != 8:
+        raise ValueError("block12: weights are pack_weights' 8 tensors")
+    for name, wt, bs in zip(B12, weights[0::2], weights[1::2]):
+        cin, cout = _CINOUT[name]
+        kernels.require(wt, name + " w", (cout, cin, 3, 3), cdt)
+        kernels.require(bs, name + " b", (cout,), torch.float32)
+
+
+def _scratch(which: int, k: int, h: int, w: int, cdt,
+             device) -> tuple[torch.Tensor, int]:
+    group = group_bands(h, w)
+    n = kernels.library().dpst_block12_scratch_bytes(
+        which, k, h, w, group, kernels.DTYPE_CODES[cdt])
+    return torch.empty(n, dtype=torch.uint8, device=device), group
+
+
+def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
+    cdt = torch_dtype(compute_dtype)
+    if x.dim() != 3 or x.shape[0] != 3:
+        raise ValueError(f"block12: x must be (3, H, W), got {tuple(x.shape)}")
+    _, h, w = x.shape
+    k = m1sq.shape[0]
+    _check_geometry(h, w, pooling)
+    kernels.require(x, "x", None, torch.float32)
+    kernels.require(m1sq, "m1sq", (k, h, w), torch.float32)
+    kernels.require(m2sq, "m2sq", (k, h // 2, w // 2), torch.float32)
+    _check_weights(weights, cdt)
+    if not kernels.on_cuda(x, m1sq, m2sq, *weights):
+        return block12_fwd_plain(x, m1sq, m2sq, weights, pooling, cdt,
+                                 save_res)
+    dev = x.device
+    g1 = torch.empty((k, 64, 64), dtype=torch.float32, device=dev)
+    g2 = torch.empty((k, 128, 128), dtype=torch.float32, device=dev)
+    p2 = torch.empty((128, h // 4, w // 4), dtype=cdt, device=dev)
+    res = ((torch.empty((64, h, w), dtype=cdt, device=dev),
+            torch.empty((128, h // 2, w // 2), dtype=cdt, device=dev),
+            torch.empty((128, h // 2, w // 2), dtype=cdt, device=dev))
+           if save_res else (None, None, None))
+    scratch, group = _scratch(0, k, h, w, cdt, dev)
+    name = "block12_fwd_res" if save_res else "block12_fwd"
+    rc = kernels.library().dpst_block12_fwd(
+        *map(kernels.ptr, (x, m1sq, m2sq, *weights, g1, g2, p2, *res,
+                           scratch)),
+        k, h, w, group, int(pooling == "avg"), int(save_res),
+        kernels.DTYPE_CODES[cdt], kernels.stream_ptr(x))
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
+    return (g1, g2, p2) + (res if save_res else ())
+
+
+def block12_fwd(x: torch.Tensor, m1sq: torch.Tensor, m2sq: torch.Tensor,
+                weights: tuple, *, pooling: str = "max",
+                compute_dtype="bfloat16") -> tuple:
+    """x (3, H, W) fp32 preprocessed planes, m1sq (K, H, W) and m2sq (K,
+    H/2, W/2) fp32 squared masks, `pack_weights` -> (g1, g2, p2). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    return _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, False)
+
+
+def block12_fwd_res(x: torch.Tensor, m1sq: torch.Tensor, m2sq: torch.Tensor,
+                    weights: tuple, *, pooling: str = "max",
+                    compute_dtype="bfloat16") -> tuple:
+    """`block12_fwd` that also returns the residuals: (g1, g2, p2, a11,
+    a21, a22)."""
+    return _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, True)
+
+
+def symmetrize(dg: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """round(dG_k + dG_kᵀ) in the compute dtype, the sum in fp32."""
+    d = dg.to(torch.float32)
+    return (d + d.transpose(1, 2)).to(torch_dtype(compute_dtype)).contiguous()
+
+
+def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
+                     pooling: str = "max", compute_dtype="bfloat16"
+                     ) -> torch.Tensor:
+    """pool2 → conv2_2 → conv2_1 backward with the conv2_1 Gram term: dp1
+    (64, H/2, W/2) in the compute dtype from the residuals a21, a22, the
+    pool2 cotangent dp2 and s2 = `symmetrize(dG2)`."""
+    cdt = torch_dtype(compute_dtype)
+    _, h2, w2 = a21.shape
+    h, w = 2 * h2, 2 * w2
+    k = m2sq.shape[0]
+    _check_geometry(h, w, pooling)
+    kernels.require(a21, "a21", (128, h2, w2), cdt)
+    kernels.require(a22, "a22", (128, h2, w2), cdt)
+    kernels.require(dp2, "dp2", (128, h // 4, w // 4), cdt)
+    kernels.require(m2sq, "m2sq", (k, h2, w2), torch.float32)
+    kernels.require(s2, "s2", (k, 128, 128), cdt)
+    _check_weights(weights, cdt)
+    if not kernels.on_cuda(a21, a22, dp2, m2sq, s2, *weights):
+        return block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights,
+                                      pooling, cdt)
+    ft21 = flip_transpose_weights(weights[4])
+    ft22 = flip_transpose_weights(weights[6])
+    dp1 = torch.empty((64, h2, w2), dtype=cdt, device=a21.device)
+    scratch, group = _scratch(1, k, h, w, cdt, a21.device)
+    rc = kernels.library().dpst_block12_bwd_deep(
+        *map(kernels.ptr, (a21, a22, dp2, m2sq, s2, ft21, ft22, dp1,
+                           scratch)),
+        k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
+        kernels.stream_ptr(a21))
+    kernels.check(rc, "block12_bwd_deep")
+    kernels.LAUNCHES["block12_bwd_deep"] += 1
+    return dp1
+
+
+def block12_bwd_shallow(a11, dp1, m1sq, s1, weights, *,
+                        pooling: str = "max", compute_dtype="bfloat16"
+                        ) -> torch.Tensor:
+    """conv1_2 recomputed from a11, then pool1 → conv1_2 → conv1_1 backward
+    with the conv1_1 Gram term: dx (3, H, W) fp32 from dp1 and s1 =
+    `symmetrize(dG1)`."""
+    cdt = torch_dtype(compute_dtype)
+    _, h, w = a11.shape
+    k = m1sq.shape[0]
+    _check_geometry(h, w, pooling)
+    kernels.require(a11, "a11", (64, h, w), cdt)
+    kernels.require(dp1, "dp1", (64, h // 2, w // 2), cdt)
+    kernels.require(m1sq, "m1sq", (k, h, w), torch.float32)
+    kernels.require(s1, "s1", (k, 64, 64), cdt)
+    _check_weights(weights, cdt)
+    if not kernels.on_cuda(a11, dp1, m1sq, s1, *weights):
+        return block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights,
+                                         pooling, cdt)
+    ft11 = flip_transpose_weights(weights[0])
+    ft12 = flip_transpose_weights(weights[2])
+    dx = torch.empty((3, h, w), dtype=torch.float32, device=a11.device)
+    scratch, group = _scratch(2, k, h, w, cdt, a11.device)
+    rc = kernels.library().dpst_block12_bwd_shallow(
+        *map(kernels.ptr, (a11, dp1, m1sq, s1, ft11, ft12, weights[2],
+                           weights[3], dx, scratch)),
+        k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
+        kernels.stream_ptr(a11))
+    kernels.check(rc, "block12_bwd_shallow")
+    kernels.LAUNCHES["block12_bwd_shallow"] += 1
+    return dx
+
+
+def block12_bwd(a11, a21, a22, dp2, m1sq, m2sq, dg1, dg2, weights, *,
+                pooling: str = "max", compute_dtype="bfloat16"
+                ) -> torch.Tensor:
+    """Backward of `block12_fwd_res` wrt the image planes: the deep half,
+    then the shallow half; dx (3, H, W) fp32."""
+    kw = dict(pooling=pooling, compute_dtype=compute_dtype)
+    dp1 = block12_bwd_deep(a21, a22, dp2, m2sq,
+                           symmetrize(dg2, compute_dtype), weights, **kw)
+    return block12_bwd_shallow(a11, dp1, m1sq,
+                               symmetrize(dg1, compute_dtype), weights, **kw)
+
+
+class Block12(torch.autograd.Function):
+    """(x, m1sq, m2sq, weights) -> (g1, g2, p2) with the backward of
+    `block12_bwd`. Masks and weights are constants of the optimization: no
+    gradient flows to them."""
+
+    @staticmethod
+    def forward(ctx, x, m1sq, m2sq, opts, *weights):
+        pooling, compute_dtype = opts
+        g1, g2, p2, a11, a21, a22 = block12_fwd_res(
+            x, m1sq, m2sq, weights, pooling=pooling,
+            compute_dtype=compute_dtype)
+        ctx.opts = opts
+        ctx.save_for_backward(m1sq, m2sq, a11, a21, a22, *weights)
+        return g1, g2, p2
+
+    @staticmethod
+    def backward(ctx, dg1, dg2, dp2):
+        m1sq, m2sq, a11, a21, a22, *weights = ctx.saved_tensors
+        pooling, compute_dtype = ctx.opts
+        dx = block12_bwd(a11, a21, a22,
+                         dp2.to(torch_dtype(compute_dtype)).contiguous(),
+                         m1sq, m2sq, dg1.contiguous(), dg2.contiguous(),
+                         tuple(weights), pooling=pooling,
+                         compute_dtype=compute_dtype)
+        return (dx, None, None, None) + (None,) * len(weights)
+
+
+def make_block12_fused(*, pooling: str = "max", compute_dtype="bfloat16"):
+    """The differentiable blocks-1-2 op: f(x, m1sq, m2sq, weights) -> (g1,
+    g2, p2), with x the (3, H, W) fp32 `preprocess_noflip` planes and
+    `weights` from `pack_weights`."""
+    opts = (pooling, compute_dtype)
+
+    def fused(x, m1sq, m2sq, weights):
+        return Block12.apply(x, m1sq, m2sq, opts, *weights)
+
+    return fused

@@ -25,9 +25,9 @@ def flip_transpose_weights(w: torch.Tensor) -> torch.Tensor:
     return w.flip(2, 3).transpose(0, 1).contiguous()
 
 
-def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: the nine tap matmuls of the TPU kernel, each
-    in fp32 and accumulated in fp32 in (dy, dx) order, then one cast."""
+def conv3x3_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The nine tap matmuls of the TPU kernel, each in fp32 and accumulated
+    in fp32 in (dy, dx) order: (Cout, H, W) fp32, not rounded."""
     cin, h, wd = x.shape
     xp = F.pad(x, (1, 1, 1, 1))
     acc = torch.zeros((w.shape[0], h * wd), dtype=torch.float32,
@@ -36,7 +36,12 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         for dx in range(3):
             tap = xp[:, dy:dy + h, dx:dx + wd].reshape(cin, h * wd)
             acc = acc + torch.matmul(w[:, :, dy, dx].float(), tap.float())
-    return acc.to(x.dtype).reshape(-1, h, wd)
+    return acc.reshape(-1, h, wd)
+
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: `conv3x3_acc`, then one cast."""
+    return conv3x3_acc(x, w).to(x.dtype)
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,8 @@ take the kernels' plain PyTorch versions.
 
 Each kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, and nowhere else; `reset_launches()` sets all of them to 0.
+`block12_fwd` and `block12_fwd_res` are two counts over one entry point
+(`dpst_block12_fwd` without and with its residuals).
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
-           "gram_relu_bwd", "gram_wbwd", "pool_bwd", "conv3x3")
+           "gram_relu_bwd", "gram_wbwd", "pool_bwd", "conv3x3",
+           "block12_fwd", "block12_fwd_res", "block12_bwd_deep",
+           "block12_bwd_shallow")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,10 +130,17 @@ def library() -> ctypes.CDLL:
         lib.dpst_gram_wbwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.dpst_block12_scratch_bytes.argtypes = [i] * 6
+        lib.dpst_block12_scratch_bytes.restype = ctypes.c_size_t
+        lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.dpst_block12_bwd_deep.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.dpst_block12_bwd_shallow.argtypes = [p] * 10 + [i] * 6 + [p]
         for fn in (lib.dpst_lap_matvec, lib.dpst_gram_fwd,
                    lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
                    lib.dpst_gram_relu_bwd, lib.dpst_gram_wbwd,
-                   lib.dpst_pool2_bwd, lib.dpst_conv3x3):
+                   lib.dpst_pool2_bwd, lib.dpst_conv3x3,
+                   lib.dpst_block12_fwd, lib.dpst_block12_bwd_deep,
+                   lib.dpst_block12_bwd_shallow):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p
@@ -141,8 +152,9 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer; None gives a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check(rc: int, name: str) -> None:

@@ -78,17 +78,21 @@ def route_grams(route: str, feat: torch.Tensor, masks: torch.Tensor,
     return masked_grams(feat, masks, compute_dtype=compute_dtype, norm=norm)
 
 
-def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
+def style_layer_loss(feat_out: torch.Tensor | None,
+                     style_grams: torch.Tensor,
                      out_masks: torch.Tensor, coverage: torch.Tensor,
                      compute_dtype="float32",
                      style_norm: str = "gatys",
-                     gram_impl: str = "auto") -> torch.Tensor:
+                     gram_impl: str = "auto",
+                     g_out: torch.Tensor | None = None) -> torch.Tensor:
     """Masked Gram style loss of one VGG layer, summed over classes.
 
     `feat_out` is a (C, H, W) tap, whose Grams take `gram_route`'s route
     for `gram_impl`, or a `RawTap` of the raw conv output and its bias,
     whose Grams of relu(z + b) take the fused bias+ReLU kernels
-    (`ops/gram_s2d.py`).
+    (`ops/gram_s2d.py`). `g_out`, the (K, C, C) output Grams already
+    normalized (blocks 1-2 where they stream), replaces the tap:
+    `feat_out` may then be None.
 
     "gatys": Σ_k coverage_k / (4C²) · ‖G_out,k − G_style,k‖² with
     Σm²-normalized Grams; "paper": Σ_k ½‖ΔG_k‖² with Σm-normalized Grams
@@ -99,7 +103,9 @@ def style_layer_loss(feat_out: torch.Tensor, style_grams: torch.Tensor,
         scale, class_w, norm = 0.5, torch.ones_like(coverage), "m1"
     else:
         scale, class_w, norm = 1.0 / (4.0 * c * c), coverage, "m2"
-    if isinstance(feat_out, RawTap):
+    if g_out is not None:
+        g_o = g_out
+    elif isinstance(feat_out, RawTap):
         g_o = masked_grams_relu(feat_out.z, feat_out.b, out_masks, norm=norm)
     else:
         route = gram_route(*feat_out.shape[1:], out_masks.shape[0], c,
@@ -114,13 +120,18 @@ def style_loss(feats_out: dict, style_grams: dict, out_masks: dict,
                coverage: torch.Tensor, layer_weights: dict,
                compute_dtype="float32",
                style_norm: str = "gatys",
-               gram_impl: str = "auto") -> torch.Tensor:
-    """Sum of per-layer masked style losses, weighted per layer."""
+               gram_impl: str = "auto",
+               g_out: dict | None = None) -> torch.Tensor:
+    """Sum of per-layer masked style losses, weighted per layer. A layer in
+    `g_out` ({layer: normalized (K, C, C) Grams}) uses those and needs no
+    tap."""
+    g_out = g_out or {}
     total = torch.zeros((), dtype=torch.float32, device=coverage.device)
     for layer, w in layer_weights.items():
         total = total + w * style_layer_loss(
-            feats_out[layer], style_grams[layer], out_masks[layer],
-            coverage, compute_dtype, style_norm, gram_impl)
+            feats_out.get(layer), style_grams[layer], out_masks[layer],
+            coverage, compute_dtype, style_norm, gram_impl,
+            g_out=g_out.get(layer))
     return total
 
 

@@ -15,8 +15,10 @@ import torch
 
 from .config import StylizeConfig
 from .models import vgg
+from .ops import block12_pallas as b12
 from .ops import laplacian as lap
 from .ops import losses
+from .ops.gram_stream import normalize
 
 HISTORY_TERMS = ("total", "content", "style", "photoreal", "tv")
 
@@ -51,8 +53,6 @@ class StylizeConstants(NamedTuple):
 # takes its fused bias+ReLU Gram kernels (ops/gram_s2d.py); everywhere else
 # (the TPU's nd consumption, or its direct convs) the unfused route, ReLU
 # then the masked Gram kernels.
-_S2B_HALO = 8                   # dpst_tpu/models/vgg.py:_S2B_HALO
-
 
 def _resolve_block1(block1_impl: str, h: int, w: int) -> bool:
     """dpst_tpu/models/vgg.py:_resolve_block1 on a TPU: space-to-depth
@@ -70,7 +70,7 @@ def _s2b_active(s2b_strips: int, h: int, w: int, layers) -> bool:
     if n <= 1 or h % n:
         return False
     hs = h // n
-    return (hs % 4 == 0 and hs >= 4 * _S2B_HALO
+    return (hs % 4 == 0 and hs >= 4 * vgg.S2B_HALO
             and max(vgg.LAYER_ORDER.index(l) for l in layers)
             > vgg.LAYER_ORDER.index("pool2"))
 
@@ -114,11 +114,49 @@ def _block1_s2d_ok(cfg: StylizeConfig, image_shape, all_layers,
     return True
 
 
+_POOL2 = vgg.LAYER_ORDER.index("pool2")
+
+
+def _block12_layers(cfg: StylizeConfig) -> tuple[tuple, tuple, tuple]:
+    """(all taps, the taps of blocks 1-2, the taps past pool2), in the
+    order of style_layers + content_layers."""
+    all_layers = tuple(dict.fromkeys(cfg.style_layers + cfg.content_layers))
+    b12 = tuple(l for l in all_layers if vgg.LAYER_ORDER.index(l) < _POOL2)
+    return all_layers, b12, tuple(l for l in all_layers if l not in b12)
+
+
+def block12_route(cfg: StylizeConfig, image_shape) -> str:
+    """How blocks 1-2 run at an (H, W, 3) image, as `dpst_tpu/optimize.py:
+    make_loss_fn` decides on a TPU (`vgg.stream12_strips`'s TPU branch).
+    The route streams where `stream12` resolves to strips that
+    `stream12_compatible` takes and every block-1/2 tap is a style tap and
+    no content tap; then "kernel" where `stream12_impl="pallas"`, the
+    block-1/2 taps are exactly (conv1_1, conv2_1), w % 256 == 0 and
+    h % 32 == 0 (the fused kernels, `ops/block12_pallas.py`), else
+    "stream-standard" (the TPU's strip scan, a memory lowering the port
+    does not carry: the standard path, its block-1/2 Grams on the fused
+    route). Otherwise "standard"."""
+    all_layers, b12_layers, _ = _block12_layers(cfg)
+    h, w = image_shape[:2]
+    strips = vgg.stream12_strips(cfg.stream12, h, w)
+    if not (vgg.stream12_compatible(all_layers, strips, tuple(image_shape))
+            and all(l in cfg.style_layers and l not in cfg.content_layers
+                    for l in b12_layers)):
+        return "standard"
+    if (cfg.stream12_impl == "pallas"
+            and b12_layers == ("conv1_1", "conv2_1")
+            and w % 256 == 0 and h % 32 == 0):
+        return "kernel"
+    return "stream-standard"
+
+
 def fused_block1_taps(cfg: StylizeConfig, image_shape,
                       masks: dict) -> tuple[str, ...]:
     """The block-1 style taps that take the fused bias+ReLU Gram kernels
     at this image size: all of them where a TPU would feed them to its
-    s2d Gram kernel, else none."""
+    s2d Gram kernel, else none (and none where blocks 1-2 stream)."""
+    if block12_route(cfg, image_shape) != "standard":
+        return ()
     all_layers = tuple(dict.fromkeys(cfg.style_layers + cfg.content_layers))
     b1_layers = tuple(l for l in all_layers if l in ("conv1_1", "conv1_2"))
     if not b1_layers:
@@ -137,16 +175,43 @@ def fused_block1_taps(cfg: StylizeConfig, image_shape,
 def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
     """Build loss(image, consts, weights, vgg_params) -> (total, terms),
     with image (H, W, 3) in [0, 255] and terms the (5,) history row
-    [total, content, style, photoreal, tv]."""
+    [total, content, style, photoreal, tv]. Blocks 1-2 take
+    `block12_route`'s route."""
     style_lw = dict(zip(cfg.style_layers, cfg.style_layer_weights))
-    all_layers = tuple(dict.fromkeys(cfg.style_layers + cfg.content_layers))
+    all_layers, b12_layers, deep_layers = _block12_layers(cfg)
+    norm = "m1" if cfg.style_norm == "paper" else "m2"
+
+    def features(image, consts, vgg_params):
+        """(taps, normalized Grams of the layers that need no tap)."""
+        route = block12_route(cfg, image.shape)
+        if route != "kernel":
+            feats = vgg.extract_features(
+                vgg_params, image, all_layers, pooling=cfg.pooling,
+                compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl,
+                raw_taps=fused_block1_taps(cfg, image.shape, consts.masks))
+            if route == "standard":
+                return feats, {}
+            # the strip scan forms its block-1/2 Grams weighted before the
+            # product (the fused route), whatever gram_impl says at full size
+            return feats, {l: losses.masked_grams(
+                feats[l], consts.masks[l], compute_dtype=cfg.compute_dtype,
+                norm=norm) for l in b12_layers}
+        m1 = consts.masks["conv1_1"].to(torch.float32)
+        m2 = consts.masks["conv2_1"].to(torch.float32)
+        op = b12.make_block12_fused(pooling=cfg.pooling,
+                                    compute_dtype=cfg.compute_dtype)
+        g1, g2, p2 = op(vgg.preprocess_noflip(image), m1 * m1, m2 * m2,
+                        b12.pack_weights(vgg_params, cfg.compute_dtype))
+        g_out = {"conv1_1": normalize(g1, m1, norm),
+                 "conv2_1": normalize(g2, m2, norm)}
+        feats = vgg.extract_tail(
+            vgg_params, p2[None], deep_layers, pooling=cfg.pooling,
+            compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl)
+        return feats, g_out
 
     def loss_fn(image: torch.Tensor, consts: StylizeConstants,
                 weights: LossWeights, vgg_params: dict):
-        feats = vgg.extract_features(
-            vgg_params, image, all_layers, pooling=cfg.pooling,
-            compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl,
-            raw_taps=fused_block1_taps(cfg, image.shape, consts.masks))
+        feats, g_out = features(image, consts, vgg_params)
         zero = torch.zeros((), dtype=torch.float32, device=image.device)
         l_content = zero
         for layer in cfg.content_layers:
@@ -155,7 +220,8 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
         l_style = losses.style_loss(
             feats, consts.style_grams, consts.masks, consts.coverage,
             style_lw, compute_dtype=cfg.compute_dtype,
-            style_norm=cfg.style_norm, gram_impl=cfg.gram_impl)
+            style_norm=cfg.style_norm, gram_impl=cfg.gram_impl,
+            g_out=g_out)
         l_reg = (lap.photoreal_loss(consts.lap_stats, image)
                  if consts.lap_stats is not None else zero)
         l_tv = losses.tv_loss(image) if cfg.tv_weight else zero
