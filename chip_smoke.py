@@ -8,7 +8,9 @@ no result):
   1. device   -- the card's name, and its name and power limit from
                  nvidia-smi;
   2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
-                 sm_90a) and reports the seconds;
+                 sm_90a) and reports the seconds, and the registers, local
+                 memory, shared memory and blocks per SM of the bf16 Gram
+                 bodies (gram_wgmma.cuh);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes of the 512² config3 main path (K = 4 masks),
                  for the fused bias+ReLU Gram pair of conv1_1 at the 1024²
@@ -18,8 +20,10 @@ no result):
                  tolerance, the kernel's time, the plain version's time,
                  the computed bound and, where one PyTorch call computes
                  the same function (cuDNN for the conv; or, labelled, a
-                 yardstick call), that call's time; then each kernel at
-                 shapes that do not fill its tiles;
+                 yardstick call), that call's time; gram_fwd and gram_bwd
+                 also at config4's 1024² taps, timed by device time in
+                 turns with torch.matmul; then each kernel at shapes that
+                 do not fill its tiles;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -84,6 +88,9 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC; fp32 CUDA cores
 GRAM_SHAPES = ((64, 262144), (128, 65536), (256, 16384), (512, 4096),
                (512, 1024))                   # (C, P) of conv1_1..conv5_1
+# (C, P) of conv2_1 … conv5_1 at config4's 1024² stage (conv1_1 takes the
+# fused pair there): timed, not summed into the 512² step
+GRAM_SHAPES_1024 = ((128, 262144), (256, 65536), (512, 16384), (512, 4096))
 POOL_SHAPES = ((64, 512, 512), (128, 256, 256), (256, 128, 128),
                (512, 64, 64))                 # (C, H, W) into pool1..pool4
 # (Cin, Cout, H = W) of conv1_2 … conv5_1 at 512², the convs that
@@ -147,6 +154,45 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, warmup: int = 3, iters: int = 10,
+              attempts: int = 5) -> float:
+    """Device time of fn() per call: torch.profiler's CUDA events (every
+    kernel and copy fn launches) summed over `iters` calls, after warm-up.
+    Unlike `cuda_ms` it does not count the device idling while the host
+    enqueues, which is what back-to-back calls of a wrapper around a
+    kernel shorter than its Python measure. fn launches the same work on
+    every call, so a trace whose device events are not a positive
+    multiple of `iters` lost some (the card's profiler now and then
+    returns a trace without them) and is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+        if evs and len(evs) % iters == 0:
+            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
+    fail("kernels", f"torch.profiler lost device events {attempts} times")
+
+
+def in_turns(kernel, library) -> dict:
+    """Device and back-to-back event times of a kernel and of the library
+    call that computes the same function, taken in turns (kernel, library,
+    library, kernel) and averaged per side."""
+    k1, l1, l2, k2 = (device_ms(kernel), device_ms(library),
+                      device_ms(library), device_ms(kernel))
+    return {"ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+            "events_ms": cuda_ms(kernel),
+            "library_events_ms": cuda_ms(library)}
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     """(max |got − ref|, that over max |ref|)."""
     err = float((got.float() - ref.float()).abs().max())
@@ -189,70 +235,74 @@ def check_lap(dev, gen):
 
 
 def check_gram(dev, gen):
+    """gram_fwd and gram_bwd (bf16: the wgmma bodies; fp32: the CUDA-core
+    tiles) at the 512² taps, and in bf16 at config4's 1024² taps (rows with
+    in_step False, outside the 512² sums). "ms" and "library_ms" are device
+    times (`in_turns`), "events_ms" the back-to-back event times."""
     from dpst_tpu_torch.ops import gram_stream as gs
     rows = []
-    for dtype in ("bfloat16", "float32"):
+    cases = [("bfloat16", c, p, True) for c, p in GRAM_SHAPES]
+    cases += [("float32", c, p, True) for c, p in GRAM_SHAPES]
+    cases += [("bfloat16", c, p, False) for c, p in GRAM_SHAPES_1024]
+    for dtype, c, p, in_step in cases:
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
-        for c, p in GRAM_SHAPES:
-            f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
-            m = torch.rand((K, p), generator=gen, device=dev)
-            m2 = (m * m).to(cdt)
-            d = torch.randn((K, c, c), generator=gen, device=dev)
-            s = (d + d.transpose(1, 2)).to(cdt).contiguous()
-            ops = 2.0 * K * c * c * p
-            # forward: raw Grams in fp32 from identical bf16/fp32 operands
-            g = gs.gram_fwd(f, m2)
-            g_ref = gs.gram_fwd_plain(f, m2)
-            torch.cuda.synchronize()
-            err, rel = rel_err(g, g_ref)
-            # fp32 sums of up to 262144 products in two orders (cuBLAS's
-            # and the kernel's split-P order): 1.7e-4 of max|G| measured at
-            # conv1_1 on the H100 in both dtypes; the errors against a
-            # float64 product of the same operands show which side drifts
-            tol = 1e-3
-            fw64 = (f.unsqueeze(0) * m2.unsqueeze(1)).double()
-            g64 = torch.matmul(f.double(), fw64.transpose(1, 2))
-            err64 = {"kernel": rel_err(g.double(), g64)[1],
-                     "plain": rel_err(g_ref.double(), g64)[1]}
-            del fw64, g64
-            lib = lambda: torch.matmul(f, f.t().unsqueeze(0)
-                                       * m2.unsqueeze(2))
-            b, by = bound_ms((c * p + K * p) * isz + K * c * c * 4, ops,
-                             dtype)
-            row = {"phase": "kernel", "name": "gram_fwd", "shape": [c, p],
-                   "K": K, "dtype": dtype, "max_abs_err": err,
-                   "rel_err": rel, "tol_rel": tol, "rel_err_fp64": err64,
-                   "ms": cuda_ms(lambda: gs.gram_fwd(f, m2)),
-                   "plain_ms": cuda_ms(lambda: gs.gram_fwd_plain(f, m2),
-                                       iters=5),
-                   "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib)}
-            emit(row)
-            rows.append(row)
-            if not rel <= tol:
-                fail("kernels", f"gram_fwd {dtype} {c}x{p}: rel err {rel}")
-            # backward: dF in the compute dtype (bf16 output: <= 1 ulp)
-            out = gs.gram_bwd(f, m2, s)
-            out_ref = gs.gram_bwd_plain(f, m2, s)
-            torch.cuda.synchronize()
-            err, rel = rel_err(out, out_ref)
-            tol = 1e-2 if dtype == "bfloat16" else 1e-4
-            a = s.permute(1, 0, 2).reshape(c, K * c)
-            lib = lambda: torch.matmul(
-                a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
-            b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz, ops,
-                             dtype)
-            row = {"phase": "kernel", "name": "gram_bwd", "shape": [c, p],
-                   "K": K, "dtype": dtype, "max_abs_err": err,
-                   "rel_err": rel, "tol_rel": tol,
-                   "ms": cuda_ms(lambda: gs.gram_bwd(f, m2, s)),
-                   "plain_ms": cuda_ms(lambda: gs.gram_bwd_plain(f, m2, s),
-                                       iters=5),
-                   "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib)}
-            emit(row)
-            rows.append(row)
-            if not rel <= tol:
-                fail("kernels", f"gram_bwd {dtype} {c}x{p}: rel err {rel}")
+        f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
+        m = torch.rand((K, p), generator=gen, device=dev)
+        m2 = (m * m).to(cdt)
+        d = torch.randn((K, c, c), generator=gen, device=dev)
+        s = (d + d.transpose(1, 2)).to(cdt).contiguous()
+        ops = 2.0 * K * c * c * p
+        # forward: raw Grams in fp32 from identical bf16/fp32 operands
+        g = gs.gram_fwd(f, m2)
+        g_ref = gs.gram_fwd_plain(f, m2)
+        torch.cuda.synchronize()
+        err, rel = rel_err(g, g_ref)
+        # fp32 sums of up to 262144 products in two orders (cuBLAS's
+        # and the kernel's split-P order): 1.7e-4 of max|G| measured at
+        # conv1_1 on the H100 in both dtypes; the errors against a
+        # float64 product of the same operands show which side drifts
+        tol = 1e-3
+        fw64 = (f.unsqueeze(0) * m2.unsqueeze(1)).double()
+        g64 = torch.matmul(f.double(), fw64.transpose(1, 2))
+        err64 = {"kernel": rel_err(g.double(), g64)[1],
+                 "plain": rel_err(g_ref.double(), g64)[1]}
+        del fw64, g64
+        lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
+        b, by = bound_ms((c * p + K * p) * isz + K * c * c * 4, ops, dtype)
+        row = {"phase": "kernel", "name": "gram_fwd", "shape": [c, p],
+               "K": K, "dtype": dtype, "in_step": in_step,
+               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
+               "rel_err_fp64": err64,
+               **in_turns(lambda: gs.gram_fwd(f, m2), lib),
+               "plain_ms": cuda_ms(lambda: gs.gram_fwd_plain(f, m2),
+                                   iters=5),
+               "bound_ms": b, "bound_by": by}
+        emit(row)
+        rows.append(row)
+        if not rel <= tol:
+            fail("kernels", f"gram_fwd {dtype} {c}x{p}: rel err {rel}")
+        # backward: dF in the compute dtype (bf16 output: <= 1 ulp)
+        out = gs.gram_bwd(f, m2, s)
+        out_ref = gs.gram_bwd_plain(f, m2, s)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, out_ref)
+        tol = 1e-2 if dtype == "bfloat16" else 1e-4
+        a = s.permute(1, 0, 2).reshape(c, K * c)
+        lib = lambda: torch.matmul(
+            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
+        b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz, ops, dtype)
+        row = {"phase": "kernel", "name": "gram_bwd", "shape": [c, p],
+               "K": K, "dtype": dtype, "in_step": in_step,
+               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
+               **in_turns(lambda: gs.gram_bwd(f, m2, s), lib),
+               "plain_ms": cuda_ms(lambda: gs.gram_bwd_plain(f, m2, s),
+                                   iters=5),
+               "bound_ms": b, "bound_by": by}
+        emit(row)
+        rows.append(row)
+        if not rel <= tol:
+            fail("kernels", f"gram_bwd {dtype} {c}x{p}: rel err {rel}")
     return rows
 
 
@@ -517,7 +567,13 @@ def check_edges(dev, gen) -> None:
             lapc.lap_matvec_plain(packed, v3))[1], 1e-5)
     for dtype in ("bfloat16", "float32"):
         cdt = getattr(torch, dtype)
-        for c, p, k in ((96, 1000, 3), (8, 40, 1), (200, 3000, 5)):
+        # odd P (padded to 8 by the bf16 wrappers), P below one 64-pixel
+        # tile, C not a multiple of 8, five classes (two class groups), and
+        # odd class counts over many stages (the forward's two weighted
+        # fragment buffers alternate across a stage's halves)
+        for c, p, k in ((96, 1000, 3), (8, 40, 1), (200, 3000, 5),
+                        (96, 1001, 3), (512, 9, 4), (37, 333, 2),
+                        (64, 8192, 1), (256, 8192, 3)):
             f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
             m2 = torch.rand((k, p), generator=gen, device=dev).to(cdt)
             d = torch.randn((k, c, c), generator=gen, device=dev)
@@ -1468,6 +1524,22 @@ def summarize(rows: list, launches: dict) -> list:
     return out
 
 
+def wgmma_resources(lib) -> dict:
+    """Registers, local memory (spills and stack), dynamic shared memory and
+    resident blocks per SM of the bf16 Gram bodies (csrc/gram_wgmma.cuh)."""
+    import ctypes
+    out = {}
+    for which, name in enumerate(("gram_fwd", "gram_bwd (64-row c tile)",
+                                  "gram_bwd (128-row c tile)")):
+        vals = (ctypes.c_int * 4)()
+        rc = lib.dpst_gram_wgmma_attrs(which, vals)
+        if rc != 0:
+            fail("build", f"dpst_gram_wgmma_attrs({which}): error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes",
+                              "blocks_per_sm"), vals))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1487,8 +1559,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.build(verbose=True)
-    kernels.library()
+    lib = kernels.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "wgmma_kernels": wgmma_resources(lib)})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = check_lap(dev, gen)

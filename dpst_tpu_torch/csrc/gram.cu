@@ -48,9 +48,17 @@
 // memory while it loads them. bf16 tiles run on the tensor cores through
 // warp-level mma (nvcuda::wmma, 16x16x16, fp32 accumulators); fp32 tiles
 // run on the CUDA cores (fp32 has no exact tensor-core path: TF32 would
-// drop mantissa bits). Tiles are 64x64 with a depth of 32; wgmma, TMA and
-// pipelining are left for later work. The forward tile and the backward
-// tile of gram_bwd live in gram_tile.cuh, shared with block12.cu.
+// drop mantissa bits). Tiles are 64x64 with a depth of 32, without
+// pipelining. The forward tile and the backward tile of gram_bwd live in
+// gram_tile.cuh, shared with block12.cu.
+//
+// gram_fwd and gram_bwd in bf16 run other bodies, written for Hopper
+// (gram_wgmma.cuh): wgmma tiles fed by a cp.async ring, F read once for all
+// K classes, the weighted operand formed in registers. They need P % 8 == 0
+// (16-byte rows; the wrapper pads P with zero columns), gram_bwd takes the
+// cotangent as the (C, K * Cp) matrix A described at dpst_gram_bwd, and
+// gram_fwd's split chunk is a multiple of 64. Their fp32 bodies are the
+// tiles above.
 //
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second
@@ -58,6 +66,7 @@
 // gives bit-identical Grams. Offsets into (C, P), (K, P) and the split
 // workspace are 64-bit (C * P is 2^26 at 1024^2 and grows 16x by 4096^2).
 #include "gram_tile.cuh"
+#include "gram_wgmma.cuh"
 
 namespace {
 
@@ -253,6 +262,95 @@ void launch_bwd(const void* f, const void* m2, const void* s, void* out,
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
 }
 
+// Raise a kernel's dynamic shared memory limit to `bytes` on the current
+// device the first time a launch there needs more than the limit set so
+// far; `allowed` is the kernel's own record, per device.
+template <typename Kern>
+cudaError_t allow_smem(Kern* kern, size_t bytes, size_t (&allowed)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  return err;
+}
+
+// bf16 forward on the Hopper body: class groups of gram90::KG, then the
+// fixed-order sum of the split partials.
+cudaError_t launch_fwd_wgmma(const void* f, const void* m2, float* work,
+                               float* out, int C, int P, int K, int splits,
+                               int chunk, cudaStream_t st) {
+  if (P % 8 != 0 || chunk % (gram90::BK * gram90::FWD_HALVES) != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = gram90::fwd_smem();
+  static size_t allowed[64] = {};
+  cudaError_t err = allow_smem(gram90::gram_fwd_wgmma_kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int tiles = (C + 63) / 64;
+  const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG, splits);
+  gram90::gram_fwd_wgmma_kernel<<<grid, gram90::NT, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(f),
+      static_cast<const __nv_bfloat16*>(m2), splits == 1 ? out : work, C, P,
+      K, chunk);
+  if (splits > 1) {
+    const long long n = static_cast<long long>(K) * C * C;
+    gram_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
+        work, out, splits, n);
+  }
+  return cudaGetLastError();
+}
+
+
+
+// bf16 backward on the Hopper body: c tiles of N rows; `groups` blocks
+// share the p tiles of each c tile, `splits` cut the reduction (then work
+// holds the fp32 partials, summed in a fixed order and rounded by
+// gram_bwd_reduce_kernel).
+template <int N>
+cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
+                               float* work, void* out, int C, int P, int K,
+                               int groups, int splits, cudaStream_t st) {
+  const int nit = (C + 63) / 64 * K;
+  const int ipb = (nit + splits - 1) / splits;
+  if (groups < 1 || groups > (P + 63) / 64 || splits < 1 ||
+      (splits - 1) * ipb >= nit || (splits > 1 && work == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = gram90::bwd_smem<N>();
+  static size_t allowed[64] = {};  // one record for each N
+  cudaError_t err = allow_smem(gram90::gram_bwd_wgmma_kernel<N>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(groups, (C + N - 1) / N, splits);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  gram90::gram_bwd_wgmma_kernel<N><<<grid, gram90::NT, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(f),
+      static_cast<const __nv_bfloat16*>(m2),
+      static_cast<const __nv_bfloat16*>(a), o, splits > 1 ? work : nullptr,
+      C, P, K, ipb);
+  if (splits > 1) {
+    const long long n = static_cast<long long>(C) * P;
+    gram90::gram_bwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0,
+                                     st>>>(work, o, splits, n);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_wgmma(const void* f, const void* m2, const void* a,
+                             float* work, void* out, int C, int P, int K,
+                             int tile, int groups, int splits,
+                             cudaStream_t st) {
+  if (P % 8 != 0) return cudaErrorInvalidValue;
+  if (tile == 64)
+    return launch_bwd_wgmma_n<64>(f, m2, a, work, out, C, P, K, groups,
+                                  splits, st);
+  if (tile == 128)
+    return launch_bwd_wgmma_n<128>(f, m2, a, work, out, C, P, K, groups,
+                                   splits, st);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 void launch_wbwd(const void* f, const void* m2, const void* s, void* out,
                  int C, int P, int K, cudaStream_t st) {
@@ -276,7 +374,8 @@ void launch_relu_bwd(const void* z, const void* bias, const void* m2,
 }  // namespace
 
 // work: (splits, K, C, C) fp32 scratch, unused when splits == 1;
-// out: (K, C, C) fp32. Each split covers `chunk` pixels (a multiple of 32).
+// out: (K, C, C) fp32. Each split covers `chunk` pixels: a multiple of 32
+// in fp32; in bf16 a multiple of 64, with P % 8 == 0.
 extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
                              void* out, int C, int P, int K, int splits,
                              int chunk, int dtype, void* stream) {
@@ -288,23 +387,35 @@ extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
     launch_fwd<float, false>(f, nullptr, m2, w, o, C, P, K, splits, chunk,
                              st);
   else if (dtype == DPST_DTYPE_BF16)
-    launch_fwd<__nv_bfloat16, false>(f, nullptr, m2, w, o, C, P, K, splits,
-                                     chunk, st);
+    return static_cast<int>(
+        launch_fwd_wgmma(f, m2, w, o, C, P, K, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// s: (K, C, C) symmetrized cotangent in the compute dtype; out: (C, P).
+// out: dF (C, P) in the compute dtype. s is the symmetrized cotangent:
+// in fp32 the (K, C, C) stack S; in bf16 the matrix A (C, K * Cp) with
+// A[c][k * Cp + c'] = S_k[c][c'], Cp = C rounded up to a multiple of 8 and
+// the padding zero, and P % 8 == 0. tile, groups, splits and work serve
+// bf16 only: c tiles of `tile` (64 or 128) rows; `groups` (1 <= groups <=
+// ceil(P / 64)) blocks walk the 64-pixel tiles of each c tile; `splits` > 1
+// cuts the reduction over (k, c') into that many ranges of
+// ceil(ceil(C / 64) * K / splits) items, each non-empty, whose fp32
+// partials go to work (splits, C, P).
 extern "C" int dpst_gram_bwd(const void* f, const void* m2, const void* s,
-                             void* out, int C, int P, int K, int dtype,
+                             void* work, void* out, int C, int P, int K,
+                             int tile, int groups, int splits, int dtype,
                              void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
     launch_bwd<float>(f, m2, s, out, C, P, K, st);
   else if (dtype == DPST_DTYPE_BF16)
-    launch_bwd<__nv_bfloat16>(f, m2, s, out, C, P, K, st);
+    return static_cast<int>(launch_bwd_wgmma(f, m2, s,
+                                             static_cast<float*>(work), out,
+                                             C, P, K, tile, groups, splits,
+                                             st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -362,3 +473,41 @@ extern "C" int dpst_gram_wbwd(const void* f, const void* m2, const void* s,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resources of the Hopper bodies, for the record: which = 0 gram_fwd, 1
+// gram_bwd with 64-row c tiles, 2 with 128-row c tiles.
+// out: registers a thread, local memory bytes a thread (spills and stack),
+// dynamic shared memory bytes a block, resident blocks an SM.
+extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  cudaFuncAttributes at{};
+  size_t smem = 0;
+  const void* fn = nullptr;
+  if (which == 0) {
+    fn = reinterpret_cast<const void*>(gram90::gram_fwd_wgmma_kernel);
+    smem = gram90::fwd_smem();
+  } else if (which == 1) {
+    fn = reinterpret_cast<const void*>(gram90::gram_bwd_wgmma_kernel<64>);
+    smem = gram90::bwd_smem<64>();
+  } else if (which == 2) {
+    fn = reinterpret_cast<const void*>(gram90::gram_bwd_wgmma_kernel<128>);
+    smem = gram90::bwd_smem<128>();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncGetAttributes(&at, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, gram90::NT,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
+}
+

@@ -1,0 +1,607 @@
+// Hopper bodies of the bf16 masked-Gram forward and backward of
+// csrc/gram.cu (dpst_gram_fwd, dpst_gram_bwd in bf16; fp32 keeps the CUDA-core
+// tile of gram_tile.cuh, since TF32 would drop mantissa bits):
+//
+//   forward   G_k = F . round(F * m2_k)^T in fp32   f (C, P), m2 (K, P)
+//   backward  dF  = round( sum_{k,c'} S_k[c][c'] * round(F[c'] * m2_k) )
+//
+// They replace the TPU kernels dpst_tpu/ops/gram_stream.py:_fwd_kernel
+// (launched by _gram_fwd_call) and :_bwd_kernel (launched by
+// _gram_raw_bwd), with the rounding of dpst_tpu/ops/losses.py:
+// _grams_raw_flat. Summation orders differ from the TPU's; every product
+// accumulates in fp32, the weighted operand is rounded to bf16 as the JAX
+// package forms it, dF is rounded once, and no float atomics are used, so
+// a rerun is bit-identical.
+//
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at 512^2, K = 4, each
+// tap's Grams take 2*K*C*C*P = 8.6 GFLOP (2.1 at conv5_1), 8.7 us at
+// peak, while conv1_1 (C = 64, P = 2^18) reads 32 MB of F and the backward
+// writes 32 MB of dF: bytes bound conv1_1 (~20 us for the backward),
+// operations the deep taps.
+//
+// Design. One warpgroup (128 threads) per block runs wgmma (m64nNk16, fp32
+// accumulators in registers). The weighted operand is never stored: F
+// arrives in shared memory once per stage, each thread reads its wgmma A
+// fragment of F with ldmatrix, multiplies it by m2_k and rounds it in
+// registers, once per class, and hands it to wgmma as the register A
+// operand. The other operand (F in the forward, the cotangent in the
+// backward) is read by wgmma from shared memory in the 128-byte swizzled
+// K-major layout. Operands arrive by cp.async (16 bytes a thread, no
+// division in the address arithmetic) in a ring of slots, so the loads of
+// later stages overlap this stage's products.
+//   forward: a block owns a 64 x 64 tile (rows j, columns i) of all classes
+//     of a class group (up to KG = 4 accumulators of 32 registers) over one
+//     split of P. A stage brings F[j tile] and F[i tile] (once for a
+//     diagonal tile) and the group's masks, 128 pixels deep; the block
+//     computes G_k^T[j][i] = sum_p round(F_j m2_k) F_i and stores it
+//     transposed. Each split writes an fp32 partial that gram.cu sums in a
+//     fixed order; the splits are sized so the grid is one wave.
+//   backward: a block owns a c tile (N = 64 or 128 rows) and walks p tiles
+//     of 64 pixels, one after the other in one ring (a persistent block:
+//     the short blocks of conv1_1 would otherwise wait on their first
+//     loads). For each p tile it walks the reduction r = (k, c') in items
+//     of 64 c' of one class; F[c' chunk, p tile] is loaded and read into
+//     registers once per chunk (ldmatrix.trans) and serves every class;
+//     the cotangent comes as the plain matrix A = (C, K*Cp), A[c][k*Cp +
+//     c'] = S_k[c][c'] (Cp = C rounded up to 8, zero padded), whose tiles
+//     are 16-byte rows. One fp32 accumulator takes all K*C products; the
+//     epilogue rounds it once and stores dF in 16-byte vectors through
+//     shared memory. Where the (p tile x c tile) grid cannot fill the card
+//     (conv5_1 at 512^2), the reduction is split across blocks into fp32
+//     partials, summed in a fixed order and rounded once.
+// Rows need 16-byte alignment: P % 8 == 0 (the wrapper pads P with zero
+// columns, which add nothing to G and whose dF is dropped).
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+
+#include "dpst_common.cuh"
+
+// Internal linkage, as gram_tile.cuh: the kernels belong to gram.cu alone.
+namespace {
+namespace gram90 {
+
+using bf16 = __nv_bfloat16;
+using dpst::from_f;
+using dpst::to_f;
+
+constexpr int NT = 128;               // one warpgroup
+constexpr int BK = 64;                // depth of a swizzle atom (128 bytes)
+constexpr int STAGES = 4;             // slots of the backward's ring
+constexpr int TILE_BYTES = 64 * 128;  // 64 rows of 64 bf16
+constexpr int KG = 4;                 // classes per forward block
+// the forward's stages are FWD_HALVES atoms deep, in a ring of FWD_STAGES
+// (on the H100 two atoms in three slots ran 8-10 % faster than one atom in
+// four or six slots; two atoms in four slots left one block an SM)
+constexpr int FWD_HALVES = 2;
+constexpr int FWD_STAGES = 3;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The 1024-byte aligned start of dynamic shared memory (the swizzle
+// pattern repeats every 8 rows of 128 bytes).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows with
+// the 128-byte swizzle (chunk index XOR row index mod 8), the layout that
+// wgmma's descriptor mode 1 reads.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart. Adding 2 advances it by 16 bf16 along K.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes if !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async writes shared memory through the generic proxy, wgmma reads it
+// through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma accumulators across the
+// asynchronous region.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Two bf16 of F (low half first) times their masks, each product in fp32
+// (exact) rounded once to bf16: round(F * m2), the plain version's value.
+__device__ __forceinline__ uint32_t weigh2(uint32_t x, float m0, float m1) {
+  __nv_bfloat162 v;
+  memcpy(&v, &x, 4);
+  const float2 xf = __bfloat1622float2(v);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(__fmul_rn(xf.x, m0), __fmul_rn(xf.y, m1));
+  uint32_t out;
+  memcpy(&out, &r, 4);
+  return out;
+}
+
+// d (64 x 64, fp32) += a (64 x 16 bf16, registers) . b (16 x 64 bf16,
+// K-major in shared memory with the 128-byte swizzle, at desc)
+__device__ __forceinline__ void wgmma_64(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(1));
+}
+
+// d (64 x 128, fp32) += a (64 x 16 bf16, registers) . b (16 x 128 bf16,
+// K-major in shared memory with the 128-byte swizzle, at desc)
+__device__ __forceinline__ void wgmma_128(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(1));
+}
+
+// Forward. Grid (tiles * tiles, ceil(K / KG), splits): block (tile, class
+// group, split) computes out[split][k][i0..][j0..] = sum over p in
+// [split * chunk, min(P, (split + 1) * chunk)) of F[i][p] * round(F[j][p] *
+// m2_k[p]) for the group's classes. A stage is H = FWD_HALVES atoms of 64
+// pixels deep; chunk % (64 * H) == 0, P % 8 == 0.
+__global__ void __launch_bounds__(NT)
+gram_fwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
+                      float* __restrict__ out, int C, int P, int K,
+                      int chunk) {
+  constexpr int H = FWD_HALVES, S = FWD_STAGES;
+  // a slot: F_j halves, F_i halves, then the group's masks (KG x 64H bf16)
+  constexpr int SLOT = 2 * H * TILE_BYTES + 1024;
+  static_assert(KG * 128 * H <= 1024, "the masks fit their part of a slot");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const int tiles = (C + 63) >> 6;
+  const int tj = blockIdx.x / tiles, ti = blockIdx.x - tj * tiles;
+  const int j0 = tj * 64, i0 = ti * 64;
+  const bool diag = ti == tj;
+  const int k0 = blockIdx.y * KG, kn = min(KG, K - k0);
+  const int pb = blockIdx.z * chunk, pe = min(P, pb + chunk);
+  const int nst = (pe - pb + BK * H - 1) / (BK * H);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // stage s: F[j0.., p0..p0+64H), F[i0.., same] and the group's masks
+  auto load = [&](int s) {
+    const uint32_t sa = smem_addr(sm + (s % S) * SLOT);
+    const int p0 = pb + s * BK * H;
+#pragma unroll
+    for (int e = tid; e < 64 * 8 * H; e += NT) {
+      const int hr = e >> 3, c = e & 7, h = hr >> 6, r = hr & 63;
+      const int p = p0 + h * 64 + c * 8;
+      const bool pv = p < pe;
+      const bool vj = pv && j0 + r < C;
+      cp_async16(sa + h * TILE_BYTES + swz(r, c),
+                 vj ? f + static_cast<size_t>(j0 + r) * P + p : f, vj);
+      if (!diag) {
+        const bool vi = pv && i0 + r < C;
+        cp_async16(sa + (H + h) * TILE_BYTES + swz(r, c),
+                   vi ? f + static_cast<size_t>(i0 + r) * P + p : f, vi);
+      }
+    }
+    if (tid < kn * 8 * H) {
+      const int q = tid / (8 * H), c = tid % (8 * H), p = p0 + c * 8;
+      const bool v = p < pe;
+      cp_async16(sa + 2 * H * TILE_BYTES + q * 128 * H + c * 16,
+                 v ? m2 + static_cast<size_t>(k0 + q) * P + p : m2, v);
+    }
+  };
+
+  float acc[KG][32];
+#pragma unroll
+  for (int q = 0; q < KG; ++q)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[q][i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nst) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<S - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage s landed; stage s - 1's slot is free
+    if (s + S - 1 < nst) load(s + S - 1);
+    cp_async_commit();
+
+    const unsigned char* slot = sm + (s % S) * SLOT;
+    const uint32_t sa = smem_addr(slot);
+    const bf16* msk = reinterpret_cast<const bf16*>(slot + 2 * H * TILE_BYTES);
+    uint32_t wa[2][4][4];  // weighted fragments, two classes in flight
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const uint64_t desc =
+          make_desc(sa + ((diag ? 0 : H) + h) * TILE_BYTES);
+      // warp w's A rows are j0 + 16w .. + 15: its F fragments for the four
+      // 16-pixel steps of this half
+      uint32_t fa[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        ldmatrix_x4(fa[ks], sa + h * TILE_BYTES + swz(w * 16 + (lane & 15),
+                                                    ks * 2 + (lane >> 4)));
+#pragma unroll
+      for (int q = 0; q < KG; ++q) {
+        if (q < kn) {
+          // the class issued two before this one released wa[q & 1]; the
+          // half's first class follows the last half's class kn - 1,
+          // which used the same buffer when kn is odd
+          if (q == 0 && h > 0 && (kn & 1))
+            wgmma_wait<0>();
+          else if (h > 0 || q >= 2)
+            wgmma_wait<1>();
+          const bf16* mq = msk + q * 64 * H + h * 64;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            // columns 2t, 2t + 1 and 2t + 8, 2t + 9 of this 16-pixel step
+            const int pc = ks * 16 + 2 * t;
+            const float2 lo = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(mq + pc));
+            const float2 hi = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(mq + pc + 8));
+            wa[q & 1][ks][0] = weigh2(fa[ks][0], lo.x, lo.y);
+            wa[q & 1][ks][1] = weigh2(fa[ks][1], lo.x, lo.y);
+            wa[q & 1][ks][2] = weigh2(fa[ks][2], hi.x, hi.y);
+            wa[q & 1][ks][3] = weigh2(fa[ks][3], hi.x, hi.y);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_64(acc[q], wa[q & 1][ks], desc + 2 * ks);
+          wgmma_commit();
+        }
+      }
+    }
+    wgmma_wait<0>();
+  }
+#pragma unroll
+  for (int q = 0; q < KG; ++q) fence_regs(acc[q]);
+
+  // acc[q][4n + 2h + e] = G^T[j0 + 16w + g + 8h][i0 + 8n + 2t + e]
+  float* o = out + (static_cast<size_t>(blockIdx.z) * K + k0) * C * C;
+#pragma unroll
+  for (int q = 0; q < KG; ++q) {
+    if (q < kn) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + w * 16 + g + 8 * h, i = i0 + 8 * n + 2 * t + e;
+            if (i < C && j < C)
+              o[(static_cast<size_t>(q) * C + i) * C + j] =
+                  acc[q][4 * n + 2 * h + e];
+          }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc) {
+  if constexpr (N == 64)
+    wgmma_64(d, a, desc);
+  else
+    wgmma_128(d, a, desc);
+}
+
+// Backward. Grid (groups, ceil(C / N), splits). Block (g, c tile, split)
+// walks the p tiles g, g + groups, ... (64 pixels each, at least one:
+// groups <= ceil(P / 64)) and, for each, its share of the reduction: the
+// items [split * ipb, min(nit, (split + 1) * ipb)) of r = (c' chunk j of 64,
+// class k), in that order. It computes over its items
+//   sum_r a[c][k*Cp + c'] * round(F[c'][p] * m2[k][p])
+// and stores it rounded to bf16 in out (C, P) when splits == 1, else in
+// fp32 in work[split] (C, P), which gram_bwd_reduce_kernel sums in split
+// order and rounds once. The ring runs on across p tiles, so a block's
+// next tile loads while it finishes this one. P % 8 == 0.
+template <int N>
+__global__ void __launch_bounds__(NT)
+gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
+                      const bf16* __restrict__ a, bf16* __restrict__ out,
+                      float* __restrict__ work, int C, int P, int K,
+                      int ipb) {
+  constexpr int SLOT = TILE_BYTES + N * 128;  // F chunk, cotangent tile
+  constexpr int D = STAGES - 2;               // items loaded ahead
+  constexpr int LDT = 72;                     // epilogue tile row (bf16)
+  static_assert(N * LDT * 2 <= SLOT, "the epilogue tile fits a slot");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* msk = reinterpret_cast<bf16*>(sm + STAGES * SLOT);  // [STAGES][64]
+  const int cpad = (C + 7) & ~7, lda = K * cpad;
+  const int c0 = blockIdx.y * N;
+  const int nit = ((C + 63) >> 6) * K;
+  const int ib = blockIdx.z * ipb;
+  const int per = min(nit, ib + ipb) - ib;  // items per p tile
+  const int ptiles = (P + 63) >> 6;
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int ntile = (ptiles - 1 - bx) / gx + 1;
+  const int total = ntile * per;
+  const int jb = ib / K, kb = ib - jb * K;  // the split's first item
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // position of an item: p tile (u-th of the block), c' chunk j, class k,
+  // and n, its index among the tile's items
+  struct Pos {
+    int u, j, k, n;
+  };
+  auto advance = [&](Pos& q) {
+    if (++q.n == per) {
+      q.n = 0;
+      ++q.u;
+      q.j = jb;
+      q.k = kb;
+    } else if (++q.k == K) {
+      q.k = 0;
+      ++q.j;
+    }
+  };
+  auto p_of = [&](int u) { return (bx + u * gx) * 64; };
+
+  // item `it` at q into slot it % STAGES: F[64j.., p0..] where the item
+  // starts a chunk or a tile (the chunk's F serves all its classes), the
+  // class's masks m2[k][p0..p0+64), and a[c0.., k*cpad + 64j ..]
+  auto load = [&](int it, const Pos& q) {
+    const int slot = it % STAGES;
+    const uint32_t sa = smem_addr(sm + slot * SLOT);
+    const int p0 = p_of(q.u);
+    if (q.k == 0 || q.n == 0) {
+#pragma unroll
+      for (int e = tid; e < 64 * 8; e += NT) {
+        const int r = e >> 3, c = e & 7, cr = q.j * 64 + r, p = p0 + c * 8;
+        const bool v = cr < C && p < P;
+        cp_async16(sa + swz(r, c), v ? f + static_cast<size_t>(cr) * P + p : f,
+                   v);
+      }
+    }
+    if (tid < 8) {
+      const int p = p0 + tid * 8;
+      const bool v = p < P;
+      cp_async16(smem_addr(msk + slot * 64 + tid * 8),
+                 v ? m2 + static_cast<size_t>(q.k) * P + p : m2, v);
+    }
+    const int col = q.k * cpad + q.j * 64;
+#pragma unroll
+    for (int e = tid; e < N * 8; e += NT) {
+      const int r = e >> 3, c = e & 7, cr = c0 + r;
+      const bool v = cr < C && q.j * 64 + c * 8 < cpad;
+      cp_async16(sa + TILE_BYTES + swz(r, c),
+                 v ? a + static_cast<size_t>(cr) * lda + col + c * 8 : a, v);
+    }
+  };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+
+  Pos ql{0, jb, kb, 0};  // next item to load
+#pragma unroll
+  for (int it = 0; it < D; ++it) {
+    if (it < total) {
+      load(it, ql);
+      advance(ql);
+    }
+    cp_async_commit();
+  }
+
+  // the tile's sums: rounded through a staging tile in the just-used slot
+  // and stored as 16-byte rows of dF, or fp32 partials
+  auto epilogue = [&](int u, unsigned char* slot) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const int p0 = p_of(u);
+    if (work == nullptr) {
+      __syncthreads();  // every warp is done reading the slot
+      bf16* tb = reinterpret_cast<bf16*>(slot);
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tb[(8 * n + 2 * t + e) * LDT + w * 16 + g + 8 * h] =
+                from_f<bf16>(acc[4 * n + 2 * h + e]);
+      __syncthreads();
+#pragma unroll
+      for (int e = tid; e < N * 8; e += NT) {
+        const int r = e >> 3, c = e & 7, cr = c0 + r, p = p0 + c * 8;
+        if (cr < C && p < P)
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(cr) * P + p) =
+              *reinterpret_cast<const uint4*>(tb + r * LDT + c * 8);
+      }
+    } else {
+      float* wk = work + static_cast<size_t>(blockIdx.z) * C * P;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cr = c0 + 8 * n + 2 * t + e, p = p0 + w * 16 + g + 8 * h;
+            if (cr < C && p < P)
+              wk[static_cast<size_t>(cr) * P + p] = acc[4 * n + 2 * h + e];
+          }
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  };
+
+  Pos qc{0, jb, kb, 0};  // item being computed
+  uint32_t ff[4][4];     // the chunk's F fragments (A layout, rows p)
+  uint32_t wf[2][4][4];  // weighted fragments, two items in flight
+  auto item = [&](int it, uint32_t(&wq)[4][4]) {
+    wgmma_wait<1>();  // item it - 2 released wq and its slot
+    cp_async_wait<D - 1>();
+    fence_proxy_async();
+    __syncthreads();  // item it landed
+    if (it + D < total) {
+      load(it + D, ql);
+      advance(ql);
+    }
+    cp_async_commit();
+    const int slot = it % STAGES;
+    unsigned char* sp = sm + slot * SLOT;
+    const uint32_t sa = smem_addr(sp);
+    if (qc.k == 0 || qc.n == 0) {
+      // A[p][c'] = F[c'][p]: rows p0 + 16w .., the chunk's 16-deep steps
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        ldmatrix_x4_trans(ff[ks], sa + swz(ks * 16 + ((lane >> 4) << 3) +
+                                               (lane & 7),
+                                           2 * w + ((lane >> 3) & 1)));
+    }
+    // this thread's A rows are pixels 16w + g and 16w + g + 8
+    const float mlo = to_f(msk[slot * 64 + w * 16 + g]);
+    const float mhi = to_f(msk[slot * 64 + w * 16 + g + 8]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wq[ks][0] = weigh2(ff[ks][0], mlo, mlo);
+      wq[ks][1] = weigh2(ff[ks][1], mhi, mhi);
+      wq[ks][2] = weigh2(ff[ks][2], mlo, mlo);
+      wq[ks][3] = weigh2(ff[ks][3], mhi, mhi);
+    }
+    wgmma_fence();
+    const uint64_t desc = make_desc(sa + TILE_BYTES);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_n<N>(acc, wq[ks], desc + 2 * ks);
+    wgmma_commit();
+    if (qc.n == per - 1) epilogue(qc.u, sp);
+    advance(qc);
+  };
+  for (int it = 0; it < total; it += 2) {
+    item(it, wf[0]);
+    if (it + 1 < total) item(it + 1, wf[1]);
+  }
+  cp_async_wait<0>();
+}
+
+// out[i] = round(work[0][i] + work[1][i] + ...): the split partials of
+// gram_bwd_wgmma_kernel summed in split order, rounded once.
+__global__ void gram_bwd_reduce_kernel(const float* __restrict__ work,
+                                       bf16* __restrict__ out, int splits,
+                                       long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) s += work[sp * n + i];
+    out[i] = from_f<bf16>(s);
+  }
+}
+
+// Dynamic shared memory of the two kernels (bytes, with the alignment slack).
+inline size_t fwd_smem() {
+  return FWD_STAGES * (2 * FWD_HALVES * TILE_BYTES + 1024) + 1024;
+}
+template <int N>
+inline size_t bwd_smem() {
+  return STAGES * (TILE_BYTES + N * 128 + 128) + 1024;
+}
+
+}  // namespace gram90
+}  // namespace

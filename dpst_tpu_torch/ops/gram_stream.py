@@ -13,17 +13,31 @@ dF is in the compute dtype. Masks are constants of the optimization: the
 Function returns no gradient for them.
 
 Any C and any K are accepted (the TPU's s2d Gram kernel hard-coded C = 64;
-this one does not).
+this one does not). In bf16 the kernels are the Hopper bodies of
+csrc/gram_wgmma.cuh, which read 16-byte rows: the wrapper pads P to a
+multiple of 8 with zero columns (they add nothing to G; their dF is
+dropped) and hands the backward its cotangent as the matrix `s_matrix(s)`.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import kernels
 
 _TILE = 64
 _DEPTH = 32
 _TARGET_BLOCKS = 4 * 132   # a few waves of blocks on the H100's 132 SMs
+# the bf16 (wgmma) forward: 128-pixel stages, up to 4 classes a block, two
+# blocks an SM
+_WG_DEPTH = 128
+_WG_CLASSES = 4
+_WG_BLOCKS = 2 * 132
+_ROW = 8                   # bf16 elements in a 16-byte row segment
+_SMS = 132                 # streaming multiprocessors of the H100
+# blocks of the bf16 backward resident on one SM, by c tile (shared memory:
+# 66.5 KB with 64-row tiles, 97.5 KB with 128-row tiles)
+_BWD_RESIDENT = {64: 3, 128: 2}
 
 
 def gram_fwd_plain(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
@@ -53,6 +67,62 @@ def fwd_splits(c: int, p: int, k: int) -> tuple[int, int]:
     return -(-p // chunk), chunk
 
 
+def fwd_plan(c: int, p: int, k: int) -> tuple[int, int]:
+    """(splits, chunk) of the bf16 forward: P cut into `splits` ranges of
+    `chunk` pixels (a multiple of the 128-pixel stage): as many as keep
+    the grid of tiles × class groups × splits within one wave of two
+    blocks for each of the H100's SMs, each split at least two stages
+    deep."""
+    blocks = fwd_blocks(c, k, 1)
+    splits = max(1, min(_WG_BLOCKS // blocks, -(-p // (2 * _WG_DEPTH))))
+    chunk = -(-p // splits)
+    chunk = -(-chunk // _WG_DEPTH) * _WG_DEPTH
+    return -(-p // chunk), chunk
+
+
+def fwd_blocks(c: int, k: int, splits: int) -> int:
+    """Blocks of the bf16 forward's grid: 64 × 64 tiles of G, groups of
+    up to 4 classes, splits of P."""
+    return (-(-c // _TILE)) ** 2 * -(-k // _WG_CLASSES) * splits
+
+
+def bwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
+    """(c tile, groups, splits) of the bf16 backward, as the kernel takes
+    them. The c tile has 64 rows for C <= 64, else 128. When the grid of
+    64-pixel p tiles × c tiles fills one wave of resident blocks, `groups`
+    blocks per c tile walk the p tiles and `splits` = 1; else every p tile
+    has its block and the reduction over (k, c') items of 64 channels is
+    cut into `splits` non-empty ranges to fill the wave."""
+    tile = 64 if c <= 64 else 128
+    slots = _SMS * _BWD_RESIDENT[tile]
+    ctiles, ptiles = -(-c // tile), -(-p // 64)
+    if ptiles * ctiles >= slots:
+        return tile, min(ptiles, max(1, slots // ctiles)), 1
+    items = -(-c // 64) * k
+    splits = max(1, min(items, slots // (ptiles * ctiles)))
+    per = -(-items // splits)
+    return tile, ptiles, -(-items // per)
+
+
+def s_matrix(s: torch.Tensor) -> torch.Tensor:
+    """The cotangent stack S (K, C, C) as the bf16 backward reads it: A
+    (C, K·Cp) with A[c, k·Cp + c'] = S_k[c, c'], Cp = C rounded up to a
+    multiple of 8 and the padding zero (the plain version's `a` when C %
+    8 == 0)."""
+    k, c, _ = s.shape
+    a = s.permute(1, 0, 2)
+    if c % _ROW:
+        a = F.pad(a, (0, -c % _ROW))
+    return a.reshape(c, -1)
+
+
+def pad_pixels(t: torch.Tensor) -> torch.Tensor:
+    """(rows, P) -> (rows, P rounded up to 8), the new columns zero; `t`
+    itself when P % 8 == 0."""
+    extra = -t.shape[1] % _ROW
+    return F.pad(t, (0, extra)) if extra else t
+
+
 def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     """Raw masked Grams. CPU tensors take the plain version; CUDA tensors
     launch the kernel (csrc/gram.cu)."""
@@ -64,16 +134,21 @@ def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     kernels.require(m2, "m2", (k, p), f.dtype)
     if not kernels.on_cuda(f, m2):
         return gram_fwd_plain(f, m2)
+    if f.dtype == torch.bfloat16:
+        f, m2 = pad_pixels(f), pad_pixels(m2)
+        p = f.shape[1]
+        return launch_fwd("gram_fwd", (f, m2), c, p, k, fwd_plan(c, p, k))
     return launch_fwd("gram_fwd", (f, m2), c, p, k)
 
 
-def launch_fwd(name: str, operands: tuple, c: int, p: int,
-               k: int) -> torch.Tensor:
+def launch_fwd(name: str, operands: tuple, c: int, p: int, k: int,
+               plan: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch the split-P forward kernel `name` ("gram_fwd" or
     "gram_relu_fwd", csrc/gram.cu) on CUDA operands whose first is the
-    (C, P) tap; returns the (K, C, C) fp32 Grams."""
+    (C, P) tap, with `plan` = (splits, chunk) (`fwd_splits` by default);
+    returns the (K, C, C) fp32 Grams."""
     f = operands[0]
-    splits, chunk = fwd_splits(c, p, k)
+    splits, chunk = plan or fwd_splits(c, p, k)
     out = torch.empty((k, c, c), dtype=torch.float32, device=f.device)
     work = (torch.empty((splits, k, c, c), dtype=torch.float32,
                         device=f.device) if splits > 1 else out)
@@ -97,14 +172,22 @@ def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
     kernels.require(s, "s", (k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
         return gram_bwd_plain(f, m2, s)
-    lib = kernels.library()
+    tile = groups = splits = 1
+    work = None
+    if f.dtype == torch.bfloat16:
+        f, m2, s = pad_pixels(f), pad_pixels(m2), s_matrix(s).contiguous()
+        tile, groups, splits = bwd_plan(c, f.shape[1], k)
+        if splits > 1:
+            work = torch.empty((splits, c, f.shape[1]), dtype=torch.float32,
+                               device=f.device)
     out = torch.empty_like(f)
-    rc = lib.dpst_gram_bwd(
-        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(out),
-        c, p, k, kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
+    rc = kernels.library().dpst_gram_bwd(
+        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(work),
+        kernels.ptr(out), c, f.shape[1], k, tile, groups, splits,
+        kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
     kernels.check(rc, "gram_bwd")
     kernels.LAUNCHES["gram_bwd"] += 1
-    return out
+    return out if out.shape[1] == p else out[:, :p].contiguous()
 
 
 class GramRaw(torch.autograd.Function):

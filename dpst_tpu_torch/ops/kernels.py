@@ -124,10 +124,11 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, p]
         lib.dpst_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.dpst_gram_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dpst_gram_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.dpst_gram_relu_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.dpst_gram_relu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.dpst_gram_wbwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.dpst_block12_scratch_bytes.argtypes = [i] * 6
@@ -140,7 +141,7 @@ def library() -> ctypes.CDLL:
                    lib.dpst_gram_relu_bwd, lib.dpst_gram_wbwd,
                    lib.dpst_pool2_bwd, lib.dpst_conv3x3,
                    lib.dpst_block12_fwd, lib.dpst_block12_bwd_deep,
-                   lib.dpst_block12_bwd_shallow):
+                   lib.dpst_block12_bwd_shallow, lib.dpst_gram_wgmma_attrs):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p

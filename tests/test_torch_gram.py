@@ -139,7 +139,9 @@ def test_mask_gets_no_gradient_and_cpu_counts_nothing():
 
 
 @pytest.mark.parametrize("c,p,k", [(64, 262144, 4), (512, 1024, 4),
-                                   (96, 1000, 3), (8, 40, 1)])
+                                   (96, 1000, 3), (8, 40, 1),
+                                   (128, 262144, 4), (64, 1 << 24, 4),
+                                   (96, 1001, 3), (512, 9, 4)])
 def test_forward_split_plan_covers_p(c, p, k):
     splits, chunk = tgs.fwd_splits(c, p, k)
     assert chunk % 32 == 0 and splits >= 1

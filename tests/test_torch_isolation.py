@@ -98,6 +98,6 @@ def test_build_hash_covers_sources():
                     "pool_bwd.cu"}
     headers = {p.name for p in kernels.CSRC.glob("*.cuh")}
     assert headers == {"conv3x3_tile.cuh", "dpst_common.cuh",
-                       "gram_tile.cuh"}
+                       "gram_tile.cuh", "gram_wgmma.cuh"}
     assert len(kernels._digest()) == 16
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
