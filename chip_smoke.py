@@ -10,7 +10,7 @@ no result):
   2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
                  sm_90a) and reports the seconds, and the registers, local
                  memory, shared memory and blocks per SM of the bf16 Gram
-                 bodies (gram_wgmma.cuh);
+                 and conv bodies (gram_wgmma.cuh, conv3x3_wgmma.cuh);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes of the 512² config3 main path (K = 4 masks),
                  for the fused bias+ReLU Gram pair of conv1_1 at the 1024²
@@ -21,9 +21,10 @@ no result):
                  the computed bound and, where one PyTorch call computes
                  the same function (cuDNN for the conv; or, labelled, a
                  yardstick call), that call's time; gram_fwd and gram_bwd
-                 also at config4's 1024² taps, timed by device time in
-                 turns with torch.matmul; then each kernel at shapes that
-                 do not fill its tiles;
+                 (also at config4's 1024² taps) timed by device time in
+                 turns with torch.matmul, the bf16 conv3x3 (on weights
+                 packed once, as the path calls it) in turns with cuDNN;
+                 then each kernel at shapes that do not fill its tiles;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -68,6 +69,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -366,12 +368,20 @@ def conv_operands(cin: int, cout: int, h: int, w: int, dtype, dev, gen):
 def check_conv(dev, gen):
     """The 3×3 conv kernel against its plain version at the 12 convs of
     the 512² path and their 12 input gradients (the kernel on the flipped,
-    transposed weights), bf16 and fp32. library_ms: cuDNN through
-    F.conv2d (forward) and torch.nn.grad.conv2d_input (input gradient),
-    with the port's cuDNN flags (deterministic, no TF32 in fp32)."""
+    transposed weights), bf16 and fp32, each called as the path calls it:
+    on weights packed once (`conv_cuda.pack_weights`). library_ms: cuDNN
+    through F.conv2d (forward) and torch.nn.grad.conv2d_input (input
+    gradient), with the port's cuDNN flags (deterministic, no TF32 in
+    fp32). In bf16 "ms" and "library_ms" are device times in turns
+    (`in_turns`), "events_ms" the back-to-back event times; the fp32 rows
+    (the CUDA-core tile, outside the step sums) keep event times. A shape
+    the step repeats (conv3_2 … conv3_4, conv4_2 … conv4_4) is checked on
+    its own operands and timed once; its later rows carry that time
+    ("timed_with_row")."""
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import conv_cuda as cc
     rows = []
+    timed = {}
     for dtype in ("bfloat16", "float32"):
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
@@ -386,7 +396,9 @@ def check_conv(dev, gen):
                  lambda: torch.nn.grad.conv2d_input(
                      (1, cin, hw, hw), wt, g[None], padding=1)))
             for direction, a, b, lib_name, lib in cases:
-                y = cc.conv3x3_same(a, b)
+                bp = cc.pack_weights(b)
+                run = lambda: cc.conv3x3_same(a, bp)
+                y = run()
                 ref = cc.conv3x3_plain(a, b)
                 torch.cuda.synchronize()
                 err, rel = rel_err(y, ref)
@@ -395,21 +407,30 @@ def check_conv(dev, gen):
                 bnd, by = bound_ms(
                     ((k_in + k_out) * hw * hw + 9 * k_in * k_out) * isz,
                     2.0 * 9 * k_in * k_out * hw * hw, dtype)
+                key = (dtype, direction, k_in, k_out, hw)
+                if key not in timed:
+                    timed[key] = (len(rows), {
+                        **(in_turns(run, lib) if dtype == "bfloat16" else
+                           {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}),
+                        "plain_ms": cuda_ms(lambda: cc.conv3x3_plain(a, b),
+                                            iters=5)})
+                first, times = timed[key]
                 row = {"phase": "kernel", "name": "conv3x3",
                        "direction": direction, "shape": [k_in, k_out, hw, hw],
                        "dtype": dtype, "max_abs_err": err, "rel_err": rel,
-                       "tol_rel": tol,
-                       "ms": cuda_ms(lambda: cc.conv3x3_same(a, b)),
-                       "plain_ms": cuda_ms(lambda: cc.conv3x3_plain(a, b),
-                                           iters=5),
+                       "tol_rel": tol, **times,
                        "bound_ms": bnd, "bound_by": by,
-                       "library_ms": cuda_ms(lib), "library_call": lib_name}
+                       "library_call": lib_name}
+                if first != len(rows):
+                    row["timed_with_row"] = first
+                if dtype == "bfloat16":
+                    row["plan"] = cc.conv_plan(k_in, k_out, hw, hw)
                 emit(row)
                 rows.append(row)
                 if not rel <= tol:
                     fail("kernels", f"conv3x3 {direction} {dtype} "
                          f"{k_in}->{k_out} at {hw}²: rel err {rel} > {tol}")
-            del x, wt, g, ft, y, ref
+            del x, wt, g, ft, y, ref, bp
         torch.cuda.empty_cache()
     return rows
 
@@ -544,11 +565,26 @@ def check_pool(dev, gen):
     return rows
 
 
+# conv shapes whose plans make a block sum two chunks of Cin: (Cin, Cout,
+# H, W) -> the (bn, splits, cps) of the forward and of the input gradient
+CONV_MULTI_PLANS = {(256, 40, 128, 128): ((40, 2, 2), (128, 1, 1)),
+                    (256, 100, 128, 128): ((104, 2, 2), (128, 1, 2)),
+                    (256, 64, 128, 128): ((64, 2, 2), (128, 1, 1))}
+
+
 def check_edges(dev, gen) -> None:
     """Each kernel against its plain version at shapes that do not fill
     its tiles (C not a multiple of 64 or of 8, odd P, odd pool sizes, an
     image smaller than one Laplacian tile, conv images smaller than one
-    tile or ragged in H, W, Cin and Cout), with the tolerances above."""
+    tile or ragged in H, W, Cin and Cout: Cin not a multiple of the
+    64-channel chunk (nor of 8: 100), Cout = 3, 40 and 100 on N tiles of
+    8, 40 and 104, W not a multiple of the 32-pixel tile, H = 1), with the
+    tolerances above, and
+    the conv's split-Cin plan (512 → 512 at 32²) rerun bit for bit, as
+    are the shapes of CONV_MULTI_PLANS, whose blocks sum two chunks of
+    Cin on N tiles of 40, 104, 64 and 128 (the plan asserted).
+    block12's conv1_1 in its packed-K form runs at B12_CASES' one-band 32
+    × 256 case and the others."""
     from dpst_tpu_torch.ops import conv_cuda as cc
     from dpst_tpu_torch.ops import gram_pallas as gp
     from dpst_tpu_torch.ops import gram_s2d as g2
@@ -595,15 +631,28 @@ def check_edges(dev, gen) -> None:
                 g2.gram_relu_bwd_plain(z, b, m2, s))[1],
                 1e-2 if dtype == "bfloat16" else 1e-4)
         for cin, cout, h, w in ((24, 40, 37, 53), (512, 512, 4, 4),
-                                (8, 16, 4, 4)):
+                                (8, 16, 4, 4), (72, 64, 20, 40),
+                                (64, 3, 48, 256), (64, 40, 33, 70),
+                                (128, 64, 1, 100), (64, 100, 20, 40),
+                                (512, 512, 32, 32), *CONV_MULTI_PLANS):
             x, wt, g = conv_operands(cin, cout, h, w, cdt, dev, gen)
             ft = cc.flip_transpose_weights(wt)
-            for direction, a, b in (("forward", x, wt),
-                                    ("input_grad", g, ft)):
+            plans = CONV_MULTI_PLANS.get((cin, cout, h, w))
+            for i, (direction, a, b) in enumerate((("forward", x, wt),
+                                                   ("input_grad", g, ft))):
                 ref = cc.conv3x3_plain(a, b)
-                errs[f"conv3x3 {direction} {dtype} {cin}->{cout} {h}x{w}"] = (
-                    rel_err(cc.conv3x3_same(a, b), ref)[1],
-                    out_tol(ref, dtype))
+                y = cc.conv3x3_same(a, b)
+                name = f"conv3x3 {direction} {dtype} {cin}->{cout} {h}x{w}"
+                errs[name] = (rel_err(y, ref)[1], out_tol(ref, dtype))
+                if plans:
+                    plan = cc.conv_plan(a.shape[0], b.shape[0], h, w)
+                    if plan != plans[i]:
+                        fail("kernel_edges", f"{name}: plan {plan}, "
+                             f"expected {plans[i]}")
+                if plans or (cin == cout == 512 and h == 32):
+                    same = all(torch.equal(y, cc.conv3x3_same(a, b))
+                               for _ in range(2))
+                    errs[name + " rerun"] = (0.0 if same else 1.0, 0.0)
         for c, h, w in ((3, 17, 15), (5, 16, 15), (2, 3, 3)):
             x, y, g = tied_pool_input(c, h, w, cdt, dev, gen)
             equal = torch.equal(pool_cuda.maxpool2_bwd(x, y, g),
@@ -631,19 +680,24 @@ def b12_forward_input(h: int, w: int, k: int, dev, gen, ties: bool = False):
     return x.contiguous(), m1, m2
 
 
-def b12_shallow_input(h: int, w: int, k: int, wts: tuple, dtype, dev, gen):
+def b12_shallow_input(h: int, w: int, k: int, params: dict, dtype, dev,
+                      gen):
     """Inputs of the shallow backward on which both versions recompute
     conv1_2 exactly: a11 of small integers (0…3, many zeros), conv1_2's
-    weights in {−1, 0, 1} and integer biases, so every fp32 sum is exact
-    and tied maxima tie on both sides; a dp1 cotangent and s1."""
+    weights in {−1, 0, 1} and integer biases (the weights packed again),
+    so every fp32 sum is exact and tied maxima tie on both sides; a dp1
+    cotangent and s1."""
+    from dpst_tpu_torch.ops import block12_pallas as b12
     a11 = torch.randint(0, 4, (64, h, w), generator=gen, device=dev)
     w12 = torch.randint(-1, 2, (64, 64, 3, 3), generator=gen, device=dev)
-    b12 = torch.randint(-8, 9, (64,), generator=gen, device=dev)
-    wts = (wts[0], wts[1], w12.to(dtype), b12.float()) + wts[4:]
+    b12w = torch.randint(-8, 9, (64,), generator=gen, device=dev)
+    wts = b12.pack_weights(dict(params, conv1_2={"w": w12.float(),
+                                                 "b": b12w.float()}), dtype)
+    cdt = getattr(torch, dtype)
     dp1 = torch.randn((64, h // 2, w // 2), generator=gen,
-                      device=dev).to(dtype)
+                      device=dev).to(cdt)
     dg1 = torch.randn((k, 64, 64), generator=gen, device=dev)
-    return a11.to(dtype), dp1, wts, dg1
+    return a11.to(cdt), dp1, wts, dg1
 
 
 def b12_work(h: int, w: int, k: int, isz: int) -> dict:
@@ -785,7 +839,8 @@ def check_block12_case(h, w, k, dtype, pooling, ties, dev, gen, params):
         "block12_bwd_deep", dp1,
         b12.block12_bwd_deep_plain(a21, a22, dp2, m2, s2, wts, pooling, dtype),
         dtype, case))
-    a11s, dp1s, wts_s, dg1 = b12_shallow_input(h, w, k, wts, cdt, dev, gen)
+    a11s, dp1s, wts_s, dg1 = b12_shallow_input(h, w, k, params, dtype, dev,
+                                               gen)
     s1 = b12.symmetrize(dg1, dtype)
     out.update(b12_compare(
         "block12_bwd_shallow",
@@ -1526,15 +1581,33 @@ def summarize(rows: list, launches: dict) -> list:
 
 def wgmma_resources(lib) -> dict:
     """Registers, local memory (spills and stack), dynamic shared memory and
-    resident blocks per SM of the bf16 Gram bodies (csrc/gram_wgmma.cuh)."""
+    resident blocks per SM of the bf16 Gram bodies (csrc/gram_wgmma.cuh)
+    and conv bodies (csrc/conv3x3_wgmma.cuh: conv3x3's N tiles of 128, 64
+    and 8 channels, and block12's instances)."""
     import ctypes
     out = {}
-    for which, name in enumerate(("gram_fwd", "gram_bwd (64-row c tile)",
-                                  "gram_bwd (128-row c tile)")):
+    entries = [(lib.dpst_gram_wgmma_attrs, which, name) for which, name in
+               enumerate(("gram_fwd", "gram_bwd (64-row c tile)",
+                          "gram_bwd (128-row c tile)"))]
+    entries += [(functools.partial(lib.dpst_conv3x3_attrs, bn, cps), None,
+                 f"conv3x3 (N tile {bn}, {what})")
+                for bn, cps, what in (
+                    (128, 4, "4 chunks a block"),
+                    (64, 1, "1 chunk a block, two blocks an SM"),
+                    (64, 2, "2 chunks a block"),
+                    (8, 1, "1 chunk a block"))]
+    entries += [(lib.dpst_block12_conv_attrs, which, name)
+                for which, name in enumerate((
+                    "block12 conv1_1 (K = 32, bias+ReLU)",
+                    "block12 conv1_2 (bias+ReLU, N tile 64, 1 chunk)",
+                    "block12 conv2_2 (bias+ReLU, N tile 128, 2 chunks)",
+                    "block12 input gradient of conv2_1 (N tile 64, 2 chunks)",
+                    "block12 input gradient of conv1_1 (N tile 8, 1 chunk)"))]
+    for fn, which, name in entries:
         vals = (ctypes.c_int * 4)()
-        rc = lib.dpst_gram_wgmma_attrs(which, vals)
+        rc = fn(vals) if which is None else fn(which, vals)
         if rc != 0:
-            fail("build", f"dpst_gram_wgmma_attrs({which}): error {rc}")
+            fail("build", f"{name}: error {rc}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes",
                               "blocks_per_sm"), vals))
     return out
@@ -1564,6 +1637,8 @@ def main() -> int:
     emit({"phase": "build", "wgmma_kernels": wgmma_resources(lib)})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     rows = check_lap(dev, gen)
     rows += check_gram(dev, gen)
     rows += check_gram_relu(dev, gen)
@@ -1571,7 +1646,11 @@ def main() -> int:
     rows += check_gram_wbwd(dev, gen)
     rows += check_conv(dev, gen)
     check_edges(dev, gen)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rows += check_block12(dev, gen)
+    seconds["block12 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # generators of their own: the main paths' images do not depend on
     # what the kernel checks drew
@@ -1605,6 +1684,8 @@ def main() -> int:
             == ref["block12_bwd_shallow"] == 2 and ref["block12_fwd"] == 0):
         fail("reference", f"stream12 route not taken at every step: {ref}")
 
+    seconds["main paths"] = time.perf_counter() - t0
+    emit({"phase": "timing", "seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -173,7 +173,8 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
     `content_masks`/`style_masks` (K, H, W) give the aligned class masks;
     without them `use_segmentation=False` runs one uniform class.
     `vgg_params` is the port's weight dict (`models.vgg.params_from_numpy`
-    converts the JAX package's). `cfg.scales` runs a coarse-to-fine
+    converts the JAX package's); the call packs it once for its kernels
+    (`models.vgg.pack_params`). `cfg.scales` runs a coarse-to-fine
     schedule (`_scale_schedule`), each stage with a fresh Adam state.
     `callback(step, image, history_chunk)` fires every
     `cfg.intermediate_interval` steps, `step` counted across all stages.
@@ -202,8 +203,9 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
 
     if vgg_params is None:
         vgg_params = vgg.get_params(seed=cfg.seed, device=dev)
-    vgg_params = {k: {n: t.to(dev) for n, t in p.items()}
-                  for k, p in vgg_params.items()}
+    vgg_params = vgg.pack_params(
+        {k: {n: t.to(dev) for n, t in p.items()}
+         for k, p in vgg_params.items()}, cfg.compute_dtype, cfg.conv_impl)
     weights = optimize.LossWeights.from_config(cfg)
 
     content_full = torch.from_numpy(content_np).to(dev)

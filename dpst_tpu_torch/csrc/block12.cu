@@ -35,31 +35,37 @@
 // after another in a scratch the wrapper allocates for that group only
 // (the launches then fill the card). For a group, each stage is one launch
 // on the current stream: the band copies (gather with zero fill and a cast,
-// scatter of the own rows), the 3x3 conv tile of conv3x3_tile.cuh with its
-// bias+ReLU+row-mask epilogue (forward) or its fp32 epilogue (input
-// gradients), the 2x2 pool forward, the pool backward with relu', the Gram
-// partials (the gram_fwd tile of gram_tile.cuh, P split within each band)
-// and the Gram cotangent (the gram_bwd tile, whose epilogue adds the conv
-// term, multiplies by relu' and rounds). A conv reading the stacked bands
-// sees the next band's first row where the TPU kernel sees a zero pad:
-// both only reach rows of the halo that the shrinking valid region drops
-// before the own rows. The Gram partials go to one slot per (band, split)
+// scatter of the own rows), the 3x3 conv (conv::launch of conv3x3_tile.cuh:
+// in bf16 the wgmma body of conv3x3_wgmma.cuh, conv1_1's 3 input channels
+// as one K of 32; in fp32 the CUDA-core tile) with its bias+ReLU+row-mask
+// epilogue (forward) or its fp32 epilogue (input gradients), on weights
+// packed once per run (ops/block12_pallas.pack_weights), the 2x2 pool
+// forward, the pool backward with relu', the Gram partials (in bf16
+// gram_fwd's Hopper body of gram_wgmma.cuh on each band's own rows, the
+// group's m^2 rounded to bf16 once; in fp32 the gram_tile.cuh tile; P
+// split within each band) and the Gram cotangent (the gram_bwd tile, whose
+// epilogue adds the conv term, multiplies by relu' and rounds). A conv
+// reading the stacked bands sees the next band's first row where the TPU
+// kernel sees a zero pad: both only reach rows of the halo that the
+// shrinking valid region drops before the own rows. The Gram partials go to one slot per (band, split)
 // and are summed slot by slot in band order into the result: no float
 // atomics, so a rerun is bit-identical.
 //
 // What bounds it on the H100: operations. A 4096^2 forward does 2 * 9 * P
 // * (3 * 64 + 64 * 64 + (64 * 128 + 128 * 128) / 4) = 3.2 TFLOP of convs
 // (3.2 ms at the bf16 peak; more with the recomputed halo, 50 % at TB =
-// 32), the Grams 0.1 TFLOP; it reads 0.5 GB of image and masks. The conv
-// tile runs at 60 TFLOP/s on these shapes (PERF.md), and conv1_1's three
-// input channels fill a 32-channel stage. wgmma, TMA and a fusion of the
-// stages into one kernel are left for later work. Every offset is 64-bit
-// and every entry point returns cudaGetLastError() after its last launch,
-// or the first error of an earlier one.
+// 32), the Grams 0.1 TFLOP; it reads 0.5 GB of image and masks. The bf16
+// convs and Gram partials run on the tensor cores through wgmma (PERF.md
+// has their times); the Gram cotangent, the band copies and the pools keep
+// their first designs, and a fusion of the stages into one kernel is left
+// for later work. Every offset is 64-bit and every entry point returns
+// cudaGetLastError() after its last launch, or the first error of an
+// earlier one.
 #include <algorithm>
 
 #include "conv3x3_tile.cuh"
 #include "gram_tile.cuh"
+#include "gram_wgmma.cuh"
 
 namespace {
 
@@ -68,7 +74,7 @@ using dpst::to_f;
 
 constexpr int TB = 32;            // own rows of a band (block12_pallas.TB)
 constexpr int HALO = 8;           // full-resolution halo rows on each side
-constexpr int GRAM_CHUNK = 4096;  // pixels of a Gram split (a multiple of 32)
+constexpr int GRAM_CHUNK = 4096;  // pixels of a Gram split (a multiple of 128)
 constexpr int EW_THREADS = 256;
 constexpr int EW_BLOCKS = 132 * 16;
 
@@ -220,6 +226,28 @@ block12_gram_kernel(const T* __restrict__ f, const float* __restrict__ m,
                                        pe);
 }
 
+// The group's own rows of the fp32 m^2 (K, Hg, W), rows band0 * tb ..
+// (band0 + NB) * tb, rounded once to bf16: mb (K, NB * tb * W).
+__global__ void block12_gram_mask_kernel(const float* __restrict__ m,
+                                         __nv_bfloat16* __restrict__ mb,
+                                         int K, long long hgw, long long n,
+                                         long long off) {
+  const long long total = K * n;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long k = idx / n;
+    mb[idx] = from_f<__nv_bfloat16>(m[k * hgw + off + idx % n]);
+  }
+}
+
+// bf16 Gram partials on the Hopper body of gram_wgmma.cuh (gram_fwd's):
+// band b of the group is the (C, tb * W) view of its own rows.
+__global__ void __launch_bounds__(gram90::NT)
+block12_gram_wgmma_kernel(gram90::FwdArgs a) {
+  gram90::gram_fwd_body(a);
+}
+
 __global__ void block12_gram_reduce_kernel(const float* __restrict__ work,
                                            float* __restrict__ out,
                                            int splits, long long n, int init) {
@@ -296,32 +324,69 @@ int pool_bwd(const T* dp, const T* x, T* dz, int C, int H, int W, bool avg,
   return last_error();
 }
 
-// Forward conv of a stacked group with the bias+ReLU+row-mask epilogue.
+// The output widths of block12's convs: 64 and 128, and 3 (the input
+// gradient of conv1_1) on an N tile of 8.
+using ConvWidths = conv90::Widths<8, 64, 128>;
+
+// Forward conv of a stacked group with the bias+ReLU+row-mask epilogue; w
+// packed (ops/conv_cuda.pack_weights), or for conv1_1 in bf16 (Cin = 3)
+// packed as one K of 32 (pack_k27).
 template <typename T>
 int conv_fwd(const T* x, const void* w, const float* bias, T* y, int Cin,
              int Cout, int rows, int W, conv::BandRows br, cudaStream_t st) {
-  return conv::launch<T>(x, w, conv::EpiBiasRelu<T>{y, bias, br}, Cin, Cout,
-                         rows, W, st);
+  const conv::EpiBiasRelu<T> epi{y, bias, br};
+  if constexpr (sizeof(T) == 2) {
+    if (Cin == 3) return conv90::launch_k27(x, w, epi, Cout, rows, W, st);
+  }
+  return conv::launch<T, conv::EpiBiasRelu<T>, ConvWidths>(x, w, epi, Cin,
+                                                          Cout, rows, W, st);
 }
 
-// Input-gradient conv (flipped, transposed weights ft) with fp32 output.
+// Input-gradient conv (flipped, transposed weights ft, packed) with fp32
+// output.
 template <typename T>
 int conv_bwd(const T* dz, const void* ft, float* y, int Cin, int Cout,
              int rows, int W, cudaStream_t st) {
-  return conv::launch<T>(dz, ft, conv::EpiF32{y}, Cin, Cout, rows, W, st);
+  return conv::launch<T, conv::EpiF32, ConvWidths>(dz, ft, conv::EpiF32{y},
+                                                   Cin, Cout, rows, W, st);
 }
 
 int gram_splits(int p) { return (p + GRAM_CHUNK - 1) / GRAM_CHUNK; }
 
+// The Gram partials of a group into one slot per (band, split) of work,
+// summed in band order into out. bf16 rounds the group's masks once (mb,
+// K * NB * tb * W) and runs gram_fwd's Hopper body on each band's own rows;
+// fp32 runs the gram_tile.cuh tile on the fp32 masks.
 template <typename T>
-int gram_partials(const T* f, const float* m, float* work, float* out, int C,
-                  int K, int W, int NB, int R, int tb, int halo, int Hg,
-                  int band0, cudaStream_t st) {
+int gram_partials(const T* f, const float* m, __nv_bfloat16* mb, float* work,
+                  float* out, int C, int K, int W, int NB, int R, int tb,
+                  int halo, int Hg, int band0, cudaStream_t st) {
   const int S = gram_splits(tb * W);
-  const int tiles = (C + gram::TN - 1) / gram::TN;
-  const dim3 grid(tiles * tiles, K, NB * S);
-  block12_gram_kernel<T><<<grid, gram::NT, 0, st>>>(
-      f, m, work, C, K, W, NB, R, tb, halo, Hg, band0, S, GRAM_CHUNK);
+  if constexpr (sizeof(T) == 2) {
+    const long long n = static_cast<long long>(NB) * tb * W;
+    block12_gram_mask_kernel<<<dpst::grid_for(K * n, EW_THREADS, EW_BLOCKS),
+                               EW_THREADS, 0, st>>>(
+        m, mb, K, static_cast<long long>(Hg) * W, n,
+        static_cast<long long>(band0) * tb * W);
+    B12_TRY(last_error());
+    const size_t smem = gram90::fwd_smem();
+    static size_t allowed[64] = {};
+    B12_TRY(static_cast<int>(
+        hopper::allow_smem(block12_gram_wgmma_kernel, smem, allowed)));
+    const int tiles = (C + 63) / 64;
+    const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG, NB * S);
+    const gram90::FwdArgs args{f + static_cast<size_t>(halo) * W, mb, work,
+                               static_cast<long long>(NB) * R * W, n,
+                               static_cast<long long>(R) * W,
+                               static_cast<long long>(tb) * W, C, tb * W, K, S,
+                               GRAM_CHUNK};
+    block12_gram_wgmma_kernel<<<grid, gram90::NT, smem, st>>>(args);
+  } else {
+    const int tiles = (C + gram::TN - 1) / gram::TN;
+    const dim3 grid(tiles * tiles, K, NB * S);
+    block12_gram_kernel<T><<<grid, gram::NT, 0, st>>>(
+        f, m, work, C, K, W, NB, R, tb, halo, Hg, band0, S, GRAM_CHUNK);
+  }
   B12_TRY(last_error());
   const long long n = static_cast<long long>(K) * C * C;
   block12_gram_reduce_kernel<<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
@@ -369,6 +434,7 @@ template <typename T>
 struct FwdScratch {
   T *xe, *a11, *a12, *p1, *a21, *a22, *p2;
   float* work;
+  __nv_bfloat16* mb = nullptr;  // bf16: a group's masks (conv1_1 size)
   FwdScratch(Carve& cv, const Geom& g) {
     xe = cv.take<T>(3 * g.P0());
     a11 = cv.take<T>(64 * g.P0());
@@ -381,6 +447,8 @@ struct FwdScratch {
     const long long w2 = static_cast<long long>(g.NB) * gram_splits(TB / 2 * (g.W / 2)) *
                          g.K * 128 * 128;
     work = cv.take<float>(w1 > w2 ? w1 : w2);
+    if (sizeof(T) == 2)
+      mb = cv.take<__nv_bfloat16>(static_cast<long long>(g.K) * g.NB * TB * g.W);
   }
 };
 
@@ -436,10 +504,10 @@ int run_fwd(const float* x, const float* m1, const float* m2,
     B12_TRY(pool<T>(s.a22, s.p2, 128, NB * R1, W / 2, avg, st));
     B12_TRY((scatter<T, T>(s.p2, p2, 128, H / 4, W / 4, NB, R2, tb / 4, HALO / 4,
                            band0, st)));
-    B12_TRY(gram_partials<T>(s.a11, m1, s.work, g1, 64, K, W, NB, R0, tb, HALO,
-                             H, band0, st));
-    B12_TRY(gram_partials<T>(s.a21, m2, s.work, g2, 128, K, W / 2, NB, R1, tb / 2,
-                             HALO / 2, H / 2, band0, st));
+    B12_TRY(gram_partials<T>(s.a11, m1, s.mb, s.work, g1, 64, K, W, NB, R0, tb,
+                             HALO, H, band0, st));
+    B12_TRY(gram_partials<T>(s.a21, m2, s.mb, s.work, g2, 128, K, W / 2, NB, R1,
+                             tb / 2, HALO / 2, H / 2, band0, st));
     if (save_res) {
       B12_TRY((scatter<T, T>(s.a11, a11, 64, H, W, NB, R0, tb, HALO, band0, st)));
       B12_TRY((scatter<T, T>(s.a21, a21, 128, H / 2, W / 2, NB, R1, tb / 2,
@@ -536,10 +604,11 @@ extern "C" size_t dpst_block12_scratch_bytes(int which, int K, int H, int W,
 }
 
 // x (3, H, W) fp32 preprocessed image; m1 (K, H, W) and m2 (K, H/2, W/2)
-// fp32 m^2; w11..w22 OIHW in the compute dtype, b11..b22 fp32; g1 (K, 64,
-// 64) and g2 (K, 128, 128) fp32 Gram sums; p2 (128, H/4, W/4); with
-// save_res also a11 (64, H, W), a21 and a22 (128, H/2, W/2), else those
-// may be null.
+// fp32 m^2; w11..w22 in the compute dtype, packed (9, Cout, Cinp) by
+// ops/conv_cuda.pack_weights (w11 in bf16: (64, 32) by pack_k27),
+// b11..b22 fp32; g1 (K, 64, 64) and g2 (K, 128, 128) fp32 Gram sums; p2
+// (128, H/4, W/4); with save_res also a11 (64, H, W), a21 and a22 (128,
+// H/2, W/2), else those may be null.
 extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
                                 const void* w11, const void* b11,
                                 const void* w12, const void* b12,
@@ -577,8 +646,9 @@ extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
 
 // a21, a22 (128, H/2, W/2) and dp2 (128, H/4, W/4) in the compute dtype;
 // m2 (K, H/2, W/2) fp32; s2 (K, 128, 128) = round_T(dG2 + dG2^T); ft21
-// (64, 128, 3, 3) and ft22 (128, 128, 3, 3) flipped, transposed weights;
-// dp1 (64, H/2, W/2) in the compute dtype.
+// and ft22, the flipped, transposed weights of conv2_1 and conv2_2 packed
+// (9, 64, 128) and (9, 128, 128) (ops/conv_cuda.pack_grad_weights); dp1
+// (64, H/2, W/2) in the compute dtype.
 extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
                                      const void* dp2, const void* m2,
                                      const void* s2, const void* ft21,
@@ -607,9 +677,10 @@ extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
 }
 
 // a11 (64, H, W) and dp1 (64, H/2, W/2) in the compute dtype; m1 (K, H, W)
-// fp32; s1 (K, 64, 64) = round_T(dG1 + dG1^T); ft11 (3, 64, 3, 3) and ft12
-// (64, 64, 3, 3) flipped, transposed weights; w12 (64, 64, 3, 3) and b12
-// (64,) fp32 to recompute conv1_2; dx (3, H, W) fp32.
+// fp32; s1 (K, 64, 64) = round_T(dG1 + dG1^T); ft11 and ft12, the
+// flipped, transposed weights of conv1_1 and conv1_2 packed (9, 3, 64) and
+// (9, 64, 64) (ops/conv_cuda.pack_grad_weights); w12 packed (9, 64, 64)
+// and b12 (64,) fp32 to recompute conv1_2; dx (3, H, W) fp32.
 extern "C" int dpst_block12_bwd_shallow(const void* a11, const void* dp1,
                                         const void* m1, const void* s1,
                                         const void* ft11, const void* ft12,
@@ -635,5 +706,21 @@ extern "C" int dpst_block12_bwd_shallow(const void* a11, const void* dp1,
         static_cast<const __nv_bfloat16*>(a11), static_cast<const __nv_bfloat16*>(dp1),
         m1f, static_cast<const __nv_bfloat16*>(s1), ft11, ft12, w12, b12f, dxf,
         scratch, g, avg != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resources of block12's bf16 conv bodies, for the record: which = 0
+// conv1_1 (K27, bias+ReLU), 1 conv1_2 (bias+ReLU, 64 output channels, one
+// chunk), 2 conv2_2 (bias+ReLU, 128, two chunks), 3 the input gradient of
+// conv2_1 (fp32 out, 64 output channels, two chunks), 4 that of conv1_1
+// (N tile of 8, one chunk). out as dpst_conv3x3_attrs.
+extern "C" int dpst_block12_conv_attrs(int which, int* out) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  using Relu = conv::EpiBiasRelu<__nv_bfloat16>;
+  if (which == 0) return conv90::attrs<64, true, Relu>(1, out);
+  if (which == 1) return conv90::attrs<64, false, Relu>(1, out);
+  if (which == 2) return conv90::attrs<128, false, Relu>(2, out);
+  if (which == 3) return conv90::attrs<64, false, conv::EpiF32>(2, out);
+  if (which == 4) return conv90::attrs<8, false, conv::EpiF32>(1, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

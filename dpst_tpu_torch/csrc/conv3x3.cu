@@ -1,41 +1,67 @@
 // 3x3 SAME convolution of one image, stride 1, no bias:
-//   y[co, h, w] = sum_{dy, dx, ci} x[ci, h + dy - 1, w + dx - 1] * wt[co, ci, dy, dx]
-// x (Cin, H, W), wt (Cout, Cin, 3, 3) OIHW and y (Cout, H, W), all in the
-// compute dtype, zero padding outside the image, fp32 accumulation and one
-// rounding of each output to the compute dtype.
+//   y[co, h, w] = sum_{dy, dx, ci} x[ci, h + dy - 1, w + dx - 1] * w[co, ci, dy, dx]
+// x (Cin, H, W) and y (Cout, H, W) in the compute dtype, the weights packed
+// as (9, Cout, Cinp) (ops/conv_cuda.pack_weights), zero padding outside
+// the image, fp32 accumulation and one rounding of each output to the
+// compute dtype.
 //
 // Replaces the TPU kernel dpst_tpu/ops/conv_pallas.py:_conv3x3_kernel
 // (launched by _conv3x3_padded). As there, one kernel serves both
-// directions: the input gradient is conv3x3(g, flip_transpose(wt)) with
-// flip_transpose(wt)[ci, co, dy, dx] = wt[co, ci, 2 - dy, 2 - dx]. The TPU
-// kernel's one idea is kept: the input slab of a tile, with a one-pixel
-// halo, enters fast memory once and all nine shifted taps read it there.
-// The tile, an implicit GEMM, lives in conv3x3_tile.cuh (shared with
-// block12.cu, which changes only its epilogue); here each fp32 sum is
-// rounded once to the compute dtype (conv::EpiRound).
-//
-// What bounds it on the H100: operations. At the VGG-19 shapes of a 512^2
-// image the layers do 2 * 9 * Cin * Cout * P = 4.8 to 19.3 GFLOP each on
-// 7 to 67 MB of bf16 data, above the card's 295 bf16 operations a byte.
-// bf16 tiles run on the tensor cores through warp-level mma (nvcuda::wmma),
-// fp32 on the CUDA cores with fmaf (fp32 has no exact tensor-core path:
-// TF32 would drop mantissa bits). No split over K and no atomics: each
-// output is summed by one thread or one fragment in a fixed order, so a
-// rerun is bit-identical. wgmma, TMA and a pipeline of stages are left for
-// later work.
+// directions: the input gradient is conv3x3(g, flip_transpose(w)) with
+// flip_transpose(w)[ci, co, dy, dx] = w[co, ci, 2 - dy, 2 - dx], packed
+// once per run like the forward weights. The TPU kernel's one idea is
+// kept: the input slab of a tile, with a one-pixel halo, enters fast
+// memory once and all nine shifted taps read it there. The bodies live in
+// headers shared with block12.cu, which changes only the epilogue: bf16 in
+// conv3x3_wgmma.cuh (wgmma on a cp.async ring; its note gives the bound,
+// operations at 2 * 9 * Cin * Cout * P, and what each part of the design
+// does about it), fp32 in conv3x3_tile.cuh (CUDA cores, fmaf: fp32 has no
+// exact tensor-core path). Here each fp32 sum is rounded once to the
+// compute dtype (conv::EpiRound). In bf16 the caller's plan
+// (ops/conv_cuda.conv_plan) may split Cin into fp32 partials, summed in a
+// fixed order: no atomics, so a rerun is bit-identical.
 #include "conv3x3_tile.cuh"
 
-// x: (Cin, H, W), wt: (Cout, Cin, 3, 3), y: (Cout, H, W), one dtype.
-extern "C" int dpst_conv3x3(const void* x, const void* wt, void* y, int Cin,
-                            int Cout, int H, int W, int dtype, void* stream) {
+// The bf16 body on N tiles of 72 to 128 channels, compiled in
+// conv3x3_wide.cu (the build runs one nvcc a source, in parallel).
+int conv3x3_bf16_wide(const void* x, const void* wp, void* y, void* work,
+                      int Cin, int Cout, int H, int W, int bn, int splits,
+                      int cps, cudaStream_t st);
+int conv3x3_bf16_wide_attrs(int cps, int* out);
+
+// x: (Cin, H, W), wp: (9, Cout, Cinp), y: (Cout, H, W), one dtype. bf16
+// only: N tiles of bn output channels (a multiple of 8 up to 128), `splits`
+// ranges of `cps` chunks of 64 input channels, each non-empty, and work
+// (splits, Cout, H, W) fp32 when splits > 1; fp32 ignores the four.
+extern "C" int dpst_conv3x3(const void* x, const void* wp, void* y, void* work,
+                            int Cin, int Cout, int H, int W, int bn,
+                            int splits, int cps, int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
-    return conv::launch<float>(x, wt, conv::EpiRound<float>{static_cast<float*>(y)},
-                               Cin, Cout, H, W, st);
+    return conv::launch<float, conv::EpiRound<float>, conv90::Widths<>>(
+        x, wp, conv::EpiRound<float>{static_cast<float*>(y)}, Cin, Cout, H, W,
+        st);
+  if (dtype == DPST_DTYPE_BF16 && bn > 64)
+    return conv3x3_bf16_wide(x, wp, y, work, Cin, Cout, H, W, bn, splits, cps,
+                             st);
   if (dtype == DPST_DTYPE_BF16)
-    return conv::launch<__nv_bfloat16>(
-        x, wt, conv::EpiRound<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y)}, Cin,
-        Cout, H, W, st);
+    return conv90::launch(
+        x, wp, conv::EpiRound<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y)},
+        static_cast<float*>(work), Cin, Cout, H, W, bn, splits, cps, st,
+        conv90::Widths<8, 16, 24, 32, 40, 48, 56, 64>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resources of the bf16 body for N tiles of bn channels (8, 64 or 128)
+// summing cps chunks a block (at bn <= 64 one chunk and more take two
+// bodies), for the record: registers a thread, local memory bytes a
+// thread, dynamic shared memory bytes a block, resident blocks an SM.
+extern "C" int dpst_conv3x3_attrs(int bn, int cps, int* out) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  using Epi = conv::EpiRound<__nv_bfloat16>;
+  if (bn == 8) return conv90::attrs<8, false, Epi>(cps, out);
+  if (bn == 64) return conv90::attrs<64, false, Epi>(cps, out);
+  if (bn == 128) return conv3x3_bf16_wide_attrs(cps, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

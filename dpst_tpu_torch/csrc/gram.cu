@@ -262,20 +262,10 @@ void launch_bwd(const void* f, const void* m2, const void* s, void* out,
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
 }
 
-// Raise a kernel's dynamic shared memory limit to `bytes` on the current
-// device the first time a launch there needs more than the limit set so
-// far; `allowed` is the kernel's own record, per device.
-template <typename Kern>
-cudaError_t allow_smem(Kern* kern, size_t bytes, size_t (&allowed)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
-  return err;
+// The bf16 forward on the Hopper body (gram_wgmma.cuh), one band of P pixels.
+__global__ void __launch_bounds__(gram90::NT)
+gram_fwd_wgmma_kernel(gram90::FwdArgs a) {
+  gram90::gram_fwd_body(a);
 }
 
 // bf16 forward on the Hopper body: class groups of gram90::KG, then the
@@ -287,14 +277,15 @@ cudaError_t launch_fwd_wgmma(const void* f, const void* m2, float* work,
     return cudaErrorInvalidValue;
   const size_t smem = gram90::fwd_smem();
   static size_t allowed[64] = {};
-  cudaError_t err = allow_smem(gram90::gram_fwd_wgmma_kernel, smem, allowed);
+  cudaError_t err = hopper::allow_smem(gram_fwd_wgmma_kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const int tiles = (C + 63) / 64;
   const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG, splits);
-  gram90::gram_fwd_wgmma_kernel<<<grid, gram90::NT, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(f),
-      static_cast<const __nv_bfloat16*>(m2), splits == 1 ? out : work, C, P,
-      K, chunk);
+  const gram90::FwdArgs args{static_cast<const __nv_bfloat16*>(f),
+                             static_cast<const __nv_bfloat16*>(m2),
+                             splits == 1 ? out : work, P, P, 0, 0, C, P, K,
+                             splits, chunk};
+  gram_fwd_wgmma_kernel<<<grid, gram90::NT, smem, st>>>(args);
   if (splits > 1) {
     const long long n = static_cast<long long>(K) * C * C;
     gram_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
@@ -302,8 +293,6 @@ cudaError_t launch_fwd_wgmma(const void* f, const void* m2, float* work,
   }
   return cudaGetLastError();
 }
-
-
 
 // bf16 backward on the Hopper body: c tiles of N rows; `groups` blocks
 // share the p tiles of each c tile, `splits` cut the reduction (then work
@@ -320,7 +309,7 @@ cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
     return cudaErrorInvalidValue;
   const size_t smem = gram90::bwd_smem<N>();
   static size_t allowed[64] = {};  // one record for each N
-  cudaError_t err = allow_smem(gram90::gram_bwd_wgmma_kernel<N>, smem, allowed);
+  cudaError_t err = hopper::allow_smem(gram90::gram_bwd_wgmma_kernel<N>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(groups, (C + N - 1) / N, splits);
   auto* o = static_cast<__nv_bfloat16*>(out);
@@ -484,7 +473,7 @@ extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
   size_t smem = 0;
   const void* fn = nullptr;
   if (which == 0) {
-    fn = reinterpret_cast<const void*>(gram90::gram_fwd_wgmma_kernel);
+    fn = reinterpret_cast<const void*>(gram_fwd_wgmma_kernel);
     smem = gram90::fwd_smem();
   } else if (which == 1) {
     fn = reinterpret_cast<const void*>(gram90::gram_bwd_wgmma_kernel<64>);

@@ -56,12 +56,14 @@
 #include <cstdint>
 #include <cstring>
 
-#include "dpst_common.cuh"
+#include "hopper.cuh"
 
-// Internal linkage, as gram_tile.cuh: the kernels belong to gram.cu alone.
+// Internal linkage, as gram_tile.cuh: each source that includes the header
+// (gram.cu, block12.cu) gets its own kernels.
 namespace {
 namespace gram90 {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 using dpst::from_f;
 using dpst::to_f;
@@ -77,92 +79,6 @@ constexpr int KG = 4;                 // classes per forward block
 constexpr int FWD_HALVES = 2;
 constexpr int FWD_STAGES = 3;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The 1024-byte aligned start of dynamic shared memory (the swizzle
-// pattern repeats every 8 rows of 128 bytes).
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
-}
-
-// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows with
-// the 128-byte swizzle (chunk index XOR row index mod 8), the layout that
-// wgmma's descriptor mode 1 reads.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart. Adding 2 advances it by 16 bf16 along K.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes if !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cp.async writes shared memory through the generic proxy, wgmma reads it
-// through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accesses of wgmma accumulators across the
-// asynchronous region.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 // Two bf16 of F (low half first) times their masks, each product in fp32
 // (exact) rounded once to bf16: round(F * m2), the plain version's value.
 __device__ __forceinline__ uint32_t weigh2(uint32_t x, float m0, float m1) {
@@ -176,89 +92,44 @@ __device__ __forceinline__ uint32_t weigh2(uint32_t x, float m0, float m1) {
   return out;
 }
 
-// d (64 x 64, fp32) += a (64 x 16 bf16, registers) . b (16 x 64 bf16,
-// K-major in shared memory with the 128-byte swizzle, at desc)
-__device__ __forceinline__ void wgmma_64(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(1));
-}
+// The forward's operands: F and the masks as rows of ldf and ldm elements,
+// in bands of P pixels whose first pixels lie fband and mband elements
+// apart (one band, fband = mband = 0, for gram.cu; block12's Gram
+// partials take one band per 32-row band of the image).
+struct FwdArgs {
+  const bf16* f;
+  const bf16* m2;
+  float* out;
+  long long ldf, ldm, fband, mband;
+  int C, P, K, S, chunk;
+};
 
-// d (64 x 128, fp32) += a (64 x 16 bf16, registers) . b (16 x 128 bf16,
-// K-major in shared memory with the 128-byte swizzle, at desc)
-__device__ __forceinline__ void wgmma_128(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(1));
-}
-
-// Forward. Grid (tiles * tiles, ceil(K / KG), splits): block (tile, class
-// group, split) computes out[split][k][i0..][j0..] = sum over p in
-// [split * chunk, min(P, (split + 1) * chunk)) of F[i][p] * round(F[j][p] *
-// m2_k[p]) for the group's classes. A stage is H = FWD_HALVES atoms of 64
-// pixels deep; chunk % (64 * H) == 0, P % 8 == 0.
-__global__ void __launch_bounds__(NT)
-gram_fwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
-                      float* __restrict__ out, int C, int P, int K,
-                      int chunk) {
+// Forward body of one block; the kernels that launch it (gram.cu's
+// gram_fwd_wgmma_kernel, block12.cu's block12_gram_wgmma_kernel) give it a
+// grid (tiles * tiles, ceil(K / KG), bands * S). Block (tile, class group,
+// z = band * S + split) computes out[z][k][i0..][j0..] = sum over the
+// band's pixels p in [split * chunk, min(P, (split + 1) * chunk)) of
+// F[i][p] * round(F[j][p] * m2_k[p]) for the group's classes. A stage is
+// H = FWD_HALVES atoms of 64 pixels deep; chunk % (64 * H) == 0, and the
+// rows are 16-byte aligned (P, ldf, ldm, fband and mband % 8 == 0).
+__device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
   constexpr int H = FWD_HALVES, S = FWD_STAGES;
   // a slot: F_j halves, F_i halves, then the group's masks (KG x 64H bf16)
   constexpr int SLOT = 2 * H * TILE_BYTES + 1024;
   static_assert(KG * 128 * H <= 1024, "the masks fit their part of a slot");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
+  const int C = a.C, K = a.K;
+  const int band = blockIdx.z / a.S, split = blockIdx.z - band * a.S;
+  const bf16* f = a.f + band * a.fband;
+  const bf16* m2 = a.m2 + band * a.mband;
+  const size_t ldf = static_cast<size_t>(a.ldf), ldm = static_cast<size_t>(a.ldm);
   const int tiles = (C + 63) >> 6;
   const int tj = blockIdx.x / tiles, ti = blockIdx.x - tj * tiles;
   const int j0 = tj * 64, i0 = ti * 64;
   const bool diag = ti == tj;
   const int k0 = blockIdx.y * KG, kn = min(KG, K - k0);
-  const int pb = blockIdx.z * chunk, pe = min(P, pb + chunk);
+  const int pb = split * a.chunk, pe = min(a.P, pb + a.chunk);
   const int nst = (pe - pb + BK * H - 1) / (BK * H);
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -274,18 +145,18 @@ gram_fwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
       const bool pv = p < pe;
       const bool vj = pv && j0 + r < C;
       cp_async16(sa + h * TILE_BYTES + swz(r, c),
-                 vj ? f + static_cast<size_t>(j0 + r) * P + p : f, vj);
+                 vj ? f + (j0 + r) * ldf + p : f, vj);
       if (!diag) {
         const bool vi = pv && i0 + r < C;
         cp_async16(sa + (H + h) * TILE_BYTES + swz(r, c),
-                   vi ? f + static_cast<size_t>(i0 + r) * P + p : f, vi);
+                   vi ? f + (i0 + r) * ldf + p : f, vi);
       }
     }
     if (tid < kn * 8 * H) {
       const int q = tid / (8 * H), c = tid % (8 * H), p = p0 + c * 8;
       const bool v = p < pe;
       cp_async16(sa + 2 * H * TILE_BYTES + q * 128 * H + c * 16,
-                 v ? m2 + static_cast<size_t>(k0 + q) * P + p : m2, v);
+                 v ? m2 + (k0 + q) * ldm + p : m2, v);
     }
   };
 
@@ -360,7 +231,7 @@ gram_fwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
   for (int q = 0; q < KG; ++q) fence_regs(acc[q]);
 
   // acc[q][4n + 2h + e] = G^T[j0 + 16w + g + 8h][i0 + 8n + 2t + e]
-  float* o = out + (static_cast<size_t>(blockIdx.z) * K + k0) * C * C;
+  float* o = a.out + (static_cast<size_t>(blockIdx.z) * K + k0) * C * C;
 #pragma unroll
   for (int q = 0; q < KG; ++q) {
     if (q < kn) {

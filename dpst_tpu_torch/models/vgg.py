@@ -5,7 +5,10 @@ ImageNet-mean preprocessing, the 16 3×3 convs truncated at the deepest
 requested tap, post-ReLU taps in the compute dtype. The convs run on
 cuDNN, or with `conv_impl="pallas"` (Cin ≥ 8, so every conv but conv1_1)
 on the port's own 3×3 conv kernel (`ops/conv_cuda.py`), whose input
-gradient is the same kernel on the flipped, transposed weights.
+gradient is the same kernel on the flipped, transposed weights. A run packs
+its weights once (`pack_params`): the compute-dtype casts, the kernel's
+packed forward and input-gradient weights, and blocks 1-2's
+(`ops/block12_pallas.pack_weights`).
 
 Two gradient conventions of the JAX package differ from PyTorch's
 defaults, so both are autograd Functions here:
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_cuda import conv3x3_same, flip_transpose_weights
+from ..ops import block12_pallas
+from ..ops.conv_cuda import conv3x3_same, pack_grad_weights, pack_weights
 from ..ops.gram_s2d import RawTap
 from ..ops.kernels import torch_dtype
 from ..ops.pool_cuda import maxpool2_bwd
@@ -159,21 +163,22 @@ class _MaxPool2(torch.autograd.Function):
 
 
 class _Conv3x3(torch.autograd.Function):
-    """SAME 3×3 conv of a (1, Cin, H, W) batch on the port's kernel. The
-    VGG weights are constants of the optimization: the backward is the
-    input gradient only, the same kernel on the flipped, transposed
-    weights, and no gradient flows to the weights."""
+    """SAME 3×3 conv of a (1, Cin, H, W) batch on the port's kernel:
+    apply(x, wp, ftp) with the packed weights and the packed flipped,
+    transposed weights of the input gradient (`pack_params`). The VGG
+    weights are constants of the optimization: the backward is the input
+    gradient only, the same kernel on the flipped, transposed weights, and
+    no gradient flows to the weights."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(w)
-        return conv3x3_same(x[0].contiguous(), w)[None]
+    def forward(ctx, x, wp, ftp):
+        ctx.save_for_backward(ftp)
+        return conv3x3_same(x[0].contiguous(), wp)[None]
 
     @staticmethod
     def backward(ctx, g):
-        (w,) = ctx.saved_tensors
-        return conv3x3_same(g[0].contiguous(),
-                            flip_transpose_weights(w))[None], None
+        (ftp,) = ctx.saved_tensors
+        return conv3x3_same(g[0].contiguous(), ftp)[None], None, None
 
 
 def _use_pallas_conv(conv_impl: str, cin: int) -> bool:
@@ -181,6 +186,41 @@ def _use_pallas_conv(conv_impl: str, cin: int) -> bool:
     `conv_impl="pallas"`, and only from 8 input channels (conv1_1's 3-deep
     contraction stays on cuDNN)."""
     return conv_impl == "pallas" and cin >= 8
+
+
+class PackedParams(dict):
+    """A run's weight dict ({layer: {"w", "b"}}, as `params_from_numpy`)
+    with the forms the kernels read, made once (`pack_params`): each
+    layer also holds "wc" and "bc", its weights and bias in the compute
+    dtype, and with `conv_impl="pallas"` each layer the conv kernel takes
+    holds "wp" and "ftp", its packed weights and packed input-gradient
+    weights; `block12` is blocks 1-2's `block12_pallas.pack_weights`, and
+    `key` the (compute dtype, pallas conv) it was packed for."""
+
+    key: tuple
+    block12: tuple
+
+
+def pack_params(params: dict, compute_dtype,
+                conv_impl: str = "auto") -> PackedParams:
+    """`params` with the compute-dtype and packed forms of its weights, for
+    a run in `compute_dtype` with `conv_impl` (see `PackedParams`). A dict
+    already packed for both comes back as it is."""
+    cdt = torch_dtype(compute_dtype)
+    key = (cdt, conv_impl == "pallas")
+    if getattr(params, "key", None) == key:
+        return params
+    out = PackedParams()
+    for name, p in params.items():
+        layer = {"w": p["w"], "b": p["b"], "wc": p["w"].to(cdt),
+                 "bc": p["b"].to(cdt)}
+        if _use_pallas_conv(conv_impl, CONV_SHAPES[name][0]):
+            layer["wp"] = pack_weights(layer["wc"])
+            layer["ftp"] = pack_grad_weights(layer["wc"])
+        out[name] = layer
+    out.key = key
+    out.block12 = block12_pallas.pack_weights(params, cdt)
+    return out
 
 
 def _pool(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -201,22 +241,22 @@ def set_exact_backends(compute_dtype) -> None:
     torch.backends.cudnn.benchmark = False
 
 
-def _run_layers(params: dict, x: torch.Tensor, names, layers, pooling: str,
-                cdt, conv_impl: str, raw_taps=()) -> dict:
-    """Run the layers `names` (in LAYER_ORDER) on the (1, C, H, W) batch x;
-    returns the taps of those in `layers` (see extract_features)."""
+def _run_layers(params: PackedParams, x: torch.Tensor, names, layers,
+                pooling: str, conv_impl: str, raw_taps=()) -> dict:
+    """Run the layers `names` (in LAYER_ORDER) on the (1, C, H, W) batch x
+    with `pack_params`' weights; returns the taps of those in `layers` (see
+    extract_features)."""
     taps = {}
     for name in names:
         if name.startswith("pool"):
             x = _pool(x, pooling)
             continue
         p = params[name]
-        w = p["w"].to(cdt)
         if _use_pallas_conv(conv_impl, x.shape[1]):
-            z = _Conv3x3.apply(x, w)
+            z = _Conv3x3.apply(x, p["wp"], p["ftp"])
         else:
-            z = F.conv2d(x, w, padding=1)
-        b = p["b"].to(cdt)
+            z = F.conv2d(x, p["wc"], padding=1)
+        b = p["bc"]
         x = _Relu.apply(z + b[:, None, None])
         if name in raw_taps:
             taps[name] = RawTap(z[0], b)
@@ -231,7 +271,8 @@ def extract_features(params: dict, image: torch.Tensor,
                      raw_taps: tuple[str, ...] = ()) -> dict:
     """Run VGG-19 up to the deepest layer in `layers`.
 
-    params: {layer: {"w": OIHW, "b": (Cout,)}} (see params_from_numpy).
+    params: {layer: {"w": OIHW, "b": (Cout,)}} (see params_from_numpy),
+    packed here unless `pack_params` already packed it for this call.
     image: (H, W, 3) float RGB in [0, 255].
     Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype
     (NCHW planes of the one image: a tap is the contiguous (C, P) operand
@@ -246,9 +287,10 @@ def extract_features(params: dict, image: torch.Tensor,
     if image.device.type == "cuda":
         set_exact_backends(cdt)
     deepest = max(LAYER_ORDER.index(l) for l in layers)
-    return _run_layers(params, preprocess(image).to(cdt),
-                       LAYER_ORDER[:deepest + 1], layers, pooling, cdt,
-                       conv_impl, raw_taps)
+    return _run_layers(pack_params(params, cdt, conv_impl),
+                       preprocess(image).to(cdt),
+                       LAYER_ORDER[:deepest + 1], layers, pooling, conv_impl,
+                       raw_taps)
 
 
 def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
@@ -265,8 +307,9 @@ def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
     if min(LAYER_ORDER.index(l) for l in layers) < start:
         raise ValueError("extract_tail: a tap before pool2")
     deepest = max(LAYER_ORDER.index(l) for l in layers)
-    return _run_layers(params, x.to(cdt), LAYER_ORDER[start:deepest + 1],
-                       layers, pooling, cdt, conv_impl)
+    return _run_layers(pack_params(params, cdt, conv_impl), x.to(cdt),
+                       LAYER_ORDER[start:deepest + 1], layers, pooling,
+                       conv_impl)
 
 
 # --- blocks 1-2 streamed (the stream12 route) ---------------------------------

@@ -30,17 +30,25 @@ after relu′; dp1 is rounded, dx is fp32.
 
 Layout: channel-major planes, as the TPU kernel's. The image enters as the
 `preprocess_noflip` planes (RGB order, means subtracted) and `pack_weights`
-flips conv1_1's input channels, as the JAX package does.
+flips conv1_1's input channels, as the JAX package does. `pack_weights`
+also makes, once per run, the forms the kernels read: every forward conv
+and every input-gradient conv (the flipped, transposed weights) packed by
+`conv_cuda.pack_weights` and `pack_grad_weights`, conv1_1 in bf16 as one
+contraction of depth 32 (`conv_cuda.pack_k27`).
 
 CPU tensors take the plain versions, which walk the same bands in the same
 order; CUDA tensors launch `csrc/block12.cu` or raise.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import kernels
-from .conv_cuda import conv3x3_acc, flip_transpose_weights
+from .conv_cuda import (conv3x3_acc, flip_transpose_weights,
+                        pack_grad_weights, pack_k27,
+                        pack_weights as pack_conv)
 from .kernels import torch_dtype
 
 TB = 32                      # own rows of a band, as csrc/block12.cu's TB
@@ -53,19 +61,47 @@ _CINOUT = {"conv1_1": (3, 64), "conv1_2": (64, 64), "conv2_1": (64, 128),
 GROUP_PIXELS = 1 << 20
 
 
-def pack_weights(params: dict, compute_dtype) -> tuple:
-    """(w11, b11, w12, b12, w21, b21, w22, b22): OIHW weights in the
-    compute dtype, fp32 biases; conv1_1's input channels flipped so that it
-    reads the RGB-ordered `preprocess_noflip` image."""
+class Block12Weights(NamedTuple):
+    """The four convs' weights in every form the entry points read, in the
+    compute dtype (biases fp32): OIHW for the plain versions, then packed
+    for the kernels (k: forward, t: input gradient)."""
+    w11: torch.Tensor
+    b11: torch.Tensor
+    w12: torch.Tensor
+    b12: torch.Tensor
+    w21: torch.Tensor
+    b21: torch.Tensor
+    w22: torch.Tensor
+    b22: torch.Tensor
+    k11: torch.Tensor
+    k12: torch.Tensor
+    k21: torch.Tensor
+    k22: torch.Tensor
+    t11: torch.Tensor
+    t12: torch.Tensor
+    t21: torch.Tensor
+    t22: torch.Tensor
+
+
+def pack_weights(params: dict, compute_dtype) -> Block12Weights:
+    """OIHW weights in the compute dtype and fp32 biases, conv1_1's input
+    channels flipped so that it reads the RGB-ordered `preprocess_noflip`
+    image; then the kernels' forms of the same weights: each conv packed
+    (conv1_1 in bf16 as `pack_k27`) and each input-gradient conv's
+    flipped, transposed weights packed."""
     cdt = torch_dtype(compute_dtype)
-    out = []
+    oihw = []
     for name in B12:
         w = params[name]["w"]
         if name == "conv1_1":
             w = w.flip(1)
-        out.append(w.to(cdt).contiguous())
-        out.append(params[name]["b"].to(torch.float32).contiguous())
-    return tuple(out)
+        oihw.append(w.to(cdt).contiguous())
+        oihw.append(params[name]["b"].to(torch.float32).contiguous())
+    ws = oihw[0::2]
+    fwd = [pack_k27(ws[0]) if cdt == torch.bfloat16 else pack_conv(ws[0])]
+    fwd += [pack_conv(w) for w in ws[1:]]
+    bwd = [pack_grad_weights(w) for w in ws]
+    return Block12Weights(*oihw, *fwd, *bwd)
 
 
 def group_bands(h: int, w: int) -> int:
@@ -162,7 +198,7 @@ def block12_fwd_plain(x, m1sq, m2sq, weights, pooling="max",
     """Plain PyTorch forward, band by band: (g1, g2, p2) and with
     `save_res` also (a11, a21, a22)."""
     cdt = torch_dtype(compute_dtype)
-    w11, b11, w12, b12, w21, b21, w22, b22 = weights
+    w11, b11, w12, b12, w21, b21, w22, b22 = weights[:8]
     h = x.shape[1]
     k = m1sq.shape[0]
     dev = x.device
@@ -247,13 +283,24 @@ def _check_geometry(h: int, w: int, pooling: str) -> None:
         raise ValueError(f"block12: unknown pooling {pooling!r}")
 
 
-def _check_weights(weights: tuple, cdt) -> None:
-    if len(weights) != 8:
-        raise ValueError("block12: weights are pack_weights' 8 tensors")
-    for name, wt, bs in zip(B12, weights[0::2], weights[1::2]):
+def _check_weights(weights: tuple, cdt) -> Block12Weights:
+    if len(weights) != len(Block12Weights._fields):
+        raise ValueError("block12: weights are pack_weights' "
+                         f"{len(Block12Weights._fields)} tensors")
+    wts = Block12Weights(*weights)
+    for i, name in enumerate(B12):
         cin, cout = _CINOUT[name]
-        kernels.require(wt, name + " w", (cout, cin, 3, 3), cdt)
-        kernels.require(bs, name + " b", (cout,), torch.float32)
+        kernels.require(wts[2 * i], name + " w", (cout, cin, 3, 3), cdt)
+        kernels.require(wts[2 * i + 1], name + " b", (cout,), torch.float32)
+        kernels.require(wts[8 + i], name + " packed",
+                        (cout, 32) if cin == 3 and cdt == torch.bfloat16
+                        else (9, cout, -(-cin // 8) * 8), cdt)
+        kernels.require(wts[12 + i], name + " packed input gradient",
+                        (9, cin, cout), cdt)
+        for t, what in ((wts[8 + i], " packed"),
+                        (wts[12 + i], " packed input gradient")):
+            kernels.require_aligned(t, name + what)
+    return wts
 
 
 def _scratch(which: int, k: int, h: int, w: int, cdt,
@@ -274,7 +321,7 @@ def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
     kernels.require(x, "x", None, torch.float32)
     kernels.require(m1sq, "m1sq", (k, h, w), torch.float32)
     kernels.require(m2sq, "m2sq", (k, h // 2, w // 2), torch.float32)
-    _check_weights(weights, cdt)
+    wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(x, m1sq, m2sq, *weights):
         return block12_fwd_plain(x, m1sq, m2sq, weights, pooling, cdt,
                                  save_res)
@@ -289,8 +336,9 @@ def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
     scratch, group = _scratch(0, k, h, w, cdt, dev)
     name = "block12_fwd_res" if save_res else "block12_fwd"
     rc = kernels.library().dpst_block12_fwd(
-        *map(kernels.ptr, (x, m1sq, m2sq, *weights, g1, g2, p2, *res,
-                           scratch)),
+        *map(kernels.ptr, (x, m1sq, m2sq, wts.k11, wts.b11, wts.k12, wts.b12,
+                           wts.k21, wts.b21, wts.k22, wts.b22, g1, g2, p2,
+                           *res, scratch)),
         k, h, w, group, int(pooling == "avg"), int(save_res),
         kernels.DTYPE_CODES[cdt], kernels.stream_ptr(x))
     kernels.check(rc, name)
@@ -337,16 +385,14 @@ def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
     kernels.require(dp2, "dp2", (128, h // 4, w // 4), cdt)
     kernels.require(m2sq, "m2sq", (k, h2, w2), torch.float32)
     kernels.require(s2, "s2", (k, 128, 128), cdt)
-    _check_weights(weights, cdt)
+    wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(a21, a22, dp2, m2sq, s2, *weights):
         return block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights,
                                       pooling, cdt)
-    ft21 = flip_transpose_weights(weights[4])
-    ft22 = flip_transpose_weights(weights[6])
     dp1 = torch.empty((64, h2, w2), dtype=cdt, device=a21.device)
     scratch, group = _scratch(1, k, h, w, cdt, a21.device)
     rc = kernels.library().dpst_block12_bwd_deep(
-        *map(kernels.ptr, (a21, a22, dp2, m2sq, s2, ft21, ft22, dp1,
+        *map(kernels.ptr, (a21, a22, dp2, m2sq, s2, wts.t21, wts.t22, dp1,
                            scratch)),
         k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
         kernels.stream_ptr(a21))
@@ -369,17 +415,15 @@ def block12_bwd_shallow(a11, dp1, m1sq, s1, weights, *,
     kernels.require(dp1, "dp1", (64, h // 2, w // 2), cdt)
     kernels.require(m1sq, "m1sq", (k, h, w), torch.float32)
     kernels.require(s1, "s1", (k, 64, 64), cdt)
-    _check_weights(weights, cdt)
+    wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(a11, dp1, m1sq, s1, *weights):
         return block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights,
                                          pooling, cdt)
-    ft11 = flip_transpose_weights(weights[0])
-    ft12 = flip_transpose_weights(weights[2])
     dx = torch.empty((3, h, w), dtype=torch.float32, device=a11.device)
     scratch, group = _scratch(2, k, h, w, cdt, a11.device)
     rc = kernels.library().dpst_block12_bwd_shallow(
-        *map(kernels.ptr, (a11, dp1, m1sq, s1, ft11, ft12, weights[2],
-                           weights[3], dx, scratch)),
+        *map(kernels.ptr, (a11, dp1, m1sq, s1, wts.t11, wts.t12, wts.k12,
+                           wts.b12, dx, scratch)),
         k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
         kernels.stream_ptr(a11))
     kernels.check(rc, "block12_bwd_shallow")

@@ -130,7 +130,9 @@ def library() -> ctypes.CDLL:
         lib.dpst_gram_wbwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.dpst_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.dpst_conv3x3.argtypes = [p, p, p, p] + [i] * 8 + [p]
+        lib.dpst_conv3x3_attrs.argtypes = [i, i, p]
+        lib.dpst_block12_conv_attrs.argtypes = [i, p]
         lib.dpst_block12_scratch_bytes.argtypes = [i] * 6
         lib.dpst_block12_scratch_bytes.restype = ctypes.c_size_t
         lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
@@ -141,7 +143,8 @@ def library() -> ctypes.CDLL:
                    lib.dpst_gram_relu_bwd, lib.dpst_gram_wbwd,
                    lib.dpst_pool2_bwd, lib.dpst_conv3x3,
                    lib.dpst_block12_fwd, lib.dpst_block12_bwd_deep,
-                   lib.dpst_block12_bwd_shallow, lib.dpst_gram_wgmma_attrs):
+                   lib.dpst_block12_bwd_shallow, lib.dpst_gram_wgmma_attrs,
+                   lib.dpst_conv3x3_attrs, lib.dpst_block12_conv_attrs):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p
@@ -179,6 +182,14 @@ def require(t: torch.Tensor, name: str, shape: tuple | None = None,
                          "(float32 or bfloat16)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
+    """Raise unless t's data starts on an nbytes boundary (a kernel copies
+    it in 16-byte pieces; a view into a tensor may start anywhere)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data must start on a {nbytes}-byte "
+                         "boundary")
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -183,6 +183,8 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
 
     def features(image, consts, vgg_params):
         """(taps, normalized Grams of the layers that need no tap)."""
+        vgg_params = vgg.pack_params(vgg_params, cfg.compute_dtype,
+                                     cfg.conv_impl)
         route = block12_route(cfg, image.shape)
         if route != "kernel":
             feats = vgg.extract_features(
@@ -201,7 +203,7 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
         op = b12.make_block12_fused(pooling=cfg.pooling,
                                     compute_dtype=cfg.compute_dtype)
         g1, g2, p2 = op(vgg.preprocess_noflip(image), m1 * m1, m2 * m2,
-                        b12.pack_weights(vgg_params, cfg.compute_dtype))
+                        vgg_params.block12)
         g_out = {"conv1_1": normalize(g1, m1, norm),
                  "conv2_1": normalize(g2, m2, norm)}
         feats = vgg.extract_tail(

@@ -95,7 +95,8 @@ def test_function_input_gradient_matches_jax(dtype):
     ref_vjp = np.asarray(vjp(jg[None])[0][0], np.float32).transpose(2, 0, 1)
 
     x = tx[None].clone().requires_grad_(True)
-    y = tvgg._Conv3x3.apply(x, tw)
+    y = tvgg._Conv3x3.apply(x, tconv.pack_weights(tw),
+                            tconv.pack_grad_weights(tw))
     g_t = torch.from_numpy(np.ascontiguousarray(
         np.asarray(jg, np.float32).transpose(2, 1, 0)[None])).to(tx.dtype)
     (gx,) = torch.autograd.grad(y.transpose(2, 3), x, grad_outputs=g_t)
@@ -108,7 +109,8 @@ def test_weight_gradient_is_none_and_cpu_counts_nothing():
     x = tx[None].clone().requires_grad_(True)
     w = tw.clone().requires_grad_(True)
     before = dict(kernels.LAUNCHES)
-    y = tvgg._Conv3x3.apply(x, w)
+    y = tvgg._Conv3x3.apply(x, tconv.pack_weights(w),
+                            tconv.pack_grad_weights(w))
     gx, gw = torch.autograd.grad(y.sum(), (x, w), allow_unused=True)
     assert gw is None and gx.shape == x.shape
     assert kernels.LAUNCHES == before
