@@ -10,7 +10,8 @@ no result):
   2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
                  sm_90a) and reports the seconds, and the registers, local
                  memory, shared memory and blocks per SM of the bf16 Gram
-                 and conv bodies (gram_wgmma.cuh, conv3x3_wgmma.cuh);
+                 and conv bodies (gram_wgmma.cuh, conv3x3_wgmma.cuh; block12's
+                 Gram cotangent on gram_bwd's body among them);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes of the 512² config3 main path (K = 4 masks),
                  for the fused bias+ReLU Gram pair of conv1_1 at the 1024²
@@ -54,8 +55,12 @@ no result):
                  and stream12_impl="pallas" at 4096² (config6 of bench.py:
                  blocks 1-2 streamed in bands through the four block12
                  entry points, whose kernels phase checks them at 256 x
-                 4096, K = 4, at edge shapes and with tied maxima, and
-                 times them at 4096²), 10 Adam steps, four band masks;
+                 4096, K = 4, at edge shapes (W = 260 among them) and with
+                 tied maxima, times them at 4096², holds their scratch
+                 layout to the one the CPU tests check, and checks and
+                 times the backwards' bf16 Gram cotangent stage alone at
+                 the 4096² step's group shapes, in turns with a
+                 torch.matmul yardstick), 10 Adam steps, four band masks;
                  counters held to what the route implies; precompute
                  seconds, loop it/s and the loop's peak memory; a profile;
                  the standard path (stream12=0) at 4096² for 3 steps with
@@ -113,15 +118,28 @@ B12_ITERS = 10                                 # Adam steps of the route
 B12_STD_ITERS = 3                              # the standard path beside it
 # (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
 # shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
-# bands), avg pooling, one band with tied maxima, and five classes; the
-# 4096² step shape is checked where it is timed
+# bands), avg pooling, one band with tied maxima, five classes, and W = 260
+# (W/4 = 65: band copies whose rows start off 16-byte boundaries, and their
+# scalar tails); the 4096² step shape is checked where it is timed
 B12_CASES = ((256, 4096, 4, "bfloat16", "max", False),
              (512, 4096, 4, "bfloat16", "max", False),
              (256, 4096, 4, "float32", "max", False),
              (256, 4096, 4, "float32", "avg", False),
              (32, 256, 1, "bfloat16", "max", True),
              (32, 256, 1, "float32", "max", True),
-             (64, 256, 5, "bfloat16", "max", False))
+             (64, 256, 5, "bfloat16", "max", False),
+             (64, 260, 3, "bfloat16", "max", False),
+             (64, 260, 2, "float32", "avg", False))
+# (stage, C, bands, rows a band, W, K, timed) of the checks of the
+# backwards' bf16 Gram cotangent stage alone: the shallow and deep groups of
+# the 4096² step (eight bands; timed), then K = 1 and 5 at W = 260 and its
+# half, 130 (walked rows that start off 16-byte boundaries)
+GRAM_DZ_CASES = (("shallow", 64, 8, 48, 4096, 4, True),
+                 ("deep", 128, 8, 24, 2048, 4, True),
+                 ("shallow", 64, 1, 48, 260, 1, False),
+                 ("deep", 128, 3, 24, 130, 5, False),
+                 ("shallow", 64, 2, 48, 260, 5, False),
+                 ("deep", 128, 1, 24, 130, 1, False))
 
 
 def emit(obj) -> None:
@@ -156,32 +174,58 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, warmup: int = 3, iters: int = 10,
-              attempts: int = 5) -> float:
-    """Device time of fn() per call: torch.profiler's CUDA events (every
-    kernel and copy fn launches) summed over `iters` calls, after warm-up.
-    Unlike `cuda_ms` it does not count the device idling while the host
-    enqueues, which is what back-to-back calls of a wrapper around a
-    kernel shorter than its Python measure. fn launches the same work on
-    every call, so a trace whose device events are not a positive
-    multiple of `iters` lost some (the card's profiler now and then
-    returns a trace without them) and is taken again."""
+def device_events(fn, iters: int, whole, attempts: int = 10) -> list:
+    """(name, µs) of each CUDA event (every kernel and copy) of `iters`
+    calls of fn under torch.profiler. The card's profiler now and then
+    returns a trace that lost events: a trace that `whole(events)` finds
+    incomplete is taken again after a pause."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    seen = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        evs = [ev for ev in prof.events()
+        evs = [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
                if ev.device_type == DeviceType.CUDA]
-        if evs and len(evs) % iters == 0:
-            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
-    fail("kernels", f"torch.profiler lost device events {attempts} times")
+        if whole(evs):
+            return evs
+        seen.append(len(evs))
+        time.sleep(0.5)
+    fail("kernels", f"torch.profiler lost device events {attempts} times "
+         f"(events of the traces: {seen})")
+
+
+def device_ms(fn, warmup: int = 3, iters: int = 10) -> float:
+    """Device time of fn() per call: its CUDA events over `iters` calls,
+    after warm-up. Unlike `cuda_ms` it does not count the device idling
+    while the host enqueues, which is what back-to-back calls of a wrapper
+    around a kernel shorter than its Python measure. fn launches the same
+    kernels on every call, so each kernel's name appears a multiple of
+    `iters` times in a whole trace. The card's profiler has also returned
+    traces one record short, the same in every attempt (19 of 20 events
+    in one run): a trace with one name one short of a multiple is taken,
+    that name counted at the mean of its other launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def by_name(evs) -> dict:
+        out: dict[str, list] = {}
+        for name, us in evs:
+            out.setdefault(name, []).append(us)
+        return out
+
+    def whole(evs) -> bool:
+        short = [len(v) % iters for v in by_name(evs).values()
+                 if len(v) % iters]
+        return bool(evs) and (not short or short == [iters - 1])
+
+    per = by_name(device_events(fn, iters, whole))
+    return sum(sum(v) / len(v) * round(len(v) / iters)
+               for v in per.values()) / 1e3
 
 
 def in_turns(kernel, library) -> dict:
@@ -726,6 +770,23 @@ def b12_work(h: int, w: int, k: int, isz: int) -> dict:
             "block12_bwd_shallow": (shallow_bytes, shallow_ops)}
 
 
+def b12_copy_bytes(h: int, w: int, k: int, isz: int) -> dict:
+    """Bytes each block12 entry point's band copies must move at an H × W
+    image with K classes, each element read once and written once: a
+    gathered band stacks TB + 2·HALO rows for TB own rows (1.5×; the rows
+    outside the image are only written), a scatter moves the own rows; the
+    image, masks and dx in fp32, the rest in the compute dtype."""
+    p, p2, p4, stack = h * w, h * w // 4, h * w // 16, 1.5
+    fwd = 3 * p * stack * (4 + isz) + 128 * p4 * 2 * isz
+    res = (64 * p + 2 * 128 * p2) * 2 * isz
+    deep = (stack * (2 * 128 * p2 + 128 * p4) * 2 * isz
+            + stack * k * p2 * (4 + isz) + 64 * p2 * (4 + isz))
+    shallow = (stack * (64 * p + 64 * p2) * 2 * isz
+               + stack * k * p * (4 + isz) + 3 * p * 8)
+    return {"block12_fwd": fwd, "block12_fwd_res": fwd + res,
+            "block12_bwd_deep": deep, "block12_bwd_shallow": shallow}
+
+
 def b12_cudnn(h: int, w: int, params: dict, dtype) -> dict:
     """Labelled yardsticks that do less work than each entry point: cuDNN
     on the same convs at the same shapes (no bias, ReLU, pools, masks or
@@ -856,6 +917,121 @@ def check_block12_case(h, w, k, dtype, pooling, ties, dev, gen, params):
     return out
 
 
+def check_gram_dz(dev, gen):
+    """The backwards' bf16 Gram cotangent stage alone (`block12_gram_dz`:
+    the wgmma body with the conv-term and relu′ epilogue on the rows that
+    reach an own output row) against `gram_dz_plain`, the stage the plain
+    backwards call, on those rows, within `out_tol` (one rounding of fp32
+    sums taken in two orders); its plan (`dpst_block12_df_plan`) equal to
+    `block12_pallas.gram_dz_plan`. At the two group shapes of the 4096²
+    step: its device time in turns with torch.matmul(s_matrix(S), W), W the
+    pre-weighted (K·C, P) operand of the same pixels, a yardstick that does
+    less work (no weighting, no conv term, no relu′)."""
+    import ctypes
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    from dpst_tpu_torch.ops import gram_stream as gs
+    from dpst_tpu_torch.ops import kernels
+    lib = kernels.library()
+    cdt = torch.bfloat16
+    rows, errs = [], {}
+    for stage, c, nb, r, w, k, timed in GRAM_DZ_CASES:
+        lo, hi = b12.DZ_ROWS[stage]
+        plan = (ctypes.c_int * 7)()
+        lib.dpst_block12_df_plan(c, nb, r, w, lo, hi, plan)
+        want = b12.gram_dz_plan(c, nb, r, w, (lo, hi))
+        if tuple(plan) != want:
+            fail("kernels", f"block12 Gram cotangent plan at {stage} {nb}x{r}"
+                 f"x{w}: the kernel's {tuple(plan)}, gram_dz_plan's {want}")
+        n = nb * r
+        f = torch.randn((c, n, w), generator=gen,
+                        device=dev).clamp_min(0).to(cdt)
+        msq = (torch.rand((k, n, w), generator=gen, device=dev) ** 2).to(cdt)
+        s = b12.symmetrize(torch.randn((k, c, c), generator=gen, device=dev),
+                           "bfloat16")
+        t = torch.randn((c, n, w), generator=gen, device=dev)
+
+        def own(x):
+            return x.reshape(x.shape[0], nb, r, w)[:, :, lo:hi]
+
+        def kernel():
+            return b12.block12_gram_dz(f, msq, s, t, band_rows=r,
+                                       rows=(lo, hi))
+
+        def plain():
+            return b12.gram_dz_plain(f, msq, s, t, cdt)
+
+        got, ref = own(kernel()), own(plain())
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        tol = out_tol(ref, "bfloat16")
+        case = f"{stage} C={c} {nb}x{r}x{w} rows {lo}..{hi} K={k}"
+        errs[case] = (rel, tol, err)
+        del got, ref
+        if not timed:
+            continue
+        px = nb * (hi - lo) * w
+        fw = own((msq[:, None] * f[None]).reshape(k * c, n, w))
+        fw = fw.reshape(k * c, px).contiguous()
+        a = gs.s_matrix(s).contiguous()
+        nbytes = px * (c * 2 + k * 2 + c * 4 + c * 2) + k * c * c * 2
+        ops = 2.0 * k * c * c * px
+        b, by = bound_ms(nbytes, ops, "bfloat16")
+        row = {"phase": "kernel", "name": "block12_gram_dz", "stage": stage,
+               "shape": [c, nb, r, w], "rows": [lo, hi], "K": k,
+               "dtype": "bfloat16", "in_step": False, "max_abs_err": err,
+               "rel_err": rel, "tol_rel": tol,
+               **in_turns(kernel, lambda: torch.matmul(a, fw)),
+               "plain_ms": cuda_ms(plain, warmup=1, iters=3),
+               "bound_ms": b, "bound_by": by, "gflop": ops / 1e9,
+               "gbytes": nbytes / 1e9,
+               "library_call": "yardstick: torch.matmul(s_matrix(S), W), W "
+                               "the pre-weighted (K·C, P) operand: no "
+                               "weighting, conv term or relu′, less work"}
+        emit(row)
+        rows.append(row)
+        del fw, a
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_gram_dz", "rel_err_tol_abs_err": errs})
+    bad = [name for name, (e, tol, _) in errs.items() if not e <= tol]
+    if bad:
+        fail("kernels", "block12 Gram cotangent beyond tolerance: "
+             + ", ".join(bad))
+    return rows
+
+
+def check_scratch_layout(lib) -> None:
+    """The scratch each block12 entry point takes (csrc/block12.cu's count)
+    equal to `block12_pallas.scratch_bytes`, the layout the CPU tests hold,
+    at every B12_CASES geometry and at the 4096² step."""
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    from dpst_tpu_torch.ops import kernels
+    geoms = {(h, w, k, dtype) for h, w, k, dtype, *_ in B12_CASES}
+    geoms.add((B12_SIZE, B12_SIZE, K, "bfloat16"))
+    for h, w, k, dtype in sorted(geoms):
+        group = b12.group_bands(h, w)
+        for which in range(3):
+            got = lib.dpst_block12_scratch_bytes(
+                which, k, h, w, group, kernels.DTYPE_CODES[getattr(torch,
+                                                                   dtype)])
+            want = b12.scratch_bytes(which, k, h, w, group, dtype)
+            if got != want:
+                fail("kernels", f"block12 scratch {which} at {h}x{w} K={k} "
+                     f"{dtype}: the kernel counts {got}, scratch_bytes "
+                     f"{want}")
+
+
+def stage_ms(fn) -> dict:
+    """Device ms of one call of fn by kernel group (`kernel_group`;
+    torch.profiler, after a warm-up call), largest first."""
+    fn()
+    torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    for name, us in device_events(fn, 1, bool):
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
 def timed_once(fn):
     """(fn(), the device ms of that one call), by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -871,12 +1047,14 @@ def check_block12(dev, gen):
     """The block12 entry points against their plain versions at B12_CASES
     (one of which spans more than one group of bands), then at the 4096²
     step shape of config6 (K = 4, bf16, max pooling): each output against
-    the plain version's, and each entry point's kernel time, plain time,
-    bound and cuDNN yardstick."""
+    the plain version's, and each entry point's kernel time, its device
+    time by stage, plain time, bound and cuDNN yardstick."""
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import block12_pallas as b12
+    from dpst_tpu_torch.ops import kernels
     if not any(h // b12.TB > b12.group_bands(h, w) for h, w, *_ in B12_CASES):
         fail("kernels", "no block12 case spans two groups of bands")
+    check_scratch_layout(kernels.library())
     params = vgg.init_params(SEED, device=dev)
     errs = {}
     for h, w, k, dtype, pooling, ties in B12_CASES:
@@ -934,6 +1112,7 @@ def check_block12(dev, gen):
         fail("kernels", "block12 beyond tolerance: " + ", ".join(bad))
 
     work = b12_work(h, w, k, 2)
+    copies = b12_copy_bytes(h, w, k, 2)
     library = b12_cudnn(h, w, params, cdt)
     rows = []
     for name, (kernel, plain) in calls.items():
@@ -945,6 +1124,9 @@ def check_block12(dev, gen):
                "dtype": dtype, "pooling": pooling,
                "max_abs_err": max(v[2] for v in case_errs),
                "ms": cuda_ms(kernel, warmup=1, iters=3),
+               "device_ms_by_stage": stage_ms(kernel),
+               "copies_gbytes": copies[name] / 1e9,
+               "copies_bound_ms": copies[name] / HBM_BYTES_PER_S * 1e3,
                "plain_ms": plain_ms[name],
                "bound_ms": bnd, "bound_by": by, "gflop": ops / 1e9,
                "gbytes": nbytes / 1e9, "library_ms": library[name],
@@ -1581,9 +1763,10 @@ def summarize(rows: list, launches: dict) -> list:
 
 def wgmma_resources(lib) -> dict:
     """Registers, local memory (spills and stack), dynamic shared memory and
-    resident blocks per SM of the bf16 Gram bodies (csrc/gram_wgmma.cuh)
-    and conv bodies (csrc/conv3x3_wgmma.cuh: conv3x3's N tiles of 128, 64
-    and 8 channels, and block12's instances)."""
+    resident blocks per SM of the bf16 Gram bodies (csrc/gram_wgmma.cuh:
+    gram_fwd, gram_bwd and block12's Gram cotangent on gram_bwd's body) and
+    conv bodies (csrc/conv3x3_wgmma.cuh: conv3x3's N tiles of 128, 64 and
+    8 channels, and block12's instances)."""
     import ctypes
     out = {}
     entries = [(lib.dpst_gram_wgmma_attrs, which, name) for which, name in
@@ -1596,6 +1779,10 @@ def wgmma_resources(lib) -> dict:
                     (64, 1, "1 chunk a block, two blocks an SM"),
                     (64, 2, "2 chunks a block"),
                     (8, 1, "1 chunk a block"))]
+    entries += [(lib.dpst_block12_df_attrs, which, name)
+                for which, name in enumerate((
+                    "block12 Gram cotangent of conv1_1 (64-row c tile)",
+                    "block12 Gram cotangent of conv2_1 (128-row c tile)"))]
     entries += [(lib.dpst_block12_conv_attrs, which, name)
                 for which, name in enumerate((
                     "block12 conv1_1 (K = 32, bias+ReLU)",
@@ -1649,6 +1836,7 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows += check_block12(dev, gen)
+    rows += check_gram_dz(dev, gen)
     seconds["block12 kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 

@@ -35,33 +35,50 @@
 // after another in a scratch the wrapper allocates for that group only
 // (the launches then fill the card). For a group, each stage is one launch
 // on the current stream: the band copies (gather with zero fill and a cast,
-// scatter of the own rows), the 3x3 conv (conv::launch of conv3x3_tile.cuh:
-// in bf16 the wgmma body of conv3x3_wgmma.cuh, conv1_1's 3 input channels
-// as one K of 32; in fp32 the CUDA-core tile) with its bias+ReLU+row-mask
-// epilogue (forward) or its fp32 epilogue (input gradients), on weights
-// packed once per run (ops/block12_pallas.pack_weights), the 2x2 pool
-// forward, the pool backward with relu', the Gram partials (in bf16
-// gram_fwd's Hopper body of gram_wgmma.cuh on each band's own rows, the
-// group's m^2 rounded to bf16 once; in fp32 the gram_tile.cuh tile; P
-// split within each band) and the Gram cotangent (the gram_bwd tile, whose
-// epilogue adds the conv term, multiplies by relu' and rounds). A conv
-// reading the stacked bands sees the next band's first row where the TPU
-// kernel sees a zero pad: both only reach rows of the halo that the
-// shrinking valid region drops before the own rows. The Gram partials go to one slot per (band, split)
-// and are summed slot by slot in band order into the result: no float
-// atomics, so a rerun is bit-identical.
+// scatter of the own rows; a warp a row, the source row found once a row,
+// 16-byte vectors along W with a scalar tail, scalars where a row does not
+// start on a 16-byte boundary), the 3x3 conv (conv::launch of
+// conv3x3_tile.cuh: in bf16 the wgmma body of conv3x3_wgmma.cuh, conv1_1's
+// 3 input channels as one K of 32; in fp32 the CUDA-core tile) with its
+// bias+ReLU+row-mask epilogue (forward) or its fp32 epilogue (input
+// gradients), on weights packed once per run
+// (ops/block12_pallas.pack_weights), the 2x2 pool forward, the pool
+// backward with relu', the Gram partials (in bf16 gram_fwd's Hopper body
+// of gram_wgmma.cuh on each band's own rows, the group's m^2 rounded to
+// bf16 once; in fp32 the gram_tile.cuh tile; P split within each band) and
+// the Gram cotangent. In bf16 that is gram_bwd's Hopper body (wgmma on a
+// cp.async ring, the weighted operand formed in registers, the cotangent
+// as the (C, K * C) matrix of gram_stream.s_matrix), one split, with an
+// epilogue that adds the fp32 conv term and multiplies by relu' before the
+// one rounding; the masks are gathered already rounded to bf16, and it
+// walks only the rows of each band that reach an own output row (DZ_LO_*,
+// DZ_HI_*: 34 of 48, 18 of 24). In fp32 it is the gram_bwd tile of
+// gram_tile.cuh on every row, with the same epilogue. A conv reading the
+// stacked bands sees the next band's first row where the TPU kernel sees
+// a zero pad: both only reach rows of the halo that the shrinking valid
+// region drops before the own rows. The Gram partials go to one slot per
+// (band, split) and are summed slot by slot in band order into the
+// result: no float atomics, so a rerun is bit-identical.
 //
 // What bounds it on the H100: operations. A 4096^2 forward does 2 * 9 * P
 // * (3 * 64 + 64 * 64 + (64 * 128 + 128 * 128) / 4) = 3.2 TFLOP of convs
 // (3.2 ms at the bf16 peak; more with the recomputed halo, 50 % at TB =
-// 32), the Grams 0.1 TFLOP; it reads 0.5 GB of image and masks. The bf16
-// convs and Gram partials run on the tensor cores through wgmma (PERF.md
-// has their times); the Gram cotangent, the band copies and the pools keep
-// their first designs, and a fusion of the stages into one kernel is left
-// for later work. Every offset is 64-bit and every entry point returns
+// 32), the Grams 0.1 TFLOP; it reads 0.5 GB of image and masks. By stage,
+// at 4096^2, K = 4, bf16: the convs by operations; the Gram cotangent by
+// bytes (each walked pixel reads its tap, m^2 and fp32 conv term and writes
+// dz: 520 bytes at C = 64, 1032 at 128; 9.3 + 4.9 GB, 2.8 + 1.5 ms, against
+// 0.58 + 0.62 TFLOP); the band copies and pools by bytes. The convs,
+// Gram partials and Gram cotangent run on the tensor cores through wgmma
+// (PERF.md has their times); the pools keep their first design, the halo
+// is recomputed, and a fusion of the stages into one kernel is left for
+// later work. Every offset that can pass 2^31 is 64-bit (a group's pixel
+// indices fit an int) and every entry point returns
 // cudaGetLastError() after its last launch, or the first error of an
 // earlier one.
 #include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include "conv3x3_tile.cuh"
 #include "gram_tile.cuh"
@@ -75,6 +92,12 @@ using dpst::to_f;
 constexpr int TB = 32;            // own rows of a band (block12_pallas.TB)
 constexpr int HALO = 8;           // full-resolution halo rows on each side
 constexpr int GRAM_CHUNK = 4096;  // pixels of a Gram split (a multiple of 128)
+// Rows of a band whose Gram cotangent reaches an own output row (the 3x3
+// input-gradient conv after it reads one row past each side): dz11 on the
+// shallow backward's bands of TB + 2 * HALO rows, dz21 on the deep
+// backward's bands of half as many (block12_pallas.DZ_ROWS).
+constexpr int DZ_LO_SHALLOW = HALO - 1, DZ_HI_SHALLOW = HALO + TB + 1;
+constexpr int DZ_LO_DEEP = HALO / 2 - 1, DZ_HI_DEEP = HALO / 2 + TB / 2 + 1;
 constexpr int EW_THREADS = 256;
 constexpr int EW_BLOCKS = 132 * 16;
 
@@ -86,50 +109,94 @@ constexpr int EW_BLOCKS = 132 * 16;
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
+// One row of a band copy, n elements from s to d cast to To (s null: zeros),
+// by the 32 lanes of a warp: 16-byte vectors of Ti (V elements) where both
+// rows start on a vector boundary, then a scalar tail; rows that do not
+// (rows of W/4 = 65 bf16 are 130 bytes, so most start off a boundary) go
+// by scalars. The casts: none, or fp32 to bf16 rounded to nearest even.
+template <typename Ti, typename To>
+__device__ __forceinline__ void copy_row(const Ti* __restrict__ s,
+                                         To* __restrict__ d, int n,
+                                         int lane) {
+  static_assert(std::is_same_v<Ti, To> ||
+                    (std::is_same_v<Ti, float> &&
+                     std::is_same_v<To, __nv_bfloat16>),
+                "band copies keep the type or round fp32 to bf16");
+  constexpr int V = 16 / sizeof(Ti);
+  constexpr int DB = V * sizeof(To);  // bytes a lane stores a vector
+  using Out = std::conditional_t<DB == 16, uint4, uint2>;
+  int done = 0;
+  if (reinterpret_cast<uintptr_t>(d) % DB == 0 &&
+      reinterpret_cast<uintptr_t>(s) % 16 == 0) {
+    const int nv = n / V;
+    Out* dv = reinterpret_cast<Out*>(d);
+    if (s == nullptr) {
+      for (int i = lane; i < nv; i += 32) dv[i] = Out{};
+    } else {
+      const uint4* sv = reinterpret_cast<const uint4*>(s);
+#pragma unroll 4
+      for (int i = lane; i < nv; i += 32) {
+        const uint4 x = sv[i];
+        if constexpr (std::is_same_v<Ti, To>) {
+          dv[i] = x;
+        } else {
+          float4 v;
+          memcpy(&v, &x, 16);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+          Out o;
+          memcpy(&o.x, &lo, 4);
+          memcpy(&o.y, &hi, 4);
+          dv[i] = o;
+        }
+      }
+    }
+    done = nv * V;
+  }
+  for (int i = done + lane; i < n; i += 32)
+    d[i] = s ? from_f<To>(to_f(s[i])) : from_f<To>(0.0f);
+}
+
 // dst (C, NB * R, W): row r of band b is row (band0 + b) * tb - halo + r of
-// src (C, Hs, W), cast to To, or zero outside [0, Hs).
+// src (C, Hs, W), cast to To, or zero outside [0, Hs). A warp a row.
 template <typename Ti, typename To>
 __global__ void block12_gather_kernel(const Ti* __restrict__ src,
                                       To* __restrict__ dst, int C, int Hs,
                                       int W, int NB, int R, int tb, int halo,
                                       int band0) {
-  const long long rows = static_cast<long long>(NB) * R;
-  const long long total = C * rows * W;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int x = static_cast<int>(idx % W);
-    const long long t = idx / W;
-    const int row = static_cast<int>(t % rows);
-    const long long c = t / rows;
-    const int g = (band0 + row / R) * tb - halo + row % R;
-    To v = from_f<To>(0.0f);
-    if (g >= 0 && g < Hs)
-      v = from_f<To>(to_f(src[(c * Hs + g) * W + x]));
-    dst[idx] = v;
+  const long long per = static_cast<long long>(NB) * R, rows = C * per;
+  const int lane = threadIdx.x & 31;
+  const long long nw = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  for (long long row = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                        threadIdx.x) >> 5;
+       row < rows; row += nw) {
+    const long long c = row / per;
+    const int rr = static_cast<int>(row - c * per);
+    const int g = (band0 + rr / R) * tb - halo + rr % R;
+    copy_row<Ti, To>(g >= 0 && g < Hs ? src + (c * Hs + g) * W : nullptr,
+                     dst + row * W, W, lane);
   }
 }
 
 // dst (C, Hd, W) rows (band0 + b) * tb + [0, tb) = src (C, NB * R, W) rows
-// b * R + halo + [0, tb), cast to To.
+// b * R + halo + [0, tb), cast to To. A warp a row.
 template <typename Ti, typename To>
 __global__ void block12_scatter_kernel(const Ti* __restrict__ src,
                                        To* __restrict__ dst, int C, int Hd,
                                        int W, int NB, int R, int tb, int halo,
                                        int band0) {
-  const long long total = static_cast<long long>(C) * NB * tb * W;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int x = static_cast<int>(idx % W);
-    long long t = idx / W;
-    const int r = static_cast<int>(t % tb);
-    t /= tb;
-    const int b = static_cast<int>(t % NB);
-    const long long c = t / NB;
+  const long long per = static_cast<long long>(NB) * tb, rows = C * per;
+  const int lane = threadIdx.x & 31;
+  const long long nw = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  for (long long row = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                        threadIdx.x) >> 5;
+       row < rows; row += nw) {
+    const long long c = row / per;
+    const int rr = static_cast<int>(row - c * per);
+    const int b = rr / tb, r = rr - b * tb;
     const long long srow = c * NB * R + static_cast<long long>(b) * R + halo + r;
     const long long drow = c * Hd + static_cast<long long>(band0 + b) * tb + r;
-    dst[drow * W + x] = from_f<To>(to_f(src[srow * W + x]));
+    copy_row<Ti, To>(src + srow * W, dst + drow * W, W, lane);
   }
 }
 
@@ -266,13 +333,32 @@ struct DzEpi {
   }
 };
 
+// fp32: the gram_tile.cuh tile over every pixel of the group.
 template <typename T>
 __global__ void __launch_bounds__(gram::NT)
-block12_gram_df_kernel(const T* __restrict__ a, const float* __restrict__ m,
+block12_gram_df_kernel(const T* __restrict__ a, const T* __restrict__ m,
                        const T* __restrict__ s, const float* __restrict__ t,
                        T* __restrict__ dz, int C, int P, int K) {
-  gram::gram_bwd_tile<T, float>(a, m, s, DzEpi<T>{t, a, dz}, C, P, K,
-                                blockIdx.x * gram::TN, blockIdx.y * gram::TM);
+  gram::gram_bwd_tile<T, T>(a, m, s, DzEpi<T>{t, a, dz}, C, P, K,
+                            blockIdx.x * gram::TN, blockIdx.y * gram::TM);
+}
+
+// The same epilogue on gram_bwd's Hopper body: (t + acc) * (a > 0) in
+// fp32, which the body rounds once to bf16.
+struct BwdDz {
+  static constexpr bool kReads = true;
+  const float* t;
+  const __nv_bfloat16* a;
+  __device__ __forceinline__ float operator()(float acc, size_t idx) const {
+    return (t[idx] + acc) * (to_f(a[idx]) > 0.0f ? 1.0f : 0.0f);
+  }
+};
+
+// bf16: gram_bwd's body on the walked rows of each band of the group.
+template <int N>
+__global__ void __launch_bounds__(gram90::NT)
+block12_gram_df_wgmma_kernel(gram90::BwdArgs args, BwdDz epi) {
+  gram90::gram_bwd_body<N>(args, epi);
 }
 
 // --- launch helpers ----------------------------------------------------------
@@ -280,7 +366,7 @@ block12_gram_df_kernel(const T* __restrict__ a, const float* __restrict__ m,
 template <typename Ti, typename To>
 int gather(const void* src, void* dst, int C, int Hs, int W, int NB, int R,
            int tb, int halo, int band0, cudaStream_t st) {
-  const long long n = static_cast<long long>(C) * NB * R * W;
+  const long long n = static_cast<long long>(C) * NB * R * 32;  // a warp a row
   block12_gather_kernel<Ti, To><<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
                                   EW_THREADS, 0, st>>>(
       static_cast<const Ti*>(src), static_cast<To*>(dst), C, Hs, W, NB, R, tb,
@@ -291,7 +377,7 @@ int gather(const void* src, void* dst, int C, int Hs, int W, int NB, int R,
 template <typename Ti, typename To>
 int scatter(const void* src, void* dst, int C, int Hd, int W, int NB, int R,
             int tb, int halo, int band0, cudaStream_t st) {
-  const long long n = static_cast<long long>(C) * NB * tb * W;
+  const long long n = static_cast<long long>(C) * NB * tb * 32;
   block12_scatter_kernel<Ti, To><<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
                                    EW_THREADS, 0, st>>>(
       static_cast<const Ti*>(src), static_cast<To*>(dst), C, Hd, W, NB, R, tb,
@@ -395,14 +481,74 @@ int gram_partials(const T* f, const float* m, __nv_bfloat16* mb, float* work,
   return last_error();
 }
 
-template <typename T>
-int gram_df(const T* a, const float* m, const T* s, const float* t, T* dz,
-            int C, long long P, int K, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((P + gram::TN - 1) / gram::TN),
-                  (C + gram::TM - 1) / gram::TM);
-  block12_gram_df_kernel<T><<<grid, gram::NT, 0, st>>>(
-      a, m, s, t, dz, C, static_cast<int>(P), K);
+// The bf16 Gram cotangent's walk: c tiles of `tile` rows, `groups` blocks
+// a c tile sharing the p tiles (64 pixels) of [pb, pe) in each of the NB
+// bands of R rows of W pixels, pb and pe the band's rows [lo, hi) widened
+// to 16-byte boundaries; one split (the epilogue needs the whole sum). As
+// ops/block12_pallas.gram_dz_plan.
+struct DfPlan {
+  int tile, groups, splits, pb, pe, tpb, ptiles;
+};
+
+DfPlan df_plan(int C, int NB, int R, int W, int lo, int hi) {
+  (void)R;
+  DfPlan p;
+  p.tile = C <= 64 ? 64 : 128;
+  p.splits = 1;  // the epilogue needs the whole sum: no split partials
+  p.pb = lo * W / 8 * 8;
+  p.pe = (hi * W + 7) / 8 * 8;
+  p.tpb = (p.pe - p.pb + 63) / 64;
+  p.ptiles = NB * p.tpb;
+  // resident blocks an SM by shared memory: 67 KB at 64 rows, 100 KB at 128
+  const int slots = 132 * (p.tile == 64 ? 3 : 2);
+  const int ctiles = (C + p.tile - 1) / p.tile;
+  p.groups = std::min(p.ptiles, std::max(1, slots / ctiles));
+  return p;
+}
+
+template <int N>
+int gram_df_wgmma(const __nv_bfloat16* a, const __nv_bfloat16* m,
+                  const __nv_bfloat16* s, const float* t, __nv_bfloat16* dz,
+                  int C, int K, long long ld, int band, const DfPlan& pl,
+                  cudaStream_t st) {
+  const size_t smem = gram90::bwd_smem<N>();
+  static size_t allowed[64] = {};
+  B12_TRY(static_cast<int>(
+      hopper::allow_smem(block12_gram_df_wgmma_kernel<N>, smem, allowed)));
+  const gram90::BwdArgs args{a, m, s, dz, nullptr, ld, ld, band, pl.pb,
+                             pl.pe, pl.tpb, pl.ptiles, C, K,
+                             (C + 63) / 64 * K};
+  block12_gram_df_wgmma_kernel<N>
+      <<<dim3(pl.groups, (C + N - 1) / N, 1), gram90::NT, smem, st>>>(
+          args, BwdDz{t, a});
   return last_error();
+}
+
+// The Gram cotangent stage of a stacked group: a (C, NB * R, W) tap, m (K,
+// NB * R, W) rounded m^2, t (C, NB * R, W) fp32 conv term -> dz = round_T((t
+// + sum_k S_k . round_T(m2_k * a)) * (a > 0)). bf16: s is the (C, K * Cp)
+// matrix of gram_stream.s_matrix, and only rows [lo, hi) of each band are
+// written (the others keep what they held); fp32: s is the (K, C, C)
+// stack and every row is written.
+template <typename T>
+int gram_df(const T* a, const T* m, const T* s, const float* t, T* dz, int C,
+            int K, int NB, int R, int W, int lo, int hi, cudaStream_t st) {
+  const long long P = static_cast<long long>(NB) * R * W;
+  if constexpr (sizeof(T) == 2) {
+    const DfPlan pl = df_plan(C, NB, R, W, lo, hi);
+    const int band = R * W;
+    if (pl.tile == 64)
+      return gram_df_wgmma<64>(a, m, s, t, dz, C, K, P, band, pl, st);
+    return gram_df_wgmma<128>(a, m, s, t, dz, C, K, P, band, pl, st);
+  } else {
+    (void)lo;
+    (void)hi;
+    const dim3 grid(static_cast<unsigned>((P + gram::TN - 1) / gram::TN),
+                    (C + gram::TM - 1) / gram::TM);
+    block12_gram_df_kernel<T><<<grid, gram::NT, 0, st>>>(
+        a, m, s, t, dz, C, static_cast<int>(P), K);
+    return last_error();
+  }
 }
 
 // --- scratch -----------------------------------------------------------------
@@ -454,28 +600,28 @@ struct FwdScratch {
 
 template <typename T>
 struct DeepScratch {
-  T *a21, *a22, *dp2, *dz;
-  float *m2, *t;
+  T *a21, *a22, *dp2, *dz, *m2;
+  float* t;
   DeepScratch(Carve& cv, const Geom& g) {
     a21 = cv.take<T>(128 * g.P1());
     a22 = cv.take<T>(128 * g.P1());
     dp2 = cv.take<T>(128 * g.P2());
     dz = cv.take<T>(128 * g.P1());       // dz22, then dz21
-    m2 = cv.take<float>(g.K * g.P1());
+    m2 = cv.take<T>(g.K * g.P1());       // m^2 rounded to T
     t = cv.take<float>(128 * g.P1());    // conv2_2's input gradient, then dp1
   }
 };
 
 template <typename T>
 struct ShallowScratch {
-  T *a11, *dp1, *a12, *dz;
-  float *m1, *t;
+  T *a11, *dp1, *a12, *dz, *m1;
+  float* t;
   ShallowScratch(Carve& cv, const Geom& g) {
     a11 = cv.take<T>(64 * g.P0());
     dp1 = cv.take<T>(64 * g.P1());
     a12 = cv.take<T>(64 * g.P0());
     dz = cv.take<T>(64 * g.P0());        // dz12, then dz11
-    m1 = cv.take<float>(g.K * g.P0());
+    m1 = cv.take<T>(g.K * g.P0());       // m^2 rounded to T
     t = cv.take<float>(64 * g.P0());     // conv1_2's input gradient, then dx
   }
 };
@@ -529,16 +675,16 @@ int run_bwd_deep(const T* a21, const T* a22, const T* dp2, const float* m2,
   const int R1 = g.R1(), R2 = g.R2();
   for (int band0 = 0; band0 < g.H / TB; band0 += g.NB) {
     const int NB = std::min(g.NB, g.H / TB - band0);
-    const long long P = static_cast<long long>(NB) * R1 * W2;
     B12_TRY((gather<T, T>(a21, s.a21, 128, H2, W2, NB, R1, tb2, HALO / 2, band0, st)));
     B12_TRY((gather<T, T>(a22, s.a22, 128, H2, W2, NB, R1, tb2, HALO / 2, band0, st)));
     B12_TRY((gather<T, T>(dp2, s.dp2, 128, H2 / 2, W2 / 2, NB, R2, tb2 / 2,
                           HALO / 4, band0, st)));
-    B12_TRY((gather<float, float>(m2, s.m2, K, H2, W2, NB, R1, tb2, HALO / 2,
-                                  band0, st)));
+    B12_TRY((gather<float, T>(m2, s.m2, K, H2, W2, NB, R1, tb2, HALO / 2,
+                              band0, st)));
     B12_TRY(pool_bwd<T>(s.dp2, s.a22, s.dz, 128, NB * R1, W2, avg, st));
     B12_TRY(conv_bwd<T>(s.dz, ft22, s.t, 128, 128, NB * R1, W2, st));
-    B12_TRY(gram_df<T>(s.a21, s.m2, s2, s.t, s.dz, 128, P, K, st));
+    B12_TRY(gram_df<T>(s.a21, s.m2, s2, s.t, s.dz, 128, K, NB, R1, W2,
+                       DZ_LO_DEEP, DZ_HI_DEEP, st));
     B12_TRY(conv_bwd<T>(s.dz, ft21, s.t, 128, 64, NB * R1, W2, st));
     B12_TRY((scatter<float, T>(s.t, dp1, 64, H2, W2, NB, R1, tb2, HALO / 2,
                                band0, st)));
@@ -557,16 +703,16 @@ int run_bwd_shallow(const T* a11, const T* dp1, const float* m1, const T* s1,
   const int R0 = g.R0(), R1 = g.R1();
   for (int band0 = 0; band0 < H / tb; band0 += g.NB) {
     const int NB = std::min(g.NB, H / tb - band0);
-    const long long P = static_cast<long long>(NB) * R0 * W;
     const conv::BandRows rows0{R0, tb, HALO, H, band0};
     B12_TRY((gather<T, T>(a11, s.a11, 64, H, W, NB, R0, tb, HALO, band0, st)));
     B12_TRY((gather<T, T>(dp1, s.dp1, 64, H / 2, W / 2, NB, R1, tb / 2, HALO / 2,
                           band0, st)));
-    B12_TRY((gather<float, float>(m1, s.m1, K, H, W, NB, R0, tb, HALO, band0, st)));
+    B12_TRY((gather<float, T>(m1, s.m1, K, H, W, NB, R0, tb, HALO, band0, st)));
     B12_TRY(conv_fwd<T>(s.a11, w12, b12, s.a12, 64, 64, NB * R0, W, rows0, st));
     B12_TRY(pool_bwd<T>(s.dp1, s.a12, s.dz, 64, NB * R0, W, avg, st));
     B12_TRY(conv_bwd<T>(s.dz, ft12, s.t, 64, 64, NB * R0, W, st));
-    B12_TRY(gram_df<T>(s.a11, s.m1, s1, s.t, s.dz, 64, P, K, st));
+    B12_TRY(gram_df<T>(s.a11, s.m1, s1, s.t, s.dz, 64, K, NB, R0, W,
+                       DZ_LO_SHALLOW, DZ_HI_SHALLOW, st));
     B12_TRY(conv_bwd<T>(s.dz, ft11, s.t, 64, 3, NB * R0, W, st));
     B12_TRY((scatter<float, float>(s.t, dx, 3, H, W, NB, R0, tb, HALO, band0, st)));
   }
@@ -645,7 +791,8 @@ extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
 }
 
 // a21, a22 (128, H/2, W/2) and dp2 (128, H/4, W/4) in the compute dtype;
-// m2 (K, H/2, W/2) fp32; s2 (K, 128, 128) = round_T(dG2 + dG2^T); ft21
+// m2 (K, H/2, W/2) fp32; s2 = round_T(dG2 + dG2^T), in fp32 the (K, 128,
+// 128) stack, in bf16 the (128, K * 128) matrix of gram_stream.s_matrix; ft21
 // and ft22, the flipped, transposed weights of conv2_1 and conv2_2 packed
 // (9, 64, 128) and (9, 128, 128) (ops/conv_cuda.pack_grad_weights); dp1
 // (64, H/2, W/2) in the compute dtype.
@@ -677,7 +824,8 @@ extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
 }
 
 // a11 (64, H, W) and dp1 (64, H/2, W/2) in the compute dtype; m1 (K, H, W)
-// fp32; s1 (K, 64, 64) = round_T(dG1 + dG1^T); ft11 and ft12, the
+// fp32; s1 = round_T(dG1 + dG1^T), in fp32 the (K, 64, 64) stack, in bf16
+// the (64, K * 64) matrix of gram_stream.s_matrix; ft11 and ft12, the
 // flipped, transposed weights of conv1_1 and conv1_2 packed (9, 3, 64) and
 // (9, 64, 64) (ops/conv_cuda.pack_grad_weights); w12 packed (9, 64, 64)
 // and b12 (64,) fp32 to recompute conv1_2; dx (3, H, W) fp32.
@@ -723,4 +871,72 @@ extern "C" int dpst_block12_conv_attrs(int which, int* out) {
   if (which == 3) return conv90::attrs<64, false, conv::EpiF32>(2, out);
   if (which == 4) return conv90::attrs<8, false, conv::EpiF32>(1, out);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward entry points' Gram cotangent stage alone, on one stacked
+// group of NB bands of R rows: f (C, NB * R, W) tap and m (K, NB * R, W)
+// m^2 rounded, both in the compute dtype; s as gram_df takes it; t (C, NB *
+// R, W) fp32 -> dz (C, NB * R, W). bf16 writes rows [lo, hi) of each band
+// (the stage's plan: dpst_block12_df_plan), fp32 every row.
+extern "C" int dpst_block12_gram_dz(const void* f, const void* m,
+                                    const void* s, const void* t, void* dz,
+                                    int C, int K, int NB, int R, int W,
+                                    int lo, int hi, int dtype, void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (C < 1 || K < 1 || NB < 1 || W < 1 || lo < 0 || hi > R || lo >= hi ||
+      (static_cast<long long>(R) * W) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* tf = static_cast<const float*>(t);
+  if (dtype == DPST_DTYPE_F32)
+    return gram_df<float>(static_cast<const float*>(f),
+                          static_cast<const float*>(m),
+                          static_cast<const float*>(s), tf,
+                          static_cast<float*>(dz), C, K, NB, R, W, lo, hi,
+                          st);
+  if (dtype == DPST_DTYPE_BF16)
+    return gram_df<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(f),
+        static_cast<const __nv_bfloat16*>(m),
+        static_cast<const __nv_bfloat16*>(s), tf,
+        static_cast<__nv_bfloat16*>(dz), C, K, NB, R, W, lo, hi, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 stage's plan at a group, for the record: out = (c tile rows,
+// groups, splits, pb, pe, p tiles a band, p tiles).
+extern "C" int dpst_block12_df_plan(int C, int NB, int R, int W, int lo,
+                                    int hi, int* out) {
+  const DfPlan p = df_plan(C, NB, R, W, lo, hi);
+  const int v[7] = {p.tile, p.groups, p.splits, p.pb, p.pe, p.tpb, p.ptiles};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Resources of the bf16 Gram cotangent kernel, for the record: which = 0
+// with 64-row c tiles (conv1_1), 1 with 128 (conv2_1). out as
+// dpst_gram_wgmma_attrs.
+extern "C" int dpst_block12_df_attrs(int which, int* out) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (which != 0 && which != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      which == 0
+          ? reinterpret_cast<const void*>(block12_gram_df_wgmma_kernel<64>)
+          : reinterpret_cast<const void*>(block12_gram_df_wgmma_kernel<128>);
+  const size_t smem = which == 0 ? gram90::bwd_smem<64>() : gram90::bwd_smem<128>();
+  cudaFuncAttributes at{};
+  cudaError_t err = cudaFuncGetAttributes(&at, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, gram90::NT,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
 }

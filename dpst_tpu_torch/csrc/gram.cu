@@ -294,6 +294,14 @@ cudaError_t launch_fwd_wgmma(const void* f, const void* m2, float* work,
   return cudaGetLastError();
 }
 
+// The bf16 backward on the Hopper body (gram_wgmma.cuh), one band of P
+// pixels, dF rounded once.
+template <int N>
+__global__ void __launch_bounds__(gram90::NT)
+gram_bwd_wgmma_kernel(gram90::BwdArgs a) {
+  gram90::gram_bwd_body<N>(a, gram90::BwdRound{});
+}
+
 // bf16 backward on the Hopper body: c tiles of N rows; `groups` blocks
 // share the p tiles of each c tile, `splits` cut the reduction (then work
 // holds the fp32 partials, summed in a fixed order and rounded by
@@ -309,15 +317,17 @@ cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
     return cudaErrorInvalidValue;
   const size_t smem = gram90::bwd_smem<N>();
   static size_t allowed[64] = {};  // one record for each N
-  cudaError_t err = hopper::allow_smem(gram90::gram_bwd_wgmma_kernel<N>, smem, allowed);
+  cudaError_t err = hopper::allow_smem(gram_bwd_wgmma_kernel<N>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(groups, (C + N - 1) / N, splits);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  gram90::gram_bwd_wgmma_kernel<N><<<grid, gram90::NT, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(f),
-      static_cast<const __nv_bfloat16*>(m2),
-      static_cast<const __nv_bfloat16*>(a), o, splits > 1 ? work : nullptr,
-      C, P, K, ipb);
+  const int ptiles = (P + 63) / 64;
+  const gram90::BwdArgs args{static_cast<const __nv_bfloat16*>(f),
+                             static_cast<const __nv_bfloat16*>(m2),
+                             static_cast<const __nv_bfloat16*>(a), o,
+                             splits > 1 ? work : nullptr, P, P, 0, 0, P,
+                             ptiles, ptiles, C, K, ipb};
+  gram_bwd_wgmma_kernel<N><<<grid, gram90::NT, smem, st>>>(args);
   if (splits > 1) {
     const long long n = static_cast<long long>(C) * P;
     gram90::gram_bwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0,
@@ -476,10 +486,10 @@ extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
     fn = reinterpret_cast<const void*>(gram_fwd_wgmma_kernel);
     smem = gram90::fwd_smem();
   } else if (which == 1) {
-    fn = reinterpret_cast<const void*>(gram90::gram_bwd_wgmma_kernel<64>);
+    fn = reinterpret_cast<const void*>(gram_bwd_wgmma_kernel<64>);
     smem = gram90::bwd_smem<64>();
   } else if (which == 2) {
-    fn = reinterpret_cast<const void*>(gram90::gram_bwd_wgmma_kernel<128>);
+    fn = reinterpret_cast<const void*>(gram_bwd_wgmma_kernel<128>);
     smem = gram90::bwd_smem<128>();
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

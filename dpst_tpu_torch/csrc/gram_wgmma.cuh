@@ -45,10 +45,13 @@
 //     the cotangent comes as the plain matrix A = (C, K*Cp), A[c][k*Cp +
 //     c'] = S_k[c][c'] (Cp = C rounded up to 8, zero padded), whose tiles
 //     are 16-byte rows. One fp32 accumulator takes all K*C products; the
-//     epilogue rounds it once and stores dF in 16-byte vectors through
-//     shared memory. Where the (p tile x c tile) grid cannot fill the card
-//     (conv5_1 at 512^2), the reduction is split across blocks into fp32
-//     partials, summed in a fixed order and rounded once.
+//     epilogue (a template parameter: gram.cu rounds the sum, block12.cu
+//     adds its conv term and relu' first) rounds it once and stores dF in
+//     16-byte vectors through shared memory. The p tiles may walk a band
+//     of rows in each of several stacked bands (BwdArgs). Where the (p
+//     tile x c tile) grid cannot fill the card (conv5_1 at 512^2), the
+//     reduction is split across blocks into fp32 partials, summed in a
+//     fixed order and rounded once.
 // Rows need 16-byte alignment: P % 8 == 0 (the wrapper pads P with zero
 // columns, which add nothing to G and whose dF is dropped).
 #pragma once
@@ -260,22 +263,50 @@ __device__ __forceinline__ void wgmma_n(float (&d)[N / 2],
     wgmma_128(d, a, desc);
 }
 
-// Backward. Grid (groups, ceil(C / N), splits). Block (g, c tile, split)
-// walks the p tiles g, g + groups, ... (64 pixels each, at least one:
-// groups <= ceil(P / 64)) and, for each, its share of the reduction: the
-// items [split * ipb, min(nit, (split + 1) * ipb)) of r = (c' chunk j of 64,
-// class k), in that order. It computes over its items
-//   sum_r a[c][k*Cp + c'] * round(F[c'][p] * m2[k][p])
-// and stores it rounded to bf16 in out (C, P) when splits == 1, else in
-// fp32 in work[split] (C, P), which gram_bwd_reduce_kernel sums in split
-// order and rounds once. The ring runs on across p tiles, so a block's
-// next tile loads while it finishes this one. P % 8 == 0.
-template <int N>
-__global__ void __launch_bounds__(NT)
-gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
-                      const bf16* __restrict__ a, bf16* __restrict__ out,
-                      float* __restrict__ work, int C, int P, int K,
-                      int ipb) {
+// The backward's operands and its walk over the pixels. F, dF and the
+// epilogue's tensors are rows of ldf elements (one a channel), the masks
+// rows of ldm (one a class); a is the cotangent matrix (C, K*Cp). The
+// pixels walked are [pb, pe) of each of the bands whose first pixels lie
+// bstride elements apart, in p tiles of 64 pixels, tpb a band and ptiles
+// in all: gram.cu walks one band [0, P); block12.cu the rows of each band
+// of a stacked group whose cotangent reaches an own output row. pb, pe,
+// ldf, ldm and bstride are multiples of 8 (16-byte rows); pixel indices
+// (below ptiles * 64 + bstride * bands) fit an int.
+struct BwdArgs {
+  const bf16* f;
+  const bf16* m2;
+  const bf16* a;
+  bf16* out;
+  float* work;  // split partials (C rows of ldf each), or nullptr
+  long long ldf, ldm;
+  int bstride, pb, pe, tpb, ptiles;
+  int C, K, ipb;
+};
+
+// gram.cu's epilogue: dF = round(acc). An epilogue that reads memory
+// (kReads) is called only at the walked pixels.
+struct BwdRound {
+  static constexpr bool kReads = false;
+  __device__ __forceinline__ float operator()(float acc, size_t) const {
+    return acc;
+  }
+};
+
+// Backward body. Grid (groups, ceil(C / N), splits). Block (g, c tile,
+// split) walks the p tiles g, g + groups, ... (at least one: groups <=
+// ptiles) and, for each, its share of the reduction: the items [split *
+// ipb, min(nit, (split + 1) * ipb)) of r = (c' chunk j of 64, class k), in
+// that order. It computes over its items
+//   acc = sum_r a[c][k*Cp + c'] * round(F[c'][p] * m2[k][p])
+// and, when work is null (then splits == 1), stores round(epi(acc, idx))
+// at out[idx], idx = c * ldf + p, through a staging tile as 16-byte rows;
+// else acc in fp32 at work[split][idx], which gram_bwd_reduce_kernel sums
+// in split order and rounds once. epi reads nothing outside the walked
+// pixels. The ring runs on across p tiles, so a block's next tile loads
+// while it finishes this one.
+template <int N, typename Epi>
+__device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
+                                              const Epi& epi) {
   constexpr int SLOT = TILE_BYTES + N * 128;  // F chunk, cotangent tile
   constexpr int D = STAGES - 2;               // items loaded ahead
   constexpr int LDT = 72;                     // epilogue tile row (bf16)
@@ -283,23 +314,35 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   bf16* msk = reinterpret_cast<bf16*>(sm + STAGES * SLOT);  // [STAGES][64]
+  const bf16* __restrict__ f = ar.f;
+  const bf16* __restrict__ m2 = ar.m2;
+  const bf16* __restrict__ a = ar.a;
+  const int C = ar.C, K = ar.K;
+  const size_t ldf = static_cast<size_t>(ar.ldf);
+  const size_t ldm = static_cast<size_t>(ar.ldm);
   const int cpad = (C + 7) & ~7, lda = K * cpad;
   const int c0 = blockIdx.y * N;
   const int nit = ((C + 63) >> 6) * K;
-  const int ib = blockIdx.z * ipb;
-  const int per = min(nit, ib + ipb) - ib;  // items per p tile
-  const int ptiles = (P + 63) >> 6;
+  const int ib = blockIdx.z * ar.ipb;
+  const int per = min(nit, ib + ar.ipb) - ib;  // items per p tile
   const int bx = blockIdx.x, gx = gridDim.x;
-  const int ntile = (ptiles - 1 - bx) / gx + 1;
+  const int ntile = (ar.ptiles - 1 - bx) / gx + 1;
   const int total = ntile * per;
   const int jb = ib / K, kb = ib - jb * K;  // the split's first item
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  // position of an item: p tile (u-th of the block), c' chunk j, class k,
+  // position of an item: p tile (u-th of the block) with its first pixel
+  // p0 and the end pe of its band's walked pixels, c' chunk j, class k,
   // and n, its index among the tile's items
   struct Pos {
-    int u, j, k, n;
+    int u, j, k, n, p0, pe;
+  };
+  auto at_tile = [&](Pos& q) {
+    const int tile = bx + q.u * gx, band = tile / ar.tpb;
+    const int base = band * ar.bstride;
+    q.p0 = base + ar.pb + (tile - band * ar.tpb) * 64;
+    q.pe = base + ar.pe;
   };
   auto advance = [&](Pos& q) {
     if (++q.n == per) {
@@ -307,12 +350,12 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
       ++q.u;
       q.j = jb;
       q.k = kb;
+      at_tile(q);
     } else if (++q.k == K) {
       q.k = 0;
       ++q.j;
     }
   };
-  auto p_of = [&](int u) { return (bx + u * gx) * 64; };
 
   // item `it` at q into slot it % STAGES: F[64j.., p0..] where the item
   // starts a chunk or a tile (the chunk's F serves all its classes), the
@@ -320,21 +363,19 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
   auto load = [&](int it, const Pos& q) {
     const int slot = it % STAGES;
     const uint32_t sa = smem_addr(sm + slot * SLOT);
-    const int p0 = p_of(q.u);
     if (q.k == 0 || q.n == 0) {
 #pragma unroll
       for (int e = tid; e < 64 * 8; e += NT) {
-        const int r = e >> 3, c = e & 7, cr = q.j * 64 + r, p = p0 + c * 8;
-        const bool v = cr < C && p < P;
-        cp_async16(sa + swz(r, c), v ? f + static_cast<size_t>(cr) * P + p : f,
-                   v);
+        const int r = e >> 3, c = e & 7, cr = q.j * 64 + r, p = q.p0 + c * 8;
+        const bool v = cr < C && p < q.pe;
+        cp_async16(sa + swz(r, c), v ? f + cr * ldf + p : f, v);
       }
     }
     if (tid < 8) {
-      const int p = p0 + tid * 8;
-      const bool v = p < P;
+      const int p = q.p0 + tid * 8;
+      const bool v = p < q.pe;
       cp_async16(smem_addr(msk + slot * 64 + tid * 8),
-                 v ? m2 + static_cast<size_t>(q.k) * P + p : m2, v);
+                 v ? m2 + q.k * ldm + p : m2, v);
     }
     const int col = q.k * cpad + q.j * 64;
 #pragma unroll
@@ -350,7 +391,8 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
 
-  Pos ql{0, jb, kb, 0};  // next item to load
+  Pos ql{0, jb, kb, 0, 0, 0};  // next item to load
+  at_tile(ql);
 #pragma unroll
   for (int it = 0; it < D; ++it) {
     if (it < total) {
@@ -360,13 +402,28 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
     cp_async_commit();
   }
 
-  // the tile's sums: rounded through a staging tile in the just-used slot
-  // and stored as 16-byte rows of dF, or fp32 partials
-  auto epilogue = [&](int u, unsigned char* slot) {
+  // the tile's sums: through epi and a staging tile in the just-used slot
+  // to 16-byte rows of out, or fp32 partials.
+  // acc[4n + 2h + e] = sum at pixel p0 + 16w + g + 8h, channel c0 + 8n +
+  // 2t + e
+  auto epilogue = [&](const Pos& q, unsigned char* slot) {
     wgmma_wait<0>();
     fence_regs(acc);
-    const int p0 = p_of(u);
-    if (work == nullptr) {
+    if (ar.work == nullptr) {
+      // epi's loads all issued before the staging stores
+      if constexpr (Epi::kReads) {
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cr = c0 + 8 * n + 2 * t + e;
+              const int p = q.p0 + w * 16 + g + 8 * h;
+              float& v = acc[4 * n + 2 * h + e];
+              v = cr < C && p < q.pe ? epi(v, cr * ldf + p) : 0.0f;
+            }
+      }
       __syncthreads();  // every warp is done reading the slot
       bf16* tb = reinterpret_cast<bf16*>(slot);
 #pragma unroll
@@ -380,29 +437,30 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
       __syncthreads();
 #pragma unroll
       for (int e = tid; e < N * 8; e += NT) {
-        const int r = e >> 3, c = e & 7, cr = c0 + r, p = p0 + c * 8;
-        if (cr < C && p < P)
-          *reinterpret_cast<uint4*>(out + static_cast<size_t>(cr) * P + p) =
+        const int r = e >> 3, c = e & 7, cr = c0 + r, p = q.p0 + c * 8;
+        if (cr < C && p < q.pe)
+          *reinterpret_cast<uint4*>(ar.out + cr * ldf + p) =
               *reinterpret_cast<const uint4*>(tb + r * LDT + c * 8);
       }
     } else {
-      float* wk = work + static_cast<size_t>(blockIdx.z) * C * P;
+      float* wk = ar.work + static_cast<size_t>(blockIdx.z) * C * ldf;
 #pragma unroll
       for (int n = 0; n < N / 8; ++n)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int cr = c0 + 8 * n + 2 * t + e, p = p0 + w * 16 + g + 8 * h;
-            if (cr < C && p < P)
-              wk[static_cast<size_t>(cr) * P + p] = acc[4 * n + 2 * h + e];
+            const int cr = c0 + 8 * n + 2 * t + e;
+            const int p = q.p0 + w * 16 + g + 8 * h;
+            if (cr < C && p < q.pe) wk[cr * ldf + p] = acc[4 * n + 2 * h + e];
           }
     }
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
   };
 
-  Pos qc{0, jb, kb, 0};  // item being computed
+  Pos qc{0, jb, kb, 0, 0, 0};  // item being computed
+  at_tile(qc);
   uint32_t ff[4][4];     // the chunk's F fragments (A layout, rows p)
   uint32_t wf[2][4][4];  // weighted fragments, two items in flight
   auto item = [&](int it, uint32_t(&wq)[4][4]) {
@@ -441,7 +499,7 @@ gram_bwd_wgmma_kernel(const bf16* __restrict__ f, const bf16* __restrict__ m2,
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) wgmma_n<N>(acc, wq[ks], desc + 2 * ks);
     wgmma_commit();
-    if (qc.n == per - 1) epilogue(qc.u, sp);
+    if (qc.n == per - 1) epilogue(qc, sp);
     advance(qc);
   };
   for (int it = 0; it < total; it += 2) {

@@ -37,7 +37,11 @@ and every input-gradient conv (the flipped, transposed weights) packed by
 contraction of depth 32 (`conv_cuda.pack_k27`).
 
 CPU tensors take the plain versions, which walk the same bands in the same
-order; CUDA tensors launch `csrc/block12.cu` or raise.
+order; CUDA tensors launch `csrc/block12.cu` or raise. The backwards' Gram
+cotangent stage (`gram_dz_plain`, and `block12_gram_dz` alone on the card)
+is per pixel: in bf16 the kernels compute it only on the rows `DZ_ROWS`
+that reach an own output row, and take the cotangent as
+`gram_stream.s_matrix(s)`.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import kernels
+from . import gram_stream, kernels
 from .conv_cuda import (conv3x3_acc, flip_transpose_weights,
                         pack_grad_weights, pack_k27,
                         pack_weights as pack_conv)
@@ -59,6 +63,14 @@ _CINOUT = {"conv1_1": (3, 64), "conv1_2": (64, 64), "conv2_1": (64, 128),
 # Own pixels of the group of bands the kernels process at once: the scratch
 # holds one group (about 0.7 GB in bf16 at W = 4096, 8 bands of 32 rows)
 GROUP_PIXELS = 1 << 20
+GRAM_CHUNK = 4096            # pixels of a forward Gram split (csrc/block12.cu)
+# Rows [lo, hi) of a band whose Gram cotangent reaches an own output row of
+# the backward (the 3×3 input-gradient conv after the stage reads one row
+# past each side of the own rows): dz11 in the shallow backward's bands of
+# TB + 2·HALO rows, dz21 in the deep backward's bands of half as many. The
+# bf16 kernels walk only these rows (csrc/block12.cu's DZ_LO_*, DZ_HI_*).
+DZ_ROWS = {"shallow": (HALO - 1, HALO + TB + 1),
+           "deep": (HALO // 2 - 1, HALO // 2 + TB // 2 + 1)}
 
 
 class Block12Weights(NamedTuple):
@@ -107,6 +119,53 @@ def pack_weights(params: dict, compute_dtype) -> Block12Weights:
 def group_bands(h: int, w: int) -> int:
     """Bands the kernels process at once at an h × w image."""
     return max(1, min(h // TB, GROUP_PIXELS // (TB * w)))
+
+
+def gram_dz_plan(c: int, nb: int, r: int, w: int,
+                 rows: tuple[int, int]) -> tuple[int, ...]:
+    """The bf16 Gram cotangent stage's walk over a stacked group of nb
+    bands of r rows of w pixels, as csrc/block12.cu's `df_plan`: (c tile,
+    groups, splits, pb, pe, p tiles a band, p tiles). Each band's rows
+    [lo, hi) widen to the 16-byte boundaries pb = ⌊lo·w/8⌋·8 and pe =
+    ⌈hi·w/8⌉·8 of the band and are cut into 64-pixel tiles, which `groups`
+    blocks of each c tile share; one split, since the epilogue needs the
+    whole sum."""
+    lo, hi = rows
+    tile = 64 if c <= 64 else 128
+    pb, pe = lo * w // 8 * 8, -(-hi * w // 8) * 8
+    tpb = -(-(pe - pb) // 64)
+    slots = gram_stream._SMS * gram_stream._BWD_RESIDENT[tile]
+    groups = min(nb * tpb, max(1, slots // -(-c // tile)))
+    return tile, groups, 1, pb, pe, tpb, nb * tpb
+
+
+def scratch_bytes(which: int, k: int, h: int, w: int, group: int,
+                  compute_dtype) -> int:
+    """Bytes of scratch an entry point takes, as csrc/block12.cu's
+    `dpst_block12_scratch_bytes` counts them (buffers 256-byte aligned):
+    which = 0 forward, 1 deep backward, 2 shallow backward."""
+    isz = torch_dtype(compute_dtype).itemsize
+    nb = min(group, h // TB)
+    r0 = TB + 2 * HALO
+    p0, p1 = nb * r0 * w, nb * (r0 // 2) * (w // 2)
+    p2 = nb * (r0 // 4) * (w // 4)
+    if which == 0:
+        def splits(p):
+            return -(-p // GRAM_CHUNK)
+        work = max(nb * splits(TB * w) * k * 64 * 64,
+                   nb * splits(TB // 2 * (w // 2)) * k * 128 * 128)
+        parts = [(n, isz) for n in (3 * p0, 64 * p0, 64 * p0, 64 * p1,
+                                    128 * p1, 128 * p1, 128 * p2)]
+        parts.append((work, 4))
+        if isz == 2:
+            parts.append((k * nb * TB * w, 2))     # the group's rounded m²
+    elif which == 1:      # a21, a22, dp2, dz, m², t
+        parts = [(128 * p1, isz), (128 * p1, isz), (128 * p2, isz),
+                 (128 * p1, isz), (k * p1, isz), (128 * p1, 4)]
+    else:                 # a11, dp1, a12, dz, m², t
+        parts = [(64 * p0, isz), (64 * p1, isz), (64 * p0, isz),
+                 (64 * p0, isz), (k * p0, isz), (64 * p0, 4)]
+    return sum(-(-n * sz // 256) * 256 for n, sz in parts)
 
 
 # --- plain versions -----------------------------------------------------------
@@ -193,6 +252,16 @@ def _gram_df(f: torch.Tensor, msq: torch.Tensor, s: torch.Tensor, cdt):
     return out.reshape(c, r, w)
 
 
+def gram_dz_plain(f: torch.Tensor, msq: torch.Tensor, s: torch.Tensor,
+                  t: torch.Tensor, cdt) -> torch.Tensor:
+    """The backward's Gram cotangent stage: dz = round((t + Σ_k s_k ·
+    (round(m²_k) ∘ f)) · (f > 0)) in cdt, from the tap f (C, r, W), its m²
+    (K, r, W), s (K, C, C) = `symmetrize(dG)` and the fp32 conv term t (C,
+    r, W); the sum in fp32, rounded once. Each pixel's dz depends on that
+    pixel alone."""
+    return ((t + _gram_df(f, msq, s, cdt)) * _relu_grad(f)).to(cdt)
+
+
 def block12_fwd_plain(x, m1sq, m2sq, weights, pooling="max",
                       compute_dtype="bfloat16", save_res=True):
     """Plain PyTorch forward, band by band: (g1, g2, p2) and with
@@ -246,8 +315,7 @@ def block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights, pooling="max",
         dp2e = _band(dp2, i, TB // 4, HALO // 4)
         m2e = _band(m2sq, i, tb2, h1)
         dz22 = _pool_bwd(dp2e, a22e, pooling, cdt) * _relu_grad(a22e).to(cdt)
-        da21 = conv3x3_acc(dz22, ft22) + _gram_df(a21e, m2e, s2, cdt)
-        dz21 = (da21 * _relu_grad(a21e)).to(cdt)
+        dz21 = gram_dz_plain(a21e, m2e, s2, conv3x3_acc(dz22, ft22), cdt)
         outs.append(conv3x3_acc(dz21, ft21)[:, h1:h1 + tb2].to(cdt))
     return torch.cat(outs, dim=1)
 
@@ -267,8 +335,7 @@ def block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights, pooling="max",
         rm0 = _row_mask(i, TB, HALO, h, a11e.shape[1], a11.device)
         a12e = _conv_bias_relu(a11e, weights[2], weights[3], rm0, cdt)
         dz12 = _pool_bwd(dp1e, a12e, pooling, cdt) * _relu_grad(a12e).to(cdt)
-        da11 = conv3x3_acc(dz12, ft12) + _gram_df(a11e, m1e, s1, cdt)
-        dz11 = (da11 * _relu_grad(a11e)).to(cdt)
+        dz11 = gram_dz_plain(a11e, m1e, s1, conv3x3_acc(dz12, ft12), cdt)
         outs.append(conv3x3_acc(dz11, ft11)[:, HALO:HALO + TB])
     return torch.cat(outs, dim=1)
 
@@ -369,6 +436,58 @@ def symmetrize(dg: torch.Tensor, compute_dtype) -> torch.Tensor:
     return (d + d.transpose(1, 2)).to(torch_dtype(compute_dtype)).contiguous()
 
 
+def _cotangent(s: torch.Tensor) -> torch.Tensor:
+    """s = `symmetrize(dG)` as the entry points' Gram cotangent stage reads
+    it: in bf16 the (C, K·C) matrix of `gram_stream.s_matrix` (the wgmma
+    body's operand), in fp32 the (K, C, C) stack itself."""
+    if s.dtype == torch.bfloat16:
+        return gram_stream.s_matrix(s).contiguous()
+    return s
+
+
+def block12_gram_dz(f: torch.Tensor, msq: torch.Tensor, s: torch.Tensor,
+                    t: torch.Tensor, *, band_rows: int,
+                    rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """The backward entry points' Gram cotangent stage alone, on a stacked
+    group of bands of `band_rows` rows: f (C, NB·R, W) the tap and msq (K,
+    NB·R, W) its m² rounded, both in the compute dtype; s (K, C, C) =
+    `symmetrize(dG)`; t (C, NB·R, W) fp32, the conv term -> dz (C, NB·R,
+    W) in the compute dtype, `gram_dz_plain`'s function. CPU tensors take
+    the plain version on every row. CUDA tensors launch the stage's kernel:
+    in bf16 the wgmma body on rows `rows` = (lo, hi) of each band (every
+    row by default), widened to 16-byte boundaries (`gram_dz_plan`), the
+    other rows of dz left unwritten; in fp32 the CUDA-core tile on every
+    row."""
+    if f.dim() != 3:
+        raise ValueError(f"f must be (C, NB·R, W), got {tuple(f.shape)}")
+    c, n, w = f.shape
+    k, r = msq.shape[0], band_rows
+    lo, hi = rows or (0, r)
+    if r < 1 or n % r or not 0 <= lo < hi <= r:
+        raise ValueError(f"block12_gram_dz: rows {lo}..{hi} of bands of {r} "
+                         f"rows do not cut {n} rows")
+    cdt = f.dtype
+    kernels.require(f, "f")
+    kernels.require(msq, "msq", (k, n, w), cdt)
+    kernels.require(s, "s", (k, c, c), cdt)
+    kernels.require(t, "t", (c, n, w), torch.float32)
+    if not kernels.on_cuda(f, msq, s, t):
+        return gram_dz_plain(f, msq, s, t, cdt)
+    if (r * w) % 8:
+        raise ValueError(f"block12_gram_dz: a band of {r} x {w} pixels is "
+                         "not a whole number of 16-byte rows")
+    for x, what in ((f, "f"), (msq, "msq"), (t, "t")):
+        kernels.require_aligned(x, what)
+    dz = torch.empty_like(f)
+    sm = _cotangent(s)
+    rc = kernels.library().dpst_block12_gram_dz(
+        *map(kernels.ptr, (f, msq, sm, t, dz)), c, k, n // r, r,
+        w, lo, hi, kernels.DTYPE_CODES[cdt], kernels.stream_ptr(f))
+    kernels.check(rc, "block12_gram_dz")
+    kernels.LAUNCHES["block12_gram_dz"] += 1
+    return dz
+
+
 def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
                      pooling: str = "max", compute_dtype="bfloat16"
                      ) -> torch.Tensor:
@@ -391,8 +510,9 @@ def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
                                       pooling, cdt)
     dp1 = torch.empty((64, h2, w2), dtype=cdt, device=a21.device)
     scratch, group = _scratch(1, k, h, w, cdt, a21.device)
+    sm = _cotangent(s2)
     rc = kernels.library().dpst_block12_bwd_deep(
-        *map(kernels.ptr, (a21, a22, dp2, m2sq, s2, wts.t21, wts.t22, dp1,
+        *map(kernels.ptr, (a21, a22, dp2, m2sq, sm, wts.t21, wts.t22, dp1,
                            scratch)),
         k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
         kernels.stream_ptr(a21))
@@ -421,8 +541,9 @@ def block12_bwd_shallow(a11, dp1, m1sq, s1, weights, *,
                                          pooling, cdt)
     dx = torch.empty((3, h, w), dtype=torch.float32, device=a11.device)
     scratch, group = _scratch(2, k, h, w, cdt, a11.device)
+    sm = _cotangent(s1)
     rc = kernels.library().dpst_block12_bwd_shallow(
-        *map(kernels.ptr, (a11, dp1, m1sq, s1, wts.t11, wts.t12, wts.k12,
+        *map(kernels.ptr, (a11, dp1, m1sq, sm, wts.t11, wts.t12, wts.k12,
                            wts.b12, dx, scratch)),
         k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
         kernels.stream_ptr(a11))

@@ -12,7 +12,10 @@ take the kernels' plain PyTorch versions.
 Each kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, and nowhere else; `reset_launches()` sets all of them to 0.
 `block12_fwd` and `block12_fwd_res` are two counts over one entry point
-(`dpst_block12_fwd` without and with its residuals).
+(`dpst_block12_fwd` without and with its residuals); `block12_gram_dz`
+counts calls of the backward entry points' Gram cotangent stage alone (its
+kernel runs inside `block12_bwd_deep` and `block12_bwd_shallow`, which
+count those launches).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
            "gram_relu_bwd", "gram_wbwd", "pool_bwd", "conv3x3",
            "block12_fwd", "block12_fwd_res", "block12_bwd_deep",
-           "block12_bwd_shallow")
+           "block12_bwd_shallow", "block12_gram_dz")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -138,13 +141,18 @@ def library() -> ctypes.CDLL:
         lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
         lib.dpst_block12_bwd_deep.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.dpst_block12_bwd_shallow.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.dpst_block12_gram_dz.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.dpst_block12_df_plan.argtypes = [i] * 6 + [p]
+        lib.dpst_block12_df_attrs.argtypes = [i, p]
         for fn in (lib.dpst_lap_matvec, lib.dpst_gram_fwd,
                    lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
                    lib.dpst_gram_relu_bwd, lib.dpst_gram_wbwd,
                    lib.dpst_pool2_bwd, lib.dpst_conv3x3,
                    lib.dpst_block12_fwd, lib.dpst_block12_bwd_deep,
                    lib.dpst_block12_bwd_shallow, lib.dpst_gram_wgmma_attrs,
-                   lib.dpst_conv3x3_attrs, lib.dpst_block12_conv_attrs):
+                   lib.dpst_conv3x3_attrs, lib.dpst_block12_conv_attrs,
+                   lib.dpst_block12_gram_dz, lib.dpst_block12_df_plan,
+                   lib.dpst_block12_df_attrs):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p
