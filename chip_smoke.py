@@ -10,8 +10,9 @@ no result):
   2. build    -- compiles the CUDA kernels from dpst_tpu_torch/csrc (nvcc,
                  sm_90a) and reports the seconds, and the registers, local
                  memory, shared memory and blocks per SM of the bf16 Gram
-                 and conv bodies (gram_wgmma.cuh, conv3x3_wgmma.cuh; block12's
-                 Gram cotangent on gram_bwd's body among them);
+                 and conv bodies (gram_wgmma.cuh, conv3x3_wgmma.cuh; the
+                 bias+ReLU forward, the weighted-after backward and block12's
+                 Gram cotangent among them);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes of the 512² config3 main path (K = 4 masks),
                  for the fused bias+ReLU Gram pair of conv1_1 at the 1024²
@@ -24,8 +25,12 @@ no result):
                  yardstick call), that call's time; gram_fwd and gram_bwd
                  (also at config4's 1024² taps) timed by device time in
                  turns with torch.matmul, the bf16 conv3x3 (on weights
-                 packed once, as the path calls it) in turns with cuDNN;
-                 then each kernel at shapes that do not fill its tiles;
+                 packed once, as the path calls it) in turns with cuDNN,
+                 the bf16 gram_relu_fwd (also at the pallas route's conv1_1,
+                 beside "cook with torch, then gram_fwd" on the same
+                 operands) and gram_wbwd (also at config6's conv3_1 and the
+                 4096² stream taps) in turns with their yardsticks; then
+                 each kernel at shapes that do not fill its tiles;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -109,6 +114,13 @@ CONV_SHAPES = ((64, 64, 512), (64, 128, 256), (128, 128, 256),
 MS_SIZE = 1024                                 # config4's native size
 MS_ITERS = (100, 100, 100)                     # Adam steps per config4 stage
 RELU_SHAPE = (64, MS_SIZE * MS_SIZE)           # (C, P) of conv1_1 at 1024²
+# (C, P) of conv1_1 at 512², where the pallas route takes the fused pair:
+# timed in bf16, not summed into the 1024² step
+RELU_SHAPE_512 = (64, SIZE * SIZE)
+# (C, P) where gram_wbwd runs at 4096²: conv3_1 (config6's stream12 route
+# and the standard path) and conv2_1 (the standard path's "auto" stream
+# route); bf16, not summed into the 512² pallas route's step
+WBWD_SHAPES_4096 = ((256, 1 << 20), (128, 1 << 22))
 # fp32 operations per pixel and channel of the matvec: pass 1 (box sums,
 # t, b = Λt, α, β) 97, pass 2 (box sums of α and β, the products) 40
 LAP_OPS_PER_PIXEL = 3 * 137
@@ -355,47 +367,62 @@ def check_gram(dev, gen):
 def check_gram_wbwd(dev, gen):
     """The Gram backward that weights by m² after the product, at the taps
     conv1_1 … conv5_1 of 512² with soft masks (where the weighting enters
-    only shows under masks other than 0/1). On the conv_impl="pallas",
-    gram_impl="pallas" path one step launches it at conv2_1 … conv5_1
-    (conv1_1 takes the fused pair); the conv1_1 row is not summed into its
-    step. No PyTorch call computes it: the yardstick is gram_bwd's
-    torch.matmul, which weights before the product."""
+    only shows under masks other than 0/1), and in bf16 at the 4096² taps
+    of WBWD_SHAPES_4096. On the conv_impl="pallas", gram_impl="pallas" path
+    one step launches it at conv2_1 … conv5_1 (conv1_1 takes the fused
+    pair); the conv1_1 and 4096² rows are not summed into its step. No
+    PyTorch call computes it: the yardstick is gram_bwd's torch.matmul,
+    which weights before the product. In bf16 (the Hopper body) "ms" and
+    "library_ms" are device times in turns (`in_turns`), "events_ms" the
+    back-to-back event times; the fp32 rows (the CUDA-core tile) keep
+    event times."""
     from dpst_tpu_torch.ops import gram_pallas as gp
     rows = []
-    for dtype in ("bfloat16", "float32"):
+    # the 4096² operands come from a generator of their own: the later
+    # checks draw what they drew before these rows were added
+    big = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cases = [("bfloat16", c, p, c != 64, gen) for c, p in GRAM_SHAPES]
+    cases += [("float32", c, p, c != 64, gen) for c, p in GRAM_SHAPES]
+    cases += [("bfloat16", c, p, False, big) for c, p in WBWD_SHAPES_4096]
+    for dtype, c, p, in_step, gen in cases:
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
-        for c, p in GRAM_SHAPES:
-            f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
-            m = torch.rand((K, p), generator=gen, device=dev)
-            m2 = (m * m).to(cdt)
-            d = torch.randn((K, c, c), generator=gen, device=dev)
-            s = (d + d.transpose(1, 2)).to(cdt).contiguous()
-            out = gp.gram_wbwd(f, m2, s)
-            ref = gp.gram_wbwd_plain(f, m2, s)
-            torch.cuda.synchronize()
-            err, rel = rel_err(out, ref)
-            tol = out_tol(ref, dtype)
-            a = s.permute(1, 0, 2).reshape(c, K * c)
-            lib = lambda: torch.matmul(
-                a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
-            b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz,
-                             2.0 * K * c * c * p, dtype)
-            row = {"phase": "kernel", "name": "gram_wbwd", "shape": [c, p],
-                   "K": K, "dtype": dtype, "masks": "soft",
-                   "in_step": c != 64, "max_abs_err": err, "rel_err": rel,
-                   "tol_rel": tol,
-                   "ms": cuda_ms(lambda: gp.gram_wbwd(f, m2, s)),
-                   "plain_ms": cuda_ms(lambda: gp.gram_wbwd_plain(f, m2, s),
-                                       iters=5),
-                   "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib),
-                   "library_call": "yardstick: gram_bwd's torch.matmul, "
-                                   "weighting before the product"}
-            emit(row)
-            rows.append(row)
-            if not rel <= tol:
-                fail("kernels", f"gram_wbwd {dtype} {c}x{p}: rel err {rel} "
-                     f"> {tol}")
+        f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
+        m = torch.rand((K, p), generator=gen, device=dev)
+        m2 = (m * m).to(cdt)
+        d = torch.randn((K, c, c), generator=gen, device=dev)
+        s = (d + d.transpose(1, 2)).to(cdt).contiguous()
+        out = gp.gram_wbwd(f, m2, s)
+        ref = gp.gram_wbwd_plain(f, m2, s)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = out_tol(ref, dtype)
+        a = s.permute(1, 0, 2).reshape(c, K * c)
+        lib = lambda: torch.matmul(
+            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
+        b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz,
+                         2.0 * K * c * c * p, dtype)
+        run = lambda: gp.gram_wbwd(f, m2, s)
+        times = (in_turns(run, lib) if dtype == "bfloat16" else
+                 {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)})
+        row = {"phase": "kernel", "name": "gram_wbwd", "shape": [c, p],
+               "K": K, "dtype": dtype, "masks": "soft",
+               "in_step": in_step, "max_abs_err": err, "rel_err": rel,
+               "tol_rel": tol, **times,
+               "plain_ms": cuda_ms(lambda: gp.gram_wbwd_plain(f, m2, s),
+                                   iters=5),
+               "bound_ms": b, "bound_by": by,
+               "library_call": "yardstick: gram_bwd's torch.matmul, "
+                               "weighting before the product"}
+        if dtype == "bfloat16":
+            row["plan"] = gp.wbwd_plan(c, p, K)
+        emit(row)
+        rows.append(row)
+        if not rel <= tol:
+            fail("kernels", f"gram_wbwd {dtype} {c}x{p}: rel err {rel} "
+                 f"> {tol}")
+        del f, m2, s, out, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -495,14 +522,24 @@ def relu_gram_input(c: int, p: int, k: int, dtype, dev, gen):
 
 
 def check_gram_relu(dev, gen):
-    """The fused bias+ReLU Gram pair at conv1_1 of the 1024² stage. No
-    PyTorch call computes bias + ReLU + masked Grams; the yardstick is the
-    gram_fwd / gram_bwd rows' torch.matmul on the already-cooked operand
-    relu(z + b), which does strictly less work."""
+    """The fused bias+ReLU Gram pair at conv1_1 of the 1024² stage, and in
+    bf16 at conv1_1 of 512² (the pallas route's; not summed into the 1024²
+    step). No PyTorch call computes bias + ReLU + masked Grams; the
+    yardstick is the gram_fwd / gram_bwd rows' torch.matmul on the
+    already-cooked operand relu(z + b), which does strictly less work. The
+    bf16 forward (gram_fwd's Hopper body with a bias+ReLU prologue) is
+    timed by device time in turns with it (`in_turns`), and beside the
+    same work in separate launches: "cook with torch, then gram_fwd"."""
     from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
     rows = []
-    c, p = RELU_SHAPE
-    for dtype in ("bfloat16", "float32"):
+    # the 512² operands from a generator of their own (as in
+    # check_gram_wbwd)
+    own = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for dtype, (c, p), in_step, gen in (
+            ("bfloat16", RELU_SHAPE, True, gen),
+            ("float32", RELU_SHAPE, True, gen),
+            ("bfloat16", RELU_SHAPE_512, False, own)):
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
         z, b, m2, s = relu_gram_input(c, p, K, cdt, dev, gen)
@@ -525,20 +562,32 @@ def check_gram_relu(dev, gen):
         lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
         bnd, by = bound_ms((c * p + K * p + c) * isz + K * c * c * 4, ops,
                            dtype)
+        run = lambda: g2.gram_relu_fwd(z, b, m2)
+        if dtype == "bfloat16":
+            times = in_turns(run, lib)
+            two = lambda: gs.gram_fwd(g2._cook(z, b), m2)
+            times["same_work"] = {"call": "cook with torch, then gram_fwd",
+                                  "ms": device_ms(two),
+                                  "events_ms": cuda_ms(two)}
+        else:
+            times = {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}
         row = {"phase": "kernel", "name": "gram_relu_fwd", "shape": [c, p],
-               "K": K, "dtype": dtype, "exact_zeros": zeros,
-               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
-               "rel_err_fp64": err64,
-               "ms": cuda_ms(lambda: g2.gram_relu_fwd(z, b, m2)),
+               "K": K, "dtype": dtype, "in_step": in_step,
+               "exact_zeros": zeros, "max_abs_err": err, "rel_err": rel,
+               "tol_rel": tol, "rel_err_fp64": err64, **times,
                "plain_ms": cuda_ms(lambda: g2.gram_relu_fwd_plain(z, b, m2),
                                    iters=5),
-               "bound_ms": bnd, "bound_by": by, "library_ms": cuda_ms(lib),
+               "bound_ms": bnd, "bound_by": by,
                "library_call": "yardstick: gram_fwd's torch.matmul on "
                                "relu(z + b), less work"}
         emit(row)
         rows.append(row)
         if not rel <= tol:
             fail("kernels", f"gram_relu_fwd {dtype} {c}x{p}: rel err {rel}")
+        if not in_step:
+            del z, b, m2, s, f, g, g_ref
+            torch.cuda.empty_cache()
+            continue
         out = g2.gram_relu_bwd(z, b, m2, s)
         out_ref = g2.gram_relu_bwd_plain(z, b, m2, s)
         torch.cuda.synchronize()
@@ -703,6 +752,19 @@ def check_edges(dev, gen) -> None:
                                 pool_cuda.maxpool2_bwd_plain(x, y, g))
             errs[f"pool_bwd {dtype} {c}x{h}x{w}"] = (0.0 if equal else 1.0,
                                                      0.0)
+    # the relu forward at C = 37 with every b > 0: the rows of its 64-row
+    # tile past C take no bias (b has C entries), and the pixels past P,
+    # padded or zero-filled, cook to relu(b) > 0 under zero masks; operands
+    # from a generator of their own, so the cases above draw as before
+    own = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        for c, p, k in ((37, 1001, 3), (37, 4099, 5)):
+            z, b, m2, _ = relu_gram_input(c, p, k, cdt, dev, own)
+            b = (b.float().abs() + 0.25).to(cdt)
+            errs[f"gram_relu_fwd {dtype} {c}x{p} K={k} b>0"] = (rel_err(
+                g2.gram_relu_fwd(z, b, m2),
+                g2.gram_relu_fwd_plain(z, b, m2))[1], 1e-3)
     torch.cuda.synchronize()
     emit({"phase": "kernel_edges", "rel_err_and_tol": errs})
     bad = [name for name, (e, tol) in errs.items() if not e <= tol]
@@ -1764,14 +1826,18 @@ def summarize(rows: list, launches: dict) -> list:
 def wgmma_resources(lib) -> dict:
     """Registers, local memory (spills and stack), dynamic shared memory and
     resident blocks per SM of the bf16 Gram bodies (csrc/gram_wgmma.cuh:
-    gram_fwd, gram_bwd and block12's Gram cotangent on gram_bwd's body) and
+    gram_fwd, gram_relu_fwd on its body, gram_bwd, block12's Gram cotangent
+    on gram_bwd's body, gram_wbwd) and
     conv bodies (csrc/conv3x3_wgmma.cuh: conv3x3's N tiles of 128, 64 and
     8 channels, and block12's instances)."""
     import ctypes
     out = {}
     entries = [(lib.dpst_gram_wgmma_attrs, which, name) for which, name in
                enumerate(("gram_fwd", "gram_bwd (64-row c tile)",
-                          "gram_bwd (128-row c tile)"))]
+                          "gram_bwd (128-row c tile)",
+                          "gram_relu_fwd (bias+ReLU prologue)",
+                          "gram_wbwd (64-row c tile, C = 64)",
+                          "gram_wbwd (128-row c tile, C = 512)"))]
     entries += [(functools.partial(lib.dpst_conv3x3_attrs, bn, cps), None,
                  f"conv3x3 (N tile {bn}, {what})")
                 for bn, cps, what in (

@@ -32,7 +32,7 @@
 // which weight by m2_k after the product instead of before it:
 //   backward  dF = sum_k (S_k . F) * m2_k
 // with each class's product in fp32, scaled by m2_k in fp32, summed in
-// class order and rounded once. It is gram_relu_bwd's body with the
+// class order and rounded once. In fp32 it is gram_relu_bwd's body with the
 // bias+ReLU prologue and the relu' epilogue switched off. The forward of
 // those routes (gram_pallas.py:_fwd_kernel, gram_stream.py:_fwd_kernel)
 // rounds F * m2_k to the compute dtype and accumulates in fp32: gram_fwd's
@@ -52,13 +52,17 @@
 // pipelining. The forward tile and the backward tile of gram_bwd live in
 // gram_tile.cuh, shared with block12.cu.
 //
-// gram_fwd and gram_bwd in bf16 run other bodies, written for Hopper
-// (gram_wgmma.cuh): wgmma tiles fed by a cp.async ring, F read once for all
-// K classes, the weighted operand formed in registers. They need P % 8 == 0
-// (16-byte rows; the wrapper pads P with zero columns), gram_bwd takes the
-// cotangent as the (C, K * Cp) matrix A described at dpst_gram_bwd, and
-// gram_fwd's split chunk is a multiple of 64. Their fp32 bodies are the
-// tiles above.
+// gram_fwd, gram_relu_fwd, gram_bwd and gram_wbwd in bf16 run other
+// bodies, written for Hopper (gram_wgmma.cuh): wgmma tiles fed by a
+// cp.async ring, F read once for all K classes. The forwards form the
+// weighted operand in registers (gram_relu_fwd cooks relu(z + b) in shared
+// memory first); gram_bwd weights before its one product, gram_wbwd walks
+// the classes outer and folds each class's product, weighted, into a
+// second accumulator. They need P % 8 == 0 (16-byte rows; the wrapper pads
+// P with zero columns), the backwards take the cotangent as the (C, K *
+// Cp) matrix A described at dpst_gram_bwd, and the forwards' split chunk
+// is a multiple of 128. Their fp32 bodies are the tiles above; gram_relu_bwd
+// keeps them in bf16 too.
 //
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second
@@ -268,24 +272,34 @@ gram_fwd_wgmma_kernel(gram90::FwdArgs a) {
   gram90::gram_fwd_body(a);
 }
 
-// bf16 forward on the Hopper body: class groups of gram90::KG, then the
-// fixed-order sum of the split partials.
-cudaError_t launch_fwd_wgmma(const void* f, const void* m2, float* work,
-                               float* out, int C, int P, int K, int splits,
-                               int chunk, cudaStream_t st) {
+// The same body with the bias+ReLU prologue: a.f is the raw tap z.
+__global__ void __launch_bounds__(gram90::NT)
+gram_relu_fwd_wgmma_kernel(gram90::FwdArgs a) {
+  gram90::gram_fwd_body<true>(a);
+}
+
+// bf16 forward on the Hopper body (RELU: gram_relu_fwd, f the raw tap z
+// and bias its b): class groups of gram90::KG, then the fixed-order sum of
+// the split partials.
+template <bool RELU>
+cudaError_t launch_fwd_wgmma(const void* f, const void* bias, const void* m2,
+                             float* work, float* out, int C, int P, int K,
+                             int splits, int chunk, cudaStream_t st) {
   if (P % 8 != 0 || chunk % (gram90::BK * gram90::FWD_HALVES) != 0)
     return cudaErrorInvalidValue;
+  auto* kern = RELU ? gram_relu_fwd_wgmma_kernel : gram_fwd_wgmma_kernel;
   const size_t smem = gram90::fwd_smem();
-  static size_t allowed[64] = {};
-  cudaError_t err = hopper::allow_smem(gram_fwd_wgmma_kernel, smem, allowed);
+  static size_t allowed[64] = {};  // one record for each variant
+  cudaError_t err = hopper::allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   const int tiles = (C + 63) / 64;
   const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG, splits);
   const gram90::FwdArgs args{static_cast<const __nv_bfloat16*>(f),
                              static_cast<const __nv_bfloat16*>(m2),
                              splits == 1 ? out : work, P, P, 0, 0, C, P, K,
-                             splits, chunk};
-  gram_fwd_wgmma_kernel<<<grid, gram90::NT, smem, st>>>(args);
+                             splits, chunk,
+                             static_cast<const __nv_bfloat16*>(bias)};
+  kern<<<grid, gram90::NT, smem, st>>>(args);
   if (splits > 1) {
     const long long n = static_cast<long long>(K) * C * C;
     gram_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
@@ -359,6 +373,69 @@ void launch_wbwd(const void* f, const void* m2, const void* s, void* out,
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
 }
 
+// The bf16 weighted-after backward on its Hopper body (gram_wgmma.cuh).
+template <int N>
+__global__ void __launch_bounds__(gram90::WNT, 1)
+gram_wbwd_wgmma_kernel(gram90::WbwdArgs a) {
+  gram90::gram_wbwd_body<N, gram90::WSTAGES>(a);
+}
+
+// Its split partials (whole classes each), summed in split order and
+// rounded once.
+__global__ void gram_wbwd_reduce_kernel(const float* __restrict__ work,
+                                        __nv_bfloat16* __restrict__ out,
+                                        int splits, long long n) {
+  gram90::reduce_round(work, out, splits, n);
+}
+
+// bf16 weighted-after backward: c tiles of N rows; `groups` blocks share
+// the 128-pixel p tiles of each c tile; `splits` cut the classes into
+// ranges of ceil(K / splits), each non-empty (then work holds the fp32
+// partials).
+template <int N>
+cudaError_t launch_wbwd_wgmma_n(const void* f, const void* m2, const void* a,
+                                float* work, void* out, int C, int P, int K,
+                                int groups, int splits, cudaStream_t st) {
+  const int ptiles = (P + gram90::WPIX - 1) / gram90::WPIX;
+  const int kps = splits < 1 ? 0 : (K + splits - 1) / splits;
+  if (C > gram90::WMAXC || groups < 1 || groups > ptiles || splits < 1 ||
+      (splits - 1) * kps >= K || (splits > 1 && work == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = gram90::wbwd_smem<N, gram90::WSTAGES>(C);
+  static size_t allowed[64] = {};  // one record for each N
+  cudaError_t err =
+      hopper::allow_smem(gram_wbwd_wgmma_kernel<N>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(groups, (C + N - 1) / N, splits);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const gram90::WbwdArgs args{static_cast<const __nv_bfloat16*>(f),
+                              static_cast<const __nv_bfloat16*>(m2),
+                              static_cast<const __nv_bfloat16*>(a), o,
+                              splits > 1 ? work : nullptr, P, P, C, P, K,
+                              kps};
+  gram_wbwd_wgmma_kernel<N><<<grid, gram90::WNT, smem, st>>>(args);
+  if (splits > 1) {
+    const long long n = static_cast<long long>(C) * P;
+    gram_wbwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
+        work, o, splits, n);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wbwd_wgmma(const void* f, const void* m2, const void* a,
+                              float* work, void* out, int C, int P, int K,
+                              int tile, int groups, int splits,
+                              cudaStream_t st) {
+  if (P % 8 != 0) return cudaErrorInvalidValue;
+  if (tile == 64)
+    return launch_wbwd_wgmma_n<64>(f, m2, a, work, out, C, P, K, groups,
+                                   splits, st);
+  if (tile == 128)
+    return launch_wbwd_wgmma_n<128>(f, m2, a, work, out, C, P, K, groups,
+                                    splits, st);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 void launch_relu_bwd(const void* z, const void* bias, const void* m2,
                      const void* s, void* out, int C, int P, int K,
@@ -386,8 +463,8 @@ extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
     launch_fwd<float, false>(f, nullptr, m2, w, o, C, P, K, splits, chunk,
                              st);
   else if (dtype == DPST_DTYPE_BF16)
-    return static_cast<int>(
-        launch_fwd_wgmma(f, m2, w, o, C, P, K, splits, chunk, st));
+    return static_cast<int>(launch_fwd_wgmma<false>(
+        f, nullptr, m2, w, o, C, P, K, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -421,7 +498,8 @@ extern "C" int dpst_gram_bwd(const void* f, const void* m2, const void* s,
 }
 
 // z: (C, P) raw conv output, bias: (C,), both in the compute dtype; work
-// and out as for dpst_gram_fwd.
+// and out as for dpst_gram_fwd (in bf16: the Hopper body, P % 8 == 0 and
+// chunk a multiple of 128).
 extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
                                   const void* m2, void* work, void* out,
                                   int C, int P, int K, int splits, int chunk,
@@ -433,8 +511,8 @@ extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
   if (dtype == DPST_DTYPE_F32)
     launch_fwd<float, true>(z, bias, m2, w, o, C, P, K, splits, chunk, st);
   else if (dtype == DPST_DTYPE_BF16)
-    launch_fwd<__nv_bfloat16, true>(z, bias, m2, w, o, C, P, K, splits, chunk,
-                                    st);
+    return static_cast<int>(launch_fwd_wgmma<true>(
+        z, bias, m2, w, o, C, P, K, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -456,31 +534,44 @@ extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f: (C, P) tap, m2: (K, P), s: (K, C, C) symmetrized cotangent, all in the
-// compute dtype; out: dF (C, P) = sum_k (S_k . F) * m2_k, each class's
-// product in fp32, weighted after the product.
+// f: (C, P) tap, m2: (K, P), in the compute dtype; out: dF (C, P) = sum_k
+// (S_k . F) * m2_k, each class's product in fp32, weighted after the
+// product. s is the symmetrized cotangent: in fp32 the (K, C, C) stack; in
+// bf16 the matrix A of dpst_gram_bwd, with P % 8 == 0 and C <= 512. tile,
+// groups, splits and work serve bf16 only: c tiles of `tile` (64 or 128)
+// rows; `groups` (1 <= groups <= ceil(P / 128)) blocks walk the 128-pixel
+// tiles of each c tile; `splits` > 1 cuts the classes into that many
+// ranges of ceil(K / splits), each non-empty, whose fp32 partials go to
+// work (splits, C, P).
 extern "C" int dpst_gram_wbwd(const void* f, const void* m2, const void* s,
-                              void* out, int C, int P, int K, int dtype,
+                              void* work, void* out, int C, int P, int K,
+                              int tile, int groups, int splits, int dtype,
                               void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
     launch_wbwd<float>(f, m2, s, out, C, P, K, st);
   else if (dtype == DPST_DTYPE_BF16)
-    launch_wbwd<__nv_bfloat16>(f, m2, s, out, C, P, K, st);
+    return static_cast<int>(launch_wbwd_wgmma(f, m2, s,
+                                              static_cast<float*>(work), out,
+                                              C, P, K, tile, groups, splits,
+                                              st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resources of the Hopper bodies, for the record: which = 0 gram_fwd, 1
-// gram_bwd with 64-row c tiles, 2 with 128-row c tiles.
+// gram_bwd with 64-row c tiles, 2 with 128-row c tiles, 3 gram_relu_fwd,
+// 4 gram_wbwd with 64-row c tiles (its shared memory at C = 64), 5 with
+// 128-row c tiles (at C = 512, the most it takes).
 // out: registers a thread, local memory bytes a thread (spills and stack),
 // dynamic shared memory bytes a block, resident blocks an SM.
 extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaFuncAttributes at{};
   size_t smem = 0;
+  int threads = gram90::NT;
   const void* fn = nullptr;
   if (which == 0) {
     fn = reinterpret_cast<const void*>(gram_fwd_wgmma_kernel);
@@ -491,6 +582,17 @@ extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
   } else if (which == 2) {
     fn = reinterpret_cast<const void*>(gram_bwd_wgmma_kernel<128>);
     smem = gram90::bwd_smem<128>();
+  } else if (which == 3) {
+    fn = reinterpret_cast<const void*>(gram_relu_fwd_wgmma_kernel);
+    smem = gram90::fwd_smem();
+  } else if (which == 4) {
+    fn = reinterpret_cast<const void*>(gram_wbwd_wgmma_kernel<64>);
+    smem = gram90::wbwd_smem<64, gram90::WSTAGES>(64);
+    threads = gram90::WNT;
+  } else if (which == 5) {
+    fn = reinterpret_cast<const void*>(gram_wbwd_wgmma_kernel<128>);
+    smem = gram90::wbwd_smem<128, gram90::WSTAGES>(gram90::WMAXC);
+    threads = gram90::WNT;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -500,7 +602,7 @@ extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
                                static_cast<int>(smem));
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, gram90::NT,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
                                                         smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = at.numRegs;

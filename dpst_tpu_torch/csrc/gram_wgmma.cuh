@@ -1,23 +1,32 @@
-// Hopper bodies of the bf16 masked-Gram forward and backward of
-// csrc/gram.cu (dpst_gram_fwd, dpst_gram_bwd in bf16; fp32 keeps the CUDA-core
-// tile of gram_tile.cuh, since TF32 would drop mantissa bits):
+// Hopper bodies of the bf16 masked-Gram kernels of csrc/gram.cu
+// (dpst_gram_fwd, dpst_gram_relu_fwd, dpst_gram_bwd and dpst_gram_wbwd in
+// bf16; fp32 keeps the CUDA-core tiles of gram_tile.cuh and gram.cu, since
+// TF32 would drop mantissa bits):
 //
-//   forward   G_k = F . round(F * m2_k)^T in fp32   f (C, P), m2 (K, P)
-//   backward  dF  = round( sum_{k,c'} S_k[c][c'] * round(F[c'] * m2_k) )
+//   forward    G_k = F . round(F * m2_k)^T in fp32   f (C, P), m2 (K, P)
+//              (gram_relu_fwd: F = round(max(z + b, 0)), z + b in fp32)
+//   backward   dF  = round( sum_{k,c'} S_k[c][c'] * round(F[c'] * m2_k) )
+//   weighted-after backward (gram_wbwd)
+//              dF  = round( sum_k (S_k . F)[c] * m2_k ), each class's
+//              product summed in fp32, then times m2_k in fp32, folded in
+//              class order
 //
 // They replace the TPU kernels dpst_tpu/ops/gram_stream.py:_fwd_kernel
 // (launched by _gram_fwd_call) and :_bwd_kernel (launched by
 // _gram_raw_bwd), with the rounding of dpst_tpu/ops/losses.py:
-// _grams_raw_flat. Summation orders differ from the TPU's; every product
-// accumulates in fp32, the weighted operand is rounded to bf16 as the JAX
-// package forms it, dF is rounded once, and no float atomics are used, so
-// a rerun is bit-identical.
+// _grams_raw_flat, dpst_tpu/ops/gram_s2d.py:_fwd_kernel2 and :_fwd_kernel,
+// and dpst_tpu/ops/gram_pallas.py:_bwd_kernel. Summation orders differ
+// from the TPU's; every product accumulates in fp32, the weighted operand
+// is rounded to bf16 as the JAX package forms it, dF is rounded once, and
+// no float atomics are used, so a rerun is bit-identical.
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at 512^2, K = 4, each
 // tap's Grams take 2*K*C*C*P = 8.6 GFLOP (2.1 at conv5_1), 8.7 us at
 // peak, while conv1_1 (C = 64, P = 2^18) reads 32 MB of F and the backward
 // writes 32 MB of dF: bytes bound conv1_1 (~20 us for the backward),
-// operations the deep taps.
+// operations the deep taps. At 4096^2 gram_wbwd's conv3_1 (C = 256, P =
+// 2^20) takes 550 GFLOP, 0.556 ms at peak; gram_relu_fwd's conv1_1 at
+// 1024^2 (C = 64, P = 2^20) reads 143 MB, 0.043 ms.
 //
 // Design. One warpgroup (128 threads) per block runs wgmma (m64nNk16, fp32
 // accumulators in registers). The weighted operand is never stored: F
@@ -35,7 +44,9 @@
 //     diagonal tile) and the group's masks, 128 pixels deep; the block
 //     computes G_k^T[j][i] = sum_p round(F_j m2_k) F_i and stores it
 //     transposed. Each split writes an fp32 partial that gram.cu sums in a
-//     fixed order; the splits are sized so the grid is one wave.
+//     fixed order; the splits are sized so the grid is one wave. The
+//     bias+ReLU variant cooks each landed tile in place, once (F_i and F_j
+//     are the same bytes on a diagonal tile), before any read of it.
 //   backward: a block owns a c tile (N = 64 or 128 rows) and walks p tiles
 //     of 64 pixels, one after the other in one ring (a persistent block:
 //     the short blocks of conv1_1 would otherwise wait on their first
@@ -52,6 +63,16 @@
 //     tile x c tile) grid cannot fill the card (conv5_1 at 512^2), the
 //     reduction is split across blocks into fp32 partials, summed in a
 //     fixed order and rounded once.
+//   weighted-after backward: m2_k meets each class's product only once
+//     the product is complete, so the reduction walks classes outer and c'
+//     chunks inner, with two fp32 accumulators (the class's product, and
+//     the running weighted sum that the class folds into). F is then the
+//     same for every class: a block keeps its p tile's F chunks resident in
+//     shared memory, where wgmma reads them as a transposed operand. Two
+//     warpgroups take 64 pixels each of a 128-pixel p tile and share each
+//     cotangent tile, which halves the cotangent's traffic from L2 against
+//     one warpgroup's 64 pixels (that traffic, not the tensor cores, holds
+//     gram_bwd's body). See gram_wbwd_body.
 // Rows need 16-byte alignment: P % 8 == 0 (the wrapper pads P with zero
 // columns, which add nothing to G and whose dF is dropped).
 #pragma once
@@ -105,7 +126,39 @@ struct FwdArgs {
   float* out;
   long long ldf, ldm, fband, mband;
   int C, P, K, S, chunk;
+  const bf16* bias = nullptr;  // (C,): the bias+ReLU variant's b
 };
+
+// Two bf16 of the raw tap (low half first) cooked as the plain version
+// does: round(max(z + b, 0)), z + b in fp32.
+__device__ __forceinline__ uint32_t cook2(uint32_t x, float b) {
+  __nv_bfloat162 v;
+  memcpy(&v, &x, 4);
+  const float2 zf = __bfloat1622float2(v);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      fmaxf(__fadd_rn(zf.x, b), 0.0f), fmaxf(__fadd_rn(zf.y, b), 0.0f));
+  uint32_t out;
+  memcpy(&out, &r, 4);
+  return out;
+}
+
+// Cook a landed 64-row tile in place. Thread tid takes the 16-byte pieces
+// tid + NT * i, i < 4, which lie in rows (tid >> 3) + 16 i: b[i] is that
+// row's bias (0 for a row past C, whose zero fill then stays 0).
+__device__ __forceinline__ void cook_tile(unsigned char* tile,
+                                          const float (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = threadIdx.x + NT * i;
+    uint4* q = reinterpret_cast<uint4*>(tile + swz(e >> 3, e & 7));
+    uint4 v = *q;
+    v.x = cook2(v.x, b[i]);
+    v.y = cook2(v.y, b[i]);
+    v.z = cook2(v.z, b[i]);
+    v.w = cook2(v.w, b[i]);
+    *q = v;
+  }
+}
 
 // Forward body of one block; the kernels that launch it (gram.cu's
 // gram_fwd_wgmma_kernel, block12.cu's block12_gram_wgmma_kernel) give it a
@@ -115,6 +168,12 @@ struct FwdArgs {
 // F[i][p] * round(F[j][p] * m2_k[p]) for the group's classes. A stage is
 // H = FWD_HALVES atoms of 64 pixels deep; chunk % (64 * H) == 0, and the
 // rows are 16-byte aligned (P, ldf, ldm, fband and mband % 8 == 0).
+// RELU (gram_relu_fwd) takes f as the raw tap z and cooks F = round(max(z
+// + b, 0)) in shared memory; without it (gram_fwd, block12's Gram
+// partials) that step is compiled out. A cooked zero fill is relu(b), not
+// 0: pixels past the split or padded by the wrapper still add nothing,
+// since their masks are zero and round(F * 0) = 0.
+template <bool RELU = false>
 __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
   constexpr int H = FWD_HALVES, S = FWD_STAGES;
   // a slot: F_j halves, F_i halves, then the group's masks (KG x 64H bf16)
@@ -169,6 +228,17 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[q][i] = 0.0f;
 
+  // the biases of the rows this thread cooks (cook_tile), of F_j and F_i
+  float bj[4], bi[4];
+  if constexpr (RELU) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + 16 * i;
+      bj[i] = j0 + r < C ? to_f(a.bias[j0 + r]) : 0.0f;
+      bi[i] = i0 + r < C ? to_f(a.bias[i0 + r]) : 0.0f;
+    }
+  }
+
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
     if (s < nst) load(s);
@@ -180,6 +250,19 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
     __syncthreads();  // stage s landed; stage s - 1's slot is free
     if (s + S - 1 < nst) load(s + S - 1);
     cp_async_commit();
+    if constexpr (RELU) {
+      // each landed tile once: on a diagonal tile F_i is F_j
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        cook_tile(sm + (s % S) * SLOT + h * TILE_BYTES, bj);
+      if (!diag) {
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          cook_tile(sm + (s % S) * SLOT + (H + h) * TILE_BYTES, bi);
+      }
+      fence_proxy_async();  // generic stores, then wgmma's async reads
+      __syncthreads();
+    }
 
     const unsigned char* slot = sm + (s % S) * SLOT;
     const uint32_t sa = smem_addr(slot);
@@ -509,11 +592,259 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
   cp_async_wait<0>();
 }
 
-// out[i] = round(work[0][i] + work[1][i] + ...): the split partials of
-// gram_bwd_wgmma_kernel summed in split order, rounded once.
-__global__ void gram_bwd_reduce_kernel(const float* __restrict__ work,
-                                       bf16* __restrict__ out, int splits,
-                                       long long n) {
+// The weighted-after backward's operands: F and dF as C rows of ldf
+// elements, the masks K rows of ldm, the cotangent matrix a (C, K*Cp) as
+// for gram_bwd_body; P pixels (P, ldf, ldm % 8 == 0), walked in p tiles
+// of WPIX; each split takes kps classes.
+struct WbwdArgs {
+  const bf16* f;
+  const bf16* m2;
+  const bf16* a;
+  bf16* out;
+  float* work;  // split partials (splits, C, ldf), or nullptr
+  long long ldf, ldm;
+  int C, P, K, kps;
+};
+
+constexpr int WNT = 2 * NT;  // two warpgroups
+constexpr int WPIX = 128;    // pixels of a p tile, 64 a warpgroup
+constexpr int WMAXC = 512;   // channels whose F chunks fit shared memory
+constexpr int CHUNK_BYTES = 2 * TILE_BYTES;  // 64 channels x WPIX pixels
+constexpr int WSTAGES = 4;   // slots of its ring
+
+// F chunk slots of the weighted-after backward with a ring of NS slots: a
+// p tile's ceil(C / 64) chunks, and at least NS, so that the next tile's
+// chunk, loaded NS - 2 items ahead, never lands on a chunk that products
+// still in flight (the last two items') read.
+__host__ __device__ constexpr int wbwd_fslots(int C, int NS) {
+  return (C + 63) / 64 > NS ? (C + 63) / 64 : NS;
+}
+
+// Weighted-after backward body (gram_wbwd). Grid (groups, ceil(C / N),
+// splits), WNT threads. Block (g, c tile, split) walks the p tiles g, g +
+// groups, ... (at least one: groups <= ceil(P / WPIX)) and, for each, the
+// items (k, j) of its classes k in [split * kps, min(K, (split + 1) *
+// kps)) outer and its c' chunks j of 64 inner. Over a class's items it
+// sums in fp32
+//   prod = sum_{c'} a[c][k*Cp + c'] * F[c'][p]
+// and, when the class is complete, folds it into the weighted sum in
+// class order: tot = tot + prod * m2_k[p] (each rounded, no contraction),
+// as gram.cu's fp32 tile and the plain version do. When work is null
+// (then splits == 1) it stores round(tot) at out[c * ldf + p] through a
+// staging tile as 16-byte rows; else tot in fp32 at work[split], which
+// gram_wbwd_reduce_kernel sums in split order and rounds once.
+//
+// Warpgroup h computes the tile's pixels 64h .. 64h + 63 (accumulator
+// rows) for the c tile's N channels (columns), so every cotangent tile
+// that lands serves 128 pixels. The tile's F chunk j arrives once, with
+// the first class's item j, into F slot (u * nch + j) % wbwd_fslots(C)
+// (u: the block's tile count so far), where it stays for every class;
+// wgmma reads it from there as the transposed A operand (A[p][c'] =
+// F[c'][p]: pixel rows of 128 bytes are MN-major), so F costs no registers
+// and no ldmatrix (which, issued each item before its products, held back
+// an earlier version of this body on the H100). The cotangent tiles and the
+// masks come through a ring of NS slots that runs on across p tiles, NS -
+// 2 items ahead. A class's fold waits for its last products
+// (wgmma_wait<0>), the one point where the tensor cores drain. The
+// bias+ReLU backward (gram_relu_bwd) fits the same walk: cook each F chunk
+// where it lands and apply relu'(z + b) before the store.
+template <int N, int NS>
+__device__ __forceinline__ void gram_wbwd_body(const WbwdArgs& ar) {
+  constexpr int SBYTES = N * 128;  // a cotangent tile: N rows of 64 c'
+  constexpr int D = NS - 2;        // items loaded ahead
+  static_assert(N * 64 * 2 == SBYTES, "a staging tile fills a ring slot");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const bf16* __restrict__ f = ar.f;
+  const bf16* __restrict__ m2 = ar.m2;
+  const bf16* __restrict__ a = ar.a;
+  const int C = ar.C, K = ar.K, P = ar.P;
+  const int nch = (C + 63) >> 6, fs = wbwd_fslots(C, NS);
+  unsigned char* ring = sm + fs * CHUNK_BYTES;  // [NS][SBYTES]
+  bf16* msk = reinterpret_cast<bf16*>(ring + NS * SBYTES);  // [NS][WPIX]
+  const size_t ldf = static_cast<size_t>(ar.ldf);
+  const size_t ldm = static_cast<size_t>(ar.ldm);
+  const int cpad = (C + 7) & ~7, lda = K * cpad;
+  const int c0 = blockIdx.y * N;
+  const int kb = blockIdx.z * ar.kps, ke = min(K, kb + ar.kps);
+  const int per = (ke - kb) * nch;  // items per p tile
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int ptiles = (P + WPIX - 1) / WPIX;
+  const int total = ((ptiles - 1 - bx) / gx + 1) * per;
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  // position of an item: p tile (u-th of the block) with its first pixel
+  // p0, class k, c' chunk j, and n, its index among the tile's items
+  struct Pos {
+    int u, k, j, n, p0;
+  };
+  auto advance = [&](Pos& q) {
+    if (++q.n == per) {
+      q.n = 0;
+      ++q.u;
+      q.k = kb;
+      q.j = 0;
+      q.p0 = (bx + q.u * gx) * WPIX;
+    } else if (++q.j == nch) {
+      q.j = 0;
+      ++q.k;
+    }
+  };
+  auto fslot = [&](const Pos& q) {
+    return sm + ((q.u * nch + q.j) % fs) * CHUNK_BYTES;
+  };
+
+  // item `it` at q: with the split's first class, F[64j.., p0..p0+WPIX)
+  // into its F slot (two swizzled tiles of 64 channel rows, one a
+  // warpgroup's 64 pixels); with the class's last chunk, its masks
+  // m2[k][p0..); always a[c0.., k*cpad + 64j ..] into ring slot it % NS
+  auto load = [&](int it, const Pos& q) {
+    const int slot = it % NS;
+    if (q.k == kb) {
+      const uint32_t fa = smem_addr(fslot(q));
+#pragma unroll
+      for (int e = tid; e < 64 * 16; e += WNT) {
+        const int r = e >> 4, c = e & 15, cr = q.j * 64 + r, p = q.p0 + c * 8;
+        const bool v = cr < C && p < P;
+        cp_async16(fa + (c >> 3) * TILE_BYTES + swz(r, c & 7),
+                   v ? f + cr * ldf + p : f, v);
+      }
+    }
+    if (q.j == nch - 1 && tid < WPIX / 8) {
+      const int p = q.p0 + tid * 8;
+      const bool v = p < P;
+      cp_async16(smem_addr(msk + slot * WPIX + tid * 8),
+                 v ? m2 + q.k * ldm + p : m2, v);
+    }
+    const uint32_t sa = smem_addr(ring + slot * SBYTES);
+    const int col = q.k * cpad + q.j * 64;
+#pragma unroll
+    for (int e = tid; e < N * 8; e += WNT) {
+      const int r = e >> 3, c = e & 7, cr = c0 + r;
+      const bool v = cr < C && q.j * 64 + c * 8 < cpad;
+      cp_async16(sa + swz(r, c),
+                 v ? a + static_cast<size_t>(cr) * lda + col + c * 8 : a, v);
+    }
+  };
+
+  // prod[4n + 2h + e] and tot[...]: pixel p0 + 64wg + 16w + g + 8h,
+  // channel c0 + 8n + 2t + e
+  float prod[N / 2], tot[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) prod[i] = tot[i] = 0.0f;
+
+  Pos ql{0, kb, 0, 0, bx * WPIX};  // next item to load
+#pragma unroll
+  for (int it = 0; it < D; ++it) {
+    if (it < total) {
+      load(it, ql);
+      advance(ql);
+    }
+    cp_async_commit();
+  }
+
+  // the tile's weighted sums: rounded through a staging tile in a free
+  // ring slot (this item's for warpgroup 0, the last item's for 1, both
+  // read by finished products) to 16-byte rows of out, or fp32 partials
+  auto epilogue = [&](const Pos& q, int slot) {
+    const int px0 = q.p0 + wg * 64;
+    if (ar.work == nullptr) {
+      __syncthreads();  // both warpgroups are done with the two slots
+      unsigned char* tb =
+          ring + (wg == 0 ? slot : (slot + NS - 1) % NS) * SBYTES;
+      // row r (a channel) of 64 pixels, 16-byte pieces XOR-swizzled by r
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 8 * n + 2 * t + e, px = w * 16 + g + 8 * h;
+            *reinterpret_cast<bf16*>(tb + r * 128 +
+                                     (((px >> 3) ^ (r & 7)) << 4) +
+                                     (px & 7) * 2) =
+                from_f<bf16>(tot[4 * n + 2 * h + e]);
+          }
+      __syncthreads();
+#pragma unroll
+      for (int e = tid & (NT - 1); e < N * 8; e += NT) {
+        const int r = e >> 3, c = e & 7, cr = c0 + r, p = px0 + c * 8;
+        if (cr < C && p < P)
+          *reinterpret_cast<uint4*>(ar.out + cr * ldf + p) =
+              *reinterpret_cast<const uint4*>(tb + r * 128 +
+                                              ((c ^ (r & 7)) << 4));
+      }
+    } else {
+      float* wk = ar.work + static_cast<size_t>(blockIdx.z) * C * ldf;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cr = c0 + 8 * n + 2 * t + e;
+            const int p = px0 + w * 16 + g + 8 * h;
+            if (cr < C && p < P) wk[cr * ldf + p] = tot[4 * n + 2 * h + e];
+          }
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) tot[i] = 0.0f;
+  };
+
+  Pos qc{0, kb, 0, 0, bx * WPIX};  // item being computed
+  auto item = [&](int it) {
+    wgmma_wait<1>();  // item it - 2 released its ring slot
+    cp_async_wait<D - 1>();
+    fence_proxy_async();
+    __syncthreads();  // item it landed
+    if (it + D < total) {
+      load(it + D, ql);
+      advance(ql);
+    }
+    cp_async_commit();
+    const int slot = it % NS;
+    // A = F^T: the warpgroup's tile of the chunk, 16 channel rows a step
+    const uint64_t adesc =
+        make_desc(smem_addr(fslot(qc)) + wg * TILE_BYTES);
+    const uint64_t bdesc = make_desc(smem_addr(ring + slot * SBYTES));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if constexpr (N == 64)
+        wgmma_64t(prod, adesc + 128 * ks, bdesc + 2 * ks);
+      else
+        wgmma_128t(prod, adesc + 128 * ks, bdesc + 2 * ks);
+    }
+    wgmma_commit();
+    if (qc.j == nch - 1) {
+      // the class's product is complete: fold it in, weighted by its mask
+      wgmma_wait<0>();
+      fence_regs(prod);
+      const bf16* mq = msk + slot * WPIX + wg * 64 + w * 16 + g;
+      const float mlo = to_f(mq[0]), mhi = to_f(mq[8]);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        tot[i] = __fadd_rn(tot[i], __fmul_rn(prod[i], (i & 2) ? mhi : mlo));
+        prod[i] = 0.0f;
+      }
+      if (qc.n == per - 1) epilogue(qc, slot);
+    }
+    advance(qc);
+  };
+  // two items an iteration (faster on the H100 than one)
+  for (int it = 0; it < total; it += 2) {
+    item(it);
+    if (it + 1 < total) item(it + 1);
+  }
+  cp_async_wait<0>();
+}
+
+// out[i] = round(work[0][i] + work[1][i] + ...): split partials summed in
+// split order, rounded once.
+__device__ __forceinline__ void reduce_round(const float* __restrict__ work,
+                                             bf16* __restrict__ out,
+                                             int splits, long long n) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -523,13 +854,25 @@ __global__ void gram_bwd_reduce_kernel(const float* __restrict__ work,
   }
 }
 
-// Dynamic shared memory of the two kernels (bytes, with the alignment slack).
+// The split partials of gram_bwd_wgmma_kernel.
+__global__ void gram_bwd_reduce_kernel(const float* __restrict__ work,
+                                       bf16* __restrict__ out, int splits,
+                                       long long n) {
+  reduce_round(work, out, splits, n);
+}
+
+// Dynamic shared memory of the kernels (bytes, with the alignment slack).
 inline size_t fwd_smem() {
   return FWD_STAGES * (2 * FWD_HALVES * TILE_BYTES + 1024) + 1024;
 }
 template <int N>
 inline size_t bwd_smem() {
   return STAGES * (TILE_BYTES + N * 128 + 128) + 1024;
+}
+template <int N, int NS>
+inline size_t wbwd_smem(int C) {
+  return static_cast<size_t>(wbwd_fslots(C, NS)) * CHUNK_BYTES +
+         NS * (N * 128 + WPIX * 2) + 1024;
 }
 
 }  // namespace gram90

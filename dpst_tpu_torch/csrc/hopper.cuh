@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's wgmma kernels
 // (gram_wgmma.cuh, conv3x3_wgmma.cuh): shared-memory addressing in the
-// 128-byte swizzled K-major layout that wgmma's descriptor mode 1 reads,
-// cp.async copies, the fences that order them against wgmma, ldmatrix, and
-// wgmma with its A operand in registers (m64nNk16, bf16 in, fp32 sums).
+// 128-byte swizzled layout that wgmma's descriptor mode 1 reads, cp.async
+// copies, the fences that order them against wgmma, ldmatrix, and wgmma
+// (m64nNk16, bf16 in, fp32 sums) with its A operand in registers, or in
+// shared memory transposed (MN-major).
 #pragma once
 
 #include <cstdint>
@@ -31,8 +32,10 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart. Adding 2 advances it by 16 bf16 along K.
+// wgmma shared-memory descriptor: 128-byte swizzle, 8-row groups 1024 bytes
+// apart. K-major (rows along M or N): adding 2 advances it by 16 bf16 along
+// K. MN-major with 64 M-elements a row (one swizzle atom, so the leading
+// byte offset goes unread): adding 128 advances it by 16 rows along K.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |
@@ -175,6 +178,64 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(1));
+}
+
+// d (64 x N, fp32) += a (64 x 16 bf16) . b (16 x N bf16), both in shared
+// memory with the 128-byte swizzle: a MN-major (transposed: rows of 64
+// M-elements, one a K index, 8-row groups 1024 bytes apart, so that
+// adding 128 to adesc advances it by 16 along K), b K-major at bdesc
+__device__ __forceinline__ void wgmma_64t(float (&d)[32], uint64_t adesc,
+                                          uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_128t(float (&d)[64], uint64_t adesc,
+                                           uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(adesc), "l"(bdesc), "r"(1));
 }
 
 // Raise a kernel's dynamic shared memory limit to `bytes` on the current

@@ -18,14 +18,24 @@ then multiplied by m²_k in fp32 and summed over k in class order, and the
 sum is rounded once, where `gram_bwd` rounds F ∘ m²_k to the compute dtype
 before one product. Masks are constants of the optimization: no gradient
 flows to them.
+
+In bf16 the backward is the Hopper body `gram_wbwd_body` of
+csrc/gram_wgmma.cuh: classes outer, each class's product complete before
+it meets its mask, F resident in shared memory across the classes, two
+warpgroups on 128-pixel tiles. It takes `gram_stream`'s padding (P to a
+multiple of 8) and cotangent matrix (`s_matrix`), C up to 512, and the
+plan of `wbwd_plan`.
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernels
-from .gram_stream import gram_fwd, normalize
+from .gram_stream import _SMS, gram_fwd, launch_bwd, normalize
 from .kernels import torch_dtype
+
+WBWD_PIXELS = 128   # pixels of the bf16 backward's p tile
+WBWD_MAX_C = 512    # channels whose F chunks fit its shared memory
 
 
 def class_sum_plain(f: torch.Tensor, m2: torch.Tensor,
@@ -47,6 +57,27 @@ def gram_wbwd_plain(f: torch.Tensor, m2: torch.Tensor,
     return class_sum_plain(f, m2, s).to(f.dtype)
 
 
+def wbwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
+    """(c tile, groups, splits) of the bf16 backward, as the kernel takes
+    them: one block of two warpgroups an SM; c tiles of 64 rows for C <= 64,
+    else 128; p tiles of WBWD_PIXELS. When the grid of p tiles × c tiles
+    fills the SMs, `groups` blocks per c tile walk the p tiles and splits =
+    1. Else the classes are cut into `splits` ranges of whole classes (a
+    class's product must be complete before it meets its mask), as many as
+    make the grid's waves × the classes a block walks least (fewest on a
+    tie)."""
+    tile = 64 if c <= 64 else 128
+    ctiles, ptiles = -(-c // tile), -(-p // WBWD_PIXELS)
+    if ptiles * ctiles >= _SMS:
+        return tile, min(ptiles, max(1, _SMS // ctiles)), 1
+    cost = {}
+    for n in range(1, k + 1):
+        per = -(-k // n)
+        splits = -(-k // per)
+        cost.setdefault(splits, -(-ptiles * ctiles * splits // _SMS) * per)
+    return tile, ptiles, min(cost, key=lambda n: (cost[n], n))
+
+
 def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,
               s: torch.Tensor) -> torch.Tensor:
     """dF of the masked Grams, weighted after the product. CPU tensors take
@@ -60,13 +91,9 @@ def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,
     kernels.require(s, "s", (k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
         return gram_wbwd_plain(f, m2, s)
-    out = torch.empty_like(f)
-    rc = kernels.library().dpst_gram_wbwd(
-        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(out),
-        c, p, k, kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
-    kernels.check(rc, "gram_wbwd")
-    kernels.LAUNCHES["gram_wbwd"] += 1
-    return out
+    if f.dtype == torch.bfloat16 and c > WBWD_MAX_C:
+        raise ValueError(f"gram_wbwd in bf16 takes C <= {WBWD_MAX_C}, not {c}")
+    return launch_bwd("gram_wbwd", f, m2, s, wbwd_plan)
 
 
 class WeightedGrams(torch.autograd.Function):

@@ -77,11 +77,14 @@ def _check(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor) -> None:
 def gram_relu_fwd(z: torch.Tensor, b: torch.Tensor,
                   m2: torch.Tensor) -> torch.Tensor:
     """Raw masked Grams of relu(z + b). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/gram.cu)."""
+    CUDA tensors launch the kernel (csrc/gram.cu). In bf16 that is
+    `gram_fwd`'s Hopper body with a bias+ReLU prologue, on `gram_fwd`'s
+    padding and plan: the zero columns that pad P to a multiple of 8 cook
+    to relu(b), but their m² is zero, so they add nothing."""
     _check(z, b, m2)
     if not kernels.on_cuda(z, b, m2):
         return gram_relu_fwd_plain(z, b, m2)
-    return launch_fwd("gram_relu_fwd", (z, b, m2), *z.shape, m2.shape[0])
+    return launch_fwd("gram_relu_fwd", z, m2, b)
 
 
 def gram_relu_bwd(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,

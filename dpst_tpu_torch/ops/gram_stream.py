@@ -134,27 +134,29 @@ def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     kernels.require(m2, "m2", (k, p), f.dtype)
     if not kernels.on_cuda(f, m2):
         return gram_fwd_plain(f, m2)
+    return launch_fwd("gram_fwd", f, m2)
+
+
+def launch_fwd(name: str, f: torch.Tensor, m2: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the split-P forward kernel `name` ("gram_fwd", or
+    "gram_relu_fwd" with the (C,) `bias`, csrc/gram.cu) on the CUDA (C, P)
+    tap f and (K, P) m²; returns the (K, C, C) fp32 Grams. In bf16 (the
+    Hopper body) P is padded to a multiple of 8 and cut by `fwd_plan`;
+    fp32 takes `fwd_splits`."""
+    c, k = f.shape[0], m2.shape[0]
     if f.dtype == torch.bfloat16:
         f, m2 = pad_pixels(f), pad_pixels(m2)
-        p = f.shape[1]
-        return launch_fwd("gram_fwd", (f, m2), c, p, k, fwd_plan(c, p, k))
-    return launch_fwd("gram_fwd", (f, m2), c, p, k)
-
-
-def launch_fwd(name: str, operands: tuple, c: int, p: int, k: int,
-               plan: tuple[int, int] | None = None) -> torch.Tensor:
-    """Launch the split-P forward kernel `name` ("gram_fwd" or
-    "gram_relu_fwd", csrc/gram.cu) on CUDA operands whose first is the
-    (C, P) tap, with `plan` = (splits, chunk) (`fwd_splits` by default);
-    returns the (K, C, C) fp32 Grams."""
-    f = operands[0]
-    splits, chunk = plan or fwd_splits(c, p, k)
+        splits, chunk = fwd_plan(c, f.shape[1], k)
+    else:
+        splits, chunk = fwd_splits(c, f.shape[1], k)
+    operands = (f, m2) if bias is None else (f, bias, m2)
     out = torch.empty((k, c, c), dtype=torch.float32, device=f.device)
     work = (torch.empty((splits, k, c, c), dtype=torch.float32,
                         device=f.device) if splits > 1 else out)
     rc = getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out),
-        c, p, k, splits, chunk, kernels.DTYPE_CODES[f.dtype],
+        c, f.shape[1], k, splits, chunk, kernels.DTYPE_CODES[f.dtype],
         kernels.stream_ptr(f))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
@@ -172,21 +174,33 @@ def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
     kernels.require(s, "s", (k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
         return gram_bwd_plain(f, m2, s)
+    return launch_bwd("gram_bwd", f, m2, s, bwd_plan)
+
+
+def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
+               s: torch.Tensor, plan) -> torch.Tensor:
+    """Launch the backward kernel `name` ("gram_bwd" or "gram_wbwd",
+    csrc/gram.cu) on the CUDA (C, P) tap f, (K, P) m² and (K, C, C)
+    cotangent s; returns dF (C, P). In bf16 (the Hopper bodies) P is padded
+    to a multiple of 8, s goes as `s_matrix(s)` and `plan(C, P, K)` gives
+    (c tile, groups, splits), with fp32 split partials where splits > 1."""
+    c, p = f.shape
+    k = m2.shape[0]
     tile = groups = splits = 1
     work = None
     if f.dtype == torch.bfloat16:
         f, m2, s = pad_pixels(f), pad_pixels(m2), s_matrix(s).contiguous()
-        tile, groups, splits = bwd_plan(c, f.shape[1], k)
+        tile, groups, splits = plan(c, f.shape[1], k)
         if splits > 1:
             work = torch.empty((splits, c, f.shape[1]), dtype=torch.float32,
                                device=f.device)
     out = torch.empty_like(f)
-    rc = kernels.library().dpst_gram_bwd(
+    rc = getattr(kernels.library(), "dpst_" + name)(
         kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(work),
         kernels.ptr(out), c, f.shape[1], k, tile, groups, splits,
         kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
-    kernels.check(rc, "gram_bwd")
-    kernels.LAUNCHES["gram_bwd"] += 1
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out if out.shape[1] == p else out[:, :p].contiguous()
 
 

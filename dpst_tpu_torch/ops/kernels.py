@@ -130,7 +130,7 @@ def library() -> ctypes.CDLL:
         lib.dpst_gram_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.dpst_gram_relu_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.dpst_gram_relu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        lib.dpst_gram_wbwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dpst_gram_wbwd.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
         lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_conv3x3.argtypes = [p, p, p, p] + [i] * 8 + [p]
