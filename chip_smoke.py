@@ -14,9 +14,13 @@ no result):
                  bias+ReLU forward, the weighted-after backward and block12's
                  Gram cotangent among them);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the shapes of the 512² config3 main path (K = 4 masks),
-                 for the fused bias+ReLU Gram pair of conv1_1 at the 1024²
-                 stage of config4, and for conv3x3 (forward and input
+                 at the shapes of the 512² config3 main path (K = 4 masks;
+                 lap_matvec also at 1024² and 4096², its division by 9
+                 against __fdiv_rn on all 2^32 floats, and with pool_bwd
+                 timed by device time), for the fused bias+ReLU Gram pair
+                 of conv1_1 at the 1024² stage of config4 (gram_relu_bwd
+                 also at 512² and 4096², by device time in turns with its
+                 yardstick and beside "cook, then gram_wbwd, then relu′"), and for conv3x3 (forward and input
                  gradient, bf16 and fp32) and gram_wbwd (soft masks) at the
                  shapes of the 512² pallas route, with the stated
                  tolerance, the kernel's time, the plain version's time,
@@ -114,9 +118,14 @@ CONV_SHAPES = ((64, 64, 512), (64, 128, 256), (128, 128, 256),
 MS_SIZE = 1024                                 # config4's native size
 MS_ITERS = (100, 100, 100)                     # Adam steps per config4 stage
 RELU_SHAPE = (64, MS_SIZE * MS_SIZE)           # (C, P) of conv1_1 at 1024²
-# (C, P) of conv1_1 at 512², where the pallas route takes the fused pair:
-# timed in bf16, not summed into the 1024² step
+# (C, P) of conv1_1 at 512², where the pallas route takes the fused pair,
+# and at 4096², where the standard path takes gram_relu_bwd: timed in bf16,
+# not summed into the 1024² step
 RELU_SHAPE_512 = (64, SIZE * SIZE)
+RELU_SHAPE_4096 = (64, 4096 * 4096)
+# (H = W) where lap_matvec is timed besides the 512² step: config4's 1024²
+# stage and the 4096² paths
+LAP_SIZES = (1024, 4096)
 # (C, P) where gram_wbwd runs at 4096²: conv3_1 (config6's stream12 route
 # and the standard path) and conv2_1 (the standard path's "auto" stream
 # route); bf16, not summed into the 512² pallas route's step
@@ -268,28 +277,59 @@ def out_tol(ref: torch.Tensor, dtype: str) -> float:
 
 
 def check_lap(dev, gen):
+    """lap_matvec at 512² (the step of config3 and the pallas route) and
+    at LAP_SIZES (rows with in_step False). "ms" is device time
+    (torch.profiler, `device_ms`), "events_ms" back-to-back event time,
+    which at 512² follows the host's launch rate; "strip_rows" the kernel's
+    plan. The plain version on the card divides by 9 as a product with
+    1/9, the kernel as __fdiv_rn does (checked on all floats first): they
+    differ in the last bit of some α and β, within the 1e-5 tolerance."""
+    from dpst_tpu_torch.ops import kernels
     from dpst_tpu_torch.ops import laplacian as lap
     from dpst_tpu_torch.ops import laplacian_cuda as lapc
-    img = torch.rand((SIZE, SIZE, 3), generator=gen, device=dev)
-    packed = lapc.pack_stats(lap.precompute_stats(img))
-    v3 = torch.rand((3, SIZE, SIZE), generator=gen, device=dev)
-    y = lapc.lap_matvec(packed, v3)
-    ref = lapc.lap_matvec_plain(packed, v3)
-    torch.cuda.synchronize()
-    err, rel = rel_err(y, ref)
-    tol = 1e-5
-    b, by = bound_ms(20 * SIZE * SIZE * 4, LAP_OPS_PER_PIXEL * SIZE * SIZE,
-                     "float32")
-    row = {"phase": "kernel", "name": "lap_matvec", "shape": [3, SIZE, SIZE],
-           "dtype": "float32", "max_abs_err": err, "rel_err": rel,
-           "tol_rel": tol, "ms": cuda_ms(lambda: lapc.lap_matvec(packed, v3)),
-           "plain_ms": cuda_ms(lambda: lapc.lap_matvec_plain(packed, v3),
-                               iters=5),
-           "bound_ms": b, "bound_by": by, "library_ms": None}
-    emit(row)
-    if not rel <= tol:
-        fail("kernels", f"lap_matvec rel err {rel} > {tol}")
-    return [row]
+    # the kernel divides by 9 in three fused operations: against __fdiv_rn
+    # on every float
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    kernels.check(kernels.library().dpst_lap_div9_mismatches(
+        kernels.ptr(bad), kernels.stream_ptr(bad)), "lap_div9_mismatches")
+    emit({"phase": "kernel", "name": "lap_matvec division by 9",
+          "floats_checked": 1 << 32, "mismatches_with_fdiv_rn": int(bad)})
+    if int(bad):
+        fail("kernels", f"lap_matvec: the division by 9 differs from "
+             f"__fdiv_rn at {int(bad)} floats")
+    rows = []
+    # the larger images from a generator of their own: the later checks
+    # draw what they drew before these rows were added
+    own = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for size, g in ((SIZE, gen),) + tuple((n, own) for n in LAP_SIZES):
+        img = torch.rand((size, size, 3), generator=g, device=dev)
+        packed = lapc.pack_stats(lap.precompute_stats(img))
+        v3 = torch.rand((3, size, size), generator=g, device=dev)
+        y = lapc.lap_matvec(packed, v3)
+        ref = lapc.lap_matvec_plain(packed, v3)
+        torch.cuda.synchronize()
+        err, rel = rel_err(y, ref)
+        tol = 1e-5
+        b, by = bound_ms(20 * size * size * 4,
+                         LAP_OPS_PER_PIXEL * size * size, "float32")
+        run = lambda: lapc.lap_matvec(packed, v3)
+        row = {"phase": "kernel", "name": "lap_matvec",
+               "shape": [3, size, size], "dtype": "float32",
+               "in_step": size == SIZE, "strip_rows": lapc.lap_plan(size,
+                                                                    size),
+               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
+               "ms": device_ms(run), "events_ms": cuda_ms(run),
+               "plain_ms": cuda_ms(lambda: lapc.lap_matvec_plain(packed,
+                                                                 v3),
+                                   warmup=1, iters=3),
+               "bound_ms": b, "bound_by": by, "library_ms": None}
+        emit(row)
+        rows.append(row)
+        if not rel <= tol:
+            fail("kernels", f"lap_matvec {size}²: rel err {rel} > {tol}")
+        del img, packed, v3, y, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_gram(dev, gen):
@@ -523,97 +563,128 @@ def relu_gram_input(c: int, p: int, k: int, dtype, dev, gen):
 
 def check_gram_relu(dev, gen):
     """The fused bias+ReLU Gram pair at conv1_1 of the 1024² stage, and in
-    bf16 at conv1_1 of 512² (the pallas route's; not summed into the 1024²
-    step). No PyTorch call computes bias + ReLU + masked Grams; the
+    bf16 at conv1_1 of 512² (the pallas route's) and, the backward only, of
+    4096² (the standard path's); those rows are not summed into the 1024²
+    step. No PyTorch call computes bias + ReLU + masked Grams; the
     yardstick is the gram_fwd / gram_bwd rows' torch.matmul on the
     already-cooked operand relu(z + b), which does strictly less work. The
-    bf16 forward (gram_fwd's Hopper body with a bias+ReLU prologue) is
-    timed by device time in turns with it (`in_turns`), and beside the
-    same work in separate launches: "cook with torch, then gram_fwd"."""
+    bf16 kernels (the forward: gram_fwd's Hopper body with a bias+ReLU
+    prologue; the backward: gram_relu_bwd64_body) are timed by device time
+    in turns with it (`in_turns`), and beside the same work in separate
+    launches: "cook with torch, then gram_fwd", and "cook with torch, then
+    gram_wbwd, then relu′"."""
+    from dpst_tpu_torch.ops import gram_pallas as gp
     from dpst_tpu_torch.ops import gram_s2d as g2
     from dpst_tpu_torch.ops import gram_stream as gs
     rows = []
-    # the 512² operands from a generator of their own (as in
+    # the 512² and 4096² operands from generators of their own (as in
     # check_gram_wbwd)
     own = torch.Generator(device=dev).manual_seed(SEED + 6)
-    for dtype, (c, p), in_step, gen in (
-            ("bfloat16", RELU_SHAPE, True, gen),
-            ("float32", RELU_SHAPE, True, gen),
-            ("bfloat16", RELU_SHAPE_512, False, own)):
+    big = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for dtype, (c, p), in_step, gen, fwd in (
+            ("bfloat16", RELU_SHAPE, True, gen, True),
+            ("float32", RELU_SHAPE, True, gen, True),
+            ("bfloat16", RELU_SHAPE_512, False, own, True),
+            ("bfloat16", RELU_SHAPE_4096, False, big, False)):
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
         z, b, m2, s = relu_gram_input(c, p, K, cdt, dev, gen)
         zeros = int(((z.float() + b.float()[:, None]) == 0).sum())
         ops = 2.0 * K * c * c * p
         f = g2._cook(z, b)
-        g = g2.gram_relu_fwd(z, b, m2)
-        g_ref = g2.gram_relu_fwd_plain(z, b, m2)
-        torch.cuda.synchronize()
-        err, rel = rel_err(g, g_ref)
-        # as gram_fwd: fp32 sums of 1048576 products in two orders; the
-        # errors against a float64 product of the same operands show which
-        # side drifts
-        tol = 1e-3
-        fw64 = (f.unsqueeze(0) * m2.unsqueeze(1)).double()
-        g64 = torch.matmul(f.double(), fw64.transpose(1, 2))
-        err64 = {"kernel": rel_err(g.double(), g64)[1],
-                 "plain": rel_err(g_ref.double(), g64)[1]}
-        del fw64, g64
-        lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
-        bnd, by = bound_ms((c * p + K * p + c) * isz + K * c * c * 4, ops,
-                           dtype)
-        run = lambda: g2.gram_relu_fwd(z, b, m2)
-        if dtype == "bfloat16":
-            times = in_turns(run, lib)
-            two = lambda: gs.gram_fwd(g2._cook(z, b), m2)
-            times["same_work"] = {"call": "cook with torch, then gram_fwd",
-                                  "ms": device_ms(two),
-                                  "events_ms": cuda_ms(two)}
-        else:
-            times = {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}
-        row = {"phase": "kernel", "name": "gram_relu_fwd", "shape": [c, p],
-               "K": K, "dtype": dtype, "in_step": in_step,
-               "exact_zeros": zeros, "max_abs_err": err, "rel_err": rel,
-               "tol_rel": tol, "rel_err_fp64": err64, **times,
-               "plain_ms": cuda_ms(lambda: g2.gram_relu_fwd_plain(z, b, m2),
-                                   iters=5),
-               "bound_ms": bnd, "bound_by": by,
-               "library_call": "yardstick: gram_fwd's torch.matmul on "
-                               "relu(z + b), less work"}
-        emit(row)
-        rows.append(row)
-        if not rel <= tol:
-            fail("kernels", f"gram_relu_fwd {dtype} {c}x{p}: rel err {rel}")
-        if not in_step:
-            del z, b, m2, s, f, g, g_ref
-            torch.cuda.empty_cache()
-            continue
+        if fwd:
+            rows.append(check_gram_relu_fwd(z, b, m2, f, dtype, in_step,
+                                            zeros))
         out = g2.gram_relu_bwd(z, b, m2, s)
         out_ref = g2.gram_relu_bwd_plain(z, b, m2, s)
         torch.cuda.synchronize()
         err, rel = rel_err(out, out_ref)
-        tol = 1e-2 if dtype == "bfloat16" else 1e-4
+        # bf16: one ulp of max|dz| (fp32 class products summed in two
+        # orders, rounded once), as gram_wbwd
+        tol = out_tol(out_ref, dtype) if dtype == "bfloat16" else 1e-4
+        del out, out_ref
         a = s.permute(1, 0, 2).reshape(c, K * c)
         lib = lambda: torch.matmul(
             a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
         bnd, by = bound_ms((2 * c * p + K * p + K * c * c + c) * isz, ops,
                            dtype)
+        run = lambda: g2.gram_relu_bwd(z, b, m2, s)
+        if dtype == "bfloat16":
+            times = in_turns(run, lib)
+            two = lambda: (gp.gram_wbwd(g2._cook(z, b), m2, s).float()
+                           * g2._relu_grad(z, b)).to(cdt)
+            times["same_work"] = {
+                "call": "cook with torch, then gram_wbwd, then relu′",
+                "ms": device_ms(two), "events_ms": cuda_ms(two)}
+            times["plan"] = g2.relu_bwd_plan(c, p, K)
+        else:
+            times = {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}
         row = {"phase": "kernel", "name": "gram_relu_bwd", "shape": [c, p],
-               "K": K, "dtype": dtype, "exact_zeros": zeros,
-               "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
-               "ms": cuda_ms(lambda: g2.gram_relu_bwd(z, b, m2, s)),
+               "K": K, "dtype": dtype, "in_step": in_step,
+               "exact_zeros": zeros, "max_abs_err": err, "rel_err": rel,
+               "tol_rel": tol, **times,
                "plain_ms": cuda_ms(
-                   lambda: g2.gram_relu_bwd_plain(z, b, m2, s), iters=5),
-               "bound_ms": bnd, "bound_by": by, "library_ms": cuda_ms(lib),
+                   lambda: g2.gram_relu_bwd_plain(z, b, m2, s), warmup=1,
+                   iters=3),
+               "bound_ms": bnd, "bound_by": by,
                "library_call": "yardstick: gram_bwd's torch.matmul on "
                                "relu(z + b), less work"}
         emit(row)
         rows.append(row)
         if not rel <= tol:
-            fail("kernels", f"gram_relu_bwd {dtype} {c}x{p}: rel err {rel}")
-        del z, b, m2, s, f, g, g_ref, out, out_ref
+            fail("kernels", f"gram_relu_bwd {dtype} {c}x{p}: rel err {rel} "
+                 f"> {tol}")
+        del z, b, m2, s, f
         torch.cuda.empty_cache()
     return rows
+
+
+def check_gram_relu_fwd(z, b, m2, f, dtype: str, in_step: bool,
+                        zeros: int) -> dict:
+    """The forward half of `check_gram_relu` on its operands."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
+    (c, p), isz = z.shape, z.element_size()
+    ops = 2.0 * K * c * c * p
+    g = g2.gram_relu_fwd(z, b, m2)
+    g_ref = g2.gram_relu_fwd_plain(z, b, m2)
+    torch.cuda.synchronize()
+    err, rel = rel_err(g, g_ref)
+    # as gram_fwd: fp32 sums of 1048576 products in two orders; the
+    # errors against a float64 product of the same operands show which
+    # side drifts
+    tol = 1e-3
+    fw64 = (f.unsqueeze(0) * m2.unsqueeze(1)).double()
+    g64 = torch.matmul(f.double(), fw64.transpose(1, 2))
+    err64 = {"kernel": rel_err(g.double(), g64)[1],
+             "plain": rel_err(g_ref.double(), g64)[1]}
+    del fw64, g64
+    lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
+    bnd, by = bound_ms((c * p + K * p + c) * isz + K * c * c * 4, ops,
+                       dtype)
+    run = lambda: g2.gram_relu_fwd(z, b, m2)
+    if dtype == "bfloat16":
+        times = in_turns(run, lib)
+        two = lambda: gs.gram_fwd(g2._cook(z, b), m2)
+        times["same_work"] = {"call": "cook with torch, then gram_fwd",
+                              "ms": device_ms(two),
+                              "events_ms": cuda_ms(two)}
+    else:
+        times = {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}
+    row = {"phase": "kernel", "name": "gram_relu_fwd", "shape": [c, p],
+           "K": K, "dtype": dtype, "in_step": in_step,
+           "exact_zeros": zeros, "max_abs_err": err, "rel_err": rel,
+           "tol_rel": tol, "rel_err_fp64": err64, **times,
+           "plain_ms": cuda_ms(lambda: g2.gram_relu_fwd_plain(z, b, m2),
+                               iters=5),
+           "bound_ms": bnd, "bound_by": by,
+           "library_call": "yardstick: gram_fwd's torch.matmul on "
+                           "relu(z + b), less work"}
+    emit(row)
+    if not rel <= tol:
+        fail("kernels", f"gram_relu_fwd {dtype} {c}x{p}: rel err {rel}")
+    del g, g_ref
+    return row
 
 
 def tied_pool_input(c: int, h: int, w: int, dtype, dev, gen):
@@ -641,11 +712,12 @@ def check_pool(dev, gen):
             n = c * h * w
             b, by = bound_ms(2.5 * n * isz, POOL_OPS_PER_WINDOW * n / 4,
                              dtype)
+            run = lambda: pool_cuda.maxpool2_bwd(x, y, g)
             row = {"phase": "kernel", "name": "pool_bwd",
                    "shape": [c, h, w], "dtype": dtype,
                    "max_abs_err": rel_err(gx, ref)[0], "bit_equal": equal,
-                   "tol": "bit-exact",
-                   "ms": cuda_ms(lambda: pool_cuda.maxpool2_bwd(x, y, g)),
+                   "tol": "bit-exact", "ms": device_ms(run),
+                   "events_ms": cuda_ms(run),
                    "plain_ms": cuda_ms(
                        lambda: pool_cuda.maxpool2_bwd_plain(x, y, g),
                        iters=5),
@@ -719,10 +791,10 @@ def check_edges(dev, gen) -> None:
             errs[f"gram_relu_fwd {dtype} {c}x{p} K={k}"] = (rel_err(
                 g2.gram_relu_fwd(z, b, m2),
                 g2.gram_relu_fwd_plain(z, b, m2))[1], 1e-3)
+            ref = g2.gram_relu_bwd_plain(z, b, m2, s)
             errs[f"gram_relu_bwd {dtype} {c}x{p} K={k}"] = (rel_err(
-                g2.gram_relu_bwd(z, b, m2, s),
-                g2.gram_relu_bwd_plain(z, b, m2, s))[1],
-                1e-2 if dtype == "bfloat16" else 1e-4)
+                g2.gram_relu_bwd(z, b, m2, s), ref)[1],
+                out_tol(ref, dtype) if dtype == "bfloat16" else 1e-4)
         for cin, cout, h, w in ((24, 40, 37, 53), (512, 512, 4, 4),
                                 (8, 16, 4, 4), (72, 64, 20, 40),
                                 (64, 3, 48, 256), (64, 40, 33, 70),
@@ -765,6 +837,27 @@ def check_edges(dev, gen) -> None:
             errs[f"gram_relu_fwd {dtype} {c}x{p} K={k} b>0"] = (rel_err(
                 g2.gram_relu_fwd(z, b, m2),
                 g2.gram_relu_fwd_plain(z, b, m2))[1], 1e-3)
+    # the bias+ReLU backward past the C <= 64 body's RELU_BWD_MAX_K classes
+    # (gram_wbwd's body at C = 64, its nine classes split three and nine
+    # ways), and the C <= 64 body at p tiles that pass P and at K = 8, the
+    # most it keeps; its own generator as above
+    for c, p, k in ((64, 4096, 9), (64, 520, 9), (64, 1000, 8),
+                    (48, 2056, 5)):
+        z, b, m2, s = relu_gram_input(c, p, k, torch.bfloat16, dev, own)
+        ref = g2.gram_relu_bwd_plain(z, b, m2, s)
+        errs[f"gram_relu_bwd bfloat16 {c}x{p} K={k} "
+             f"plan={g2.relu_bwd_plan(c, p + -p % 8, k)}"] = (rel_err(
+                 g2.gram_relu_bwd(z, b, m2, s), ref)[1],
+                 out_tol(ref, "bfloat16"))
+    # lap_matvec where the plan gives strips of two rows (the sizes above
+    # take one) and at an image one strip wide
+    for h, w in ((300, 200), (129, 30)):
+        img = torch.rand((h, w, 3), generator=own, device=dev)
+        packed = lapc.pack_stats(lap.precompute_stats(img))
+        v3 = torch.rand((3, h, w), generator=own, device=dev)
+        errs[f"lap_matvec {h}x{w} rows={lapc.lap_plan(h, w)}"] = (rel_err(
+            lapc.lap_matvec(packed, v3),
+            lapc.lap_matvec_plain(packed, v3))[1], 1e-5)
     torch.cuda.synchronize()
     emit({"phase": "kernel_edges", "rel_err_and_tol": errs})
     bad = [name for name, (e, tol) in errs.items() if not e <= tol]
@@ -1771,7 +1864,7 @@ def summarize(rows: list, launches: dict) -> list:
         "gram_relu_fwd": ("dpst_tpu_torch/csrc/gram.cu",
                           "dpst_tpu/ops/gram_s2d.py:231",
                           "dpst_tpu/ops/gram_s2d.py:138", "bfloat16"),
-        "gram_relu_bwd": ("dpst_tpu_torch/csrc/gram.cu",
+        "gram_relu_bwd": ("dpst_tpu_torch/csrc/gram_relu_bwd.cu",
                           "dpst_tpu/ops/gram_s2d.py:260",
                           "dpst_tpu/ops/gram_s2d.py:175", "bfloat16"),
         "gram_wbwd": ("dpst_tpu_torch/csrc/gram.cu",
@@ -1837,7 +1930,10 @@ def wgmma_resources(lib) -> dict:
                           "gram_bwd (128-row c tile)",
                           "gram_relu_fwd (bias+ReLU prologue)",
                           "gram_wbwd (64-row c tile, C = 64)",
-                          "gram_wbwd (128-row c tile, C = 512)"))]
+                          "gram_wbwd (128-row c tile, C = 512)",
+                          "gram_relu_bwd (C <= 64 body, K = 4)",
+                          "gram_relu_bwd (gram_wbwd's body, 128-row c "
+                          "tile, C = 512)"))]
     entries += [(functools.partial(lib.dpst_conv3x3_attrs, bn, cps), None,
                  f"conv3x3 (N tile {bn}, {what})")
                 for bn, cps, what in (

@@ -24,8 +24,8 @@
 // z is the (C, P) NCHW plane of the raw conv output, the masks the (K, P)
 // m2 stack, and any C is accepted (the TPU's v2 hard-codes C = 64). The
 // forward is gram_fwd with a bias+ReLU prologue where F enters shared
-// memory; the backward forms (S_k . F) per class on the tiles, then scales
-// by m2_k and relu' in fp32 on the output tile.
+// memory; the backward forms (S_k . F) per class, then scales by m2_k and
+// relu' in fp32.
 //
 // gram_wbwd replaces the TPU kernels dpst_tpu/ops/gram_pallas.py:_bwd_kernel
 // (launched by _bwd_call) and dpst_tpu/ops/gram_stream.py:_bwd_kernel,
@@ -52,17 +52,21 @@
 // pipelining. The forward tile and the backward tile of gram_bwd live in
 // gram_tile.cuh, shared with block12.cu.
 //
-// gram_fwd, gram_relu_fwd, gram_bwd and gram_wbwd in bf16 run other
-// bodies, written for Hopper (gram_wgmma.cuh): wgmma tiles fed by a
-// cp.async ring, F read once for all K classes. The forwards form the
-// weighted operand in registers (gram_relu_fwd cooks relu(z + b) in shared
-// memory first); gram_bwd weights before its one product, gram_wbwd walks
-// the classes outer and folds each class's product, weighted, into a
-// second accumulator. They need P % 8 == 0 (16-byte rows; the wrapper pads
-// P with zero columns), the backwards take the cotangent as the (C, K *
-// Cp) matrix A described at dpst_gram_bwd, and the forwards' split chunk
-// is a multiple of 128. Their fp32 bodies are the tiles above; gram_relu_bwd
-// keeps them in bf16 too.
+// All five in bf16 run other bodies, written for Hopper (gram_wgmma.cuh):
+// wgmma tiles fed by a cp.async ring, F read once for all K classes. The
+// forwards form the weighted operand in registers (gram_relu_fwd cooks
+// relu(z + b) in shared memory first); gram_bwd weights before its one
+// product, gram_wbwd walks the classes outer and folds each class's
+// product, weighted, into a second accumulator; gram_relu_bwd (launched
+// from gram_relu_bwd.cu) runs gram_wbwd's body with a cook of each z chunk
+// where it lands and relu' before the store, or, at C <= 64 and at most
+// gram90::RMAXK classes, gram_relu_bwd64_body (the cotangent resident, a
+// tile's class products two at a time, raw z tiles kept in flight by each
+// of four warpgroups on its own).
+// They need P % 8 == 0 (16-byte rows; the wrapper pads P with zero
+// columns), the backwards take the cotangent as the (C, K * Cp) matrix A
+// described at dpst_gram_bwd, and the forwards' split chunk is a multiple
+// of 128. Their fp32 bodies are the tiles above.
 //
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second
@@ -449,6 +453,16 @@ void launch_relu_bwd(const void* z, const void* bias, const void* m2,
 
 }  // namespace
 
+// The bf16 bias+ReLU backward and its resources, in gram_relu_bwd.cu (a
+// translation unit of its own, so that gram_wbwd's kernels here compile as
+// they did without it).
+extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
+                                       const void* m2, const void* s,
+                                       void* work, void* out, int C, int P,
+                                       int K, int tile, int groups,
+                                       int splits, void* stream);
+extern "C" int dpst_gram_relu_bwd_attrs(int which, int* out);
+
 // work: (splits, K, C, C) fp32 scratch, unused when splits == 1;
 // out: (K, C, C) fp32. Each split covers `chunk` pixels: a multiple of 32
 // in fp32; in bf16 a multiple of 64, with P % 8 == 0.
@@ -518,17 +532,23 @@ extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// s: (K, C, C) symmetrized cotangent in the compute dtype; out: dz (C, P).
+// z: (C, P) raw conv output, bias: (C,), m2: (K, P), in the compute dtype;
+// out: dz (C, P). s, work, tile, groups and splits as for dpst_gram_wbwd
+// (in bf16 the matrix A, P % 8 == 0, C <= 512); in bf16 with C <= 64, K <=
+// 8 and splits == 1 the tile is 64 and `groups` blocks walk the p tiles of
+// gram90::RPIX pixels.
 extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
-                                  const void* m2, const void* s, void* out,
-                                  int C, int P, int K, int dtype,
+                                  const void* m2, const void* s, void* work,
+                                  void* out, int C, int P, int K, int tile,
+                                  int groups, int splits, int dtype,
                                   void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
     launch_relu_bwd<float>(z, bias, m2, s, out, C, P, K, st);
   else if (dtype == DPST_DTYPE_BF16)
-    launch_relu_bwd<__nv_bfloat16>(z, bias, m2, s, out, C, P, K, st);
+    return dpst_gram_relu_bwd_bf16(z, bias, m2, s, work, out, C, P, K, tile,
+                                   groups, splits, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -564,12 +584,13 @@ extern "C" int dpst_gram_wbwd(const void* f, const void* m2, const void* s,
 // Resources of the Hopper bodies, for the record: which = 0 gram_fwd, 1
 // gram_bwd with 64-row c tiles, 2 with 128-row c tiles, 3 gram_relu_fwd,
 // 4 gram_wbwd with 64-row c tiles (its shared memory at C = 64), 5 with
-// 128-row c tiles (at C = 512, the most it takes).
+// 128-row c tiles (at C = 512, the most it takes), 6 gram_relu_bwd's own
+// body at C <= 64 (its shared memory at K = 4), 7 gram_relu_bwd on
+// gram_wbwd's body with 128-row c tiles (at C = 512).
 // out: registers a thread, local memory bytes a thread (spills and stack),
 // dynamic shared memory bytes a block, resident blocks an SM.
 extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
   cudaGetLastError();  // clear an error left by an earlier call
-  cudaFuncAttributes at{};
   size_t smem = 0;
   int threads = gram90::NT;
   const void* fn = nullptr;
@@ -593,22 +614,11 @@ extern "C" int dpst_gram_wgmma_attrs(int which, int* out) {
     fn = reinterpret_cast<const void*>(gram_wbwd_wgmma_kernel<128>);
     smem = gram90::wbwd_smem<128, gram90::WSTAGES>(gram90::WMAXC);
     threads = gram90::WNT;
+  } else if (which == 6 || which == 7) {
+    return dpst_gram_relu_bwd_attrs(which, out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncGetAttributes(&at, fn);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
-                                                        smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = at.numRegs;
-  out[1] = static_cast<int>(at.localSizeBytes);
-  out[2] = static_cast<int>(smem);
-  out[3] = blocks;
-  return 0;
+  return gram90::record_attrs(fn, smem, threads, out);
 }
 

@@ -10,12 +10,15 @@
 //              dF  = round( sum_k (S_k . F)[c] * m2_k ), each class's
 //              product summed in fp32, then times m2_k in fp32, folded in
 //              class order
+//              (gram_relu_bwd: F = round(max(z + b, 0)), and the sum
+//              times relu'(z + b) in fp32 before the rounding: dz)
 //
 // They replace the TPU kernels dpst_tpu/ops/gram_stream.py:_fwd_kernel
 // (launched by _gram_fwd_call) and :_bwd_kernel (launched by
 // _gram_raw_bwd), with the rounding of dpst_tpu/ops/losses.py:
-// _grams_raw_flat, dpst_tpu/ops/gram_s2d.py:_fwd_kernel2 and :_fwd_kernel,
-// and dpst_tpu/ops/gram_pallas.py:_bwd_kernel. Summation orders differ
+// _grams_raw_flat, dpst_tpu/ops/gram_s2d.py:_fwd_kernel2, :_fwd_kernel,
+// :_bwd_kernel2 and :_bwd_kernel, and dpst_tpu/ops/gram_pallas.py:
+// _bwd_kernel. Summation orders differ
 // from the TPU's; every product accumulates in fp32, the weighted operand
 // is rounded to bf16 as the JAX package forms it, dF is rounded once, and
 // no float atomics are used, so a rerun is bit-identical.
@@ -73,6 +76,13 @@
 //     cotangent tile, which halves the cotangent's traffic from L2 against
 //     one warpgroup's 64 pixels (that traffic, not the tensor cores, holds
 //     gram_bwd's body). See gram_wbwd_body.
+//   bias+ReLU backward (gram_relu_bwd): gram_wbwd_body with a cook of each
+//     z chunk where it lands and relu' before the store, for any C; at C
+//     <= 64 (conv1_1, the only tap that takes it on the main paths) a body
+//     of its own, bound by bytes: the whole cotangent resident, four
+//     warpgroups each with its own ring of raw z tiles run ahead, and a
+//     tile's class products issued two at a time in dz's own layout (S_k
+//     times F, F read transposed). See gram_relu_bwd64_body.
 // Rows need 16-byte alignment: P % 8 == 0 (the wrapper pads P with zero
 // columns, which add nothing to G and whose dF is dropped).
 #pragma once
@@ -606,11 +616,33 @@ struct WbwdArgs {
   int C, P, K, kps;
 };
 
+// gram_relu_bwd's operands: gram_wbwd's, with f the raw tap z, and its
+// bias b (C,).
+struct ReluBwdArgs : WbwdArgs {
+  const bf16* bias;
+};
+
 constexpr int WNT = 2 * NT;  // two warpgroups
 constexpr int WPIX = 128;    // pixels of a p tile, 64 a warpgroup
 constexpr int WMAXC = 512;   // channels whose F chunks fit shared memory
 constexpr int CHUNK_BYTES = 2 * TILE_BYTES;  // 64 channels x WPIX pixels
 constexpr int WSTAGES = 4;   // slots of its ring
+
+// relu'(x) of the plain version (the subgradient of max(x, 0) that splits
+// ties): 1 above 0, 1/2 at exactly 0, 0 below
+__device__ __forceinline__ float relu_grad(float x) {
+  return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+}
+
+// Eight bf16 of the raw tap (a 16-byte piece of one row) cooked:
+// round(max(z + b, 0)).
+__device__ __forceinline__ uint4 cook16(uint4 v, float b) {
+  v.x = cook2(v.x, b);
+  v.y = cook2(v.y, b);
+  v.z = cook2(v.z, b);
+  v.w = cook2(v.w, b);
+  return v;
+}
 
 // F chunk slots of the weighted-after backward with a ring of NS slots: a
 // p tile's ceil(C / 64) chunks, and at least NS, so that the next tile's
@@ -645,11 +677,18 @@ __host__ __device__ constexpr int wbwd_fslots(int C, int NS) {
 // an earlier version of this body on the H100). The cotangent tiles and the
 // masks come through a ring of NS slots that runs on across p tiles, NS -
 // 2 items ahead. A class's fold waits for its last products
-// (wgmma_wait<0>), the one point where the tensor cores drain. The
-// bias+ReLU backward (gram_relu_bwd) fits the same walk: cook each F chunk
-// where it lands and apply relu'(z + b) before the store.
-template <int N, int NS>
-__device__ __forceinline__ void gram_wbwd_body(const WbwdArgs& ar) {
+// (wgmma_wait<0>), the one point where the tensor cores drain.
+//
+// RELU (gram_relu_bwd above 64 channels, or past RMAXK classes) takes f as
+// the raw tap z: each F chunk is cooked in place, round(max(z + b, 0)) with
+// b = 0 on rows past C, when it lands (with the split's first class), and
+// the epilogue multiplies each weighted sum by relu'(z + b), z read again
+// from device memory (the cooked chunk has lost the sign of z + b), before
+// the rounding or the split partial (relu' is 0, 1/2 or 1: exact, so the
+// split partials may take it one by one). Without RELU (gram_wbwd) both
+// steps are compiled out.
+template <int N, int NS, bool RELU = false, typename Args = WbwdArgs>
+__device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
   constexpr int SBYTES = N * 128;  // a cotangent tile: N rows of 64 c'
   constexpr int D = NS - 2;        // items loaded ahead
   static_assert(N * 64 * 2 == SBYTES, "a staging tile fills a ring slot");
@@ -749,6 +788,22 @@ __device__ __forceinline__ void gram_wbwd_body(const WbwdArgs& ar) {
   // read by finished products) to 16-byte rows of out, or fp32 partials
   auto epilogue = [&](const Pos& q, int slot) {
     const int px0 = q.p0 + wg * 64;
+    if constexpr (RELU) {
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cr = c0 + 8 * n + 2 * t + e;
+            const int p = px0 + w * 16 + g + 8 * h;
+            if (cr < C && p < P) {
+              float& v = tot[4 * n + 2 * h + e];
+              v = __fmul_rn(v, relu_grad(__fadd_rn(to_f(f[cr * ldf + p]),
+                                                   to_f(ar.bias[cr]))));
+            }
+          }
+    }
     if (ar.work == nullptr) {
       __syncthreads();  // both warpgroups are done with the two slots
       unsigned char* tb =
@@ -803,6 +858,22 @@ __device__ __forceinline__ void gram_wbwd_body(const WbwdArgs& ar) {
       advance(ql);
     }
     cp_async_commit();
+    if constexpr (RELU) {
+      if (qc.k == kb) {
+        // the chunk landed with this item: cook it before any product
+        unsigned char* fc = fslot(qc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = tid + WNT * i, r = e >> 4, c = e & 15;
+          const int cr = qc.j * 64 + r;
+          uint4* q = reinterpret_cast<uint4*>(fc + (c >> 3) * TILE_BYTES +
+                                              swz(r, c & 7));
+          *q = cook16(*q, cr < C ? to_f(ar.bias[cr]) : 0.0f);
+        }
+        fence_proxy_async();  // generic stores, then wgmma's async reads
+        __syncthreads();
+      }
+    }
     const int slot = it % NS;
     // A = F^T: the warpgroup's tile of the chunk, 16 channel rows a step
     const uint64_t adesc =
@@ -840,6 +911,226 @@ __device__ __forceinline__ void gram_wbwd_body(const WbwdArgs& ar) {
   cp_async_wait<0>();
 }
 
+// the C <= 64 bias+ReLU backward: four warpgroups (the most that its 128
+// registers a thread allow) hide more latency than two with deeper rings
+constexpr int RNS = 3;     // raw z slots of each warpgroup's ring
+constexpr int RWG = 4;     // warpgroups of a block
+constexpr int RPIX = 64 * RWG;  // pixels of its p tile, 64 a warpgroup
+constexpr int RKA = 2;     // class products issued before one drain
+constexpr int RMAXK = 8;   // classes whose cotangent tiles stay resident
+
+// Named barrier of one warpgroup (ids 1, 2, ...; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(NT) : "memory");
+}
+
+// The bias+ReLU backward at C <= 64 and K <= RMAXK (gram_relu_bwd at
+// conv1_1: C = 64, K = 4, P = 2^18 .. 2^24). Grid (groups), RWG * NT
+// threads, one block an SM (its shared memory: relu_bwd64_smem). There one
+// 64 x 64 product a class serves a 64-pixel tile, 128 KB of z and dz a
+// class product: the kernel is bound by bytes (z in, dz out), and the
+// design keeps everything else off that stream and the stream itself in
+// flight:
+//   - the cotangent a (C x K*Cp) lands once, as K swizzled tiles of 64
+//     rows, and stays for the block's life;
+//   - block g walks the RPIX-pixel p tiles g, g + groups, ...; warpgroup h
+//     takes pixels 64h .. 64h + 63 of each, on its own: its own ring of
+//     RNS raw z tiles (with their masks), run RNS - 1 tiles ahead by
+//     cp.async, its own F tile and its own named barrier, so that one
+//     warpgroup's cook and stores overlap another's products;
+//   - a landed z tile is cooked from its ring slot into the F tile (the
+//     raw tile stays: relu' needs the sign of z + b, which the cooked
+//     zero has lost);
+//   - a class's product is dz's own layout, S_k (A, the resident tile,
+//     K-major) times F (B, the F tile read transposed): a thread's
+//     accumulators hold pixel pairs of two channels, so the masks, the raw
+//     z and the staged dz move as bf16 pairs;
+//   - the tile's class products are issued RKA at a time back to back,
+//     drained once, and folded into the weighted sum in class order (tot
+//     = tot + prod * m2_k, rounded apart, as the plain version); reading
+//     one accumulator while another class's product is in flight makes
+//     ptxas serialize them, and four warpgroups leave 128 registers a
+//     thread, so RKA = 2;
+//   - the epilogue multiplies by relu'(z + b) (z from the raw slot, b on
+//     rows past C 0), rounds once, stages the tile in the F tile and
+//     stores it as 16-byte rows, which drain while the next tile's
+//     products run.
+// Pixels past P (the wrapper pads P to 8; a p tile may pass P) load as
+// zeros, cook to relu(b), meet zero masks and are never stored; rows past
+// C cook to 0, meet zero cotangent columns and are never stored.
+template <int NS, int NWG>
+__device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const bf16* __restrict__ z = ar.f;
+  const bf16* __restrict__ m2 = ar.m2;
+  const bf16* __restrict__ a = ar.a;
+  const int C = ar.C, K = ar.K, P = ar.P;
+  const size_t ldf = static_cast<size_t>(ar.ldf);
+  const size_t ldm = static_cast<size_t>(ar.ldm);
+  const int cpad = (C + 7) & ~7;
+  const size_t lda = static_cast<size_t>(K) * cpad;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & (NT - 1);
+  const int w = wt >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int ntile = ((P + 64 * NWG - 1) / (64 * NWG) - 1 - bx) / gx + 1;
+  // [K cotangent tiles][NWG F tiles][NWG x NS raw z tiles][NWG x NS mask
+  // slots of K rows of 64 pixels]
+  unsigned char* cot = sm;
+  unsigned char* ft = sm + (K + wg) * TILE_BYTES;
+  unsigned char* zr = sm + (K + NWG + wg * NS) * TILE_BYTES;
+  unsigned char* mr =
+      sm + (K + NWG + NWG * NS) * TILE_BYTES + wg * NS * K * 128;
+
+  // the warpgroup's part of its u-th p tile: z rows into slot u % NS (row
+  // r a channel, 16-byte pieces swizzled as wgmma reads F), the masks
+  // m2[k][p0 .. p0 + 64) behind it
+  auto load = [&](int u) {
+    const int s = u % NS;
+    const int p0 = (bx + u * gx) * (64 * NWG) + wg * 64;
+    const uint32_t za = smem_addr(zr + s * TILE_BYTES);
+#pragma unroll
+    for (int e = wt; e < 64 * 8; e += NT) {
+      const int r = e >> 3, c = e & 7, p = p0 + c * 8;
+      const bool v = r < C && p < P;
+      cp_async16(za + swz(r, c), v ? z + r * ldf + p : z, v);
+    }
+    if (wt < K * 8) {
+      const int q = wt >> 3, c = wt & 7, p = p0 + c * 8;
+      const bool v = p < P;
+      cp_async16(smem_addr(mr + (s * K + q) * 128 + c * 16),
+                 v ? m2 + q * ldm + p : m2, v);
+    }
+  };
+
+  // the cotangent, tile k = a[0 .. 64, k*cpad .. k*cpad + 64) (zero past
+  // C rows and past cpad columns), then the first NS - 1 tiles
+  for (int e = tid; e < K * 64 * 8; e += NWG * NT) {
+    const int k = e >> 9, r = (e >> 3) & 63, c = e & 7;
+    const bool v = r < C && c * 8 < cpad;
+    cp_async16(smem_addr(cot + k * TILE_BYTES) + swz(r, c),
+               v ? a + r * lda + k * cpad + c * 8 : a, v);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int u = 0; u < NS - 1; ++u) {
+    if (u < ntile) load(u);
+    cp_async_commit();
+  }
+
+  // the biases of the rows this thread cooks (pieces wt + NT i: rows
+  // (wt >> 3) + 16 i) and of the channels its accumulators hold (16w + g
+  // and 16w + g + 8); 0 past C
+  float bc[4], bo[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (wt >> 3) + 16 * i;
+    bc[i] = r < C ? to_f(ar.bias[r]) : 0.0f;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * w + g + 8 * h;
+    bo[h] = r < C ? to_f(ar.bias[r]) : 0.0f;
+  }
+
+  cp_async_wait<NS - 1>();  // the cotangent landed (every thread's part)
+  fence_proxy_async();
+  __syncthreads();
+
+  // acc: RKA classes' products; tot: the weighted sum. [4n + 2h + e]:
+  // channel 16w + g + 8h, pixel 8n + 2t + e of the warpgroup's 64
+  float acc[RKA][32], tot[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tot[i] = 0.0f;
+  const uint64_t fdesc = make_desc(smem_addr(ft));
+  const uint32_t cot_a = smem_addr(cot);
+
+  for (int u = 0; u < ntile; ++u) {
+    cp_async_wait<NS - 2>();
+    wg_sync(wg);  // tile u landed; slot u - 1 and the F tile are free
+    if (u + NS - 1 < ntile) load(u + NS - 1);
+    cp_async_commit();
+    const int s = u % NS;
+    const unsigned char* zs = zr + s * TILE_BYTES;
+    const unsigned char* ms = mr + s * K * 128;
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = wt + NT * i;
+      const uint32_t off = swz(e >> 3, e & 7);
+      *reinterpret_cast<uint4*>(ft + off) =
+          cook16(*reinterpret_cast<const uint4*>(zs + off), bc[i]);
+    }
+    fence_proxy_async();  // generic stores, then wgmma's async reads
+    wg_sync(wg);
+
+    // RKA classes' products back to back, one drain, then their folds in
+    // class order
+    for (int k0 = 0; k0 < K; k0 += RKA) {
+#pragma unroll
+      for (int q = 0; q < RKA; ++q) {
+        if (k0 + q < K) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[q][i] = 0.0f;
+          wgmma_fence();
+          const uint64_t adesc = make_desc(cot_a + (k0 + q) * TILE_BYTES);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_64tb(acc[q], adesc + 2 * ks, fdesc + 128 * ks);
+          wgmma_commit();
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < RKA; ++q) {
+        if (k0 + q < K) {
+          fence_regs(acc[q]);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const float2 m = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    ms + (k0 + q) * 128 + n * 16 + t * 4));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * n + 2 * h;
+              tot[i] = __fadd_rn(tot[i], __fmul_rn(acc[q][i], m.x));
+              tot[i + 1] =
+                  __fadd_rn(tot[i + 1], __fmul_rn(acc[q][i + 1], m.y));
+            }
+          }
+        }
+      }
+    }
+    wg_sync(wg);  // every warp's products are done: the F tile is free
+
+    // dz = round(tot * relu'(z + b)), pixel pairs staged in the F tile's
+    // layout
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * n + 2 * h;
+        const uint32_t off = swz(16 * w + g + 8 * h, n) + t * 4;
+        const float2 zf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(zs + off));
+        *reinterpret_cast<__nv_bfloat162*>(ft + off) = __floats2bfloat162_rn(
+            __fmul_rn(tot[i], relu_grad(__fadd_rn(zf.x, bo[h]))),
+            __fmul_rn(tot[i + 1], relu_grad(__fadd_rn(zf.y, bo[h]))));
+        tot[i] = tot[i + 1] = 0.0f;
+      }
+    wg_sync(wg);
+    const int p0 = (bx + u * gx) * (64 * NWG) + wg * 64;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = wt + NT * i, r = e >> 3, c = e & 7, p = p0 + c * 8;
+      if (r < C && p < P)
+        *reinterpret_cast<uint4*>(ar.out + r * ldf + p) =
+            *reinterpret_cast<const uint4*>(ft + swz(r, c));
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // out[i] = round(work[0][i] + work[1][i] + ...): split partials summed in
 // split order, rounded once.
 __device__ __forceinline__ void reduce_round(const float* __restrict__ work,
@@ -873,6 +1164,31 @@ template <int N, int NS>
 inline size_t wbwd_smem(int C) {
   return static_cast<size_t>(wbwd_fslots(C, NS)) * CHUNK_BYTES +
          NS * (N * 128 + WPIX * 2) + 1024;
+}
+inline size_t relu_bwd64_smem(int K) {
+  return static_cast<size_t>(K + RWG + RWG * RNS) * TILE_BYTES +
+         RWG * RNS * K * 128 + 1024;
+}
+
+// Resources of kernel fn for the record (dpst_gram_wgmma_attrs): out =
+// registers a thread, local memory bytes a thread (spills and stack),
+// dynamic shared memory bytes a block, resident blocks an SM.
+inline int record_attrs(const void* fn, size_t smem, int threads, int* out) {
+  cudaFuncAttributes at{};
+  cudaError_t err = cudaFuncGetAttributes(&at, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace gram90

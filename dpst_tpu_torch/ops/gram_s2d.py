@@ -20,6 +20,16 @@ The TPU kernels read the tap as a space-to-depth parity grid, contract it
 in two-half 128-lane diagonal blocks and pack the masks into lanes. Those
 are layout devices of the TPU and are not carried: the operands here are
 the ones `gram_stream` takes, and any C and any K are accepted.
+
+In bf16 both run Hopper bodies of csrc/gram_wgmma.cuh on `gram_stream`'s
+padding (P to a multiple of 8) and, for the backward, its cotangent matrix
+(`s_matrix`). The forward is `gram_fwd`'s body with a bias+ReLU prologue.
+The backward is `gram_wbwd`'s class-outer order with the cook and relu′
+added (C up to 512): at C <= 64 and up to RELU_BWD_MAX_K classes — conv1_1,
+the only tap the fused route takes — a body of its own, bound by bytes,
+that keeps the cotangent resident and the raw tap in flight; above, the
+`gram_wbwd` body itself, cooking each chunk where it lands. `relu_bwd_plan`
+gives either its grid.
 """
 from __future__ import annotations
 
@@ -28,8 +38,11 @@ from typing import NamedTuple
 import torch
 
 from . import kernels
-from .gram_pallas import class_sum_plain
-from .gram_stream import gram_fwd_plain, launch_fwd, normalize
+from .gram_pallas import WBWD_MAX_C, class_sum_plain, wbwd_plan
+from .gram_stream import _SMS, gram_fwd_plain, launch_bwd, launch_fwd, normalize
+
+RELU_BWD_MAX_K = 8   # classes whose cotangent tiles the C <= 64 body keeps
+RELU_BWD_PIXELS = 256  # pixels of its p tile, 64 for each of 4 warpgroups
 
 
 class RawTap(NamedTuple):
@@ -87,24 +100,32 @@ def gram_relu_fwd(z: torch.Tensor, b: torch.Tensor,
     return launch_fwd("gram_relu_fwd", z, m2, b)
 
 
+def relu_bwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
+    """(c tile, groups, splits) of the bf16 backward, as the kernel takes
+    them. At C <= 64 and K <= RELU_BWD_MAX_K its own body: one 64-row c
+    tile, all K classes in every block (splits = 1), and `groups` blocks,
+    at most one an SM, walking the RELU_BWD_PIXELS-pixel p tiles. Else
+    `gram_wbwd`'s plan, which its body takes."""
+    if c <= 64 and k <= RELU_BWD_MAX_K:
+        return 64, min(-(-p // RELU_BWD_PIXELS), _SMS), 1
+    return wbwd_plan(c, p, k)
+
+
 def gram_relu_bwd(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
                   s: torch.Tensor) -> torch.Tensor:
     """dz of the raw masked Grams of relu(z + b). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (csrc/gram.cu)."""
+    plain version; CUDA tensors launch the kernel (csrc/gram.cu; in bf16
+    csrc/gram_relu_bwd.cu, on `relu_bwd_plan`, with C <= WBWD_MAX_C)."""
     _check(z, b, m2)
     c, p = z.shape
     k = m2.shape[0]
     kernels.require(s, "s", (k, c, c), z.dtype)
     if not kernels.on_cuda(z, b, m2, s):
         return gram_relu_bwd_plain(z, b, m2, s)
-    out = torch.empty_like(z)
-    rc = kernels.library().dpst_gram_relu_bwd(
-        kernels.ptr(z), kernels.ptr(b), kernels.ptr(m2), kernels.ptr(s),
-        kernels.ptr(out), c, p, k, kernels.DTYPE_CODES[z.dtype],
-        kernels.stream_ptr(z))
-    kernels.check(rc, "gram_relu_bwd")
-    kernels.LAUNCHES["gram_relu_bwd"] += 1
-    return out
+    if z.dtype == torch.bfloat16 and c > WBWD_MAX_C:
+        raise ValueError(f"gram_relu_bwd in bf16 takes C <= {WBWD_MAX_C}, "
+                         f"not {c}")
+    return launch_bwd("gram_relu_bwd", z, m2, s, relu_bwd_plan, bias=b)
 
 
 class GramReluRaw(torch.autograd.Function):

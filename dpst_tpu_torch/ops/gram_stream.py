@@ -178,12 +178,14 @@ def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
 
 
 def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
-               s: torch.Tensor, plan) -> torch.Tensor:
-    """Launch the backward kernel `name` ("gram_bwd" or "gram_wbwd",
-    csrc/gram.cu) on the CUDA (C, P) tap f, (K, P) m² and (K, C, C)
-    cotangent s; returns dF (C, P). In bf16 (the Hopper bodies) P is padded
-    to a multiple of 8, s goes as `s_matrix(s)` and `plan(C, P, K)` gives
-    (c tile, groups, splits), with fp32 split partials where splits > 1."""
+               s: torch.Tensor, plan,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the backward kernel `name` ("gram_bwd", "gram_wbwd", or
+    "gram_relu_bwd" with the (C,) `bias` and f the raw tap z, csrc/gram.cu)
+    on the CUDA (C, P) tap f, (K, P) m² and (K, C, C) cotangent s; returns
+    dF (C, P). In bf16 (the Hopper bodies) P is padded to a multiple of 8,
+    s goes as `s_matrix(s)` and `plan(C, P, K)` gives (c tile, groups,
+    splits), with fp32 split partials where splits > 1."""
     c, p = f.shape
     k = m2.shape[0]
     tile = groups = splits = 1
@@ -195,10 +197,11 @@ def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
             work = torch.empty((splits, c, f.shape[1]), dtype=torch.float32,
                                device=f.device)
     out = torch.empty_like(f)
+    operands = (f, m2, s) if bias is None else (f, bias, m2, s)
     rc = getattr(kernels.library(), "dpst_" + name)(
-        kernels.ptr(f), kernels.ptr(m2), kernels.ptr(s), kernels.ptr(work),
-        kernels.ptr(out), c, f.shape[1], k, tile, groups, splits,
-        kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
+        *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out), c,
+        f.shape[1], k, tile, groups, splits, kernels.DTYPE_CODES[f.dtype],
+        kernels.stream_ptr(f))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return out if out.shape[1] == p else out[:, :p].contiguous()

@@ -125,11 +125,12 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, p]
+        lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, i, p]
+        lib.dpst_lap_div9_mismatches.argtypes = [p, p]
         lib.dpst_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.dpst_gram_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.dpst_gram_relu_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.dpst_gram_relu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.dpst_gram_relu_bwd.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.dpst_gram_wbwd.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
         lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
@@ -144,7 +145,8 @@ def library() -> ctypes.CDLL:
         lib.dpst_block12_gram_dz.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dpst_block12_df_plan.argtypes = [i] * 6 + [p]
         lib.dpst_block12_df_attrs.argtypes = [i, p]
-        for fn in (lib.dpst_lap_matvec, lib.dpst_gram_fwd,
+        for fn in (lib.dpst_lap_matvec, lib.dpst_lap_div9_mismatches,
+                   lib.dpst_gram_fwd,
                    lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
                    lib.dpst_gram_relu_bwd, lib.dpst_gram_wbwd,
                    lib.dpst_pool2_bwd, lib.dpst_conv3x3,
