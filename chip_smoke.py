@@ -76,8 +76,23 @@ no result):
                  its device time and loop peak, which must be above the
                  route's; a bit-identical rerun at 1024² (stream12=8); a
                  256² fp32 run of the route, card against CPU;
-  8. the {"kernels": [...]} summary and the nvidia-smi line;
-  9. the last line: {"ok": true, "device": {...}}.
+  8. lbfgs    -- the fifth path: `stylize` with PRESETS["config3"] and
+                 optimizer="lbfgs", post_smooth=2, post_smooth_eps=1e-4 at
+                 512² (100 L-BFGS steps, callback at 50, four band masks):
+                 steps/s and evaluations/s past the callback, the
+                 evaluations E and their counts per step, capped and safe
+                 steps, precompute seconds, the post-smoothing's device
+                 time, peak memory; counters reset just before and read
+                 just after, equal to what E implies; the loss falls, the
+                 output is finite in [0, 255]; a 10-step rerun gives the
+                 first rows bit for bit, and its image again with
+                 history_terms="full"; 10 checkpointed steps resumed to 20
+                 equal the straight run bit for bit; smooth_local_affine on
+                 the card against the CPU; a profile of ten steps; a 64²
+                 fp32 run, card against CPU, within the L-BFGS golden's
+                 bounds;
+  9. the {"kernels": [...]} summary and the nvidia-smi line;
+  10. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -137,6 +152,9 @@ POOL_OPS_PER_WINDOW = 13
 B12_SIZE = 4096                                # config6 (bench.py): 4096²
 B12_ITERS = 10                                 # Adam steps of the route
 B12_STD_ITERS = 3                              # the standard path beside it
+LBFGS_ITERS = 100      # L-BFGS path steps (callback at LBFGS_ITERS // 2)
+LBFGS_SHORT = 10       # its reruns, resume halves and 64² reference
+SLA_TOL = 0.05         # smooth_local_affine, card against CPU, [0, 255]
 # (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
 # shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
 # bands), avg pooling, one band with tied maxima, five classes, and W = 260
@@ -1327,6 +1345,19 @@ def textured_image(gen, dev, size: int) -> np.ndarray:
     return img.clamp(0, 255).contiguous().cpu().numpy()
 
 
+def precompute_seconds(dev, cfg, params, *arrays) -> float:
+    """`prepare_constants` alone, through the public entry point, on
+    (content, style, content masks, style masks): warm, then timed."""
+    import dpst_tpu_torch
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    dpst_tpu_torch.prepare_constants(*args, cfg, params)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dpst_tpu_torch.prepare_constants(*args, cfg, params)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
     """One single-scale main path at SIZE² on a seeded pair with the four
     band masks: `prepare_constants` alone (warm, timed), then `stylize`
@@ -1343,16 +1374,8 @@ def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
     cmask, smask = band_masks(0), band_masks(1)
     params = vgg.get_params(seed=SEED, device=dev)
 
-    # precompute alone, through the public entry point
-    args = [torch.from_numpy(a).to(dev) for a in (content, style, cmask,
-                                                  smask)]
-    dpst_tpu_torch.prepare_constants(*args, cfg, params)   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dpst_tpu_torch.prepare_constants(*args, cfg, params)
-    torch.cuda.synchronize()
-    precompute_s = time.perf_counter() - t0
-    del args
+    precompute_s = precompute_seconds(dev, cfg, params, content, style,
+                                      cmask, smask)
 
     marks = {}
 
@@ -1542,6 +1565,17 @@ def emit_profile(label: str, first: int, steps: int, run, cfg,
           "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms})
 
 
+def stripe_masks(k: int, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """k content masks in horizontal stripes, k style masks in vertical
+    ones."""
+    cm = np.zeros((k, size, size), np.float32)
+    sm = np.zeros((k, size, size), np.float32)
+    for i in range(k):
+        cm[i, i * size // k:(i + 1) * size // k] = 1
+        sm[i, :, i * size // k:(i + 1) * size // k] = 1
+    return cm, sm
+
+
 def run_small_reference(gen, cfg, label: str, size: int = 64,
                         k: int = 3) -> dict:
     """A small fp32 run of `cfg` (64² unless `size`) on the card against the
@@ -1552,11 +1586,7 @@ def run_small_reference(gen, cfg, label: str, size: int = 64,
     from dpst_tpu_torch.ops import kernels
     content = smooth_image(gen, gen.device, size)
     style = smooth_image(gen, gen.device, size)
-    cm = np.zeros((k, size, size), np.float32)
-    sm = np.zeros((k, size, size), np.float32)
-    for i in range(k):
-        cm[i, i * size // k:(i + 1) * size // k] = 1
-        sm[i, :, i * size // k:(i + 1) * size // k] = 1
+    cm, sm = stripe_masks(k, size)
     params = vgg.init_params(SEED)
     hists = {}
     for where in ("cuda", "cpu"):
@@ -1842,6 +1872,247 @@ def run_stream12(dev, gen) -> dict:
     return launches
 
 
+def lbfgs_launches(evals: int) -> dict:
+    """What the L-BFGS path launches at 512², K = 4, for `evals`
+    evaluations of the objective (each a forward and an input gradient:
+    one Laplacian matvec, the five masked Grams forward and backward, four
+    pool backwards) and the precompute's five style Grams; nothing else
+    (the post-smoothing is plain PyTorch)."""
+    from dpst_tpu_torch.ops import kernels
+    need = dict.fromkeys(kernels.KERNELS, 0)
+    need.update(lap_matvec=evals, gram_fwd=5 * evals + 5,
+                gram_bwd=5 * evals, pool_bwd=4 * evals)
+    return need
+
+
+def lbfgs_evaluations(rec: list) -> dict:
+    """E and the per-step counts of an `optimize.record_evaluations` log.
+    optax's `value_and_grad_from_state` evaluates afresh at the first step
+    and after a search that left a non-finite value, and reuses the
+    search's cached value otherwise: `fresh_expected`, so that E = 1 + Σ
+    num_linesearch_steps where every search ends finite. `capped`: steps
+    whose search took all 20 evaluations; `safe_steps`: searches that
+    failed and took the safe step."""
+    per = [r["evaluations"] for r in rec]
+    ls = [r["num_linesearch_steps"] for r in rec]
+    return {"E": sum(per), "per_step": per, "linesearch": ls,
+            "fresh": sum(per) - sum(ls),
+            "fresh_expected": 1 + sum(not r["value_finite"]
+                                      for r in rec[:-1]),
+            "capped": sum(n == 20 for n in ls),
+            "safe_steps": sum(max(r["decrease_error"],
+                                  r["curvature_error"]) > 0 for r in rec)}
+
+
+def run_lbfgs(dev, gen, smi: str) -> dict:
+    """The fifth path: `stylize` with PRESETS["config3"],
+    optimizer="lbfgs", post_smooth=2, post_smooth_eps=1e-4 on a seeded
+    512² pair with the four band masks, LBFGS_ITERS steps, the callback at
+    the half. Counters reset just before and read just after, held to what
+    the run's evaluation count E implies; the loss falls, the output is
+    finite in [0, 255]; a LBFGS_SHORT-step rerun gives the first rows bit
+    for bit, and so does its image with history_terms="full"; a
+    checkpointed run resumed to twice its steps equals the straight run
+    bit for bit; the post-smoothing on the card against the CPU; a 64²
+    fp32 run on the card against the CPU; a profile of ten steps. Returns
+    the main run's launch counts."""
+    import tempfile
+
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.ops.guided_filter import smooth_local_affine
+
+    label = "config3 L-BFGS 512²"
+    content = smooth_image(gen, dev, SIZE)
+    style = smooth_image(gen, dev, SIZE)
+    cmask, smask = band_masks(0), band_masks(1)
+    params = vgg.get_params(seed=SEED, device=dev)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              optimizer="lbfgs", post_smooth=2,
+                              post_smooth_eps=1e-4, iterations=LBFGS_ITERS,
+                              intermediate_interval=LBFGS_ITERS // 2)
+    precompute_s = precompute_seconds(dev, cfg, params, content, style,
+                                      cmask, smask)
+
+    def run(cfg, callback=None, resume=False):
+        return dpst_tpu_torch.stylize(
+            content, style, cfg, content_masks=cmask, style_masks=smask,
+            vgg_params=params, callback=callback, resume=resume,
+            return_history=True)
+
+    marks, evals_at = {}, {}
+    with optimize.record_evaluations() as rec:
+        def callback(step, image, hist):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+            evals_at[step] = sum(r["evaluations"] for r in rec)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out, hist = run(cfg, callback)
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = lbfgs_evaluations(rec)
+    half = LBFGS_ITERS // 2
+    window = marks[LBFGS_ITERS] - marks[half]
+    steps_s = half / window
+    evals_s = (evals_at[LBFGS_ITERS] - evals_at[half]) / window
+
+    # the post-smoothing alone, on the output, card against CPU; its
+    # device time from one call a trace (a few hundred kernels): traces of
+    # ten calls have come back a few records short, the same each attempt
+    content_t = torch.from_numpy(content).to(dev)
+    out_t = torch.from_numpy(out).to(dev)
+    sla_ms = device_ms(lambda: smooth_local_affine(content_t, out_t, 2,
+                                                   1e-4), iters=1)
+    card = smooth_local_affine(content_t, out_t, 2, 1e-4).cpu()
+    plain = smooth_local_affine(torch.from_numpy(content),
+                                torch.from_numpy(out), 2, 1e-4)
+    sla_err = float((card - plain).abs().max())
+    emit({"phase": "lbfgs", "path": label, "size": SIZE, "K": K,
+          "iterations": LBFGS_ITERS, "compute_dtype": cfg.compute_dtype,
+          "post_smooth": cfg.post_smooth, "steps_per_s": steps_s,
+          "evaluations_per_s": evals_s, "evaluations": ev["E"],
+          "fresh_evaluations": ev["fresh"],
+          "evaluations_per_step": ev["per_step"],
+          "num_linesearch_steps": ev["linesearch"],
+          "capped_steps": ev["capped"], "safe_steps": ev["safe_steps"],
+          "precompute_s": precompute_s, "wall_s": wall_s,
+          "post_smooth_device_ms": sla_ms, "max_memory_gb": peak_gb,
+          "first_row": hist[0].tolist(), "last_row": hist[-1].tolist(),
+          "launches": launches, "nvidia_smi": smi})
+    emit({"phase": "smooth_local_affine", "size": SIZE,
+          "max_abs_err_vs_cpu": sla_err, "tol_abs": SLA_TOL,
+          "device_ms": sla_ms})
+    need = lbfgs_launches(ev["E"])
+    bad = [f"{name} launched {launches[name]} times, E = {ev['E']} "
+           f"implies {n}" for name, n in need.items()
+           if launches[name] != n]
+    if ev["fresh"] != ev["fresh_expected"]:
+        bad.append(f"{ev['fresh']} fresh evaluations, optax's rule implies "
+                   f"{ev['fresh_expected']}")
+    if not hist[-1, 0] < hist[0, 0]:
+        bad.append(f"total loss did not fall: {hist[0, 0]} -> "
+                   f"{hist[-1, 0]}")
+    if not (out.shape == (SIZE, SIZE, 3) and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 255.0):
+        bad.append("output not finite (512, 512, 3) in [0, 255]")
+    if not np.isfinite(hist).all() or hist[:, 1:].any():
+        bad.append("history not finite, or columns 1-4 not zero")
+    if not sla_err <= SLA_TOL:
+        bad.append(f"smooth_local_affine card vs CPU {sla_err} > {SLA_TOL}")
+    if bad:
+        fail("lbfgs", f"{label}: " + "; ".join(bad))
+
+    # reruns: the first rows bit for bit; the per-term history's extra
+    # forward leaves the trajectory as it is
+    short = dataclasses.replace(cfg, iterations=LBFGS_SHORT)
+    out_s, hist_s = run(short)
+    out_f, hist_f = run(dataclasses.replace(short, history_terms="full"))
+    rerun = bool(np.array_equal(hist_s, hist[:LBFGS_SHORT]))
+    full_same = bool(np.array_equal(out_f, out_s))
+    emit({"phase": "rerun", "path": label, "iterations": LBFGS_SHORT,
+          "bit_identical": rerun, "full_history_same_image": full_same,
+          "full_history_photoreal_min": float(hist_f[:, 3].min()),
+          "full_total_equals_cached": bool(np.array_equal(
+              hist_f[:, 0], hist_s[:, 0]))})
+    if not (rerun and full_same and hist_f[:, 3].min() >= -1.0):
+        fail("rerun", f"{label}: rerun {rerun}, image with the full "
+             f"history {full_same}, photoreal min {hist_f[:, 3].min()}")
+
+    # checkpoint and resume against the straight run, both at interval 10
+    ck = dataclasses.replace(cfg, intermediate_interval=LBFGS_SHORT)
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, hist_st = run(dataclasses.replace(
+            ck, iterations=2 * LBFGS_SHORT,
+            checkpoint_dir=os.path.join(tmp, "straight")))
+        run(dataclasses.replace(ck, iterations=LBFGS_SHORT,
+                                checkpoint_dir=os.path.join(tmp, "ckpt")))
+        resumed, hist_rs = run(dataclasses.replace(
+            ck, iterations=2 * LBFGS_SHORT,
+            checkpoint_dir=os.path.join(tmp, "ckpt")), resume=True)
+    same = bool(np.array_equal(resumed, straight)
+                and np.array_equal(hist_rs, hist_st[LBFGS_SHORT:]))
+    emit({"phase": "resume", "path": label,
+          "steps": [LBFGS_SHORT, 2 * LBFGS_SHORT], "bit_identical": same})
+    if not same:
+        fail("resume", f"{label}: the resumed run differs from the "
+             "straight run")
+
+    # ten steps past the half, profiled; the busy share per evaluation
+    with optimize.record_evaluations() as prec:
+        per_step, busy, step_ms, _, _ = profile_loop(run, cfg, half, 10)
+    n_evals = sum(r["evaluations"] for r in prec[half:half + 10])
+    busy_eval = busy * 10 / n_evals
+    emit({"phase": "profile", "path": label, "steps": 10,
+          "evaluations": n_evals, "device_ms_per_step": per_step,
+          "device_busy_ms_per_step": busy,
+          "device_busy_ms_per_evaluation": busy_eval,
+          "step_ms_profiled": step_ms,
+          "ms_per_evaluation_unprofiled": 1e3 / evals_s,
+          "device_busy_share": busy_eval * evals_s / 1e3})
+    run_lbfgs_reference(gen)
+    return launches
+
+
+def run_lbfgs_reference(gen, size: int = 64, k: int = 3) -> None:
+    """A 64² fp32 L-BFGS run (regularization weight 100, LBFGS_SHORT
+    steps) on the card against the same run on the CPU, beside the CPU
+    run of a content image one fp32 ulp lower at every pixel: the
+    trajectory's own sensitivity. The zoom's cubic interpolation and the
+    curvature pairs amplify sub-ulp differences a thousandfold within a
+    few steps even where every evaluation count agrees, so past the first
+    row (the loss at the starting point, within 1e-5 relative)
+    tests/test_golden.py's L-BFGS bounds hold: counts within ±2 a step,
+    every row within 8e-2, the first 10 within 1e-2."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    content = smooth_image(gen, gen.device, size)
+    style = smooth_image(gen, gen.device, size)
+    cm, sm = stripe_masks(k, size)
+    params = vgg.init_params(SEED)
+    cfg = dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=LBFGS_SHORT, optimizer="lbfgs",
+        regularization_weight=100.0)
+    hists, counts = {}, {}
+    lower = np.nextafter(content, np.float32(-np.inf))
+    for where, image in (("cuda", content), ("cpu", content),
+                         ("cpu, one ulp lower", lower)):
+        with optimize.record_evaluations() as rec:
+            _, hist = dpst_tpu_torch.stylize(
+                image, style, cfg, content_masks=cm, style_masks=sm,
+                vgg_params=params, return_history=True,
+                device=where.split(",")[0])
+        hists[where] = hist[:, 0]
+        counts[where] = np.asarray([r["evaluations"] for r in rec])
+    rel = {where: np.abs(h - hists["cpu"]) / np.abs(hists["cpu"])
+           for where, h in hists.items() if where != "cpu"}
+    emit({"phase": "reference", "path": "config3 L-BFGS", "size": size,
+          "K": k, "iterations": LBFGS_SHORT, "compute_dtype": "float32",
+          "rel_err_per_row": rel["cuda"].tolist(),
+          "cpu_one_ulp_lower_rel_err_per_row":
+              rel["cpu, one ulp lower"].tolist(),
+          "evaluations": {w: c.tolist() for w, c in counts.items()},
+          "tol_rel": {"row 0": 1e-5, "rows 0-9": 1e-2, "all": 8e-2,
+                      "evaluations": 2}})
+    err = rel["cuda"]
+    bad = []
+    if not err[0] <= 1e-5:
+        bad.append(f"row 0 rel err {err[0]} > 1e-5")
+    if not np.abs(counts["cuda"] - counts["cpu"]).max() <= 2:
+        bad.append("evaluation counts differ by more than 2 at a step")
+    if not (err.max() <= 8e-2 and err[:10].max() <= 1e-2):
+        bad.append(f"rows rel err {err.max()} (bounds 1e-2 / 8e-2)")
+    if bad:
+        fail("reference", "config3 L-BFGS: " + "; ".join(bad))
+
+
 def summarize(rows: list, launches: dict) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
     step of its main path launches (512² config3 for the first four
@@ -2035,6 +2306,10 @@ def main() -> int:
         fail("reference", f"stream12 route not taken at every step: {ref}")
 
     seconds["main paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lb_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    launches["config3 L-BFGS 512²"] = run_lbfgs(dev, lb_gen, smi)
+    seconds["lbfgs"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)})

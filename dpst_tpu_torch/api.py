@@ -1,14 +1,18 @@
 """Public API of the port: `stylize(content, style, config=...) -> image`.
 
-Stylization with Adam: load → masks (given, or uniform when segmentation
-is off) → per scale of the schedule: resize to the stage size, precompute
-(content features, masked style Grams, mask pyramid, coverage, Laplacian
-stats), carry the image up from the stage before, optimize → result.
-Entry points run on the CUDA card unless the caller passes
-`device="cpu"`; with no card and no device given they raise.
+Stylization: load → masks (given, or uniform when segmentation is off) →
+per scale of the schedule: resize to the stage size, precompute (content
+features, masked style Grams, mask pyramid, coverage, Laplacian stats),
+carry the image up from the stage before, optimize with Adam or L-BFGS
+(checkpointed per stage where asked) → clip → the smooth-local-affine
+post-process where asked → result. Entry points run on the CUDA card
+unless the caller passes `device="cpu"`; with no card and no device given
+they raise.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -19,9 +23,11 @@ from .config import StylizeConfig
 from .models import vgg
 from .ops import laplacian as lap
 from .ops import losses as losses_mod
+from .ops.guided_filter import smooth_local_affine
 from .ops.laplacian_cuda import pack_stats
 from .ops.resize import resize_image
-from .utils import io
+from .utils import io, runtime
+from .utils.checkpoint import RunCheckpointer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,18 +45,11 @@ def _check_ported(cfg: StylizeConfig, masks_given: bool) -> None:
     """Raise NotImplementedError for what this slice of the port lacks,
     naming the ROADMAP.md queue-1 item that will port it."""
     todo = []
-    if cfg.optimizer == "lbfgs":
-        todo.append("optimizer='lbfgs' (item 10: L-BFGS)")
-    if cfg.post_smooth > 0:
-        todo.append("post_smooth > 0 (item 11: post-processing)")
     if cfg.use_segmentation and not masks_given:
         todo.append("use_segmentation=True without masks "
                     "(item 12: segmentation)")
     if cfg.laplacian_impl == "spmd":
         todo.append("laplacian_impl='spmd' (item 15: multi-GPU)")
-    if cfg.checkpoint_dir or cfg.profile_dir or cfg.debug_nans:
-        todo.append("checkpoint_dir / profile_dir / debug_nans "
-                    "(item 16: CLI, checkpoint and runtime)")
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md queue 1): " + "; ".join(todo))
@@ -166,6 +165,7 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
             style_masks: np.ndarray | None = None,
             vgg_params: dict | None = None,
             callback: Callable | None = None,
+            resume: bool = False,
             return_history: bool = False,
             device=None):
     """Stylize `content` with the style of `style` (paths or HWC arrays).
@@ -175,14 +175,29 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
     `vgg_params` is the port's weight dict (`models.vgg.params_from_numpy`
     converts the JAX package's); the call packs it once for its kernels
     (`models.vgg.pack_params`). `cfg.scales` runs a coarse-to-fine
-    schedule (`_scale_schedule`), each stage with a fresh Adam state.
+    schedule (`_scale_schedule`), each stage with a fresh optimizer state.
     `callback(step, image, history_chunk)` fires every
     `cfg.intermediate_interval` steps, `step` counted across all stages.
-    Returns a float32 [0,255] RGB (H, W, 3) np.ndarray (and the (iters, 5)
-    loss history of all stages -- [total, content, style, photoreal, tv]
-    per step -- if `return_history`). `device=None` runs on the CUDA card.
+    With `cfg.checkpoint_dir`, each stage checkpoints its image and
+    optimizer state at that cadence (in `stage{i}_{h}x{w}` when there is
+    more than one stage), and `resume=True` continues from the latest
+    checkpoints. `cfg.post_smooth > 0` applies `smooth_local_affine` after
+    the last stage; `cfg.profile_dir` traces the call with torch.profiler;
+    `cfg.debug_nans` raises FloatingPointError at the first non-finite
+    loss or gradient. Returns a float32 [0,255] RGB (H, W, 3) np.ndarray
+    (and the (iters, 5) loss history of the steps run -- [total, content,
+    style, photoreal, tv] per step -- if `return_history`). `device=None`
+    runs on the CUDA card.
     """
     cfg = config or StylizeConfig()
+    if cfg.profile_dir:
+        with runtime.maybe_profile(cfg.profile_dir):
+            return stylize(
+                content, style, dataclasses.replace(cfg, profile_dir=""),
+                size=size, content_masks=content_masks,
+                style_masks=style_masks, vgg_params=vgg_params,
+                callback=callback, resume=resume,
+                return_history=return_history, device=device)
     dev = resolve_device(device)
     if (content_masks is None) != (style_masks is None):
         raise ValueError(
@@ -215,8 +230,16 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
 
     image = None
     histories = []
+    stages = _scale_schedule(cfg, hw)
     steps_before = 0
-    for h, w, iters in _scale_schedule(cfg, hw):
+    for stage_i, (h, w, iters) in enumerate(stages):
+        stage_ckpt = None
+        if cfg.checkpoint_dir:
+            # optimizer states differ in shape across scales: one directory
+            # a stage, the flat directory for a single stage
+            stage_ckpt = RunCheckpointer(
+                cfg.checkpoint_dir if len(stages) == 1 else os.path.join(
+                    cfg.checkpoint_dir, f"stage{stage_i}_{h}x{w}"))
         consts, content_s, style_mean = _prepare_stage(
             content_full, style_full, cmask_full, smask_full, vgg_params,
             (h, w), cfg)
@@ -229,10 +252,16 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
             stage_cb = (lambda step, img, hist, _off=steps_before:
                         callback(_off + step, img, hist))
         image, hist = optimize.run(image, consts, weights, vgg_params, cfg,
-                                   iterations=iters, callback=stage_cb)
+                                   iterations=iters, callback=stage_cb,
+                                   checkpointer=stage_ckpt, resume=resume)
         histories.append(hist)
         steps_before += iters
-    result = torch.clamp(image, 0.0, 255.0).cpu().numpy()
+    image = torch.clamp(image, 0.0, 255.0)
+    if cfg.post_smooth > 0:
+        # content_s is the last stage's: the output resolution
+        image = smooth_local_affine(content_s, image, radius=cfg.post_smooth,
+                                    eps=cfg.post_smooth_eps)
+    result = image.cpu().numpy()
     if return_history:
         return result, torch.cat(histories).cpu().numpy()
     return result

@@ -1,0 +1,166 @@
+"""L-BFGS as `optax.lbfgs()` computes it (optax 0.2.6), in PyTorch.
+
+`scale_by_lbfgs` is `optax/_src/transform.py:1573-1745` (memory of
+parameter and gradient differences, the two-loop recursion of
+`_precondition_by_lbfgs`); `lbfgs` is the chain of `alias.py:2718-2730`:
+scale_by_lbfgs → scale(−1) → the zoom linesearch; and
+`value_and_grad_from_state` is `utils.py:266`. The two-loop's scalars (ρ,
+α, β, γ) stay on the device as 0-d fp32 tensors, so a step syncs only in
+the linesearch (`optim/linesearch.py`).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .base import EmptyState, GradientTransformation, vdot
+from .linesearch import scale_by_zoom_linesearch
+
+MEMORY_SIZE = 10        # optax.lbfgs()'s memory_size
+
+
+class ScaleByLBFGSState(NamedTuple):
+    """optax's `ScaleByLBFGSState`. The memory is a ring of Δw
+    (`diff_params_memory`), Δu (`diff_updates_memory`) and ρ = 1/⟨Δu, Δw⟩
+    (`weights_memory`), each (memory_size, *params.shape) or
+    (memory_size,), written at (count − 1) % memory_size."""
+    count: int
+    params: torch.Tensor
+    updates: torch.Tensor
+    diff_params_memory: torch.Tensor
+    diff_updates_memory: torch.Tensor
+    weights_memory: torch.Tensor
+
+
+def _precondition_by_lbfgs(updates: torch.Tensor,
+                           diff_params_memory: torch.Tensor,
+                           diff_updates_memory: torch.Tensor,
+                           weights_memory: torch.Tensor,
+                           identity_scale: torch.Tensor,
+                           memory_idx: int) -> torch.Tensor:
+    """optax's `_precondition_by_lbfgs` (transform.py:1497): P_k · updates
+    by the two loops of Algorithm 7.4 (Nocedal and Wright), over every
+    slot of the ring in optax's order, empty slots included (ρ = 0)."""
+    rhos = weights_memory
+    memory_size = weights_memory.shape[0]
+    indices = [(memory_idx + i) % memory_size for i in range(memory_size)]
+    vec = updates
+    alphas = {}
+    for idx in reversed(indices):            # right_product, reverse scan
+        alpha = rhos[idx] * vdot(diff_params_memory[idx], vec)
+        vec = vec + (-alpha) * diff_updates_memory[idx]
+        alphas[idx] = alpha
+    vec = identity_scale * vec
+    for idx in indices:                      # left_product
+        beta = rhos[idx] * vdot(diff_updates_memory[idx], vec)
+        vec = vec + (alphas[idx] - beta) * diff_params_memory[idx]
+    return vec
+
+
+def scale_by_lbfgs() -> GradientTransformation:
+    """optax's `scale_by_lbfgs` with `optax.lbfgs()`'s memory_size and
+    `scale_init_precond=True`: the update (a gradient) times the L-BFGS
+    approximation of the inverse Hessian, the initial identity scaled by
+    γ = ⟨Δu, Δw⟩ / ‖Δu‖², by min(1, 1/‖g‖) at the first step. `update`
+    writes the memory of the state it is given in place."""
+    memory_size = MEMORY_SIZE
+
+    def init_fn(params: torch.Tensor) -> ScaleByLBFGSState:
+        stacked = torch.zeros((memory_size,) + tuple(params.shape),
+                              dtype=params.dtype, device=params.device)
+        return ScaleByLBFGSState(
+            count=0, params=torch.zeros_like(params),
+            updates=torch.zeros_like(params),
+            diff_params_memory=stacked, diff_updates_memory=stacked.clone(),
+            weights_memory=torch.zeros(memory_size, dtype=torch.float32,
+                                       device=params.device))
+
+    def update_fn(updates: torch.Tensor, state: ScaleByLBFGSState,
+                  params: torch.Tensor
+                  ) -> tuple[torch.Tensor, ScaleByLBFGSState]:
+        memory_idx = state.count % memory_size
+        prev_memory_idx = (state.count - 1) % memory_size
+        # 1. the memory, from the fresh params and updates (zero at count 0)
+        if state.count > 0:
+            diff_params = params - state.params
+            diff_updates = updates - state.updates
+            vdot_diff_params_updates = vdot(diff_updates, diff_params)
+            weight = torch.where(vdot_diff_params_updates == 0.0,
+                                 torch.zeros_like(vdot_diff_params_updates),
+                                 1.0 / vdot_diff_params_updates)
+        else:
+            diff_params = torch.zeros_like(params)
+            diff_updates = torch.zeros_like(updates)
+            weight = torch.zeros((), dtype=torch.float32,
+                                 device=params.device)
+        state.diff_params_memory[prev_memory_idx] = diff_params
+        state.diff_updates_memory[prev_memory_idx] = diff_updates
+        state.weights_memory[prev_memory_idx] = weight
+        # 2. γ, the scale of the initial identity
+        one = torch.ones((), dtype=torch.float32, device=params.device)
+        if state.count > 0:
+            numerator = vdot(diff_updates, diff_params)
+            denominator = vdot(diff_updates, diff_updates)
+            identity_scale = torch.where(denominator > 0.0,
+                                         numerator / denominator, one)
+        else:
+            update_norm = torch.sqrt(vdot(updates, updates))
+            identity_scale = torch.minimum(one, 1.0 / update_norm)
+        # 3. P_k u_k
+        precond_updates = _precondition_by_lbfgs(
+            updates, state.diff_params_memory, state.diff_updates_memory,
+            state.weights_memory, identity_scale, memory_idx)
+        return precond_updates, ScaleByLBFGSState(
+            count=state.count + 1, params=params, updates=updates,
+            diff_params_memory=state.diff_params_memory,
+            diff_updates_memory=state.diff_updates_memory,
+            weights_memory=state.weights_memory)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def lbfgs() -> GradientTransformation:
+    """`optax.lbfgs()`: scale_by_lbfgs (memory 10) → scale(−1) → the zoom
+    linesearch (at most 20 evaluations, a first guess of 1). The state is
+    the chain's tuple (ScaleByLBFGSState, EmptyState,
+    ScaleByZoomLinesearchState); `update(grad, state, params, *, value,
+    grad, value_and_grad_fn)` returns stepsize · direction."""
+    precond = scale_by_lbfgs()
+    linesearch = scale_by_zoom_linesearch()
+
+    def init_fn(params: torch.Tensor) -> tuple:
+        return (precond.init(params), EmptyState(), linesearch.init(params))
+
+    def update_fn(updates: torch.Tensor, state: tuple, params: torch.Tensor,
+                  *, value, grad: torch.Tensor, value_and_grad_fn: Callable
+                  ) -> tuple[torch.Tensor, tuple]:
+        direction, s0 = precond.update(updates, state[0], params)
+        direction = direction * -1.0
+        updates, s2 = linesearch.update(
+            direction, state[2], params, value=value, grad=grad,
+            value_and_grad_fn=value_and_grad_fn)
+        return updates, (s0, state[1], s2)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def value_and_grad_from_state(value_and_grad_fn: Callable) -> Callable:
+    """optax's `value_and_grad_from_state`: `(params, *, state) -> (value,
+    grad)` that takes the linesearch's cached value and gradient where the
+    value is finite, and evaluates `value_and_grad_fn(params)` otherwise
+    (the first step, or after a search that ended outside the domain).
+    The cached value is a host float32, a fresh one a 0-d tensor."""
+
+    def _value_and_grad(params: torch.Tensor, *, state: tuple):
+        cached = [s for s in state if hasattr(s, "value")
+                  and hasattr(s, "grad")]
+        if len(cached) != 1:
+            raise ValueError("Value or gradient not found in the state.")
+        value, grad = cached[0].value, cached[0].grad
+        if np.isfinite(value):
+            return value, grad
+        return value_and_grad_fn(params)
+
+    return _value_and_grad

@@ -1,24 +1,30 @@
-"""Image optimization loop (the hot path): loss, Adam, clip, history.
+"""Image optimization loop (the hot path): loss, optimizer, history.
 
-The port's counterpart of `dpst_tpu/optimize.py` (one scale, Adam; the
-multi-scale schedule is `api.stylize`'s). PyTorch runs eagerly: each step
-is one VGG forward and input gradient, the content, masked-Gram style,
-photorealism and TV terms, one Adam update and the [0, 255] clip. The per-step loss history stays on the device and
-reaches the host once per segment.
+The port's counterpart of `dpst_tpu/optimize.py` (one scale; the
+multi-scale schedule is `api.stylize`'s). PyTorch runs eagerly. An Adam
+step is one VGG forward and input gradient, the content, masked-Gram
+style, photorealism and TV terms, one Adam update and the [0, 255] clip;
+its loss history stays on the device and reaches the host once per
+segment. An L-BFGS step (`optim.lbfgs`, optax's algorithm) runs in logit
+space where `clip_pixels`, evaluates the same objective once or more in
+its zoom linesearch, and syncs once an evaluation.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from . import optim
 from .config import StylizeConfig
 from .models import vgg
 from .ops import block12_pallas as b12
 from .ops import laplacian as lap
 from .ops import losses
 from .ops.gram_stream import normalize
+from .utils import runtime
 
 HISTORY_TERMS = ("total", "content", "style", "photoreal", "tv")
 
@@ -235,29 +241,190 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
     return loss_fn
 
 
-class Adam:
-    """Adam as optax.adam computes it: μ and ν moving averages, bias
-    corrections 1 − b^t in fp32, eps outside the square root, then
-    p ← p − lr·μ̂/(√ν̂ + eps)."""
+class AdamState(NamedTuple):
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: int
 
-    def __init__(self, cfg: StylizeConfig, params: torch.Tensor):
+
+class Adam:
+    """Adam as optax.adam computes it, in optax's form (`init(params) ->
+    AdamState`, `update(grad, state) -> (updates, state)`): μ and ν moving
+    averages, bias corrections 1 − b^t in fp32, eps outside the square
+    root, the update −lr·μ̂/(√ν̂ + eps)."""
+
+    def __init__(self, cfg: StylizeConfig):
         self.lr = cfg.learning_rate
         self.b1, self.b2, self.eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
-        self.mu = torch.zeros_like(params)
-        self.nu = torch.zeros_like(params)
-        self.count = 0
+
+    def init(self, params: torch.Tensor) -> AdamState:
+        return AdamState(torch.zeros_like(params), torch.zeros_like(params),
+                         0)
 
     @torch.no_grad()
-    def step(self, params: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-        self.mu = (1 - self.b1) * grad + self.b1 * self.mu
-        self.nu = (1 - self.b2) * (grad * grad) + self.b2 * self.nu
-        self.count += 1
-        bc1 = np.float32(1) - np.float32(self.b1) ** np.float32(self.count)
-        bc2 = np.float32(1) - np.float32(self.b2) ** np.float32(self.count)
-        mu_hat = self.mu / float(bc1)
-        nu_hat = self.nu / float(bc2)
+    def update(self, grad: torch.Tensor, state: AdamState
+               ) -> tuple[torch.Tensor, AdamState]:
+        mu = (1 - self.b1) * grad + self.b1 * state.mu
+        nu = (1 - self.b2) * (grad * grad) + self.b2 * state.nu
+        count = state.count + 1
+        bc1 = np.float32(1) - np.float32(self.b1) ** np.float32(count)
+        bc2 = np.float32(1) - np.float32(self.b2) ** np.float32(count)
+        mu_hat = mu / float(bc1)
+        nu_hat = nu / float(bc2)
         update = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
-        return params + update
+        return update, AdamState(mu, nu, count)
+
+
+def make_optimizer(cfg: StylizeConfig):
+    """`dpst_tpu/optimize.py:make_optimizer`: Adam, or `optax.lbfgs()`
+    (memory 10, the zoom linesearch of at most 20 evaluations)."""
+    if cfg.optimizer == "adam":
+        return Adam(cfg)
+    return optim.lbfgs()
+
+
+# --- L-BFGS pixel parameterization ---------------------------------------
+# L-BFGS's curvature pairs and Wolfe linesearch do not survive a clip after
+# every step, so with clip_pixels it optimizes a logit image u, pixels =
+# 255·sigmoid(u), a smooth bijection onto (0, 255).
+_LOGIT_EPS = 1e-4
+
+
+def pixels_to_logits(image: torch.Tensor) -> torch.Tensor:
+    p = torch.clamp(image.to(torch.float32) / 255.0, _LOGIT_EPS,
+                    1.0 - _LOGIT_EPS)
+    return torch.log(p) - torch.log1p(-p)
+
+
+def logits_to_pixels(u: torch.Tensor) -> torch.Tensor:
+    return 255.0 * torch.sigmoid(u)
+
+
+def init_opt_state(opt, cfg: StylizeConfig, image0: torch.Tensor):
+    """Optimizer state for `image0`: in logit space for boxed L-BFGS, whose
+    state keeps the parameters it last stepped from."""
+    if cfg.optimizer == "lbfgs" and cfg.clip_pixels:
+        return opt.init(pixels_to_logits(image0))
+    return opt.init(image0)
+
+
+def history_terms(cfg: StylizeConfig) -> str:
+    """`StylizeConfig.loop_config`'s resolution (`dpst_tpu/config.py:
+    256-258`): Adam records "full" (its terms come with the step); L-BFGS
+    "total" under "auto" (column 0 the linesearch's cached value, columns
+    1-4 zeros, no extra forward), else as asked."""
+    if cfg.optimizer == "adam":
+        return "full"
+    return "total" if cfg.history_terms == "auto" else cfg.history_terms
+
+
+# Lists that `record_evaluations` hands out; every L-BFGS step appends its
+# record to each.
+_EVALUATION_RECORDS: list[list] = []
+
+
+@contextlib.contextmanager
+def record_evaluations():
+    """Collect one dict per L-BFGS step run inside the block, in order:
+    `evaluations` (objective evaluations the step made: its linesearch's,
+    plus one where `value_and_grad_from_state` found no finite cached
+    value), `num_linesearch_steps`, `decrease_error` and `curvature_error`
+    (optax's ZoomLinesearchInfo; either error positive: the search failed
+    and took the safe step), and `value_finite` (the value the search
+    leaves for the next step is finite, so that step evaluates nothing
+    afresh)."""
+    log: list = []
+    _EVALUATION_RECORDS.append(log)
+    try:
+        yield log
+    finally:
+        _EVALUATION_RECORDS.remove(log)
+
+
+def _lbfgs_scan_step(cfg: StylizeConfig, loss_fn, opt, consts, weights,
+                     vgg_params, first_step: int = 0):
+    """The L-BFGS step of `run_segment` and `lbfgs_eval_trajectory`
+    (`dpst_tpu/optimize.py:557`): `step(u, state) -> (u, state, history
+    row, ZoomLinesearchInfo)`. The objective is the total loss of
+    `to_img(u)`; each evaluation is a forward and an input gradient, and
+    with `cfg.debug_nans` raises FloatingPointError where the loss or the
+    gradient is not finite. Steps are numbered from `first_step`."""
+    to_img = logits_to_pixels if cfg.clip_pixels else (lambda u: u)
+    full_hist = history_terms(cfg) != "total"
+    counter = {"step": first_step, "evaluations": 0}
+
+    def value_and_grad_fn(u: torch.Tensor):
+        counter["evaluations"] += 1
+        with torch.enable_grad():
+            u = u.detach().requires_grad_(True)
+            total, _ = loss_fn(to_img(u), consts, weights, vgg_params)
+            (grad,) = torch.autograd.grad(total, u)
+        total = total.detach()
+        if cfg.debug_nans:
+            runtime.check_finite(counter["step"], total, grad)
+        return total, grad
+
+    vg = optim.value_and_grad_from_state(value_and_grad_fn)
+
+    def step(u: torch.Tensor, st: tuple):
+        before = counter["evaluations"]
+        value, grad = vg(u, state=st)
+        if full_hist:
+            # the terms at the pre-update point cost one more forward
+            _, terms = loss_fn(to_img(u), consts, weights, vgg_params)
+            row = terms.cpu().numpy()
+        else:
+            row = np.zeros(5, np.float32)
+            row[0] = float(value)
+        updates, st = opt.update(grad, st, u, value=value, grad=grad,
+                                 value_and_grad_fn=value_and_grad_fn)
+        u = optim.apply_updates(u, updates)
+        info = st[-1].info
+        for log in _EVALUATION_RECORDS:
+            log.append({
+                "evaluations": counter["evaluations"] - before,
+                "num_linesearch_steps": info.num_linesearch_steps,
+                "decrease_error": float(info.decrease_error),
+                "curvature_error": float(info.curvature_error),
+                "value_finite": bool(np.isfinite(st[-1].value))})
+        counter["step"] += 1
+        return u, st, row, info
+
+    return step
+
+
+@torch.no_grad()
+def _lbfgs_loop(image, opt_state, consts, weights, vgg_params, n_steps,
+                cfg, first_step=0):
+    """n_steps L-BFGS steps from `image` (in logit space when boxed).
+    Returns (u, state, history (n_steps, 5), evaluations of each step's
+    linesearch (n_steps,))."""
+    step = _lbfgs_scan_step(cfg, make_loss_fn(cfg), make_optimizer(cfg),
+                            consts, weights, vgg_params, first_step)
+    u = pixels_to_logits(image) if cfg.clip_pixels else image
+    rows, evals = [], []
+    for _ in range(n_steps):
+        u, opt_state, row, info = step(u, opt_state)
+        rows.append(row)
+        evals.append(info.num_linesearch_steps)
+    history = torch.from_numpy(
+        np.stack(rows) if rows else np.zeros((0, 5), np.float32)
+    ).to(image.device)
+    return u, opt_state, history, torch.tensor(evals, dtype=torch.int32)
+
+
+def lbfgs_eval_trajectory(image: torch.Tensor, opt_state,
+                          consts: StylizeConstants, weights: LossWeights,
+                          vgg_params: dict, *, n_steps: int,
+                          cfg: StylizeConfig):
+    """`run_segment`'s L-BFGS steps (the same step function) that also
+    return optax's ZoomLinesearchInfo.num_linesearch_steps of each step:
+    (history (n_steps, 5), evals (n_steps,) int32)."""
+    if cfg.optimizer != "lbfgs":
+        raise ValueError("lbfgs_eval_trajectory requires optimizer='lbfgs'")
+    _, _, history, evals = _lbfgs_loop(image, opt_state, consts, weights,
+                                       vgg_params, n_steps, cfg)
+    return history, evals
 
 
 def init_image(cfg: StylizeConfig, content: torch.Tensor,
@@ -278,55 +445,84 @@ def init_image(cfg: StylizeConfig, content: torch.Tensor,
     return torch.clamp(base - mean_c + mean_s, 0.0, 255.0)
 
 
-def run_segment(image: torch.Tensor, opt: Adam, consts: StylizeConstants,
+def run_segment(image: torch.Tensor, opt_state, consts: StylizeConstants,
                 weights: LossWeights, vgg_params: dict, n_steps: int,
-                cfg: StylizeConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """`n_steps` Adam steps. Returns (image, history (n_steps, 5)); each row
-    is taken at the image before that step's update."""
+                cfg: StylizeConfig, first_step: int = 0):
+    """`n_steps` optimizer steps. Returns (image, opt_state, history
+    (n_steps, 5)) with history [total, content, style, photoreal, tv] per
+    step, taken at the image before the step's update; with L-BFGS and
+    `history_terms(cfg) == "total"`, columns 1-4 are zeros and column 0 is
+    the linesearch's cached value. Boxed L-BFGS re-enters logit space from
+    `image`, and keeps the cached value and gradient of the state as they
+    are (`dpst_tpu/optimize.py:run_segment` does the same). Adam runs on
+    the device without a sync; L-BFGS syncs once an evaluation.
+    `first_step` numbers the steps in debug_nans errors."""
+    if cfg.optimizer == "lbfgs":
+        u, opt_state, history, _ = _lbfgs_loop(
+            image, opt_state, consts, weights, vgg_params, n_steps, cfg,
+            first_step)
+        return (logits_to_pixels(u) if cfg.clip_pixels else u), opt_state, \
+            history
     loss_fn = make_loss_fn(cfg)
+    opt = Adam(cfg)
     rows = []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         img = image.detach().requires_grad_(True)
         total, terms = loss_fn(img, consts, weights, vgg_params)
         (grad,) = torch.autograd.grad(total, img)
+        if cfg.debug_nans:
+            runtime.check_finite(first_step + i, total, grad)
         rows.append(terms.detach())
-        image = opt.step(image.detach(), grad)
+        update, opt_state = opt.update(grad, opt_state)
+        image = image.detach() + update
         if cfg.clip_pixels:
             image = torch.clamp(image, 0.0, 255.0)
     history = (torch.stack(rows) if rows else
                torch.zeros((0, 5), dtype=torch.float32, device=image.device))
-    return image, history
+    return image, opt_state, history
 
 
 def run(image0: torch.Tensor, consts: StylizeConstants,
         weights: LossWeights, vgg_params: dict, cfg: StylizeConfig,
         iterations: int | None = None,
-        callback: Callable | None = None):
+        callback: Callable | None = None, checkpointer=None,
+        resume: bool = False):
     """Full optimization at one scale.
 
     `callback(step, image, history_chunk)` fires every
     `cfg.intermediate_interval` steps; with no callback the run is one
-    segment. Returns (final image (H, W, 3), (iterations, 5) history).
+    segment. `checkpointer` (utils.checkpoint.RunCheckpointer) saves
+    (step, image, opt_state) at the same cadence (every 100 steps where the
+    interval is 0); `resume=True` continues from its latest checkpoint, and
+    the history then covers only the new steps. Returns (final image
+    (H, W, 3), (iterations run, 5) history).
     """
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(
-            "optimizer='lbfgs' is not ported yet (ROADMAP.md queue 1, "
-            "item 10: L-BFGS)")
+    opt = make_optimizer(cfg)
+    opt_state = init_opt_state(opt, cfg, image0)
     total_iters = cfg.iterations if iterations is None else iterations
-    interval = cfg.intermediate_interval if callback else 0
-    opt = Adam(cfg, image0)
+    interval = cfg.intermediate_interval if (callback or checkpointer) \
+        else 0
+    if interval <= 0 and checkpointer is not None:
+        interval = 100
     image = image0
     done = 0
+    if checkpointer is not None and resume:
+        restored = checkpointer.restore(image0, opt_state)
+        if restored is not None:
+            done, image, opt_state = restored
     histories = []
     while done < total_iters:
         n = total_iters - done if interval <= 0 else min(
             interval, total_iters - done)
-        image, hist = run_segment(image, opt, consts, weights, vgg_params,
-                                  n, cfg)
+        image, opt_state, hist = run_segment(
+            image, opt_state, consts, weights, vgg_params, n, cfg,
+            first_step=done)
         done += n
         histories.append(hist)
         if callback is not None:
             callback(done, image, hist)
+        if checkpointer is not None:
+            checkpointer.save(done, image, opt_state)
     history = (torch.cat(histories) if histories else
                torch.zeros((0, 5), dtype=torch.float32, device=image0.device))
     if not cfg.clip_pixels:

@@ -1,0 +1,50 @@
+"""Runtime knobs of the port: profiling and NaN checks.
+
+The counterpart of `dpst_tpu/utils/runtime.py`. `maybe_profile` traces a
+block with torch.profiler (the CPU, and CUDA where there is a card) and
+writes a Chrome trace into the directory. `check_finite` is what
+`StylizeConfig.debug_nans` turns on: the optimization loop calls it after
+each evaluation of the objective, and it raises FloatingPointError naming
+the step where the loss or the gradient is not finite, where
+`jax_debug_nans` would stop a JAX run. It is a flag the loop reads, not
+process-wide state, and it costs a sync an evaluation only when on.
+
+`enable_compilation_cache` has no counterpart: PyTorch runs eagerly, and
+the CUDA kernels' build directory (`ops/kernels.py`, keyed by a hash of
+the sources) already keeps what was compiled across processes.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import torch
+
+
+def check_finite(step: int, loss: torch.Tensor, grad: torch.Tensor) -> None:
+    """Raise FloatingPointError where the loss or the gradient holds a NaN
+    or an infinity (one sync)."""
+    if not bool(torch.isfinite(loss).all() & torch.isfinite(grad).all()):
+        raise FloatingPointError(
+            f"debug_nans: non-finite loss or gradient at step {step}")
+
+
+@contextlib.contextmanager
+def maybe_profile(profile_dir: str):
+    """torch.profiler over the block when `profile_dir` is set (else a
+    no-op); the trace goes to `profile_dir/dpst_<time>_<pid>.pt.trace.json`
+    (chrome://tracing, Perfetto)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    name = f"dpst_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          name + ".pt.trace.json"))

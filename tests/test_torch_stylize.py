@@ -142,11 +142,18 @@ def test_callback_cadence_and_segments(params):
     ({"checkpoint_dir": "ckpt"}, True),
 ])
 def test_unported_features_raise(kw, masks):
+    """Automatic segmentation and the multi-GPU Laplacian still raise,
+    naming their ROADMAP item; debug_nans, L-BFGS, post-smoothing and
+    checkpointing are ported and pass the check."""
+    cfg = dpst_tpu_torch.StylizeConfig(**kw)
+    if "use_segmentation" not in kw and "laplacian_impl" not in kw:
+        tapi._check_ported(cfg, masks)
+        return
     img = np.zeros((16, 16, 3), np.float32)
     m = np.ones((1, 16, 16), np.float32) if masks else None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dpst_tpu_torch.stylize(img, img, dpst_tpu_torch.StylizeConfig(**kw),
-                               content_masks=m, style_masks=m, device="cpu")
+        dpst_tpu_torch.stylize(img, img, cfg, content_masks=m,
+                               style_masks=m, device="cpu")
 
 
 def test_masks_must_come_together():
@@ -193,12 +200,15 @@ def test_adam_matches_optax():
     opt = optax.adam(cfg.learning_rate, b1=cfg.adam_b1, b2=cfg.adam_b2,
                      eps=cfg.adam_eps)
     jp, st = p, opt.init(p)
-    tp, tadam = torch.from_numpy(p), topt.Adam(cfg, torch.from_numpy(p))
+    tadam = topt.Adam(cfg)
+    tp = torch.from_numpy(p)
+    tst = tadam.init(tp)
     for _ in range(4):
         g = r.normal(size=p.shape).astype(np.float32)
         u, st = opt.update(g, st, jp)
         jp = optax.apply_updates(jp, u)
-        tp = tadam.step(tp, torch.from_numpy(g))
+        tu, tst = tadam.update(torch.from_numpy(g), tst)
+        tp = tp + tu
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6)
 
 
