@@ -14,7 +14,9 @@ no result):
                  bias+ReLU forward, the weighted-after backward and block12's
                  Gram cotangent among them);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the shapes of the 512² config3 main path (K = 4 masks;
+                 at the shapes of the 512² config3 main path (K = 4 masks,
+                 and for gram_fwd, gram_bwd and the fused pair at conv1_1
+                 also K = 8, the automatic paths' masks;
                  lap_matvec also at 1024² and 4096², its division by 9
                  against __fdiv_rn on all 2^32 floats, and with pool_bwd
                  timed by device time), for the fused bias+ReLU Gram pair
@@ -91,8 +93,37 @@ no result):
                  the card against the CPU; a profile of ten steps; a 64²
                  fp32 run, card against CPU, within the L-BFGS golden's
                  bounds;
-  9. the {"kernels": [...]} summary and the nvidia-smi line;
-  10. the last line: {"ok": true, "device": {...}}.
+  9. segmentation -- PSPNet-50 at full width (46.7 M conv weights, seeded)
+                 at its 473² eval size: fp32 logits on the card against the
+                 CPU's, labels by the near-tie rule (a label may differ only
+                 where the CPU's top-2 margin is below twice the largest
+                 logit difference), the bf16 forward finite with labels in
+                 [0, 150), `segment_batch` of eight 512² images against
+                 eight `segment` calls (near-tie rule) and against a rerun
+                 (bit for bit); the bf16 forward's device time, images/s,
+                 the sliding protocol on 512 × 768, `merge_classes` on the
+                 host, peak memory;
+  10. automatic -- the sixth path: `stylize(content, style,
+                 PRESETS["config3"])` with no masks at 512² (PSPNet on both
+                 images, the class merge, K = 8 padded masks, 100 Adam
+                 steps), counters reset just before and read just after and
+                 held to what the path implies; losses, output, Σ_k m_k = 1,
+                 at most 8 classes, bit-identical reruns of the masks and of
+                 10 steps; then at 64² in fp32 the card's labels against the
+                 CPU's (near-tie rule) and the CPU's automatic run against
+                 the card's given the CPU's masks (1e-3);
+  11. autotune -- the seventh path: `autotune(content, style,
+                 PRESETS["config3"], rounds=2)`, four Γ, 50 steps a
+                 candidate, automatic masks, 512²; counters held to the
+                 sweep's steps (its resolved config takes the fused Gram
+                 pair at conv1_1), scores finite in [1, 10], the best Γ the
+                 best-scored, the best image equal to `stylize` at that Γ
+                 under the sweep's resolved config, fp32 NIMA card against
+                 CPU (1e-4); seconds a call and a sweep, NIMA's device time
+                 at B = 4;
+  12. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
+      K = 8 as "<kernel> K=8") and the nvidia-smi line;
+  13. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -114,6 +145,7 @@ ITERS = 100            # main-path Adam steps (callback at ITERS // 2)
 RERUN_ITERS = 10       # the bit-identical rerun
 SIZE = 512
 K = 4
+K8 = 8                 # the automatic path's masks: max_classes, padded
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC; fp32 CUDA cores
@@ -122,6 +154,9 @@ GRAM_SHAPES = ((64, 262144), (128, 65536), (256, 16384), (512, 4096),
 # (C, P) of conv2_1 … conv5_1 at config4's 1024² stage (conv1_1 takes the
 # fused pair there): timed, not summed into the 512² step
 GRAM_SHAPES_1024 = ((128, 262144), (256, 65536), (512, 16384), (512, 4096))
+# (C, P) of conv4_1 and conv5_1 at 4096², where config6's route and the
+# standard path take gram_fwd / gram_bwd: timed in bf16, not summed
+GRAM_SHAPES_4096 = ((512, 1 << 18), (512, 1 << 16))
 POOL_SHAPES = ((64, 512, 512), (128, 256, 256), (256, 128, 128),
                (512, 64, 64))                 # (C, H, W) into pool1..pool4
 # (Cin, Cout, H = W) of conv1_2 … conv5_1 at 512², the convs that
@@ -155,6 +190,13 @@ B12_STD_ITERS = 3                              # the standard path beside it
 LBFGS_ITERS = 100      # L-BFGS path steps (callback at LBFGS_ITERS // 2)
 LBFGS_SHORT = 10       # its reruns, resume halves and 64² reference
 SLA_TOL = 0.05         # smooth_local_affine, card against CPU, [0, 255]
+SEG_SIZE = 473         # PSPNet's eval size: the segmentation phase's forward
+SEG_BATCH = 8          # segment_batch's N and chunk
+SEG_LOGIT_TOL = 1e-3   # fp32 logits, card against CPU, of max|logit|
+AUTO_ITERS = 100       # automatic path's Adam steps (500 in the preset)
+TUNE_ITERS = 50        # autotune: Adam steps a candidate
+TUNE_ROUNDS = 2
+NIMA_TOL = 1e-4        # fp32 NIMA scores, card against CPU
 # (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
 # shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
 # bands), avg pooling, one band with tied maxima, five classes, and W = 260
@@ -267,6 +309,18 @@ def device_ms(fn, warmup: int = 3, iters: int = 10) -> float:
                for v in per.values()) / 1e3
 
 
+def device_total_ms(fn, warmup: int = 3, iters: int = 10) -> float:
+    """Device time of fn() per call, as every CUDA event of `iters` calls
+    (after warm-up) over `iters`, for a whole network's forward: unlike
+    `device_ms` it does not ask each kernel's name to come a multiple of
+    `iters` times (PSPNet's and NIMA's traces on the card have come a few
+    events off)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return sum(us for _, us in device_events(fn, iters, bool)) / iters / 1e3
+
+
 def in_turns(kernel, library) -> dict:
     """Device and back-to-back event times of a kernel and of the library
     call that computes the same function, taken in turns (kernel, library,
@@ -352,23 +406,32 @@ def check_lap(dev, gen):
 
 def check_gram(dev, gen):
     """gram_fwd and gram_bwd (bf16: the wgmma bodies; fp32: the CUDA-core
-    tiles) at the 512² taps, and in bf16 at config4's 1024² taps (rows with
-    in_step False, outside the 512² sums). "ms" and "library_ms" are device
+    tiles) at the 512² taps with K = 4 and with K8 = 8 classes (the
+    automatic path's), and in bf16 at config4's 1024² taps and at
+    conv4_1 and conv5_1 of 4096² (rows with in_step False, outside the
+    512² sums; from generators of their own where new). "ms" and "library_ms" are device
     times (`in_turns`), "events_ms" the back-to-back event times."""
     from dpst_tpu_torch.ops import gram_stream as gs
     rows = []
-    cases = [("bfloat16", c, p, True) for c, p in GRAM_SHAPES]
-    cases += [("float32", c, p, True) for c, p in GRAM_SHAPES]
-    cases += [("bfloat16", c, p, False) for c, p in GRAM_SHAPES_1024]
-    for dtype, c, p, in_step in cases:
+    # the K = 8 rows (the automatic path's padded masks) from a generator
+    # of their own, so the K = 4 rows draw as before
+    k8 = torch.Generator(device=dev).manual_seed(SEED + 10)
+    big = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cases = [("bfloat16", c, p, True, K, gen) for c, p in GRAM_SHAPES]
+    cases += [("float32", c, p, True, K, gen) for c, p in GRAM_SHAPES]
+    cases += [("bfloat16", c, p, False, K, gen) for c, p in GRAM_SHAPES_1024]
+    cases += [(dtype, c, p, True, K8, k8) for dtype in ("bfloat16", "float32")
+              for c, p in GRAM_SHAPES]
+    cases += [("bfloat16", c, p, False, K, big) for c, p in GRAM_SHAPES_4096]
+    for dtype, c, p, in_step, k, rng in cases:
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
-        f = torch.randn((c, p), generator=gen, device=dev).abs().to(cdt)
-        m = torch.rand((K, p), generator=gen, device=dev)
+        f = torch.randn((c, p), generator=rng, device=dev).abs().to(cdt)
+        m = torch.rand((k, p), generator=rng, device=dev)
         m2 = (m * m).to(cdt)
-        d = torch.randn((K, c, c), generator=gen, device=dev)
+        d = torch.randn((k, c, c), generator=rng, device=dev)
         s = (d + d.transpose(1, 2)).to(cdt).contiguous()
-        ops = 2.0 * K * c * c * p
+        ops = 2.0 * k * c * c * p
         # forward: raw Grams in fp32 from identical bf16/fp32 operands
         g = gs.gram_fwd(f, m2)
         g_ref = gs.gram_fwd_plain(f, m2)
@@ -385,9 +448,9 @@ def check_gram(dev, gen):
                  "plain": rel_err(g_ref.double(), g64)[1]}
         del fw64, g64
         lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
-        b, by = bound_ms((c * p + K * p) * isz + K * c * c * 4, ops, dtype)
+        b, by = bound_ms((c * p + k * p) * isz + k * c * c * 4, ops, dtype)
         row = {"phase": "kernel", "name": "gram_fwd", "shape": [c, p],
-               "K": K, "dtype": dtype, "in_step": in_step,
+               "K": k, "dtype": dtype, "in_step": in_step,
                "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
                "rel_err_fp64": err64,
                **in_turns(lambda: gs.gram_fwd(f, m2), lib),
@@ -397,19 +460,19 @@ def check_gram(dev, gen):
         emit(row)
         rows.append(row)
         if not rel <= tol:
-            fail("kernels", f"gram_fwd {dtype} {c}x{p}: rel err {rel}")
+            fail("kernels", f"gram_fwd {dtype} {c}x{p} K={k}: rel err {rel}")
         # backward: dF in the compute dtype (bf16 output: <= 1 ulp)
         out = gs.gram_bwd(f, m2, s)
         out_ref = gs.gram_bwd_plain(f, m2, s)
         torch.cuda.synchronize()
         err, rel = rel_err(out, out_ref)
         tol = 1e-2 if dtype == "bfloat16" else 1e-4
-        a = s.permute(1, 0, 2).reshape(c, K * c)
+        a = s.permute(1, 0, 2).reshape(c, k * c)
         lib = lambda: torch.matmul(
-            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
-        b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz, ops, dtype)
+            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(k * c, p))
+        b, by = bound_ms((2 * c * p + k * p + k * c * c) * isz, ops, dtype)
         row = {"phase": "kernel", "name": "gram_bwd", "shape": [c, p],
-               "K": K, "dtype": dtype, "in_step": in_step,
+               "K": k, "dtype": dtype, "in_step": in_step,
                "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
                **in_turns(lambda: gs.gram_bwd(f, m2, s), lib),
                "plain_ms": cuda_ms(lambda: gs.gram_bwd_plain(f, m2, s),
@@ -418,7 +481,7 @@ def check_gram(dev, gen):
         emit(row)
         rows.append(row)
         if not rel <= tol:
-            fail("kernels", f"gram_bwd {dtype} {c}x{p}: rel err {rel}")
+            fail("kernels", f"gram_bwd {dtype} {c}x{p} K={k}: rel err {rel}")
     return rows
 
 
@@ -599,20 +662,24 @@ def check_gram_relu(dev, gen):
     # check_gram_wbwd)
     own = torch.Generator(device=dev).manual_seed(SEED + 6)
     big = torch.Generator(device=dev).manual_seed(SEED + 9)
-    for dtype, (c, p), in_step, gen, fwd in (
-            ("bfloat16", RELU_SHAPE, True, gen, True),
-            ("float32", RELU_SHAPE, True, gen, True),
-            ("bfloat16", RELU_SHAPE_512, False, own, True),
-            ("bfloat16", RELU_SHAPE_4096, False, big, False)):
+    # K = 8 at conv1_1 of 512²: the autotune sweep's fused pair
+    k8 = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for dtype, (c, p), in_step, gen, fwd, k in (
+            ("bfloat16", RELU_SHAPE, True, gen, True, K),
+            ("float32", RELU_SHAPE, True, gen, True, K),
+            ("bfloat16", RELU_SHAPE_512, False, own, True, K),
+            ("bfloat16", RELU_SHAPE_4096, False, big, False, K),
+            ("bfloat16", RELU_SHAPE_512, True, k8, True, K8),
+            ("float32", RELU_SHAPE_512, True, k8, True, K8)):
         cdt = getattr(torch, dtype)
         isz = 2 if dtype == "bfloat16" else 4
-        z, b, m2, s = relu_gram_input(c, p, K, cdt, dev, gen)
+        z, b, m2, s = relu_gram_input(c, p, k, cdt, dev, gen)
         zeros = int(((z.float() + b.float()[:, None]) == 0).sum())
-        ops = 2.0 * K * c * c * p
+        ops = 2.0 * k * c * c * p
         f = g2._cook(z, b)
         if fwd:
             rows.append(check_gram_relu_fwd(z, b, m2, f, dtype, in_step,
-                                            zeros))
+                                            zeros, k))
         out = g2.gram_relu_bwd(z, b, m2, s)
         out_ref = g2.gram_relu_bwd_plain(z, b, m2, s)
         torch.cuda.synchronize()
@@ -621,10 +688,10 @@ def check_gram_relu(dev, gen):
         # orders, rounded once), as gram_wbwd
         tol = out_tol(out_ref, dtype) if dtype == "bfloat16" else 1e-4
         del out, out_ref
-        a = s.permute(1, 0, 2).reshape(c, K * c)
+        a = s.permute(1, 0, 2).reshape(c, k * c)
         lib = lambda: torch.matmul(
-            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
-        bnd, by = bound_ms((2 * c * p + K * p + K * c * c + c) * isz, ops,
+            a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(k * c, p))
+        bnd, by = bound_ms((2 * c * p + k * p + k * c * c + c) * isz, ops,
                            dtype)
         run = lambda: g2.gram_relu_bwd(z, b, m2, s)
         if dtype == "bfloat16":
@@ -634,11 +701,11 @@ def check_gram_relu(dev, gen):
             times["same_work"] = {
                 "call": "cook with torch, then gram_wbwd, then relu′",
                 "ms": device_ms(two), "events_ms": cuda_ms(two)}
-            times["plan"] = g2.relu_bwd_plan(c, p, K)
+            times["plan"] = g2.relu_bwd_plan(c, p, k)
         else:
             times = {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}
         row = {"phase": "kernel", "name": "gram_relu_bwd", "shape": [c, p],
-               "K": K, "dtype": dtype, "in_step": in_step,
+               "K": k, "dtype": dtype, "in_step": in_step,
                "exact_zeros": zeros, "max_abs_err": err, "rel_err": rel,
                "tol_rel": tol, **times,
                "plain_ms": cuda_ms(
@@ -650,20 +717,20 @@ def check_gram_relu(dev, gen):
         emit(row)
         rows.append(row)
         if not rel <= tol:
-            fail("kernels", f"gram_relu_bwd {dtype} {c}x{p}: rel err {rel} "
-                 f"> {tol}")
+            fail("kernels", f"gram_relu_bwd {dtype} {c}x{p} K={k}: rel err "
+                 f"{rel} > {tol}")
         del z, b, m2, s, f
         torch.cuda.empty_cache()
     return rows
 
 
 def check_gram_relu_fwd(z, b, m2, f, dtype: str, in_step: bool,
-                        zeros: int) -> dict:
-    """The forward half of `check_gram_relu` on its operands."""
+                        zeros: int, k: int) -> dict:
+    """The forward half of `check_gram_relu` on its operands (k classes)."""
     from dpst_tpu_torch.ops import gram_s2d as g2
     from dpst_tpu_torch.ops import gram_stream as gs
     (c, p), isz = z.shape, z.element_size()
-    ops = 2.0 * K * c * c * p
+    ops = 2.0 * k * c * c * p
     g = g2.gram_relu_fwd(z, b, m2)
     g_ref = g2.gram_relu_fwd_plain(z, b, m2)
     torch.cuda.synchronize()
@@ -678,7 +745,7 @@ def check_gram_relu_fwd(z, b, m2, f, dtype: str, in_step: bool,
              "plain": rel_err(g_ref.double(), g64)[1]}
     del fw64, g64
     lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
-    bnd, by = bound_ms((c * p + K * p + c) * isz + K * c * c * 4, ops,
+    bnd, by = bound_ms((c * p + k * p + c) * isz + k * c * c * 4, ops,
                        dtype)
     run = lambda: g2.gram_relu_fwd(z, b, m2)
     if dtype == "bfloat16":
@@ -690,7 +757,7 @@ def check_gram_relu_fwd(z, b, m2, f, dtype: str, in_step: bool,
     else:
         times = {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)}
     row = {"phase": "kernel", "name": "gram_relu_fwd", "shape": [c, p],
-           "K": K, "dtype": dtype, "in_step": in_step,
+           "K": k, "dtype": dtype, "in_step": in_step,
            "exact_zeros": zeros, "max_abs_err": err, "rel_err": rel,
            "tol_rel": tol, "rel_err_fp64": err64, **times,
            "plain_ms": cuda_ms(lambda: g2.gram_relu_fwd_plain(z, b, m2),
@@ -700,7 +767,8 @@ def check_gram_relu_fwd(z, b, m2, f, dtype: str, in_step: bool,
                            "relu(z + b), less work"}
     emit(row)
     if not rel <= tol:
-        fail("kernels", f"gram_relu_fwd {dtype} {c}x{p}: rel err {rel}")
+        fail("kernels", f"gram_relu_fwd {dtype} {c}x{p} K={k}: rel err "
+             f"{rel}")
     del g, g_ref
     return row
 
@@ -2113,7 +2181,476 @@ def run_lbfgs_reference(gen, size: int = 64, k: int = 3) -> None:
         fail("reference", "config3 L-BFGS: " + "; ".join(bad))
 
 
-def summarize(rows: list, launches: dict) -> list:
+def run_automatic_stages(dev) -> dict:
+    """The segmentation phase, then the automatic and autotune paths (each
+    on a generator of its own) with the automatic path's 64² reference;
+    returns the two paths' launch counts."""
+    seg_params = run_segmentation(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 12))
+    auto_gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    launches = {"config3 automatic 512²": run_automatic(dev, auto_gen,
+                                                        seg_params)}
+    run_automatic_reference(dev, auto_gen, seg_params)
+    launches["config3 autotune 512²"] = run_autotune(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 14), seg_params)
+    return launches
+
+
+def pspnet_gflop(size: int) -> float:
+    """GFLOP (2 × multiply-adds) of PSPNet-50's convs on one size² image:
+    the stem at stride 2, res2 after the stride-2 pool, res3_0_a there
+    too, everything from res3_0_b on at stride 8, each PPM conv on its
+    bin² grid."""
+    from dpst_tpu_torch.models import pspnet
+    h1 = -(-size // 2)
+    h2 = -(-h1 // 2)
+    h3 = -(-h2 // 2)
+    total = 0
+    for name, kh, kw, cin, cout in pspnet.CONV_SPECS:
+        if name.startswith("stem"):
+            n = h1
+        elif name.startswith("res2") or name == "res3_0_a":
+            n = h2
+        elif name.startswith("ppm"):
+            n = int(name[3:])
+        else:
+            n = h3
+        total += 2 * n * n * kh * kw * cin * cout
+    return total / 1e9
+
+
+def label_flips(labels: torch.Tensor, scores: torch.Tensor,
+                ref: torch.Tensor) -> dict:
+    """The near-tie rule: `labels`, the argmax over dim 1 of `scores`,
+    against the argmax of the reference's `ref` (same shape, on the CPU).
+    A label may differ only where ref's top-2 margin is below twice the
+    largest score difference."""
+    diff = float((scores - ref).abs().max())
+    top2 = ref.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) < 2 * diff
+    flipped = labels != ref.argmax(1)
+    return {"max_abs_diff": diff, "near_tie_share": float(near.float().mean()),
+            "flipped": int(flipped.sum()),
+            "flipped_outside_near_ties": int((flipped & ~near).sum())}
+
+
+def run_segmentation(dev, gen) -> dict:
+    """PSPNet-50 at full width (seeded weights) at its 473² eval size: fp32
+    logits on the card against the CPU's (TF32 off), the labels by the
+    near-tie rule, the bf16 forward (finite, labels in [0, 150), its
+    agreement with the fp32 labels), `segment_batch` of SEG_BATCH 512²
+    images against as many `segment` calls by the near-tie rule (its
+    bit-equality printed) and against a rerun bit for bit; the bf16
+    forward's device time, `segment_batch`'s images/s, the sliding
+    protocol on a 512 × 768 image, `merge_classes` on the host, peak
+    memory. Returns the weights (on the CPU)."""
+    from dpst_tpu_torch import semantic_merge
+    from dpst_tpu_torch.models import pspnet
+    from dpst_tpu_torch.ops.resize import resize_image
+
+    torch.cuda.reset_peak_memory_stats()
+    params_cpu = pspnet.init_params(SEED)
+    params = {k: {n: t.to(dev) for n, t in p.items()}
+              for k, p in params_cpu.items()}
+    n_weights = sum(p["w"].numel() for p in params_cpu.values())
+    x = torch.from_numpy(smooth_image(gen, dev, SEG_SIZE))[None]
+    logits = pspnet._forward(params, x.to(dev), "float32").cpu()
+    t0 = time.perf_counter()
+    ref = pspnet._forward(params_cpu, x, "float32")
+    cpu_s = time.perf_counter() - t0
+    top = float(ref.abs().max())
+    flips = label_flips(logits.argmax(1), logits, ref)
+    x_dev = x.to(dev)
+    logits16 = pspnet._forward(params, x_dev, "bfloat16")
+    labels16 = logits16.argmax(1).cpu()
+    finite16 = bool(torch.isfinite(logits16).all())
+    del logits16
+
+    imgs = torch.from_numpy(np.stack([smooth_image(gen, dev, SIZE)
+                                      for _ in range(SEG_BATCH)])).to(dev)
+    batch = pspnet.segment_batch(params, imgs, "bfloat16", chunk=SEG_BATCH)
+    single = torch.stack([pspnet.segment(params, imgs[i], "bfloat16")
+                          for i in range(SEG_BATCH)])
+    rerun = (torch.equal(pspnet.segment_batch(params, imgs, "bfloat16",
+                                              chunk=SEG_BATCH), batch)
+             and torch.equal(pspnet.segment(params, imgs[0], "bfloat16"),
+                             single[0]))
+    # the batch and the single calls by the near-tie rule, on the class
+    # scores whose argmax they take: cuDNN may choose other algorithms
+    # for a batch of eight than for one, and bf16 logits then round apart
+    x473 = resize_image(imgs, (pspnet.EVAL_SIZE, pspnet.EVAL_SIZE))
+    scores_b = pspnet._bilinear(pspnet._forward(params, x473, "bfloat16"),
+                                (SIZE, SIZE), antialias=True)
+    scores_1 = torch.cat([pspnet._bilinear(pspnet._forward(
+        params, x473[i:i + 1], "bfloat16"), (SIZE, SIZE), antialias=True)
+        for i in range(SEG_BATCH)])
+    same_scores = (torch.equal(scores_b.argmax(1), batch)
+                   and torch.equal(scores_1.argmax(1), single))
+    batch_flips = label_flips(batch, scores_b, scores_1)
+    del scores_b, scores_1, x473
+
+    fwd = lambda: pspnet._forward(params, x_dev, "bfloat16")
+    fwd_ms = device_total_ms(fwd, warmup=2, iters=5)
+    fwd_events_ms = cuda_ms(fwd, warmup=1, iters=10)
+    seg = lambda: pspnet.segment_batch(params, imgs, "bfloat16",
+                                       chunk=SEG_BATCH)
+    seg()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        seg()
+    torch.cuda.synchronize()
+    images_s = 3 * SEG_BATCH / (time.perf_counter() - t0)
+    wide = torch.from_numpy(smooth_image(gen, dev, 768)[:512]).to(dev)
+    slide = lambda: pspnet.segment(params, wide, "bfloat16",
+                                   protocol="sliding", base_size=512,
+                                   flip=True)
+    slide()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slide_labels = slide()
+    torch.cuda.synchronize()
+    slide_ms = (time.perf_counter() - t0) * 1e3
+    seg_c, seg_s = batch[0].cpu().numpy(), batch[1].cpu().numpy()
+    semantic_merge.merge_classes(seg_c, seg_s)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        merged = semantic_merge.merge_classes(seg_c, seg_s)
+    merge_ms = (time.perf_counter() - t0) * 1e3 / 5
+    gflop = pspnet_gflop(SEG_SIZE)
+    emit({"phase": "segmentation", "size": SEG_SIZE, "classes": 150,
+          "conv_weights": n_weights, "weights": f"He-init seed {SEED}",
+          "gflop_per_image": gflop,
+          "fp32_max_abs_logit_diff_vs_cpu": flips["max_abs_diff"],
+          "fp32_max_abs_logit": top, "tol_rel": SEG_LOGIT_TOL,
+          "fp32_labels_vs_cpu": flips, "cpu_fp32_forward_s": cpu_s,
+          "bf16_finite": finite16,
+          "bf16_vs_fp32_label_agreement": float(
+              (labels16 == logits.argmax(1)).float().mean()),
+          "segment_batch": {"N": SEG_BATCH, "chunk": SEG_BATCH,
+                            "bit_equal_to_segment_calls": bool(torch.equal(
+                                batch, single)),
+                            "vs_segment_calls": batch_flips,
+                            "labels_are_argmax_of_scores": same_scores,
+                            "rerun_bit_identical": bool(rerun)},
+          "bf16_forward_device_ms": fwd_ms,
+          "bf16_forward_events_ms": fwd_events_ms,
+          "bf16_forward_tflop_s": gflop / fwd_ms,
+          "segment_batch_images_per_s": images_s,
+          "sliding_512x768_flip_ms": slide_ms,
+          "sliding_classes": int(slide_labels.unique().numel()),
+          "merge_classes_host_ms": merge_ms,
+          "merged_classes": len(merged[2]),
+          "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    bad = []
+    if not flips["max_abs_diff"] <= SEG_LOGIT_TOL * top:
+        bad.append(f"fp32 logits differ by {flips['max_abs_diff']} > "
+                   f"{SEG_LOGIT_TOL} x {top}")
+    if flips["flipped_outside_near_ties"]:
+        bad.append(f"{flips['flipped_outside_near_ties']} fp32 labels "
+                   "differ from the CPU's outside near ties")
+    if not (finite16 and int(batch.min()) >= 0 and int(batch.max()) < 150):
+        bad.append("bf16 logits not finite, or labels outside [0, 150)")
+    if batch_flips["flipped_outside_near_ties"] or not same_scores:
+        bad.append(f"segment_batch differs from segment at "
+                   f"{batch_flips['flipped_outside_near_ties']} pixels "
+                   "outside near ties (or the scores are not its own)")
+    if not rerun:
+        bad.append("a rerun changed the label maps")
+    if bad:
+        fail("segmentation", "; ".join(bad))
+    del params, imgs
+    torch.cuda.empty_cache()
+    return params_cpu
+
+
+def automatic_launches(steps: int) -> dict:
+    """What config3 with automatic masks launches at 512², K8 classes:
+    the main path's kernels (segmentation and the class merge launch
+    none): per step five Grams forward and backward, four pool backwards,
+    one Laplacian matvec; the precompute's five style Grams."""
+    from dpst_tpu_torch.ops import kernels
+    need = dict.fromkeys(kernels.KERNELS, 0)
+    need.update(lap_matvec=steps, gram_fwd=5 * steps + 5,
+                gram_bwd=5 * steps, pool_bwd=4 * steps)
+    return need
+
+
+def run_automatic(dev, gen, seg_params: dict) -> dict:
+    """`stylize(content, style, PRESETS["config3"])` with no masks: PSPNet
+    on both images, the merge, K8 padded masks, then the config3 loop
+    (AUTO_ITERS steps, bf16, seeded VGG-19 and PSPNet). The masks alone
+    first (timed, twice: bit-identical), then the precompute alone, then
+    the path with the counters reset just before and read just after.
+    Checks the losses, the output, the masks (Σ_k m_k = 1, at most K8
+    classes), the counters and a bit-identical short rerun."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import segmentation
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+
+    label = "config3 automatic 512²"
+    content = smooth_image(gen, dev, SIZE)
+    style = textured_image(gen, dev, SIZE)
+    params = vgg.get_params(seed=SEED, device=dev)
+    seg = {k: {n: t.to(dev) for n, t in p.items()}
+           for k, p in seg_params.items()}
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              iterations=AUTO_ITERS,
+                              intermediate_interval=AUTO_ITERS // 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm, sm, ids = segmentation.automatic_masks(content, style, cfg, seg,
+                                               device=dev)
+    seg_s = time.perf_counter() - t0
+    cm2, sm2, ids2 = segmentation.automatic_masks(content, style, cfg, seg,
+                                                  device=dev)
+    masks_rerun = bool(np.array_equal(cm, cm2) and np.array_equal(sm, sm2)
+                       and ids == ids2)
+    precompute_s = precompute_seconds(dev, cfg, params, content, style,
+                                      cm, sm)
+    marks = {}
+
+    def callback(step, image, hist):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+
+    def run(cfg, callback=None):
+        return dpst_tpu_torch.stylize(content, style, cfg, vgg_params=params,
+                                      seg_params=seg, callback=callback,
+                                      return_history=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, hist = run(cfg, callback)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    half = AUTO_ITERS // 2
+    loop_its = half / (marks[AUTO_ITERS] - marks[half])
+    _, hist_s = run(dataclasses.replace(cfg, iterations=RERUN_ITERS))
+    rerun = bool(np.array_equal(hist_s, hist[:RERUN_ITERS]))
+    emit_profile(label, 5, 10, run, cfg, 1e3 / loop_its)
+    emit({"phase": "automatic", "path": label, "size": SIZE,
+          "K": cm.shape[0], "merged_classes": len(ids), "class_ids": ids,
+          "content_class_pixels": cm.sum(axis=(1, 2)).tolist(),
+          "iterations": AUTO_ITERS, "compute_dtype": cfg.compute_dtype,
+          "segmentation_s": seg_s, "precompute_s": precompute_s,
+          "loop_it_s": loop_its, "wall_s": wall_s,
+          "projected_500_step_s": seg_s + precompute_s + 500 / loop_its,
+          "first_row": hist[0].tolist(), "last_row": hist[-1].tolist(),
+          "launches": launches, "max_memory_gb": peak,
+          "masks_rerun_bit_identical": masks_rerun,
+          "history_rerun_bit_identical": rerun})
+    need = automatic_launches(AUTO_ITERS)
+    bad = [f"{name} launched {launches[name]} times, the path implies {n}"
+           for name, n in need.items() if launches[name] != n]
+    if not hist[-1, 0] < hist[0, 0]:
+        bad.append(f"total loss did not fall: {hist[0, 0]} -> "
+                   f"{hist[-1, 0]}")
+    if not hist[:, 3].min() >= -1.0:
+        bad.append(f"photoreal term {hist[:, 3].min()} < -1")
+    if not (out.shape == (SIZE, SIZE, 3) and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 255.0):
+        bad.append("output not finite (512, 512, 3) in [0, 255]")
+    if not (cm.shape[0] == sm.shape[0] == K8 and len(ids) <= K8
+            and np.all(cm.sum(0) == 1.0) and np.all(sm.sum(0) == 1.0)):
+        bad.append(f"masks: K {cm.shape[0]}, {len(ids)} classes, "
+                   "Σ_k m_k not 1 at every pixel")
+    if not (masks_rerun and rerun):
+        bad.append(f"reruns: masks {masks_rerun}, history {rerun}")
+    if bad:
+        fail("automatic", f"{label}: " + "; ".join(bad))
+    return launches
+
+
+def run_automatic_reference(dev, gen, seg_params: dict, size: int = 64
+                            ) -> None:
+    """The automatic path at 64² in fp32: the card's label maps against
+    the CPU's by the near-tie rule (the resize protocol's scores), then
+    the CPU's whole automatic `stylize` against the card's `stylize` given
+    the CPU's masks, histories within 1e-3."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import segmentation
+    from dpst_tpu_torch.models import pspnet, vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.ops.resize import resize_image
+    content = smooth_image(gen, gen.device, size)
+    style = textured_image(gen, gen.device, size)
+    cfg = dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=5, regularization_weight=100.0)
+    params = vgg.init_params(SEED)
+    seg = {k: {n: t.to(dev) for n, t in p.items()}
+           for k, p in seg_params.items()}
+    flips = []
+    for img in (content, style):
+        scores = {}
+        for where, p in ((dev, seg), ("cpu", seg_params)):
+            x = resize_image(torch.from_numpy(img).to(where)[None],
+                             (pspnet.EVAL_SIZE, pspnet.EVAL_SIZE))
+            logits = pspnet._forward(p, x, "float32")
+            scores[str(where)] = pspnet._bilinear(logits, (size, size),
+                                                  antialias=True).cpu()
+        card = scores[str(dev)]
+        labels = pspnet.segment(seg, torch.from_numpy(img).to(dev),
+                                "float32").cpu()
+        if not torch.equal(labels, card.argmax(1)[0]):
+            fail("reference", "automatic: segment's labels are not the "
+                 "argmax of its scores")
+        flips.append(label_flips(card.argmax(1), card, scores["cpu"]))
+    cm, sm, ids = segmentation.automatic_masks(content, style, cfg,
+                                               seg_params, device="cpu")
+    _, h_cpu = dpst_tpu_torch.stylize(content, style, cfg, vgg_params=params,
+                                      seg_params=seg_params,
+                                      return_history=True, device="cpu")
+    kernels.reset_launches()
+    _, h_card = dpst_tpu_torch.stylize(content, style, cfg,
+                                       content_masks=cm, style_masks=sm,
+                                       vgg_params=params,
+                                       return_history=True, device=dev)
+    launches = dict(kernels.LAUNCHES)
+    rel = np.abs(h_card - h_cpu) / np.maximum(np.abs(h_cpu).max(axis=0),
+                                              1e-30)
+    worst, tol = float(rel.max()), 1e-3
+    emit({"phase": "reference", "path": "config3 automatic", "size": size,
+          "K": cm.shape[0], "merged_classes": len(ids),
+          "iterations": len(h_cpu), "compute_dtype": "float32",
+          "labels_vs_cpu": flips, "max_rel_err_vs_cpu": worst,
+          "tol_rel": tol, "card_launches": launches})
+    bad = [f"{f['flipped_outside_near_ties']} labels differ outside near "
+           "ties" for f in flips if f["flipped_outside_near_ties"]]
+    if not worst <= tol:
+        bad.append(f"card vs CPU history rel err {worst} > {tol}")
+    if bad:
+        fail("reference", "config3 automatic: " + "; ".join(bad))
+
+
+def autotune_launches(steps: int) -> dict:
+    """What the Γ sweep of config3 launches at 512², K8 classes, for
+    `steps` Adam steps over all candidates and rounds: the resolved
+    config's conv1_1 on the fused pair (one each a step), the other four
+    style taps on gram_fwd / gram_bwd, four pool backwards, one Laplacian
+    matvec a step; the precompute's five style Grams once a call (NIMA and
+    PSPNet launch none)."""
+    from dpst_tpu_torch.ops import kernels
+    need = dict.fromkeys(kernels.KERNELS, 0)
+    need.update(lap_matvec=steps, gram_fwd=4 * steps + 5,
+                gram_bwd=4 * steps, gram_relu_fwd=steps,
+                gram_relu_bwd=steps, pool_bwd=4 * steps)
+    return need
+
+
+def run_autotune(dev, gen, seg_params: dict) -> dict:
+    """`autotune(content, style, PRESETS["config3"], rounds=TUNE_ROUNDS)`
+    with the four default Γ, TUNE_ITERS steps a candidate, automatic masks,
+    at 512²: the counters reset just before and read just after and held
+    to the sweep's steps; scores finite in [1, 10]; the best Γ the
+    best-scored candidate; the best image equal to `stylize` under the
+    sweep's resolved config at that Γ, bit for bit; the fp32 NIMA scores of
+    the final images, card against CPU, within NIMA_TOL. Times a call, a
+    one-round call (their difference: one sweep; the one-round call again,
+    profiled by kernel group), and NIMA's bf16 forward at B = 4."""
+    import importlib
+
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import nima, vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.ops.resize import resize_image
+    tune = importlib.import_module("dpst_tpu_torch.autotune")
+
+    label = "config3 autotune 512²"
+    content = smooth_image(gen, dev, SIZE)
+    style = textured_image(gen, dev, SIZE)
+    params = vgg.get_params(seed=SEED, device=dev)
+    seg = {k: {n: t.to(dev) for n, t in p.items()}
+           for k, p in seg_params.items()}
+    nima_cpu = nima.init_params(SEED)
+    nima_dev = {k: {n: t.to(dev) for n, t in p.items()}
+                for k, p in nima_cpu.items()}
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              iterations=TUNE_ITERS)
+    kw = dict(vgg_params=params, nima_params=nima_dev, seg_params=seg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = dpst_tpu_torch.autotune(content, style, cfg, rounds=TUNE_ROUNDS,
+                                  **kw)
+    call_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # a one-round call (its time: the call's less one sweep), then the
+    # same call profiled: device time by kernel group over its steps
+    # (PSPNet, the precompute and NIMA included, under 1 % of it), its
+    # busy share against the unprofiled call
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dpst_tpu_torch.autotune(content, style, cfg, rounds=1, **kw)
+    torch.cuda.synchronize()
+    one_round_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dpst_tpu_torch.autotune(content, style, cfg, rounds=1, **kw)
+        torch.cuda.synchronize()
+    round_steps = len(tune.DEFAULT_GAMMAS) * TUNE_ITERS
+    groups: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = kernel_group(ev.name)
+            groups[g] = (groups.get(g, 0.0)
+                         + ev.time_range.elapsed_us() / 1e3 / round_steps)
+    busy = sum(groups.values())
+    emit({"phase": "profile", "path": label + ", one round",
+          "steps": round_steps, "device_ms_per_step": dict(sorted(
+              groups.items(), key=lambda kv: -kv[1])),
+          "device_busy_ms_per_step": busy,
+          "call_ms_per_step_unprofiled": one_round_s * 1e3 / round_steps,
+          "device_busy_share": busy * round_steps / one_round_s / 1e3})
+
+    best = dpst_tpu_torch.stylize(
+        content, style, dataclasses.replace(tune.resolve_config(cfg),
+                                            style_weight=res.best_gamma),
+        vgg_params=params, seg_params=seg)
+    images = torch.from_numpy(res.images)
+    card = nima.nima_score(nima_dev, images.to(dev), "float32").cpu()
+    plain = nima.nima_score(nima_cpu, images, "float32")
+    nima_err = float((card - plain).abs().max())
+    x4 = resize_image(images.to(dev), (nima.EVAL_SIZE, nima.EVAL_SIZE))
+    nima_ms = device_total_ms(
+        lambda: nima.score_distribution(nima_dev, x4, "bfloat16"))
+    steps = len(tune.DEFAULT_GAMMAS) * TUNE_ROUNDS * TUNE_ITERS
+    emit({"phase": "autotune", "path": label, "size": SIZE, "K": K8,
+          "gammas": res.gammas.tolist(), "scores": res.scores.tolist(),
+          "best_gamma": res.best_gamma, "rounds": TUNE_ROUNDS,
+          "steps_per_candidate": TUNE_ITERS, "call_s": call_s,
+          "one_round_call_s": one_round_s,
+          "sweep_s": call_s - one_round_s,
+          "nima_bf16_b4_device_ms": nima_ms,
+          "nima_fp32_max_abs_err_vs_cpu": nima_err, "nima_tol": NIMA_TOL,
+          "launches": launches, "max_memory_gb": peak})
+    bad = [f"{name} launched {launches[name]} times, the sweep implies {n}"
+           for name, n in autotune_launches(steps).items()
+           if launches[name] != n]
+    if not (np.isfinite(res.scores).all() and res.scores.min() >= 1.0
+            and res.scores.max() <= 10.0):
+        bad.append(f"scores {res.scores.tolist()} not finite in [1, 10]")
+    if res.best_gamma != float(res.gammas[int(np.argmax(res.scores))]):
+        bad.append(f"best Γ {res.best_gamma} is not the best-scored one")
+    if not np.array_equal(best, res.best_image):
+        bad.append("the best image differs from stylize at its Γ")
+    if not nima_err <= NIMA_TOL:
+        bad.append(f"fp32 NIMA card vs CPU {nima_err} > {NIMA_TOL}")
+    if bad:
+        fail("autotune", f"{label}: " + "; ".join(bad))
+    return launches
+
+
+def summarize(rows: list, launches: dict, k: int = K) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
     step of its main path launches (512² config3 for the first four
     kernels, the 1024² stage of config4 for the fused Gram pair, the 512²
@@ -2122,7 +2659,10 @@ def summarize(rows: list, launches: dict) -> list:
     Laplacian); max_abs_err over those shapes (for block12, over its bf16
     checks).
     `launches` sums the counts of all main-path runs, `launches_by_path`
-    gives each."""
+    gives each. With k = K8 the entries are the Gram kernels' rows at
+    K8 classes (gram_fwd and gram_bwd at the 512² taps, the fused pair at
+    conv1_1 of 512²), named "<kernel> K=8", with the launches of the
+    automatic and autotune paths."""
     meta = {
         "lap_matvec": ("dpst_tpu_torch/csrc/lap_matvec.cu",
                        "dpst_tpu/ops/laplacian_pallas.py:111", None,
@@ -2158,17 +2698,22 @@ def summarize(rows: list, launches: dict) -> list:
                                 "dpst_tpu/ops/block12_pallas.py:379", None,
                                 "bfloat16"),
     }
+    if k != K:
+        meta = {name: meta[name] for name in ("gram_fwd", "gram_bwd",
+                                              "gram_relu_fwd",
+                                              "gram_relu_bwd")}
     out = []
     for name, (src, replaces, also, dtype) in meta.items():
         sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype
-               and r.get("in_step", True)]
+               and r.get("in_step", True) and r.get("K", K) == k]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel
                     if r["bound_by"] == "operations")
         libs = [r["library_ms"] for r in sel]
         by_path = {path: counts[name] for path, counts in launches.items()}
         entry = {
-            "name": name, "route": "cuda", "source": src,
+            "name": name if k == K else f"{name} K={k}", "route": "cuda",
+            "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in sel),
@@ -2178,7 +2723,7 @@ def summarize(rows: list, launches: dict) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": (None if any(v is None for v in libs)
                            else sum(libs)),
-            "dtype": dtype, "shapes_per_step": len(sel)}
+            "dtype": dtype, "K": k, "shapes_per_step": len(sel)}
         if also:
             entry["also_replaces"] = also
         if "library_call" in sel[0]:
@@ -2310,9 +2855,13 @@ def main() -> int:
     lb_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     launches["config3 L-BFGS 512²"] = run_lbfgs(dev, lb_gen, smi)
     seconds["lbfgs"] = time.perf_counter() - t0
+    launches_k8 = run_automatic_stages(dev)
+    seconds["segmentation, automatic, autotune"] = (time.perf_counter()
+                                                    - t0 - seconds["lbfgs"])
     emit({"phase": "timing", "seconds": seconds})
     print(smi, flush=True)
-    emit({"kernels": summarize(rows, launches)})
+    emit({"kernels": summarize(rows, launches)
+          + summarize(rows, launches_k8, K8)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

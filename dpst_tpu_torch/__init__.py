@@ -1,5 +1,6 @@
-"""dpst_tpu_torch: the PyTorch/CUDA port of dpst_tpu (deep photo style
-transfer), with hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+"""dpst_tpu_torch: the PyTorch/CUDA port of dpst_tpu (automated deep photo
+style transfer), with hand-written CUDA kernels for an NVIDIA H100
+(sm_90a).
 
 `stylize` runs masked stylization (the config3 objective: content, masked
 Gram style and matting-Laplacian terms) with Adam or L-BFGS (optax's
@@ -7,10 +8,18 @@ algorithm with its zoom linesearch, `optim/`), single-scale or coarse to
 fine over `scales` (config4), with the Gram, conv and blocks-1-2 routes
 that `StylizeConfig` selects, the smooth-local-affine post-process
 (`post_smooth`), per-stage checkpoint/resume, profiling and NaN checks.
-Still missing: automatic segmentation and the multi-GPU Laplacian (both
-raise NotImplementedError), and `autotune`, `stylize_batch` and the CLI.
+Without masks it builds them automatically (PSPNet-50 segmentation on the
+device, ADE20K class merging on the host; `segmentation.py`). `autotune`
+sweeps the style weight Γ and keeps the stylization that NIMA scores
+highest. Still missing: the multi-GPU Laplacian (it raises
+NotImplementedError), `stylize_batch` and the CLI.
 """
 from .api import prepare_constants, stylize
+# the submodule is imported here, before the name is bound to the function:
+# a later `import dpst_tpu_torch.autotune` finds it in sys.modules and
+# leaves `dpst_tpu_torch.autotune` the function
+from .autotune import autotune
 from .config import PRESETS, StylizeConfig
 
-__all__ = ["stylize", "prepare_constants", "StylizeConfig", "PRESETS"]
+__all__ = ["stylize", "prepare_constants", "autotune", "StylizeConfig",
+           "PRESETS"]

@@ -1,6 +1,7 @@
 """Public API of the port: `stylize(content, style, config=...) -> image`.
 
-Stylization: load → masks (given, or uniform when segmentation is off) →
+Stylization: load → masks (given; else automatic -- PSPNet on the
+device, class merging on the host -- or uniform when segmentation is off) →
 per scale of the schedule: resize to the stage size, precompute (content
 features, masked style Grams, mask pyramid, coverage, Laplacian stats),
 carry the image up from the stage before, optimize with Adam or L-BFGS
@@ -28,31 +29,16 @@ from .ops.laplacian_cuda import pack_stats
 from .ops.resize import resize_image
 from .utils import io, runtime
 from .utils.checkpoint import RunCheckpointer
+from .utils.runtime import params_on, resolve_device
 
 
-def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card; raise if there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU by default; pass "
-                "device='cpu' to run the plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def _check_ported(cfg: StylizeConfig, masks_given: bool) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks,
-    naming the ROADMAP.md queue-1 item that will port it."""
-    todo = []
-    if cfg.use_segmentation and not masks_given:
-        todo.append("use_segmentation=True without masks "
-                    "(item 12: segmentation)")
+def _check_ported(cfg: StylizeConfig) -> None:
+    """Raise NotImplementedError for what the port lacks, naming the
+    ROADMAP.md queue-1 item that will port it."""
     if cfg.laplacian_impl == "spmd":
-        todo.append("laplacian_impl='spmd' (item 15: multi-GPU)")
-    if todo:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md queue 1): " + "; ".join(todo))
+            "not ported yet (see ROADMAP.md queue 1): laplacian_impl='spmd' "
+            "(item 15: multi-GPU)")
 
 
 @torch.no_grad()
@@ -159,11 +145,47 @@ def _scale_schedule(cfg: StylizeConfig, hw: tuple[int, int]
     return stages
 
 
+def _inputs(content, style, cfg: StylizeConfig, size, content_masks,
+            style_masks, vgg_params, seg_params, dev: torch.device):
+    """What `stylize` and `autotune` start from, on `dev`: the content image
+    at `size` and the style image at its size ((H, W, 3) fp32), their
+    (K, H, W) masks (given and fitted to the images, automatic, or
+    uniform), and the VGG weights packed for `cfg`."""
+    if (content_masks is None) != (style_masks is None):
+        raise ValueError(
+            "content_masks and style_masks must be provided together "
+            "(their class channels must be aligned); got only "
+            + ("content_masks" if style_masks is None else "style_masks"))
+    _check_ported(cfg)
+    content_np = io.load_image(content, size)
+    hw = content_np.shape[:2]
+    style_np = io.load_image(style, hw)
+    if content_masks is None:
+        if cfg.use_segmentation:
+            content_masks, style_masks, _ = segmentation.automatic_masks(
+                content_np, style_np, cfg, seg_params, device=dev)
+        else:
+            content_masks = segmentation.uniform_masks(hw)
+            style_masks = segmentation.uniform_masks(style_np.shape[:2])
+    content_masks = _fit_masks(np.asarray(content_masks, np.float32), hw)
+    style_masks = _fit_masks(np.asarray(style_masks, np.float32),
+                             style_np.shape[:2])
+    if vgg_params is None:
+        vgg_params = vgg.get_params(seed=cfg.seed, device=dev)
+    vgg_params = vgg.pack_params(params_on(vgg_params, dev),
+                                 cfg.compute_dtype, cfg.conv_impl)
+    return (torch.from_numpy(content_np).to(dev),
+            torch.from_numpy(style_np).to(dev),
+            torch.from_numpy(content_masks).to(dev),
+            torch.from_numpy(style_masks).to(dev), vgg_params)
+
+
 def stylize(content, style, config: StylizeConfig | None = None, *,
             size: int | tuple[int, int] | None = None,
             content_masks: np.ndarray | None = None,
             style_masks: np.ndarray | None = None,
             vgg_params: dict | None = None,
+            seg_params: dict | None = None,
             callback: Callable | None = None,
             resume: bool = False,
             return_history: bool = False,
@@ -171,9 +193,12 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
     """Stylize `content` with the style of `style` (paths or HWC arrays).
 
     `content_masks`/`style_masks` (K, H, W) give the aligned class masks;
-    without them `use_segmentation=False` runs one uniform class.
-    `vgg_params` is the port's weight dict (`models.vgg.params_from_numpy`
-    converts the JAX package's); the call packs it once for its kernels
+    without them `use_segmentation=True` builds them
+    (`segmentation.automatic_masks`: PSPNet with `seg_params`, the port's
+    PSPNet dict, or its seed-0 weights; `max_classes` one-hot masks) and
+    `use_segmentation=False` runs one uniform class. `vgg_params` is the
+    port's weight dict (`models.vgg.params_from_numpy` converts the JAX
+    package's); the call packs it once for its kernels
     (`models.vgg.pack_params`). `cfg.scales` runs a coarse-to-fine
     schedule (`_scale_schedule`), each stage with a fresh optimizer state.
     `callback(step, image, history_chunk)` fires every
@@ -196,37 +221,14 @@ def stylize(content, style, config: StylizeConfig | None = None, *,
                 content, style, dataclasses.replace(cfg, profile_dir=""),
                 size=size, content_masks=content_masks,
                 style_masks=style_masks, vgg_params=vgg_params,
-                callback=callback, resume=resume,
+                seg_params=seg_params, callback=callback, resume=resume,
                 return_history=return_history, device=device)
     dev = resolve_device(device)
-    if (content_masks is None) != (style_masks is None):
-        raise ValueError(
-            "content_masks and style_masks must be provided together "
-            "(their class channels must be aligned); got only "
-            + ("content_masks" if style_masks is None else "style_masks"))
-    _check_ported(cfg, content_masks is not None)
-
-    content_np = io.load_image(content, size)
-    hw = content_np.shape[:2]
-    style_np = io.load_image(style, hw)
-    if content_masks is None:
-        content_masks = segmentation.uniform_masks(hw)
-        style_masks = segmentation.uniform_masks(style_np.shape[:2])
-    content_masks = _fit_masks(np.asarray(content_masks, np.float32), hw)
-    style_masks = _fit_masks(np.asarray(style_masks, np.float32),
-                             style_np.shape[:2])
-
-    if vgg_params is None:
-        vgg_params = vgg.get_params(seed=cfg.seed, device=dev)
-    vgg_params = vgg.pack_params(
-        {k: {n: t.to(dev) for n, t in p.items()}
-         for k, p in vgg_params.items()}, cfg.compute_dtype, cfg.conv_impl)
+    content_full, style_full, cmask_full, smask_full, vgg_params = _inputs(
+        content, style, cfg, size, content_masks, style_masks, vgg_params,
+        seg_params, dev)
+    hw = tuple(content_full.shape[:2])
     weights = optimize.LossWeights.from_config(cfg)
-
-    content_full = torch.from_numpy(content_np).to(dev)
-    style_full = torch.from_numpy(style_np).to(dev)
-    cmask_full = torch.from_numpy(content_masks).to(dev)
-    smask_full = torch.from_numpy(style_masks).to(dev)
 
     image = None
     histories = []

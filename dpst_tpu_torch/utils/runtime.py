@@ -1,13 +1,16 @@
-"""Runtime knobs of the port: profiling and NaN checks.
+"""Runtime knobs of the port: the device, profiling and NaN checks.
 
-The counterpart of `dpst_tpu/utils/runtime.py`. `maybe_profile` traces a
-block with torch.profiler (the CPU, and CUDA where there is a card) and
-writes a Chrome trace into the directory. `check_finite` is what
-`StylizeConfig.debug_nans` turns on: the optimization loop calls it after
-each evaluation of the objective, and it raises FloatingPointError naming
-the step where the loss or the gradient is not finite, where
-`jax_debug_nans` would stop a JAX run. It is a flag the loop reads, not
-process-wide state, and it costs a sync an evaluation only when on.
+`resolve_device` is where every entry point picks its device: the CUDA
+card unless the caller names one; `params_on` moves a weight dict there.
+The rest is the counterpart of `dpst_tpu/utils/runtime.py`.
+`maybe_profile` traces a block with torch.profiler (the CPU, and CUDA
+where there is a card) and writes a Chrome trace into the directory.
+`check_finite` is what `StylizeConfig.debug_nans` turns on: the
+optimization loop calls it after each evaluation of the objective, and it
+raises FloatingPointError naming the step where the loss or the gradient
+is not finite, where `jax_debug_nans` would stop a JAX run. It is a flag
+the loop reads, not process-wide state, and it costs a sync an evaluation
+only when on.
 
 `enable_compilation_cache` has no counterpart: PyTorch runs eagerly, and
 the CUDA kernels' build directory (`ops/kernels.py`, keyed by a hash of
@@ -20,6 +23,23 @@ import os
 import time
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA card; raise if there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU by default; pass "
+                "device='cpu' to run the plain PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def params_on(params: dict, dev: torch.device) -> dict:
+    """A weight dict ({layer: {name: tensor}}) with every tensor on `dev`."""
+    return {k: {n: t.to(dev) for n, t in p.items()}
+            for k, p in params.items()}
 
 
 def check_finite(step: int, loss: torch.Tensor, grad: torch.Tensor) -> None:

@@ -46,6 +46,58 @@ def test_runs_without_jax_in_a_subprocess():
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_automatic_stages_run_without_jax_in_a_subprocess():
+    """PSPNet, NIMA, the class merge and autotune import, and a tiny
+    stylize with automatic masks runs on the CPU, with no jax loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import dpst_tpu_torch
+        import dpst_tpu_torch.autotune
+        from dpst_tpu_torch import semantic_merge
+        from dpst_tpu_torch.models import nima, pspnet, vgg
+        pspnet.EVAL_SIZE = 48
+        img = np.random.default_rng(0).uniform(0, 255, (16, 16, 3))
+        cfg = dpst_tpu_torch.StylizeConfig(use_segmentation=True,
+                                           compute_dtype="float32",
+                                           iterations=2, max_classes=4)
+        out, hist = dpst_tpu_torch.stylize(
+            img.astype(np.float32), img[::-1].astype(np.float32), cfg,
+            vgg_params=vgg.init_params(0),
+            seg_params=pspnet.init_params(0), return_history=True,
+            device="cpu")
+        assert out.shape == (16, 16, 3) and hist.shape == (2, 5)
+        assert np.isfinite(hist).all()
+        assert callable(dpst_tpu_torch.autotune)
+        assert semantic_merge.similarity_matrix().shape == (150, 150)
+        assert len(nima.SPECS) == 28
+        assert "jax" not in sys.modules, "jax was imported"
+        assert not [m for m in sys.modules
+                    if m == "dpst_tpu" or m.startswith("dpst_tpu.")]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(PKG.parent),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_only_the_multi_gpu_laplacian_is_unported():
+    """`_check_ported` raises for laplacian_impl="spmd" alone: every other
+    option of every preset, automatic segmentation included, passes."""
+    from dpst_tpu_torch import api
+    for cfg in dpst_tpu_torch.PRESETS.values():
+        api._check_ported(cfg)
+    for kw in ({"use_segmentation": True}, {"optimizer": "lbfgs"},
+               {"laplacian_impl": "pallas"}, {"laplacian_impl": "xla"},
+               {"post_smooth": 2, "debug_nans": True}):
+        api._check_ported(dpst_tpu_torch.StylizeConfig(**kw))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        api._check_ported(dpst_tpu_torch.StylizeConfig(laplacian_impl="spmd"))
+
+
 def _imported_modules(path: pathlib.Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):

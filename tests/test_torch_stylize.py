@@ -142,12 +142,13 @@ def test_callback_cadence_and_segments(params):
     ({"checkpoint_dir": "ckpt"}, True),
 ])
 def test_unported_features_raise(kw, masks):
-    """Automatic segmentation and the multi-GPU Laplacian still raise,
-    naming their ROADMAP item; debug_nans, L-BFGS, post-smoothing and
-    checkpointing are ported and pass the check."""
+    """The multi-GPU Laplacian still raises, naming its ROADMAP item;
+    debug_nans, L-BFGS, post-smoothing, checkpointing and automatic
+    segmentation (use_segmentation=True without masks) are ported and pass
+    the check."""
     cfg = dpst_tpu_torch.StylizeConfig(**kw)
-    if "use_segmentation" not in kw and "laplacian_impl" not in kw:
-        tapi._check_ported(cfg, masks)
+    if "laplacian_impl" not in kw:
+        tapi._check_ported(cfg)
         return
     img = np.zeros((16, 16, 3), np.float32)
     m = np.ones((1, 16, 16), np.float32) if masks else None
