@@ -36,7 +36,15 @@ no result):
                  beside "cook with torch, then gram_fwd" on the same
                  operands) and gram_wbwd (also at config6's conv3_1 and the
                  4096² stream taps) in turns with their yardsticks; then
-                 each kernel at shapes that do not fill its tiles;
+                 each kernel at shapes that do not fill its tiles; then the
+                 five kernels with a batch grid dimension (lap_matvec,
+                 gram_fwd, gram_bwd, gram_relu_fwd, gram_relu_bwd) and
+                 pool_bwd on folded channels at the batch path's shapes
+                 (B = 8 distinct pairs at 512², K = 4 masks drawn per
+                 pair; lap_matvec also with one pair's stats shared by
+                 four, as the Γ sweep runs it), each pair against the
+                 plain version, timed in turns with B one-pair launches of
+                 the same kernel, and at shapes where the plans split;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -113,17 +121,29 @@ no result):
                  CPU's (near-tie rule) and the CPU's automatic run against
                  the card's given the CPU's masks (1e-3);
   11. autotune -- the seventh path: `autotune(content, style,
-                 PRESETS["config3"], rounds=2)`, four Γ, 50 steps a
-                 candidate, automatic masks, 512²; counters held to the
-                 sweep's steps (its resolved config takes the fused Gram
-                 pair at conv1_1), scores finite in [1, 10], the best Γ the
-                 best-scored, the best image equal to `stylize` at that Γ
-                 under the sweep's resolved config, fp32 NIMA card against
-                 CPU (1e-4); seconds a call and a sweep, NIMA's device time
-                 at B = 4;
-  12. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
-      K = 8 as "<kernel> K=8") and the nvidia-smi line;
-  13. the last line: {"ok": true, "device": {...}}.
+                 PRESETS["config3"], rounds=2)`, four Γ run as one batch a
+                 round, 50 steps a candidate, automatic masks, 512²;
+                 counters held to the rounds' steps (its resolved config
+                 takes the fused Gram pair at conv1_1), scores finite in
+                 [1, 10], the best Γ the best-scored, the best image the
+                 batch's image for that Γ and within the batch tolerance
+                 of `stylize` at that Γ under the sweep's resolved config,
+                 fp32 NIMA card against CPU (1e-4); an fp32 64² sweep
+                 against `stylize` within the JAX package's batch bounds;
+                 seconds a call and a sweep, NIMA's device time at B = 4;
+  12. batch   -- the eighth path: `stylize_batch` of 8 distinct seeded
+                 512² pairs under PRESETS["config3"], K = 4 distinct band
+                 masks a pair, 100 steps of 500; counters reset just
+                 before and read just after, equal to one pair's; pair-it/s,
+                 precompute seconds, device ms per step by kernel group,
+                 busy share, peak memory; each pair against its run alone
+                 (bf16 tolerances), a bit-identical rerun, the VGG taps of
+                 a batch against one image; a 64² fp32 batch of two, card
+                 against CPU (1e-3);
+  13. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
+      K = 8 as "<kernel> K=8", then the batched rows as "<kernel> B=8")
+      and the nvidia-smi line;
+  14. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -197,6 +217,34 @@ AUTO_ITERS = 100       # automatic path's Adam steps (500 in the preset)
 TUNE_ITERS = 50        # autotune: Adam steps a candidate
 TUNE_ROUNDS = 2
 NIMA_TOL = 1e-4        # fp32 NIMA scores, card against CPU
+TUNE_CANDIDATES = 4    # autotune's default Γ: one batch of four a round
+BATCH = 8              # the batch path's pairs (BASELINE config 5)
+BATCH_ITERS = 100      # its Adam steps (500 in the preset)
+# each pair of the batch against the same pair run alone, bf16 on the card,
+# where a batch rounds apart from one image (cuDNN chooses its conv
+# algorithms per batch size; the Gram forward's plan splits P per batch)
+# and Adam carries the difference on: the first history row within
+# BATCH_ROW0_TOL of each column's max, every row within BATCH_HIST_TOL,
+# the mean |pixel| difference within BATCH_PIXEL_TOL of [0, 255]; the same
+# pixel bound holds autotune's best image against `stylize` at its Γ
+# (measured on the H100: at most 2.2e-6 of the first row, 1.2e-3 of the
+# history and 2.0 of the pixels after 100 steps of the batch; 5.3 for
+# autotune's best image at Γ = 1000 after 50 steps)
+BATCH_ROW0_TOL = 1e-4
+BATCH_HIST_TOL = 1e-2
+BATCH_PIXEL_TOL = 16.0
+# (B, C, P, K, dtype) of the batched kernels' edge checks: the plans' split
+# paths with fewer pairs (P split in the forward, the reduction or the
+# classes in the backwards), ragged C and P, K = 3, 5 and 9 (gram_relu_bwd
+# on gram_wbwd's body past 8 classes and past 64 channels), and the fp32
+# tiles
+BATCH_EDGE_CASES = ((2, 512, 1024, 4, "bfloat16"),
+                    (2, 512, 4096, 3, "bfloat16"),
+                    (3, 37, 1001, 5, "bfloat16"),
+                    (2, 64, 2048, 9, "bfloat16"),
+                    (2, 128, 4096, 4, "bfloat16"),
+                    (3, 64, 4096, 4, "float32"),
+                    (2, 37, 1001, 3, "float32"))
 # (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
 # shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
 # bands), avg pooling, one band with tied maxima, five classes, and W = 260
@@ -2529,7 +2577,8 @@ def run_automatic_reference(dev, gen, seg_params: dict, size: int = 64
 
 def autotune_launches(steps: int) -> dict:
     """What the Γ sweep of config3 launches at 512², K8 classes, for
-    `steps` Adam steps over all candidates and rounds: the resolved
+    `steps` Adam steps of its rounds (each round's candidates run as one
+    batch, whose kernels launch once for all of them): the resolved
     config's conv1_1 on the fused pair (one each a step), the other four
     style taps on gram_fwd / gram_bwd, four pool backwards, one Laplacian
     matvec a step; the precompute's five style Grams once a call (NIMA and
@@ -2545,13 +2594,18 @@ def autotune_launches(steps: int) -> dict:
 def run_autotune(dev, gen, seg_params: dict) -> dict:
     """`autotune(content, style, PRESETS["config3"], rounds=TUNE_ROUNDS)`
     with the four default Γ, TUNE_ITERS steps a candidate, automatic masks,
-    at 512²: the counters reset just before and read just after and held
-    to the sweep's steps; scores finite in [1, 10]; the best Γ the
-    best-scored candidate; the best image equal to `stylize` under the
-    sweep's resolved config at that Γ, bit for bit; the fp32 NIMA scores of
-    the final images, card against CPU, within NIMA_TOL. Times a call, a
-    one-round call (their difference: one sweep; the one-round call again,
-    profiled by kernel group), and NIMA's bf16 forward at B = 4."""
+    at 512²: each round's candidates run as one batch; the counters reset
+    just before and read just after and held to the rounds' steps (one
+    batch's count); scores finite in [1, 10]; the best Γ the best-scored
+    candidate; the best image the batch's image for that Γ, bit for bit;
+    against `stylize` under the sweep's resolved config at that Γ (one
+    image where the sweep ran four: bf16 cuDNN rounds them apart) within
+    the batch path's BATCH_PIXEL_TOL; the fp32 NIMA scores of the final
+    images, card against CPU, within NIMA_TOL; then an fp32 sweep at 64²
+    against `stylize` within the JAX package's batch bounds
+    (`run_autotune_reference`). Times a call, a one-round call (their
+    difference: one sweep; the one-round call again, profiled by kernel
+    group), and NIMA's bf16 forward at B = 4."""
     import importlib
 
     import dpst_tpu_torch
@@ -2597,7 +2651,8 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         dpst_tpu_torch.autotune(content, style, cfg, rounds=1, **kw)
         torch.cuda.synchronize()
-    round_steps = len(tune.DEFAULT_GAMMAS) * TUNE_ITERS
+    # a step: one batched step of the round's four candidates
+    round_steps = TUNE_ITERS
     groups: dict[str, float] = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -2623,7 +2678,9 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
     x4 = resize_image(images.to(dev), (nima.EVAL_SIZE, nima.EVAL_SIZE))
     nima_ms = device_total_ms(
         lambda: nima.score_distribution(nima_dev, x4, "bfloat16"))
-    steps = len(tune.DEFAULT_GAMMAS) * TUNE_ROUNDS * TUNE_ITERS
+    steps = TUNE_ROUNDS * TUNE_ITERS
+    last = list(res.gammas[-len(tune.DEFAULT_GAMMAS):])
+    d = np.abs(best - res.best_image)
     emit({"phase": "autotune", "path": label, "size": SIZE, "K": K8,
           "gammas": res.gammas.tolist(), "scores": res.scores.tolist(),
           "best_gamma": res.best_gamma, "rounds": TUNE_ROUNDS,
@@ -2632,6 +2689,9 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
           "sweep_s": call_s - one_round_s,
           "nima_bf16_b4_device_ms": nima_ms,
           "nima_fp32_max_abs_err_vs_cpu": nima_err, "nima_tol": NIMA_TOL,
+          "best_vs_stylize": {"bit_equal": bool(np.array_equal(
+              best, res.best_image)), "pixel_max": float(d.max()),
+              "pixel_mean": float(d.mean()), "tol_mean": BATCH_PIXEL_TOL},
           "launches": launches, "max_memory_gb": peak})
     bad = [f"{name} launched {launches[name]} times, the sweep implies {n}"
            for name, n in autotune_launches(steps).items()
@@ -2641,16 +2701,536 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
         bad.append(f"scores {res.scores.tolist()} not finite in [1, 10]")
     if res.best_gamma != float(res.gammas[int(np.argmax(res.scores))]):
         bad.append(f"best Γ {res.best_gamma} is not the best-scored one")
-    if not np.array_equal(best, res.best_image):
-        bad.append("the best image differs from stylize at its Γ")
+    if res.best_gamma in last and not np.array_equal(
+            res.best_image, res.images[last.index(res.best_gamma)]):
+        bad.append("the best image is not the batch's image for its Γ")
+    if not d.mean() <= BATCH_PIXEL_TOL:
+        bad.append(f"the best image is {d.mean()} from stylize at its Γ "
+                   f"(mean |pixel|) > {BATCH_PIXEL_TOL}")
     if not nima_err <= NIMA_TOL:
         bad.append(f"fp32 NIMA card vs CPU {nima_err} > {NIMA_TOL}")
     if bad:
         fail("autotune", f"{label}: " + "; ".join(bad))
+    run_autotune_reference(gen, params)
     return launches
 
 
-def summarize(rows: list, launches: dict, k: int = K) -> list:
+def run_autotune_reference(gen, params: dict, size: int = 64) -> None:
+    """An fp32 sweep of two Γ at 64² (3 stripe masks, 5 steps) on the card:
+    each candidate's image against `stylize` of that candidate alone
+    within the JAX package's own batch ≡ sequential bounds
+    (tests/test_sharding.py: rtol 1e-2, atol 0.25 of [0, 255])."""
+    import importlib
+
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import nima
+    tune = importlib.import_module("dpst_tpu_torch.autotune")
+    content = smooth_image(gen, gen.device, size)
+    style = textured_image(gen, gen.device, size)
+    cm, sm = stripe_masks(3, size)
+    cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
+                                       regularization_weight=100.0)
+    nima_p = {k: {n: t.cuda() for n, t in p.items()}
+              for k, p in nima.init_params(SEED).items()}
+    res = dpst_tpu_torch.autotune(content, style, cfg, gammas=(3.0, 300.0),
+                                  content_masks=cm, style_masks=sm,
+                                  vgg_params=params, nima_params=nima_p)
+    worst = 0.0
+    for gamma, image in zip(res.gammas, res.images):
+        out = dpst_tpu_torch.stylize(
+            content, style, dataclasses.replace(
+                tune.resolve_config(cfg), style_weight=float(gamma)),
+            content_masks=cm, style_masks=sm, vgg_params=params)
+        worst = max(worst, float((np.abs(image - out)
+                                  - 1e-2 * np.abs(out)).max()))
+    emit({"phase": "reference", "path": "autotune fp32 64², two Γ",
+          "max_excess_over_rtol_1e-2": worst, "atol": 0.25})
+    if not worst <= 0.25:
+        fail("reference", f"fp32 sweep vs stylize: {worst} > atol 0.25 "
+             "beyond rtol 1e-2")
+
+
+# --- the batch path (stylize_batch, B pairs as one batched loop) -----------
+
+def batched_input(kind: str, b: int, c: int, p: int, k: int, dtype, dev,
+                  gen):
+    """Operands of B distinct pairs for the batched Gram kernels: f (B, C,
+    P) ("gram": |randn|) or the raw tap z ("relu": as `relu_gram_input`,
+    with its bias shared), m² (B, K, P) of soft masks drawn per pair, and
+    symmetrized cotangents s (B, K, C, C)."""
+    if kind == "relu":
+        parts = [relu_gram_input(c, p, k, dtype, dev, gen) for _ in range(b)]
+        bias = parts[0][1]
+        z = torch.stack([z_i - (b_i - bias)[:, None].to(dtype)
+                         for z_i, b_i, _, _ in parts]).contiguous()
+        return (z, bias, torch.stack([q[2] for q in parts]),
+                torch.stack([q[3] for q in parts]))
+    f = torch.randn((b, c, p), generator=gen, device=dev).abs().to(dtype)
+    m = torch.rand((b, k, p), generator=gen, device=dev)
+    d = torch.randn((b, k, c, c), generator=gen, device=dev)
+    return (f, None, (m * m).to(dtype),
+            (d + d.transpose(-1, -2)).to(dtype).contiguous())
+
+
+def pair_errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |got − ref|, the largest over the pairs of a pair's max error
+    over its own max |ref|)."""
+    errs = [rel_err(got[i], ref[i]) for i in range(got.shape[0])]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def batched_row(name: str, shape: list, b: int, k, dtype: str, in_step: bool,
+                got, ref, tol: float, run, looped, plain, nbytes: float,
+                ops: float, lib=None, lib_call: str | None = None,
+                **extra) -> dict:
+    """One batched kernel's row: its B pairs against the plain version
+    pair by pair (each pair's error over its own max |ref|); its device
+    time in turns with the B one-pair launches of the same kernel
+    (`looped_ms`, the yardstick of ROADMAP item 14; never on the path),
+    back-to-back event times of both, the plain version's time, the bound
+    of the B pairs' bytes or operations and, where one PyTorch call
+    computes the same function for the batch, that call's device time."""
+    err, rel = pair_errors(got, ref)
+    times = in_turns(run, looped)
+    times["looped_ms"] = times.pop("library_ms")
+    times["looped_events_ms"] = times.pop("library_events_ms")
+    bnd, by = bound_ms(nbytes, ops, dtype)
+    row = {"phase": "kernel", "name": name, "B": b, "shape": shape, "K": k,
+           "dtype": dtype, "in_step": in_step, "max_abs_err": err,
+           "rel_err": rel, "tol_rel": tol, **times,
+           "plain_ms": cuda_ms(plain, warmup=1, iters=3),
+           "bound_ms": bnd, "bound_by": by,
+           "library_ms": None if lib is None else device_ms(lib), **extra}
+    if lib_call:
+        row["library_call"] = lib_call
+    emit(row)
+    if not rel <= tol:
+        fail("kernels", f"{name} B={b} {dtype} {shape} K={k}: rel err "
+             f"{rel} > {tol}")
+    return row
+
+
+def check_batched(dev, gen):
+    """The five kernels that take a batch grid dimension, at the batch
+    path's shapes (B = BATCH distinct pairs at 512², K = 4 masks drawn per
+    pair): `lap_matvec` (bf16 path's fp32 Laplacian), `gram_fwd` and
+    `gram_bwd` at conv2_1 … conv5_1 (and `gram_fwd` at conv1_1, which only
+    the precompute's style Grams take), the fused pair at conv1_1, and
+    `pool_bwd` on the pairs folded into its channels. Each against its
+    plain version pair by pair and timed against BATCH one-pair launches
+    of itself (`batched_row`)."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    from dpst_tpu_torch.ops import pool_cuda
+    rows, b = [], BATCH
+    # the Laplacian: distinct stats and v per pair
+    img = torch.rand((b, SIZE, SIZE, 3), generator=gen, device=dev)
+    packed = torch.stack([lapc.pack_stats(lap.precompute_stats(i))
+                          for i in img])
+    v3 = torch.rand((b, 3, SIZE, SIZE), generator=gen, device=dev)
+    hw = SIZE * SIZE
+    rows.append(batched_row(
+        "lap_matvec", [3, SIZE, SIZE], b, None, "float32", True,
+        lapc.lap_matvec(packed, v3), lapc.lap_matvec_plain(packed, v3), 1e-5,
+        lambda: lapc.lap_matvec(packed, v3),
+        lambda: [lapc.lap_matvec(packed[i], v3[i]) for i in range(b)],
+        lambda: lapc.lap_matvec_plain(packed, v3), 20 * b * hw * 4,
+        LAP_OPS_PER_PIXEL * b * hw, strip_rows=lapc.lap_plan(SIZE, SIZE, b)))
+    # the Γ sweep's form: one pair's stats shared by every candidate
+    shared = packed[:1].expand(TUNE_CANDIDATES, -1, -1, -1)
+    v4 = v3[:TUNE_CANDIDATES].contiguous()
+    rows.append(batched_row(
+        "lap_matvec", [3, SIZE, SIZE], TUNE_CANDIDATES, None, "float32",
+        False, lapc.lap_matvec(shared, v4),
+        lapc.lap_matvec_plain(packed[0], v4), 1e-5,
+        lambda: lapc.lap_matvec(shared, v4),
+        lambda: [lapc.lap_matvec(packed[0], v4[i])
+                 for i in range(TUNE_CANDIDATES)],
+        lambda: lapc.lap_matvec_plain(packed[0], v4),
+        (14 + 6 * TUNE_CANDIDATES) * hw * 4,
+        LAP_OPS_PER_PIXEL * TUNE_CANDIDATES * hw, stats="shared, stride 0"))
+    del img, packed, v3, shared, v4
+    # the Gram pair: conv1_1 … conv5_1 (conv1_1 in the precompute only)
+    for c, p in GRAM_SHAPES:
+        in_step = c != 64
+        f, _, m2, s = batched_input("gram", b, c, p, K, torch.bfloat16, dev,
+                                    gen)
+        ops = 2.0 * b * K * c * c * p
+        rows.append(batched_row(
+            "gram_fwd", [c, p], b, K, "bfloat16", in_step,
+            gs.gram_fwd(f, m2), gs.gram_fwd_plain(f, m2), 1e-3,
+            lambda: gs.gram_fwd(f, m2),
+            lambda: [gs.gram_fwd(f[i], m2[i]) for i in range(b)],
+            lambda: gs.gram_fwd_plain(f, m2),
+            b * ((c * p + K * p) * 2 + K * c * c * 4), ops,
+            lambda: torch.matmul(f.unsqueeze(1), (f.unsqueeze(1)
+                                 * m2.unsqueeze(2)).transpose(-1, -2)),
+            "torch.matmul", plan=gs.fwd_plan(c, p, K, b)))
+        if in_step:
+            a = s.transpose(1, 2).reshape(b, c, K * c)
+            rows.append(batched_row(
+                "gram_bwd", [c, p], b, K, "bfloat16", True,
+                gs.gram_bwd(f, m2, s), gs.gram_bwd_plain(f, m2, s), 1e-2,
+                lambda: gs.gram_bwd(f, m2, s),
+                lambda: [gs.gram_bwd(f[i], m2[i], s[i]) for i in range(b)],
+                lambda: gs.gram_bwd_plain(f, m2, s),
+                b * (2 * c * p + K * p + K * c * c) * 2, ops,
+                lambda: torch.matmul(a, (f.unsqueeze(1) * m2.unsqueeze(2))
+                                     .reshape(b, K * c, p)),
+                "torch.matmul", plan=gs.bwd_plan(c, p, K, b)))
+        del f, m2, s
+        torch.cuda.empty_cache()
+    # the fused pair at conv1_1; its yardstick: torch.matmul on the cooked
+    # operand (less work)
+    c, p = RELU_SHAPE_512
+    z, bias, m2, s = batched_input("relu", b, c, p, K, torch.bfloat16, dev,
+                                   gen)
+    f = g2._cook(z.reshape(-1, p), bias.repeat(b)).reshape(b, c, p)
+    ops = 2.0 * b * K * c * c * p
+    yard = "yardstick: torch.matmul on relu(z + b), less work"
+    rows.append(batched_row(
+        "gram_relu_fwd", [c, p], b, K, "bfloat16", True,
+        g2.gram_relu_fwd(z, bias, m2), g2.gram_relu_fwd_plain(z, bias, m2),
+        1e-3, lambda: g2.gram_relu_fwd(z, bias, m2),
+        lambda: [g2.gram_relu_fwd(z[i], bias, m2[i]) for i in range(b)],
+        lambda: g2.gram_relu_fwd_plain(z, bias, m2),
+        b * ((c * p + K * p) * 2 + K * c * c * 4) + c * 2, ops,
+        lambda: torch.matmul(f.unsqueeze(1), (f.unsqueeze(1)
+                             * m2.unsqueeze(2)).transpose(-1, -2)), yard,
+        plan=gs.fwd_plan(c, p, K, b)))
+    ref = g2.gram_relu_bwd_plain(z, bias, m2, s)
+    a = s.transpose(1, 2).reshape(b, c, K * c)
+    rows.append(batched_row(
+        "gram_relu_bwd", [c, p], b, K, "bfloat16", True,
+        g2.gram_relu_bwd(z, bias, m2, s), ref,
+        max(out_tol(ref[i], "bfloat16") for i in range(b)),
+        lambda: g2.gram_relu_bwd(z, bias, m2, s),
+        lambda: [g2.gram_relu_bwd(z[i], bias, m2[i], s[i])
+                 for i in range(b)],
+        lambda: g2.gram_relu_bwd_plain(z, bias, m2, s),
+        b * (2 * c * p + K * p + K * c * c) * 2 + c * 2, ops,
+        lambda: torch.matmul(a, (f.unsqueeze(1) * m2.unsqueeze(2))
+                             .reshape(b, K * c, p)), yard,
+        plan=g2.relu_bwd_plan(c, p, K, b)))
+    del z, bias, m2, s, f, ref
+    torch.cuda.empty_cache()
+    # the pool backward: the pairs folded into its channels
+    for c, h, w in POOL_SHAPES:
+        x, y, g = tied_pool_input(b * c, h, w, torch.bfloat16, dev, gen)
+        n = b * c * h * w
+        rows.append(batched_row(
+            "pool_bwd", [c, h, w], b, None, "bfloat16", True,
+            pool_cuda.maxpool2_bwd(x, y, g).reshape(b, c, h, w),
+            pool_cuda.maxpool2_bwd_plain(x, y, g).reshape(b, c, h, w), 0.0,
+            lambda: pool_cuda.maxpool2_bwd(x, y, g),
+            lambda: [pool_cuda.maxpool2_bwd(x[i * c:(i + 1) * c],
+                                            y[i * c:(i + 1) * c],
+                                            g[i * c:(i + 1) * c])
+                     for i in range(b)],
+            lambda: pool_cuda.maxpool2_bwd_plain(x, y, g), 2.5 * n * 2,
+            POOL_OPS_PER_WINDOW * n / 4, folded=[b * c, h, w]))
+        del x, y, g
+    check_batched_edges(dev, gen)
+    return rows
+
+
+def check_batched_edges(dev, gen) -> None:
+    """The batched kernels against their plain versions pair by pair where
+    the plans split P or the reduction across blocks of a pair (fewer
+    pairs), on the fp32 tiles, at ragged C and P, K = 1, 3, 5 and 9, on
+    `gram_relu_bwd`'s other body (gram_wbwd's, past 64 channels or 8
+    classes) and `lap_matvec` at odd sizes and with stats shared."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    worst = {}
+    for b, c, p, k, dtype in BATCH_EDGE_CASES:
+        cdt = getattr(torch, dtype)
+        f, _, m2, s = batched_input("gram", b, c, p, k, cdt, dev, gen)
+        z, bias, rm2, rs = batched_input("relu", b, c, p, k, cdt, dev, gen)
+        bf = dtype == "bfloat16"
+        checks = (
+            ("gram_fwd", gs.gram_fwd(f, m2), gs.gram_fwd_plain(f, m2), 1e-3),
+            ("gram_bwd", gs.gram_bwd(f, m2, s), gs.gram_bwd_plain(f, m2, s),
+             1e-2 if bf else 1e-4),
+            ("gram_relu_fwd", g2.gram_relu_fwd(z, bias, rm2),
+             g2.gram_relu_fwd_plain(z, bias, rm2), 1e-3),
+            ("gram_relu_bwd", g2.gram_relu_bwd(z, bias, rm2, rs),
+             ref := g2.gram_relu_bwd_plain(z, bias, rm2, rs),
+             max(out_tol(ref[i], dtype) for i in range(b)) if bf else 1e-4))
+        for name, got, want, tol in checks:
+            rel = pair_errors(got, want)[1]
+            key = f"{name} B={b} {dtype} {c}x{p} K={k}"
+            worst[key] = rel
+            if not rel <= tol:
+                fail("kernels", f"{key}: rel err {rel} > {tol}")
+    for b, h, w, share in ((3, 37, 53, False), (2, 5, 700, False),
+                           (4, 64, 61, True)):
+        img = torch.rand((b, h, w, 3), generator=gen, device=dev)
+        packed = torch.stack([lapc.pack_stats(lap.precompute_stats(i))
+                              for i in img])
+        if share:
+            packed = packed[:1].expand(b, -1, -1, -1)
+        v3 = torch.rand((b, 3, h, w), generator=gen, device=dev)
+        rel = pair_errors(lapc.lap_matvec(packed, v3),
+                          lapc.lap_matvec_plain(packed, v3))[1]
+        key = f"lap_matvec B={b} {h}x{w}" + (" shared" if share else "")
+        worst[key] = rel
+        if not rel <= 1e-5:
+            fail("kernels", f"{key}: rel err {rel} > 1e-5")
+    emit({"phase": "kernel", "name": "batched edges", "rel_err": worst})
+
+
+def batch_masks(b: int, size: int = SIZE, k: int = K):
+    """K band masks of each of b pairs, distinct per pair: pair i's content
+    bands run across the rows and its style bands across the columns, both
+    moved on by i·size/(k·b) pixels (cyclically), so that no two pairs
+    share a mask (a kernel that read another pair's masks would show)."""
+    cm = np.zeros((b, k, size, size), np.float32)
+    sm = np.zeros((b, k, size, size), np.float32)
+    band = size // k
+    for i in range(b):
+        cls = (np.arange(size) + i * band // b) % size // band
+        for j in range(k):
+            cm[i, j, cls == j, :] = 1
+            sm[i, j, :, cls == j] = 1
+    return cm, sm
+
+
+def batch_launches(steps: int) -> dict:
+    """What the batch path launches at 512², K = 4, for `steps` Adam steps
+    of all pairs: one pair's count (the batch's kernels launch once for all
+    pairs). Its resolved config (s2d_gram="pallas") puts conv1_1 on the
+    fused pair, one each a step; conv2_1 … conv5_1 on gram_fwd / gram_bwd;
+    four pool backwards; one Laplacian matvec; and the precompute's five
+    style Grams, batched (gram_fwd)."""
+    from dpst_tpu_torch.ops import kernels
+    need = dict.fromkeys(kernels.KERNELS, 0)
+    need.update(lap_matvec=steps, gram_fwd=4 * steps + 5,
+                gram_bwd=4 * steps, gram_relu_fwd=steps,
+                gram_relu_bwd=steps, pool_bwd=4 * steps)
+    return need
+
+
+def profile_batch(run, steps: int) -> dict:
+    """Device ms per step by kernel group of `run()` (which takes `steps`
+    steps) under torch.profiler, and their sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            g = kernel_group(ev.name)
+            groups[g] = (groups.get(g, 0.0)
+                         + ev.time_range.elapsed_us() / 1e3 / steps)
+    if not groups:
+        fail("profile", "torch.profiler recorded no device time")
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def run_batch_path(dev, gen, smi: str) -> dict:
+    """The eighth path: `stylize_batch` of BATCH distinct seeded 512² pairs
+    with K = 4 distinct band masks each (`batch_masks`), PRESETS["config3"]
+    for BATCH_ITERS of its 500 steps: counters reset just before and read
+    just after, held to one pair's count (`batch_launches`); the loss falls
+    for every pair, the output is finite in [0, 255]; each pair's history
+    and image against the same pair run alone through `stylize` (under the
+    batch's resolved config) within BATCH_HIST_TOL and BATCH_PIXEL_TOL
+    (bf16: cuDNN chooses its conv algorithms per batch size); a rerun of
+    RERUN_ITERS steps bit for bit. Measures the precompute seconds (warm),
+    the loop's pair-it/s (BATCH_ITERS steps after a warm-up, timed as one
+    segment), device ms per step by kernel group, the busy share and the
+    peak memory."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import batch as pb
+
+    label = f"config3 batch B={BATCH} 512²"
+    contents = np.stack([smooth_image(gen, dev, SIZE)
+                         for _ in range(BATCH)])
+    styles = np.stack([textured_image(gen, dev, SIZE)
+                       for _ in range(BATCH)])
+    cm, sm = batch_masks(BATCH)
+    params = vgg.get_params(seed=SEED, device=dev)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              iterations=BATCH_ITERS)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    images, hist = dpst_tpu_torch.stylize_batch(contents, styles, cm, sm,
+                                                cfg, vgg_params=params)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # the precompute alone (warm), then the loop as one timed segment
+    rcfg = pb.resolve_config(cfg)
+    pp = vgg.pack_params(params, rcfg.compute_dtype, rcfg.conv_impl)
+    batch = [torch.from_numpy(a).to(dev) for a in (contents, styles, cm, sm)]
+    weights = optimize.LossWeights.from_config(rcfg)
+    pb.prepare_batch_stage(*batch, pp, (SIZE, SIZE), rcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    consts, cs, means = pb.prepare_batch_stage(*batch, pp, (SIZE, SIZE),
+                                               rcfg)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+    img0 = optimize.init_image(rcfg, cs, means)
+    pb.run_batch(img0, consts, weights, pp, rcfg, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb.run_batch(img0, consts, weights, pp, rcfg, BATCH_ITERS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    step_ms = loop_s * 1e3 / BATCH_ITERS
+    groups = profile_batch(
+        lambda: pb.run_batch(img0, consts, weights, pp, rcfg, 10), 10)
+    busy = sum(groups.values())
+    emit({"phase": "profile", "path": label, "steps": 10,
+          "device_ms_per_step": groups, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms})
+
+    # each pair alone through stylize, under the batch's resolved config
+    alone_err = []
+    for i in range(BATCH):
+        out_i, hist_i = dpst_tpu_torch.stylize(
+            contents[i], styles[i], rcfg, content_masks=cm[i],
+            style_masks=sm[i], vgg_params=params, return_history=True)
+        d = np.abs(images[i] - out_i)
+        rel = np.abs(hist[i] - hist_i) / np.maximum(
+            np.abs(hist_i).max(axis=0), 1e-30)
+        alone_err.append({
+            "row0_rel": float(rel[0].max()), "hist_rel": float(rel.max()),
+            "pixel_max": float(d.max()), "pixel_mean": float(d.mean()),
+            "bit_equal": bool(np.array_equal(images[i], out_i))})
+    _, hist2 = dpst_tpu_torch.stylize_batch(
+        contents, styles, cm, sm, dataclasses.replace(
+            cfg, iterations=RERUN_ITERS), vgg_params=params)
+    identical = bool(np.array_equal(hist2, hist[:, :RERUN_ITERS]))
+    emit({"phase": "batch", "path": label, "B": BATCH, "size": SIZE,
+          "K": K, "iterations": BATCH_ITERS, "preset_iterations": 500,
+          "compute_dtype": cfg.compute_dtype, "s2d_gram": rcfg.s2d_gram,
+          "weights": ("weights/vgg19.npz" if os.path.exists(
+              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "wall_s": wall_s, "precompute_s": precompute_s,
+          "loop_it_s": BATCH_ITERS / loop_s,
+          "pair_it_s": BATCH * BATCH_ITERS / loop_s,
+          "projected_500_steps_s_per_pair": (
+              precompute_s + 500 * loop_s / BATCH_ITERS) / BATCH,
+          "max_memory_gb": peak, "launches": launches,
+          "first_rows": hist[:, 0].tolist(), "last_rows": hist[:, -1].tolist(),
+          "vs_alone": alone_err, "row0_tol_rel": BATCH_ROW0_TOL,
+          "hist_tol_rel": BATCH_HIST_TOL, "pixel_tol": BATCH_PIXEL_TOL,
+          "batch_vs_one_at_step_0": batch_rounding(consts, img0, weights,
+                                                   pp, rcfg),
+          "rerun_bit_identical": identical, "nvidia_smi": smi})
+    bad = [f"{name} launched {launches[name]} times, one pair's "
+           f"{BATCH_ITERS} steps imply {n}"
+           for name, n in batch_launches(BATCH_ITERS).items()
+           if launches[name] != n]
+    if not (hist[:, -1, 0] < hist[:, 0, 0]).all():
+        bad.append("the total loss did not fall for every pair")
+    if not hist[:, :, 3].min() >= -1.0:
+        bad.append(f"photoreal term {hist[:, :, 3].min()} < -1")
+    if not (images.shape == (BATCH, SIZE, SIZE, 3)
+            and np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 255.0):
+        bad.append("output not finite (B, 512, 512, 3) in [0, 255]")
+    for i, e in enumerate(alone_err):
+        if not (e["row0_rel"] <= BATCH_ROW0_TOL
+                and e["hist_rel"] <= BATCH_HIST_TOL
+                and e["pixel_mean"] <= BATCH_PIXEL_TOL):
+            bad.append(f"pair {i} against its run alone: {e}")
+    if not identical:
+        bad.append("the rerun's history differs")
+    if bad:
+        fail("batch", f"{label}: " + "; ".join(bad))
+    run_batch_reference(gen)
+    return launches
+
+
+def batch_rounding(consts, image: torch.Tensor, weights, params: dict,
+                   cfg) -> dict:
+    """Where a batch's first step and one pair's part, op by op: pair 0 of
+    the batch against the same pair as a batch of one, max |difference|
+    over max |value| (0: bit-equal) of the bf16 VGG taps (cuDNN's
+    forward), each tap's masked Grams (gram_fwd on the batch's plan, or
+    the fused pair at conv1_1), the loss terms, and the input gradient
+    (cuDNN's backward, the Gram backwards, the reductions)."""
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import losses
+    one = consts.map(lambda t: t[:1])
+    layers = cfg.style_layers
+    out = {}
+    with torch.no_grad():
+        both = vgg.extract_features(params, image, layers,
+                                    compute_dtype=cfg.compute_dtype)
+        alone = vgg.extract_features(params, image[:1], layers,
+                                     compute_dtype=cfg.compute_dtype)
+        for l in layers:
+            out[f"tap {l}"] = rel_err(both[l][0], alone[l][0])[1]
+            gb = losses.masked_grams(both[l], consts.masks[l],
+                                     compute_dtype=cfg.compute_dtype)
+            g1 = losses.masked_grams(alone[l], one.masks[l],
+                                     compute_dtype=cfg.compute_dtype)
+            out[f"Grams {l}"] = rel_err(gb[0], g1[0])[1]
+    loss = optimize.make_loss_fn(cfg)
+    grads = []
+    for img, c in ((image, consts), (image[:1], one)):
+        x = img.detach().requires_grad_(True)
+        total, terms = loss(x, c, weights, params)
+        grads.append((torch.autograd.grad(total, x)[0][0],
+                      terms[0].detach()))
+    for j, name in enumerate(("total", "content", "style", "photoreal")):
+        out[f"loss {name}"] = rel_err(grads[0][1][j:j + 1],
+                                      grads[1][1][j:j + 1])[1]
+    out["input gradient"] = rel_err(grads[0][0], grads[1][0])[1]
+    return out
+
+
+def run_batch_reference(gen, size: int = 64, b: int = 2) -> None:
+    """An fp32 `stylize_batch` of b distinct 64² pairs (3 distinct stripe
+    masks each) on the card against the same batch on the CPU, where every
+    kernel wrapper takes its plain version: each pair's history rows within
+    1e-3 of the CPU's (of each column's max), as the one-pair reference."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    contents = np.stack([smooth_image(gen, gen.device, size)
+                         for _ in range(b)])
+    styles = np.stack([smooth_image(gen, gen.device, size)
+                       for _ in range(b)])
+    cm, sm = batch_masks(b, size, 3)
+    cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
+                                       regularization_weight=100.0,
+                                       block1_impl="s2d")
+    params = vgg.init_params(SEED)
+    hists = {where: dpst_tpu_torch.stylize_batch(
+        contents, styles, cm, sm, cfg, vgg_params=params, device=where)[1]
+        for where in ("cuda", "cpu")}
+    rel = np.abs(hists["cuda"] - hists["cpu"]) / np.maximum(
+        np.abs(hists["cpu"]).max(axis=1, keepdims=True), 1e-30)
+    worst, tol = float(rel.max()), 1e-3
+    emit({"phase": "reference", "path": f"config3 batch B={b}", "size": size,
+          "K": 3, "iterations": 5, "compute_dtype": "float32",
+          "max_rel_err_vs_cpu": worst, "tol_rel": tol})
+    if not worst <= tol:
+        fail("reference", f"batch B={b}: card vs CPU history rel err "
+             f"{worst} > {tol}")
+
+
+def summarize(rows: list, launches: dict, k: int = K, b: int = 1) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
     step of its main path launches (512² config3 for the first four
     kernels, the 1024² stage of config4 for the fused Gram pair, the 512²
@@ -2662,7 +3242,11 @@ def summarize(rows: list, launches: dict, k: int = K) -> list:
     gives each. With k = K8 the entries are the Gram kernels' rows at
     K8 classes (gram_fwd and gram_bwd at the 512² taps, the fused pair at
     conv1_1 of 512²), named "<kernel> K=8", with the launches of the
-    automatic and autotune paths."""
+    automatic and autotune paths. With b = BATCH the entries are the
+    batched rows ("<kernel> B=8": the five kernels with a batch grid
+    dimension and the pool backward on folded channels, at the batch
+    path's shapes, B pairs' bounds) with the batch path's launches and
+    `looped_ms`, the same work as b one-pair launches."""
     meta = {
         "lap_matvec": ("dpst_tpu_torch/csrc/lap_matvec.cu",
                        "dpst_tpu/ops/laplacian_pallas.py:111", None,
@@ -2702,17 +3286,23 @@ def summarize(rows: list, launches: dict, k: int = K) -> list:
         meta = {name: meta[name] for name in ("gram_fwd", "gram_bwd",
                                               "gram_relu_fwd",
                                               "gram_relu_bwd")}
+    if b != 1:
+        meta = {name: meta[name] for name in (
+            "lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
+            "gram_relu_bwd", "pool_bwd")}
     out = []
     for name, (src, replaces, also, dtype) in meta.items():
         sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype
-               and r.get("in_step", True) and r.get("K", K) == k]
+               and r.get("in_step", True) and r.get("K", K) in (k, None)
+               and r.get("B", 1) == b]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel
                     if r["bound_by"] == "operations")
         libs = [r["library_ms"] for r in sel]
         by_path = {path: counts[name] for path, counts in launches.items()}
         entry = {
-            "name": name if k == K else f"{name} K={k}", "route": "cuda",
+            "name": (name if k == K else f"{name} K={k}")
+            + ("" if b == 1 else f" B={b}"), "route": "cuda",
             "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -2724,6 +3314,9 @@ def summarize(rows: list, launches: dict, k: int = K) -> list:
             "library_ms": (None if any(v is None for v in libs)
                            else sum(libs)),
             "dtype": dtype, "K": k, "shapes_per_step": len(sel)}
+        if b != 1:
+            entry["B"] = b
+            entry["looped_ms"] = sum(r["looped_ms"] for r in sel)
         if also:
             entry["also_replaces"] = also
         if "library_call" in sel[0]:
@@ -2817,6 +3410,10 @@ def main() -> int:
     rows += check_gram_dz(dev, gen)
     seconds["block12 kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    rows += check_batched(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 20))
+    seconds["batched kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # generators of their own: the main paths' images do not depend on
     # what the kernel checks drew
@@ -2858,10 +3455,15 @@ def main() -> int:
     launches_k8 = run_automatic_stages(dev)
     seconds["segmentation, automatic, autotune"] = (time.perf_counter()
                                                     - t0 - seconds["lbfgs"])
+    t0 = time.perf_counter()
+    launches_b = {f"config3 batch B={BATCH} 512²": run_batch_path(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 21), smi)}
+    seconds["batch"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)
-          + summarize(rows, launches_k8, K8)})
+          + summarize(rows, launches_k8, K8)
+          + summarize(rows, launches_b, b=BATCH)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,8 +11,10 @@ that `StylizeConfig` selects, the smooth-local-affine post-process
 Without masks it builds them automatically (PSPNet-50 segmentation on the
 device, ADE20K class merging on the host; `segmentation.py`). `autotune`
 sweeps the style weight Γ and keeps the stylization that NIMA scores
-highest. Still missing: the multi-GPU Laplacian (it raises
-NotImplementedError), `stylize_batch` and the CLI.
+highest; its candidates run as one batch. `stylize_batch` runs B pairs
+as one batched loop (`parallel/batch.py`), each kernel launch covering
+all of them. Still missing: the multi-GPU mesh and Laplacian (they raise
+NotImplementedError) and the CLI.
 """
 from .api import prepare_constants, stylize
 # the submodule is imported here, before the name is bound to the function:
@@ -20,6 +22,7 @@ from .api import prepare_constants, stylize
 # leaves `dpst_tpu_torch.autotune` the function
 from .autotune import autotune
 from .config import PRESETS, StylizeConfig
+from .parallel.batch import stylize_batch
 
-__all__ = ["stylize", "prepare_constants", "autotune", "StylizeConfig",
-           "PRESETS"]
+__all__ = ["stylize", "prepare_constants", "stylize_batch", "autotune",
+           "StylizeConfig", "PRESETS"]

@@ -34,7 +34,8 @@ from .utils.runtime import params_on, resolve_device
 
 def _check_ported(cfg: StylizeConfig) -> None:
     """Raise NotImplementedError for what the port lacks, naming the
-    ROADMAP.md queue-1 item that will port it."""
+    ROADMAP.md queue-1 item that will port it. (`stylize_batch` runs
+    "spmd" as the XLA stencil, as the JAX package's batch does.)"""
     if cfg.laplacian_impl == "spmd":
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md queue 1): laplacian_impl='spmd' "
@@ -50,7 +51,9 @@ def prepare_constants(content: torch.Tensor, style: torch.Tensor,
     features, per-class masked style Grams (on the fused route whatever
     `gram_impl` says, as the JAX package computes them), the content mask
     pyramid, coverage weights and the packed matting-Laplacian stats.
-    Tensors are used on their own device."""
+    Tensors are used on their own device. A batch of B pairs ((B, H, W, 3)
+    images, (B, K, H, W) masks) gives batched constants, its VGG passes
+    and Grams once for all pairs."""
     content = content.to(torch.float32)
     style = style.to(torch.float32)
     content_feats = vgg.extract_features(
@@ -72,8 +75,10 @@ def prepare_constants(content: torch.Tensor, style: torch.Tensor,
     coverage = segmentation.coverage_weights(content_masks)
     lap_stats = None
     if cfg.use_photorealism:
-        lap_stats = pack_stats(lap.precompute_stats(
-            content * (1.0 / 255.0), eps=cfg.matting_epsilon))
+        stats = lambda c: pack_stats(lap.precompute_stats(
+            c * (1.0 / 255.0), eps=cfg.matting_epsilon))
+        lap_stats = (stats(content) if content.dim() == 3
+                     else torch.stack([stats(c) for c in content]))
     return optimize.StylizeConstants(
         content_feats=content_feats, style_grams=style_grams,
         masks=cmask_pyr, coverage=coverage, lap_stats=lap_stats)
@@ -86,8 +91,9 @@ def _prepare_stage(content: torch.Tensor, style: torch.Tensor,
     """One stage of the schedule: resize the full-resolution images and
     masks to `hw` (only where the size differs; masks clipped to [0, 1])
     and precompute the stage's constants. Returns (constants, the stage's
-    content image, the style image's (1, 1, 3) mean)."""
-    if tuple(content.shape[:2]) != tuple(hw):
+    content image, the style image's (1, 1, 3) mean); of a batch, batched
+    constants, (B, h, w, 3) contents and (B, 1, 1, 3) means."""
+    if tuple(content.shape[-3:-1]) != tuple(hw):
         content = resize_image(content, hw)
         style = resize_image(style, hw)
         cmasks = torch.clamp(resize_image(cmasks[..., None], hw)[..., 0],
@@ -96,12 +102,13 @@ def _prepare_stage(content: torch.Tensor, style: torch.Tensor,
                              0.0, 1.0)
     consts = prepare_constants(content, style, cmasks, smasks, cfg,
                                vgg_params)
-    style_mean = torch.mean(style, dim=(0, 1), keepdim=True)
+    style_mean = torch.mean(style, dim=(-3, -2), keepdim=True)
     return consts, content, style_mean
 
 
 def _carry_image(image: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-    """Upsample the running output to the next stage's size."""
+    """Upsample the running output (or a batch's) to the next stage's
+    size."""
     return torch.clamp(resize_image(image, hw), 0.0, 255.0)
 
 

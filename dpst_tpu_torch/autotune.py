@@ -5,18 +5,21 @@ arXiv:1901.03915): the image-pair-dependent style weight Γ is chosen by
 maximizing the NIMA aesthetic score of the stylization result.
 
 Each stage's constants (content features, masked style Grams, mask
-pyramid, Laplacian stats) are computed once per call; the candidates then
-run one after another, each from a fresh optimizer state with Γ in place
-of `LossWeights.style`, each carrying its own image between the stages of
-a multi-scale schedule. One batched NIMA forward scores every result of a
-round. Optional bracketing rounds re-sweep a narrowed log-range around the
-incumbent. A candidate's image is what `stylize` returns for the sweep's
-resolved config (`resolve_config`) with `style_weight` = Γ and
-`post_smooth` = 0.
+pyramid, Laplacian stats) are computed once per call; a round's candidates
+then run as one batch (`parallel.batch.run_batch` with per-pair weights, Γ
+in place of `LossWeights.style`), the pair's constants shared by every
+candidate as views with a batch stride of 0 (`in_axes=None` in the JAX
+package), each candidate from a fresh optimizer state and carrying its own
+image between the stages of a multi-scale schedule. One batched NIMA
+forward scores every result of a round. Optional bracketing rounds
+re-sweep a narrowed log-range around the incumbent. A candidate's image is
+the batch's image for its Γ; it equals what `stylize` returns for the
+sweep's resolved config (`resolve_config`) with `style_weight` = Γ and
+`post_smooth` = 0 up to the reductions that a batch takes in another
+order than one pair (see `tests/test_torch_autotune.py`).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -26,6 +29,7 @@ from . import optimize
 from .api import _carry_image, _inputs, _prepare_stage, _scale_schedule
 from .config import StylizeConfig
 from .models import nima as nima_mod
+from .parallel.batch import resolve_config, run_batch
 from .utils.runtime import params_on, resolve_device
 
 DEFAULT_GAMMAS = (1.0, 10.0, 100.0, 1000.0)
@@ -37,19 +41,6 @@ class TuneResult(NamedTuple):
     gammas: np.ndarray          # every candidate evaluated, all rounds
     scores: np.ndarray          # NIMA score per candidate
     images: np.ndarray          # (N, H, W, 3) final images (last round)
-
-
-def resolve_config(cfg: StylizeConfig) -> StylizeConfig:
-    """The config the sweep runs, as `dpst_tpu/autotune.py` resolves it on
-    one device: no s2b strips (the candidates are already a batch there),
-    and `s2d_gram` "auto" as "pallas" (its batched Gram kernel). In the
-    port the second sends the block-1 style taps to the fused bias+ReLU
-    Gram kernels from 2^18 pixels (`optimize.fused_block1_taps`)."""
-    if cfg.s2b_strips:
-        cfg = dataclasses.replace(cfg, s2b_strips=0)
-    if cfg.s2d_gram == "auto":
-        cfg = dataclasses.replace(cfg, s2d_gram="pallas")
-    return cfg
 
 
 def autotune(content, style, config: StylizeConfig | None = None, *,
@@ -86,24 +77,30 @@ def autotune(content, style, config: StylizeConfig | None = None, *,
               for h, w, iters in _scale_schedule(
                   cfg, tuple(content_full.shape[:2]))]
 
-    def run_candidate(gamma: float) -> torch.Tensor:
-        weights = base_weights._replace(style=gamma)
-        image = None
+    def sweep(gammas: np.ndarray) -> torch.Tensor:
+        """Every candidate of a round through every stage as one batch;
+        their final images (N, H, W, 3)."""
+        n = len(gammas)
+        weights = base_weights._replace(
+            style=torch.from_numpy(gammas).to(dev))
+        images = None
         for (consts, content_s, style_mean), iters in stages:
-            if image is None:
-                image = optimize.init_image(cfg, content_s, style_mean)
+            shared = consts.map(lambda t: t.expand(n, *t.shape))
+            if images is None:
+                images = optimize.init_image(cfg, content_s, style_mean
+                                             ).expand(n, -1, -1, -1).clone()
             else:
-                image = _carry_image(image, tuple(content_s.shape[:2]))
-            image, _ = optimize.run(image, consts, weights, vgg_params, cfg,
-                                    iterations=iters)
-        return torch.clamp(image, 0.0, 255.0)
+                images = _carry_image(images, tuple(content_s.shape[:2]))
+            images, _ = run_batch(images, shared, weights, vgg_params, cfg,
+                                  iters)
+        return torch.clamp(images, 0.0, 255.0)
 
     cand = np.asarray(gammas if gammas is not None else DEFAULT_GAMMAS,
                       np.float32)
     all_gammas, all_scores = [], []
     best_gamma, best_score, best_img, images = None, -np.inf, None, None
     for rnd in range(max(1, rounds)):
-        imgs = torch.stack([run_candidate(float(g)) for g in cand])
+        imgs = sweep(cand)
         scores = nima_mod.nima_score(nima_params, imgs).cpu().numpy()
         all_gammas.append(cand)
         all_scores.append(scores)

@@ -68,6 +68,16 @@
 // described at dpst_gram_bwd, and the forwards' split chunk is a multiple
 // of 128. Their fp32 bodies are the tiles above.
 //
+// A batch of B pairs (f (B, C, P), m2 (B, K, P), the JAX package's vmapped
+// pallas_call) is one launch of each kernel with the pair an index of its
+// grid: the forward's pairs are the Hopper body's bands (fband = C P,
+// mband = K P) and its split partials (B, splits, K, C, C) are summed per
+// pair; the backwards take pair strides (the bodies' PAIRS instances; one
+// pair runs the one-pair instances) and their split partials are
+// split-major, (splits, B, C, P), so that one reduction over B C P
+// elements serves every pair. The fp32 tiles take the pair from
+// blockIdx.z. gram_wbwd runs one pair a launch.
+//
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second
 // kernel sums the partials in a fixed order: no float atomics, so a rerun
@@ -88,44 +98,60 @@ using gram::TM;
 using gram::TN;
 using gram::load_f;
 
-// Forward: block (tile, k, split) computes the (i0, j0) tile of G_k over
-// the pixels [split * chunk, min(P, (split + 1) * chunk)).
+// Forward: block (tile, k, z = pair * splits + split) computes the
+// (i0, j0) tile of the pair's G_k over the pixels [split * chunk, min(P,
+// (split + 1) * chunk)) into out[z][k]: f (B, C, P) and m2 (B, K, P).
 template <typename T, bool RELU>
 __device__ __forceinline__ void gram_fwd_block(const T* __restrict__ f,
                                                const T* __restrict__ bias,
                                                const T* __restrict__ m2,
                                                float* __restrict__ out, int C,
-                                               int P, int K, int chunk) {
+                                               int P, int K, int splits,
+                                               int chunk) {
   const int tiles = (C + TN - 1) / TN;
   const int i0 = (blockIdx.x / tiles) * TM, j0 = (blockIdx.x % tiles) * TN;
-  const int k = blockIdx.y, split = blockIdx.z;
+  const int k = blockIdx.y, pair = blockIdx.z / splits;
+  const int split = blockIdx.z - pair * splits;
   const int pb = split * chunk;
   const int pe = min(P, pb + chunk);
   gram::gram_fwd_tile<T, RELU, T>(
-      f, static_cast<size_t>(P), bias, m2 + static_cast<size_t>(k) * P,
-      out + (static_cast<size_t>(split) * K + k) * C * C, C, i0, j0, pb, pe);
+      f + static_cast<size_t>(pair) * C * P, static_cast<size_t>(P), bias,
+      m2 + (static_cast<size_t>(pair) * K + k) * P,
+      out + (static_cast<size_t>(blockIdx.z) * K + k) * C * C, C, i0, j0, pb,
+      pe);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_fwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
-                float* __restrict__ out, int C, int P, int K, int chunk) {
-  gram_fwd_block<T, false>(f, nullptr, m2, out, C, P, K, chunk);
+                float* __restrict__ out, int C, int P, int K, int splits,
+                int chunk) {
+  gram_fwd_block<T, false>(f, nullptr, m2, out, C, P, K, splits, chunk);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_relu_fwd_kernel(const T* __restrict__ z, const T* __restrict__ bias,
                      const T* __restrict__ m2, float* __restrict__ out, int C,
-                     int P, int K, int chunk) {
-  gram_fwd_block<T, true>(z, bias, m2, out, C, P, K, chunk);
+                     int P, int K, int splits, int chunk) {
+  gram_fwd_block<T, true>(z, bias, m2, out, C, P, K, splits, chunk);
 }
 
-// Sum the per-split partials in a fixed order (deterministic).
+// Sum the per-split partials of each pair in a fixed order
+// (deterministic): out[b][i] = work[b][0][i] + work[b][1][i] + ..., n
+// elements a pair.
 __global__ void gram_reduce_kernel(const float* __restrict__ work,
                                    float* __restrict__ out, int splits,
-                                   long long n) {
-  gram::reduce_body(work, out, splits, n, 1);
+                                   long long n, int pairs) {
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < pairs * n; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long b = idx / n, i = idx - b * n;
+    const float* w = work + b * splits * n + i;
+    float s = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) s += w[sp * n];
+    out[idx] = s;
+  }
 }
 
 // Backward: block (p tile, c tile) computes dF[c0.., p0..] =
@@ -138,17 +164,22 @@ struct StoreRound {
   }
 };
 
+// Grid (p tiles, c tiles, pairs): f, out (B, C, P), m2 (B, K, P), s (B,
+// K, C, C).
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
                 const T* __restrict__ s, T* __restrict__ out, int C, int P,
                 int K) {
-  gram::gram_bwd_tile<T, T>(f, m2, s, StoreRound<T>{out}, C, P, K,
+  const size_t b = blockIdx.z, cp = static_cast<size_t>(C) * P;
+  gram::gram_bwd_tile<T, T>(f + b * cp, m2 + b * K * P, s + b * K * C * C,
+                            StoreRound<T>{out + b * cp}, C, P, K,
                             blockIdx.x * TN, blockIdx.y * TM);
 }
 
-// Class-weighted backward: block (p tile, c tile) computes
-// out[c0.., p0..] = sum_k m2_k[p] * (S_k . F)[c][p]. Each class's product
+// Class-weighted backward: block (p tile, c tile, pair) computes
+// out[c0.., p0..] = sum_k m2_k[p] * (S_k . F)[c][p] of its pair (f, out
+// (B, C, P), m2 (B, K, P), s (B, K, C, C); the bias is shared). Each class's product
 // is accumulated on the tiles, then scaled by m2_k and summed in fp32 on
 // the output tile, which each thread holds PER values of. With RELU, F =
 // relu(z + b) rounded to T and the sum is multiplied by relu'(z + b)
@@ -167,6 +198,11 @@ __device__ __forceinline__ void gram_cls_bwd_tile(const T* __restrict__ z,
   __shared__ __align__(128) float cs[TM * LDC];
 
   const int p0 = blockIdx.x * TN, c0 = blockIdx.y * TM;
+  const size_t pair = blockIdx.z, cp = static_cast<size_t>(C) * P;
+  z += pair * cp;
+  m2 += pair * K * P;
+  s += pair * K * C * C;
+  out += pair * cp;
   const T zero = from_f<T>(0.0f);
   float acc[PER];
 #pragma unroll
@@ -240,31 +276,37 @@ gram_wbwd_kernel(const T* __restrict__ f, const T* __restrict__ m2,
   gram_cls_bwd_tile<T, false>(f, nullptr, m2, s, out, C, P, K);
 }
 
+// The fixed-order sum of the forward's split partials work (B, splits, K,
+// C, C) into out (B, K, C, C).
+void reduce_fwd(const float* work, float* out, int C, int K, int B,
+                int splits, cudaStream_t st) {
+  const long long n = static_cast<long long>(K) * C * C;
+  gram_reduce_kernel<<<dpst::grid_for(B * n, 256, 132 * 16), 256, 0, st>>>(
+      work, out, splits, n, B);
+}
+
 template <typename T, bool RELU>
 void launch_fwd(const void* f, const void* bias, const void* m2, float* work,
-                float* out, int C, int P, int K, int splits, int chunk,
+                float* out, int C, int P, int K, int B, int splits, int chunk,
                 cudaStream_t st) {
   const int tiles = (C + TN - 1) / TN;
-  const dim3 grid(tiles * tiles, K, splits);
+  const dim3 grid(tiles * tiles, K, B * splits);
   float* dst = splits == 1 ? out : work;
   const T* ft = static_cast<const T*>(f);
   const T* mt = static_cast<const T*>(m2);
   if constexpr (RELU)
     gram_relu_fwd_kernel<T><<<grid, NT, 0, st>>>(
-        ft, static_cast<const T*>(bias), mt, dst, C, P, K, chunk);
+        ft, static_cast<const T*>(bias), mt, dst, C, P, K, splits, chunk);
   else
-    gram_fwd_kernel<T><<<grid, NT, 0, st>>>(ft, mt, dst, C, P, K, chunk);
-  if (splits > 1) {
-    const long long n = static_cast<long long>(K) * C * C;
-    gram_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
-        work, out, splits, n);
-  }
+    gram_fwd_kernel<T><<<grid, NT, 0, st>>>(ft, mt, dst, C, P, K, splits,
+                                            chunk);
+  if (splits > 1) reduce_fwd(work, out, C, K, B, splits, st);
 }
 
 template <typename T>
 void launch_bwd(const void* f, const void* m2, const void* s, void* out,
-                int C, int P, int K, cudaStream_t st) {
-  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM);
+                int C, int P, int K, int B, cudaStream_t st) {
+  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM, B);
   gram_bwd_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const T*>(f), static_cast<const T*>(m2),
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
@@ -283,12 +325,13 @@ gram_relu_fwd_wgmma_kernel(gram90::FwdArgs a) {
 }
 
 // bf16 forward on the Hopper body (RELU: gram_relu_fwd, f the raw tap z
-// and bias its b): class groups of gram90::KG, then the fixed-order sum of
-// the split partials.
+// and bias its b): class groups of gram90::KG, the B pairs as the body's
+// bands (f (B, C, P), m2 (B, K, P)), then the fixed-order sum of each
+// pair's split partials.
 template <bool RELU>
 cudaError_t launch_fwd_wgmma(const void* f, const void* bias, const void* m2,
                              float* work, float* out, int C, int P, int K,
-                             int splits, int chunk, cudaStream_t st) {
+                             int B, int splits, int chunk, cudaStream_t st) {
   if (P % 8 != 0 || chunk % (gram90::BK * gram90::FWD_HALVES) != 0)
     return cudaErrorInvalidValue;
   auto* kern = RELU ? gram_relu_fwd_wgmma_kernel : gram_fwd_wgmma_kernel;
@@ -297,57 +340,63 @@ cudaError_t launch_fwd_wgmma(const void* f, const void* bias, const void* m2,
   cudaError_t err = hopper::allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   const int tiles = (C + 63) / 64;
-  const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG, splits);
+  const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG,
+                  B * splits);
   const gram90::FwdArgs args{static_cast<const __nv_bfloat16*>(f),
                              static_cast<const __nv_bfloat16*>(m2),
-                             splits == 1 ? out : work, P, P, 0, 0, C, P, K,
+                             splits == 1 ? out : work, P, P,
+                             static_cast<long long>(C) * P,
+                             static_cast<long long>(K) * P, C, P, K,
                              splits, chunk,
                              static_cast<const __nv_bfloat16*>(bias)};
   kern<<<grid, gram90::NT, smem, st>>>(args);
-  if (splits > 1) {
-    const long long n = static_cast<long long>(K) * C * C;
-    gram_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
-        work, out, splits, n);
-  }
+  if (splits > 1) reduce_fwd(work, out, C, K, B, splits, st);
   return cudaGetLastError();
 }
 
 // The bf16 backward on the Hopper body (gram_wgmma.cuh), one band of P
-// pixels, dF rounded once.
-template <int N>
+// pixels, dF rounded once; PAIRS: the instance of a batch of pairs.
+template <int N, bool PAIRS = false>
 __global__ void __launch_bounds__(gram90::NT)
 gram_bwd_wgmma_kernel(gram90::BwdArgs a) {
-  gram90::gram_bwd_body<N>(a, gram90::BwdRound{});
+  gram90::gram_bwd_body<N, gram90::BwdRound, PAIRS>(a, gram90::BwdRound{});
 }
 
 // bf16 backward on the Hopper body: c tiles of N rows; `groups` blocks
-// share the p tiles of each c tile, `splits` cut the reduction (then work
-// holds the fp32 partials, summed in a fixed order and rounded by
-// gram_bwd_reduce_kernel).
-template <int N>
+// share the p tiles of each c tile of each of the B pairs, `splits` cut
+// the reduction (then work holds the fp32 partials (splits, B, C, P),
+// summed in a fixed order and rounded by gram_bwd_reduce_kernel). One
+// pair runs the body's one-pair instance, B > 1 its PAIRS instance.
+template <int N, bool PAIRS>
 cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
                                float* work, void* out, int C, int P, int K,
-                               int groups, int splits, cudaStream_t st) {
+                               int B, int groups, int splits,
+                               cudaStream_t st) {
   const int nit = (C + 63) / 64 * K;
   const int ipb = (nit + splits - 1) / splits;
   if (groups < 1 || groups > (P + 63) / 64 || splits < 1 ||
       (splits - 1) * ipb >= nit || (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = gram90::bwd_smem<N>();
-  static size_t allowed[64] = {};  // one record for each N
-  cudaError_t err = hopper::allow_smem(gram_bwd_wgmma_kernel<N>, smem, allowed);
+  static size_t allowed[64] = {};  // one record for each instance
+  cudaError_t err =
+      hopper::allow_smem(gram_bwd_wgmma_kernel<N, PAIRS>, smem, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid(groups, (C + N - 1) / N, splits);
+  const dim3 grid(groups, (C + N - 1) / N, B * splits);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const int ptiles = (P + 63) / 64;
+  const long long cp = static_cast<long long>(C) * P;
   const gram90::BwdArgs args{static_cast<const __nv_bfloat16*>(f),
                              static_cast<const __nv_bfloat16*>(m2),
                              static_cast<const __nv_bfloat16*>(a), o,
                              splits > 1 ? work : nullptr, P, P, 0, 0, P,
-                             ptiles, ptiles, C, K, ipb};
-  gram_bwd_wgmma_kernel<N><<<grid, gram90::NT, smem, st>>>(args);
+                             ptiles, ptiles, C, K, ipb, cp,
+                             static_cast<long long>(K) * P,
+                             static_cast<long long>(C) * K * ((C + 7) & ~7),
+                             B};
+  gram_bwd_wgmma_kernel<N, PAIRS><<<grid, gram90::NT, smem, st>>>(args);
   if (splits > 1) {
-    const long long n = static_cast<long long>(C) * P;
+    const long long n = B * cp;
     gram90::gram_bwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0,
                                      st>>>(work, o, splits, n);
   }
@@ -356,15 +405,17 @@ cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
 
 cudaError_t launch_bwd_wgmma(const void* f, const void* m2, const void* a,
                              float* work, void* out, int C, int P, int K,
-                             int tile, int groups, int splits,
+                             int B, int tile, int groups, int splits,
                              cudaStream_t st) {
   if (P % 8 != 0) return cudaErrorInvalidValue;
   if (tile == 64)
-    return launch_bwd_wgmma_n<64>(f, m2, a, work, out, C, P, K, groups,
-                                  splits, st);
+    return (B > 1 ? launch_bwd_wgmma_n<64, true>
+                  : launch_bwd_wgmma_n<64, false>)(
+        f, m2, a, work, out, C, P, K, B, groups, splits, st);
   if (tile == 128)
-    return launch_bwd_wgmma_n<128>(f, m2, a, work, out, C, P, K, groups,
-                                   splits, st);
+    return (B > 1 ? launch_bwd_wgmma_n<128, true>
+                  : launch_bwd_wgmma_n<128, false>)(
+        f, m2, a, work, out, C, P, K, B, groups, splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -442,9 +493,9 @@ cudaError_t launch_wbwd_wgmma(const void* f, const void* m2, const void* a,
 
 template <typename T>
 void launch_relu_bwd(const void* z, const void* bias, const void* m2,
-                     const void* s, void* out, int C, int P, int K,
+                     const void* s, void* out, int C, int P, int K, int B,
                      cudaStream_t st) {
-  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM);
+  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM, B);
   gram_relu_bwd_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const T*>(z), static_cast<const T*>(bias),
       static_cast<const T*>(m2), static_cast<const T*>(s),
@@ -459,96 +510,109 @@ void launch_relu_bwd(const void* z, const void* bias, const void* m2,
 extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
                                        const void* m2, const void* s,
                                        void* work, void* out, int C, int P,
-                                       int K, int tile, int groups,
+                                       int K, int B, int tile, int groups,
                                        int splits, void* stream);
 extern "C" int dpst_gram_relu_bwd_attrs(int which, int* out);
 
-// work: (splits, K, C, C) fp32 scratch, unused when splits == 1;
-// out: (K, C, C) fp32. Each split covers `chunk` pixels: a multiple of 32
-// in fp32; in bf16 a multiple of 64, with P % 8 == 0.
+// B pairs in one launch (the pair an index of the grid): f (B, C, P), m2
+// (B, K, P); work: (B, splits, K, C, C) fp32 scratch, unused when splits
+// == 1; out: (B, K, C, C) fp32. Each split covers `chunk` pixels: a
+// multiple of 32 in fp32; in bf16 a multiple of 128, with P % 8 == 0.
 extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
-                             void* out, int C, int P, int K, int splits,
-                             int chunk, int dtype, void* stream) {
+                             void* out, int C, int P, int K, int B,
+                             int splits, int chunk, int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
+  if (B < 1 || splits < 1 || B * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
   if (dtype == DPST_DTYPE_F32)
-    launch_fwd<float, false>(f, nullptr, m2, w, o, C, P, K, splits, chunk,
+    launch_fwd<float, false>(f, nullptr, m2, w, o, C, P, K, B, splits, chunk,
                              st);
   else if (dtype == DPST_DTYPE_BF16)
     return static_cast<int>(launch_fwd_wgmma<false>(
-        f, nullptr, m2, w, o, C, P, K, splits, chunk, st));
+        f, nullptr, m2, w, o, C, P, K, B, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: dF (C, P) in the compute dtype. s is the symmetrized cotangent:
-// in fp32 the (K, C, C) stack S; in bf16 the matrix A (C, K * Cp) with
-// A[c][k * Cp + c'] = S_k[c][c'], Cp = C rounded up to a multiple of 8 and
-// the padding zero, and P % 8 == 0. tile, groups, splits and work serve
-// bf16 only: c tiles of `tile` (64 or 128) rows; `groups` (1 <= groups <=
-// ceil(P / 64)) blocks walk the 64-pixel tiles of each c tile; `splits` > 1
-// cuts the reduction over (k, c') into that many ranges of
-// ceil(ceil(C / 64) * K / splits) items, each non-empty, whose fp32
-// partials go to work (splits, C, P).
+// B pairs in one launch: f and out (B, C, P), dF in the compute dtype;
+// m2 (B, K, P). s is the symmetrized cotangent of each pair: in fp32 the
+// (B, K, C, C) stacks S; in bf16 the matrices A (B, C, K * Cp) with
+// A[b][c][k * Cp + c'] = S_bk[c][c'], Cp = C rounded up to a multiple of 8
+// and the padding zero, and P % 8 == 0. tile, groups, splits and work
+// serve bf16 only: c tiles of `tile` (64 or 128) rows; `groups` (1 <=
+// groups <= ceil(P / 64)) blocks walk the 64-pixel tiles of each c tile of
+// each pair; `splits` > 1 cuts the reduction over (k, c') into that many
+// ranges of ceil(ceil(C / 64) * K / splits) items, each non-empty, whose
+// fp32 partials go to work (splits, B, C, P).
 extern "C" int dpst_gram_bwd(const void* f, const void* m2, const void* s,
                              void* work, void* out, int C, int P, int K,
-                             int tile, int groups, int splits, int dtype,
-                             void* stream) {
+                             int B, int tile, int groups, int splits,
+                             int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
+  if (B < 1 || splits < 1 || B * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
-    launch_bwd<float>(f, m2, s, out, C, P, K, st);
+    launch_bwd<float>(f, m2, s, out, C, P, K, B, st);
   else if (dtype == DPST_DTYPE_BF16)
     return static_cast<int>(launch_bwd_wgmma(f, m2, s,
                                              static_cast<float*>(work), out,
-                                             C, P, K, tile, groups, splits,
+                                             C, P, K, B, tile, groups, splits,
                                              st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: (C, P) raw conv output, bias: (C,), both in the compute dtype; work
-// and out as for dpst_gram_fwd (in bf16: the Hopper body, P % 8 == 0 and
-// chunk a multiple of 128).
+// z: (B, C, P) raw conv output, bias: (C,) shared by the pairs, both in
+// the compute dtype; m2, work and out as for dpst_gram_fwd (in bf16: the
+// Hopper body, P % 8 == 0 and chunk a multiple of 128).
 extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
                                   const void* m2, void* work, void* out,
-                                  int C, int P, int K, int splits, int chunk,
-                                  int dtype, void* stream) {
+                                  int C, int P, int K, int B, int splits,
+                                  int chunk, int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
+  if (B < 1 || splits < 1 || B * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
   if (dtype == DPST_DTYPE_F32)
-    launch_fwd<float, true>(z, bias, m2, w, o, C, P, K, splits, chunk, st);
+    launch_fwd<float, true>(z, bias, m2, w, o, C, P, K, B, splits, chunk,
+                            st);
   else if (dtype == DPST_DTYPE_BF16)
     return static_cast<int>(launch_fwd_wgmma<true>(
-        z, bias, m2, w, o, C, P, K, splits, chunk, st));
+        z, bias, m2, w, o, C, P, K, B, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: (C, P) raw conv output, bias: (C,), m2: (K, P), in the compute dtype;
-// out: dz (C, P). s, work, tile, groups and splits as for dpst_gram_wbwd
-// (in bf16 the matrix A, P % 8 == 0, C <= 512); in bf16 with C <= 64, K <=
-// 8 and splits == 1 the tile is 64 and `groups` blocks walk the p tiles of
+// B pairs in one launch: z (B, C, P) raw conv output, bias (C,) shared,
+// m2 (B, K, P), in the compute dtype; out: dz (B, C, P). s, tile, groups
+// and splits as for dpst_gram_wbwd, s and work with the pairs' axis as for
+// dpst_gram_bwd (in bf16 the matrices A, P % 8 == 0, C <= 512, work
+// (splits, B, C, P)); in bf16 with C <= 64, K <= 8 and splits == 1 the
+// tile is 64 and `groups` blocks of each pair walk its p tiles of
 // gram90::RPIX pixels.
 extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
                                   const void* m2, const void* s, void* work,
-                                  void* out, int C, int P, int K, int tile,
-                                  int groups, int splits, int dtype,
+                                  void* out, int C, int P, int K, int B,
+                                  int tile, int groups, int splits, int dtype,
                                   void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
+  if (B < 1 || splits < 1 || B * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
-    launch_relu_bwd<float>(z, bias, m2, s, out, C, P, K, st);
+    launch_relu_bwd<float>(z, bias, m2, s, out, C, P, K, B, st);
   else if (dtype == DPST_DTYPE_BF16)
-    return dpst_gram_relu_bwd_bf16(z, bias, m2, s, work, out, C, P, K, tile,
-                                   groups, splits, stream);
+    return dpst_gram_relu_bwd_bf16(z, bias, m2, s, work, out, C, P, K, B,
+                                   tile, groups, splits, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -18,17 +18,21 @@
 
 namespace {
 
-// The bias+ReLU backward on gram_wbwd's body (a.f the raw tap z).
-template <int N>
+// The bias+ReLU backward on gram_wbwd's body (a.f the raw tap z); PAIRS:
+// the instance of a batch of pairs (one pair runs the one-pair instance,
+// register for register the body without a batch).
+template <int N, bool PAIRS = false>
 __global__ void __launch_bounds__(gram90::WNT, 1)
 gram_relu_bwd_wgmma_kernel(gram90::ReluBwdArgs a) {
-  gram90::gram_wbwd_body<N, gram90::WSTAGES, true>(a);
+  gram90::gram_wbwd_body<N, gram90::WSTAGES, true, gram90::ReluBwdArgs,
+                         PAIRS>(a);
 }
 
 // The bias+ReLU backward at C <= 64 on its own body.
+template <bool PAIRS = false>
 __global__ void __launch_bounds__(gram90::RWG * gram90::NT, 1)
 gram_relu_bwd64_wgmma_kernel(gram90::ReluBwdArgs a) {
-  gram90::gram_relu_bwd64_body<gram90::RNS, gram90::RWG>(a);
+  gram90::gram_relu_bwd64_body<gram90::RNS, gram90::RWG, PAIRS>(a);
 }
 
 // Split partials (whole classes each, relu' applied), summed in split
@@ -40,9 +44,10 @@ __global__ void relu_bwd_reduce_kernel(const float* __restrict__ work,
 }
 
 // gram_wbwd's body with the bias+ReLU steps: c tiles of N rows, `groups`
-// blocks on the 128-pixel p tiles of each c tile, `splits` ranges of
-// ceil(K / splits) whole classes (then work holds the fp32 partials).
-template <int N>
+// blocks on the 128-pixel p tiles of each c tile of each of args.pairs
+// pairs, `splits` ranges of ceil(K / splits) whole classes (then work
+// holds the fp32 partials (splits, pairs, C, P)).
+template <int N, bool PAIRS>
 cudaError_t launch_wbwd_body(const gram90::ReluBwdArgs& args, int groups,
                              int splits, cudaStream_t st) {
   const int C = args.C, P = args.P, K = args.K, kps = args.kps;
@@ -51,22 +56,23 @@ cudaError_t launch_wbwd_body(const gram90::ReluBwdArgs& args, int groups,
       (splits - 1) * kps >= K || (splits > 1 && args.work == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = gram90::wbwd_smem<N, gram90::WSTAGES>(C);
-  static size_t allowed[64] = {};  // one record for each N
-  cudaError_t err =
-      hopper::allow_smem(gram_relu_bwd_wgmma_kernel<N>, smem, allowed);
+  static size_t allowed[64] = {};  // one record for each instance
+  cudaError_t err = hopper::allow_smem(gram_relu_bwd_wgmma_kernel<N, PAIRS>,
+                                       smem, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid(groups, (C + N - 1) / N, splits);
-  gram_relu_bwd_wgmma_kernel<N><<<grid, gram90::WNT, smem, st>>>(args);
+  const dim3 grid(groups, (C + N - 1) / N, args.pairs * splits);
+  gram_relu_bwd_wgmma_kernel<N, PAIRS><<<grid, gram90::WNT, smem, st>>>(args);
   if (splits > 1) {
-    const long long n = static_cast<long long>(C) * P;
+    const long long n = static_cast<long long>(args.pairs) * C * P;
     relu_bwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
         args.work, args.out, splits, n);
   }
   return cudaGetLastError();
 }
 
-// gram_relu_bwd64_body: `groups` blocks, at most one an SM, on the
-// RPIX-pixel p tiles.
+// gram_relu_bwd64_body: `groups` blocks a pair, at most one an SM, on
+// the RPIX-pixel p tiles of each of args.pairs pairs.
+template <bool PAIRS>
 cudaError_t launch_body64(const gram90::ReluBwdArgs& args, int groups,
                           cudaStream_t st) {
   const int ptiles = (args.P + gram90::RPIX - 1) / gram90::RPIX;
@@ -74,24 +80,26 @@ cudaError_t launch_body64(const gram90::ReluBwdArgs& args, int groups,
     return cudaErrorInvalidValue;
   const size_t smem = gram90::relu_bwd64_smem(args.K);
   static size_t allowed[64] = {};
-  cudaError_t err =
-      hopper::allow_smem(gram_relu_bwd64_wgmma_kernel, smem, allowed);
+  cudaError_t err = hopper::allow_smem(gram_relu_bwd64_wgmma_kernel<PAIRS>,
+                                       smem, allowed);
   if (err != cudaSuccess) return err;
-  gram_relu_bwd64_wgmma_kernel<<<groups, gram90::RWG * gram90::NT, smem,
-                                 st>>>(args);
+  gram_relu_bwd64_wgmma_kernel<PAIRS>
+      <<<dim3(groups, args.pairs), gram90::RWG * gram90::NT, smem, st>>>(
+          args);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dpst_gram_relu_bwd in bf16: z (C, P) raw conv output, bias (C,), m2
-// (K, P), a the cotangent matrix of dpst_gram_bwd (C, K * Cp), P % 8 == 0;
-// tile, groups and splits from ops/gram_s2d.py:relu_bwd_plan (at C <= 64,
-// K <= 8 and one split the tile is 64 and gram_relu_bwd64_body runs).
+// dpst_gram_relu_bwd in bf16, B pairs in one launch: z (B, C, P) raw conv
+// output, bias (C,) shared, m2 (B, K, P), a the cotangent matrices of
+// dpst_gram_bwd (B, C, K * Cp), P % 8 == 0; tile, groups and splits from
+// ops/gram_s2d.py:relu_bwd_plan (at C <= 64, K <= 8 and one split the tile
+// is 64 and gram_relu_bwd64_body runs).
 extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
                                        const void* m2, const void* a,
                                        void* work, void* out, int C, int P,
-                                       int K, int tile, int groups,
+                                       int K, int B, int tile, int groups,
                                        int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P % 8 != 0 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -100,15 +108,21 @@ extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
        static_cast<const __nv_bfloat16*>(m2),
        static_cast<const __nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
        splits > 1 ? static_cast<float*>(work) : nullptr, P, P, C, P, K,
-       (K + splits - 1) / splits},
+       (K + splits - 1) / splits, static_cast<long long>(C) * P,
+       static_cast<long long>(K) * P,
+       static_cast<long long>(C) * K * ((C + 7) & ~7), B},
       static_cast<const __nv_bfloat16*>(bias)};
   cudaError_t err = cudaErrorInvalidValue;
+  const bool pairs = B > 1;
   if (tile == 64 && splits == 1 && C <= 64 && K <= gram90::RMAXK)
-    err = launch_body64(args, groups, st);
+    err = pairs ? launch_body64<true>(args, groups, st)
+                : launch_body64<false>(args, groups, st);
   else if (tile == 64)
-    err = launch_wbwd_body<64>(args, groups, splits, st);
+    err = pairs ? launch_wbwd_body<64, true>(args, groups, splits, st)
+                : launch_wbwd_body<64, false>(args, groups, splits, st);
   else if (tile == 128)
-    err = launch_wbwd_body<128>(args, groups, splits, st);
+    err = pairs ? launch_wbwd_body<128, true>(args, groups, splits, st)
+                : launch_wbwd_body<128, false>(args, groups, splits, st);
   return static_cast<int>(err);
 }
 
@@ -118,7 +132,7 @@ extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
 extern "C" int dpst_gram_relu_bwd_attrs(int which, int* out) {
   if (which == 6)
     return gram90::record_attrs(
-        reinterpret_cast<const void*>(gram_relu_bwd64_wgmma_kernel),
+        reinterpret_cast<const void*>(gram_relu_bwd64_wgmma_kernel<false>),
         gram90::relu_bwd64_smem(4), gram90::RWG * gram90::NT, out);
   if (which == 7)
     return gram90::record_attrs(

@@ -364,7 +364,11 @@ __device__ __forceinline__ void wgmma_n(float (&d)[N / 2],
 // in all: gram.cu walks one band [0, P); block12.cu the rows of each band
 // of a stacked group whose cotangent reaches an own output row. pb, pe,
 // ldf, ldm and bstride are multiples of 8 (16-byte rows); pixel indices
-// (below ptiles * 64 + bstride * bands) fit an int.
+// (below ptiles * 64 + bstride * bands) fit an int. gram.cu's batch runs
+// `pairs` pairs in one grid (the body's PAIRS instance), the pair of a
+// block blockIdx.z / (gridDim.z / pairs): its F and dF start pf elements
+// after the previous pair's, its masks pm, its cotangent matrix pa
+// (block12.cu: one pair).
 struct BwdArgs {
   const bf16* f;
   const bf16* m2;
@@ -374,6 +378,8 @@ struct BwdArgs {
   long long ldf, ldm;
   int bstride, pb, pe, tpb, ptiles;
   int C, K, ipb;
+  long long pf = 0, pm = 0, pa = 0;
+  int pairs = 1;
 };
 
 // gram.cu's epilogue: dF = round(acc). An epilogue that reads memory
@@ -385,19 +391,21 @@ struct BwdRound {
   }
 };
 
-// Backward body. Grid (groups, ceil(C / N), splits). Block (g, c tile,
-// split) walks the p tiles g, g + groups, ... (at least one: groups <=
+// Backward body. Grid (groups, ceil(C / N), pairs * splits), z = pair *
+// splits + split. Block (g, c tile, z) walks, on its pair's operands, the p tiles g, g + groups, ... (at least one: groups <=
 // ptiles) and, for each, its share of the reduction: the items [split *
 // ipb, min(nit, (split + 1) * ipb)) of r = (c' chunk j of 64, class k), in
 // that order. It computes over its items
 //   acc = sum_r a[c][k*Cp + c'] * round(F[c'][p] * m2[k][p])
 // and, when work is null (then splits == 1), stores round(epi(acc, idx))
 // at out[idx], idx = c * ldf + p, through a staging tile as 16-byte rows;
-// else acc in fp32 at work[split][idx], which gram_bwd_reduce_kernel sums
-// in split order and rounds once. epi reads nothing outside the walked
-// pixels. The ring runs on across p tiles, so a block's next tile loads
-// while it finishes this one.
-template <int N, typename Epi>
+// else acc in fp32 at work[split][pair][idx], which gram_bwd_reduce_kernel
+// sums in split order and rounds once (the pairs' dF are contiguous). epi
+// reads nothing outside the walked pixels. The ring runs on across p
+// tiles, so a block's next tile loads while it finishes this one. Without
+// PAIRS (one pair) the pair arithmetic compiles out, and the body is the
+// one-pair body register for register.
+template <int N, typename Epi, bool PAIRS = false>
 __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
                                               const Epi& epi) {
   constexpr int SLOT = TILE_BYTES + N * 128;  // F chunk, cotangent tile
@@ -407,16 +415,20 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   bf16* msk = reinterpret_cast<bf16*>(sm + STAGES * SLOT);  // [STAGES][64]
-  const bf16* __restrict__ f = ar.f;
-  const bf16* __restrict__ m2 = ar.m2;
-  const bf16* __restrict__ a = ar.a;
+  const int nsplit = PAIRS ? gridDim.z / ar.pairs : gridDim.z;
+  const int pair = PAIRS ? blockIdx.z / nsplit : 0;
+  const int split = blockIdx.z - pair * nsplit;
+  const bf16* __restrict__ f = ar.f + pair * ar.pf;
+  const bf16* __restrict__ m2 = ar.m2 + pair * ar.pm;
+  const bf16* __restrict__ a = ar.a + pair * ar.pa;
+  bf16* __restrict__ out = ar.out + pair * ar.pf;
   const int C = ar.C, K = ar.K;
   const size_t ldf = static_cast<size_t>(ar.ldf);
   const size_t ldm = static_cast<size_t>(ar.ldm);
   const int cpad = (C + 7) & ~7, lda = K * cpad;
   const int c0 = blockIdx.y * N;
   const int nit = ((C + 63) >> 6) * K;
-  const int ib = blockIdx.z * ar.ipb;
+  const int ib = split * ar.ipb;
   const int per = min(nit, ib + ar.ipb) - ib;  // items per p tile
   const int bx = blockIdx.x, gx = gridDim.x;
   const int ntile = (ar.ptiles - 1 - bx) / gx + 1;
@@ -532,11 +544,13 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
       for (int e = tid; e < N * 8; e += NT) {
         const int r = e >> 3, c = e & 7, cr = c0 + r, p = q.p0 + c * 8;
         if (cr < C && p < q.pe)
-          *reinterpret_cast<uint4*>(ar.out + cr * ldf + p) =
+          *reinterpret_cast<uint4*>(out + cr * ldf + p) =
               *reinterpret_cast<const uint4*>(tb + r * LDT + c * 8);
       }
     } else {
-      float* wk = ar.work + static_cast<size_t>(blockIdx.z) * C * ldf;
+      float* wk = ar.work +
+                  static_cast<size_t>(PAIRS ? split * ar.pairs + pair : split) *
+                      C * ldf;
 #pragma unroll
       for (int n = 0; n < N / 8; ++n)
 #pragma unroll
@@ -605,15 +619,19 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
 // The weighted-after backward's operands: F and dF as C rows of ldf
 // elements, the masks K rows of ldm, the cotangent matrix a (C, K*Cp) as
 // for gram_bwd_body; P pixels (P, ldf, ldm % 8 == 0), walked in p tiles
-// of WPIX; each split takes kps classes.
+// of WPIX; each split takes kps classes. A batch of `pairs` pairs (the
+// bias+ReLU backward's) has its pair's F and dF pf elements after the
+// previous pair's, its masks pm and its cotangent matrix pa.
 struct WbwdArgs {
   const bf16* f;
   const bf16* m2;
   const bf16* a;
   bf16* out;
-  float* work;  // split partials (splits, C, ldf), or nullptr
+  float* work;  // split partials (splits, pairs, C, ldf), or nullptr
   long long ldf, ldm;
   int C, P, K, kps;
+  long long pf = 0, pm = 0, pa = 0;
+  int pairs = 1;
 };
 
 // gram_relu_bwd's operands: gram_wbwd's, with f the raw tap z, and its
@@ -653,7 +671,8 @@ __host__ __device__ constexpr int wbwd_fslots(int C, int NS) {
 }
 
 // Weighted-after backward body (gram_wbwd). Grid (groups, ceil(C / N),
-// splits), WNT threads. Block (g, c tile, split) walks the p tiles g, g +
+// pairs * splits), WNT threads, z = pair * splits + split. Block (g, c
+// tile, z) walks, on its pair's operands, the p tiles g, g +
 // groups, ... (at least one: groups <= ceil(P / WPIX)) and, for each, the
 // items (k, j) of its classes k in [split * kps, min(K, (split + 1) *
 // kps)) outer and its c' chunks j of 64 inner. Over a class's items it
@@ -663,8 +682,8 @@ __host__ __device__ constexpr int wbwd_fslots(int C, int NS) {
 // class order: tot = tot + prod * m2_k[p] (each rounded, no contraction),
 // as gram.cu's fp32 tile and the plain version do. When work is null
 // (then splits == 1) it stores round(tot) at out[c * ldf + p] through a
-// staging tile as 16-byte rows; else tot in fp32 at work[split], which
-// gram_wbwd_reduce_kernel sums in split order and rounds once.
+// staging tile as 16-byte rows; else tot in fp32 at work[split][pair],
+// which gram_wbwd_reduce_kernel sums in split order and rounds once.
 //
 // Warpgroup h computes the tile's pixels 64h .. 64h + 63 (accumulator
 // rows) for the c tile's N channels (columns), so every cotangent tile
@@ -687,16 +706,22 @@ __host__ __device__ constexpr int wbwd_fslots(int C, int NS) {
 // the rounding or the split partial (relu' is 0, 1/2 or 1: exact, so the
 // split partials may take it one by one). Without RELU (gram_wbwd) both
 // steps are compiled out.
-template <int N, int NS, bool RELU = false, typename Args = WbwdArgs>
+// PAIRS: a batch's instance (see gram_bwd_body); gram_wbwd runs one pair.
+template <int N, int NS, bool RELU = false, typename Args = WbwdArgs,
+          bool PAIRS = false>
 __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
   constexpr int SBYTES = N * 128;  // a cotangent tile: N rows of 64 c'
   constexpr int D = NS - 2;        // items loaded ahead
   static_assert(N * 64 * 2 == SBYTES, "a staging tile fills a ring slot");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  const bf16* __restrict__ f = ar.f;
-  const bf16* __restrict__ m2 = ar.m2;
-  const bf16* __restrict__ a = ar.a;
+  const int nsplit = PAIRS ? gridDim.z / ar.pairs : gridDim.z;
+  const int pair = PAIRS ? blockIdx.z / nsplit : 0;
+  const int split = blockIdx.z - pair * nsplit;
+  const bf16* __restrict__ f = ar.f + pair * ar.pf;
+  const bf16* __restrict__ m2 = ar.m2 + pair * ar.pm;
+  const bf16* __restrict__ a = ar.a + pair * ar.pa;
+  bf16* __restrict__ out = ar.out + pair * ar.pf;
   const int C = ar.C, K = ar.K, P = ar.P;
   const int nch = (C + 63) >> 6, fs = wbwd_fslots(C, NS);
   unsigned char* ring = sm + fs * CHUNK_BYTES;  // [NS][SBYTES]
@@ -705,7 +730,7 @@ __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
   const size_t ldm = static_cast<size_t>(ar.ldm);
   const int cpad = (C + 7) & ~7, lda = K * cpad;
   const int c0 = blockIdx.y * N;
-  const int kb = blockIdx.z * ar.kps, ke = min(K, kb + ar.kps);
+  const int kb = split * ar.kps, ke = min(K, kb + ar.kps);
   const int per = (ke - kb) * nch;  // items per p tile
   const int bx = blockIdx.x, gx = gridDim.x;
   const int ptiles = (P + WPIX - 1) / WPIX;
@@ -826,12 +851,14 @@ __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
       for (int e = tid & (NT - 1); e < N * 8; e += NT) {
         const int r = e >> 3, c = e & 7, cr = c0 + r, p = px0 + c * 8;
         if (cr < C && p < P)
-          *reinterpret_cast<uint4*>(ar.out + cr * ldf + p) =
+          *reinterpret_cast<uint4*>(out + cr * ldf + p) =
               *reinterpret_cast<const uint4*>(tb + r * 128 +
                                               ((c ^ (r & 7)) << 4));
       }
     } else {
-      float* wk = ar.work + static_cast<size_t>(blockIdx.z) * C * ldf;
+      float* wk = ar.work +
+                  static_cast<size_t>(PAIRS ? split * ar.pairs + pair : split) *
+                      C * ldf;
 #pragma unroll
       for (int n = 0; n < N / 8; ++n)
 #pragma unroll
@@ -925,7 +952,8 @@ __device__ __forceinline__ void wg_sync(int wg) {
 }
 
 // The bias+ReLU backward at C <= 64 and K <= RMAXK (gram_relu_bwd at
-// conv1_1: C = 64, K = 4, P = 2^18 .. 2^24). Grid (groups), RWG * NT
+// conv1_1: C = 64, K = 4, P = 2^18 .. 2^24). Grid (groups, pairs), block
+// (g, pair) on its pair's operands (WbwdArgs' pair strides), RWG * NT
 // threads, one block an SM (its shared memory: relu_bwd64_smem). There one
 // 64 x 64 product a class serves a 64-pixel tile, 128 KB of z and dz a
 // class product: the kernel is bound by bytes (z in, dz out), and the
@@ -958,13 +986,16 @@ __device__ __forceinline__ void wg_sync(int wg) {
 // Pixels past P (the wrapper pads P to 8; a p tile may pass P) load as
 // zeros, cook to relu(b), meet zero masks and are never stored; rows past
 // C cook to 0, meet zero cotangent columns and are never stored.
-template <int NS, int NWG>
+// PAIRS: a batch's instance (see gram_bwd_body).
+template <int NS, int NWG, bool PAIRS = false>
 __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  const bf16* __restrict__ z = ar.f;
-  const bf16* __restrict__ m2 = ar.m2;
-  const bf16* __restrict__ a = ar.a;
+  const int pair = PAIRS ? blockIdx.y : 0;
+  const bf16* __restrict__ z = ar.f + pair * ar.pf;
+  const bf16* __restrict__ m2 = ar.m2 + pair * ar.pm;
+  const bf16* __restrict__ a = ar.a + pair * ar.pa;
+  bf16* __restrict__ out = ar.out + pair * ar.pf;
   const int C = ar.C, K = ar.K, P = ar.P;
   const size_t ldf = static_cast<size_t>(ar.ldf);
   const size_t ldm = static_cast<size_t>(ar.ldm);
@@ -1124,7 +1155,7 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
     for (int i = 0; i < 4; ++i) {
       const int e = wt + NT * i, r = e >> 3, c = e & 7, p = p0 + c * 8;
       if (r < C && p < P)
-        *reinterpret_cast<uint4*>(ar.out + r * ldf + p) =
+        *reinterpret_cast<uint4*>(out + r * ldf + p) =
             *reinterpret_cast<const uint4*>(ft + swz(r, c));
     }
   }

@@ -17,6 +17,10 @@
 // issued alone they would take about 0.3 ms at 4096^2, so the design has
 // to keep both streams near one pass and overlap them.
 //
+// A batch of B pairs (the JAX package's vmapped pallas_call) is one launch:
+// the pair is the grid's third index, with its own stats (or one stack
+// shared by every pair, read with a pair stride of 0).
+//
 // Design: a strip walk. Each warp owns a strip of LW = 30 output columns
 // and `rows` output rows (ops/laplacian_cuda.py:lap_plan) and walks down
 // it, one row a step; lane l holds column x0 - 1 + l (lanes 1..30 its
@@ -108,15 +112,26 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
+// Grid (strip groups, row bands, pairs): with PAIRS blockIdx.z is the
+// pair, whose stats start `spair` floats after the previous pair's (0: one
+// stats stack shared by every pair) and whose v and y planes 3 H W after;
+// without it (one pair) that arithmetic compiles out.
+template <bool PAIRS>
 __global__ void __launch_bounds__(NT, 4)
 lap_matvec_kernel(const float* __restrict__ st, const float* __restrict__ v,
-                  float* __restrict__ y, int H, int W, int rows) {
+                  float* __restrict__ y, int H, int W, int rows,
+                  long long spair) {
   __shared__ float vring[WARPS][VSLOTS][VSLOT];
   __shared__ float sring[WARPS][SSLOTS][SSLOT];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int x0 = (blockIdx.x * WARPS + wid) * LW;
   if (x0 >= W) return;  // the whole warp
   const long long plane = static_cast<long long>(H) * W;
+  if constexpr (PAIRS) {
+    st += blockIdx.z * spair;
+    v += blockIdx.z * 3 * plane;
+    y += blockIdx.z * 3 * plane;
+  }
   const int r0 = blockIdx.y * rows, r1 = min(H, r0 + rows);
   const int j = x0 - 1 + lane;
   const bool jin = j >= 0 && j < W;
@@ -292,16 +307,22 @@ __global__ void div9_check_kernel(unsigned base, unsigned long long n,
 
 }  // namespace
 
-// rows: the output rows of a strip (ops/laplacian_cuda.py:lap_plan), >= 1.
+// B pairs in one launch: v and y (B, 3, H, W), the stats of pair b at
+// stats + b * spair (spair = 14 H W for a (B, 14, H, W) stack, 0 for one
+// stack that every pair shares). rows: the output rows of a strip
+// (ops/laplacian_cuda.py:lap_plan), >= 1.
 extern "C" int dpst_lap_matvec(const void* stats, const void* v, void* y,
-                               int H, int W, int rows, void* stream) {
+                               int H, int W, int rows, int B,
+                               long long spair, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1 || B < 1 || B > 65535 || spair < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int strips = (W + LW - 1) / LW;
-  const dim3 grid((strips + WARPS - 1) / WARPS, (H + rows - 1) / rows);
-  lap_matvec_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(stats), static_cast<const float*>(v),
-      static_cast<float*>(y), H, W, rows);
+  const dim3 grid((strips + WARPS - 1) / WARPS, (H + rows - 1) / rows, B);
+  (B > 1 ? lap_matvec_kernel<true> : lap_matvec_kernel<false>)
+      <<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(stats), static_cast<const float*>(v),
+          static_cast<float*>(y), H, W, rows, spair);
   return static_cast<int>(cudaGetLastError());
 }
 

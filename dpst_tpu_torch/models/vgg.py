@@ -18,6 +18,12 @@ defaults, so both are autograd Functions here:
     (F.max_pool2d's backward gives it all to the first); its backward is
     the CUDA kernel of `ops/pool_cuda.py` on CUDA tensors.
 
+The network takes a batch of N images (NCHW) as one: cuDNN's convs and
+the pool backward (the batch folded into its channels) run once for all
+of them; the port's own conv kernel (`conv_impl="pallas"`) has no batch
+grid dimension and runs once an image. A single (H, W, 3) image is a batch
+of one, and its taps come back without the batch axis.
+
 The TPU lowerings of the JAX package (s2b strips, space-to-depth block 1,
 the BGR weight fold, post-activation pooling) are exact re-expressions of
 the same math and are not carried here.
@@ -115,10 +121,12 @@ def get_params(weights_path: str | None = None, seed: int = 0,
 
 
 def preprocess(image: torch.Tensor) -> torch.Tensor:
-    """[0,255] RGB (H, W, 3) -> mean-subtracted BGR as a (1, 3, H, W) batch."""
+    """[0,255] RGB (H, W, 3), or a batch (N, H, W, 3) -> mean-subtracted
+    BGR as an (N, 3, H, W) batch (N = 1 for one image)."""
     bgr = image.to(torch.float32).flip(-1)
     means = torch.tensor(BGR_MEANS, dtype=torch.float32, device=image.device)
-    return (bgr - means).permute(2, 0, 1)[None]
+    x = (bgr - means).movedim(-1, -3)
+    return (x if x.dim() == 4 else x[None]).contiguous()
 
 
 def preprocess_noflip(image: torch.Tensor) -> torch.Tensor:
@@ -147,8 +155,9 @@ class _Relu(torch.autograd.Function):
 
 
 class _MaxPool2(torch.autograd.Function):
-    """2×2/2 max pool of a (1, C, H, W) batch with the tie-splitting
-    backward."""
+    """2×2/2 max pool of an (N, C, H, W) batch with the tie-splitting
+    backward, one launch for the batch: its N·C planes are the kernel's
+    channels."""
 
     @staticmethod
     def forward(ctx, x):
@@ -159,11 +168,20 @@ class _MaxPool2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        return maxpool2_bwd(x[0], y[0], g[0].contiguous())[None]
+        fold = lambda t: t.reshape(-1, *t.shape[2:])
+        return maxpool2_bwd(fold(x), fold(y),
+                            fold(g.contiguous())).reshape(x.shape)
+
+
+def _conv_each(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """The conv kernel on each image of an (N, Cin, H, W) batch (it has no
+    batch grid dimension: N launches)."""
+    return torch.stack([conv3x3_same(x[i].contiguous(), wp)
+                        for i in range(x.shape[0])])
 
 
 class _Conv3x3(torch.autograd.Function):
-    """SAME 3×3 conv of a (1, Cin, H, W) batch on the port's kernel:
+    """SAME 3×3 conv of an (N, Cin, H, W) batch on the port's kernel:
     apply(x, wp, ftp) with the packed weights and the packed flipped,
     transposed weights of the input gradient (`pack_params`). The VGG
     weights are constants of the optimization: the backward is the input
@@ -173,12 +191,12 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wp, ftp):
         ctx.save_for_backward(ftp)
-        return conv3x3_same(x[0].contiguous(), wp)[None]
+        return _conv_each(x, wp)
 
     @staticmethod
     def backward(ctx, g):
         (ftp,) = ctx.saved_tensors
-        return conv3x3_same(g[0].contiguous(), ftp)[None], None, None
+        return _conv_each(g, ftp), None, None
 
 
 def _use_pallas_conv(conv_impl: str, cin: int) -> bool:
@@ -243,9 +261,9 @@ def set_exact_backends(compute_dtype) -> None:
 
 def _run_layers(params: PackedParams, x: torch.Tensor, names, layers,
                 pooling: str, conv_impl: str, raw_taps=()) -> dict:
-    """Run the layers `names` (in LAYER_ORDER) on the (1, C, H, W) batch x
-    with `pack_params`' weights; returns the taps of those in `layers` (see
-    extract_features)."""
+    """Run the layers `names` (in LAYER_ORDER) on the (N, C, H, W) batch x
+    with `pack_params`' weights; returns the (N, C_l, H_l, W_l) taps of
+    those in `layers` (see extract_features)."""
     taps = {}
     for name in names:
         if name.startswith("pool"):
@@ -259,10 +277,16 @@ def _run_layers(params: PackedParams, x: torch.Tensor, names, layers,
         b = p["bc"]
         x = _Relu.apply(z + b[:, None, None])
         if name in raw_taps:
-            taps[name] = RawTap(z[0], b)
+            taps[name] = RawTap(z, b)
         elif name in layers:
-            taps[name] = x[0]
+            taps[name] = x
     return taps
+
+
+def _one(taps: dict) -> dict:
+    """The taps of a batch of one without the batch axis."""
+    return {name: RawTap(t.z[0], t.b) if isinstance(t, RawTap) else t[0]
+            for name, t in taps.items()}
 
 
 def extract_features(params: dict, image: torch.Tensor,
@@ -273,10 +297,10 @@ def extract_features(params: dict, image: torch.Tensor,
 
     params: {layer: {"w": OIHW, "b": (Cout,)}} (see params_from_numpy),
     packed here unless `pack_params` already packed it for this call.
-    image: (H, W, 3) float RGB in [0, 255].
+    image: (H, W, 3) float RGB in [0, 255], or a batch (N, H, W, 3).
     Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype
     (NCHW planes of the one image: a tap is the contiguous (C, P) operand
-    of the Gram kernels). `conv_impl` picks the conv of every layer but
+    of the Gram kernels), or (N, C_l, H_l, W_l) for a batch. `conv_impl` picks the conv of every layer but
     conv1_1 (see the module docstring). A layer also in `raw_taps` is
     returned as a `RawTap` of its raw conv output and its bias (the
     counterpart of the JAX package's `S2dTap`), for the fused bias+ReLU
@@ -287,19 +311,22 @@ def extract_features(params: dict, image: torch.Tensor,
     if image.device.type == "cuda":
         set_exact_backends(cdt)
     deepest = max(LAYER_ORDER.index(l) for l in layers)
-    return _run_layers(pack_params(params, cdt, conv_impl),
+    taps = _run_layers(pack_params(params, cdt, conv_impl),
                        preprocess(image).to(cdt),
                        LAYER_ORDER[:deepest + 1], layers, pooling, conv_impl,
                        raw_taps)
+    return taps if image.dim() == 4 else _one(taps)
 
 
 def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
                  pooling: str = "max", compute_dtype="float32",
                  conv_impl: str = "auto") -> dict:
-    """Run VGG-19 from the pool2 output x (1, 128, H/4, W/4) to the deepest
-    layer in `layers` (`dpst_tpu/models/vgg.py:extract_tail`): the
-    continuation of the streamed blocks 1-2, with extract_features' convs,
-    ReLU and pools. Returns {layer: (C_l, H_l, W_l)} taps."""
+    """Run VGG-19 from the pool2 output x (128, H/4, W/4), or a batch (N,
+    128, H/4, W/4), to the deepest layer in `layers`
+    (`dpst_tpu/models/vgg.py:extract_tail`): the continuation of the
+    streamed blocks 1-2, with extract_features' convs, ReLU and pools.
+    Returns {layer: (C_l, H_l, W_l)} taps ((N, C_l, H_l, W_l) for a
+    batch)."""
     cdt = torch_dtype(compute_dtype)
     if x.device.type == "cuda":
         set_exact_backends(cdt)
@@ -307,9 +334,11 @@ def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
     if min(LAYER_ORDER.index(l) for l in layers) < start:
         raise ValueError("extract_tail: a tap before pool2")
     deepest = max(LAYER_ORDER.index(l) for l in layers)
-    return _run_layers(pack_params(params, cdt, conv_impl), x.to(cdt),
+    taps = _run_layers(pack_params(params, cdt, conv_impl),
+                       (x if x.dim() == 4 else x[None]).to(cdt),
                        LAYER_ORDER[start:deepest + 1], layers, pooling,
                        conv_impl)
+    return taps if x.dim() == 4 else _one(taps)
 
 
 # --- blocks 1-2 streamed (the stream12 route) ---------------------------------

@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .gram_stream import _SMS, gram_fwd, launch_bwd, normalize
+from .gram_stream import (_SMS, check_operands, gram_fwd, launch_bwd,
+                          normalize, per_pair, symmetrize)
 from .kernels import torch_dtype
 
 WBWD_PIXELS = 128   # pixels of the bf16 backward's p tile
@@ -53,21 +54,23 @@ def class_sum_plain(f: torch.Tensor, m2: torch.Tensor,
 def gram_wbwd_plain(f: torch.Tensor, m2: torch.Tensor,
                     s: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch backward: dF (C, P) in f's dtype, from the symmetrized
-    cotangent s (K, C, C) in f's dtype."""
-    return class_sum_plain(f, m2, s).to(f.dtype)
+    cotangent s (K, C, C) in f's dtype (a batch pair by pair)."""
+    one = lambda f, m2, s: class_sum_plain(f, m2, s).to(f.dtype)
+    return per_pair(one, f, m2, s) if f.dim() == 3 else one(f, m2, s)
 
 
-def wbwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
+def wbwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int, int]:
     """(c tile, groups, splits) of the bf16 backward, as the kernel takes
     them: one block of two warpgroups an SM; c tiles of 64 rows for C <= 64,
-    else 128; p tiles of WBWD_PIXELS. When the grid of p tiles × c tiles
-    fills the SMs, `groups` blocks per c tile walk the p tiles and splits =
-    1. Else the classes are cut into `splits` ranges of whole classes (a
-    class's product must be complete before it meets its mask), as many as
-    make the grid's waves × the classes a block walks least (fewest on a
-    tie)."""
+    else 128; p tiles of WBWD_PIXELS. When the grid of p tiles × c tiles ×
+    B pairs (the bias+ReLU backward's batch; `gram_wbwd` runs one pair a
+    launch) fills the SMs, `groups` blocks per c tile of a pair walk its p
+    tiles and splits = 1. Else the classes are cut into `splits` ranges of
+    whole classes (a class's product must be complete before it meets its
+    mask), as many as make the grid's waves × the classes a block walks
+    least (fewest on a tie)."""
     tile = 64 if c <= 64 else 128
-    ctiles, ptiles = -(-c // tile), -(-p // WBWD_PIXELS)
+    ctiles, ptiles = b * -(-c // tile), -(-p // WBWD_PIXELS)
     if ptiles * ctiles >= _SMS:
         return tile, min(ptiles, max(1, _SMS // ctiles)), 1
     cost = {}
@@ -80,19 +83,19 @@ def wbwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
 
 def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,
               s: torch.Tensor) -> torch.Tensor:
-    """dF of the masked Grams, weighted after the product. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (csrc/gram.cu)."""
-    if f.dim() != 2 or m2.dim() != 2:
-        raise ValueError("gram_wbwd takes f (C, P), m2 (K, P), s (K, C, C)")
-    c, p = f.shape
-    k = m2.shape[0]
-    kernels.require(f, "f")
-    kernels.require(m2, "m2", (k, p), f.dtype)
-    kernels.require(s, "s", (k, c, c), f.dtype)
+    """dF of the masked Grams, weighted after the product, of f (C, P) or a
+    batch (B, C, P). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/gram.cu), once a pair (the kernel has no batch
+    grid dimension yet: a batch is a loop of one-pair launches, each
+    counted)."""
+    _, c, _, k = check_operands(f, m2)
+    kernels.require(s, "s", (*f.shape[:-2], k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
         return gram_wbwd_plain(f, m2, s)
     if f.dtype == torch.bfloat16 and c > WBWD_MAX_C:
         raise ValueError(f"gram_wbwd in bf16 takes C <= {WBWD_MAX_C}, not {c}")
+    if f.dim() == 3:
+        return per_pair(gram_wbwd, f, m2, s)
     return launch_bwd("gram_wbwd", f, m2, s, wbwd_plan)
 
 
@@ -108,9 +111,7 @@ class WeightedGrams(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d: torch.Tensor):
         f, m2 = ctx.saved_tensors
-        d = d.float()
-        s = (d + d.transpose(1, 2)).to(f.dtype).contiguous()
-        return gram_wbwd(f, m2, s), None
+        return gram_wbwd(f, m2, symmetrize(d, f.dtype)), None
 
 
 def weighted_grams(f: torch.Tensor, m2: torch.Tensor,
@@ -120,20 +121,20 @@ def weighted_grams(f: torch.Tensor, m2: torch.Tensor,
     as the TPU's Pallas and streamed kernels do; False keeps `gram_fwd`'s
     orientation, the fused forward's (`gram_impl="hybrid"`)."""
     g = WeightedGrams.apply(f, m2)
-    return g.transpose(1, 2) if weighted_left else g
+    return g.transpose(-1, -2) if weighted_left else g
 
 
 def masked_grams_pallas(feat: torch.Tensor, masks: torch.Tensor,
                         eps: float = 1e-8, compute_dtype="float32",
                         norm: str = "m2",
                         weighted_left: bool = True) -> torch.Tensor:
-    """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C),
-    normalized by max(Σ m², eps) ("m2") or max(Σ m, eps) ("m1"), operands in
+    """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C)
+    (a batch: (B, C, H, W) × (B, K, H, W) -> (B, K, C, C)), normalized by
+    max(Σ m², eps) ("m2") or max(Σ m, eps) ("m1"), operands in
     `compute_dtype`, accumulation in fp32."""
-    c, k = feat.shape[0], masks.shape[0]
     cdt = torch_dtype(compute_dtype)
-    f = feat.to(cdt).reshape(c, -1).contiguous()
-    m2 = (masks * masks).to(cdt).reshape(k, -1).contiguous()
+    f = feat.to(cdt).flatten(-2).contiguous()
+    m2 = (masks * masks).to(cdt).flatten(-2).contiguous()
     return normalize(weighted_grams(f, m2, weighted_left), masks, norm, eps)
 
 

@@ -30,6 +30,10 @@ the only tap the fused route takes — a body of its own, bound by bytes,
 that keeps the cotangent resident and the raw tap in flight; above, the
 `gram_wbwd` body itself, cooking each chunk where it lands. `relu_bwd_plan`
 gives either its grid.
+
+A batch of B pairs, z (B, C, P) with one shared bias and m² (B, K, P), runs
+both in one launch each, the pair an index of the grid (`gram_stream`'s
+batch), and both plans take B.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ import torch
 
 from . import kernels
 from .gram_pallas import WBWD_MAX_C, class_sum_plain, wbwd_plan
-from .gram_stream import _SMS, gram_fwd_plain, launch_bwd, launch_fwd, normalize
+from .gram_stream import (_SMS, _fwd_one, check_operands, launch_bwd,
+                          launch_fwd, normalize, per_pair, symmetrize)
 
 RELU_BWD_MAX_K = 8   # classes whose cotangent tiles the C <= 64 body keeps
 RELU_BWD_PIXELS = 256  # pixels of its p tile, 64 for each of 4 warpgroups
@@ -66,31 +71,36 @@ def _relu_grad(z: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gram_relu_fwd_plain(z: torch.Tensor, b: torch.Tensor,
                         m2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch forward: (C, P) raw tap, (C,) bias × (K, P) m² ->
-    (K, C, C) fp32."""
-    return gram_fwd_plain(_cook(z, b), m2)
+    (K, C, C) fp32 (a batch pair by pair)."""
+    one = lambda z, b, m2: _fwd_one(_cook(z, b), m2)
+    return per_pair(one, z, b, m2) if z.dim() == 3 else one(z, b, m2)
 
 
 def gram_relu_bwd_plain(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
                         s: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch backward: dz (C, P) in z's dtype, from the symmetrized
-    cotangent s (K, C, C) in z's dtype."""
-    acc = class_sum_plain(_cook(z, b), m2, s)
-    return (acc * _relu_grad(z, b)).to(z.dtype)
+    cotangent s (K, C, C) in z's dtype (a batch pair by pair)."""
+    def one(z, b, m2, s):
+        acc = class_sum_plain(_cook(z, b), m2, s)
+        return (acc * _relu_grad(z, b)).to(z.dtype)
+
+    return per_pair(one, z, b, m2, s) if z.dim() == 3 else one(z, b, m2, s)
 
 
-def _check(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor) -> None:
-    if z.dim() != 2 or m2.dim() != 2:
-        raise ValueError("gram_relu takes z (C, P), b (C,) and m2 (K, P)")
-    c, p = z.shape
-    kernels.require(z, "z")
+def _check(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor
+           ) -> tuple[int, int, int, int]:
+    """(B, C, P, K) of a (C, P) raw tap or a (B, C, P) batch, its (C,) bias
+    and its m², validated for a kernel."""
+    bsz, c, p, k = check_operands(z, m2, "z")
     kernels.require(b, "b", (c,), z.dtype)
-    kernels.require(m2, "m2", (m2.shape[0], p), z.dtype)
+    return bsz, c, p, k
 
 
 def gram_relu_fwd(z: torch.Tensor, b: torch.Tensor,
                   m2: torch.Tensor) -> torch.Tensor:
-    """Raw masked Grams of relu(z + b). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/gram.cu). In bf16 that is
+    """Raw masked Grams of relu(z + b), z (C, P) or a batch (B, C, P) with
+    one bias. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (csrc/gram.cu), once for all pairs. In bf16 that is
     `gram_fwd`'s Hopper body with a bias+ReLU prologue, on `gram_fwd`'s
     padding and plan: the zero columns that pad P to a multiple of 8 cook
     to relu(b), but their m² is zero, so they add nothing."""
@@ -100,26 +110,27 @@ def gram_relu_fwd(z: torch.Tensor, b: torch.Tensor,
     return launch_fwd("gram_relu_fwd", z, m2, b)
 
 
-def relu_bwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
+def relu_bwd_plan(c: int, p: int, k: int, b: int = 1
+                  ) -> tuple[int, int, int]:
     """(c tile, groups, splits) of the bf16 backward, as the kernel takes
     them. At C <= 64 and K <= RELU_BWD_MAX_K its own body: one 64-row c
-    tile, all K classes in every block (splits = 1), and `groups` blocks,
-    at most one an SM, walking the RELU_BWD_PIXELS-pixel p tiles. Else
-    `gram_wbwd`'s plan, which its body takes."""
+    tile, all K classes in every block (splits = 1), and `groups` blocks a
+    pair, at most one an SM in all (B pairs share the SMs), walking the
+    RELU_BWD_PIXELS-pixel p tiles. Else `gram_wbwd`'s plan, which its body
+    takes."""
     if c <= 64 and k <= RELU_BWD_MAX_K:
-        return 64, min(-(-p // RELU_BWD_PIXELS), _SMS), 1
-    return wbwd_plan(c, p, k)
+        return 64, min(-(-p // RELU_BWD_PIXELS), max(1, _SMS // b)), 1
+    return wbwd_plan(c, p, k, b)
 
 
 def gram_relu_bwd(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
                   s: torch.Tensor) -> torch.Tensor:
-    """dz of the raw masked Grams of relu(z + b). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (csrc/gram.cu; in bf16
-    csrc/gram_relu_bwd.cu, on `relu_bwd_plan`, with C <= WBWD_MAX_C)."""
-    _check(z, b, m2)
-    c, p = z.shape
-    k = m2.shape[0]
-    kernels.require(s, "s", (k, c, c), z.dtype)
+    """dz of the raw masked Grams of relu(z + b), z (C, P) or a batch (B,
+    C, P). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (csrc/gram.cu; in bf16 csrc/gram_relu_bwd.cu, on
+    `relu_bwd_plan`, with C <= WBWD_MAX_C), once for all pairs."""
+    _, c, p, k = _check(z, b, m2)
+    kernels.require(s, "s", (*z.shape[:-2], k, c, c), z.dtype)
     if not kernels.on_cuda(z, b, m2, s):
         return gram_relu_bwd_plain(z, b, m2, s)
     if z.dtype == torch.bfloat16 and c > WBWD_MAX_C:
@@ -141,19 +152,18 @@ class GramReluRaw(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d: torch.Tensor):
         z, b, m2 = ctx.saved_tensors
-        d = d.float()
-        s = (d + d.transpose(1, 2)).to(z.dtype).contiguous()
-        return gram_relu_bwd(z, b, m2, s), None, None
+        return gram_relu_bwd(z, b, m2, symmetrize(d, z.dtype)), None, None
 
 
 def masked_grams_relu(z: torch.Tensor, b: torch.Tensor, masks: torch.Tensor,
                       eps: float = 1e-8, norm: str = "m2") -> torch.Tensor:
     """All K masked Grams of relu(z + b): (C, H, W) raw tap and (C,) bias ×
-    (K, H, W) masks -> (K, C, C), normalized like `losses.masked_grams`.
-    The operands stay in z's dtype (the compute dtype the tap was made
-    in); b is rounded to it."""
-    c, k = z.shape[0], masks.shape[0]
-    m2 = (masks * masks).to(z.dtype).reshape(k, -1).contiguous()
-    g = GramReluRaw.apply(z.reshape(c, -1).contiguous(),
+    (K, H, W) masks -> (K, C, C), normalized like `losses.masked_grams`
+    (a batch: (B, C, H, W) × (B, K, H, W) -> (B, K, C, C)). The operands
+    stay in z's dtype (the compute dtype the tap was made in); b is rounded
+    to it."""
+    lead = z.shape[:-3]
+    m2 = (masks * masks).to(z.dtype).flatten(-2).contiguous()
+    g = GramReluRaw.apply(z.reshape(*lead, z.shape[-3], -1).contiguous(),
                           b.to(z.dtype).contiguous(), m2)
     return normalize(g, masks, norm, eps)

@@ -17,6 +17,11 @@ this one does not). In bf16 the kernels are the Hopper bodies of
 csrc/gram_wgmma.cuh, which read 16-byte rows: the wrapper pads P to a
 multiple of 8 with zero columns (they add nothing to G; their dF is
 dropped) and hands the backward its cotangent as the matrix `s_matrix(s)`.
+
+A batch of B pairs, f (B, C, P) and m² (B, K, P), gives G (B, K, C, C)
+(and dF (B, C, P) from s (B, K, C, C)) in one launch, the pair an index of
+the kernel's grid; the plans take B, so that B pairs fill the card with
+fewer splits of each. The plain versions take a batch pair by pair.
 """
 from __future__ import annotations
 
@@ -40,20 +45,38 @@ _SMS = 132                 # streaming multiprocessors of the H100
 _BWD_RESIDENT = {64: 3, 128: 2}
 
 
-def gram_fwd_plain(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch forward: (C, P) × (K, P) -> (K, C, C) fp32."""
+def per_pair(fn, *tensors: torch.Tensor) -> torch.Tensor:
+    """fn on each pair of a batch (the leading axis of every operand but a
+    1-D bias, which the pairs share), stacked."""
+    return torch.stack([fn(*(t[i] if t.dim() > 1 else t for t in tensors))
+                        for i in range(tensors[0].shape[0])])
+
+
+def _fwd_one(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     fw = f.unsqueeze(0) * m2.unsqueeze(1)                  # (K, C, P) cdt
     return torch.matmul(f.float(), fw.float().transpose(1, 2))
+
+
+def gram_fwd_plain(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch forward: (C, P) × (K, P) -> (K, C, C) fp32 (a batch
+    pair by pair)."""
+    return per_pair(_fwd_one, f, m2) if f.dim() == 3 else _fwd_one(f, m2)
+
+
+def _bwd_one(f: torch.Tensor, m2: torch.Tensor,
+             s: torch.Tensor) -> torch.Tensor:
+    k, c, _ = s.shape
+    fw = (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(k * c, -1)  # (K·C, P)
+    a = s.permute(1, 0, 2).reshape(c, k * c)                    # (C, K·C)
+    return torch.matmul(a.float(), fw.float()).to(f.dtype)
 
 
 def gram_bwd_plain(f: torch.Tensor, m2: torch.Tensor,
                    s: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch backward: dF (C, P) in f's dtype, from the symmetrized
-    cotangent s (K, C, C) in f's dtype."""
-    k, c, _ = s.shape
-    fw = (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(k * c, -1)  # (K·C, P)
-    a = s.permute(1, 0, 2).reshape(c, k * c)                    # (C, K·C)
-    return torch.matmul(a.float(), fw.float()).to(f.dtype)
+    cotangent s (K, C, C) in f's dtype (a batch pair by pair)."""
+    return (per_pair(_bwd_one, f, m2, s) if f.dim() == 3
+            else _bwd_one(f, m2, s))
 
 
 def fwd_splits(c: int, p: int, k: int) -> tuple[int, int]:
@@ -67,13 +90,13 @@ def fwd_splits(c: int, p: int, k: int) -> tuple[int, int]:
     return -(-p // chunk), chunk
 
 
-def fwd_plan(c: int, p: int, k: int) -> tuple[int, int]:
+def fwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int]:
     """(splits, chunk) of the bf16 forward: P cut into `splits` ranges of
     `chunk` pixels (a multiple of the 128-pixel stage): as many as keep
-    the grid of tiles × class groups × splits within one wave of two
-    blocks for each of the H100's SMs, each split at least two stages
+    the grid of tiles × class groups × B pairs × splits within one wave of
+    two blocks for each of the H100's SMs, each split at least two stages
     deep."""
-    blocks = fwd_blocks(c, k, 1)
+    blocks = fwd_blocks(c, k, 1) * b
     splits = max(1, min(_WG_BLOCKS // blocks, -(-p // (2 * _WG_DEPTH))))
     chunk = -(-p // splits)
     chunk = -(-chunk // _WG_DEPTH) * _WG_DEPTH
@@ -86,16 +109,17 @@ def fwd_blocks(c: int, k: int, splits: int) -> int:
     return (-(-c // _TILE)) ** 2 * -(-k // _WG_CLASSES) * splits
 
 
-def bwd_plan(c: int, p: int, k: int) -> tuple[int, int, int]:
+def bwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int, int]:
     """(c tile, groups, splits) of the bf16 backward, as the kernel takes
     them. The c tile has 64 rows for C <= 64, else 128. When the grid of
-    64-pixel p tiles × c tiles fills one wave of resident blocks, `groups`
-    blocks per c tile walk the p tiles and `splits` = 1; else every p tile
-    has its block and the reduction over (k, c') items of 64 channels is
-    cut into `splits` non-empty ranges to fill the wave."""
+    64-pixel p tiles × c tiles × B pairs fills one wave of resident
+    blocks, `groups` blocks per c tile of a pair walk its p tiles and
+    `splits` = 1; else every p tile has its block and the reduction over
+    (k, c') items of 64 channels is cut into `splits` non-empty ranges to
+    fill the wave."""
     tile = 64 if c <= 64 else 128
     slots = _SMS * _BWD_RESIDENT[tile]
-    ctiles, ptiles = -(-c // tile), -(-p // 64)
+    ctiles, ptiles = b * -(-c // tile), -(-p // 64)
     if ptiles * ctiles >= slots:
         return tile, min(ptiles, max(1, slots // ctiles)), 1
     items = -(-c // 64) * k
@@ -108,30 +132,42 @@ def s_matrix(s: torch.Tensor) -> torch.Tensor:
     """The cotangent stack S (K, C, C) as the bf16 backward reads it: A
     (C, K·Cp) with A[c, k·Cp + c'] = S_k[c, c'], Cp = C rounded up to a
     multiple of 8 and the padding zero (the plain version's `a` when C %
-    8 == 0)."""
-    k, c, _ = s.shape
-    a = s.permute(1, 0, 2)
+    8 == 0); a batch (B, K, C, C) gives (B, C, K·Cp)."""
+    k, c, _ = s.shape[-3:]
+    a = s.transpose(-3, -2)
     if c % _ROW:
         a = F.pad(a, (0, -c % _ROW))
-    return a.reshape(c, -1)
+    return a.reshape(*s.shape[:-3], c, -1)
 
 
 def pad_pixels(t: torch.Tensor) -> torch.Tensor:
-    """(rows, P) -> (rows, P rounded up to 8), the new columns zero; `t`
-    itself when P % 8 == 0."""
-    extra = -t.shape[1] % _ROW
+    """(..., rows, P) -> (..., rows, P rounded up to 8), the new columns
+    zero; `t` itself when P % 8 == 0."""
+    extra = -t.shape[-1] % _ROW
     return F.pad(t, (0, extra)) if extra else t
 
 
+def check_operands(f: torch.Tensor, m2: torch.Tensor, name: str = "f"
+                   ) -> tuple[int, int, int, int]:
+    """(B, C, P, K) of a (C, P) tap or a (B, C, P) batch and its (K, P) or
+    (B, K, P) m², validated for a kernel."""
+    if f.dim() not in (2, 3) or m2.dim() != f.dim():
+        raise ValueError(f"takes {name} (C, P) and m2 (K, P), or a batch "
+                         f"(B, C, P) and (B, K, P); got "
+                         f"{tuple(f.shape)} and {tuple(m2.shape)}")
+    b = f.shape[0] if f.dim() == 3 else 1
+    c, p = f.shape[-2:]
+    k = m2.shape[-2]
+    kernels.require(f, name)
+    kernels.require(m2, "m2", (*f.shape[:-2], k, p), f.dtype)
+    return b, c, p, k
+
+
 def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
-    """Raw masked Grams. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/gram.cu)."""
-    if f.dim() != 2 or m2.dim() != 2:
-        raise ValueError("gram_fwd takes f (C, P) and m2 (K, P)")
-    c, p = f.shape
-    k = m2.shape[0]
-    kernels.require(f, "f")
-    kernels.require(m2, "m2", (k, p), f.dtype)
+    """Raw masked Grams of f (C, P) or a batch (B, C, P). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (csrc/gram.cu), once
+    for all pairs."""
+    check_operands(f, m2)
     if not kernels.on_cuda(f, m2):
         return gram_fwd_plain(f, m2)
     return launch_fwd("gram_fwd", f, m2)
@@ -141,22 +177,25 @@ def launch_fwd(name: str, f: torch.Tensor, m2: torch.Tensor,
                bias: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the split-P forward kernel `name` ("gram_fwd", or
     "gram_relu_fwd" with the (C,) `bias`, csrc/gram.cu) on the CUDA (C, P)
-    tap f and (K, P) m²; returns the (K, C, C) fp32 Grams. In bf16 (the
-    Hopper body) P is padded to a multiple of 8 and cut by `fwd_plan`;
-    fp32 takes `fwd_splits`."""
-    c, k = f.shape[0], m2.shape[0]
+    tap f and (K, P) m², or a batch (B, C, P) and (B, K, P); returns the
+    (K, C, C) (or (B, K, C, C)) fp32 Grams. In bf16 (the Hopper body) P is
+    padded to a multiple of 8 and cut by `fwd_plan`; fp32 takes
+    `fwd_splits`."""
+    lead = f.shape[:-2]
+    b = f.shape[0] if lead else 1
+    c, k = f.shape[-2], m2.shape[-2]
     if f.dtype == torch.bfloat16:
         f, m2 = pad_pixels(f), pad_pixels(m2)
-        splits, chunk = fwd_plan(c, f.shape[1], k)
+        splits, chunk = fwd_plan(c, f.shape[-1], k, b)
     else:
-        splits, chunk = fwd_splits(c, f.shape[1], k)
+        splits, chunk = fwd_splits(c, f.shape[-1], k)
     operands = (f, m2) if bias is None else (f, bias, m2)
-    out = torch.empty((k, c, c), dtype=torch.float32, device=f.device)
-    work = (torch.empty((splits, k, c, c), dtype=torch.float32,
+    out = torch.empty((*lead, k, c, c), dtype=torch.float32, device=f.device)
+    work = (torch.empty((b, splits, k, c, c), dtype=torch.float32,
                         device=f.device) if splits > 1 else out)
     rc = getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out),
-        c, f.shape[1], k, splits, chunk, kernels.DTYPE_CODES[f.dtype],
+        c, f.shape[-1], k, b, splits, chunk, kernels.DTYPE_CODES[f.dtype],
         kernels.stream_ptr(f))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
@@ -165,13 +204,11 @@ def launch_fwd(name: str, f: torch.Tensor, m2: torch.Tensor,
 
 def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
              s: torch.Tensor) -> torch.Tensor:
-    """dF of the raw masked Grams. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (csrc/gram.cu)."""
-    c, p = f.shape
-    k = m2.shape[0]
-    kernels.require(f, "f")
-    kernels.require(m2, "m2", (k, p), f.dtype)
-    kernels.require(s, "s", (k, c, c), f.dtype)
+    """dF of the raw masked Grams, of f (C, P) or a batch (B, C, P). CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/gram.cu), once for all pairs."""
+    _, c, _, k = check_operands(f, m2)
+    kernels.require(s, "s", (*f.shape[:-2], k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
         return gram_bwd_plain(f, m2, s)
     return launch_bwd("gram_bwd", f, m2, s, bwd_plan)
@@ -180,31 +217,42 @@ def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
 def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
                s: torch.Tensor, plan,
                bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the backward kernel `name` ("gram_bwd", "gram_wbwd", or
-    "gram_relu_bwd" with the (C,) `bias` and f the raw tap z, csrc/gram.cu)
-    on the CUDA (C, P) tap f, (K, P) m² and (K, C, C) cotangent s; returns
-    dF (C, P). In bf16 (the Hopper bodies) P is padded to a multiple of 8,
-    s goes as `s_matrix(s)` and `plan(C, P, K)` gives (c tile, groups,
-    splits), with fp32 split partials where splits > 1."""
-    c, p = f.shape
-    k = m2.shape[0]
+    """Launch the backward kernel `name` ("gram_bwd", or "gram_relu_bwd"
+    with the (C,) `bias` and f the raw tap z, csrc/gram.cu; "gram_wbwd" of
+    one pair) on the CUDA (C, P) tap f, (K, P) m² and (K, C, C) cotangent
+    s, or a batch (B, C, P), (B, K, P) and (B, K, C, C); returns dF (C, P)
+    (or (B, C, P)). In bf16 (the Hopper bodies) P is padded to a multiple
+    of 8, s goes as `s_matrix(s)` and `plan(C, P, K, B)` gives (c tile,
+    groups, splits), with fp32 split partials where splits > 1."""
+    lead = f.shape[:-2]
+    b = f.shape[0] if lead else 1
+    c, p = f.shape[-2:]
+    k = m2.shape[-2]
     tile = groups = splits = 1
     work = None
     if f.dtype == torch.bfloat16:
         f, m2, s = pad_pixels(f), pad_pixels(m2), s_matrix(s).contiguous()
-        tile, groups, splits = plan(c, f.shape[1], k)
+        tile, groups, splits = plan(c, f.shape[-1], k, b)
         if splits > 1:
-            work = torch.empty((splits, c, f.shape[1]), dtype=torch.float32,
-                               device=f.device)
+            work = torch.empty((splits, b, c, f.shape[-1]),
+                               dtype=torch.float32, device=f.device)
     out = torch.empty_like(f)
     operands = (f, m2, s) if bias is None else (f, bias, m2, s)
+    pairs = () if name == "gram_wbwd" else (b,)
     rc = getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out), c,
-        f.shape[1], k, tile, groups, splits, kernels.DTYPE_CODES[f.dtype],
-        kernels.stream_ptr(f))
+        f.shape[-1], k, *pairs, tile, groups, splits,
+        kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
-    return out if out.shape[1] == p else out[:, :p].contiguous()
+    return out if out.shape[-1] == p else out[..., :p].contiguous()
+
+
+def symmetrize(d: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The cotangent S_k = dG_k + dG_kᵀ of (..., K, C, C) Gram cotangents,
+    summed in fp32 and rounded to `dtype`."""
+    d = d.float()
+    return (d + d.transpose(-1, -2)).to(dtype).contiguous()
 
 
 class GramRaw(torch.autograd.Function):
@@ -218,22 +266,20 @@ class GramRaw(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d: torch.Tensor):
         f, m2 = ctx.saved_tensors
-        d = d.float()
-        s = (d + d.transpose(1, 2)).to(f.dtype).contiguous()
-        return gram_bwd(f, m2, s), None
+        return gram_bwd(f, m2, symmetrize(d, f.dtype)), None
 
 
 def masked_grams_raw(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
-    """(C, P) features × (K, P) m² weights -> (K, C, C) fp32, unnormalized."""
+    """(C, P) features × (K, P) m² weights -> (K, C, C) fp32, unnormalized
+    (a batch: (B, C, P) × (B, K, P) -> (B, K, C, C))."""
     return GramRaw.apply(f, m2)
 
 
 def normalize(g: torch.Tensor, masks: torch.Tensor, norm: str = "m2",
               eps: float = 1e-8) -> torch.Tensor:
-    """Raw (K, C, C) Grams over max(n_k, eps), with n_k = Σ m_k² ("m2") or
-    Σ m_k ("m1") of the fp32 (K, ...) masks."""
+    """Raw (..., K, C, C) Grams over max(n_k, eps), with n_k = Σ m_k²
+    ("m2") or Σ m_k ("m1") of the fp32 (..., K, h, w) masks."""
     m32 = masks.to(torch.float32)
-    dims = tuple(range(1, m32.dim()))
-    n = (torch.sum(m32 * m32, dim=dims) if norm == "m2"
-         else torch.sum(m32, dim=dims))
-    return g / torch.clamp_min(n, eps)[:, None, None]
+    n = (torch.sum(m32 * m32, dim=(-2, -1)) if norm == "m2"
+         else torch.sum(m32, dim=(-2, -1)))
+    return g / torch.clamp_min(n, eps)[..., None, None]

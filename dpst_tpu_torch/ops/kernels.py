@@ -11,6 +11,9 @@ take the kernels' plain PyTorch versions.
 
 Each kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, and nowhere else; `reset_launches()` sets all of them to 0.
+`lap_matvec`, `gram_fwd`, `gram_bwd`, `gram_relu_fwd` and `gram_relu_bwd`
+take a leading batch axis of B pairs as an index of the kernel's grid: one
+launch, one count, whatever B is.
 `block12_fwd` and `block12_fwd_res` are two counts over one entry point
 (`dpst_block12_fwd` without and with its residuals); `block12_gram_dz`
 counts calls of the backward entry points' Gram cotangent stage alone (its
@@ -124,13 +127,13 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, i, i, ll, p]
         lib.dpst_lap_div9_mismatches.argtypes = [p, p]
-        lib.dpst_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.dpst_gram_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.dpst_gram_relu_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.dpst_gram_relu_bwd.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.dpst_gram_fwd.argtypes = [p] * 4 + [i] * 7 + [p]
+        lib.dpst_gram_bwd.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.dpst_gram_relu_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.dpst_gram_relu_bwd.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.dpst_gram_wbwd.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
         lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]

@@ -131,30 +131,33 @@ def matvec(stats: LaplacianStats, v: torch.Tensor) -> torch.Tensor:
 
 
 class _Photoreal(torch.autograd.Function):
-    """vᵀLv summed over RGB, v = img/255; backward (2/255)·y·g from the
-    forward's y (L is symmetric)."""
+    """vᵀLv summed over RGB, v = img/255, one value a pair; backward
+    (2/255)·y·g from the forward's y (L is symmetric)."""
 
     @staticmethod
     def forward(ctx, packed: torch.Tensor, img255: torch.Tensor):
         # laplacian_cuda imports this module for its plain version
         from .laplacian_cuda import lap_matvec
-        v3 = (img255.to(torch.float32) * (1.0 / 255.0)).permute(
-            2, 0, 1).contiguous()
+        v3 = (img255.to(torch.float32) * (1.0 / 255.0)).movedim(
+            -1, -3).contiguous()
         y = lap_matvec(packed, v3)
         ctx.save_for_backward(y)
-        return torch.sum(v3 * y)
+        return torch.sum(v3 * y, dim=(-3, -2, -1))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (y,) = ctx.saved_tensors
-        return None, ((2.0 / 255.0) * y * g).permute(1, 2, 0)
+        return None, ((2.0 / 255.0) * y * g[..., None, None, None]).movedim(
+            -3, -1)
 
 
 def photoreal_loss(packed: torch.Tensor, img255: torch.Tensor
                    ) -> torch.Tensor:
-    """Photorealism regularizer Σ_c v_cᵀ·L·v_c on a [0,255] (H, W, 3) image.
+    """Photorealism regularizer Σ_c v_cᵀ·L·v_c on a [0,255] (H, W, 3) image
+    (a scalar), or on a batch (B, H, W, 3) ((B,), one matvec launch).
 
-    `packed` is the (14, H, W) plane stack of `laplacian_cuda.pack_stats`.
-    One matvec per call: the CUDA kernel on CUDA tensors, the plain path
-    on CPU tensors."""
+    `packed` is the (14, H, W) plane stack of `laplacian_cuda.pack_stats`
+    (for a batch (B, 14, H, W), or one stack shared by the pairs). One
+    matvec per call: the CUDA kernel on CUDA tensors, the plain path on
+    CPU tensors."""
     return _Photoreal.apply(packed, img255)

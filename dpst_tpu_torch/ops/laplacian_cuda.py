@@ -6,8 +6,11 @@ travel as one (14, H, W) fp32 plane stack in the JAX kernel's plane order
 per stylization; v and y are (3, H, W) planes.
 
 The kernel (csrc/lap_matvec.cu) walks strips: a warp owns LAP_COLS output
-columns and `lap_plan(H, W)` rows, and walks down them a row a step,
-carrying the last three rows' horizontal box sums in registers.
+columns and `lap_plan(H, W, B)` rows, and walks down them a row a step,
+carrying the last three rows' horizontal box sums in registers. A batch of
+B pairs, v (B, 3, H, W), is one launch with the pair as the grid's third
+index; its stats are a (B, 14, H, W) stack, or one (14, H, W) stack that
+every pair shares (read with a pair stride of 0, never copied).
 """
 from __future__ import annotations
 
@@ -28,14 +31,15 @@ LAP_SLOTS = 4 * _SMS
 
 
 @functools.lru_cache(maxsize=None)
-def lap_plan(h: int, w: int) -> int:
+def lap_plan(h: int, w: int, b: int = 1) -> int:
     """Output rows of a strip. The grid is ceil(ceil(W / LAP_COLS) /
-    LAP_WARPS) × ceil(H / rows) blocks; an SM walks its blocks' steps
+    LAP_WARPS) × ceil(H / rows) × B blocks; an SM walks its blocks' steps
     (rows + 2 each, the strip's halo rows loaded too) in turns, so the
     time goes as the blocks on the busiest SM × (rows + 4). Among the
     heights that keep two blocks on (nearly) every SM, or as many as the
-    image has, the one that costs least, the taller on a tie."""
-    bx = -(-(-(-w // LAP_COLS)) // LAP_WARPS)
+    B images have, the one that costs least, the taller on a tie: B pairs
+    fill the SMs with taller strips, and fewer halo rows."""
+    bx = b * -(-(-(-w // LAP_COLS)) // LAP_WARPS)
     floor = min(int(0.95 * 2 * _SMS), bx * h)
     best = None
     for rows in range(1, h + 1):
@@ -71,27 +75,58 @@ def unpack_stats(packed: torch.Tensor):
 
 def lap_matvec_plain(packed: torch.Tensor, v3: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version on the kernel's layout: laplacian.matvec on
-    the unpacked stats."""
-    y = matvec(unpack_stats(packed), v3.permute(1, 2, 0))
-    return y.permute(2, 0, 1).contiguous()
+    the unpacked stats; a batch pair by pair (a (14, H, W) stack serves
+    every pair)."""
+    def one(packed, v3):
+        y = matvec(unpack_stats(packed), v3.permute(1, 2, 0))
+        return y.permute(2, 0, 1).contiguous()
+
+    if v3.dim() == 3:
+        return one(packed, v3)
+    return torch.stack([one(packed if packed.dim() == 3 else packed[i],
+                            v3[i]) for i in range(v3.shape[0])])
+
+
+def _pair_stride(packed: torch.Tensor, b: int) -> int:
+    """Floats from one pair's stats to the next's: 0 for one (14, H, W)
+    stack, or a (B, 14, H, W) stack expanded from one (stride 0); else the
+    stack must be contiguous."""
+    if packed.dim() == 3:
+        kernels.require(packed, "packed", dtype=torch.float32)
+        return 0
+    if packed.shape[0] != b:
+        raise ValueError(f"packed stats for {packed.shape[0]} pairs, v for "
+                         f"{b}")
+    if packed.stride(0) == 0:
+        kernels.require(packed[0], "packed", dtype=torch.float32)
+        return 0
+    kernels.require(packed, "packed", dtype=torch.float32)
+    return packed.stride(0)
 
 
 def lap_matvec(packed: torch.Tensor, v3: torch.Tensor) -> torch.Tensor:
-    """y = L·v for v3 (3, H, W) fp32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/lap_matvec.cu)."""
-    if packed.dim() != 3 or packed.shape[0] != N_STATS:
-        raise ValueError(f"packed stats must be ({N_STATS}, H, W), "
+    """y = L·v for v3 (3, H, W) or a batch (B, 3, H, W), fp32, with the
+    stats (14, H, W) (shared by a batch's pairs) or (B, 14, H, W). CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/lap_matvec.cu), once for all pairs."""
+    if packed.dim() not in (3, 4) or packed.shape[-3] != N_STATS:
+        raise ValueError(f"packed stats must be ([B,] {N_STATS}, H, W), "
                          f"got {tuple(packed.shape)}")
-    _, h, w = packed.shape
-    kernels.require(packed, "packed", dtype=torch.float32)
-    kernels.require(v3, "v", (3, h, w), torch.float32)
+    h, w = packed.shape[-2:]
+    if v3.dim() not in (3, 4) or (v3.dim() == 3 and packed.dim() == 4):
+        raise ValueError(f"v must be (3, H, W) or (B, 3, H, W), got "
+                         f"{tuple(v3.shape)} with stats "
+                         f"{tuple(packed.shape)}")
+    b = v3.shape[0] if v3.dim() == 4 else 1
+    kernels.require(v3, "v", (*v3.shape[:-3], 3, h, w), torch.float32)
+    spair = _pair_stride(packed, b)
     if not kernels.on_cuda(packed, v3):
         return lap_matvec_plain(packed, v3)
     lib = kernels.library()
     y = torch.empty_like(v3)
     rc = lib.dpst_lap_matvec(kernels.ptr(packed), kernels.ptr(v3),
-                             kernels.ptr(y), h, w, lap_plan(h, w),
-                             kernels.stream_ptr(v3))
+                             kernels.ptr(y), h, w, lap_plan(h, w, b), b,
+                             spair, kernels.stream_ptr(v3))
     kernels.check(rc, "lap_matvec")
     kernels.LAUNCHES["lap_matvec"] += 1
     return y

@@ -10,6 +10,11 @@ before the product (`gram_fwd`, `gram_bwd`); "pallas", "stream" and
 after it (`gram_fwd`, `gram_wbwd`). The style image's Grams always take
 the fused route; the block-1 taps that the optimizer routes as raw taps
 take `gram_s2d.masked_grams_relu`. All loss accumulation is fp32.
+
+Every term also takes a batch of B pairs (a leading axis on the taps,
+masks, Grams and coverage) and returns one value a pair: the Gram kernels
+then run once for the batch, and the route is decided on one pair's
+shapes, as `jax.vmap` leaves them in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,25 +28,25 @@ from .kernels import torch_dtype
 
 def content_loss(feat_out: torch.Tensor, feat_content: torch.Tensor
                  ) -> torch.Tensor:
-    """½·mean squared feature difference."""
+    """½·mean squared feature difference over (C, H, W): a scalar, or (B,)
+    for a batch."""
     d = feat_out.to(torch.float32) - feat_content.to(torch.float32)
-    return 0.5 * torch.mean(d * d)
+    return 0.5 * torch.mean(d * d, dim=(-3, -2, -1))
 
 
 def masked_grams(feat: torch.Tensor, masks: torch.Tensor,
                  eps: float = 1e-8, compute_dtype="float32",
                  norm: str = "m2") -> torch.Tensor:
-    """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C).
+    """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C);
+    a batch (B, C, H, W) × (B, K, H, W) -> (B, K, C, C).
 
     G_k = (m_k∘F)(m_k∘F)ᵀ / max(n_k, eps), with n_k = Σ m_k² ("m2", the
     default) or Σ m_k ("m1", the reference lineage's normalizer). Operands
     are in `compute_dtype`; accumulation is fp32.
     """
-    c = feat.shape[0]
-    k = masks.shape[0]
     cdt = torch_dtype(compute_dtype)
-    f = feat.to(cdt).reshape(c, -1)
-    m2 = (masks * masks).to(cdt).reshape(k, -1).contiguous()
+    f = feat.to(cdt).flatten(-2)
+    m2 = (masks * masks).to(cdt).flatten(-2).contiguous()
     return normalize(masked_grams_raw(f.contiguous(), m2), masks, norm, eps)
 
 
@@ -85,7 +90,8 @@ def style_layer_loss(feat_out: torch.Tensor | None,
                      style_norm: str = "gatys",
                      gram_impl: str = "auto",
                      g_out: torch.Tensor | None = None) -> torch.Tensor:
-    """Masked Gram style loss of one VGG layer, summed over classes.
+    """Masked Gram style loss of one VGG layer, summed over classes: a
+    scalar, or (B,) for a batch (a leading axis on every tensor).
 
     `feat_out` is a (C, H, W) tap, whose Grams take `gram_route`'s route
     for `gram_impl`, or a `RawTap` of the raw conv output and its bias,
@@ -108,12 +114,12 @@ def style_layer_loss(feat_out: torch.Tensor | None,
     elif isinstance(feat_out, RawTap):
         g_o = masked_grams_relu(feat_out.z, feat_out.b, out_masks, norm=norm)
     else:
-        route = gram_route(*feat_out.shape[1:], out_masks.shape[0], c,
+        route = gram_route(*feat_out.shape[-2:], out_masks.shape[-3], c,
                            gram_impl)
         g_o = route_grams(route, feat_out, out_masks, compute_dtype, norm)
     d = g_o - style_grams
-    per_class = torch.sum(d * d, dim=(1, 2))
-    return scale * torch.sum(class_w * per_class)
+    per_class = torch.sum(d * d, dim=(-2, -1))
+    return scale * torch.sum(class_w * per_class, dim=-1)
 
 
 def style_loss(feats_out: dict, style_grams: dict, out_masks: dict,
@@ -122,11 +128,12 @@ def style_loss(feats_out: dict, style_grams: dict, out_masks: dict,
                style_norm: str = "gatys",
                gram_impl: str = "auto",
                g_out: dict | None = None) -> torch.Tensor:
-    """Sum of per-layer masked style losses, weighted per layer. A layer in
-    `g_out` ({layer: normalized (K, C, C) Grams}) uses those and needs no
-    tap."""
+    """Sum of per-layer masked style losses, weighted per layer (one a pair
+    for a batch). A layer in `g_out` ({layer: normalized (K, C, C)
+    Grams}) uses those and needs no tap."""
     g_out = g_out or {}
-    total = torch.zeros((), dtype=torch.float32, device=coverage.device)
+    total = torch.zeros(coverage.shape[:-1], dtype=torch.float32,
+                        device=coverage.device)
     for layer, w in layer_weights.items():
         total = total + w * style_layer_loss(
             feats_out.get(layer), style_grams[layer], out_masks[layer],
@@ -136,7 +143,9 @@ def style_loss(feats_out: dict, style_grams: dict, out_masks: dict,
 
 
 def tv_loss(image: torch.Tensor) -> torch.Tensor:
-    """Anisotropic total variation on an (H, W, 3) image (mean-normalized)."""
-    dh = image[1:, :, :] - image[:-1, :, :]
-    dw = image[:, 1:, :] - image[:, :-1, :]
-    return torch.mean(dh * dh) + torch.mean(dw * dw)
+    """Anisotropic total variation on an (H, W, 3) image (mean-normalized);
+    (B,) for a batch (B, H, W, 3)."""
+    dh = image[..., 1:, :, :] - image[..., :-1, :, :]
+    dw = image[..., :, 1:, :] - image[..., :, :-1, :]
+    dims = (-3, -2, -1)
+    return torch.mean(dh * dh, dim=dims) + torch.mean(dw * dw, dim=dims)

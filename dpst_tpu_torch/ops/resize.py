@@ -20,7 +20,8 @@ def resize_image(image: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
 
 def downsample_mask(masks: torch.Tensor, factor: int,
                     method: str = "avg") -> torch.Tensor:
-    """Downsample (K, H, W) soft masks by an integer stride.
+    """Downsample (K, H, W) soft masks (or a batch (B, K, H, W)) by an
+    integer stride.
 
     "avg": average pooling (keeps Σ_k m_k = 1 exact where it held);
     "nearest": strided subsampling.
@@ -28,8 +29,10 @@ def downsample_mask(masks: torch.Tensor, factor: int,
     if factor == 1:
         return masks
     if method == "nearest":
-        return masks[:, ::factor, ::factor]
-    s = F.avg_pool2d(masks[None], factor, factor, divisor_override=1)[0]
+        return masks[..., ::factor, ::factor]
+    x = masks if masks.dim() == 4 else masks[None]
+    s = F.avg_pool2d(x, factor, factor, divisor_override=1)
+    s = s if masks.dim() == 4 else s[0]
     return s / float(factor * factor)
 
 
@@ -40,7 +43,8 @@ def layer_downsample_factor(layer: str) -> int:
 
 def mask_pyramid(masks: torch.Tensor, layers: tuple[str, ...],
                  method: str = "avg") -> dict:
-    """Per-style-layer mask stacks: {layer: (K, H/2^(b-1), W/2^(b-1))}."""
+    """Per-style-layer mask stacks: {layer: (K, H/2^(b-1), W/2^(b-1))}
+    (with the batch axis of a (B, K, H, W) batch)."""
     return {layer: downsample_mask(masks, layer_downsample_factor(layer),
                                    method)
             for layer in layers}

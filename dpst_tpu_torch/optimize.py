@@ -8,6 +8,16 @@ its loss history stays on the device and reaches the host once per
 segment. An L-BFGS step (`optim.lbfgs`, optax's algorithm) runs in logit
 space where `clip_pixels`, evaluates the same objective once or more in
 its zoom linesearch, and syncs once an evaluation.
+
+The loop also takes a batch of B pairs (`parallel/batch.py`): an image
+(B, H, W, 3) with batched constants (`StylizeConstants` with a leading
+axis on every tensor). Each VGG pass, loss term and kernel launch of an
+Adam step then covers all B pairs; the objective is the sum of the pairs'
+losses (they share no math, so its gradient is each pair's own), Adam and
+the clip are elementwise with bias corrections shared (every pair is at
+the same step), and the history is (B, n, 5). L-BFGS runs the pairs one
+after another, each through the one-pair loop (its linesearch is per pair
+on the host).
 """
 from __future__ import annotations
 
@@ -30,6 +40,9 @@ HISTORY_TERMS = ("total", "content", "style", "photoreal", "tv")
 
 
 class LossWeights(NamedTuple):
+    """The four term weights: Python floats, or (B,) fp32 tensors on the
+    loop's device, one weight a pair of a batch (the Γ sweep's
+    `per_pair_weights`)."""
     content: float
     style: float
     reg: float
@@ -44,12 +57,30 @@ class LossWeights(NamedTuple):
 
 
 class StylizeConstants(NamedTuple):
-    """Per-run precomputed device constants."""
+    """Per-run precomputed device constants (of a batch: every tensor with
+    a leading B axis)."""
     content_feats: dict      # {layer: (C, h, w)} in the compute dtype
     style_grams: dict        # {layer: (K, C, C)} fp32
     masks: dict              # {layer: (K, h_l, w_l)} content-side masks
     coverage: torch.Tensor   # (K,)
     lap_stats: torch.Tensor | None  # (14, H, W) packed stats, or None
+
+    def map(self, fn) -> "StylizeConstants":
+        """The constants with `fn` applied to every tensor."""
+        return StylizeConstants(
+            content_feats={k: fn(v) for k, v in self.content_feats.items()},
+            style_grams={k: fn(v) for k, v in self.style_grams.items()},
+            masks={k: fn(v) for k, v in self.masks.items()},
+            coverage=fn(self.coverage),
+            lap_stats=None if self.lap_stats is None else fn(self.lap_stats))
+
+
+def pair_of(consts: StylizeConstants, weights: LossWeights, i: int
+            ) -> tuple[StylizeConstants, LossWeights]:
+    """Pair i of batched constants and of (scalar or per-pair) weights."""
+    return (consts.map(lambda t: t[i]),
+            LossWeights(*(w[i] if isinstance(w, torch.Tensor) else w
+                          for w in weights)))
 
 
 # Routing of the block-1 style taps, as the JAX package routes them on a
@@ -181,22 +212,26 @@ def fused_block1_taps(cfg: StylizeConfig, image_shape,
 def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
     """Build loss(image, consts, weights, vgg_params) -> (total, terms),
     with image (H, W, 3) in [0, 255] and terms the (5,) history row
-    [total, content, style, photoreal, tv]. Blocks 1-2 take
-    `block12_route`'s route."""
+    [total, content, style, photoreal, tv]; for a batch, image (B, H, W, 3)
+    with batched constants, total the sum of the pairs' totals and terms
+    (B, 5). One pair runs as a batch of one. Blocks 1-2 take
+    `block12_route`'s route, decided on one pair's shapes."""
     style_lw = dict(zip(cfg.style_layers, cfg.style_layer_weights))
     all_layers, b12_layers, deep_layers = _block12_layers(cfg)
     norm = "m1" if cfg.style_norm == "paper" else "m2"
 
     def features(image, consts, vgg_params):
-        """(taps, normalized Grams of the layers that need no tap)."""
+        """(batched taps, normalized Grams of the layers that need no
+        tap)."""
         vgg_params = vgg.pack_params(vgg_params, cfg.compute_dtype,
                                      cfg.conv_impl)
-        route = block12_route(cfg, image.shape)
+        route = block12_route(cfg, image.shape[1:])
         if route != "kernel":
+            one_masks = {l: m[0] for l, m in consts.masks.items()}
             feats = vgg.extract_features(
                 vgg_params, image, all_layers, pooling=cfg.pooling,
                 compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl,
-                raw_taps=fused_block1_taps(cfg, image.shape, consts.masks))
+                raw_taps=fused_block1_taps(cfg, image.shape[1:], one_masks))
             if route == "standard":
                 return feats, {}
             # the strip scan forms its block-1/2 Grams weighted before the
@@ -204,23 +239,28 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
             return feats, {l: losses.masked_grams(
                 feats[l], consts.masks[l], compute_dtype=cfg.compute_dtype,
                 norm=norm) for l in b12_layers}
-        m1 = consts.masks["conv1_1"].to(torch.float32)
-        m2 = consts.masks["conv2_1"].to(torch.float32)
         op = b12.make_block12_fused(pooling=cfg.pooling,
                                     compute_dtype=cfg.compute_dtype)
-        g1, g2, p2 = op(vgg.preprocess_noflip(image), m1 * m1, m2 * m2,
-                        vgg_params.block12)
-        g_out = {"conv1_1": normalize(g1, m1, norm),
-                 "conv2_1": normalize(g2, m2, norm)}
+        # the block12 kernels have no batch grid dimension: one pair a call
+        g_out, p2 = {"conv1_1": [], "conv2_1": []}, []
+        for i in range(image.shape[0]):
+            m1 = consts.masks["conv1_1"][i].to(torch.float32)
+            m2 = consts.masks["conv2_1"][i].to(torch.float32)
+            g1, g2, p2_i = op(vgg.preprocess_noflip(image[i]), m1 * m1,
+                              m2 * m2, vgg_params.block12)
+            g_out["conv1_1"].append(normalize(g1, m1, norm))
+            g_out["conv2_1"].append(normalize(g2, m2, norm))
+            p2.append(p2_i)
         feats = vgg.extract_tail(
-            vgg_params, p2[None], deep_layers, pooling=cfg.pooling,
+            vgg_params, torch.stack(p2), deep_layers, pooling=cfg.pooling,
             compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl)
-        return feats, g_out
+        return feats, {l: torch.stack(g) for l, g in g_out.items()}
 
-    def loss_fn(image: torch.Tensor, consts: StylizeConstants,
-                weights: LossWeights, vgg_params: dict):
+    def batch_loss(image: torch.Tensor, consts: StylizeConstants,
+                   weights: LossWeights, vgg_params: dict):
         feats, g_out = features(image, consts, vgg_params)
-        zero = torch.zeros((), dtype=torch.float32, device=image.device)
+        zero = torch.zeros(image.shape[:1], dtype=torch.float32,
+                           device=image.device)
         l_content = zero
         for layer in cfg.content_layers:
             l_content = l_content + losses.content_loss(
@@ -235,8 +275,16 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
         l_tv = losses.tv_loss(image) if cfg.tv_weight else zero
         total = (weights.content * l_content + weights.style * l_style
                  + weights.reg * l_reg + weights.tv * l_tv)
-        terms = torch.stack([total, l_content, l_style, l_reg, l_tv])
-        return total, terms
+        terms = torch.stack([total, l_content, l_style, l_reg, l_tv], -1)
+        return torch.sum(total), terms
+
+    def loss_fn(image: torch.Tensor, consts: StylizeConstants,
+                weights: LossWeights, vgg_params: dict):
+        if image.dim() == 4:
+            return batch_loss(image, consts, weights, vgg_params)
+        total, terms = batch_loss(image[None], consts.map(lambda t: t[None]),
+                                  weights, vgg_params)
+        return total, terms[0]
 
     return loss_fn
 
@@ -302,7 +350,10 @@ def logits_to_pixels(u: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(opt, cfg: StylizeConfig, image0: torch.Tensor):
     """Optimizer state for `image0`: in logit space for boxed L-BFGS, whose
-    state keeps the parameters it last stepped from."""
+    state keeps the parameters it last stepped from; for a batch (B, H, W,
+    3) with L-BFGS, a list of the pairs' states."""
+    if cfg.optimizer == "lbfgs" and image0.dim() == 4:
+        return [init_opt_state(opt, cfg, im) for im in image0]
     if cfg.optimizer == "lbfgs" and cfg.clip_pixels:
         return opt.init(pixels_to_logits(image0))
     return opt.init(image0)
@@ -429,18 +480,21 @@ def lbfgs_eval_trajectory(image: torch.Tensor, opt_state,
 
 def init_image(cfg: StylizeConfig, content: torch.Tensor,
                style_mean: torch.Tensor | None = None) -> torch.Tensor:
-    """Initial output image per cfg.init_mode. "noise" draws from a
-    torch.Generator seeded with cfg.seed: it does not reproduce the JAX
-    package's bits."""
+    """Initial output image per cfg.init_mode, of one (H, W, 3) content
+    image or a batch (B, H, W, 3) with style means (B, 1, 1, 3). "noise"
+    draws from a torch.Generator seeded with cfg.seed, the same draw for
+    every pair of a batch (as `jax.vmap` with one key): it does not
+    reproduce the JAX package's bits."""
     if cfg.init_mode == "content":
         return content.to(torch.float32).clone()
     if cfg.init_mode == "noise":
         gen = torch.Generator().manual_seed(cfg.seed)
-        noise = torch.randn(content.shape, generator=gen,
+        noise = torch.randn(content.shape[-3:], generator=gen,
                             dtype=torch.float32).to(content.device)
+        noise = noise.expand(content.shape)
         return torch.clamp(127.5 + cfg.init_noise_scale * noise, 0.0, 255.0)
     base = content.to(torch.float32)
-    mean_c = torch.mean(base, dim=(0, 1), keepdim=True)
+    mean_c = torch.mean(base, dim=(-3, -2), keepdim=True)
     mean_s = style_mean if style_mean is not None else mean_c
     return torch.clamp(base - mean_c + mean_s, 0.0, 255.0)
 
@@ -456,7 +510,16 @@ def run_segment(image: torch.Tensor, opt_state, consts: StylizeConstants,
     `image`, and keeps the cached value and gradient of the state as they
     are (`dpst_tpu/optimize.py:run_segment` does the same). Adam runs on
     the device without a sync; L-BFGS syncs once an evaluation.
-    `first_step` numbers the steps in debug_nans errors."""
+    `first_step` numbers the steps in debug_nans errors. A batch (image (B,
+    H, W, 3), batched constants, weights of scalars or (B,) tensors) gives
+    history (B, n_steps, 5); with L-BFGS its pairs run one after another
+    (opt_state: the list of their states)."""
+    if cfg.optimizer == "lbfgs" and image.dim() == 4:
+        outs = [run_segment(image[i], opt_state[i], *pair_of(
+            consts, weights, i), vgg_params, n_steps, cfg, first_step)
+            for i in range(image.shape[0])]
+        return (torch.stack([o[0] for o in outs]), [o[1] for o in outs],
+                torch.stack([o[2] for o in outs]))
     if cfg.optimizer == "lbfgs":
         u, opt_state, history, _ = _lbfgs_loop(
             image, opt_state, consts, weights, vgg_params, n_steps, cfg,
@@ -471,14 +534,16 @@ def run_segment(image: torch.Tensor, opt_state, consts: StylizeConstants,
         total, terms = loss_fn(img, consts, weights, vgg_params)
         (grad,) = torch.autograd.grad(total, img)
         if cfg.debug_nans:
-            runtime.check_finite(first_step + i, total, grad)
+            # a batch's check names the pair
+            runtime.check_finite(first_step + i, terms[..., 0], grad)
         rows.append(terms.detach())
         update, opt_state = opt.update(grad, opt_state)
         image = image.detach() + update
         if cfg.clip_pixels:
             image = torch.clamp(image, 0.0, 255.0)
-    history = (torch.stack(rows) if rows else
-               torch.zeros((0, 5), dtype=torch.float32, device=image.device))
+    history = (torch.stack(rows, -2) if rows else
+               torch.zeros((*image.shape[:-3], 0, 5), dtype=torch.float32,
+                           device=image.device))
     return image, opt_state, history
 
 

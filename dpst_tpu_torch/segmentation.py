@@ -115,12 +115,13 @@ def uniform_masks(hw: tuple[int, int], max_classes: int = 1) -> np.ndarray:
 
 
 def coverage_weights(content_masks: torch.Tensor) -> torch.Tensor:
-    """(K,) per-class style-loss weights: content-image coverage fractions.
+    """(K,) per-class style-loss weights: content-image coverage fractions
+    ((B, K) for a batch (B, K, H, W)).
 
     Zero-padded classes get exactly 0."""
     m = content_masks.to(torch.float32)
-    area = torch.sum(m * m, dim=(1, 2))
-    total = torch.clamp_min(torch.sum(area), 1e-8)
+    area = torch.sum(m * m, dim=(-2, -1))
+    total = torch.clamp_min(torch.sum(area, dim=-1, keepdim=True), 1e-8)
     return area / total
 
 

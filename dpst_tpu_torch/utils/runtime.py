@@ -44,10 +44,16 @@ def params_on(params: dict, dev: torch.device) -> dict:
 
 def check_finite(step: int, loss: torch.Tensor, grad: torch.Tensor) -> None:
     """Raise FloatingPointError where the loss or the gradient holds a NaN
-    or an infinity (one sync)."""
-    if not bool(torch.isfinite(loss).all() & torch.isfinite(grad).all()):
+    or an infinity (one sync). A batch's (B,) losses and (B, ...) gradient
+    name the first pair at fault."""
+    ok = torch.isfinite(loss) & torch.isfinite(grad).flatten(
+        loss.dim()).all(-1)
+    if not bool(ok.all()):
+        where = f"step {step}"
+        if loss.dim():
+            where += f", pair {int(torch.nonzero(~ok)[0, 0])}"
         raise FloatingPointError(
-            f"debug_nans: non-finite loss or gradient at step {step}")
+            f"debug_nans: non-finite loss or gradient at {where}")
 
 
 @contextlib.contextmanager

@@ -140,3 +140,124 @@ def test_gram_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tgs.gram_bwd(f, m2, s)
     assert kernels.LAUNCHES == before
+
+
+# --- a batch of B pairs: the pair an index of the grid ---------------------
+
+def _exact_batch(b, c, p, k, seed):
+    parts = [_exact_operands(c, p, k, seed + i) for i in range(b)]
+    return tuple(torch.stack([q[j] for q in parts]) for j in range(3))
+
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("c,p", TAPS["512²"])
+def test_batched_plans_fill_the_card_with_fewer_splits(b, c, p):
+    """B pairs share the card: the forward's grid of tiles × class groups ×
+    B × splits and the backward's grid still fill it, each with no more
+    splits than one pair takes."""
+    splits, chunk = tgs.fwd_plan(c, p, 4, b)
+    assert splits <= tgs.fwd_plan(c, p, 4)[0]
+    assert tgs.fwd_blocks(c, 4, splits) * b >= SMS
+    ranges = _covered(splits, chunk, p)
+    assert ranges[0][0] == 0 and ranges[-1][1] == p
+    assert all(hi > lo for lo, hi in ranges)
+    tile, groups, bsplits = tgs.bwd_plan(c, p, 4, b)
+    assert bsplits <= tgs.bwd_plan(c, p, 4)[2]
+    assert 1 <= groups <= -(-p // 64)
+    assert groups * -(-c // tile) * bsplits * b >= SMS
+
+
+def _fwd_emulated(f, m2, splits, chunk):
+    """gram.cu's batched bf16 forward as the grid runs it: block z = pair ·
+    splits + split reads F and m² at the pair's offsets (C·P and K·P
+    elements on, gram90::FwdArgs' band strides) from flat buffers, writes
+    its partial at work[z] (B, splits, K, C, C), and gram_reduce_kernel
+    sums each pair's partials in split order from 0."""
+    b, c, p = f.shape
+    k = m2.shape[1]
+    ff, mf = f.float().reshape(-1), m2.float().reshape(-1)
+    n = k * c * c
+    work = torch.full((b * splits * n,), float("nan"))
+    for z in range(b * splits):
+        pair, split = divmod(z, splits)
+        lo, hi = split * chunk, min(p, (split + 1) * chunk)
+        fz = ff[pair * c * p:(pair + 1) * c * p].reshape(c, p)[:, lo:hi]
+        mz = mf[pair * k * p:(pair + 1) * k * p].reshape(k, p)[:, lo:hi]
+        wz = (fz.unsqueeze(0) * mz.unsqueeze(1)).bfloat16().float()
+        work[z * n:(z + 1) * n] = torch.matmul(
+            fz, wz.transpose(1, 2)).reshape(-1)
+    out = torch.empty(b * n)
+    for idx in range(0, b * n, n):
+        pair = idx // n
+        acc = torch.zeros(n)
+        for sp in range(splits):
+            acc = acc + work[(pair * splits + sp) * n:
+                             (pair * splits + sp + 1) * n]
+        out[idx:idx + n] = acc
+    return out.reshape(b, k, c, c)
+
+
+def _bwd_emulated(f, m2, s, tile, splits):
+    """gram.cu's batched bf16 backward as the grid runs it: block z = pair
+    · splits + split (nsplit = gridDim.z / pairs) takes the split's items
+    (64-channel chunk j, class k) of the pair's operands at C·P, K·P and
+    C·K·Cp elements on, writes its fp32 partial at work[split][pair] (the
+    split-major (splits, B, C, P)), and gram_bwd_reduce_kernel sums over
+    the splits for all B·C·P elements at once and rounds once."""
+    b, c, p = f.shape
+    k = m2.shape[1]
+    a = tgs.s_matrix(s).float()                        # (B, C, K·Cp)
+    cpad = a.shape[-1] // k
+    nit = -(-c // 64) * k
+    ipb = -(-nit // splits)
+    ff, mf = f.float().reshape(-1), m2.float().reshape(-1)
+    af = a.reshape(-1)
+    n = b * c * p
+    work = torch.full((splits * n,), float("nan"))
+    for z in range(b * splits):
+        pair, split = divmod(z, splits)
+        fz = ff[pair * c * p:(pair + 1) * c * p].reshape(c, p)
+        mz = mf[pair * k * p:(pair + 1) * k * p].reshape(k, p)
+        az = af[pair * c * k * cpad:(pair + 1) * c * k * cpad].reshape(
+            c, k * cpad)
+        acc = torch.zeros(c, p)
+        for it in range(split * ipb, min(nit, (split + 1) * ipb)):
+            j, kk = divmod(it, k)
+            rows = slice(64 * j, min(c, 64 * j + 64))
+            w = (fz[rows] * mz[kk]).bfloat16().float()
+            cols = slice(kk * cpad + 64 * j, kk * cpad + 64 * j
+                         + (rows.stop - rows.start))
+            acc = acc + torch.matmul(az[:, cols], w)
+        base = (split * b + pair) * c * p
+        work[base:base + c * p] = acc.reshape(-1)
+    out = torch.zeros(n)
+    for sp in range(splits):
+        out = out + work[sp * n:(sp + 1) * n]
+    return out.bfloat16().reshape(b, c, p)
+
+
+@pytest.mark.parametrize("b,c,p,k,splits", [(3, 96, 1000, 3, 2),
+                                            (2, 37, 333, 2, 1),
+                                            (3, 130, 520, 4, 3)])
+def test_batched_index_math_is_the_plain_version(b, c, p, k, splits):
+    """The batched forward and backward, emulated with the kernels' pair
+    offsets, grid order and split-major work layout on exact operands,
+    equal the plain versions pair by pair bit for bit (a pair offset or a
+    work slot off by one pair would show: every pair's operands differ)."""
+    f, m2, s = _exact_batch(b, c, p, k, seed=p)
+    fp, mp = tgs.pad_pixels(f), tgs.pad_pixels(m2)
+    chunk = -(-(-(-fp.shape[-1] // splits)) // 128) * 128
+    fsplits = -(-fp.shape[-1] // chunk)
+    got = _fwd_emulated(fp, mp, fsplits, chunk)
+    assert torch.equal(got, tgs.gram_fwd_plain(f, m2))
+    dz = _bwd_emulated(fp, mp, s, 64 if c <= 64 else 128, splits)
+    assert torch.equal(dz[..., :p], tgs.gram_bwd_plain(f, m2, s))
+
+
+def test_batched_s_matrix_is_each_pairs():
+    s = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, 2, 37, 37)).astype(np.float32)).bfloat16()
+    a = tgs.s_matrix(s)
+    assert a.shape == (3, 37, 2 * 40)
+    for i in range(3):
+        assert torch.equal(a[i], tgs.s_matrix(s[i]))

@@ -210,3 +210,54 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     assert torch.equal(tg2.gram_relu_bwd(z, b, m2, s),
                        tg2.gram_relu_bwd_plain(z, b, m2, s))
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("c,p", RELU_TAPS)
+def test_batched_plan_shares_the_sms_among_the_pairs(b, c, p):
+    """B pairs: `groups` blocks a pair, at most one an SM in all, and every
+    p tile of every pair walked once by its pair's blocks (the grid's y
+    index is the pair)."""
+    tile, groups, splits = tg2.relu_bwd_plan(c, p, 4, b)
+    ptiles = -(-p // tg2.RELU_BWD_PIXELS)
+    assert (tile, splits) == (64, 1)
+    assert groups * b <= SMS and groups == min(ptiles, SMS // b)
+    for pair in range(b):
+        walked = sorted(t for g in range(groups)
+                        for t in range(g, ptiles, groups))
+        assert walked == list(range(ptiles)), pair
+
+
+@pytest.mark.parametrize("c,p,k", [(64, 2301, 3), (96, 1000, 3),
+                                   (64, 520, 9)])
+def test_batched_relu_walk_is_the_plain_version(c, p, k):
+    """The walk of each pair of a batch (its operands at the pair's offsets,
+    under the batched plan) equals the batched plain version bit for
+    bit."""
+    parts = [_operands(c, p, k, seed=c * k + p + i) for i in range(3)]
+    z = torch.stack([q[0] for q in parts])
+    b = parts[0][1]
+    m2 = torch.stack([q[2] for q in parts])
+    s = torch.stack([q[3] for q in parts])
+    ref = tg2.gram_relu_bwd_plain(z, b, m2, s)
+    plan = tg2.relu_bwd_plan(c, tgs.pad_pixels(z).shape[-1], k, 3)
+    got = torch.stack([_relu_walk(z[i], b, m2[i], s[i], plan)
+                       for i in range(3)])
+    assert torch.equal(got, ref)
+
+
+def test_batched_wbwd_plan_counts_the_pairs():
+    """Past the resident body the plan is gram_wbwd's for B pairs: where
+    the grid of p tiles × c tiles × B fills the SMs, no class splits and
+    the SMs shared among the pairs' c tiles; else every p tile its block,
+    with no more class splits than one pair takes."""
+    for c, p, k in ((128, 4096, 4), (256, 1 << 14, 4), (512, 4096, 4),
+                    (512, 1024, 4)):
+        one, eight = tgp.wbwd_plan(c, p, k), tgp.wbwd_plan(c, p, k, 8)
+        assert tg2.relu_bwd_plan(c, p, k, 8) == eight
+        assert eight[2] <= one[2]
+        ctiles, ptiles = -(-c // eight[0]), -(-p // tgp.WBWD_PIXELS)
+        if ptiles * ctiles * 8 >= SMS:
+            assert eight[1:] == (min(ptiles, SMS // (ctiles * 8)), 1)
+        else:
+            assert eight[1] == ptiles

@@ -84,6 +84,38 @@ def test_automatic_stages_run_without_jax_in_a_subprocess():
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_stylize_batch_runs_without_jax_in_a_subprocess():
+    """`stylize_batch` (parallel/batch.py) imports and runs a batch of two
+    on the CPU with no jax loaded, and the parallel package names nothing
+    of the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import dpst_tpu_torch
+        from dpst_tpu_torch.models import vgg
+        r = np.random.default_rng(0)
+        imgs = r.uniform(0, 255, (2, 16, 16, 3)).astype(np.float32)
+        masks = np.ones((2, 1, 16, 16), np.float32)
+        cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32",
+                                           iterations=2, max_classes=1)
+        out, hist = dpst_tpu_torch.stylize_batch(
+            imgs, imgs[:, ::-1].copy(), masks, masks, cfg,
+            vgg_params=vgg.init_params(0), device="cpu")
+        assert out.shape == (2, 16, 16, 3) and hist.shape == (2, 2, 5)
+        assert np.isfinite(hist).all()
+        assert "jax" not in sys.modules, "jax was imported"
+        assert not [m for m in sys.modules
+                    if m == "dpst_tpu" or m.startswith("dpst_tpu.")]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(PKG.parent),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_only_the_multi_gpu_laplacian_is_unported():
     """`_check_ported` raises for laplacian_impl="spmd" alone: every other
     option of every preset, automatic segmentation included, passes."""

@@ -194,3 +194,41 @@ def test_plan_rows_cover_any_image(h, w):
     rows = tlapc.lap_plan(h, w)
     assert 1 <= rows <= h
     assert -(-h // rows) * rows >= h > (-(-h // rows) - 1) * rows
+
+
+@pytest.mark.parametrize("b", [2, 4, 8])
+@pytest.mark.parametrize("size", [512, 1024])
+def test_batched_plan_walks_every_row_and_fills_the_card(b, size):
+    """B pairs (the grid's third index): every row of every pair's strips
+    walked once, two or more blocks on nearly every SM in all, strips no
+    shorter than one pair's (fewer halo rows), the least cost of the
+    plan's model, and at the batch path's 512² one wave of resident
+    blocks."""
+    rows = tlapc.lap_plan(size, size, b)
+    assert rows >= tlapc.lap_plan(size, size)
+    bands = -(-size // rows)
+    assert (bands - 1) * rows < size <= bands * rows
+    bx = b * -(-(-(-size // tlapc.LAP_COLS)) // tlapc.LAP_WARPS)
+    assert 0.95 * 2 * SMS <= bx * bands
+    if size == 512:
+        assert bx * bands <= tlapc.LAP_SLOTS
+    cost = lambda r: -(-(bx * -(-size // r)) // SMS) * (r + 4)
+    assert all(cost(rows) <= cost(r) for r in range(1, size + 1)
+               if bx * -(-size // r) >= 0.95 * 2 * SMS)
+
+
+def test_batched_strip_walk_reads_each_pairs_stats():
+    """The walk of each pair at its offsets in a (B, 14, H, W) stack and
+    in one stack shared with stride 0 equals the batched plain version bit
+    for bit."""
+    ops = [_operands(21, 40, seed=30 + i) for i in range(3)]
+    packed = torch.stack([o[1] for o in ops])
+    v3 = torch.stack([o[2] for o in ops])
+    rows = tlapc.lap_plan(21, 40, 3)
+    flat = packed.reshape(-1)
+    for spair, stats in ((14 * 21 * 40, packed),
+                         (0, packed[:1].expand(3, -1, -1, -1))):
+        got = torch.stack([_strip_walk(
+            flat[i * spair:i * spair + 14 * 21 * 40].reshape(14, 21, 40),
+            v3[i], rows) for i in range(3)])
+        assert torch.equal(got, tlapc.lap_matvec_plain(stats, v3))
