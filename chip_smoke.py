@@ -140,10 +140,32 @@ no result):
                  (bf16 tolerances), a bit-identical rerun, the VGG taps of
                  a batch against one image; a 64² fp32 batch of two, card
                  against CPU (1e-3);
-  13. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
-      K = 8 as "<kernel> K=8", then the batched rows as "<kernel> B=8")
-      and the nvidia-smi line;
-  14. the last line: {"ok": true, "device": {...}}.
+  13. spatial -- the ninth path, on meshes of repeated cuda:0 (virtual:
+                 one card stands for several devices; no cross-card time or
+                 memory is taken): `matvec_spmd` over 4 row shards against
+                 the one-device `lap_matvec` at 512² and 4096² (bit-equal
+                 expected, 1e-5; 4 launches a call; event time in turns),
+                 and its "local rows" and "ambient mesh" errors;
+                 `stylize_spatial` with PRESETS["config3"] and
+                 laplacian_impl="pallas" (→ "spmd") at 4096² on 4 row
+                 shards, 10 Adam steps, four band masks: the level plan,
+                 counters reset just before and read just after and equal
+                 to 4 × one device's a step as the plan implies, loop it/s,
+                 precompute seconds, peak memory, device ms a step by group
+                 with the halo copies apart, the first row against one
+                 unsharded step, conv1_1's Grams whole and over 4 shards
+                 against fp64; at 512² bf16 10 steps sharded against
+                 unsharded and a bit-identical rerun; a 64² fp32 sharded
+                 run, card against CPU; `stylize_batch` of the batch phase's
+                 8 pairs over a mesh of 2, each pair against the batch
+                 phase's run (batch tolerances), counters, pair-it/s; a
+                 2 × 2 mesh batch and `autotune` over a mesh of 2 at 64²
+                 fp32, card against CPU;
+  14. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
+      K = 8 as "<kernel> K=8", then the batched rows as "<kernel> B=8",
+      then "lap_matvec spmd": 4 shards at 4096², the loop's form) and the
+      nvidia-smi line;
+  15. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -263,6 +285,33 @@ B12_CASES = ((256, 4096, 4, "bfloat16", "max", False),
 # backwards' bf16 Gram cotangent stage alone: the shallow and deep groups of
 # the 4096² step (eight bands; timed), then K = 1 and 5 at W = 260 and its
 # half, 130 (walked rows that start off 16-byte boundaries)
+SP_SIZE = 4096         # the spatial path's image: 4096², as config6
+SP_SHARDS = 4          # its row shards (a virtual mesh: all on the one card)
+SP_ITERS = 10          # its Adam steps
+SP_PROFILE_STEPS = 3   # its profiled steps
+SPMD_SIZES = (512, 4096)   # matvec_spmd against the one-device kernel
+# 512² bf16 sharded against unsharded, of each column's max: the total
+# (column 0) within SP_HIST_TOL, as the JAX package's spatial test holds
+# its loss curve; the first row within BATCH_ROW0_TOL and every column
+# within BATCH_HIST_TOL, the batch phase's bf16 bounds (Adam's steps turn
+# the shards' rounding of a near-zero gradient into ±lr at that pixel, so
+# the small terms, content and photoreal, move apart first: 3e-3 and 1.5e-3
+# of their max after 10 steps at 128² on the CPU)
+SP_HIST_TOL = 1e-3
+SP_REF_TOL = 1e-3      # fp32 mesh runs, card against CPU
+# the 4096² sharded run's first history row against one unsharded step, of
+# each column's max: the VGG taps are bit-equal, but each shard's bf16
+# Gram forward sums a quarter of P a split, and the card's fp32
+# accumulation over a split rounds low by its length (`spatial_gram_
+# rounding`; ROADMAP queue 3): 2.17e-4 on the style term (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SP_ROW0_TOL = 5e-4
+# the bf16 Grams of conv1_1 … conv5_1 at 4096² against fp64 of the same
+# operands, max |error| over max |G|: the whole image's (the low bias of
+# a 63616-pixel split; 1.92e-4 at conv1_1) and the sum of the 4 row shards'
+# (16000 pixels a split; 3.8e-5 at conv1_1), NVIDIA H100 80GB HBM3, 700.00 W
+SP_GRAM_FP64_TOL = {"whole": 5e-4, "shards": 1e-4}
+SP_MESH_BATCH = 2      # stylize_batch's virtual mesh of the spatial phase
 GRAM_DZ_CASES = (("shallow", 64, 8, 48, 4096, 4, True),
                  ("deep", 128, 8, 24, 2048, 4, True),
                  ("shallow", 64, 1, 48, 260, 1, False),
@@ -303,12 +352,23 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def on_device(ev) -> bool:
+    """A profiler event of a kernel or copy on the card. Not a
+    `record_function` range's span on the device timeline (the halo
+    exchanges' `laplacian_spmd.HALO_RANGE`), which covers its kernels and
+    the idle gaps between them."""
+    from torch.autograd import DeviceType
+    from dpst_tpu_torch.ops.laplacian_spmd import HALO_RANGE
+    return (ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.name != HALO_RANGE)
+
+
 def device_events(fn, iters: int, whole, attempts: int = 10) -> list:
     """(name, µs) of each CUDA event (every kernel and copy) of `iters`
     calls of fn under torch.profiler. The card's profiler now and then
     returns a trace that lost events: a trace that `whole(events)` finds
     incomplete is taken again after a pause."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     seen = []
     for _ in range(attempts):
@@ -318,7 +378,7 @@ def device_events(fn, iters: int, whole, attempts: int = 10) -> list:
                 fn()
             torch.cuda.synchronize()
         evs = [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA]
+               if on_device(ev)]
         if whole(evs):
             return evs
         seen.append(len(evs))
@@ -1639,7 +1699,6 @@ def profile_loop(run, cfg, first: int, steps: int):
     peak memory is reset at step `first`. Returns (device ms per step by
     group, busy ms per step, step ms with the profiler on, peak GB of the
     profiled steps, the run's history)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1660,7 +1719,7 @@ def profile_loop(run, cfg, first: int, steps: int):
     peak = torch.cuda.max_memory_allocated() / 1e9
     groups: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if on_device(ev):
             g = kernel_group(ev.name)
             groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
     if not groups:
@@ -2640,7 +2699,6 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
     # same call profiled: device time by kernel group over its steps
     # (PSPNet, the precompute and NIMA included, under 1 % of it), its
     # busy share against the unprofiled call
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2655,7 +2713,7 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
     round_steps = TUNE_ITERS
     groups: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if on_device(ev):
             g = kernel_group(ev.name)
             groups[g] = (groups.get(g, 0.0)
                          + ev.time_range.elapsed_us() / 1e3 / round_steps)
@@ -3018,7 +3076,6 @@ def batch_launches(steps: int) -> dict:
 def profile_batch(run, steps: int) -> dict:
     """Device ms per step by kernel group of `run()` (which takes `steps`
     steps) under torch.profiler, and their sum."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3026,7 +3083,7 @@ def profile_batch(run, steps: int) -> dict:
         torch.cuda.synchronize()
     groups: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if on_device(ev):
             g = kernel_group(ev.name)
             groups[g] = (groups.get(g, 0.0)
                          + ev.time_range.elapsed_us() / 1e3 / steps)
@@ -3047,7 +3104,8 @@ def run_batch_path(dev, gen, smi: str) -> dict:
     RERUN_ITERS steps bit for bit. Measures the precompute seconds (warm),
     the loop's pair-it/s (BATCH_ITERS steps after a warm-up, timed as one
     segment), device ms per step by kernel group, the busy share and the
-    peak memory."""
+    peak memory. Returns (the launches, the run's inputs and outputs for
+    the spatial phase's mesh batch)."""
     import dpst_tpu_torch
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
@@ -3157,7 +3215,8 @@ def run_batch_path(dev, gen, smi: str) -> dict:
     if bad:
         fail("batch", f"{label}: " + "; ".join(bad))
     run_batch_reference(gen)
-    return launches
+    return launches, dict(contents=contents, styles=styles, cm=cm, sm=sm,
+                          params=params, cfg=cfg, images=images, hist=hist)
 
 
 def batch_rounding(consts, image: torch.Tensor, weights, params: dict,
@@ -3228,6 +3287,615 @@ def run_batch_reference(gen, size: int = 64, b: int = 2) -> None:
     if not worst <= tol:
         fail("reference", f"batch B={b}: card vs CPU history rel err "
              f"{worst} > {tol}")
+
+
+def virtual_rows(dev, n: int):
+    """A row mesh of n shards, every one on `dev`: a virtual mesh (one card
+    standing for n devices, as the JAX tests' virtual CPU devices do)."""
+    from dpst_tpu_torch.parallel import spatial as sp
+    return sp.make_spatial_mesh(devices=[dev] * n)
+
+
+def spatial_launches(plan: tuple, n: int, steps: int) -> dict:
+    """What `stylize_spatial` of PRESETS["config3"] launches for `steps`
+    Adam steps over n row shards under the level plan `plan`: n × the
+    one-device count at a sharded level, the one-device count at a
+    gathered one. A step: the five style taps' Grams (conv{b}_1 at level
+    b-1: gram_fwd and gram_bwd), the four pool backwards (pool b on level
+    b's shards, or whole where level b is gathered), the Laplacian on every
+    shard (level 0); the precompute (on the first device, unsharded): the
+    five style Grams (gram_fwd)."""
+    from dpst_tpu_torch.ops import kernels
+    per = [n if sharded else 1 for sharded in plan]
+    need = dict.fromkeys(kernels.KERNELS, 0)
+    need.update(gram_fwd=5 + steps * sum(per), gram_bwd=steps * sum(per),
+                pool_bwd=steps * sum(per[1:]), lap_matvec=steps * n)
+    return need
+
+
+def profile_spatial(run, steps: int) -> dict:
+    """`profile_batch` of `run()`, with the device time of the kernels that
+    the halo exchanges and level gathers launch (the CPU ops under the
+    `laplacian_spmd.HALO_RANGE` range: their concatenations and zero rows;
+    on a virtual mesh `.to(device)` copies nothing) moved into a group of
+    their own, "halo copies (forward)". Their backward (narrowed views and
+    the additions of the halo rows' gradients into the neighbours') stays
+    in "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from dpst_tpu_torch.ops.laplacian_spmd import HALO_RANGE
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    for ev in prof.events():
+        if on_device(ev):
+            g = kernel_group(ev.name)
+            groups[g] = (groups.get(g, 0.0)
+                         + ev.time_range.elapsed_us() / 1e3 / steps)
+    halo = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        p = ev.cpu_parent
+        while p is not None and p.name != HALO_RANGE:
+            p = p.cpu_parent
+        if p is None:
+            continue
+        for k in ev.kernels:
+            ms = k.duration / 1e3 / steps
+            halo += ms
+            groups[kernel_group(k.name)] -= ms
+    if not groups:
+        fail("profile", "torch.profiler recorded no device time")
+    groups["halo copies (forward)"] = halo
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def check_matvec_spmd(dev, n: int = 4) -> dict:
+    """`matvec_spmd` over a virtual row mesh of n shards against the
+    one-device `lap_matvec` at each of SPMD_SIZES, fp32: expected bit-equal
+    (each output value has the same operands in the same order), held to
+    lap_matvec's 1e-5 of max|y|, and against the plain version on the
+    same halo-extended shards (1e-5); n launches a call; back-to-back event
+    time (`cuda_ms`; at 512² the host's launch rate sets it) of the loop's
+    form (`local_matvec`: the v exchange and a launch a shard, the stats'
+    halos made once) in turns with the one-device launch, and of the whole
+    `matvec_spmd` (global in, global out: the stats exchanged too) and of
+    `AmbientMatvec` under `use_mesh` (the stats' halos kept; bit-equal to
+    the sharded result).
+    Raises its "local rows" and "ambient mesh" errors. Returns the
+    `kernels` line's "lap_matvec spmd" entry (the 4096² row) without its
+    launches."""
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    from dpst_tpu_torch.ops import laplacian_spmd as ls
+    from dpst_tpu_torch.parallel import mesh as ml
+    mesh = virtual_rows(dev, n)
+    devs = [dev] * n
+    own = torch.Generator(device=dev).manual_seed(SEED + 30)
+    row = None
+    for size in SPMD_SIZES:
+        img = torch.rand((size, size, 3), generator=own, device=dev)
+        packed = lapc.pack_stats(lap.precompute_stats(img))
+        v3 = torch.rand((3, size, size), generator=own, device=dev)
+        ref = lapc.lap_matvec(packed, v3)
+        before = kernels.LAUNCHES["lap_matvec"]
+        y = ls.matvec_spmd(packed, v3.permute(1, 2, 0), mesh=mesh)
+        launches = kernels.LAUNCHES["lap_matvec"] - before
+        y = y.permute(2, 0, 1)
+        torch.cuda.synchronize()
+        err, rel = rel_err(y, ref)
+        ext = ls.exchange_rows(ls.split_rows(packed, devs))
+        vs = ls.split_rows(v3, devs)
+        # the plain version on the same halo-extended shards, cropped
+        plain = torch.cat([
+            lapc.lap_matvec_plain(s, v)[..., ls.HALO:-ls.HALO, :]
+            for s, v in zip(ext, ls.exchange_rows(vs))], dim=-2)
+        plain_rel = rel_err(y, plain)[1]
+        del plain
+        local = lambda: ls.local_matvec(ext, vs)
+        one = lambda: lapc.lap_matvec(packed, v3)
+        # back-to-back event times, in turns: the card's profiler drops
+        # events of these traces (a trace of 120 came 118 in every attempt;
+        # the sum of what came once halved the one-device launch), and at
+        # 4096² the device, not the host, sets the event time
+        k1, o1, o2, k2 = (cuda_ms(local), cuda_ms(one), cuda_ms(one),
+                          cuda_ms(local))
+        vhwc = v3.permute(1, 2, 0)
+        # laplacian_impl="spmd"'s matvec inside use_mesh: the stats' shards
+        # and halos made on its first call and kept
+        amb = ls.AmbientMatvec()
+        with ml.use_mesh(mesh):
+            amb_equal = bool(torch.equal(amb(packed, v3), y))
+            amb_ms = cuda_ms(lambda: amb(packed, v3))
+        b, by = bound_ms(20 * size * size * 4,
+                         LAP_OPS_PER_PIXEL * size * size, "float32")
+        row = {"phase": "spatial", "check": "matvec_spmd",
+               "mesh": f"virtual: {n} row shards on one card",
+               "shape": [3, size, size], "dtype": "float32",
+               "launches_a_call": launches, "bit_equal": bool(torch.equal(
+                   y, ref)), "max_abs_err": err, "rel_err": rel,
+               "tol_rel": 1e-5, "rel_err_vs_plain_on_shards": plain_rel,
+               "ms": (k1 + k2) / 2,
+               "one_device_ms": (o1 + o2) / 2,
+               "matvec_spmd_ms": cuda_ms(
+                   lambda: ls.matvec_spmd(packed, vhwc, mesh=mesh)),
+               "ambient_ms": amb_ms, "ambient_bit_equal": amb_equal,
+               "plain_ms": cuda_ms(lambda: [
+                   lapc.lap_matvec_plain(s, v) for s, v in
+                   zip(ext, ls.exchange_rows(vs))], warmup=1, iters=2),
+               "bound_ms": b, "bound_by": by,
+               "strip_rows_a_shard": lapc.lap_plan(size // n + 4, size)}
+        emit(row)
+        if not (rel <= 1e-5 and plain_rel <= 1e-5 and launches == n
+                and amb_equal):
+            fail("spatial", f"matvec_spmd {size}²: rel err {rel} against "
+                 f"the unsharded kernel, {plain_rel} against the plain "
+                 f"version on the shards, {launches} launches, ambient "
+                 f"matvec bit-equal {amb_equal} (expected <= 1e-5, "
+                 f"<= 1e-5, {n}, True)")
+        del img, packed, v3, ref, y, ext, vs
+        torch.cuda.empty_cache()
+    small = torch.rand((8, 16, 3), generator=own, device=dev)
+    packed = lapc.pack_stats(lap.precompute_stats(small))
+    for kw, text in (({"mesh": virtual_rows(dev, 8)}, "local rows"),
+                     ({}, "ambient mesh")):
+        try:
+            ls.matvec_spmd(packed, small, **kw)
+        except ValueError as e:
+            if text not in str(e):
+                fail("spatial", f"matvec_spmd raised {e!r}, not {text!r}")
+        else:
+            fail("spatial", f"matvec_spmd did not raise {text!r}")
+    emit({"phase": "spatial", "check": "matvec_spmd errors",
+          "raised": ["local rows", "ambient mesh"]})
+    return {"name": "lap_matvec spmd", "route": "cuda",
+            "source": "dpst_tpu_torch/csrc/lap_matvec.cu",
+            "replaces": "dpst_tpu/ops/laplacian_pallas.py:111",
+            "also_replaces": "dpst_tpu/ops/laplacian_spmd.py:72",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "dtype": "float32", "shards": n,
+            "mesh": f"virtual: {n} row shards on one card",
+            "shape": row["shape"], "one_device_ms": row["one_device_ms"]}
+
+
+def run_spatial(dev, gen, smi: str, batch_run: dict) -> tuple[dict, dict]:
+    """The ninth path, the phase "spatial": `matvec_spmd` against the
+    one-device kernel (`check_matvec_spmd`); `stylize_spatial` of
+    PRESETS["config3"] with laplacian_impl="pallas" (→ "spmd") at SP_SIZE²
+    on SP_SHARDS row shards of a virtual mesh (every shard on this one
+    card), K = 4 band masks, SP_ITERS Adam steps, bf16: counters reset just
+    before and read just after, equal to `spatial_launches` of the level
+    plan; loop it/s, precompute seconds, peak memory, device ms a step by
+    group with the halo copies apart, the first history row against a
+    1-step unsharded run of the same resolved config (SP_ROW0_TOL), the
+    bf16 Grams of every style tap, whole and sharded, against fp64
+    (`spatial_gram_rounding`), `gram_fwd`, `gram_bwd` and `pool_bwd` at
+    the shard shapes against their plain versions (`check_path_kernels`);
+    at 512² bf16 10 steps sharded against unsharded (SP_HIST_TOL) and a
+    bit-identical rerun; a 64² fp32 sharded run, card against CPU (1e-3);
+    `stylize_batch` of the batch phase's 8 pairs over a virtual mesh of
+    two, each pair against the batch phase's one-device run (the batch
+    tolerances), counters; a 2 × 2 mesh batch and `autotune` over a mesh
+    of two at 64² fp32, card against CPU. Returns (the spatial path's
+    launches, the `kernels` line's "lap_matvec spmd" entry)."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import spatial as sp
+
+    emit({"phase": "spatial", "device_count": torch.cuda.device_count(),
+          "mesh": "virtual: every shard on cuda:0 (one card stands for "
+                  "several devices; no cross-card time or memory)"})
+    entry = check_matvec_spmd(dev, SP_SHARDS)
+
+    n, size = SP_SHARDS, SP_SIZE
+    label = (f"config3 spatial {size}², {n} row shards "
+             f"(virtual mesh, one card)")
+    content = smooth_image(gen, dev, size)
+    style = textured_image(gen, dev, size)
+    cm, sm = band_masks(0, size), band_masks(1, size)
+    params = vgg.get_params(seed=SEED, device=dev)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              laplacian_impl="pallas", iterations=SP_ITERS)
+    rcfg = cfg.spmd_safe()
+    mesh = virtual_rows(dev, n)
+    plan = sp.level_plan(size, n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img, hist = sp.stylize_spatial(content, style, cm, sm, cfg, params, mesh)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    img, hist = img.cpu().numpy(), hist.cpu().numpy()
+
+    # the precompute alone (warm), then the loop as one timed segment
+    pp = vgg.params_by_device(params, [dev], rcfg.compute_dtype,
+                              rcfg.conv_impl)
+    arrays = [torch.from_numpy(a).to(dev)[None]
+              for a in (content, style, cm, sm)]
+    dpst_tpu_torch.prepare_constants(*arrays, rcfg, pp[mesh.first])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    consts = dpst_tpu_torch.prepare_constants(*arrays, rcfg, pp[mesh.first])
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+    sc, shards = sp.shard_spatial(consts, arrays[0].clone(), mesh)
+    del consts
+    weights = optimize.LossWeights.from_config(rcfg)
+    seg = lambda steps: optimize.drain(sp.spatial_segment(
+        shards, sc, weights, pp, steps, rcfg))
+    seg(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg(SP_ITERS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    step_ms = loop_s * 1e3 / SP_ITERS
+    groups = profile_spatial(lambda: seg(SP_PROFILE_STEPS), SP_PROFILE_STEPS)
+    busy = sum(groups.values())
+    emit({"phase": "profile", "path": label, "steps": SP_PROFILE_STEPS,
+          "device_ms_per_step": groups, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms})
+    del sc, shards, arrays
+    torch.cuda.empty_cache()
+
+    spatial_gram_rounding(content, cm, pp[mesh.first], rcfg, n)
+    torch.cuda.empty_cache()
+    # the first row against one unsharded step of the same resolved config
+    _, hist1 = dpst_tpu_torch.stylize(
+        content, style, dataclasses.replace(rcfg, laplacian_impl="xla",
+                                            iterations=1),
+        content_masks=cm, style_masks=sm, vgg_params=params,
+        return_history=True)
+    # of each column's max over the sharded run's steps (the content term
+    # is 0 at step 0 unsharded)
+    row0 = np.abs(hist[0] - hist1[0]) / np.maximum(
+        np.abs(hist).max(axis=0), 1e-30)
+    need = spatial_launches(plan, n, SP_ITERS)
+    emit({"phase": "spatial", "path": label, "size": size, "shards": n,
+          "K": K, "iterations": SP_ITERS, "compute_dtype": cfg.compute_dtype,
+          "laplacian_impl": rcfg.laplacian_impl, "level_plan": list(plan),
+          "sharded_heights": [size >> l for l in range(5) if plan[l]],
+          "gathered_heights": [size >> l for l in range(5) if not plan[l]],
+          "weights": ("weights/vgg19.npz" if os.path.exists(
+              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "wall_s": wall_s, "precompute_s": precompute_s,
+          "loop_it_s": SP_ITERS / loop_s, "max_memory_gb": peak,
+          "launches": launches, "launches_expected": need,
+          "first_row": hist[0].tolist(), "last_row": hist[-1].tolist(),
+          "unsharded_first_row": hist1[0].tolist(),
+          "first_row_rel_err": row0.tolist(), "row0_tol_rel": SP_ROW0_TOL,
+          "nvidia_smi": smi})
+    bad = [f"{k} launched {launches[k]} times, the plan implies {v}"
+           for k, v in need.items() if launches[k] != v]
+    if not hist[-1, 0] < hist[0, 0]:
+        bad.append(f"total loss did not fall: {hist[0, 0]} -> {hist[-1, 0]}")
+    if not hist[:, 3].min() >= -1.0:
+        bad.append(f"photoreal term {hist[:, 3].min()} < -1")
+    if not (img.shape == (size, size, 3) and np.isfinite(img).all()
+            and img.min() >= 0.0 and img.max() <= 255.0):
+        bad.append("output not finite (H, W, 3) in [0, 255]")
+    if not row0.max() <= SP_ROW0_TOL:
+        bad.append(f"first row {row0.tolist()} from the unsharded step")
+    if bad:
+        fail("spatial", f"{label}: " + "; ".join(bad))
+    del img, hist, content, style
+    torch.cuda.empty_cache()
+    check_path_kernels(dev, label, 1, *spatial_kernel_shapes(size, n, plan),
+                       SEED + 32)
+
+    run_spatial_small(dev, gen, mesh)
+    run_mesh_batch(dev, batch_run)
+    return launches, entry
+
+
+def spatial_gram_rounding(content: np.ndarray, masks: np.ndarray,
+                          params: dict, cfg, n: int) -> dict:
+    """Where a row-sharded step's Grams part from one device's: the bf16
+    taps conv1_1 … conv5_1 of `content` (`cfg`'s style layers) and their
+    masked Grams (the masks of `cfg`'s pyramid) by `gram_fwd` on the whole
+    image and summed over n row shards, each against the same Grams in
+    fp64 (`torch.matmul` of the same bf16 operands): max |error| over
+    max |G| (held to SP_GRAM_FP64_TOL) and the mean signed error over
+    mean |G|, with each call's split plan (the pixels a split sums)."""
+    from dpst_tpu_torch import segmentation
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import gram_stream as gs
+    dev = next(iter(params.values()))["w"].device
+    layers = cfg.style_layers
+    img = torch.from_numpy(content).to(dev)
+    pyr = segmentation.layer_masks(torch.from_numpy(masks).to(dev), layers,
+                                   cfg.mask_downsample)
+    out = {}
+    with torch.no_grad():
+        taps = vgg.extract_features(params, img, layers,
+                                    compute_dtype="bfloat16")
+        for layer in layers:
+            tap = taps.pop(layer)
+            m2 = (pyr[layer] * pyr[layer]).to(torch.bfloat16)
+            c, h, w = tap.shape
+            f64 = tap.flatten(1).double()
+            ref = torch.stack([f64 @ (f64 * mk.flatten().double()).T
+                               for mk in m2])
+            del f64
+            whole = gs.gram_fwd(tap.flatten(1).contiguous(),
+                                m2.flatten(1).contiguous()).double()
+            step = h // n
+            parts = sum(gs.gram_fwd(
+                tap[:, i * step:(i + 1) * step].flatten(1).contiguous(),
+                m2[:, i * step:(i + 1) * step].flatten(1).contiguous()
+            ).double() for i in range(n))
+            top, mean = float(ref.abs().max()), float(ref.abs().mean())
+            out[layer] = {}
+            for side, g, p in (("whole", whole, h * w),
+                               ("shards", parts, step * w)):
+                d = g - ref
+                out[layer][side] = {
+                    "max_rel": float(d.abs().max()) / top,
+                    "mean_signed_rel": float(d.mean()) / mean,
+                    "pixels_a_split": gs.fwd_plan(c, p, m2.shape[0])[1]}
+            del tap, ref, whole, parts
+            torch.cuda.empty_cache()
+    bad = [f"{layer} {side}: {e['max_rel']} > {SP_GRAM_FP64_TOL[side]}"
+           for layer, sides in out.items() for side, e in sides.items()
+           if not e["max_rel"] <= SP_GRAM_FP64_TOL[side]]
+    emit({"phase": "spatial", "check": f"bf16 Grams against fp64, whole "
+          f"and {n} row shards", "size": content.shape[0],
+          "tol_max_rel": SP_GRAM_FP64_TOL, "rounding": out})
+    if bad:
+        fail("spatial", "Grams against fp64: " + "; ".join(bad))
+    return out
+
+
+def spatial_kernel_shapes(size: int, n: int, plan: tuple):
+    """The shapes at which a row-sharded step of `size`² over n shards
+    (level plan `plan`) launches the Gram pair and the pool backward:
+    [(C, P) of each style tap's Grams], [(C, h, W) of each pool's input],
+    each a shard's where its level is sharded and the whole level's where
+    it is gathered."""
+    chans = (64, 128, 256, 512, 512)
+    rows = lambda l: (size >> l) // (n if plan[l] else 1)
+    grams = [(chans[l], rows(l) * (size >> l)) for l in range(5)]
+    pools = [(chans[b - 1], (size >> (b - 1)) // (n if plan[b] else 1),
+              size >> (b - 1)) for b in range(1, 5)]
+    return grams, pools
+
+
+def check_path_kernels(dev, label: str, b: int, grams: list, pools: list,
+                       seed: int, lap_size: int | None = None) -> dict:
+    """`gram_fwd`, `gram_bwd` and `pool_bwd` (and, with `lap_size`,
+    `lap_matvec` at lap_size²) at the shapes a path launches them with (b
+    pairs, K = 4 masks, bf16; the Laplacian fp32), each against its plain
+    version pair by pair at the kernels phase's tolerances (forward 1e-3
+    of max|G|, against the plain version in fp64, whose fp32 error is
+    reported; backward 1e-2 of max|dF|, the pool bit for bit, the
+    Laplacian 1e-5 of max|y|). Returns {kernel shape: error}."""
+    from dpst_tpu_torch.ops import gram_stream as gs
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    from dpst_tpu_torch.ops import pool_cuda
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    errs = {}
+    with torch.no_grad():
+        if lap_size:
+            img = torch.rand((b, lap_size, lap_size, 3), generator=gen,
+                             device=dev)
+            packed = torch.stack([lapc.pack_stats(lap.precompute_stats(i))
+                                  for i in img])
+            v3 = torch.rand((b, 3, lap_size, lap_size), generator=gen,
+                            device=dev)
+            rel = pair_errors(lapc.lap_matvec(packed, v3),
+                              lapc.lap_matvec_plain(packed, v3))[1]
+            key = f"lap_matvec B={b} {lap_size}x{lap_size}"
+            errs[key] = rel
+            if not rel <= 1e-5:
+                fail("spatial", f"{label}: {key} rel err {rel} > 1e-5")
+            del img, packed, v3
+        for c, p in grams:
+            f, _, m2, s = batched_input("gram", b, c, p, K, torch.bfloat16,
+                                        dev, gen)
+            # the forward's plain version in fp64 (the operand products
+            # rounded to bf16 as the plain version rounds them): past 2^18
+            # pixels its fp32 sums drift from fp64 faster than the
+            # kernel's split sums (1.7e-4 at 2^18, 3.4e-5 at 2^16)
+            g64 = torch.stack([torch.matmul(
+                f[i].double(), (f[i].unsqueeze(0) * m2[i].unsqueeze(1))
+                .double().transpose(1, 2)) for i in range(b)])
+            errs[f"gram_fwd plain fp32 vs fp64 B={b} {c}x{p}"] = pair_errors(
+                gs.gram_fwd_plain(f, m2), g64)[1]
+            for name, got, want, tol in (
+                    ("gram_fwd", gs.gram_fwd(f, m2), g64, 1e-3),
+                    ("gram_bwd", gs.gram_bwd(f, m2, s),
+                     gs.gram_bwd_plain(f, m2, s), 1e-2)):
+                rel = pair_errors(got, want)[1]
+                key = f"{name} B={b} {c}x{p}"
+                errs[key] = rel
+                if not rel <= tol:
+                    fail("spatial", f"{label}: {key} rel err {rel} > {tol}")
+            del g64
+            del f, m2, s
+            torch.cuda.empty_cache()
+        for c, h, w in pools:
+            x, y, g = tied_pool_input(b * c, h, w, torch.bfloat16, dev, gen)
+            got = pool_cuda.maxpool2_bwd(x, y, g)
+            want = pool_cuda.maxpool2_bwd_plain(x, y, g)
+            key = f"pool_bwd B={b} {c}x{h}x{w}"
+            errs[key] = rel_err(got, want)[0]
+            if not torch.equal(got, want):
+                fail("spatial", f"{label}: {key} not bit-equal (max err "
+                     f"{errs[key]})")
+            del x, y, g, got, want
+            torch.cuda.empty_cache()
+    emit({"phase": "spatial", "check": "kernels at the path's shapes",
+          "path": label, "B": b, "K": K, "dtype": "bfloat16",
+          "tol_rel": {"gram_fwd": 1e-3, "gram_bwd": 1e-2,
+                      "pool_bwd": "bit-exact", "lap_matvec": 1e-5},
+          "errors": errs})
+    return errs
+
+
+def run_spatial_small(dev, gen, mesh) -> None:
+    """512² bf16 (PRESETS["config3"], laplacian "pallas", RERUN_ITERS
+    steps) on the row mesh against the same resolved config unsharded
+    (history within SP_HIST_TOL of each column's max, mean |pixel|
+    reported) and against a rerun (bit for bit); then a 64² fp32 sharded
+    run on the card against the same sharded run on the CPU (1e-3)."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.parallel import spatial as sp
+    content = smooth_image(gen, dev, SIZE)
+    style = textured_image(gen, dev, SIZE)
+    cm, sm = band_masks(0, SIZE), band_masks(1, SIZE)
+    params = vgg.get_params(seed=SEED, device=dev)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              laplacian_impl="pallas",
+                              iterations=RERUN_ITERS)
+    runs = [sp.stylize_spatial(content, style, cm, sm, cfg, params, mesh)
+            for _ in range(2)]
+    (img, hist), (img2, hist2) = [(a.cpu().numpy(), b.cpu().numpy())
+                                  for a, b in runs]
+    ref_img, ref_hist = dpst_tpu_torch.stylize(
+        content, style, dataclasses.replace(cfg.spmd_safe(),
+                                            laplacian_impl="xla"),
+        content_masks=cm, style_masks=sm, vgg_params=params,
+        return_history=True)
+    rel = np.abs(hist - ref_hist) / np.maximum(
+        np.abs(ref_hist).max(axis=0), 1e-30)
+    d = np.abs(img - ref_img)
+    identical = bool(np.array_equal(hist, hist2)
+                     and np.array_equal(img, img2))
+    emit({"phase": "spatial", "check": "512² bf16, 4 shards against "
+          "unsharded", "iterations": RERUN_ITERS,
+          "hist_rel_by_column": rel.max(axis=0).tolist(),
+          "row0_rel": float(rel[0].max()), "total_tol_rel": SP_HIST_TOL,
+          "row0_tol_rel": BATCH_ROW0_TOL, "hist_tol_rel": BATCH_HIST_TOL,
+          "pixel_mean": float(d.mean()), "pixel_max": float(d.max()),
+          "rerun_bit_identical": identical})
+    if not (rel[:, 0].max() <= SP_HIST_TOL and rel.max() <= BATCH_HIST_TOL
+            and rel[0].max() <= BATCH_ROW0_TOL and identical):
+        fail("spatial", f"512² sharded: hist rel {rel.max(axis=0)}, row 0 "
+             f"{rel[0].max()}, rerun identical {identical}")
+
+    size, k = 64, 3
+    content = smooth_image(gen, dev, size)
+    style = smooth_image(gen, dev, size)
+    cm, sm = stripe_masks(k, size)
+    cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
+                                       regularization_weight=100.0)
+    params = vgg.init_params(SEED)
+    hists = {where: sp.stylize_spatial(
+        content, style, cm, sm, cfg, params,
+        sp.make_spatial_mesh(devices=[where] * SP_SHARDS))[1].cpu().numpy()
+        for where in ("cuda", "cpu")}
+    worst = float((np.abs(hists["cuda"] - hists["cpu"]) / np.maximum(
+        np.abs(hists["cpu"]).max(axis=0), 1e-30)).max())
+    emit({"phase": "reference", "path": "config3 spatial, 4 shards",
+          "size": size, "K": k, "iterations": 5, "compute_dtype": "float32",
+          "max_rel_err_vs_cpu": worst, "tol_rel": SP_REF_TOL})
+    if not worst <= SP_REF_TOL:
+        fail("reference", f"spatial 64²: card vs CPU history rel err "
+             f"{worst} > {SP_REF_TOL}")
+
+
+def run_mesh_batch(dev, b: dict) -> None:
+    """`stylize_batch` of the batch phase's BATCH pairs over a virtual mesh
+    of SP_MESH_BATCH (the pairs split, BATCH / SP_MESH_BATCH a device, the
+    groups' steps in turns; the config `spmd_safe`): each pair against the
+    batch phase's one-device run within the batch tolerances, the counters
+    SP_MESH_BATCH × one pair's under the resolved config, pair-it/s of the
+    call (precompute included), the kernels at its B = BATCH /
+    SP_MESH_BATCH shapes against their plain versions
+    (`check_path_kernels`). Then a 2 × 2 mesh batch of two 64² pairs
+    and `autotune` over a mesh of two at 64², fp32, card against CPU: the
+    histories within 1e-3 of each column's max, autotune's images within
+    the JAX package's batch bounds (rtol 1e-2, atol 0.25)."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import mesh as ml
+    m = SP_MESH_BATCH
+    label = f"config3 batch B={BATCH} 512² over a virtual mesh of {m}"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    images, hist = dpst_tpu_torch.stylize_batch(
+        b["contents"], b["styles"], b["cm"], b["sm"], b["cfg"],
+        vgg_params=b["params"], mesh=ml.make_mesh(devices=[dev] * m))
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = b["cfg"].iterations
+    need = dict.fromkeys(kernels.KERNELS, 0)
+    need.update(lap_matvec=m * steps, gram_fwd=m * (5 * steps + 5),
+                gram_bwd=m * 5 * steps, pool_bwd=m * 4 * steps)
+    errs = []
+    for i in range(BATCH):
+        rel = np.abs(hist[i] - b["hist"][i]) / np.maximum(
+            np.abs(b["hist"][i]).max(axis=0), 1e-30)
+        d = np.abs(images[i] - b["images"][i])
+        errs.append({"row0_rel": float(rel[0].max()),
+                     "hist_rel": float(rel.max()),
+                     "pixel_mean": float(d.mean()),
+                     "pixel_max": float(d.max())})
+    emit({"phase": "spatial", "path": label, "wall_s": wall_s,
+          "pair_it_s_virtual": BATCH * steps / wall_s,
+          "launches": launches, "launches_expected": need,
+          "vs_one_device_batch": errs, "row0_tol_rel": BATCH_ROW0_TOL,
+          "hist_tol_rel": BATCH_HIST_TOL, "pixel_tol": BATCH_PIXEL_TOL})
+    bad = [f"{k} launched {launches[k]} times, expected {v}"
+           for k, v in need.items() if launches[k] != v]
+    bad += [f"pair {i}: {e}" for i, e in enumerate(errs)
+            if not (e["row0_rel"] <= BATCH_ROW0_TOL
+                    and e["hist_rel"] <= BATCH_HIST_TOL
+                    and e["pixel_mean"] <= BATCH_PIXEL_TOL)]
+    if bad:
+        fail("spatial", f"{label}: " + "; ".join(bad))
+    check_path_kernels(dev, label, BATCH // m,
+                       *spatial_kernel_shapes(SIZE, 1, (True,) * 5),
+                       SEED + 33, lap_size=SIZE)
+
+    size = 64
+    gen = torch.Generator().manual_seed(SEED + 31)
+    contents = np.stack([smooth_image(gen, gen.device, size)
+                         for _ in range(2)])
+    styles = np.stack([smooth_image(gen, gen.device, size)
+                       for _ in range(2)])
+    cm, sm = batch_masks(2, size, 3)
+    cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
+                                       regularization_weight=100.0)
+    params = vgg.init_params(SEED)
+    hists = {where: dpst_tpu_torch.stylize_batch(
+        contents, styles, cm, sm, cfg, vgg_params=params,
+        mesh=ml.make_mesh_2d(2, 2, devices=[where] * 4))[1]
+        for where in ("cuda", "cpu")}
+    worst = float((np.abs(hists["cuda"] - hists["cpu"]) / np.maximum(
+        np.abs(hists["cpu"]).max(axis=1, keepdims=True), 1e-30)).max())
+    tune_cfg = dataclasses.replace(cfg, use_segmentation=False)
+    tunes = {where: dpst_tpu_torch.autotune(
+        contents[0], styles[0], tune_cfg, gammas=(1.0, 100.0),
+        vgg_params=params, mesh=ml.make_mesh(devices=[where] * 2))
+        for where in ("cuda", "cpu")}
+    pix = np.abs(tunes["cuda"].images - tunes["cpu"].images)
+    pix_ok = bool(np.all(pix <= 0.25 + 1e-2 * np.abs(tunes["cpu"].images)))
+    emit({"phase": "reference", "path": "batch on a 2 × 2 mesh, autotune "
+          "on a mesh of 2", "size": size, "compute_dtype": "float32",
+          "batch_max_rel_err_vs_cpu": worst, "tol_rel": SP_REF_TOL,
+          "autotune_pixel_max_vs_cpu": float(pix.max()),
+          "autotune_within_batch_bounds": pix_ok,
+          "autotune_scores": {k: v.scores.tolist() for k, v in tunes.items()}})
+    if not (worst <= SP_REF_TOL and pix_ok):
+        fail("reference", f"mesh runs card vs CPU: batch {worst}, autotune "
+             f"pixels {pix.max()}")
 
 
 def summarize(rows: list, launches: dict, k: int = K, b: int = 1) -> list:
@@ -3456,14 +4124,24 @@ def main() -> int:
     seconds["segmentation, automatic, autotune"] = (time.perf_counter()
                                                     - t0 - seconds["lbfgs"])
     t0 = time.perf_counter()
-    launches_b = {f"config3 batch B={BATCH} 512²": run_batch_path(
-        dev, torch.Generator(device=dev).manual_seed(SEED + 21), smi)}
+    launches_b, batch_run = run_batch_path(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 21), smi)
+    launches_b = {f"config3 batch B={BATCH} 512²": launches_b}
     seconds["batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches_sp, spmd_entry = run_spatial(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 22), smi,
+        batch_run)
+    spmd_entry["launches"] = launches_sp["lap_matvec"]
+    spmd_entry["launches_by_path"] = {
+        f"config3 spatial {SP_SIZE}², {SP_SHARDS} shards": spmd_entry[
+            "launches"]}
+    seconds["spatial"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)
           + summarize(rows, launches_k8, K8)
-          + summarize(rows, launches_b, b=BATCH)})
+          + summarize(rows, launches_b, b=BATCH) + [spmd_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,8 +13,12 @@ device, ADE20K class merging on the host; `segmentation.py`). `autotune`
 sweeps the style weight Γ and keeps the stylization that NIMA scores
 highest; its candidates run as one batch. `stylize_batch` runs B pairs
 as one batched loop (`parallel/batch.py`), each kernel launch covering
-all of them. Still missing: the multi-GPU mesh and Laplacian (they raise
-NotImplementedError) and the CLI.
+all of them. A device mesh (`parallel/mesh.py`, one process holding a
+tensor per device) splits the pairs of `stylize_batch` and the
+candidates of `autotune`; `parallel/spatial.stylize_spatial` shards one
+image's rows over it with explicit halo exchanges, and
+`laplacian_impl="spmd"` splits the Laplacian's rows over the ambient mesh
+(`ops/laplacian_spmd.py`). Still missing: the CLI.
 """
 from .api import prepare_constants, stylize
 # the submodule is imported here, before the name is bound to the function:

@@ -8,7 +8,10 @@ carry the image up from the stage before, optimize with Adam or L-BFGS
 (checkpointed per stage where asked) → clip → the smooth-local-affine
 post-process where asked → result. Entry points run on the CUDA card
 unless the caller passes `device="cpu"`; with no card and no device given
-they raise.
+they raise. With `laplacian_impl="spmd"` the photorealism term's matvec
+splits its rows over the ambient mesh (`parallel.mesh.use_mesh`), and
+raises ValueError outside one; the row-sharded loop as a whole is
+`parallel.spatial.stylize_spatial`.
 """
 from __future__ import annotations
 
@@ -30,16 +33,6 @@ from .ops.resize import resize_image
 from .utils import io, runtime
 from .utils.checkpoint import RunCheckpointer
 from .utils.runtime import params_on, resolve_device
-
-
-def _check_ported(cfg: StylizeConfig) -> None:
-    """Raise NotImplementedError for what the port lacks, naming the
-    ROADMAP.md queue-1 item that will port it. (`stylize_batch` runs
-    "spmd" as the XLA stencil, as the JAX package's batch does.)"""
-    if cfg.laplacian_impl == "spmd":
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md queue 1): laplacian_impl='spmd' "
-            "(item 15: multi-GPU)")
 
 
 @torch.no_grad()
@@ -152,6 +145,29 @@ def _scale_schedule(cfg: StylizeConfig, hw: tuple[int, int]
     return stages
 
 
+def _stage_loop(contents, styles, cmasks, smasks, cfg: StylizeConfig,
+                vgg_params: dict, segment, last_segment=None):
+    """Generator of a run through `cfg`'s schedule (`_scale_schedule`) of
+    one image or a batch: each stage's precompute (`_prepare_stage`), the
+    image started (`optimize.init_image`) or carried up (`_carry_image`),
+    then `segment(images, consts, iters)`, a generator that returns
+    (images, history); the native-size stage takes `last_segment` where
+    given. Returns (images, the stages' histories joined on their step
+    axis)."""
+    images, hists = None, []
+    stages = _scale_schedule(cfg, tuple(contents.shape[-3:-1]))
+    for i, (h, w, iters) in enumerate(stages):
+        consts, contents_s, style_means = _prepare_stage(
+            contents, styles, cmasks, smasks, vgg_params, (h, w), cfg)
+        images = (optimize.init_image(cfg, contents_s, style_means)
+                  if images is None else _carry_image(images, (h, w)))
+        run = (last_segment if last_segment is not None
+               and i + 1 == len(stages) else segment)
+        images, hist = yield from run(images, consts, iters)
+        hists.append(hist)
+    return images, torch.cat(hists, dim=-2)
+
+
 def _inputs(content, style, cfg: StylizeConfig, size, content_masks,
             style_masks, vgg_params, seg_params, dev: torch.device):
     """What `stylize` and `autotune` start from, on `dev`: the content image
@@ -163,7 +179,6 @@ def _inputs(content, style, cfg: StylizeConfig, size, content_masks,
             "content_masks and style_masks must be provided together "
             "(their class channels must be aligned); got only "
             + ("content_masks" if style_masks is None else "style_masks"))
-    _check_ported(cfg)
     content_np = io.load_image(content, size)
     hw = content_np.shape[:2]
     style_np = io.load_image(style, hw)

@@ -44,6 +44,14 @@ the scan forms its per-strip Grams, and no block-1 tap takes the fused
 bias+ReLU kernels. config6 of the JAX package's bench.py is PRESETS
 ["config3"] with `stream12_impl="pallas"` at 4096²: 32 strips, the kernels.
 
+`laplacian_impl="spmd"` sends the photorealism term's matvec through
+`ops/laplacian_spmd.matvec_spmd`: rows split over the ambient mesh
+(`parallel.mesh.use_mesh`), a 2-row halo exchange and `lap_matvec` on
+every shard; without an ambient mesh it raises ValueError, as the JAX
+package does. `spmd_safe` resolves a config for the row-sharded and
+multi-device entry points (`parallel/spatial.py`, `parallel/batch.py`)
+as the JAX package's does.
+
 The other fields that select a TPU lowering of the same math are
 accepted and are no-ops here: `stream12_remat`, `stream12_conv2`,
 `remat`, `pool_impl` and `laplacian_impl` other than "spmd". The port
@@ -129,7 +137,7 @@ class StylizeConfig:
     # --- matting Laplacian (photorealism) ---------------------------------
     use_photorealism: bool = True
     matting_epsilon: float = 1e-5        # ε in Levin's closed-form matting
-    laplacian_impl: str = "auto"         # "spmd" is not ported yet
+    laplacian_impl: str = "auto"         # "spmd": rows over the mesh
 
     # --- post-processing ---------------------------------------------------
     post_smooth: int = 0
@@ -209,6 +217,28 @@ class StylizeConfig:
         if self.seg_protocol not in ("resize", "sliding"):
             raise ValueError(
                 f"unknown seg_protocol {self.seg_protocol!r}")
+
+    def spmd_safe(self) -> "StylizeConfig":
+        """The config of a row-sharded or multi-device run, as
+        `dpst_tpu/config.py:spmd_safe` resolves it: laplacian "pallas" →
+        "spmd" and "auto" → "xla"; conv "pallas" → "xla" (cuDNN); gram
+        "stream", "pallas", "hybrid" and "auto" → "xla" (the fused route,
+        `gram_fwd` and `gram_bwd`); pool "pallas" → "xla"; no s2b strips,
+        no space-to-depth block 1 (so no fused bias+ReLU Gram), s2d_gram
+        "nd", no stream12. The row-sharded loop (`parallel/spatial.py`)
+        runs every conv on cuDNN and every Gram on the fused route; these
+        fields say so."""
+        return dataclasses.replace(
+            self,
+            laplacian_impl={"pallas": "spmd", "auto": "xla"}.get(
+                self.laplacian_impl, self.laplacian_impl),
+            conv_impl={"pallas": "xla"}.get(self.conv_impl, self.conv_impl),
+            gram_impl={"stream": "xla", "pallas": "xla", "auto": "xla",
+                       "hybrid": "xla"}.get(self.gram_impl, self.gram_impl),
+            pool_impl={"pallas": "xla"}.get(self.pool_impl, self.pool_impl),
+            s2b_strips=0, strip_gram="interior", block1_impl="conv",
+            s2d_gram="nd", stream12=0, stream12_impl="scan",
+            stream12_remat="auto", stream12_conv2="auto")
 
 
 # Named presets (the same five as the JAX package).

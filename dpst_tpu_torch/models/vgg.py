@@ -41,6 +41,7 @@ from ..ops.conv_cuda import conv3x3_same, pack_grad_weights, pack_weights
 from ..ops.gram_s2d import RawTap
 from ..ops.kernels import torch_dtype
 from ..ops.pool_cuda import maxpool2_bwd
+from ..utils.runtime import canonical, params_on
 
 # VGG-19 convolutional topology: block -> (num convs, out channels).
 VGG19_BLOCKS = ((2, 64), (2, 128), (4, 256), (4, 512), (4, 512))
@@ -239,6 +240,18 @@ def pack_params(params: dict, compute_dtype,
     out.key = key
     out.block12 = block12_pallas.pack_weights(params, cdt)
     return out
+
+
+def params_by_device(params: dict, devices, compute_dtype,
+                     conv_impl: str = "auto") -> dict:
+    """{device: `pack_params` of `params` on it} for each distinct device
+    of `devices`, keyed as tensors name their devices
+    (`runtime.canonical`): packed once, on the first, and moved packed
+    (`runtime.params_on`) to the others."""
+    devs = list(dict.fromkeys(map(canonical, devices)))
+    packed = pack_params(params_on(params, devs[0]), compute_dtype,
+                         conv_impl)
+    return {d: params_on(packed, d) for d in devs}
 
 
 def _pool(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -275,11 +275,19 @@ def masked_grams_raw(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     return GramRaw.apply(f, m2)
 
 
-def normalize(g: torch.Tensor, masks: torch.Tensor, norm: str = "m2",
-              eps: float = 1e-8) -> torch.Tensor:
-    """Raw (..., K, C, C) Grams over max(n_k, eps), with n_k = Σ m_k²
-    ("m2") or Σ m_k ("m1") of the fp32 (..., K, h, w) masks."""
+def mask_norms(masks: torch.Tensor, norm: str = "m2") -> torch.Tensor:
+    """n_k = Σ m_k² ("m2") or Σ m_k ("m1") of the fp32 (..., K, h, w)
+    masks: (..., K)."""
     m32 = masks.to(torch.float32)
-    n = (torch.sum(m32 * m32, dim=(-2, -1)) if norm == "m2"
-         else torch.sum(m32, dim=(-2, -1)))
+    return (torch.sum(m32 * m32, dim=(-2, -1)) if norm == "m2"
+            else torch.sum(m32, dim=(-2, -1)))
+
+
+def normalize(g: torch.Tensor, masks: torch.Tensor, norm: str = "m2",
+              eps: float = 1e-8, norms: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """Raw (..., K, C, C) Grams over max(n_k, eps), n_k the `mask_norms` of
+    the masks, or the (..., K) `norms` given (a row-sharded loop takes
+    them from the whole image's masks; `masks` may then be None)."""
+    n = mask_norms(masks, norm) if norms is None else norms
     return g / torch.clamp_min(n, eps)[..., None, None]

@@ -135,12 +135,10 @@ class _Photoreal(torch.autograd.Function):
     (2/255)·y·g from the forward's y (L is symmetric)."""
 
     @staticmethod
-    def forward(ctx, packed: torch.Tensor, img255: torch.Tensor):
-        # laplacian_cuda imports this module for its plain version
-        from .laplacian_cuda import lap_matvec
+    def forward(ctx, packed: torch.Tensor, img255: torch.Tensor, matvec):
         v3 = (img255.to(torch.float32) * (1.0 / 255.0)).movedim(
             -1, -3).contiguous()
-        y = lap_matvec(packed, v3)
+        y = matvec(packed, v3)
         ctx.save_for_backward(y)
         return torch.sum(v3 * y, dim=(-3, -2, -1))
 
@@ -148,16 +146,20 @@ class _Photoreal(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         (y,) = ctx.saved_tensors
         return None, ((2.0 / 255.0) * y * g[..., None, None, None]).movedim(
-            -3, -1)
+            -3, -1), None
 
 
-def photoreal_loss(packed: torch.Tensor, img255: torch.Tensor
-                   ) -> torch.Tensor:
+def photoreal_loss(packed: torch.Tensor, img255: torch.Tensor,
+                   matvec=None) -> torch.Tensor:
     """Photorealism regularizer Σ_c v_cᵀ·L·v_c on a [0,255] (H, W, 3) image
     (a scalar), or on a batch (B, H, W, 3) ((B,), one matvec launch).
 
     `packed` is the (14, H, W) plane stack of `laplacian_cuda.pack_stats`
     (for a batch (B, 14, H, W), or one stack shared by the pairs). One
-    matvec per call: the CUDA kernel on CUDA tensors, the plain path on
-    CPU tensors."""
-    return _Photoreal.apply(packed, img255)
+    matvec per call, `matvec(packed, v3)`: by default `lap_matvec` (the
+    CUDA kernel on CUDA tensors, the plain path on CPU tensors);
+    `laplacian_impl="spmd"` passes a `laplacian_spmd.AmbientMatvec`."""
+    if matvec is None:
+        # laplacian_cuda imports this module for its plain version
+        from .laplacian_cuda import lap_matvec as matvec
+    return _Photoreal.apply(packed, img255, matvec)

@@ -32,7 +32,7 @@ from .config import StylizeConfig
 from .models import vgg
 from .ops import block12_pallas as b12
 from .ops import laplacian as lap
-from .ops import losses
+from .ops import laplacian_spmd, losses
 from .ops.gram_stream import normalize
 from .utils import runtime
 
@@ -215,10 +215,14 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
     [total, content, style, photoreal, tv]; for a batch, image (B, H, W, 3)
     with batched constants, total the sum of the pairs' totals and terms
     (B, 5). One pair runs as a batch of one. Blocks 1-2 take
-    `block12_route`'s route, decided on one pair's shapes."""
+    `block12_route`'s route, decided on one pair's shapes. With
+    `laplacian_impl="spmd"` the photorealism term's matvec splits its rows
+    over the ambient mesh (`ops/laplacian_spmd.AmbientMatvec`)."""
     style_lw = dict(zip(cfg.style_layers, cfg.style_layer_weights))
     all_layers, b12_layers, deep_layers = _block12_layers(cfg)
     norm = "m1" if cfg.style_norm == "paper" else "m2"
+    matvec = (laplacian_spmd.AmbientMatvec()
+              if cfg.laplacian_impl == "spmd" else None)
 
     def features(image, consts, vgg_params):
         """(batched taps, normalized Grams of the layers that need no
@@ -270,7 +274,7 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
             style_lw, compute_dtype=cfg.compute_dtype,
             style_norm=cfg.style_norm, gram_impl=cfg.gram_impl,
             g_out=g_out)
-        l_reg = (lap.photoreal_loss(consts.lap_stats, image)
+        l_reg = (lap.photoreal_loss(consts.lap_stats, image, matvec)
                  if consts.lap_stats is not None else zero)
         l_tv = losses.tv_loss(image) if cfg.tv_weight else zero
         total = (weights.content * l_content + weights.style * l_style
@@ -526,25 +530,82 @@ def run_segment(image: torch.Tensor, opt_state, consts: StylizeConstants,
             first_step)
         return (logits_to_pixels(u) if cfg.clip_pixels else u), opt_state, \
             history
-    loss_fn = make_loss_fn(cfg)
+    return drain(adam_segment(image, opt_state, consts, weights, vgg_params,
+                              n_steps, cfg, first_step))
+
+
+def adam_steps(params: list, states: list, loss, n_steps: int,
+               cfg: StylizeConfig, first_step: int = 0):
+    """Generator of `n_steps` Adam steps of the tensors `params` (one image,
+    or the row shards of one, `parallel/spatial.py`) with their AdamStates,
+    under `loss(params) -> (total, terms)`: each step the loss and its
+    gradient for every tensor, the check of `cfg.debug_nans` (a batch's
+    names the pair), the update and the clip of each tensor. Yields after
+    each step; returns (params, states, the steps' detached terms)."""
     opt = Adam(cfg)
     rows = []
     for i in range(n_steps):
-        img = image.detach().requires_grad_(True)
-        total, terms = loss_fn(img, consts, weights, vgg_params)
-        (grad,) = torch.autograd.grad(total, img)
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        total, terms = loss(leaves)
+        grads = torch.autograd.grad(total, leaves)
         if cfg.debug_nans:
-            # a batch's check names the pair
-            runtime.check_finite(first_step + i, terms[..., 0], grad)
+            for g in grads:
+                runtime.check_finite(first_step + i,
+                                     terms[..., 0].to(g.device), g)
         rows.append(terms.detach())
-        update, opt_state = opt.update(grad, opt_state)
-        image = image.detach() + update
-        if cfg.clip_pixels:
-            image = torch.clamp(image, 0.0, 255.0)
-    history = (torch.stack(rows, -2) if rows else
-               torch.zeros((*image.shape[:-3], 0, 5), dtype=torch.float32,
-                           device=image.device))
-    return image, opt_state, history
+        params, new_states = [], []
+        for leaf, g, st in zip(leaves, grads, states):
+            update, st = opt.update(g, st)
+            p = leaf.detach() + update
+            params.append(torch.clamp(p, 0.0, 255.0) if cfg.clip_pixels
+                          else p)
+            new_states.append(st)
+        states = new_states
+        yield
+    return params, states, rows
+
+
+def stack_rows(rows: list, image: torch.Tensor) -> torch.Tensor:
+    """The history (n, 5), or (B, n, 5) for a batch image, of the terms
+    that `adam_steps` returned."""
+    if rows:
+        return torch.stack(rows, -2)
+    return torch.zeros((*image.shape[:-3], 0, 5), dtype=torch.float32,
+                       device=image.device)
+
+
+def adam_segment(image: torch.Tensor, opt_state, consts: StylizeConstants,
+                 weights: LossWeights, vgg_params: dict, n_steps: int,
+                 cfg: StylizeConfig, first_step: int = 0):
+    """`run_segment`'s Adam steps as a generator that yields after each
+    step (so that loops on several devices can take their steps in turns);
+    returns (image, opt_state, history)."""
+    loss_fn = make_loss_fn(cfg)
+    (image,), (opt_state,), rows = yield from adam_steps(
+        [image], [opt_state],
+        lambda p: loss_fn(p[0], consts, weights, vgg_params), n_steps, cfg,
+        first_step)
+    return image, opt_state, stack_rows(rows, image)
+
+
+def drain(gen):
+    """Run a generator to its end; its return value."""
+    return interleave([gen])[0]
+
+
+def interleave(gens: list) -> list:
+    """Advance the generators one step each in turn until every one has
+    ended; their return values, in order."""
+    out = [None] * len(gens)
+    live = list(range(len(gens)))
+    while live:
+        for i in list(live):
+            try:
+                next(gens[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+                live.remove(i)
+    return out
 
 
 def run(image0: torch.Tensor, consts: StylizeConstants,

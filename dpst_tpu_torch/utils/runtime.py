@@ -36,10 +36,27 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def canonical(device) -> torch.device:
+    """The device as a tensor's `.device` names it ("cuda" -> "cuda:0" on
+    the current device), so that devices compare equal to tensors'."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def params_on(params: dict, dev: torch.device) -> dict:
-    """A weight dict ({layer: {name: tensor}}) with every tensor on `dev`."""
-    return {k: {n: t.to(dev) for n, t in p.items()}
-            for k, p in params.items()}
+    """A weight dict ({layer: {name: tensor}}) with every tensor on `dev`.
+    A packed dict (`models.vgg.PackedParams`) stays packed: its packed
+    forms move with it, so that `pack_params` takes it as it is."""
+    out = {k: {n: t.to(dev) for n, t in p.items()}
+           for k, p in params.items()}
+    if not hasattr(params, "key"):
+        return out
+    out = type(params)(out)
+    out.key = params.key
+    out.block12 = type(params.block12)(*(t.to(dev) for t in params.block12))
+    return out
 
 
 def check_finite(step: int, loss: torch.Tensor, grad: torch.Tensor) -> None:

@@ -265,6 +265,16 @@ def test_autotune_callable_after_submodule_import(weights):
                                   **weights["torch"], device="cpu")
     assert res.images.shape == (1, 16, 16, 3)
     assert res.best_gamma == 1.0 and np.isfinite(res.scores).all()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        dpst_tpu_torch.autotune(content, style, cfg, mesh=object(),
-                                device="cpu")
+    # over a mesh of two CPU devices: one candidate each, the same result
+    # as the two candidates as one batch on one device (s2d_gram resolves
+    # to "nd" on two devices and to "pallas" on one; at 16² both take the
+    # unfused block-1 route)
+    from dpst_tpu_torch.parallel import mesh as tmesh
+    two = dict(gammas=(1.0, 100.0), **weights["torch"])
+    on_mesh = dpst_tpu_torch.autotune(
+        content, style, cfg, mesh=tmesh.make_mesh(devices=["cpu"] * 2),
+        **two)
+    alone = dpst_tpu_torch.autotune(content, style, cfg, device="cpu", **two)
+    np.testing.assert_allclose(on_mesh.images, alone.images, rtol=1e-2,
+                               atol=0.25)
+    np.testing.assert_array_equal(on_mesh.gammas, alone.gammas)

@@ -260,10 +260,11 @@ def test_fused_block1_route_matches_jax(params):
 def test_routing(toy_batch, params, monkeypatch):
     """The config a batch runs (test_sharding.py:244, one device):
     s2d_gram "auto" → "pallas", s2b_strips → 0, laplacian_impl "spmd" →
-    the XLA stencil (where `stylize` raises), others kept."""
+    the XLA stencil (where `stylize` outside an ambient mesh raises the
+    JAX package's ValueError), others kept."""
     seen = []
-    real = tbatch.run_batch
-    monkeypatch.setattr(tbatch, "run_batch",
+    real = tbatch.batch_steps
+    monkeypatch.setattr(tbatch, "batch_steps",
                         lambda *a, **k: (seen.append(a[4]), real(*a, **k))[1])
     small = (toy_batch[0][:2, :16, :16], toy_batch[1][:2, :16, :16],
              toy_batch[2][:2, :, :16, :16], toy_batch[3][:2, :, :16, :16])
@@ -272,7 +273,7 @@ def test_routing(toy_batch, params, monkeypatch):
     cfg = seen[-1]
     assert (cfg.s2d_gram, cfg.s2b_strips, cfg.laplacian_impl) == (
         "pallas", 0, "xla")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="ambient mesh"):
         dpst_tpu_torch.stylize(small[0][0], small[1][0],
                                _cfg(dpst_tpu_torch, **cfg_kw),
                                content_masks=small[2][0],
@@ -290,8 +291,20 @@ def test_routing(toy_batch, params, monkeypatch):
 
 
 def test_mesh_raises(toy_batch, params):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _port_batch(toy_batch, {}, params[1], mesh=object())
+    """A 2-D mesh whose batch axis does not divide B raises the JAX
+    package's ValueError; a one-device mesh runs as `device` does, bit for
+    bit."""
+    from dpst_tpu_torch.parallel import mesh as tmesh
+    with pytest.raises(ValueError, match="does not divide"):
+        _port_batch(tuple(a[:3] for a in toy_batch), {}, params[1],
+                    mesh=tmesh.make_mesh_2d(2, 2, devices=["cpu"] * 4))
+    two = tuple(a[:2] for a in toy_batch)
+    ref = _port_batch(two, dict(iterations=2), params[1])
+    got = dpst_tpu_torch.stylize_batch(
+        *two, _cfg(dpst_tpu_torch, iterations=2), vgg_params=params[1],
+        mesh=tmesh.make_mesh(devices=["cpu"]))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_batch_debug_nans_names_the_pair(toy_batch, params):

@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX and names nothing of the JAX
 package, and its entry points run on the GPU unless told otherwise."""
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -117,17 +118,82 @@ def test_stylize_batch_runs_without_jax_in_a_subprocess():
 
 
 def test_only_the_multi_gpu_laplacian_is_unported():
-    """`_check_ported` raises for laplacian_impl="spmd" alone: every other
-    option of every preset, automatic segmentation included, passes."""
-    from dpst_tpu_torch import api
+    """Nothing is left unported on the stylize path: every preset runs a
+    step on the CPU (16², masks given), as do L-BFGS, the Laplacian
+    options, post-smoothing and debug_nans; laplacian_impl="spmd" runs
+    inside an ambient mesh and raises the JAX package's ValueError outside
+    one."""
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.parallel import mesh as tmesh
+    img = np.random.default_rng(0).uniform(0, 255, (16, 16, 3)).astype(
+        np.float32)
+    masks = np.ones((1, 16, 16), np.float32)
+    params = vgg.init_params(0)
+    run = lambda cfg: dpst_tpu_torch.stylize(
+        img, img[::-1].copy(), dataclasses.replace(cfg, iterations=1),
+        content_masks=masks, style_masks=masks, vgg_params=params,
+        device="cpu")
     for cfg in dpst_tpu_torch.PRESETS.values():
-        api._check_ported(cfg)
-    for kw in ({"use_segmentation": True}, {"optimizer": "lbfgs"},
-               {"laplacian_impl": "pallas"}, {"laplacian_impl": "xla"},
+        assert np.isfinite(run(cfg)).all()
+    for kw in ({"optimizer": "lbfgs"}, {"laplacian_impl": "pallas"},
+               {"laplacian_impl": "xla"},
                {"post_smooth": 2, "debug_nans": True}):
-        api._check_ported(dpst_tpu_torch.StylizeConfig(**kw))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        api._check_ported(dpst_tpu_torch.StylizeConfig(laplacian_impl="spmd"))
+        assert np.isfinite(run(dpst_tpu_torch.StylizeConfig(**kw))).all()
+    spmd = dpst_tpu_torch.StylizeConfig(laplacian_impl="spmd")
+    with tmesh.use_mesh(tmesh.Mesh(["cpu"] * 2, (tmesh.ROW_AXIS,))):
+        assert np.isfinite(run(spmd)).all()
+    with pytest.raises(ValueError, match="ambient mesh"):
+        run(spmd)
+
+
+def test_mesh_runs_without_jax_in_a_subprocess():
+    """`stylize_spatial`, `matvec_spmd` and `stylize_batch` over a mesh of
+    repeated CPU devices import and run with no jax loaded, and the mesh
+    modules are among those `test_source_names_no_jax_package` reads."""
+    for name in ("parallel/mesh.py", "parallel/spatial.py",
+                 "ops/laplacian_spmd.py"):
+        assert (PKG / name).exists()
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import dpst_tpu_torch
+        from dpst_tpu_torch.models import vgg
+        from dpst_tpu_torch.ops import laplacian as lap
+        from dpst_tpu_torch.ops import laplacian_cuda as lapc
+        from dpst_tpu_torch.ops.laplacian_spmd import matvec_spmd
+        from dpst_tpu_torch.parallel import mesh
+        from dpst_tpu_torch.parallel.spatial import (make_spatial_mesh,
+                                                     stylize_spatial)
+        r = np.random.default_rng(0)
+        img = r.uniform(0, 255, (16, 16, 3)).astype(np.float32)
+        masks = np.ones((1, 16, 16), np.float32)
+        cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32",
+                                           iterations=2, max_classes=1)
+        out, hist = stylize_spatial(img, img[::-1].copy(), masks, masks,
+                                    cfg, vgg.init_params(0),
+                                    make_spatial_mesh(devices=["cpu"] * 4))
+        assert out.shape == (16, 16, 3) and hist.shape == (2, 5)
+        packed = lapc.pack_stats(lap.precompute_stats(
+            torch.from_numpy(img / 255)))
+        v = torch.from_numpy(img)
+        y = matvec_spmd(packed, v, mesh=make_spatial_mesh(devices=["cpu"] * 2))
+        assert torch.equal(y, lap.matvec(lapc.unpack_stats(packed), v))
+        out, hist = dpst_tpu_torch.stylize_batch(
+            np.stack([img] * 2), np.stack([img] * 2), masks[None].repeat(2, 0),
+            masks[None].repeat(2, 0), cfg, vgg_params=vgg.init_params(0),
+            mesh=mesh.make_mesh_2d(2, 2, devices=["cpu"] * 4))
+        assert out.shape == (2, 16, 16, 3) and np.isfinite(hist).all()
+        assert "jax" not in sys.modules, "jax was imported"
+        assert not [m for m in sys.modules
+                    if m == "dpst_tpu" or m.startswith("dpst_tpu.")]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(PKG.parent),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
 
 
 def _imported_modules(path: pathlib.Path) -> set:

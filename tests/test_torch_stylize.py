@@ -141,20 +141,31 @@ def test_callback_cadence_and_segments(params):
     ({"laplacian_impl": "spmd"}, True),
     ({"checkpoint_dir": "ckpt"}, True),
 ])
-def test_unported_features_raise(kw, masks):
-    """The multi-GPU Laplacian still raises, naming its ROADMAP item;
-    debug_nans, L-BFGS, post-smoothing, checkpointing and automatic
-    segmentation (use_segmentation=True without masks) are ported and pass
-    the check."""
-    cfg = dpst_tpu_torch.StylizeConfig(**kw)
-    if "laplacian_impl" not in kw:
-        tapi._check_ported(cfg)
-        return
-    img = np.zeros((16, 16, 3), np.float32)
+def test_unported_features_raise(kw, masks, params, tmp_path, monkeypatch):
+    """Every feature is ported: debug_nans, L-BFGS, post-smoothing,
+    checkpointing and automatic segmentation (use_segmentation=True
+    without masks; PSPNet at 48² here) each run a step at 16²; the
+    multi-GPU Laplacian (laplacian_impl="spmd") runs inside an ambient
+    mesh and, outside one, raises the JAX package's ValueError."""
+    from dpst_tpu_torch.models import pspnet
+    from dpst_tpu_torch.parallel import mesh as tmesh
+    monkeypatch.setattr(pspnet, "EVAL_SIZE", 48)
+    if "checkpoint_dir" in kw:
+        kw = {"checkpoint_dir": str(tmp_path / kw["checkpoint_dir"])}
+    cfg = dpst_tpu_torch.StylizeConfig(iterations=1, max_classes=2, **kw)
+    img = np.random.default_rng(3).uniform(0, 255, (16, 16, 3)).astype(
+        np.float32)
     m = np.ones((1, 16, 16), np.float32) if masks else None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dpst_tpu_torch.stylize(img, img, cfg, content_masks=m,
-                               style_masks=m, device="cpu")
+    run = lambda: dpst_tpu_torch.stylize(
+        img, img[::-1].copy(), cfg, content_masks=m, style_masks=m,
+        vgg_params=params[1], device="cpu")
+    if "laplacian_impl" not in kw:
+        assert np.isfinite(run()).all()
+        return
+    with pytest.raises(ValueError, match="ambient mesh"):
+        run()
+    with tmesh.use_mesh(tmesh.Mesh(["cpu"] * 2, (tmesh.ROW_AXIS,))):
+        assert np.isfinite(run()).all()
 
 
 def test_masks_must_come_together():
