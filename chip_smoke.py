@@ -13,7 +13,17 @@ no result):
                  and conv bodies (gram_wgmma.cuh, conv3x3_wgmma.cuh; the
                  bias+ReLU forward, the weighted-after backward and block12's
                  Gram cotangent among them);
-  3. kernels  -- each kernel against its plain PyTorch version on the card,
+  3. kernels  -- lap_matvec at 64² (fp32, stats made on the card) against
+                 the fp64 CSR matting Laplacian (ops/matting_oracle.py, an
+                 oracle independent of the plain version; ORACLE_TOL);
+                 gram_fwd's cap on a split's length (gram_stream.
+                 FWD_SPLIT_MAX) at the 4096² taps (random operands, K = 4)
+                 and gram_relu_fwd's at (64, 2^24), beside the same kernel
+                 launched uncapped and at a cap of CAP_ALT: each plan's
+                 Grams (and fp32 cuBLAS's) against fp64, the capped ones
+                 held to GRAM_FP64_TOL and below the uncapped control's
+                 error where the cap binds, device times in turns; then
+                 each kernel against its plain PyTorch version on the card,
                  at the shapes of the 512² config3 main path (K = 4 masks,
                  and for gram_fwd, gram_bwd and the fused pair at conv1_1
                  also K = 8, the automatic paths' masks;
@@ -153,19 +163,32 @@ no result):
                  to 4 × one device's a step as the plan implies, loop it/s,
                  precompute seconds, peak memory, device ms a step by group
                  with the halo copies apart, the first row against one
-                 unsharded step, conv1_1's Grams whole and over 4 shards
-                 against fp64; at 512² bf16 10 steps sharded against
+                 unsharded step (BATCH_ROW0_TOL), the Grams of every style
+                 tap whole and over 4 shards against fp64 (1e-4 of max|G|);
+                 at 512² bf16 10 steps sharded against
                  unsharded and a bit-identical rerun; a 64² fp32 sharded
                  run, card against CPU; `stylize_batch` of the batch phase's
                  8 pairs over a mesh of 2, each pair against the batch
                  phase's run (batch tolerances), counters, pair-it/s; a
                  2 × 2 mesh batch and `autotune` over a mesh of 2 at 64²
                  fp32, card against CPU;
-  14. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
+  14. cli     -- the CLI, `python3 -m dpst_tpu_torch` in subprocesses on
+                 the card at 512² (100 steps a run): PRESETS["config3"] with
+                 the four band masks as .npy, a loss CSV and intermediates
+                 at 50 and 100, its CSV and PNG bit-equal to an in-process
+                 `stylize` of the same files, masks and config; config3
+                 without masks (PSPNet, K = 8); --content-dir of 8 images
+                 without segmentation (one batch); --autotune over four Γ,
+                 one round of 50 steps; L-BFGS with --post-smooth 2 and
+                 --metrics; --spatial over the CUDA devices; --device 99
+                 and --laplacian-impl spmd without --spatial refused with
+                 their messages; each run's wall seconds beside the card's
+                 name and power limit;
+  15. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
       K = 8 as "<kernel> K=8", then the batched rows as "<kernel> B=8",
       then "lap_matvec spmd": 4 shards at 4096², the loop's form) and the
       nvidia-smi line;
-  15. the last line: {"ok": true, "device": {...}}.
+  16. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -300,18 +323,44 @@ SPMD_SIZES = (512, 4096)   # matvec_spmd against the one-device kernel
 SP_HIST_TOL = 1e-3
 SP_REF_TOL = 1e-3      # fp32 mesh runs, card against CPU
 # the 4096² sharded run's first history row against one unsharded step, of
-# each column's max: the VGG taps are bit-equal, but each shard's bf16
-# Gram forward sums a quarter of P a split, and the card's fp32
-# accumulation over a split rounds low by its length (`spatial_gram_
-# rounding`; ROADMAP queue 3): 2.17e-4 on the style term (NVIDIA H100 80GB
-# HBM3, 700.00 W)
-SP_ROW0_TOL = 5e-4
+# each column's max, held to the batch phase's first-row bound: the VGG
+# taps are bit-equal, and each shard's bf16 Gram forward and the whole
+# image's sum splits of at most gram_stream.FWD_SPLIT_MAX pixels, so
+# their accumulations round alike: 1.40e-5 on the style term (before the
+# cap the whole image's 63616-pixel splits rounded low: 2.17e-4; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+SP_ROW0_TOL = BATCH_ROW0_TOL
 # the bf16 Grams of conv1_1 … conv5_1 at 4096² against fp64 of the same
-# operands, max |error| over max |G|: the whole image's (the low bias of
-# a 63616-pixel split; 1.92e-4 at conv1_1) and the sum of the 4 row shards'
-# (16000 pixels a split; 3.8e-5 at conv1_1), NVIDIA H100 80GB HBM3, 700.00 W
-SP_GRAM_FP64_TOL = {"whole": 5e-4, "shards": 1e-4}
+# operands, max |error| over max |G|, of the whole image and of the sum of
+# the 4 row shards: 1.67-2.83e-5 whole, 1.11-3.02e-5 shards, every mean
+# signed error still negative, -1.1e-5 to -2.7e-5 of mean |G| (before the
+# cap: 1.92-3.69e-4 whole, the mean at conv1_1 -1.41e-4; 3.8-7.6e-5
+# shards; NVIDIA H100 80GB HBM3, 700.00 W)
+SP_GRAM_FP64_TOL = {"whole": 1e-4, "shards": 1e-4}
 SP_MESH_BATCH = 2      # stylize_batch's virtual mesh of the spatial phase
+ORACLE_SIZE = 64       # lap_matvec against the fp64 CSR matting Laplacian
+# max |error| over max |y| of the fp32 kernel against the fp64 oracle: the
+# box sums round in another order and Λ ≈ 1e6 amplifies the roundoff of
+# the cancelling terms (tests/test_torch_laplacian.py's bound; 1.21e-6 on
+# NVIDIA H100 80GB HBM3, 700.00 W)
+ORACLE_TOL = 1e-5
+CLI_ITERS = 100        # the cli phase's steps a run (500 in the preset)
+CLI_TUNE_ITERS = 50    # its autotune run's steps a candidate
+CLI_GAMMAS = ("10", "100", "1000", "10000")   # its --gamma-candidates
+CLI_DIR_IMAGES = 8     # the --content-dir run's images
+CLI_TIMEOUT_S = 300    # a run's time limit
+# (C, P) of conv1_1 … conv5_1 at 4096², K = 4: where the bf16 forward's
+# plan caps its splits (gram_stream.FWD_SPLIT_MAX; 63616-65536 pixels a
+# split without the cap); each tap's Grams against fp64 of the same bf16
+# operands, with and without the cap and at a cap of CAP_ALT, in one call
+CAP_SHAPES = ((64, 1 << 24), (128, 1 << 22), (256, 1 << 20),
+              (512, 1 << 18), (512, 1 << 16))
+CAP_ALT = 4096         # the control cap beside FWD_SPLIT_MAX
+CUBLAS_SHAPE = (512, 1 << 18)   # capped max error held to fp32 cuBLAS's
+# max |error| over max |G| of the capped bf16 forward against fp64 there:
+# 3.86-4.01e-5 of random operands (uncapped 0.87-3.87e-4, fp32 cuBLAS
+# 1.73e-4 at (512, 2^18); NVIDIA H100 80GB HBM3, 700.00 W)
+GRAM_FP64_TOL = 1e-4
 GRAM_DZ_CASES = (("shallow", 64, 8, 48, 4096, 4, True),
                  ("deep", 128, 8, 24, 2048, 4, True),
                  ("shallow", 64, 1, 48, 260, 1, False),
@@ -328,6 +377,13 @@ def fail(phase: str, msg: str) -> None:
     emit({"phase": phase, "ok": False, "error": msg})
     print(f"chip_smoke: {phase} failed: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def weights_label() -> str:
+    """The VGG bundle a path runs on, or the seeded init that stands in."""
+    from dpst_tpu_torch.utils import assets
+    path = assets.bundle_path("vgg19")
+    return path if os.path.exists(path) else f"He-init seed {SEED}"
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -512,6 +568,34 @@ def check_lap(dev, gen):
     return rows
 
 
+def check_lap_oracle(dev) -> None:
+    """lap_matvec on the card (fp32, ORACLE_SIZE², stats made on the card)
+    against the port's fp64 CSR matting Laplacian (`ops/matting_oracle.
+    matvec_oracle`, Levin's matrix assembled window by window on the
+    host): an oracle independent of the plain version."""
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.ops import laplacian_cuda as lapc
+    from dpst_tpu_torch.ops import matting_oracle as mo
+    r = np.random.default_rng(SEED + 14)
+    n = ORACLE_SIZE
+    img = r.uniform(0, 1, (n, n, 3)).astype(np.float32)
+    v = r.normal(size=(3, n, n)).astype(np.float32)
+    packed = lapc.pack_stats(lap.precompute_stats(
+        torch.from_numpy(img).to(dev)))
+    y = lapc.lap_matvec(packed, torch.from_numpy(v).to(dev)).cpu().numpy()
+    ref = mo.matvec_oracle(img.astype(np.float64),
+                           v.transpose(1, 2, 0).astype(np.float64)
+                           ).transpose(2, 0, 1)
+    rel = float(np.abs(y - ref).max() / np.abs(ref).max())
+    emit({"phase": "kernel", "name": "lap_matvec", "check":
+          "against the fp64 CSR matting Laplacian (ops/matting_oracle.py)",
+          "shape": [3, n, n], "dtype": "float32", "rel_err": rel,
+          "tol_rel": ORACLE_TOL})
+    if not rel <= ORACLE_TOL:
+        fail("kernels", f"lap_matvec {n}²: {rel} of max|y| from the fp64 "
+             f"oracle")
+
+
 def check_gram(dev, gen):
     """gram_fwd and gram_bwd (bf16: the wgmma bodies; fp32: the CUDA-core
     tiles) at the 512² taps with K = 4 and with K8 = 8 classes (the
@@ -591,6 +675,172 @@ def check_gram(dev, gen):
         if not rel <= tol:
             fail("kernels", f"gram_bwd {dtype} {c}x{p} K={k}: rel err {rel}")
     return rows
+
+
+def gram_fp64(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """The raw Grams of the bf16 (C, P) f and (K, P) m² in fp64, the
+    weighted operand round(F · m²) in bf16 as the kernels form it, summed
+    over slices of 2^20 pixels (a bounded fp64 copy)."""
+    (c, p), k = f.shape, m2.shape[0]
+    out = torch.zeros((k, c, c), dtype=torch.float64, device=f.device)
+    for a in range(0, p, 1 << 20):
+        fc = f[:, a:a + (1 << 20)]
+        f64 = fc.double()
+        for q in range(k):
+            out[q] += f64 @ (fc * m2[q, a:a + (1 << 20)]).double().T
+    return out
+
+
+def fp64_errors(g: torch.Tensor, ref: torch.Tensor) -> dict:
+    """max |g − ref| over max |ref|, and the mean signed error over mean
+    |ref| (a bias shows as a mean of one sign)."""
+    d = g.double() - ref
+    return {"max_rel": float(d.abs().max() / ref.abs().max()),
+            "mean_signed_rel": float(d.mean() / ref.abs().mean())}
+
+
+def plan_at_cap(c: int, p: int, k: int, cap: int | None
+                ) -> tuple[int, int]:
+    """(splits, chunk) of the bf16 forward of one pair as gram_stream.
+    fwd_plan cuts it, with `cap` pixels in place of FWD_SPLIT_MAX (None:
+    no cap): one wave of 2 × 132 blocks, splits at least two 128-pixel
+    stages deep, and where a split would exceed the cap, enough more,
+    raised to fill the grid's last wave. The controls of
+    check_gram_split_cap; at FWD_SPLIT_MAX it must be fwd_plan's."""
+    from dpst_tpu_torch.ops import gram_stream as gs
+    blocks = gs.fwd_blocks(c, k, 1)
+    splits = max(1, min(264 // blocks, -(-p // 256)))
+    if cap is not None and -(-p // splits) > cap:
+        splits = -(-p // cap)
+        splits = max(splits, -(-blocks * splits // 264) * 264 // blocks)
+    chunk = -(-(-(-p // splits)) // 128) * 128
+    return -(-p // chunk), chunk
+
+
+def fwd_at_plan(name: str, f: torch.Tensor, m2: torch.Tensor, plan,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The bf16 forward kernel `name` ("gram_fwd", or "gram_relu_fwd" with
+    its bias) on one CUDA (C, P) tap, P a multiple of 8, cut by `plan`
+    (splits, chunk) in place of fwd_plan's; not counted in the launch
+    counters (a control, never a main path's launch)."""
+    from dpst_tpu_torch.ops import kernels
+    (c, p), k = f.shape, m2.shape[0]
+    splits, chunk = plan
+    out = torch.empty((k, c, c), dtype=torch.float32, device=f.device)
+    work = torch.empty((1, splits, k, c, c), dtype=torch.float32,
+                       device=f.device)
+    operands = (f, m2) if bias is None else (f, bias, m2)
+    kernels.check(getattr(kernels.library(), "dpst_" + name)(
+        *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out),
+        c, p, k, 1, splits, chunk, kernels.DTYPE_CODES[f.dtype],
+        kernels.stream_ptr(f)), name)
+    return out
+
+
+def plans_in_turns(fns: dict) -> dict:
+    """Device ms of each function of `fns`, taken in turns (each in order,
+    then in reverse) and averaged per function."""
+    ms = dict.fromkeys(fns, 0.0)
+    for name in [*fns, *reversed(fns)]:
+        ms[name] += device_ms(fns[name]) / 2
+    return ms
+
+
+def check_gram_split_cap(dev, gen):
+    """The bf16 forward's cap on a split's length (gram_stream.
+    FWD_SPLIT_MAX pixels in the wgmma fp32 accumulators), at the 4096²
+    taps (CAP_SHAPES, random operands, K = 4) and for gram_relu_fwd at
+    (64, 2^24), beside two controls launched at other plans of the same
+    kernel (`plan_at_cap`): no cap (63616-65536 pixels a split) and a cap
+    of CAP_ALT pixels. Each plan's Grams and, for gram_fwd, the plain
+    version's (fp32 cuBLAS) against fp64, and each plan's device time in
+    turns. Held: the capped Grams within GRAM_FP64_TOL of max|G|,
+    bit-identical on a rerun; where the cap binds, its max and mean
+    signed errors below the uncapped control's (the cap is what lowers
+    them); at CUBLAS_SHAPE, its max error at most fp32 cuBLAS's. Launches
+    made here are not the main paths' (their counters are reset before
+    each path)."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
+    out, bad = [], []
+
+    def control_plans(c, p):
+        plans = {"capped": gs.fwd_plan(c, p, K),
+                 "uncapped": plan_at_cap(c, p, K, None),
+                 f"cap {CAP_ALT}": plan_at_cap(c, p, K, CAP_ALT)}
+        if plan_at_cap(c, p, K, gs.FWD_SPLIT_MAX) != plans["capped"]:
+            fail("kernels", f"plan_at_cap({c}, {p}) is not fwd_plan's")
+        return plans
+
+    def judge(label, errs, plans):
+        cap, unc = errs["capped"], errs["uncapped"]
+        if not cap["max_rel"] <= GRAM_FP64_TOL:
+            bad.append(f"{label}: {cap['max_rel']} of max|G| from fp64")
+        if plans["uncapped"][1] > gs.FWD_SPLIT_MAX and not (
+                cap["max_rel"] < unc["max_rel"]
+                and abs(cap["mean_signed_rel"])
+                < abs(unc["mean_signed_rel"])):
+            bad.append(f"{label}: the cap does not lower the error "
+                       f"({cap} against uncapped {unc})")
+
+    for c, p in CAP_SHAPES:
+        f = torch.randn((c, p), generator=gen, device=dev).abs().bfloat16()
+        m2 = torch.rand((K, p), generator=gen, device=dev).square(
+            ).bfloat16()
+        plans = control_plans(c, p)
+        ref = gram_fp64(f, m2)
+        capped = gs.gram_fwd(f, m2)
+        if not torch.equal(capped, gs.gram_fwd(f, m2)):
+            bad.append(f"{c}x{p}: a rerun is not bit-identical")
+        errs = {"capped": fp64_errors(capped, ref)}
+        for name, plan in list(plans.items())[1:]:
+            errs[name] = fp64_errors(fwd_at_plan("gram_fwd", f, m2, plan),
+                                     ref)
+        errs["plain (fp32 cuBLAS)"] = fp64_errors(gs.gram_fwd_plain(f, m2),
+                                                  ref)
+        del capped, ref
+        judge(f"{c}x{p}", errs, plans)
+        if ((c, p) == CUBLAS_SHAPE and not errs["capped"]["max_rel"]
+                <= errs["plain (fp32 cuBLAS)"]["max_rel"]):
+            bad.append(f"{c}x{p}: above fp32 cuBLAS's error")
+        fns = {"capped": lambda: gs.gram_fwd(f, m2)}
+        fns.update({name: (lambda plan=plan: fwd_at_plan(
+            "gram_fwd", f, m2, plan)) for name, plan in
+            list(plans.items())[1:]})
+        row = {"phase": "kernel", "check": "gram_fwd split cap",
+               "shape": [c, p], "K": K, "dtype": "bfloat16",
+               "plans": plans, "fp64": errs, "tol_max_rel": GRAM_FP64_TOL,
+               "ms": plans_in_turns(fns)}
+        emit(row)
+        out.append(row)
+        del f, m2
+        torch.cuda.empty_cache()
+    c, p = RELU_SHAPE_4096
+    z, b, m2, _ = relu_gram_input(c, p, K, torch.bfloat16, dev, gen)
+    plans = control_plans(c, p)
+    ref = gram_fp64(g2._cook(z, b), m2)
+    capped = g2.gram_relu_fwd(z, b, m2)
+    if not torch.equal(capped, g2.gram_relu_fwd(z, b, m2)):
+        bad.append(f"gram_relu_fwd {c}x{p}: a rerun is not bit-identical")
+    errs = {"capped": fp64_errors(capped, ref)}
+    for name, plan in list(plans.items())[1:]:
+        errs[name] = fp64_errors(fwd_at_plan("gram_relu_fwd", z, m2, plan,
+                                             b), ref)
+    del capped, ref
+    judge(f"gram_relu_fwd {c}x{p}", errs, plans)
+    fns = {"capped": lambda: g2.gram_relu_fwd(z, b, m2)}
+    fns.update({name: (lambda plan=plan: fwd_at_plan(
+        "gram_relu_fwd", z, m2, plan, b)) for name, plan in
+        list(plans.items())[1:]})
+    emit({"phase": "kernel", "check": "gram_relu_fwd split cap",
+          "shape": [c, p], "K": K, "dtype": "bfloat16", "plans": plans,
+          "fp64": errs, "tol_max_rel": GRAM_FP64_TOL,
+          "ms": plans_in_turns(fns)})
+    del z, b, m2
+    torch.cuda.empty_cache()
+    if bad:
+        fail("kernels", "gram_fwd split cap: " + "; ".join(bad))
+    return out
 
 
 def check_gram_wbwd(dev, gen):
@@ -1576,8 +1826,7 @@ def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
     emit({"phase": "stylize", "path": label, "size": SIZE, "K": K,
           "iterations": ITERS, "compute_dtype": cfg.compute_dtype,
           "conv_impl": cfg.conv_impl, "gram_impl": cfg.gram_impl,
-          "weights": ("weights/vgg19.npz" if os.path.exists(
-              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "weights": weights_label(),
           "precompute_s": precompute_s, "loop_it_s": loop_its,
           "wall_s": wall_s, "first_row": hist[0].tolist(),
           "last_row": hist[-1].tolist(), "launches": launches,
@@ -1844,8 +2093,7 @@ def run_multiscale(dev, gen) -> dict:
     emit({"phase": "multiscale", "size": MS_SIZE, "K": K,
           "stages": [list(st) for st in stages],
           "compute_dtype": cfg.compute_dtype,
-          "weights": ("weights/vgg19.npz" if os.path.exists(
-              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "weights": weights_label(),
           "precompute_s_per_stage": precompute_s,
           "loop_it_s_per_stage": loop_its, "wall_s": wall_s,
           "first_rows": [hist[a].tolist() for a, _ in ends],
@@ -1975,8 +2223,7 @@ def run_stream12(dev, gen) -> dict:
     emit({"phase": "stream12", "path": "config6 4096²", "size": size, "K": K,
           "iterations": B12_ITERS, "compute_dtype": cfg.compute_dtype,
           "strips": vgg.stream12_strips(cfg.stream12, size, size),
-          "weights": ("weights/vgg19.npz" if os.path.exists(
-              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "weights": weights_label(),
           "precompute_s": precompute_s, "loop_it_s": loop_its,
           "wall_s": wall_s, "first_row": hist[0].tolist(),
           "last_row": hist[-1].tolist(), "launches": launches,
@@ -3179,8 +3426,7 @@ def run_batch_path(dev, gen, smi: str) -> dict:
     emit({"phase": "batch", "path": label, "B": BATCH, "size": SIZE,
           "K": K, "iterations": BATCH_ITERS, "preset_iterations": 500,
           "compute_dtype": cfg.compute_dtype, "s2d_gram": rcfg.s2d_gram,
-          "weights": ("weights/vgg19.npz" if os.path.exists(
-              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "weights": weights_label(),
           "wall_s": wall_s, "precompute_s": precompute_s,
           "loop_it_s": BATCH_ITERS / loop_s,
           "pair_it_s": BATCH * BATCH_ITERS / loop_s,
@@ -3568,8 +3814,7 @@ def run_spatial(dev, gen, smi: str, batch_run: dict) -> tuple[dict, dict]:
           "laplacian_impl": rcfg.laplacian_impl, "level_plan": list(plan),
           "sharded_heights": [size >> l for l in range(5) if plan[l]],
           "gathered_heights": [size >> l for l in range(5) if not plan[l]],
-          "weights": ("weights/vgg19.npz" if os.path.exists(
-              vgg._DEFAULT_WEIGHTS) else f"He-init seed {SEED}"),
+          "weights": weights_label(),
           "wall_s": wall_s, "precompute_s": precompute_s,
           "loop_it_s": SP_ITERS / loop_s, "max_memory_gb": peak,
           "launches": launches, "launches_expected": need,
@@ -3636,15 +3881,11 @@ def spatial_gram_rounding(content: np.ndarray, masks: np.ndarray,
                 tap[:, i * step:(i + 1) * step].flatten(1).contiguous(),
                 m2[:, i * step:(i + 1) * step].flatten(1).contiguous()
             ).double() for i in range(n))
-            top, mean = float(ref.abs().max()), float(ref.abs().mean())
-            out[layer] = {}
-            for side, g, p in (("whole", whole, h * w),
-                               ("shards", parts, step * w)):
-                d = g - ref
-                out[layer][side] = {
-                    "max_rel": float(d.abs().max()) / top,
-                    "mean_signed_rel": float(d.mean()) / mean,
-                    "pixels_a_split": gs.fwd_plan(c, p, m2.shape[0])[1]}
+            out[layer] = {
+                side: {**fp64_errors(g, ref),
+                       "pixels_a_split": gs.fwd_plan(c, p, m2.shape[0])[1]}
+                for side, g, p in (("whole", whole, h * w),
+                                   ("shards", parts, step * w))}
             del tap, ref, whole, parts
             torch.cuda.empty_cache()
     bad = [f"{layer} {side}: {e['max_rel']} > {SP_GRAM_FP64_TOL[side]}"
@@ -3898,6 +4139,127 @@ def run_mesh_batch(dev, b: dict) -> None:
              f"pixels {pix.max()}")
 
 
+def cli_run(name: str, args: list, refused: bool = False,
+            expect: tuple = ()) -> float:
+    """`python3 -m dpst_tpu_torch <args>` in a process of its own from the
+    repository's root, on the card; fails the cli phase where it exits
+    non-zero (or, `refused`, with 0) or a piece of `expect` is missing from
+    its output. Returns its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dpst_tpu_torch", *args],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    missing = [e for e in expect if e not in res.stdout + res.stderr]
+    if (res.returncode != 0) != refused or missing:
+        fail("cli", f"{name}: rc {res.returncode}, missing {missing}; "
+             f"stdout {res.stdout[-1500:]!r}; stderr {res.stderr[-1500:]!r}")
+    return wall
+
+
+def run_cli(dev, gen, smi: str) -> None:
+    """The phase "cli": `python3 -m dpst_tpu_torch` in subprocesses on the
+    card at 512², through the entry points the flags pick: masked config3
+    (K = 4 band masks as .npy, a loss CSV, intermediates at 50 and 100)
+    held bit for bit to an in-process `stylize` of the same files, masks
+    and config (CSV against the history, PNG against the rounded image);
+    config3 without masks (PSPNet, automatic masks); a directory of
+    CLI_DIR_IMAGES images without segmentation (`stylize_batch`);
+    `--autotune` over four Γ, one round; L-BFGS with the post-process and
+    --metrics; --spatial over the CUDA devices; and two failures, --device
+    99 and --laplacian-impl spmd without --spatial. Each run's wall
+    seconds on one line with the card's name and power limit."""
+    import tempfile
+
+    import dpst_tpu_torch
+    from dpst_tpu_torch.utils import io
+
+    torch.cuda.empty_cache()  # the subprocesses take memory of their own
+    with tempfile.TemporaryDirectory(prefix="dpst_cli_") as d:
+        j = lambda *parts: os.path.join(d, *parts)
+        io.save_image(smooth_image(gen, dev, SIZE), j("content.png"))
+        io.save_image(textured_image(gen, dev, SIZE), j("style.png"))
+        np.save(j("cm.npy"), band_masks(0))
+        np.save(j("sm.npy"), band_masks(1))
+        os.makedirs(j("dir"))
+        for i in range(CLI_DIR_IMAGES):
+            io.save_image(smooth_image(gen, dev, SIZE), j("dir", f"{i}.png"))
+        pair = ["--content", j("content.png"), "--style", j("style.png"),
+                "--preset", "config3", "--size", str(SIZE)]
+        masks = ["--content-masks", j("cm.npy"), "--style-masks", j("sm.npy")]
+        steps = ["--iterations", str(CLI_ITERS)]
+        walls = {}
+        walls["masked config3"] = cli_run("masked config3", pair + masks
+                                          + steps + [
+            "--output", j("out.png"), "--loss-csv", j("loss.csv"),
+            "--intermediate-interval", str(CLI_ITERS // 2),
+            "--intermediate-dir", j("inter")],
+            expect=("final losses", "wrote " + j("loss.csv")))
+        inter = sorted(os.listdir(j("inter")))
+        csv = np.loadtxt(j("loss.csv"), delimiter=",", skiprows=1)
+        cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                                  iterations=CLI_ITERS,
+                                  intermediate_interval=CLI_ITERS // 2)
+        img, hist = dpst_tpu_torch.stylize(
+            j("content.png"), j("style.png"), cfg, size=SIZE,
+            content_masks=np.load(j("cm.npy")),
+            style_masks=np.load(j("sm.npy")),
+            callback=lambda *_: None, return_history=True)
+        png = io.load_image(j("out.png"))
+        same_csv = bool(csv.shape == hist.shape
+                        and np.array_equal(csv, hist.astype(np.float64)))
+        same_png = bool(np.array_equal(png, io.to_uint8(img)))
+        want = [f"iter_{CLI_ITERS // 2:05d}.png", f"iter_{CLI_ITERS:05d}.png"]
+        emit({"phase": "cli", "run": "masked config3", "csv_shape":
+              list(csv.shape), "intermediates": inter,
+              "csv_equals_in_process_history": same_csv,
+              "png_equals_in_process_image": same_png,
+              "max_abs_history_diff": float(np.abs(
+                  csv - hist.astype(np.float64)).max()) if csv.shape ==
+              hist.shape else None})
+        if not (csv.shape == (CLI_ITERS, 5) and inter == want and same_csv
+                and same_png):
+            fail("cli", f"masked config3: CSV {csv.shape} equal {same_csv}, "
+                 f"PNG equal {same_png}, intermediates {inter}")
+        walls["automatic masks"] = cli_run(
+            "automatic masks", pair + steps + ["--output", j("auto.png")],
+            expect=("final losses",))
+        walls["directory"] = cli_run("directory", [
+            "--content-dir", j("dir"), "--style", j("style.png"),
+            "--preset", "config3", "--size", str(SIZE), "--no-segmentation",
+            *steps, "--output", j("dir_out")],
+            expect=(f"stylized {CLI_DIR_IMAGES} images",))
+        outs = sorted(os.listdir(j("dir_out")))
+        if outs != [f"{i}.png" for i in range(CLI_DIR_IMAGES)]:
+            fail("cli", f"directory: outputs {outs}")
+        walls["autotune"] = cli_run("autotune", pair + masks + [
+            "--autotune", "--gamma-candidates", *CLI_GAMMAS,
+            "--tune-rounds", "1", "--iterations", str(CLI_TUNE_ITERS),
+            "--output", j("tuned.png")], expect=("autotune: best Γ =",))
+        walls["lbfgs"] = cli_run("lbfgs", pair + masks + steps + [
+            "--optimizer", "lbfgs", "--post-smooth", "2", "--metrics",
+            "--output", j("lbfgs.png")],
+            expect=("SSIM=", "PSNR=", "final loss: total="))
+        n = torch.cuda.device_count()
+        walls["spatial"] = cli_run("spatial", pair + masks + steps + [
+            "--spatial", str(n), "--output", j("sp.png")],
+            expect=(f"{n}-way row-sharded", "final losses"))
+        walls["--device 99"] = cli_run(
+            "--device 99", pair + ["--device", "99"], refused=True,
+            expect=("--device 99 out of range",))
+        walls["spmd without --spatial"] = cli_run(
+            "spmd without --spatial", pair + ["--laplacian-impl", "spmd"],
+            refused=True, expect=("needs a row-sharded mesh",))
+        for name in ("out.png", "auto.png", "tuned.png", "lbfgs.png",
+                     "sp.png"):
+            out = io.load_image(j(name))
+            if out.shape != (SIZE, SIZE, 3):
+                fail("cli", f"{name}: shape {out.shape}")
+    emit({"phase": "cli", "size": SIZE, "iterations": CLI_ITERS,
+          "wall_s": walls, "nvidia_smi": smi})
+
+
 def summarize(rows: list, launches: dict, k: int = K, b: int = 1) -> list:
     """One entry per kernel: times and bounds summed over the shapes one
     step of its main path launches (512² config3 for the first four
@@ -4066,7 +4428,10 @@ def main() -> int:
     seconds = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     rows = check_lap(dev, gen)
+    check_lap_oracle(dev)
     rows += check_gram(dev, gen)
+    check_gram_split_cap(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 40))
     rows += check_gram_relu(dev, gen)
     rows += check_pool(dev, gen)
     rows += check_gram_wbwd(dev, gen)
@@ -4137,6 +4502,9 @@ def main() -> int:
         f"config3 spatial {SP_SIZE}², {SP_SHARDS} shards": spmd_entry[
             "launches"]}
     seconds["spatial"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(dev, torch.Generator(device=dev).manual_seed(SEED + 23), smi)
+    seconds["cli"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)

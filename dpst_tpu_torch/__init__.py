@@ -18,7 +18,9 @@ tensor per device) splits the pairs of `stylize_batch` and the
 candidates of `autotune`; `parallel/spatial.stylize_spatial` shards one
 image's rows over it with explicit halo exchanges, and
 `laplacian_impl="spmd"` splits the Laplacian's rows over the ambient mesh
-(`ops/laplacian_spmd.py`). Still missing: the CLI.
+(`ops/laplacian_spmd.py`). `python -m dpst_tpu_torch` is the command line
+(`cli.py`): the JAX package's flags, on the CUDA card or, with `--device
+cpu`, on the CPU.
 """
 from .api import prepare_constants, stylize
 # the submodule is imported here, before the name is bound to the function:

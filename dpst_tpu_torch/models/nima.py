@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import torch_dtype
 from ..ops.resize import resize_image
+from ..utils import assets
 from .pspnet import same_pads
 from .vgg import set_exact_backends
 
@@ -33,9 +34,6 @@ N_BINS = 10
 MB_BLOCKS = ((1, 64), (2, 128), (1, 128), (2, 256), (1, 256), (2, 512),
              (1, 512), (1, 512), (1, 512), (1, 512), (1, 512), (2, 1024),
              (1, 1024))
-
-_DEFAULT_WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "..",
-                                "weights", "nima_mobilenet.npz")
 
 
 def _specs():
@@ -112,10 +110,11 @@ def load_params(path: str, device=None) -> dict:
 
 def get_params(weights_path: str | None = None, seed: int = 0,
                device=None) -> dict:
-    """AVA weights if a bundle exists ($DPST_NIMA_WEIGHTS or
-    weights/nima_mobilenet.npz), else the seeded random init."""
+    """AVA weights if a bundle exists (`utils.assets.bundle_path`:
+    $DPST_NIMA_WEIGHTS or weights/nima_mobilenet.npz), else the seeded
+    random init."""
     if weights_path is None:
-        weights_path = os.environ.get("DPST_NIMA_WEIGHTS", _DEFAULT_WEIGHTS)
+        weights_path = assets.bundle_path("nima_mobilenet")
     if weights_path and os.path.exists(weights_path):
         return load_params(weights_path, device)
     return init_params(seed, device=device)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import torch_dtype
 from ..ops.resize import resize_image
+from ..utils import assets
 from .vgg import set_exact_backends
 
 N_CLASSES = 150
@@ -41,9 +42,6 @@ RGB_STD = (58.395, 57.12, 57.375)
 
 # (blocks, out_channels, stride, dilation) per stage
 STAGES = ((3, 256, 1, 1), (4, 512, 2, 1), (6, 1024, 1, 2), (3, 2048, 1, 4))
-
-_DEFAULT_WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "..",
-                                "weights", "pspnet50_ade20k.npz")
 
 
 def _conv_spec():
@@ -121,11 +119,11 @@ def load_params(path: str, device=None) -> dict:
 
 def get_params(weights_path: str | None = None, seed: int = 0,
                device=None) -> dict:
-    """ADE20K weights if a bundle exists ($DPST_PSPNET_WEIGHTS or
-    weights/pspnet50_ade20k.npz), else the seeded random init."""
+    """ADE20K weights if a bundle exists (`utils.assets.bundle_path`:
+    $DPST_PSPNET_WEIGHTS or weights/pspnet50_ade20k.npz), else the seeded
+    random init."""
     if weights_path is None:
-        weights_path = os.environ.get("DPST_PSPNET_WEIGHTS",
-                                      _DEFAULT_WEIGHTS)
+        weights_path = assets.bundle_path("pspnet50_ade20k")
     if weights_path and os.path.exists(weights_path):
         return load_params(weights_path, device)
     return init_params(seed, device=device)

@@ -41,6 +41,7 @@ from ..ops.conv_cuda import conv3x3_same, pack_grad_weights, pack_weights
 from ..ops.gram_s2d import RawTap
 from ..ops.kernels import torch_dtype
 from ..ops.pool_cuda import maxpool2_bwd
+from ..utils import assets
 from ..utils.runtime import canonical, params_on
 
 # VGG-19 convolutional topology: block -> (num convs, out channels).
@@ -62,9 +63,6 @@ for _b, (_n, _out) in enumerate(VGG19_BLOCKS, start=1):
 
 # Caffe/ImageNet channel means in BGR order.
 BGR_MEANS = (103.939, 116.779, 123.68)
-
-_DEFAULT_WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "..",
-                                "weights", "vgg19.npz")
 
 
 def params_from_numpy(params: dict, device=None) -> dict:
@@ -112,10 +110,11 @@ def init_params(seed: int = 0, generator: torch.Generator | None = None,
 
 def get_params(weights_path: str | None = None, seed: int = 0,
                device=None) -> dict:
-    """ImageNet weights if a bundle exists ($DPST_VGG_WEIGHTS or
-    weights/vgg19.npz), else the seeded random init."""
+    """ImageNet weights if a bundle exists (`utils.assets.bundle_path`:
+    $DPST_VGG_WEIGHTS or weights/vgg19.npz), else the seeded random
+    init."""
     if weights_path is None:
-        weights_path = os.environ.get("DPST_VGG_WEIGHTS", _DEFAULT_WEIGHTS)
+        weights_path = assets.bundle_path("vgg19")
     if weights_path and os.path.exists(weights_path):
         return load_params(weights_path, device)
     return init_params(seed, device=device)

@@ -38,6 +38,15 @@ _TARGET_BLOCKS = 4 * 132   # a few waves of blocks on the H100's 132 SMs
 _WG_DEPTH = 128
 _WG_CLASSES = 4
 _WG_BLOCKS = 2 * 132
+# the most pixels one split of the bf16 forward sums in its wgmma fp32
+# accumulators: the tensor cores' accumulation does not round to nearest,
+# and a split sums low by about its length in k16 steps times 2^-25 of its
+# size (conv1_1's Grams at 4096², mean: 1.4e-4 below fp64 with 63616
+# pixels a split, still 1.1e-5 with 8064; NVIDIA H100 80GB HBM3, 700.00
+# W); the splits' partials are then summed with round-to-nearest adds.
+# 8192 leaves every 512² plan as it was, the B = 8 batch's 8064-pixel
+# splits at conv1_1 among them
+FWD_SPLIT_MAX = 8192
 _ROW = 8                   # bf16 elements in a 16-byte row segment
 _SMS = 132                 # streaming multiprocessors of the H100
 # blocks of the bf16 backward resident on one SM, by c tile (shared memory:
@@ -95,9 +104,15 @@ def fwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int]:
     `chunk` pixels (a multiple of the 128-pixel stage): as many as keep
     the grid of tiles × class groups × B pairs × splits within one wave of
     two blocks for each of the H100's SMs, each split at least two stages
-    deep."""
+    deep; where those would exceed FWD_SPLIT_MAX pixels (a multiple of
+    128), enough more to keep within it, raised to fill the grid's last
+    wave."""
     blocks = fwd_blocks(c, k, 1) * b
     splits = max(1, min(_WG_BLOCKS // blocks, -(-p // (2 * _WG_DEPTH))))
+    if -(-p // splits) > FWD_SPLIT_MAX:
+        splits = -(-p // FWD_SPLIT_MAX)
+        waves = -(-blocks * splits // _WG_BLOCKS)
+        splits = max(splits, waves * _WG_BLOCKS // blocks)
     chunk = -(-p // splits)
     chunk = -(-chunk // _WG_DEPTH) * _WG_DEPTH
     return -(-p // chunk), chunk

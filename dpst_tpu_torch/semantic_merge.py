@@ -137,10 +137,9 @@ def _external_matrix() -> np.ndarray | None:
     cosine similarities of label-name embeddings computed offline.
     Loaded once; rows/cols follow ADE20K benchmark class order."""
     import os
-    path = os.environ.get(
-        "DPST_SIMILARITY_MATRIX",
-        os.path.join(os.path.dirname(__file__), "..", "weights",
-                     "similarity_matrix.npz"))
+
+    from .utils import assets
+    path = assets.bundle_path("similarity_matrix")
     if not (path and os.path.exists(path)):
         return None
     data = np.load(path)

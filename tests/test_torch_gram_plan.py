@@ -79,6 +79,100 @@ def test_forward_plan_small_shapes(c, p, k):
     assert chunk % 128 == 0 and (covered == 1).all()
 
 
+def _uncapped_plan(c, p, k, b=1):
+    """(splits, chunk) of the bf16 forward without FWD_SPLIT_MAX: one wave
+    of 2 × 132 blocks, splits at least two 128-pixel stages deep."""
+    blocks = tgs.fwd_blocks(c, k, 1) * b
+    splits = max(1, min(2 * SMS // blocks, -(-p // 256)))
+    chunk = -(-(-(-p // splits)) // 128) * 128
+    return -(-p // chunk), chunk
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("size,c,p", [(size, c, p)
+                                      for size, taps in TAPS.items()
+                                      for c, p in taps])
+def test_forward_plan_caps_a_split(b, size, c, p):
+    """No split of the bf16 forward sums more than FWD_SPLIT_MAX pixels in
+    its accumulators. Where it does not bind (every 512² tap, one pair or
+    eight), the plan is the uncapped one; every 4096² tap binds."""
+    splits, chunk = tgs.fwd_plan(c, p, 4, b)
+    assert chunk % 128 == 0 and chunk <= tgs.FWD_SPLIT_MAX
+    ranges = _covered(splits, chunk, p)
+    assert ranges[-1][1] == p and all(hi > lo for lo, hi in ranges)
+    assert b * splits <= 65535                   # the grid's z extent
+    uncapped = _uncapped_plan(c, p, 4, b)
+    if uncapped[1] <= tgs.FWD_SPLIT_MAX:
+        assert (splits, chunk) == uncapped
+    if size == "512²":
+        assert (splits, chunk) == uncapped
+    if size == "4096²":
+        assert uncapped[1] > tgs.FWD_SPLIT_MAX
+
+
+def test_capped_order_is_the_plain_version():
+    """The capped plan of a long P (264 → 521 splits of 8064 pixels),
+    emulated as the grid runs it (each split's partial, then the partials
+    summed in split order) on exact operands (every partial sum an integer
+    below 2^24), equals the plain version bit for bit."""
+    c, p, k = 8, 1 << 22, 2
+    r = np.random.default_rng(11)
+    f = torch.from_numpy(r.integers(0, 2, (1, c, p)).astype(
+        np.float32)).bfloat16()
+    m2 = torch.from_numpy(r.choice([0.0, 1.0], (1, k, p)).astype(
+        np.float32)).bfloat16()
+    splits, chunk = tgs.fwd_plan(c, p, k)
+    assert chunk <= tgs.FWD_SPLIT_MAX < _uncapped_plan(c, p, k)[1]
+    got = _fwd_emulated(f, m2, splits, chunk)
+    assert torch.equal(got, tgs.gram_fwd_plain(f, m2))
+
+
+def _truncating_split(f, w):
+    """One split of the bf16 forward under a model of the tensor cores'
+    accumulation: each 16-pixel step's products (exact) are added to the
+    fp32 accumulators and the sum is cut toward zero, not rounded."""
+    acc = np.zeros((f.shape[0],) * 2, np.float32)
+    for q in range(0, f.shape[1], 16):
+        exact = acc.astype(np.float64) + f[:, q:q + 16] @ w[:, q:q + 16].T
+        t = exact.astype(np.float32)
+        high = np.abs(t.astype(np.float64)) > np.abs(exact)
+        t[high] = np.nextafter(t[high], np.float32(0))
+        acc = t
+    return acc
+
+
+def test_cap_bounds_a_truncating_accumulators_low_bias():
+    """Why the plan caps a split. Under truncating accumulation a split of
+    positive products comes out low by about its k16 steps × 2⁻²⁵ of its
+    size: the 4096² taps' 63616-pixel splits (3976 steps) against the
+    capped 8064 (504 steps), their partials summed in fp32 with
+    round-to-nearest adds: the mean signed error falls below a quarter of
+    the uncapped one, the max below 1e-4 of max |G| (chip_smoke.py holds
+    the card to 1e-4 at 4096²)."""
+    r = np.random.default_rng(3)
+    c, p = 8, 63616
+    f = torch.from_numpy(np.abs(r.normal(size=(c, p))).astype(
+        np.float32)).bfloat16().float().numpy().astype(np.float64)
+    m2 = torch.from_numpy(r.uniform(0, 1, p).astype(
+        np.float32)).bfloat16().float().numpy().astype(np.float64)
+    w = torch.from_numpy((f * m2).astype(np.float32)).bfloat16(
+        ).float().numpy().astype(np.float64)
+    ref = f @ w.T
+    whole = _truncating_split(f, w)
+    capped = np.zeros((c, c), np.float32)
+    for a in range(0, p, 8064):
+        capped = capped + _truncating_split(f[:, a:a + 8064],
+                                            w[:, a:a + 8064])
+    errs = {}
+    for name, g in (("whole", whole), ("capped", capped)):
+        d = g.astype(np.float64) - ref
+        errs[name] = (d.mean() / np.abs(ref).mean(),
+                      np.abs(d).max() / np.abs(ref).max())
+    assert errs["whole"][0] < 0 and errs["whole"][1] > 5e-5
+    assert abs(errs["capped"][0]) <= abs(errs["whole"][0]) / 4
+    assert errs["capped"][1] <= 1e-4
+
+
 @pytest.mark.parametrize("c,k", [(64, 4), (96, 3), (8, 1), (37, 2), (200, 5)])
 def test_s_matrix_is_the_plain_versions_a(c, k):
     s = torch.from_numpy(np.random.default_rng(c).normal(

@@ -215,6 +215,22 @@ def test_source_names_no_jax_package(path):
             f"{path.name} imports {name}")
 
 
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The port covers the JAX package file for file: each `*.py` of
+    dpst_tpu/ has one of the same path in dpst_tpu_torch/, a Pallas file
+    (`*_pallas.py`) one of its path or its `*_cuda.py`."""
+    ref = PKG.parent / "dpst_tpu"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref)
+        names = [rel]
+        if rel.stem.endswith("_pallas"):
+            names.append(rel.with_name(rel.stem[:-len("_pallas")] + "_cuda.py"))
+        if not any((PKG / n).exists() for n in names):
+            missing.append(str(rel))
+    assert missing == []
+
+
 def test_stylize_without_cuda_and_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = np.zeros((16, 16, 3), np.float32)

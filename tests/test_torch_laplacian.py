@@ -1,6 +1,6 @@
 """The port's matting Laplacian (stats, plain matvec, packed-plane path and
 photorealism loss) against the JAX package's XLA path, its Pallas kernel
-(interpreted off-TPU) and the scipy CSR oracle.
+(interpreted off-TPU) and the scipy CSR oracles of both packages.
 
 Tolerance: relative error ≤ 1e-5 of max|y| (fp32; both sides sum the box
 windows in different orders, and Λ ≈ 1e6 amplifies the roundoff of the
@@ -17,6 +17,7 @@ from dpst_tpu.ops import matting_oracle as oracle
 from dpst_tpu_torch.ops import kernels
 from dpst_tpu_torch.ops import laplacian as tlap
 from dpst_tpu_torch.ops import laplacian_cuda as tlapc
+from dpst_tpu_torch.ops import matting_oracle as toracle
 
 EPS = 1e-5
 REL = 1e-5
@@ -63,6 +64,7 @@ def test_matvec_matches_xla_and_oracle(channels):
     js = jlap.precompute_stats(jnp.asarray(img), eps=EPS)
     _close(got, np.asarray(jlap.matvec_xla(js, jnp.asarray(v))))
     _close(got, oracle.matvec_oracle(img, v, eps=EPS))
+    _close(got, toracle.matvec_oracle(img, v, eps=EPS))
 
 
 def test_matvec_matches_pallas_interpreted():
