@@ -195,6 +195,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -338,6 +339,23 @@ SP_ROW0_TOL = BATCH_ROW0_TOL
 # shards; NVIDIA H100 80GB HBM3, 700.00 W)
 SP_GRAM_FP64_TOL = {"whole": 1e-4, "shards": 1e-4}
 SP_MESH_BATCH = 2      # stylize_batch's virtual mesh of the spatial phase
+SP_LBFGS_ITERS = 5     # the 4096² sharded L-BFGS run's steps
+# L-BFGS's trajectory bounds (tests/test_golden.py, the L-BFGS golden):
+# SSIM of the images, the history's first 10 rows, all its rows; the
+# first row (the loss at the start, one evaluation) within LBFGS_ROW0_TOL
+# where both sides run one program in fp32
+LBFGS_SSIM_MIN, LBFGS_HIST10_RTOL, LBFGS_HIST_RTOL = 0.98, 1e-2, 8e-2
+LBFGS_ROW0_TOL = 1e-5
+# the sharded 64² fp32 run, card against CPU, past its first row: where
+# the unsharded run on the same inputs, card against CPU, also leaves the
+# golden's first-rows or SSIM bound (the witness: rounding of ~1e-6 a
+# gradient grows along any L-BFGS trajectory), the sharded run is held to
+# the witness instead, rows at most LBFGS_WITNESS_SLACK farther and SSIM
+# at most 1 - LBFGS_SSIM_MIN lower
+LBFGS_WITNESS_SLACK = 0.1
+# the sharded objective and its input gradient, card against CPU, at
+# single evaluations (of the value; of max |gradient|)
+LBFGS_EVAL_TOL = 1e-5
 ORACLE_SIZE = 64       # lap_matvec against the fp64 CSR matting Laplacian
 # max |error| over max |y| of the fp32 kernel against the fp64 oracle: the
 # box sums round in another order and Λ ≈ 1e6 amplifies the roundoff of
@@ -737,6 +755,21 @@ def fwd_at_plan(name: str, f: torch.Tensor, m2: torch.Tensor, plan,
     return out
 
 
+def gram_cublas_bf16(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """The raw Grams of the bf16 (C, P) f and (K, P) m² by cuBLAS's bf16
+    GEMM (`torch.mm`) with fp32 accumulation and output, the weighted
+    operand round(F · m²) in bf16 as the kernels form it: the card's
+    tensor cores under a library."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return torch.stack([torch.mm(f, (f * mk).T, out_dtype=torch.float32)
+                            for mk in m2])
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            saved
+
+
 def plans_in_turns(fns: dict) -> dict:
     """Device ms of each function of `fns`, taken in turns (each in order,
     then in reverse) and averaged per function."""
@@ -753,9 +786,10 @@ def check_gram_split_cap(dev, gen):
     (64, 2^24), beside two controls launched at other plans of the same
     kernel (`plan_at_cap`): no cap (63616-65536 pixels a split) and a cap
     of CAP_ALT pixels. Each plan's Grams and, for gram_fwd, the plain
-    version's (fp32 cuBLAS) against fp64, and each plan's device time in
-    turns. Held: the capped Grams within GRAM_FP64_TOL of max|G|,
-    bit-identical on a rerun; where the cap binds, its max and mean
+    version's (fp32 cuBLAS) and bf16 cuBLAS's (fp32 accumulation: the
+    card's tensor cores under a library) against fp64, and each plan's
+    device time in turns. Held: the capped Grams within GRAM_FP64_TOL
+    of max|G|, bit-identical on a rerun; where the cap binds, its max and mean
     signed errors below the uncapped control's (the cap is what lowers
     them); at CUBLAS_SHAPE, its max error at most fp32 cuBLAS's. Launches
     made here are not the main paths' (their counters are reset before
@@ -798,6 +832,8 @@ def check_gram_split_cap(dev, gen):
                                      ref)
         errs["plain (fp32 cuBLAS)"] = fp64_errors(gs.gram_fwd_plain(f, m2),
                                                   ref)
+        errs["bf16 cuBLAS, fp32 accumulation"] = fp64_errors(
+            gram_cublas_bf16(f, m2), ref)
         del capped, ref
         judge(f"{c}x{p}", errs, plans)
         if ((c, p) == CUBLAS_SHAPE and not errs["capped"]["max_rel"]
@@ -3728,12 +3764,15 @@ def run_spatial(dev, gen, smi: str, batch_run: dict) -> tuple[dict, dict]:
     `stylize_batch` of the batch phase's 8 pairs over a virtual mesh of
     two, each pair against the batch phase's one-device run (the batch
     tolerances), counters; a 2 × 2 mesh batch and `autotune` over a mesh
-    of two at 64² fp32, card against CPU. Returns (the spatial path's
-    launches, the `kernels` line's "lap_matvec spmd" entry)."""
+    of two at 64² fp32, card against CPU; `run_spatial_lbfgs` and
+    `run_spatial_lbfgs_small`. Returns ({path: its launches} of the Adam
+    and L-BFGS paths at SP_SIZE², the `kernels` line's "lap_matvec spmd"
+    entry)."""
     import dpst_tpu_torch
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.ops.laplacian_spmd import HALO
     from dpst_tpu_torch.parallel import spatial as sp
 
     emit({"phase": "spatial", "device_count": torch.cuda.device_count(),
@@ -3835,14 +3874,22 @@ def run_spatial(dev, gen, smi: str, batch_run: dict) -> tuple[dict, dict]:
         bad.append(f"first row {row0.tolist()} from the unsharded step")
     if bad:
         fail("spatial", f"{label}: " + "; ".join(bad))
-    del img, hist, content, style
+    del img, hist
     torch.cuda.empty_cache()
-    check_path_kernels(dev, label, 1, *spatial_kernel_shapes(size, n, plan),
-                       SEED + 32)
+    # the shard shapes, which the L-BFGS run below launches too: the
+    # Laplacian's a shard's rows and its 2-row halos
+    check_path_kernels(dev, f"{label}, Adam and L-BFGS", 1,
+                       *spatial_kernel_shapes(size, n, plan), SEED + 32,
+                       lap_size=(size // n + 2 * HALO, size))
+    lbfgs_label, lbfgs_launches = run_spatial_lbfgs(
+        dev, content, style, cm, sm, params, mesh, smi)
+    del content, style
+    torch.cuda.empty_cache()
 
     run_spatial_small(dev, gen, mesh)
+    run_spatial_lbfgs_small(dev, gen, mesh)
     run_mesh_batch(dev, batch_run)
-    return launches, entry
+    return {label: launches, lbfgs_label: lbfgs_launches}, entry
 
 
 def spatial_gram_rounding(content: np.ndarray, masks: np.ndarray,
@@ -3914,9 +3961,11 @@ def spatial_kernel_shapes(size: int, n: int, plan: tuple):
 
 
 def check_path_kernels(dev, label: str, b: int, grams: list, pools: list,
-                       seed: int, lap_size: int | None = None) -> dict:
+                       seed: int, lap_size: int | tuple | None = None
+                       ) -> dict:
     """`gram_fwd`, `gram_bwd` and `pool_bwd` (and, with `lap_size`,
-    `lap_matvec` at lap_size²) at the shapes a path launches them with (b
+    `lap_matvec` at lap_size² or at (rows, columns) lap_size) at the shapes
+    a path launches them with (b
     pairs, K = 4 masks, bf16; the Laplacian fp32), each against its plain
     version pair by pair at the kernels phase's tolerances (forward 1e-3
     of max|G|, against the plain version in fp64, whose fp32 error is
@@ -3930,15 +3979,15 @@ def check_path_kernels(dev, label: str, b: int, grams: list, pools: list,
     errs = {}
     with torch.no_grad():
         if lap_size:
-            img = torch.rand((b, lap_size, lap_size, 3), generator=gen,
-                             device=dev)
+            lh, lw = ((lap_size, lap_size) if isinstance(lap_size, int)
+                      else lap_size)
+            img = torch.rand((b, lh, lw, 3), generator=gen, device=dev)
             packed = torch.stack([lapc.pack_stats(lap.precompute_stats(i))
                                   for i in img])
-            v3 = torch.rand((b, 3, lap_size, lap_size), generator=gen,
-                            device=dev)
+            v3 = torch.rand((b, 3, lh, lw), generator=gen, device=dev)
             rel = pair_errors(lapc.lap_matvec(packed, v3),
                               lapc.lap_matvec_plain(packed, v3))[1]
-            key = f"lap_matvec B={b} {lap_size}x{lap_size}"
+            key = f"lap_matvec B={b} {lh}x{lw}"
             errs[key] = rel
             if not rel <= 1e-5:
                 fail("spatial", f"{label}: {key} rel err {rel} > 1e-5")
@@ -4047,6 +4096,347 @@ def run_spatial_small(dev, gen, mesh) -> None:
     if not worst <= SP_REF_TOL:
         fail("reference", f"spatial 64²: card vs CPU history rel err "
              f"{worst} > {SP_REF_TOL}")
+
+
+def count_syncs(fn):
+    """(fn's result, the synchronizing CUDA operations it ran, their count
+    by the Python line that ran each): torch's sync debug mode warns at
+    each, and the warnings are counted."""
+    import collections
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+    return out, sum(sites.values()), dict(sites)
+
+
+def run_spatial_lbfgs(dev, content, style, cm, sm, params, mesh,
+                      smi: str) -> None:
+    """`stylize_spatial` of PRESETS["config3"] with optimizer="lbfgs",
+    laplacian_impl="pallas" (→ "spmd"), bf16, at SP_SIZE² on the row mesh
+    `mesh` (SP_SHARDS virtual shards), SP_LBFGS_ITERS steps: counters
+    reset just before and read just after, equal to the spatial path's
+    launches an evaluation × E (`spatial_launches` of E) and the
+    precompute's; peak memory; the loss falls; the first history row
+    within SP_ROW0_TOL of a one-step unsharded L-BFGS run of the same
+    resolved config. Then the loop alone on the sharded constants: steps/s
+    and evaluations/s, the synchronizing operations an evaluation (the
+    linesearch fetches each evaluation's value and slope in one copy), and
+    device ms an evaluation by group from a profile of one step."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import spatial as sp
+    n, size = SP_SHARDS, content.shape[0]
+    label = (f"config3 spatial L-BFGS {size}², {n} row shards (virtual "
+             f"mesh, one card)")
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              optimizer="lbfgs", laplacian_impl="pallas",
+                              iterations=SP_LBFGS_ITERS)
+    rcfg = cfg.spmd_safe()
+    plan = sp.level_plan(size, n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with optimize.record_evaluations() as rec:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img, hist = sp.stylize_spatial(content, style, cm, sm, cfg, params,
+                                       mesh)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    img, hist = img.cpu().numpy(), hist.cpu().numpy()
+    ev = lbfgs_evaluations(rec)
+    need = spatial_launches(plan, n, ev["E"])
+
+    # the loop alone: the constants precomputed and sharded once
+    pp = vgg.params_by_device(params, list(mesh.devices.flat),
+                              rcfg.compute_dtype, rcfg.conv_impl)
+    arrays = [torch.from_numpy(a).to(dev)[None]
+              for a in (content, style, cm, sm)]
+    consts = dpst_tpu_torch.prepare_constants(*arrays, rcfg, pp[mesh.first])
+    sc, shards = sp.shard_spatial(consts, arrays[0].clone(), mesh)
+    del consts, arrays
+    weights = optimize.LossWeights.from_config(rcfg)
+    seg = lambda steps: optimize.drain(sp.spatial_segment(
+        shards, sc, weights, pp, steps, rcfg))
+    torch.cuda.synchronize()
+    with optimize.record_evaluations() as rec_t:
+        t0 = time.perf_counter()
+        seg(SP_LBFGS_ITERS)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    e_t = lbfgs_evaluations(rec_t)["E"]
+    with optimize.record_evaluations() as rec_s:
+        _, syncs, sync_sites = count_syncs(lambda: seg(1))
+    e_s = lbfgs_evaluations(rec_s)["E"]
+    with optimize.record_evaluations() as rec_p:
+        groups = profile_spatial(lambda: seg(1), 1)
+    e_p = lbfgs_evaluations(rec_p)["E"]
+    groups = {g: ms / e_p for g, ms in groups.items()}
+    busy = sum(groups.values())
+    del sc, shards
+    torch.cuda.empty_cache()
+
+    # the first row against one unsharded L-BFGS step (the loss at the
+    # start), of each column's max over the sharded run
+    _, hist1 = dpst_tpu_torch.stylize(
+        content, style, dataclasses.replace(rcfg, laplacian_impl="xla",
+                                            iterations=1),
+        content_masks=cm, style_masks=sm, vgg_params=params,
+        return_history=True)
+    row0 = np.abs(hist[0] - hist1[0]) / np.maximum(
+        np.abs(hist).max(axis=0), 1e-30)
+    emit({"phase": "spatial", "path": label, "size": size, "shards": n,
+          "K": K, "iterations": SP_LBFGS_ITERS,
+          "compute_dtype": cfg.compute_dtype,
+          "laplacian_impl": rcfg.laplacian_impl, "level_plan": list(plan),
+          "weights": weights_label(), "wall_s": wall_s,
+          "evaluations": ev["E"], "evaluations_per_step": ev["per_step"],
+          "num_linesearch_steps": ev["linesearch"],
+          "safe_steps": ev["safe_steps"],
+          "loop_s": loop_s, "loop_evaluations": e_t,
+          "steps_per_s": SP_LBFGS_ITERS / loop_s,
+          "evaluations_per_s": e_t / loop_s,
+          "syncs_one_step": syncs, "evaluations_one_step": e_s,
+          "sync_sites": sync_sites,
+          "device_ms_per_evaluation": groups,
+          "device_busy_ms_per_evaluation": busy,
+          "evaluation_ms_unprofiled": loop_s * 1e3 / e_t,
+          "max_memory_gb": peak, "launches": launches,
+          "launches_expected": need, "first_row": hist[0].tolist(),
+          "last_row": hist[-1].tolist(),
+          "unsharded_first_row": hist1[0].tolist(),
+          "first_row_rel_err": row0.tolist(), "row0_tol_rel": SP_ROW0_TOL,
+          "nvidia_smi": smi})
+    bad = [f"{k} launched {launches[k]} times, E = {ev['E']} implies {v}"
+           for k, v in need.items() if launches[k] != v]
+    if ev["fresh"] != ev["fresh_expected"]:
+        bad.append(f"{ev['fresh']} fresh evaluations, optax's rule implies "
+                   f"{ev['fresh_expected']}")
+    if not hist[-1, 0] < hist[0, 0]:
+        bad.append(f"total loss did not fall: {hist[0, 0]} -> {hist[-1, 0]}")
+    if not (img.shape == (size, size, 3) and np.isfinite(img).all()
+            and img.min() >= 0.0 and img.max() <= 255.0):
+        bad.append("output not finite (H, W, 3) in [0, 255]")
+    if not row0.max() <= SP_ROW0_TOL:
+        bad.append(f"first row {row0.tolist()} from the unsharded step")
+    # one fetch of value and slope an evaluation, and one copy of the
+    # segment's history to the device
+    if not e_s <= syncs <= e_s + 1:
+        bad.append(f"{syncs} synchronizing operations for {e_s} "
+                   f"evaluations")
+    if bad:
+        fail("spatial", f"{label}: " + "; ".join(bad))
+    return label, launches
+
+
+def lbfgs_trajectory_errors(img, hist, ref_img, ref_hist) -> dict:
+    """The L-BFGS golden's measures of a run against a reference: SSIM of
+    the images, the relative error of the history's column 0 by row."""
+    from dpst_tpu_torch.ops import metrics
+    rel = np.abs(hist[:, 0] - ref_hist[:, 0]) / np.abs(ref_hist[:, 0])
+    return {"ssim": float(metrics.ssim(torch.from_numpy(img),
+                                       torch.from_numpy(ref_img))),
+            "rel_err_per_row": rel.tolist()}
+
+
+def lbfgs_bounds_bad(e: dict, row0_tol: float) -> list:
+    """What of `lbfgs_trajectory_errors`'s `e` breaks the L-BFGS golden's
+    bounds, the first row held to `row0_tol`."""
+    rel = np.asarray(e["rel_err_per_row"])
+    bad = []
+    if not e["ssim"] >= LBFGS_SSIM_MIN:
+        bad.append(f"SSIM {e['ssim']} < {LBFGS_SSIM_MIN}")
+    if not rel[0] <= row0_tol:
+        bad.append(f"row 0 rel err {rel[0]} > {row0_tol}")
+    if not (rel[:10].max() <= LBFGS_HIST10_RTOL
+            and rel.max() <= LBFGS_HIST_RTOL):
+        bad.append(f"rows rel err {rel.max()} (bounds {LBFGS_HIST10_RTOL} "
+                   f"/ {LBFGS_HIST_RTOL})")
+    return bad
+
+
+def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
+    """512² bf16 L-BFGS (PRESETS["config3"], laplacian "pallas",
+    LBFGS_SHORT steps) on the row mesh against the same resolved config
+    unsharded (the L-BFGS golden's bounds, the first row within
+    BATCH_ROW0_TOL: the shards' bf16 Grams round apart) and against a
+    rerun (bit for bit, evaluation counts included); then 64² fp32
+    L-BFGS runs, sharded and unsharded, on the card and on the CPU: on the
+    card sharded against unsharded within the golden's bounds (row 0
+    within LBFGS_ROW0_TOL); sharded, card against CPU, within them too, or,
+    where the unsharded run on the same inputs leaves their first-rows or
+    SSIM bound card against CPU as well (the witness), row 0 and all rows
+    within theirs and the rest within the witness's reach
+    (LBFGS_WITNESS_SLACK); evaluation counts within ±2 a step; and one
+    evaluation of the sharded objective and its gradient, card against
+    CPU, at the content image and at the CPU run's last image within
+    LBFGS_EVAL_TOL."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.parallel import spatial as sp
+    content = smooth_image(gen, dev, SIZE)
+    style = textured_image(gen, dev, SIZE)
+    cm, sm = band_masks(0, SIZE), band_masks(1, SIZE)
+    params = vgg.get_params(seed=SEED, device=dev)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              optimizer="lbfgs", laplacian_impl="pallas",
+                              iterations=LBFGS_SHORT)
+    runs = []
+    for _ in range(2):
+        with optimize.record_evaluations() as rec:
+            img, hist = sp.stylize_spatial(content, style, cm, sm, cfg,
+                                           params, mesh)
+        runs.append((img.cpu().numpy(), hist.cpu().numpy(),
+                     [r["evaluations"] for r in rec]))
+    with optimize.record_evaluations() as rec:
+        ref_img, ref_hist = dpst_tpu_torch.stylize(
+            content, style, dataclasses.replace(cfg.spmd_safe(),
+                                                laplacian_impl="xla"),
+            content_masks=cm, style_masks=sm, vgg_params=params,
+            return_history=True)
+    ref_counts = [r["evaluations"] for r in rec]
+    (img, hist, counts), (img2, hist2, counts2) = runs
+    e = lbfgs_trajectory_errors(img, hist, ref_img, ref_hist)
+    identical = bool(np.array_equal(hist, hist2)
+                     and np.array_equal(img, img2) and counts == counts2)
+    emit({"phase": "spatial", "check": f"512² bf16 L-BFGS, {SP_SHARDS} "
+          "shards against unsharded", "iterations": LBFGS_SHORT, **e,
+          "evaluations": counts, "unsharded_evaluations": ref_counts,
+          "tol": {"ssim_min": LBFGS_SSIM_MIN, "row0": BATCH_ROW0_TOL,
+                  "rows 0-9": LBFGS_HIST10_RTOL, "all": LBFGS_HIST_RTOL},
+          "rerun_bit_identical": identical})
+    bad = lbfgs_bounds_bad(e, BATCH_ROW0_TOL)
+    if not identical:
+        bad.append("the rerun is not bit-identical")
+    if bad:
+        fail("spatial", "512² sharded L-BFGS: " + "; ".join(bad))
+
+    size, k = 64, 3
+    content = smooth_image(gen, dev, size)
+    style = smooth_image(gen, dev, size)
+    cm, sm = stripe_masks(k, size)
+    cfg = dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=LBFGS_SHORT, optimizer="lbfgs",
+        regularization_weight=100.0)
+    params = vgg.init_params(SEED)
+    out = {}
+    for where, sharded in itertools.product(("cuda", "cpu"), (True, False)):
+        with optimize.record_evaluations() as rec:
+            if sharded:
+                img, hist = sp.stylize_spatial(
+                    content, style, cm, sm, cfg, params,
+                    sp.make_spatial_mesh(devices=[where] * SP_SHARDS))
+                img, hist = img.cpu().numpy(), hist.cpu().numpy()
+            else:
+                img, hist = dpst_tpu_torch.stylize(
+                    content, style, dataclasses.replace(
+                        cfg.spmd_safe(), laplacian_impl="xla"),
+                    content_masks=cm, style_masks=sm, vgg_params=params,
+                    return_history=True, device=where)
+        out[where, sharded] = (img, hist, np.asarray(
+            [r["evaluations"] for r in rec]))
+    pairs = {"card against CPU, sharded": (("cuda", True), ("cpu", True)),
+             "card against CPU, unsharded (the witness)": (
+                 ("cuda", False), ("cpu", False)),
+             "sharded against unsharded, card": (("cuda", True),
+                                                 ("cuda", False)),
+             "sharded against unsharded, CPU": (("cpu", True),
+                                                ("cpu", False))}
+    e = {name: {**lbfgs_trajectory_errors(*out[a][:2], *out[b][:2]),
+                "evaluation_steps_apart": int(np.abs(out[a][2]
+                                                     - out[b][2]).max())}
+         for name, (a, b) in pairs.items()}
+    shard, witness = (e["card against CPU, sharded"],
+                      e["card against CPU, unsharded (the witness)"])
+    # the objective and its input gradient, card against CPU, at the
+    # content image and at the CPU run's last image: one evaluation each
+    points = {"content image": content,
+              "cpu's last image": out["cpu", True][0]}
+    at = {name: {where: sharded_value_grad(
+        img, where, cfg, params, content, style, cm, sm)
+        for where in ("cuda", "cpu")} for name, img in points.items()}
+    evals = {name: {"value_rel": abs(v["cuda"][0] - v["cpu"][0])
+                    / abs(v["cpu"][0]),
+                    "grad_rel": float((v["cuda"][1] - v["cpu"][1]).abs()
+                                      .max() / v["cpu"][1].abs().max())}
+             for name, v in at.items()}
+    emit({"phase": "reference", "path": f"config3 spatial L-BFGS, "
+          f"{SP_SHARDS} shards", "size": size, "K": k,
+          "iterations": LBFGS_SHORT, "compute_dtype": "float32", **e,
+          "evaluations": {f"{w}, {'sharded' if s_ else 'unsharded'}":
+                          o[2].tolist() for (w, s_), o in out.items()},
+          "one_evaluation_card_vs_cpu": evals,
+          "tol": {"row0": LBFGS_ROW0_TOL, "ssim_min": LBFGS_SSIM_MIN,
+                  "rows 0-9": LBFGS_HIST10_RTOL, "all": LBFGS_HIST_RTOL,
+                  "witness_slack": LBFGS_WITNESS_SLACK, "evaluations": 2,
+                  "one evaluation": LBFGS_EVAL_TOL}})
+    # sharding adds no divergence on the card: the golden's bounds
+    bad = [f"sharded against unsharded on the card: {b}" for b in
+           lbfgs_bounds_bad(e["sharded against unsharded, card"],
+                            LBFGS_ROW0_TOL)]
+    # card against CPU: the golden's bounds, the first rows' and SSIM's
+    # held to the witness where the unsharded run leaves them too
+    held = lbfgs_bounds_bad(shard, LBFGS_ROW0_TOL)
+    if held and lbfgs_bounds_bad(witness, LBFGS_ROW0_TOL):
+        rel, ref = (np.asarray(x["rel_err_per_row"])
+                    for x in (shard, witness))
+        held = []
+        if not rel[0] <= LBFGS_ROW0_TOL:
+            held.append(f"row 0 rel err {rel[0]} > {LBFGS_ROW0_TOL}")
+        if not rel.max() <= LBFGS_HIST_RTOL:
+            held.append(f"rows rel err {rel.max()} > {LBFGS_HIST_RTOL}")
+        if not rel[:10].max() <= (1.0 + LBFGS_WITNESS_SLACK) * ref[
+                :10].max():
+            held.append(f"rows 0-9 rel err {rel[:10].max()} past the "
+                        f"witness's {ref[:10].max()}")
+        if not shard["ssim"] >= witness["ssim"] - (1.0 - LBFGS_SSIM_MIN):
+            held.append(f"SSIM {shard['ssim']} below the witness's "
+                        f"{witness['ssim']}")
+    bad += [f"card against CPU: {b}" for b in held]
+    bad += [f"{name}: evaluation counts differ by more than 2 at a step"
+            for name, v in e.items() if not v["evaluation_steps_apart"] <= 2]
+    bad += [f"{name}: {v}" for name, v in evals.items()
+            if not max(v.values()) <= LBFGS_EVAL_TOL]
+    if bad:
+        fail("reference", "spatial L-BFGS 64²: " + "; ".join(bad))
+
+
+def sharded_value_grad(image, where: str, cfg, params, content, style, cm,
+                       sm) -> tuple:
+    """The row-sharded objective of `cfg` (SP_SHARDS shards on `where`)
+    at `image` (H, W, 3), with the constants of the pair, and its input
+    gradient (on the host): (value, gradient)."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.parallel import spatial as sp
+    mesh = sp.make_spatial_mesh(devices=[where] * SP_SHARDS)
+    rcfg = cfg.spmd_safe()
+    pp = vgg.params_by_device(params, list(mesh.devices.flat),
+                              rcfg.compute_dtype, rcfg.conv_impl)
+    arrays = [torch.from_numpy(np.asarray(a)).to(mesh.first)[None]
+              for a in (content, style, cm, sm, image)]
+    consts = dpst_tpu_torch.prepare_constants(*arrays[:4], rcfg,
+                                              pp[mesh.first])
+    sc, shards = sp.shard_spatial(consts, arrays[4], mesh, rcfg.style_norm)
+    shards = [s.requires_grad_(True) for s in shards]
+    total, _ = sp.make_spatial_loss(rcfg)(
+        shards, sc, optimize.LossWeights.from_config(rcfg), pp)
+    grad = torch.cat(torch.autograd.grad(total, shards), dim=-3)
+    return float(total.detach()), grad.cpu()
 
 
 def run_mesh_batch(dev, b: dict) -> None:
@@ -4167,7 +4557,8 @@ def run_cli(dev, gen, smi: str) -> None:
     config3 without masks (PSPNet, automatic masks); a directory of
     CLI_DIR_IMAGES images without segmentation (`stylize_batch`);
     `--autotune` over four Γ, one round; L-BFGS with the post-process and
-    --metrics; --spatial over the CUDA devices; and two failures, --device
+    --metrics; --spatial over the CUDA devices, with Adam and with L-BFGS;
+    and two failures, --device
     99 and --laplacian-impl spmd without --spatial. Each run's wall
     seconds on one line with the card's name and power limit."""
     import tempfile
@@ -4245,6 +4636,11 @@ def run_cli(dev, gen, smi: str) -> None:
         walls["spatial"] = cli_run("spatial", pair + masks + steps + [
             "--spatial", str(n), "--output", j("sp.png")],
             expect=(f"{n}-way row-sharded", "final losses"))
+        walls["spatial lbfgs"] = cli_run("spatial lbfgs", pair + masks
+                                         + steps + [
+            "--spatial", str(n), "--optimizer", "lbfgs",
+            "--output", j("sp_lbfgs.png")],
+            expect=(f"{n}-way row-sharded", "final losses"))
         walls["--device 99"] = cli_run(
             "--device 99", pair + ["--device", "99"], refused=True,
             expect=("--device 99 out of range",))
@@ -4252,7 +4648,7 @@ def run_cli(dev, gen, smi: str) -> None:
             "spmd without --spatial", pair + ["--laplacian-impl", "spmd"],
             refused=True, expect=("needs a row-sharded mesh",))
         for name in ("out.png", "auto.png", "tuned.png", "lbfgs.png",
-                     "sp.png"):
+                     "sp.png", "sp_lbfgs.png"):
             out = io.load_image(j(name))
             if out.shape != (SIZE, SIZE, 3):
                 fail("cli", f"{name}: shape {out.shape}")
@@ -4423,6 +4819,11 @@ def main() -> int:
     lib = kernels.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     emit({"phase": "build", "wgmma_kernels": wgmma_resources(lib)})
+    # ptxas's C7514: it serialized a kernel's wgmma (a register an
+    # in-flight wgmma writes was touched by another instruction)
+    emit({"phase": "build", "wgmma_serialized": [
+        line.strip() for text in kernels.BUILD_LOG.values()
+        for line in text.splitlines() if "C7514" in line]})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     seconds = {"build": time.perf_counter() - t0}
@@ -4497,10 +4898,10 @@ def main() -> int:
     launches_sp, spmd_entry = run_spatial(
         dev, torch.Generator(device=dev).manual_seed(SEED + 22), smi,
         batch_run)
-    spmd_entry["launches"] = launches_sp["lap_matvec"]
     spmd_entry["launches_by_path"] = {
-        f"config3 spatial {SP_SIZE}², {SP_SHARDS} shards": spmd_entry[
-            "launches"]}
+        path: n["lap_matvec"] for path, n in launches_sp.items()}
+    spmd_entry["launches"] = sum(spmd_entry["launches_by_path"].values())
+    launches.update(launches_sp)
     seconds["spatial"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_cli(dev, torch.Generator(device=dev).manual_seed(SEED + 23), smi)

@@ -30,6 +30,7 @@ the same math and are not carried here.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -120,12 +121,20 @@ def get_params(weights_path: str | None = None, seed: int = 0,
     return init_params(seed, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _means(device: torch.device, rgb: bool = False) -> torch.Tensor:
+    """BGR_MEANS (or in RGB order) as an fp32 tensor on `device`, made once
+    a device: the copy from the host synchronizes the card, and a forward
+    of each shard of each evaluation would otherwise pay it."""
+    return torch.tensor(BGR_MEANS[::-1] if rgb else BGR_MEANS,
+                        dtype=torch.float32, device=device)
+
+
 def preprocess(image: torch.Tensor) -> torch.Tensor:
     """[0,255] RGB (H, W, 3), or a batch (N, H, W, 3) -> mean-subtracted
     BGR as an (N, 3, H, W) batch (N = 1 for one image)."""
     bgr = image.to(torch.float32).flip(-1)
-    means = torch.tensor(BGR_MEANS, dtype=torch.float32, device=image.device)
-    x = (bgr - means).movedim(-1, -3)
+    x = (bgr - _means(image.device)).movedim(-1, -3)
     return (x if x.dim() == 4 else x[None]).contiguous()
 
 
@@ -134,9 +143,8 @@ def preprocess_noflip(image: torch.Tensor) -> torch.Tensor:
     subtracted in RGB order (`dpst_tpu/models/vgg.py:_preprocess_noflip`);
     the BGR flip is folded into conv1_1's weights instead
     (`ops/block12_pallas.pack_weights`)."""
-    means = torch.tensor(BGR_MEANS[::-1], dtype=torch.float32,
-                         device=image.device)
-    return (image.to(torch.float32) - means).permute(2, 0, 1).contiguous()
+    return (image.to(torch.float32) - _means(image.device, rgb=True)
+            ).permute(2, 0, 1).contiguous()
 
 
 class _Relu(torch.autograd.Function):

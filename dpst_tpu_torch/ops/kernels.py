@@ -83,6 +83,10 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+# the compiler's output of each source of the last verbose build
+BUILD_LOG: dict[str, str] = {}
+
+
 def build(verbose: bool = False) -> Path:
     """Compile and link the kernels if the current sources are not built
     yet; return the library's path. `verbose` adds `-Xptxas -v` (registers,
@@ -107,6 +111,7 @@ def build(verbose: bool = False) -> Path:
             text = out.decode(errors="replace")
             if verbose and text:
                 print(f"[nvcc {src.name}]\n{text}", flush=True)
+                BUILD_LOG[src.name] = text
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{text}")
         if failed:

@@ -1,9 +1,12 @@
 """The port's own copy of what it takes from optax 0.2.6: L-BFGS with its
-zoom linesearch (`optax.lbfgs()`), in PyTorch."""
-from .base import GradientTransformation, apply_updates
+zoom linesearch (`optax.lbfgs()`), in PyTorch, over a tensor or the list
+of an image's row shards."""
+from .base import (GradientTransformation, Vector, apply_updates,
+                   first_device, tree_map, vdot)
 from .lbfgs import lbfgs, scale_by_lbfgs, value_and_grad_from_state
 from .linesearch import scale_by_zoom_linesearch
 
-__all__ = ["GradientTransformation", "apply_updates", "lbfgs",
-           "scale_by_lbfgs", "scale_by_zoom_linesearch",
-           "value_and_grad_from_state"]
+__all__ = ["GradientTransformation", "Vector", "apply_updates",
+           "first_device", "lbfgs", "scale_by_lbfgs",
+           "scale_by_zoom_linesearch", "tree_map",
+           "value_and_grad_from_state", "vdot"]

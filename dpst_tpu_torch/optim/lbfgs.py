@@ -6,7 +6,9 @@ parameter and gradient differences, the two-loop recursion of
 scale_by_lbfgs → scale(−1) → the zoom linesearch; and
 `value_and_grad_from_state` is `utils.py:266`. The two-loop's scalars (ρ,
 α, β, γ) stay on the device as 0-d fp32 tensors, so a step syncs only in
-the linesearch (`optim/linesearch.py`).
+the linesearch (`optim/linesearch.py`). The parameters may be row shards
+(a list of tensors, `optim/base.py`): each shard keeps its own ring of
+curvature pairs on its device, the scalars stay on the first device.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .base import EmptyState, GradientTransformation, vdot
+from .base import (EmptyState, GradientTransformation, Vector, axpy,
+                   first_device, scale, tree_map, vdot)
 from .linesearch import scale_by_zoom_linesearch
 
 MEMORY_SIZE = 10        # optax.lbfgs()'s memory_size
@@ -25,21 +28,32 @@ class ScaleByLBFGSState(NamedTuple):
     """optax's `ScaleByLBFGSState`. The memory is a ring of Δw
     (`diff_params_memory`), Δu (`diff_updates_memory`) and ρ = 1/⟨Δu, Δw⟩
     (`weights_memory`), each (memory_size, *params.shape) or
-    (memory_size,), written at (count − 1) % memory_size."""
+    (memory_size,), written at (count − 1) % memory_size; of shards, a
+    ring of Δw and of Δu a shard (a list), on its device."""
     count: int
-    params: torch.Tensor
-    updates: torch.Tensor
-    diff_params_memory: torch.Tensor
-    diff_updates_memory: torch.Tensor
+    params: Vector
+    updates: Vector
+    diff_params_memory: Vector
+    diff_updates_memory: Vector
     weights_memory: torch.Tensor
 
 
-def _precondition_by_lbfgs(updates: torch.Tensor,
-                           diff_params_memory: torch.Tensor,
-                           diff_updates_memory: torch.Tensor,
+def _slot(ring: Vector, idx: int) -> Vector:
+    """Slot idx of a ring (of each shard's ring)."""
+    return tree_map(lambda r: r[idx], ring)
+
+
+def _set_slot(ring: Vector, idx: int, v: Vector) -> None:
+    def put(r, x):
+        r[idx] = x
+    tree_map(put, ring, v)
+
+
+def _precondition_by_lbfgs(updates: Vector, diff_params_memory: Vector,
+                           diff_updates_memory: Vector,
                            weights_memory: torch.Tensor,
                            identity_scale: torch.Tensor,
-                           memory_idx: int) -> torch.Tensor:
+                           memory_idx: int) -> Vector:
     """optax's `_precondition_by_lbfgs` (transform.py:1497): P_k · updates
     by the two loops of Algorithm 7.4 (Nocedal and Wright), over every
     slot of the ring in optax's order, empty slots included (ρ = 0)."""
@@ -49,13 +63,13 @@ def _precondition_by_lbfgs(updates: torch.Tensor,
     vec = updates
     alphas = {}
     for idx in reversed(indices):            # right_product, reverse scan
-        alpha = rhos[idx] * vdot(diff_params_memory[idx], vec)
-        vec = vec + (-alpha) * diff_updates_memory[idx]
+        alpha = rhos[idx] * vdot(_slot(diff_params_memory, idx), vec)
+        vec = axpy(vec, -alpha, _slot(diff_updates_memory, idx))
         alphas[idx] = alpha
-    vec = identity_scale * vec
+    vec = scale(identity_scale, vec)
     for idx in indices:                      # left_product
-        beta = rhos[idx] * vdot(diff_updates_memory[idx], vec)
-        vec = vec + (alphas[idx] - beta) * diff_params_memory[idx]
+        beta = rhos[idx] * vdot(_slot(diff_updates_memory, idx), vec)
+        vec = axpy(vec, alphas[idx] - beta, _slot(diff_params_memory, idx))
     return vec
 
 
@@ -67,39 +81,40 @@ def scale_by_lbfgs() -> GradientTransformation:
     writes the memory of the state it is given in place."""
     memory_size = MEMORY_SIZE
 
-    def init_fn(params: torch.Tensor) -> ScaleByLBFGSState:
-        stacked = torch.zeros((memory_size,) + tuple(params.shape),
-                              dtype=params.dtype, device=params.device)
+    def init_fn(params: Vector) -> ScaleByLBFGSState:
+        def ring(p):
+            return torch.zeros((memory_size,) + tuple(p.shape),
+                               dtype=p.dtype, device=p.device)
         return ScaleByLBFGSState(
-            count=0, params=torch.zeros_like(params),
-            updates=torch.zeros_like(params),
-            diff_params_memory=stacked, diff_updates_memory=stacked.clone(),
+            count=0, params=tree_map(torch.zeros_like, params),
+            updates=tree_map(torch.zeros_like, params),
+            diff_params_memory=tree_map(ring, params),
+            diff_updates_memory=tree_map(ring, params),
             weights_memory=torch.zeros(memory_size, dtype=torch.float32,
-                                       device=params.device))
+                                       device=first_device(params)))
 
-    def update_fn(updates: torch.Tensor, state: ScaleByLBFGSState,
-                  params: torch.Tensor
-                  ) -> tuple[torch.Tensor, ScaleByLBFGSState]:
+    def update_fn(updates: Vector, state: ScaleByLBFGSState, params: Vector
+                  ) -> tuple[Vector, ScaleByLBFGSState]:
         memory_idx = state.count % memory_size
         prev_memory_idx = (state.count - 1) % memory_size
+        dev = first_device(params)
         # 1. the memory, from the fresh params and updates (zero at count 0)
         if state.count > 0:
-            diff_params = params - state.params
-            diff_updates = updates - state.updates
+            diff_params = tree_map(torch.sub, params, state.params)
+            diff_updates = tree_map(torch.sub, updates, state.updates)
             vdot_diff_params_updates = vdot(diff_updates, diff_params)
             weight = torch.where(vdot_diff_params_updates == 0.0,
                                  torch.zeros_like(vdot_diff_params_updates),
                                  1.0 / vdot_diff_params_updates)
         else:
-            diff_params = torch.zeros_like(params)
-            diff_updates = torch.zeros_like(updates)
-            weight = torch.zeros((), dtype=torch.float32,
-                                 device=params.device)
-        state.diff_params_memory[prev_memory_idx] = diff_params
-        state.diff_updates_memory[prev_memory_idx] = diff_updates
+            diff_params = tree_map(torch.zeros_like, params)
+            diff_updates = tree_map(torch.zeros_like, updates)
+            weight = torch.zeros((), dtype=torch.float32, device=dev)
+        _set_slot(state.diff_params_memory, prev_memory_idx, diff_params)
+        _set_slot(state.diff_updates_memory, prev_memory_idx, diff_updates)
         state.weights_memory[prev_memory_idx] = weight
         # 2. γ, the scale of the initial identity
-        one = torch.ones((), dtype=torch.float32, device=params.device)
+        one = torch.ones((), dtype=torch.float32, device=dev)
         if state.count > 0:
             numerator = vdot(diff_updates, diff_params)
             denominator = vdot(diff_updates, diff_updates)
@@ -130,14 +145,14 @@ def lbfgs() -> GradientTransformation:
     precond = scale_by_lbfgs()
     linesearch = scale_by_zoom_linesearch()
 
-    def init_fn(params: torch.Tensor) -> tuple:
+    def init_fn(params: Vector) -> tuple:
         return (precond.init(params), EmptyState(), linesearch.init(params))
 
-    def update_fn(updates: torch.Tensor, state: tuple, params: torch.Tensor,
-                  *, value, grad: torch.Tensor, value_and_grad_fn: Callable
-                  ) -> tuple[torch.Tensor, tuple]:
+    def update_fn(updates: Vector, state: tuple, params: Vector,
+                  *, value, grad: Vector, value_and_grad_fn: Callable
+                  ) -> tuple[Vector, tuple]:
         direction, s0 = precond.update(updates, state[0], params)
-        direction = direction * -1.0
+        direction = tree_map(lambda d: d * -1.0, direction)
         updates, s2 = linesearch.update(
             direction, state[2], params, value=value, grad=grad,
             value_and_grad_fn=value_and_grad_fn)
@@ -153,7 +168,7 @@ def value_and_grad_from_state(value_and_grad_fn: Callable) -> Callable:
     (the first step, or after a search that ended outside the domain).
     The cached value is a host float32, a fresh one a 0-d tensor."""
 
-    def _value_and_grad(params: torch.Tensor, *, state: tuple):
+    def _value_and_grad(params: Vector, *, state: tuple):
         cached = [s for s in state if hasattr(s, "value")
                   and hasattr(s, "grad")]
         if len(cached) != 1:

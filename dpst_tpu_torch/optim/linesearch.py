@@ -7,7 +7,8 @@ sufficient decrease criterion (or its approximate form) and the small
 curvature criterion, by at most MAX_LINESEARCH_STEPS evaluations of the
 objective.
 
-The vectors (parameters, direction, gradients) stay on their device; the
+The vectors (parameters, direction, gradients; tensors, or lists of row
+shards as `optim/base.py` takes them) stay on their devices; the
 scalars (stepsizes, values, slopes, the errors and the cubic or quadratic
 minimizers) are float32 on the host, as optax computes them in float32
 (JAX without x64): float64 arithmetic would flip branches and change the
@@ -25,7 +26,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .base import GradientTransformation, vdot
+from .base import GradientTransformation, Vector, tree_map, vdot
 
 f32 = np.float32
 _INF = f32(np.inf)
@@ -144,11 +145,11 @@ class ZoomLinesearchState(NamedTuple):
     bools). Until the first evaluation, the initial value and slope may
     still be 0-d tensors on the device (`_resolve_init`)."""
     count: int
-    params: torch.Tensor
-    updates: torch.Tensor
+    params: Vector
+    updates: Vector
     stepsize: np.float32
     value: np.float32
-    grad: torch.Tensor
+    grad: Vector
     slope: np.float32
     value_init: np.float32
     slope_init: np.float32
@@ -167,14 +168,15 @@ class ZoomLinesearchState(NamedTuple):
     value_cubic_ref: np.float32
     safe_stepsize: np.float32
     safe_value: np.float32
-    safe_grad: torch.Tensor
+    safe_grad: Vector
 
 
 def _value_and_slope_on_line(value_and_grad_fn: Callable,
                              state: ZoomLinesearchState, stepsize):
     """(value, grad, slope) at params + stepsize · updates, the value and
     the slope still on the device."""
-    step = state.params + state.updates * float(stepsize)
+    step = tree_map(lambda p, u: p + u * float(stepsize), state.params,
+                    state.updates)
     value_step, grad_step = value_and_grad_fn(step)
     return value_step, grad_step, vdot(grad_step, state.updates)
 
@@ -285,8 +287,8 @@ def _zoom_into_interval(state: ZoomLinesearchState, value_and_grad_fn
         safe_stepsize=safe[0], safe_value=safe[1], safe_grad=safe[2])
 
 
-def init_linesearch(updates: torch.Tensor, params: torch.Tensor, *, value,
-                    grad: torch.Tensor) -> ZoomLinesearchState:
+def init_linesearch(updates: Vector, params: Vector, *, value,
+                    grad: Vector) -> ZoomLinesearchState:
     """optax's `init_fn` (l.1194). `value` is a host float32 (a cached
     value) or a 0-d tensor (a fresh evaluation); the slope stays on the
     device until the first evaluation fetches it."""
@@ -328,7 +330,7 @@ class ScaleByZoomLinesearchState(NamedTuple):
     parameters (reused by `value_and_grad_from_state`), and the info."""
     learning_rate: np.float32
     value: np.float32
-    grad: torch.Tensor
+    grad: Vector
     info: ZoomLinesearchInfo
 
 
@@ -340,23 +342,25 @@ def scale_by_zoom_linesearch() -> GradientTransformation:
     it, the port takes the function of the value and gradient itself (the
     caller's autograd evaluation)."""
 
-    def init_fn(params: torch.Tensor) -> ScaleByZoomLinesearchState:
+    def init_fn(params: Vector) -> ScaleByZoomLinesearchState:
         return ScaleByZoomLinesearchState(
             learning_rate=f32(1.0), value=_INF,
-            grad=torch.zeros_like(params),
+            grad=tree_map(torch.zeros_like, params),
             info=ZoomLinesearchInfo(0, _INF, _INF))
 
-    def update_fn(updates: torch.Tensor, state: ScaleByZoomLinesearchState,
-                  params: torch.Tensor, *, value, grad: torch.Tensor,
+    def update_fn(updates: Vector, state: ScaleByZoomLinesearchState,
+                  params: Vector, *, value, grad: Vector,
                   value_and_grad_fn: Callable
-                  ) -> tuple[torch.Tensor, ScaleByZoomLinesearchState]:
+                  ) -> tuple[Vector, ScaleByZoomLinesearchState]:
         del state   # optax reads its stepsize only for "keep" guesses
         ls = init_linesearch(updates, params, value=value, grad=grad)
         while not (ls.done or ls.failed):
             ls = step_linesearch(ls, value_and_grad_fn)
-        return updates * float(ls.stepsize), ScaleByZoomLinesearchState(
-            learning_rate=ls.stepsize, value=ls.value, grad=ls.grad,
-            info=ZoomLinesearchInfo(ls.count, ls.decrease_error,
-                                    ls.curvature_error))
+        stepsize = float(ls.stepsize)
+        return tree_map(lambda u: u * stepsize, updates), (
+            ScaleByZoomLinesearchState(
+                learning_rate=ls.stepsize, value=ls.value, grad=ls.grad,
+                info=ZoomLinesearchInfo(ls.count, ls.decrease_error,
+                                        ls.curvature_error)))
 
     return GradientTransformation(init_fn, update_fn)

@@ -17,7 +17,9 @@ losses (they share no math, so its gradient is each pair's own), Adam and
 the clip are elementwise with bias corrections shared (every pair is at
 the same step), and the history is (B, n, 5). L-BFGS runs the pairs one
 after another, each through the one-pair loop (its linesearch is per pair
-on the host).
+on the host). The L-BFGS loop (`lbfgs_steps`) takes any objective of one
+image, whose parameter may be the image's row shards (`parallel/
+spatial.py`; `optim` then works shard by shard).
 """
 from __future__ import annotations
 
@@ -75,9 +77,10 @@ class StylizeConstants(NamedTuple):
             lap_stats=None if self.lap_stats is None else fn(self.lap_stats))
 
 
-def pair_of(consts: StylizeConstants, weights: LossWeights, i: int
-            ) -> tuple[StylizeConstants, LossWeights]:
-    """Pair i of batched constants and of (scalar or per-pair) weights."""
+def pair_of(consts, weights: LossWeights, i: int | slice) -> tuple:
+    """Pair i of batched constants (a StylizeConstants, or anything else
+    with its `map`) and of (scalar or per-pair) weights; a slice keeps the
+    leading axis."""
     return (consts.map(lambda t: t[i]),
             LossWeights(*(w[i] if isinstance(w, torch.Tensor) else w
                           for w in weights)))
@@ -342,21 +345,28 @@ def make_optimizer(cfg: StylizeConfig):
 _LOGIT_EPS = 1e-4
 
 
-def pixels_to_logits(image: torch.Tensor) -> torch.Tensor:
+def _to_logits(image: torch.Tensor) -> torch.Tensor:
     p = torch.clamp(image.to(torch.float32) / 255.0, _LOGIT_EPS,
                     1.0 - _LOGIT_EPS)
     return torch.log(p) - torch.log1p(-p)
 
 
-def logits_to_pixels(u: torch.Tensor) -> torch.Tensor:
-    return 255.0 * torch.sigmoid(u)
+def pixels_to_logits(image: optim.Vector) -> optim.Vector:
+    """The logit image of an image (or of each of its row shards)."""
+    return optim.tree_map(_to_logits, image)
 
 
-def init_opt_state(opt, cfg: StylizeConfig, image0: torch.Tensor):
+def logits_to_pixels(u: optim.Vector) -> optim.Vector:
+    return optim.tree_map(lambda x: 255.0 * torch.sigmoid(x), u)
+
+
+def init_opt_state(opt, cfg: StylizeConfig, image0: optim.Vector):
     """Optimizer state for `image0`: in logit space for boxed L-BFGS, whose
     state keeps the parameters it last stepped from; for a batch (B, H, W,
-    3) with L-BFGS, a list of the pairs' states."""
-    if cfg.optimizer == "lbfgs" and image0.dim() == 4:
+    3) with L-BFGS, a list of the pairs' states; for the row shards of one
+    image (a list), one state over the shards."""
+    if (cfg.optimizer == "lbfgs" and isinstance(image0, torch.Tensor)
+            and image0.dim() == 4):
         return [init_opt_state(opt, cfg, im) for im in image0]
     if cfg.optimizer == "lbfgs" and cfg.clip_pixels:
         return opt.init(pixels_to_logits(image0))
@@ -396,37 +406,42 @@ def record_evaluations():
         _EVALUATION_RECORDS.remove(log)
 
 
-def _lbfgs_scan_step(cfg: StylizeConfig, loss_fn, opt, consts, weights,
-                     vgg_params, first_step: int = 0):
+def _lbfgs_scan_step(cfg: StylizeConfig, loss, opt, first_step: int = 0):
     """The L-BFGS step of `run_segment` and `lbfgs_eval_trajectory`
     (`dpst_tpu/optimize.py:557`): `step(u, state) -> (u, state, history
-    row, ZoomLinesearchInfo)`. The objective is the total loss of
-    `to_img(u)`; each evaluation is a forward and an input gradient, and
-    with `cfg.debug_nans` raises FloatingPointError where the loss or the
-    gradient is not finite. Steps are numbered from `first_step`."""
+    row, ZoomLinesearchInfo)`. The objective is the total of `loss(image)
+    -> (total, terms (5,))` at `to_img(u)`, u an image or its row shards;
+    each evaluation is a forward and an input gradient, and with
+    `cfg.debug_nans` raises FloatingPointError where the loss or the
+    gradient (of any shard) is not finite. Steps are numbered from
+    `first_step`."""
     to_img = logits_to_pixels if cfg.clip_pixels else (lambda u: u)
     full_hist = history_terms(cfg) != "total"
     counter = {"step": first_step, "evaluations": 0}
 
-    def value_and_grad_fn(u: torch.Tensor):
+    def value_and_grad_fn(u: optim.Vector):
         counter["evaluations"] += 1
         with torch.enable_grad():
-            u = u.detach().requires_grad_(True)
-            total, _ = loss_fn(to_img(u), consts, weights, vgg_params)
-            (grad,) = torch.autograd.grad(total, u)
+            u = optim.tree_map(lambda x: x.detach().requires_grad_(True), u)
+            total, _ = loss(to_img(u))
+            if isinstance(u, list):
+                grad = list(torch.autograd.grad(total, u))
+            else:
+                (grad,) = torch.autograd.grad(total, u)
         total = total.detach()
         if cfg.debug_nans:
-            runtime.check_finite(counter["step"], total, grad)
+            optim.tree_map(lambda g: runtime.check_finite(
+                counter["step"], total.to(g.device), g), grad)
         return total, grad
 
     vg = optim.value_and_grad_from_state(value_and_grad_fn)
 
-    def step(u: torch.Tensor, st: tuple):
+    def step(u: optim.Vector, st: tuple):
         before = counter["evaluations"]
         value, grad = vg(u, state=st)
         if full_hist:
             # the terms at the pre-update point cost one more forward
-            _, terms = loss_fn(to_img(u), consts, weights, vgg_params)
+            _, terms = loss(to_img(u))
             row = terms.cpu().numpy()
         else:
             row = np.zeros(5, np.float32)
@@ -449,13 +464,14 @@ def _lbfgs_scan_step(cfg: StylizeConfig, loss_fn, opt, consts, weights,
 
 
 @torch.no_grad()
-def _lbfgs_loop(image, opt_state, consts, weights, vgg_params, n_steps,
-                cfg, first_step=0):
-    """n_steps L-BFGS steps from `image` (in logit space when boxed).
-    Returns (u, state, history (n_steps, 5), evaluations of each step's
-    linesearch (n_steps,))."""
-    step = _lbfgs_scan_step(cfg, make_loss_fn(cfg), make_optimizer(cfg),
-                            consts, weights, vgg_params, first_step)
+def lbfgs_steps(image: optim.Vector, opt_state, loss, n_steps: int,
+                cfg: StylizeConfig, first_step: int = 0):
+    """n_steps L-BFGS steps from `image`, an (H, W, 3) image or the list of
+    its row shards, under `loss(image) -> (total, terms (5,))`, with the
+    state `opt_state` (in logit space when boxed). Returns (u, state,
+    history (n_steps, 5) on the image's (first shard's) device,
+    evaluations of each step's linesearch (n_steps,))."""
+    step = _lbfgs_scan_step(cfg, loss, make_optimizer(cfg), first_step)
     u = pixels_to_logits(image) if cfg.clip_pixels else image
     rows, evals = [], []
     for _ in range(n_steps):
@@ -464,8 +480,17 @@ def _lbfgs_loop(image, opt_state, consts, weights, vgg_params, n_steps,
         evals.append(info.num_linesearch_steps)
     history = torch.from_numpy(
         np.stack(rows) if rows else np.zeros((0, 5), np.float32)
-    ).to(image.device)
+    ).to(optim.first_device(image))
     return u, opt_state, history, torch.tensor(evals, dtype=torch.int32)
+
+
+def _lbfgs_loop(image, opt_state, consts, weights, vgg_params, n_steps,
+                cfg, first_step=0):
+    """`lbfgs_steps` of one (H, W, 3) image under `make_loss_fn(cfg)`."""
+    loss_fn = make_loss_fn(cfg)
+    return lbfgs_steps(
+        image, opt_state, lambda im: loss_fn(im, consts, weights, vgg_params),
+        n_steps, cfg, first_step)
 
 
 def lbfgs_eval_trajectory(image: torch.Tensor, opt_state,

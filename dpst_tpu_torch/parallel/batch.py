@@ -15,8 +15,10 @@ step therefore launches each kernel as often as one pair's step does.
 Over a mesh (`parallel/mesh.py`) the pairs split over its batch axis:
 each device (a group of row devices on a 2-D mesh) runs the batched loop
 on its pairs, row-sharded over its row devices on a 2-D mesh
-(`parallel/spatial.py`). The groups take their steps in turns, so that
-their devices overlap.
+(`parallel/spatial.py`). The groups take their Adam steps in turns, so
+that their devices overlap; L-BFGS yields nothing between steps, so the
+groups of an L-BFGS batch run one after another, each running its pairs
+one after another (row-sharded on a 2-D mesh).
 """
 from __future__ import annotations
 

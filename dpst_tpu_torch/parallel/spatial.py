@@ -23,7 +23,12 @@ tensor per shard (`parallel/mesh.py`):
     photorealism term is `laplacian_spmd.photoreal_shards` (a 2-row halo
     and `lap_matvec` on every shard); the TV term takes a 1-row halo and
     the global counts;
-  * Adam runs per shard with one shared count (`optimize.adam_steps`).
+  * Adam runs per shard with one shared count (`optimize.adam_steps`);
+    L-BFGS (`optimize.lbfgs_steps`) takes the shards as one vector, one
+    pair at a time: `optim` steps each shard on its device, keeps a ring
+    of curvature pairs a shard, and sums dot products from the shards'
+    partial dots on the first device in shard order (its scalars stay
+    there, and its linesearch syncs once an evaluation).
 
 Halo rows move by `.to(device)`; autograd carries their gradients back,
 so no backward is written for the exchange. The precompute runs on the
@@ -96,6 +101,18 @@ class SpatialConstants(NamedTuple):
     norms: dict              # {layer: (..., K)} Σ m² (Σ m) of whole masks
     plan: tuple              # level_plan(H, n)
     devices: tuple           # the row devices, first device first
+
+    def map(self, fn) -> "SpatialConstants":
+        """The constants with `fn` applied to every tensor, shard by
+        shard."""
+        each = lambda x: (None if x is None else [fn(s) for s in x]
+                          if isinstance(x, list) else fn(x))
+        field = lambda d: {k: each(v) for k, v in d.items()}
+        return self._replace(
+            content_feats=field(self.content_feats),
+            style_grams=field(self.style_grams), masks=field(self.masks),
+            coverage=each(self.coverage), lap_stats=each(self.lap_stats),
+            norms=field(self.norms))
 
 
 def spatial_shardings(consts: optimize.StylizeConstants, image, mesh: Mesh):
@@ -306,24 +323,34 @@ def make_spatial_loss(cfg: StylizeConfig):
     return loss
 
 
-def lbfgs_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "not ported yet (see ROADMAP.md queue 1): optimizer='lbfgs' on a "
-        "row-sharded image (item 20: its two-loop and linesearch need "
-        "global dot products over the shards)")
-
-
 def spatial_segment(shards: list, sc: SpatialConstants,
                     weights: optimize.LossWeights, params: dict,
                     n_steps: int, cfg: StylizeConfig):
-    """Generator of `n_steps` Adam steps of a row-sharded image batch from
-    a fresh state (Adam per shard, one shared count; `cfg.debug_nans`
-    checks every shard); yields after each step. Returns (shards, history
-    (B, n_steps, 5) on the first device)."""
-    if cfg.optimizer != "adam":
-        raise lbfgs_unported()
-    opt = optimize.Adam(cfg)
+    """Generator of `n_steps` optimizer steps of a row-sharded image batch
+    from a fresh state: Adam per shard, one shared count, yielding after
+    each step; or L-BFGS over the shards, the pairs one after another,
+    yielding nothing. `cfg.debug_nans` checks every shard. Returns
+    (shards, history (B, n_steps, 5) on the first device)."""
     loss = make_spatial_loss(cfg)
+    if cfg.optimizer == "lbfgs":
+        opt = optimize.make_optimizer(cfg)
+        outs, hists = [], []
+        for b in range(shards[0].shape[0]):
+            pair = [s[b:b + 1] for s in shards]
+            sc_b, w_b = optimize.pair_of(sc, weights, slice(b, b + 1))
+
+            def objective(x, sc_b=sc_b, w_b=w_b):
+                total, terms = loss(x, sc_b, w_b, params)
+                return total, terms[0]
+            u, _, hist, _ = optimize.lbfgs_steps(
+                pair, optimize.init_opt_state(opt, cfg, pair), objective,
+                n_steps, cfg)
+            outs.append(optimize.logits_to_pixels(u) if cfg.clip_pixels
+                        else u)
+            hists.append(hist)
+        return ([torch.cat(parts) for parts in zip(*outs)],
+                torch.stack(hists))
+    opt = optimize.Adam(cfg)
     shards, _, rows = yield from optimize.adam_steps(
         shards, [opt.init(s) for s in shards],
         lambda p: loss(p, sc, weights, params), n_steps, cfg)
@@ -338,17 +365,16 @@ def spatial_stages(contents, styles, cmasks, smasks, cfg: StylizeConfig,
     coarser stages run on the first device (their sizes need not divide
     the mesh; an "spmd" Laplacian there as the one-device matvec), the
     native-size stage's precompute too, then `shard_spatial` and
-    `spatial_segment`. `params` is the weight dict, raw or packed, packed
-    once and moved to each device (`vgg.params_by_device`); `cfg` is `spmd_safe`; `weights`
-    scalars or (B,) tensors on the first device. Yields after every step;
-    returns (images (B, H, W, 3) gathered on the first device, history
-    (B, all steps, 5) there)."""
+    `spatial_segment`, each with `cfg.optimizer`. `params` is the weight
+    dict, raw or packed, packed once and moved to each device
+    (`vgg.params_by_device`); `cfg` is `spmd_safe`; `weights` scalars or
+    (B,) tensors on the first device. Yields after every Adam step (an
+    L-BFGS stage runs through); returns (images (B, H, W, 3) gathered on
+    the first device, history (B, all steps, 5) there)."""
     h = contents.shape[-3]
     if h % mesh.shape[ROW_AXIS]:
         raise ValueError(f"image rows {h} not divisible by mesh size "
                          f"{mesh.shape[ROW_AXIS]}")
-    if cfg.optimizer != "adam":
-        raise lbfgs_unported()
     first = mesh.first
     packed = vgg.params_by_device(params, mesh.devices.flat,
                                   cfg.compute_dtype, cfg.conv_impl)
@@ -356,6 +382,12 @@ def spatial_stages(contents, styles, cmasks, smasks, cfg: StylizeConfig,
                   if cfg.laplacian_impl == "spmd" else cfg)
 
     def coarse(images, consts, iters):
+        if cfg.optimizer == "lbfgs":
+            opt = optimize.make_optimizer(coarse_cfg)
+            images, _, hist = optimize.run_segment(
+                images, optimize.init_opt_state(opt, coarse_cfg, images),
+                consts, weights, packed[first], iters, coarse_cfg)
+            return images, hist
         images, _, hist = yield from optimize.adam_segment(
             images, optimize.Adam(cfg).init(images), consts, weights,
             packed[first], iters, coarse_cfg)
@@ -386,8 +418,10 @@ def stylize_spatial(content, style, content_masks, style_masks,
     size) must divide by the mesh size. With `cfg.scales` the coarser
     stages run on the first device and the native-size stage runs
     sharded. `cfg` is made `spmd_safe` (an "pallas" Laplacian becomes
-    "spmd": the kernel on every shard); `optimizer="lbfgs"` raises
-    NotImplementedError. One difference from the JAX package: the first
+    "spmd": the kernel on every shard). Adam or L-BFGS (`cfg.optimizer`,
+    as `optimize.run`: L-BFGS boxed in logit space under `clip_pixels`,
+    its history `history_terms`' columns). One difference from the JAX
+    package: the first
     stage starts from `optimize.init_image` with the style image's mean,
     as `stylize` does (the JAX package's `stylize_spatial` passes none,
     which matters only for `init_mode="style_mean"`). Returns (image (H,

@@ -145,10 +145,6 @@ def test_spatial_rejects_indivisible_rows_and_lbfgs(pair, params):
         tspatial.stylize_spatial(content[:63], style, masks[:, :63], masks,
                                  _cfg(dpst_tpu_torch), params[1],
                                  _cpu_mesh(4))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tspatial.stylize_spatial(content, style, masks, masks,
-                                 _cfg(dpst_tpu_torch, optimizer="lbfgs"),
-                                 params[1], _cpu_mesh(4))
     with pytest.raises(ValueError, match="local rows"):
         # 64 rows over 64 shards: one row a shard for the Laplacian
         tspatial.stylize_spatial(content, style, masks, masks,
