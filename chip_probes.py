@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Probes of the PyTorch/CUDA port (dpst_tpu_torch) on one NVIDIA GPU,
+outside chip_smoke.py's run: the measurements that PERF.md §6 cites for
+the 64² fp32 L-BFGS trajectory and the bf16 L-BFGS batch.
+
+    python3 chip_probes.py                     # the first three, one H100
+    python3 chip_probes.py lbfgs64 bf16-batch  # the named ones
+    python3 chip_probes.py lbfgs-host --tree DIR
+
+Each probe prints one JSON line, and chiprun_out/chip_probes.jsonl gets
+it too.
+  lbfgs64     chip_smoke.run_spatial_lbfgs_small's 64² fp32 pair, 10
+              L-BFGS steps, unsharded and on 4 row shards, on the CPU and
+              on the card with its fp32 convs on ATen's own kernels
+              (`vgg.conv2d`) or on cuDNN (F.conv2d): SSIM and history rows
+              of each pair of runs and the first search decision apart
+              (`record_evaluations`' traces); the card's run under
+              gradient noise of 1e-8 and 1e-7 of max|g| (the trajectory's
+              own sensitivity); one evaluation card against CPU and
+              sharded against unsharded along the card's run; the
+              Laplacian's Λ made on the card with each division by 9 a
+              division by the number (which the card takes through the
+              reciprocal) and with `laplacian.exact_div`, against the
+              CPU's.
+  conv-fp32   fp32 3×3 convs at a 512² VGG's shapes, ATen's own
+              (`vgg._AtenConv`) and cuDNN's: forward and input gradient
+              ms (CUDA events), and whether a batch of 4 is its images one
+              at a time bit for bit.
+  bf16-batch  the batch phase's bf16 L-BFGS batch of 8 512² pairs
+              (chip_smoke.run_batch_lbfgs) against each pair alone, twice,
+              then with the batch's bf16 convs run image by image.
+  lbfgs-host  one pair's 512² config3 L-BFGS through `stylize`, 100
+              steps three times: evaluations/s of the port in DIR (this
+              checkout by default; another commit unpacked with `git
+              archive`, for an A/B in one process order of the caller's).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import chip_smoke as cs
+
+CARD = "cuda"
+CONV_SHAPES = ((3, 64, 512), (64, 64, 512), (64, 128, 256), (128, 128, 256),
+               (128, 256, 128), (256, 256, 128), (256, 512, 64),
+               (512, 512, 64), (512, 512, 32))
+
+
+def emit(name: str, obj) -> None:
+    cs.emit({"probe": name, **obj})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/chip_probes.jsonl", "a") as fh:
+        fh.write(json.dumps({"probe": name, **obj}) + "\n")
+
+
+@contextlib.contextmanager
+def convs_on(route: str):
+    """The port's fp32 convs as shipped ("aten") or on cuDNN ("cudnn")."""
+    from dpst_tpu_torch.models import vgg
+    shipped = vgg.conv2d
+    if route == "cudnn":
+        vgg.conv2d = lambda x, w, padding=1: F.conv2d(x, w, padding=padding)
+    try:
+        yield
+    finally:
+        vgg.conv2d = shipped
+
+
+@contextlib.contextmanager
+def gradient_noise(sigma: float, seed: int):
+    """Each evaluation's input gradient plus sigma · max|g| · N(0, 1) (max|g|
+    that of the first evaluation; the values untouched)."""
+    from dpst_tpu_torch import optimize
+    shipped = optimize.make_loss_fn
+
+    def make(cfg):
+        fn = shipped(cfg)
+        scale = {}
+
+        def loss(im, consts, w, p):
+            total, terms = fn(im, consts, w, p)
+            if not im.requires_grad:
+                return total, terms
+            if "g" not in scale:
+                (g,) = torch.autograd.grad(total, im, retain_graph=True)
+                scale["g"] = float(g.abs().max())
+                scale["gen"] = torch.Generator(
+                    device=im.device).manual_seed(seed)
+            noise = torch.randn(im.shape, generator=scale["gen"],
+                                device=im.device) * (sigma * scale["g"])
+            kick = torch.sum(im * noise)
+            return total + (kick - kick.detach()), terms
+        return loss
+    optimize.make_loss_fn = make
+    try:
+        yield
+    finally:
+        optimize.make_loss_fn = shipped
+
+
+def lbfgs64_inputs(dev) -> tuple:
+    """run_spatial_lbfgs_small's 64² pair and masks, drawn as it draws them
+    (the spatial phase's generator past its 4096², 512² and 64² pairs)."""
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 22)
+    for size in (cs.SP_SIZE, cs.SIZE):
+        cs.smooth_image(gen, dev, size)
+        cs.textured_image(gen, dev, size)
+    cs.smooth_image(gen, dev, 64)
+    cs.smooth_image(gen, dev, 64)
+    cs.smooth_image(gen, dev, cs.SIZE)
+    cs.textured_image(gen, dev, cs.SIZE)
+    content = cs.smooth_image(gen, dev, 64)
+    style = cs.smooth_image(gen, dev, 64)
+    return (content, style) + cs.stripe_masks(3, 64)
+
+
+def first_decision_apart(a: list, b: list) -> dict | None:
+    """The first step and evaluation where two runs' searches decide apart
+    (the rule that proposed an evaluation, its verdict, or the next
+    stepsize), from each step's trace; None where they decide alike."""
+    for step, (ta, tb) in enumerate(zip(a, b)):
+        for i, (x, y) in enumerate(zip(ta, tb)):
+            key = ("rule", "done", "failed")
+            if [x[k] for k in key] != [y[k] for k in key]:
+                return {"step": step, "evaluation": i, "a": x, "b": y}
+            if i + 1 < min(len(ta), len(tb)) and (ta[i + 1]["stepsize"]
+                                                  != tb[i + 1]["stepsize"]):
+                return {"step": step, "evaluation": i + 1, "a": ta[i + 1],
+                        "b": tb[i + 1]}
+        if len(ta) != len(tb):
+            return {"step": step, "lengths": [len(ta), len(tb)]}
+    return None
+
+
+def probe_lbfgs64(dev) -> None:
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import laplacian as lap
+    from dpst_tpu_torch.parallel import spatial as sp
+    from dpst_tpu_torch.utils.runtime import params_on
+    content, style, cm, sm = lbfgs64_inputs(dev)
+    cfg = dpst_tpu_torch.StylizeConfig(
+        compute_dtype="float32", iterations=cs.LBFGS_SHORT,
+        optimizer="lbfgs", regularization_weight=100.0)
+    ucfg = dataclasses.replace(cfg.spmd_safe(), laplacian_impl="xla")
+    params = vgg.init_params(cs.SEED)
+
+    def run(where, shards, iterations=cs.LBFGS_SHORT):
+        c = dataclasses.replace(cfg, iterations=iterations)
+        with optimize.record_evaluations() as rec:
+            if shards:
+                img, hist = sp.stylize_spatial(
+                    content, style, cm, sm, c, params,
+                    sp.make_spatial_mesh(devices=[where] * shards))
+                img, hist = img.cpu().numpy(), hist.cpu().numpy()
+            else:
+                img, hist = dpst_tpu_torch.stylize(
+                    content, style, dataclasses.replace(
+                        ucfg, iterations=iterations), content_masks=cm,
+                    style_masks=sm, vgg_params=params, return_history=True,
+                    device=where)
+        return img, hist, [r["pairs"][0]["trace"] for r in rec]
+
+    def apart(a, b):
+        e = cs.lbfgs_trajectory_errors(a[0], a[1], b[0], b[1])
+        rel = np.asarray(e["rel_err_per_row"])
+        return {"ssim": e["ssim"], "row0": float(rel[0]),
+                "rows_0_9": float(rel[:10].max()),
+                "first_row_apart": (int(np.argmax(rel > 0))
+                                    if (rel > 0).any() else None),
+                "golden_bad": cs.lbfgs_bounds_bad(e, cs.LBFGS_ROW0_TOL),
+                "first_decision_apart": first_decision_apart(a[2], b[2])}
+
+    t0 = time.perf_counter()
+    runs = {"cpu 1": run("cpu", 0), "cpu 4": run("cpu", 4)}
+    for route in ("aten", "cudnn"):
+        with convs_on(route):
+            runs[f"card {route} 1"] = run(CARD, 0)
+            runs[f"card {route} 4"] = run(CARD, 4)
+    names = [("card aten 1", "cpu 1"), ("card aten 4", "cpu 4"),
+             ("card aten 4", "card aten 1"), ("card cudnn 1", "cpu 1"),
+             ("card cudnn 4", "cpu 4"), ("card cudnn 4", "card cudnn 1"),
+             ("card cudnn 1", "card aten 1"), ("cpu 4", "cpu 1")]
+    runs_apart = {f"{a} | {b}": apart(runs[a], runs[b]) for a, b in names}
+    noisy = {}
+    for sigma in (1e-8, 1e-7):
+        with gradient_noise(sigma, cs.SEED + 30):
+            noisy[f"sigma {sigma:g}"] = apart(run(CARD, 0),
+                                              runs["card aten 1"])
+
+    def value_grad(img, where, shards):
+        if shards:
+            return cs.sharded_value_grad(img, where, cfg, params, content,
+                                         style, cm, sm)
+        p = params_on(params, torch.device(where))
+        arrays = [torch.from_numpy(np.asarray(a)).to(where)
+                  for a in (content, style, cm, sm)]
+        consts = dpst_tpu_torch.prepare_constants(*arrays, ucfg, p)
+        x = torch.from_numpy(np.asarray(img)).to(where).requires_grad_(True)
+        total, _ = optimize.make_loss_fn(ucfg)(
+            x, consts, optimize.LossWeights.from_config(ucfg), p)
+        (g,) = torch.autograd.grad(total, x)
+        return float(total.detach()), g.cpu()
+
+    def rel(a, b):
+        return {"value": abs(a[0] - b[0]) / abs(b[0]),
+                "grad_max": float((a[1] - b[1]).abs().max()
+                                  / b[1].abs().max()),
+                "grad_l2": float((a[1] - b[1]).norm() / b[1].norm())}
+
+    one = {}
+    for step in (0, 1, 2, 4, 9):
+        img = content if step == 0 else run(CARD, 0, step)[0]
+        cpu = value_grad(img, "cpu", 0)
+        row = {"card aten | cpu": rel(value_grad(img, CARD, 0), cpu),
+               "card aten 4 | card aten 1": rel(
+                   value_grad(img, CARD, 4), value_grad(img, CARD, 0))}
+        with convs_on("cudnn"):
+            row["card cudnn | cpu"] = rel(value_grad(img, CARD, 0), cpu)
+        one[f"step {step}"] = row
+    # the Laplacian's Λ on the card: divisions by the number 9, then
+    # exact_div, each against the CPU's
+    image01 = lap.exact_div(torch.from_numpy(content), 255.0)
+    lam_cpu = lap.precompute_stats(image01).lam
+    scale = float(lam_cpu.abs().max())
+    lam = {}
+    shipped = lap.exact_div
+    for name, div in (("by the number", lambda x, d: x / d),
+                      ("exact_div", shipped)):
+        lap.exact_div = div
+        try:
+            got = lap.precompute_stats(image01.to(dev)).lam.cpu()
+        finally:
+            lap.exact_div = shipped
+        lam[name] = {"max_abs_over_max": float(
+            (got - lam_cpu).abs().max()) / scale,
+            "bit_equal": bool(torch.equal(got, lam_cpu))}
+    emit("lbfgs64", {"steps": cs.LBFGS_SHORT, "runs_apart": runs_apart,
+                     "card_aten_1_under_gradient_noise": noisy,
+                     "one_evaluation": one, "lambda_card_vs_cpu": lam,
+                     "seconds": time.perf_counter() - t0})
+
+
+def probe_conv_fp32(dev) -> None:
+    from dpst_tpu_torch.models import vgg
+    vgg.set_exact_backends("float32")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 31)
+    rows = []
+    for cin, cout, hw in CONV_SHAPES:
+        x = torch.randn((4, cin, hw, hw), device=dev, generator=gen)
+        w = torch.randn((cout, cin, 3, 3), device=dev, generator=gen) * 0.05
+        gy = torch.randn((4, cout, hw, hw), device=dev, generator=gen)
+
+        def fwd_bwd(conv, xs, gys):
+            xs = xs.clone().requires_grad_(True)
+            y = conv(xs, w)
+            return y, torch.autograd.grad(y, xs, gys)[0]
+        aten = lambda t, w: vgg._AtenConv.apply(t, w, 1)  # noqa: E731
+        cudnn = lambda t, w: F.conv2d(t, w, padding=1)  # noqa: E731
+        y, gx = fwd_bwd(aten, x, gy)
+        invariant = all(
+            torch.equal(a, b[i:i + 1]) for i in range(4)
+            for a, b in zip(fwd_bwd(aten, x[i:i + 1], gy[i:i + 1]),
+                            (y, gx)))
+        ms = {}
+        for name, conv in (("aten_ms", aten), ("cudnn_ms", cudnn)):
+            ms[name] = cs.cuda_ms(lambda conv=conv: fwd_bwd(
+                conv, x[:1], gy[:1]), warmup=2, iters=5)
+        rows.append({"cin": cin, "cout": cout, "size": hw,
+                     "batch_of_4_is_its_images": invariant, **ms})
+    emit("conv-fp32", {"what": "one image's forward and input gradient",
+                       "rows": rows,
+                       "aten_ms_total": sum(r["aten_ms"] for r in rows),
+                       "cudnn_ms_total": sum(r["cudnn_ms"] for r in rows)})
+
+
+def probe_bf16_batch(dev, smi: str) -> None:
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    t0 = time.perf_counter()
+    _, b = cs.run_batch_path(dev, torch.Generator(device=dev).manual_seed(
+        cs.SEED + 21), smi)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              optimizer="lbfgs",
+                              iterations=cs.BATCH_LBFGS_ITERS)
+
+    def pairs():
+        return [{"ssim": e["ssim"], "row0": e["rel_err_per_row"][0],
+                 "rows_0_9": max(e["rel_err_per_row"][:10]),
+                 "all": max(e["rel_err_per_row"]),
+                 "evaluation_steps_apart": e["evaluation_steps_apart"]}
+                for e in cs.lbfgs_batch_vs_alone(b, cfg)[-1]]
+    out = {"run 1": pairs(), "run 2": pairs()}
+    shipped = vgg.conv2d
+    vgg.conv2d = lambda x, w, padding=1: torch.cat(
+        [shipped(x[i:i + 1], w, padding) for i in range(x.shape[0])])
+    try:
+        out["the batch's convs image by image"] = pairs()
+    finally:
+        vgg.conv2d = shipped
+    emit("bf16-batch", {"B": cs.BATCH, "size": cs.SIZE,
+                        "steps": cs.BATCH_LBFGS_ITERS, **out,
+                        "seconds": time.perf_counter() - t0})
+
+
+def probe_lbfgs_host(dev, tree: str) -> None:
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    content = cs.smooth_image(gen, dev, cs.SIZE)
+    style = cs.smooth_image(gen, dev, cs.SIZE)
+    cm, sm = cs.band_masks(0), cs.band_masks(1)
+    params = vgg.get_params(seed=cs.SEED, device=dev)
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              optimizer="lbfgs")
+
+    def run(n):
+        with optimize.record_evaluations() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dpst_tpu_torch.stylize(
+                content, style, dataclasses.replace(cfg, iterations=n),
+                content_masks=cm, style_masks=sm, vgg_params=params)
+            torch.cuda.synchronize()
+            return sum(r["evaluations"] for r in rec) / (
+                time.perf_counter() - t0)
+    run(5)
+    emit("lbfgs-host", {"tree": tree, "port": os.path.dirname(
+        dpst_tpu_torch.__file__), "evaluations_per_s": [
+            run(100) for _ in range(3)]})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_probes: no CUDA device", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    tree = "."
+    if "--tree" in args:
+        i = args.index("--tree")
+        tree = args[i + 1]
+        del args[i:i + 2]
+        sys.path.insert(0, os.path.abspath(tree))
+    from dpst_tpu_torch.ops import kernels
+    names = args or ["lbfgs64", "conv-fp32", "bf16-batch"]
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    kernels.build()
+    for name in names:
+        {"lbfgs64": lambda: probe_lbfgs64(dev),
+         "conv-fp32": lambda: probe_conv_fp32(dev),
+         "bf16-batch": lambda: probe_bf16_batch(dev, smi),
+         "lbfgs-host": lambda: probe_lbfgs_host(dev, tree)}[name]()
+    emit("device", {"nvidia_smi": smi})
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -54,7 +54,12 @@ no result):
                  pair; lap_matvec also with one pair's stats shared by
                  four, as the Γ sweep runs it), each pair against the
                  plain version, timed in turns with B one-pair launches of
-                 the same kernel, and at shapes where the plans split;
+                 the same kernel, and at shapes where the plans split; then
+                 gram_wbwd (conv1_1 … conv5_1) and conv3x3 (the 24 convs
+                 of a step) with their batch grid dimension at the
+                 pallas-route batch's shapes, the same way, in bf16 and
+                 fp32, and at B = 2-3 at ragged C, K = 1-9, a conv plan
+                 with Cin splits;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -149,7 +154,15 @@ no result):
                  busy share, peak memory; each pair against its run alone
                  (bf16 tolerances), a bit-identical rerun, the VGG taps of
                  a batch against one image; a 64² fp32 batch of two, card
-                 against CPU (1e-3);
+                 against CPU (1e-3); the same 8 pairs on the pallas route
+                 (20 steps: conv3x3 and gram_wbwd batched, counters equal
+                 to one pair's, each pair against its run alone,
+                 pair-it/s, busy share); and with optimizer="lbfgs" (10
+                 steps, the batched L-BFGS: counters equal to one pair's
+                 an evaluation × E, each pair against its one-pair run in
+                 bf16 and in fp32 (the L-BFGS golden's bounds), a rerun
+                 bit for bit, evaluations/s, busy share of an evaluation,
+                 one sync an evaluation for all pairs);
   13. spatial -- the ninth path, on meshes of repeated cuda:0 (virtual:
                  one card stands for several devices; no cross-card time or
                  memory is taken): `matvec_spmd` over 4 row shards against
@@ -277,6 +290,8 @@ BATCH_ITERS = 100      # its Adam steps (500 in the preset)
 # history and 2.0 of the pixels after 100 steps of the batch; 5.3 for
 # autotune's best image at Γ = 1000 after 50 steps)
 BATCH_ROW0_TOL = 1e-4
+BATCH_PALLAS_ITERS = 20  # the pallas-route batch's steps
+BATCH_LBFGS_ITERS = 10   # the L-BFGS batch's steps
 BATCH_HIST_TOL = 1e-2
 BATCH_PIXEL_TOL = 16.0
 # (B, C, P, K, dtype) of the batched kernels' edge checks: the plans' split
@@ -291,6 +306,25 @@ BATCH_EDGE_CASES = ((2, 512, 1024, 4, "bfloat16"),
                     (2, 128, 4096, 4, "bfloat16"),
                     (3, 64, 4096, 4, "float32"),
                     (2, 37, 1001, 3, "float32"))
+# (B, C, P, K, dtype) of gram_wbwd's batched edge checks: C = 37 and 128,
+# K = 1 … 9, the class splits of a short grid (512 × 1024), the fp32 tile
+BATCH_WBWD_EDGES = ((3, 37, 1001, 1, "bfloat16"),
+                     (2, 37, 1001, 5, "bfloat16"),
+                     (2, 128, 4096, 9, "bfloat16"),
+                     (3, 128, 2048, 3, "bfloat16"),
+                     (2, 512, 1024, 4, "bfloat16"),
+                     (2, 64, 4096, 7, "bfloat16"),
+                     (3, 37, 1001, 5, "float32"),
+                     (2, 128, 2048, 9, "float32"))
+# (B, Cin, Cout, H, W, dtype) of conv3x3's batched edge checks: a plan with
+# Cin splits (512 → 512 at 32², B = 2: four splits), ragged widths (the
+# scalar epilogue), N tiles of 8 and 104, the fp32 tile
+BATCH_CONV_EDGES = ((2, 512, 512, 32, 32, "bfloat16"),
+                    (3, 256, 100, 24, 36, "bfloat16"),
+                    (2, 70, 40, 17, 33, "bfloat16"),
+                    (3, 64, 8, 20, 20, "bfloat16"),
+                    (2, 130, 72, 19, 45, "float32"),
+                    (3, 16, 24, 9, 13, "float32"))
 # (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
 # shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
 # bands), avg pooling, one band with tied maxima, five classes, and W = 260
@@ -346,13 +380,6 @@ SP_LBFGS_ITERS = 5     # the 4096² sharded L-BFGS run's steps
 # where both sides run one program in fp32
 LBFGS_SSIM_MIN, LBFGS_HIST10_RTOL, LBFGS_HIST_RTOL = 0.98, 1e-2, 8e-2
 LBFGS_ROW0_TOL = 1e-5
-# the sharded 64² fp32 run, card against CPU, past its first row: where
-# the unsharded run on the same inputs, card against CPU, also leaves the
-# golden's first-rows or SSIM bound (the witness: rounding of ~1e-6 a
-# gradient grows along any L-BFGS trajectory), the sharded run is held to
-# the witness instead, rows at most LBFGS_WITNESS_SLACK farther and SSIM
-# at most 1 - LBFGS_SSIM_MIN lower
-LBFGS_WITNESS_SLACK = 0.1
 # the sharded objective and its input gradient, card against CPU, at
 # single evaluations (of the value; of max |gradient|)
 LBFGS_EVAL_TOL = 1e-5
@@ -3277,6 +3304,129 @@ def check_batched(dev, gen):
     return rows
 
 
+def check_batched_wbwd_conv(dev, gen):
+    """`gram_wbwd` and `conv3x3` with their batch grid dimension, at the
+    pallas-route batch's shapes (B = BATCH distinct pairs at 512²):
+    `gram_wbwd` at conv1_1 … conv5_1 (K = 4 soft masks drawn per pair;
+    conv1_1 takes the fused pair on that path, so its row is not in the
+    step), `conv3x3` at conv1_2 … conv5_1 forward and input gradient on
+    weights packed once. bf16 rows against the plain version pair by pair
+    and timed in turns with BATCH one-pair launches (`batched_row`); the
+    same shapes in fp32 (the CUDA-core tiles) against the plain version;
+    then the edge cases of BATCH_WBWD_EDGES and BATCH_CONV_EDGES."""
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import conv_cuda as cc
+    from dpst_tpu_torch.ops import gram_pallas as gp
+    rows, b, worst = [], BATCH, {}
+    for dtype in ("bfloat16", "float32"):
+        cdt = getattr(torch, dtype)
+        isz = 2 if dtype == "bfloat16" else 4
+        for c, p in GRAM_SHAPES:
+            f, _, m2, s = batched_input("gram", b, c, p, K, cdt, dev, gen)
+            got, ref = gp.gram_wbwd(f, m2, s), gp.gram_wbwd_plain(f, m2, s)
+            tol = max(out_tol(ref[i], dtype) for i in range(b))
+            if dtype == "bfloat16":
+                a = s.transpose(1, 2).reshape(b, c, K * c)
+                rows.append(batched_row(
+                    "gram_wbwd", [c, p], b, K, dtype, c != 64, got, ref, tol,
+                    lambda: gp.gram_wbwd(f, m2, s),
+                    lambda: [gp.gram_wbwd(f[i], m2[i], s[i])
+                             for i in range(b)],
+                    lambda: gp.gram_wbwd_plain(f, m2, s),
+                    b * (2 * c * p + K * p + K * c * c) * isz,
+                    2.0 * b * K * c * c * p,
+                    lambda: torch.matmul(a, (f.unsqueeze(1)
+                                             * m2.unsqueeze(2))
+                                         .reshape(b, K * c, p)),
+                    "yardstick: gram_bwd's torch.matmul, weighting before "
+                    "the product", plan=gp.wbwd_plan(c, p, K, b),
+                    masks="soft"))
+            else:
+                worst[f"gram_wbwd B={b} {dtype} {c}x{p}"] = rel = (
+                    pair_errors(got, ref)[1])
+                if not rel <= tol:
+                    fail("kernels", f"gram_wbwd B={b} {dtype} {c}x{p}: rel "
+                         f"err {rel} > {tol}")
+            del f, m2, s, got, ref
+            torch.cuda.empty_cache()
+        vgg.set_exact_backends(cdt)
+        timed = {}
+        for cin, cout, hw in CONV_SHAPES:
+            x = torch.randn((b, cin, hw, hw), generator=gen,
+                            device=dev).to(cdt)
+            wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+                  * math.sqrt(2.0 / (9 * cin))).to(cdt)
+            g = torch.randn((b, cout, hw, hw), generator=gen,
+                            device=dev).to(cdt)
+            ft = cc.flip_transpose_weights(wt)
+            cases = (("forward", x, wt, "F.conv2d",
+                      lambda: F.conv2d(x, wt, padding=1)),
+                     ("input_grad", g, ft, "torch.nn.grad.conv2d_input",
+                      lambda: torch.nn.grad.conv2d_input(
+                          (b, cin, hw, hw), wt, g, padding=1)))
+            for direction, a, w_, lib_name, lib in cases:
+                wp = cc.pack_weights(w_)
+                got, ref = cc.conv3x3_same(a, wp), cc.conv3x3_plain(a, w_)
+                tol = max(out_tol(ref[i], dtype) for i in range(b))
+                k_in, k_out = w_.shape[1], w_.shape[0]
+                key = (direction, k_in, k_out, hw)
+                if dtype == "float32" or key in timed:
+                    rel = pair_errors(got, ref)[1]
+                    worst[f"conv3x3 B={b} {dtype} {direction} "
+                          f"{k_in}->{k_out} {hw}²"] = rel
+                    if dtype == "bfloat16":
+                        row = dict(timed[key], max_abs_err=pair_errors(
+                            got, ref)[0], rel_err=rel, timed_with_row=True)
+                        emit(row)
+                        rows.append(row)
+                    if not rel <= tol:
+                        fail("kernels", f"conv3x3 B={b} {dtype} {direction}"
+                             f" {k_in}->{k_out} at {hw}²: rel err {rel} > "
+                             f"{tol}")
+                    continue
+                row = batched_row(
+                    "conv3x3", [k_in, k_out, hw, hw], b, None, dtype, True,
+                    got, ref, tol, lambda: cc.conv3x3_same(a, wp),
+                    lambda: [cc.conv3x3_same(a[i], wp) for i in range(b)],
+                    lambda: cc.conv3x3_plain(a, w_),
+                    b * (k_in + k_out) * hw * hw * isz
+                    + 9 * k_in * k_out * isz,
+                    2.0 * b * 9 * k_in * k_out * hw * hw, lib, lib_name,
+                    direction=direction, plan=cc.conv_plan(k_in, k_out, hw,
+                                                           hw, b))
+                timed[key] = row
+                rows.append(row)
+            del x, wt, g, ft, got, ref
+            torch.cuda.empty_cache()
+    for b_, c, p, k, dtype in BATCH_WBWD_EDGES:
+        cdt = getattr(torch, dtype)
+        f, _, m2, s = batched_input("gram", b_, c, p, k, cdt, dev, gen)
+        ref = gp.gram_wbwd_plain(f, m2, s)
+        rel = pair_errors(gp.gram_wbwd(f, m2, s), ref)[1]
+        tol = max(out_tol(ref[i], dtype) for i in range(b_))
+        key = f"gram_wbwd B={b_} {dtype} {c}x{p} K={k}"
+        worst[key] = rel
+        if not rel <= tol:
+            fail("kernels", f"{key}: rel err {rel} > {tol}")
+    for b_, cin, cout, h, w, dtype in BATCH_CONV_EDGES:
+        cdt = getattr(torch, dtype)
+        x = torch.randn((b_, cin, h, w), generator=gen, device=dev).to(cdt)
+        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+              * math.sqrt(2.0 / (9 * cin))).to(cdt)
+        ref = cc.conv3x3_plain(x, wt)
+        rel = pair_errors(cc.conv3x3_same(x, cc.pack_weights(wt)), ref)[1]
+        tol = max(out_tol(ref[i], dtype) for i in range(b_))
+        plan = (cc.conv_plan(cin, cout, h, w, b_) if dtype == "bfloat16"
+                else None)
+        key = f"conv3x3 B={b_} {dtype} {cin}->{cout} {h}x{w} plan {plan}"
+        worst[key] = rel
+        if not rel <= tol:
+            fail("kernels", f"{key}: rel err {rel} > {tol}")
+    emit({"phase": "kernel", "name": "batched gram_wbwd, conv3x3: fp32 "
+          "and edges", "rel_err": worst})
+    return rows
+
+
 def check_batched_edges(dev, gen) -> None:
     """The batched kernels against their plain versions pair by pair where
     the plans split P or the reduction across blocks of a pair (fewer
@@ -3499,6 +3649,264 @@ def run_batch_path(dev, gen, smi: str) -> dict:
     run_batch_reference(gen)
     return launches, dict(contents=contents, styles=styles, cm=cm, sm=sm,
                           params=params, cfg=cfg, images=images, hist=hist)
+
+
+def batch_inputs(b: dict, dev) -> list:
+    return [torch.from_numpy(b[k]).to(dev)
+            for k in ("contents", "styles", "cm", "sm")]
+
+
+def run_batch_pallas(dev, b: dict, smi: str) -> dict:
+    """`stylize_batch` of the batch phase's BATCH pairs under
+    PRESETS["config3"] with conv_impl="pallas", gram_impl="pallas" (the
+    pallas route: `conv3x3` and `gram_wbwd` with their batch grid
+    dimension) for BATCH_PALLAS_ITERS steps: counters reset just before
+    and read just after, equal to one pair's run of the route
+    (`pallas_route_launches`); the loss falls for every pair, the output
+    finite in [0, 255]; each pair against its run alone within
+    BATCH_ROW0_TOL, BATCH_HIST_TOL and BATCH_PIXEL_TOL; the loop's
+    pair-it/s (timed as one segment after a warm-up), device ms a step by
+    group and the busy share."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import batch as pb
+    label = f"config3 pallas route batch B={BATCH} 512²"
+    steps = BATCH_PALLAS_ITERS
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              conv_impl="pallas", gram_impl="pallas",
+                              iterations=steps)
+    kernels.reset_launches()
+    images, hist = dpst_tpu_torch.stylize_batch(
+        b["contents"], b["styles"], b["cm"], b["sm"], cfg,
+        vgg_params=b["params"])
+    launches = dict(kernels.LAUNCHES)
+    rcfg = pb.resolve_config(cfg)
+    pp = vgg.pack_params(b["params"], rcfg.compute_dtype, rcfg.conv_impl)
+    weights = optimize.LossWeights.from_config(rcfg)
+    consts, cs, means = pb.prepare_batch_stage(
+        *batch_inputs(b, dev), pp, (SIZE, SIZE), rcfg)
+    img0 = optimize.init_image(rcfg, cs, means)
+    pb.run_batch(img0, consts, weights, pp, rcfg, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb.run_batch(img0, consts, weights, pp, rcfg, steps)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    step_ms = loop_s * 1e3 / steps
+    groups = profile_batch(
+        lambda: pb.run_batch(img0, consts, weights, pp, rcfg, 5), 5)
+    busy = sum(groups.values())
+    del consts, cs, means, img0
+    torch.cuda.empty_cache()
+    alone = []
+    for i in range(BATCH):
+        out_i, hist_i = dpst_tpu_torch.stylize(
+            b["contents"][i], b["styles"][i], rcfg,
+            content_masks=b["cm"][i], style_masks=b["sm"][i],
+            vgg_params=b["params"], return_history=True)
+        d = np.abs(images[i] - out_i)
+        rel = np.abs(hist[i] - hist_i) / np.maximum(
+            np.abs(hist_i).max(axis=0), 1e-30)
+        alone.append({"row0_rel": float(rel[0].max()),
+                      "hist_rel": float(rel.max()),
+                      "pixel_max": float(d.max()),
+                      "pixel_mean": float(d.mean())})
+    need = pallas_route_launches(steps)
+    emit({"phase": "batch", "path": label, "B": BATCH, "size": SIZE, "K": K,
+          "iterations": steps, "compute_dtype": cfg.compute_dtype,
+          "weights": weights_label(), "loop_it_s": steps / loop_s,
+          "pair_it_s": BATCH * steps / loop_s, "step_ms": step_ms,
+          "device_ms_per_step": groups, "device_busy_ms_per_step": busy,
+          "device_busy_share": busy / step_ms, "launches": launches,
+          "launches_expected": need, "vs_alone": alone,
+          "row0_tol_rel": BATCH_ROW0_TOL, "hist_tol_rel": BATCH_HIST_TOL,
+          "pixel_tol": BATCH_PIXEL_TOL, "nvidia_smi": smi})
+    bad = [f"{k} launched {launches[k]} times, one pair's route implies {n}"
+           for k, n in need.items() if launches[k] != n]
+    if not (hist[:, -1, 0] < hist[:, 0, 0]).all():
+        bad.append("the total loss did not fall for every pair")
+    if not (np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 255.0):
+        bad.append("output not finite in [0, 255]")
+    for i, e in enumerate(alone):
+        if not (e["row0_rel"] <= BATCH_ROW0_TOL
+                and e["hist_rel"] <= BATCH_HIST_TOL
+                and e["pixel_mean"] <= BATCH_PIXEL_TOL):
+            bad.append(f"pair {i} against its run alone: {e}")
+    if bad:
+        fail("batch", f"{label}: " + "; ".join(bad))
+    return launches
+
+
+def lbfgs_batch_vs_alone(b: dict, cfg) -> tuple:
+    """`stylize_batch` of the pairs `b` under `cfg` (L-BFGS) and each pair
+    alone through `stylize` under the batch's resolved config: (images,
+    history, the record, the launches of the batch's run, each pair's
+    `lbfgs_trajectory_errors` against its run alone with
+    "evaluation_steps_apart" and "bit_equal")."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import batch as pb
+    with optimize.record_evaluations() as rec:
+        kernels.reset_launches()
+        images, hist = dpst_tpu_torch.stylize_batch(
+            b["contents"], b["styles"], b["cm"], b["sm"], cfg,
+            vgg_params=b["params"])
+        launches = dict(kernels.LAUNCHES)
+    counts = np.asarray([[p["evaluations"] for p in r["pairs"]]
+                         for r in rec]).T          # (B, steps)
+    rcfg = pb.resolve_config(cfg)
+    alone = []
+    for i in range(len(images)):
+        with optimize.record_evaluations() as rec_i:
+            out_i, hist_i = dpst_tpu_torch.stylize(
+                b["contents"][i], b["styles"][i], rcfg,
+                content_masks=b["cm"][i], style_masks=b["sm"][i],
+                vgg_params=b["params"], return_history=True)
+        e = lbfgs_trajectory_errors(images[i], hist[i], out_i, hist_i)
+        e["evaluation_steps_apart"] = int(np.abs(
+            counts[i] - np.asarray([r["evaluations"] for r in rec_i]))
+            .max())
+        e["bit_equal"] = bool(np.array_equal(hist[i], hist_i)
+                              and np.array_equal(images[i], out_i))
+        alone.append(e)
+    return images, hist, rec, launches, alone
+
+
+def run_batch_lbfgs(dev, b: dict, smi: str) -> dict:
+    """`stylize_batch` of the batch phase's BATCH pairs under
+    PRESETS["config3"] with optimizer="lbfgs" for BATCH_LBFGS_ITERS steps:
+    the pairs as one batched loop (each pair's own memory and zoom
+    linesearch, the searches in lockstep, one batched evaluation a round).
+    Counters reset just before and read just after, equal to one pair's
+    launches an evaluation × the batched evaluations E (`batch_launches`
+    of E steps); the loss falls for every pair; a rerun bit
+    for bit; each pair against its one-pair L-BFGS run (`stylize` under
+    the batch's resolved config) with evaluation counts within ±2 a step:
+    in bf16 (the preset) the first row within BATCH_ROW0_TOL, SSIM and all
+    rows within the L-BFGS golden's bounds; in fp32 (the same pairs and
+    steps, compute_dtype="float32") within all of the golden's bounds. (A
+    batch's bf16 rounds apart from one pair's, the Gram plans by B and
+    cuDNN's bf16 convs by batch size, which L-BFGS grows past the golden's
+    first-rows bound in some pairs within ten steps, the batch's convs
+    run image by image or not: so the first rows are not gated in bf16,
+    "rows 0-9" null in the line's `tol`. fp32 rounds apart by fp32 ulps.)
+    Then the loop
+    alone: evaluations/s and pair-evaluations/s, device ms of an
+    evaluation by group and its busy share, and the synchronizing
+    operations of one step (torch's sync debug mode): one for all pairs an
+    evaluation, and one copy of the history."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.parallel import batch as pb
+    label = f"config3 L-BFGS batch B={BATCH} 512²"
+    steps = BATCH_LBFGS_ITERS
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              optimizer="lbfgs", iterations=steps)
+    images, hist, rec, launches, alone = lbfgs_batch_vs_alone(b, cfg)
+    with optimize.record_evaluations() as rec2:
+        images2, hist2 = dpst_tpu_torch.stylize_batch(
+            b["contents"], b["styles"], b["cm"], b["sm"], cfg,
+            vgg_params=b["params"])
+    ev = lbfgs_evaluations(rec)
+    counts = [[p["evaluations"] for p in r["pairs"]] for r in rec]
+    identical = bool(np.array_equal(hist, hist2)
+                     and np.array_equal(images, images2)
+                     and [r["evaluations"] for r in rec]
+                     == [r["evaluations"] for r in rec2])
+    _, _, _, _, alone32 = lbfgs_batch_vs_alone(b, dataclasses.replace(
+        cfg, compute_dtype="float32"))
+    rcfg = pb.resolve_config(cfg)
+    # the loop alone on the batch's constants
+    pp = vgg.pack_params(b["params"], rcfg.compute_dtype, rcfg.conv_impl)
+    weights = optimize.LossWeights.from_config(rcfg)
+    consts, cs, means = pb.prepare_batch_stage(
+        *batch_inputs(b, dev), pp, (SIZE, SIZE), rcfg)
+    img0 = optimize.init_image(rcfg, cs, means)
+    seg = lambda n: pb.run_batch(img0, consts, weights, pp, rcfg, n)
+    seg(2)
+    torch.cuda.synchronize()
+    with optimize.record_evaluations() as rec_t:
+        t0 = time.perf_counter()
+        seg(steps)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    e_t = lbfgs_evaluations(rec_t)["E"]
+    pair_evals = sum(p["evaluations"] for r in rec_t for p in r["pairs"])
+    with optimize.record_evaluations() as rec_s:
+        _, syncs, sync_sites = count_syncs(lambda: seg(1))
+    e_s = lbfgs_evaluations(rec_s)["E"]
+    with optimize.record_evaluations() as rec_p:
+        groups = profile_batch(lambda: seg(2), 1)
+    e_p = lbfgs_evaluations(rec_p)["E"]
+    groups = {g: ms / e_p for g, ms in groups.items()}
+    busy = sum(groups.values())
+    eval_ms = loop_s * 1e3 / e_t
+    del consts, cs, means, img0
+    torch.cuda.empty_cache()
+    # an evaluation launches what an Adam step of the batch does
+    need = batch_launches(ev["E"])
+    emit({"phase": "batch", "path": label, "B": BATCH, "size": SIZE, "K": K,
+          "iterations": steps, "compute_dtype": cfg.compute_dtype,
+          "weights": weights_label(), "evaluations": ev["E"],
+          "evaluations_per_step": ev["per_step"],
+          "pair_evaluations_per_step": np.asarray(counts).T.tolist(),
+          "safe_steps": ev["safe_steps"], "loop_s": loop_s,
+          "loop_evaluations": e_t, "evaluations_per_s": e_t / loop_s,
+          "pair_evaluations_per_s": BATCH * e_t / loop_s,
+          "searched_pair_evaluations_per_s": pair_evals / loop_s,
+          "steps_per_s": steps / loop_s, "pair_steps_per_s":
+          BATCH * steps / loop_s, "evaluation_ms_unprofiled": eval_ms,
+          "device_ms_per_evaluation": groups,
+          "device_busy_ms_per_evaluation": busy,
+          "device_busy_share": busy / eval_ms,
+          "syncs_one_step": syncs, "evaluations_one_step": e_s,
+          "sync_sites": sync_sites, "launches": launches,
+          "launches_expected": need, "vs_alone": alone,
+          "fp32_vs_alone": alone32,
+          "tol": {"bf16": {"ssim_min": LBFGS_SSIM_MIN,
+                           "row0": BATCH_ROW0_TOL, "rows 0-9": None,
+                           "all": LBFGS_HIST_RTOL},
+                  "fp32": {"ssim_min": LBFGS_SSIM_MIN,
+                           "row0": LBFGS_ROW0_TOL,
+                           "rows 0-9": LBFGS_HIST10_RTOL,
+                           "all": LBFGS_HIST_RTOL},
+                  "evaluations": 2},
+          "rerun_bit_identical": identical, "nvidia_smi": smi})
+    bad = [f"{k} launched {launches[k]} times, E = {ev['E']} implies {n}"
+           for k, n in need.items() if launches[k] != n]
+    if ev["fresh"] != ev["fresh_expected"]:
+        bad.append(f"{ev['fresh']} fresh evaluations, optax's rule implies "
+                   f"{ev['fresh_expected']}")
+    if not (hist[:, -1, 0] < hist[:, 0, 0]).all():
+        bad.append("the total loss did not fall for every pair")
+    if not (np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 255.0):
+        bad.append("output not finite in [0, 255]")
+    for i, (e, e32) in enumerate(zip(alone, alone32)):
+        rel = np.asarray(e["rel_err_per_row"])
+        if not (e["ssim"] >= LBFGS_SSIM_MIN and rel[0] <= BATCH_ROW0_TOL
+                and rel.max() <= LBFGS_HIST_RTOL):
+            bad.append(f"pair {i} against its run alone, bf16: {e}")
+        bad += [f"pair {i} against its run alone, fp32: {x}"
+                for x in lbfgs_bounds_bad(e32, LBFGS_ROW0_TOL)]
+        if not max(e["evaluation_steps_apart"],
+                   e32["evaluation_steps_apart"]) <= 2:
+            bad.append(f"pair {i}: evaluation counts differ by more than 2")
+    if not identical:
+        bad.append("the rerun is not bit-identical")
+    # one fetch of the pairs' values and slopes a batched evaluation, and
+    # one copy of the segment's history to the device
+    if not e_s <= syncs <= e_s + 1:
+        bad.append(f"{syncs} synchronizing operations for {e_s} batched "
+                   f"evaluations")
+    if bad:
+        fail("batch", f"{label}: " + "; ".join(bad))
+    return launches
 
 
 def batch_rounding(consts, image: torch.Tensor, weights, params: dict,
@@ -4274,15 +4682,14 @@ def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
     BATCH_ROW0_TOL: the shards' bf16 Grams round apart) and against a
     rerun (bit for bit, evaluation counts included); then 64² fp32
     L-BFGS runs, sharded and unsharded, on the card and on the CPU: on the
-    card sharded against unsharded within the golden's bounds (row 0
-    within LBFGS_ROW0_TOL); sharded, card against CPU, within them too, or,
-    where the unsharded run on the same inputs leaves their first-rows or
-    SSIM bound card against CPU as well (the witness), row 0 and all rows
-    within theirs and the rest within the witness's reach
-    (LBFGS_WITNESS_SLACK); evaluation counts within ±2 a step; and one
+    card sharded against unsharded, and card against CPU sharded and
+    unsharded, each within the golden's bounds (row 0 within
+    LBFGS_ROW0_TOL); evaluation counts within ±2 a step; and one
     evaluation of the sharded objective and its gradient, card against
     CPU, at the content image and at the CPU run's last image within
-    LBFGS_EVAL_TOL."""
+    LBFGS_EVAL_TOL. (The card's fp32 convs are ATen's own, `vgg.conv2d`:
+    on cuDNN this trajectory ended at SSIM 0.80 card against CPU and 0.94
+    sharded against unsharded on the card.)"""
     import dpst_tpu_torch
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
@@ -4349,8 +4756,8 @@ def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
         out[where, sharded] = (img, hist, np.asarray(
             [r["evaluations"] for r in rec]))
     pairs = {"card against CPU, sharded": (("cuda", True), ("cpu", True)),
-             "card against CPU, unsharded (the witness)": (
-                 ("cuda", False), ("cpu", False)),
+             "card against CPU, unsharded": (("cuda", False),
+                                             ("cpu", False)),
              "sharded against unsharded, card": (("cuda", True),
                                                  ("cuda", False)),
              "sharded against unsharded, CPU": (("cpu", True),
@@ -4359,8 +4766,6 @@ def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
                 "evaluation_steps_apart": int(np.abs(out[a][2]
                                                      - out[b][2]).max())}
          for name, (a, b) in pairs.items()}
-    shard, witness = (e["card against CPU, sharded"],
-                      e["card against CPU, unsharded (the witness)"])
     # the objective and its input gradient, card against CPU, at the
     # content image and at the CPU run's last image: one evaluation each
     points = {"content image": content,
@@ -4381,31 +4786,14 @@ def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
           "one_evaluation_card_vs_cpu": evals,
           "tol": {"row0": LBFGS_ROW0_TOL, "ssim_min": LBFGS_SSIM_MIN,
                   "rows 0-9": LBFGS_HIST10_RTOL, "all": LBFGS_HIST_RTOL,
-                  "witness_slack": LBFGS_WITNESS_SLACK, "evaluations": 2,
+                  "evaluations": 2,
                   "one evaluation": LBFGS_EVAL_TOL}})
-    # sharding adds no divergence on the card: the golden's bounds
-    bad = [f"sharded against unsharded on the card: {b}" for b in
-           lbfgs_bounds_bad(e["sharded against unsharded, card"],
-                            LBFGS_ROW0_TOL)]
-    # card against CPU: the golden's bounds, the first rows' and SSIM's
-    # held to the witness where the unsharded run leaves them too
-    held = lbfgs_bounds_bad(shard, LBFGS_ROW0_TOL)
-    if held and lbfgs_bounds_bad(witness, LBFGS_ROW0_TOL):
-        rel, ref = (np.asarray(x["rel_err_per_row"])
-                    for x in (shard, witness))
-        held = []
-        if not rel[0] <= LBFGS_ROW0_TOL:
-            held.append(f"row 0 rel err {rel[0]} > {LBFGS_ROW0_TOL}")
-        if not rel.max() <= LBFGS_HIST_RTOL:
-            held.append(f"rows rel err {rel.max()} > {LBFGS_HIST_RTOL}")
-        if not rel[:10].max() <= (1.0 + LBFGS_WITNESS_SLACK) * ref[
-                :10].max():
-            held.append(f"rows 0-9 rel err {rel[:10].max()} past the "
-                        f"witness's {ref[:10].max()}")
-        if not shard["ssim"] >= witness["ssim"] - (1.0 - LBFGS_SSIM_MIN):
-            held.append(f"SSIM {shard['ssim']} below the witness's "
-                        f"{witness['ssim']}")
-    bad += [f"card against CPU: {b}" for b in held]
+    # sharding on the card, and the card against the CPU: the golden's
+    # bounds
+    bad = [f"{name}: {b}" for name in (
+        "sharded against unsharded, card", "card against CPU, sharded",
+        "card against CPU, unsharded")
+        for b in lbfgs_bounds_bad(e[name], LBFGS_ROW0_TOL)]
     bad += [f"{name}: evaluation counts differ by more than 2 at a step"
             for name, v in e.items() if not v["evaluation_steps_apart"] <= 2]
     bad += [f"{name}: {v}" for name, v in evals.items()
@@ -4715,7 +5103,9 @@ def summarize(rows: list, launches: dict, k: int = K, b: int = 1) -> list:
     if b != 1:
         meta = {name: meta[name] for name in (
             "lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
-            "gram_relu_bwd", "pool_bwd")}
+            "gram_relu_bwd", "pool_bwd", "gram_wbwd", "conv3x3")}
+        meta["gram_wbwd"] = ("dpst_tpu_torch/csrc/gram_wbwd_pairs.cu",
+                             *meta["gram_wbwd"][1:])
     out = []
     for name, (src, replaces, also, dtype) in meta.items():
         sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype
@@ -4846,6 +5236,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += check_batched(dev, torch.Generator(device=dev).manual_seed(
         SEED + 20))
+    rows += check_batched_wbwd_conv(dev, torch.Generator(
+        device=dev).manual_seed(SEED + 24))
     seconds["batched kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -4892,7 +5284,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_b, batch_run = run_batch_path(
         dev, torch.Generator(device=dev).manual_seed(SEED + 21), smi)
-    launches_b = {f"config3 batch B={BATCH} 512²": launches_b}
+    launches_b = {
+        f"config3 batch B={BATCH} 512²": launches_b,
+        f"config3 pallas route batch B={BATCH} 512²": run_batch_pallas(
+            dev, batch_run, smi),
+        f"config3 L-BFGS batch B={BATCH} 512²": run_batch_lbfgs(
+            dev, batch_run, smi)}
     seconds["batch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     launches_sp, spmd_entry = run_spatial(

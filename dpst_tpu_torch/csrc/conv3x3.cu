@@ -1,6 +1,6 @@
-// 3x3 SAME convolution of one image, stride 1, no bias:
-//   y[co, h, w] = sum_{dy, dx, ci} x[ci, h + dy - 1, w + dx - 1] * w[co, ci, dy, dx]
-// x (Cin, H, W) and y (Cout, H, W) in the compute dtype, the weights packed
+// 3x3 SAME convolution of a batch of B images, stride 1, no bias:
+//   y[b, co, h, w] = sum_{dy, dx, ci} x[b, ci, h + dy - 1, w + dx - 1] * w[co, ci, dy, dx]
+// x (B, Cin, H, W) and y (B, Cout, H, W) in the compute dtype, the weights packed
 // as (9, Cout, Cinp) (ops/conv_cuda.pack_weights), zero padding outside
 // the image, fp32 accumulation and one rounding of each output to the
 // compute dtype.
@@ -19,36 +19,53 @@
 // exact tensor-core path). Here each fp32 sum is rounded once to the
 // compute dtype (conv::EpiRound). In bf16 the caller's plan
 // (ops/conv_cuda.conv_plan) may split Cin into fp32 partials, summed in a
-// fixed order: no atomics, so a rerun is bit-identical.
+// fixed order: no atomics, so a rerun is bit-identical. A batch (the JAX
+// package's vmapped pallas_call) is one launch with the image an index of
+// the grid; in bf16 B > 1 takes the body's batch instance, compiled in
+// conv3x3_pairs.cu and conv3x3_pairs_wide.cu, and one image the
+// one-image instance, as before the batch.
 #include "conv3x3_tile.cuh"
 
 // The bf16 body on N tiles of 72 to 128 channels, compiled in
-// conv3x3_wide.cu (the build runs one nvcc a source, in parallel).
+// conv3x3_wide.cu (the build runs one nvcc a source, in parallel), and
+// the batch instances of both halves.
 int conv3x3_bf16_wide(const void* x, const void* wp, void* y, void* work,
                       int Cin, int Cout, int H, int W, int bn, int splits,
                       int cps, cudaStream_t st);
 int conv3x3_bf16_wide_attrs(int cps, int* out);
+int conv3x3_bf16_pairs(const void* x, const void* wp, void* y, void* work,
+                       int Cin, int Cout, int H, int W, int bn, int splits,
+                       int cps, int B, cudaStream_t st);
+int conv3x3_bf16_pairs_wide(const void* x, const void* wp, void* y,
+                            void* work, int Cin, int Cout, int H, int W,
+                            int bn, int splits, int cps, int B,
+                            cudaStream_t st);
 
-// x: (Cin, H, W), wp: (9, Cout, Cinp), y: (Cout, H, W), one dtype. bf16
-// only: N tiles of bn output channels (a multiple of 8 up to 128), `splits`
-// ranges of `cps` chunks of 64 input channels, each non-empty, and work
-// (splits, Cout, H, W) fp32 when splits > 1; fp32 ignores the four.
+// x: (B, Cin, H, W), wp: (9, Cout, Cinp), y: (B, Cout, H, W), one dtype.
+// bf16 only: N tiles of bn output channels (a multiple of 8 up to 128),
+// `splits` ranges of `cps` chunks of 64 input channels, each non-empty,
+// and work (B, splits, Cout, H, W) fp32 when splits > 1; fp32 ignores the
+// four.
 extern "C" int dpst_conv3x3(const void* x, const void* wp, void* y, void* work,
-                            int Cin, int Cout, int H, int W, int bn,
+                            int Cin, int Cout, int H, int W, int B, int bn,
                             int splits, int cps, int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DPST_DTYPE_F32)
     return conv::launch<float, conv::EpiRound<float>, conv90::Widths<>>(
         x, wp, conv::EpiRound<float>{static_cast<float*>(y)}, Cin, Cout, H, W,
-        st);
+        st, B);
+  if (dtype == DPST_DTYPE_BF16 && B > 1)
+    return (bn > 64 ? conv3x3_bf16_pairs_wide : conv3x3_bf16_pairs)(
+        x, wp, y, work, Cin, Cout, H, W, bn, splits, cps, B, st);
   if (dtype == DPST_DTYPE_BF16 && bn > 64)
     return conv3x3_bf16_wide(x, wp, y, work, Cin, Cout, H, W, bn, splits, cps,
                              st);
   if (dtype == DPST_DTYPE_BF16)
-    return conv90::launch(
+    return conv90::launch<false>(
         x, wp, conv::EpiRound<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y)},
-        static_cast<float*>(work), Cin, Cout, H, W, bn, splits, cps, st,
+        static_cast<float*>(work), Cin, Cout, H, W, bn, splits, cps, 1, st,
         conv90::Widths<8, 16, 24, 32, 40, 48, 56, 64>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -148,7 +148,8 @@ __device__ __forceinline__ void load_stage(const float* __restrict__ x,
 }
 
 // The fp32 tile: thread (ty, tx) owns output channels co0 + ty + 8i and
-// pixels (h0 + j, w0 + tx), i, j in [0, 8).
+// pixels (h0 + j, w0 + tx), i, j in [0, 8), of the image blockIdx.z of a
+// batch (x (B, Cin, H, W), the outputs at its (Cout, H, W) planes).
 template <typename Epi>
 __global__ void __launch_bounds__(NT)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wp,
@@ -161,6 +162,8 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const int h0 = (blockIdx.x / tiles_w) * TH, w0 = (blockIdx.x % tiles_w) * TW;
   const int co0 = blockIdx.y * TM;
   const size_t hw = static_cast<size_t>(H) * W;
+  x += blockIdx.z * Cin * hw;
+  const size_t ob = blockIdx.z * Cout * hw;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[8][8];
 #pragma unroll
@@ -198,30 +201,34 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     for (int j = 0; j < 8; ++j) {
       const int h = h0 + j;
       if (co < Cout && h < H && w < W)
-        epi(static_cast<size_t>(co) * hw + static_cast<size_t>(h) * W + w, co, h,
-            acc[i][j]);
+        epi(ob + static_cast<size_t>(co) * hw + static_cast<size_t>(h) * W + w,
+            co, h, acc[i][j]);
     }
   }
 }
 
 // Launch on `st` with one split; returns cudaGetLastError() after the
 // launch (or the error of the opt-in to more than 48 KB of shared memory).
-// bf16 takes the Hopper body on N tiles of conv90::width(Cout) channels,
-// which must be among `Widths`.
+// bf16 takes the Hopper body's one-image instance on N tiles of
+// conv90::width(Cout) channels, which must be among `Widths`; fp32 takes
+// `pairs` images, one a grid index.
 template <typename T, typename Epi, typename Widths>
 int launch(const void* x, const void* wp, Epi epi, int Cin, int Cout, int H,
-           int W, cudaStream_t st) {
+           int W, cudaStream_t st, int pairs = 1) {
   if constexpr (sizeof(T) == 2) {
-    return conv90::launch(x, wp, epi, nullptr, Cin, Cout, H, W,
-                          conv90::width(Cout), 1,
-                          (Cin + conv90::BK - 1) / conv90::BK, st, Widths{});
+    return conv90::launch<false>(x, wp, epi, nullptr, Cin, Cout, H, W,
+                                 conv90::width(Cout), 1,
+                                 (Cin + conv90::BK - 1) / conv90::BK, pairs,
+                                 st, Widths{});
   } else {
+    if (pairs < 1 || pairs > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
     static size_t allowed[64] = {};
     const cudaError_t err = hopper::allow_smem(conv3x3_kernel<Epi>,
                                                SMEM_BYTES, allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW),
-                    (Cout + TM - 1) / TM);
+                    (Cout + TM - 1) / TM, pairs);
     conv3x3_kernel<Epi><<<grid, NT, SMEM_BYTES, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(wp), epi, Cin,
         Cout, H, W);

@@ -71,6 +71,13 @@
 //     kernel sums in split order and hands to the epilogue once; no
 //     atomics, so a rerun is bit-identical. The plan is
 //     ops/conv_cuda.conv_plan.
+//   * A batch of B images (the JAX package's vmapped pallas_call, a pair
+//     axis in its grid) is one launch: z = pair * splits + split, the
+//     PAIRS instance offsetting the block's input and output planes by its
+//     pair (x (B, Cin, H, W), y (B, Cout, H, W), partials (B, splits,
+//     Cout, H, W), each pair's splits summed in split order). The one-image
+//     instance (PAIRS = false, block12's stages among its callers) has the
+//     pair arithmetic compiled out, register for register as before.
 //   * The epilogue stages the pixel-major accumulators in shared memory as
 //     (channel, pixel) rows and stores along the pixels of each NCHW
 //     plane, 8 pixels a thread: a 16-byte vector where W % 8 == 0.
@@ -265,12 +272,14 @@ __device__ __forceinline__ void stage_acc(float* cs,
 
 // The tile's outputs from cs: 8 pixels of one channel's row a thread,
 // neighbouring threads along the row, 16-byte vectors where W % 8 == 0
-// (then a group of 8 lies wholly inside or outside the image); to epi, or
-// in fp32 to wk (Cout, H, W) when wk is not null.
+// (then a group of 8 lies wholly inside or outside the image); to epi, at
+// ob elements into its output (the pair's planes), or in fp32 to wk
+// (Cout, H, W) when wk is not null.
 template <int BN, typename Epi>
 __device__ __forceinline__ void store_tile(const float* cs, const Epi& epi,
                                            float* wk, int Cout, int H, int W,
-                                           int co0, int h0, int w0) {
+                                           int co0, int h0, int w0,
+                                           size_t ob) {
   const size_t hw = static_cast<size_t>(H) * W;
   const bool vec = (W & 7) == 0;
   for (int e = threadIdx.x; e < BN * (TP / 8); e += NT) {
@@ -293,11 +302,11 @@ __device__ __forceinline__ void store_tile(const float* cs, const Epi& epi,
           if (wc + i < W) wk[idx + i] = v[i];
       }
     } else if (vec) {
-      epi.store8(idx, co, h, v);
+      epi.store8(ob + idx, co, h, v);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        if (wc + i < W) epi(idx + i, co, h, v[i]);
+        if (wc + i < W) epi(ob + idx + i, co, h, v[i]);
     }
   }
 }
@@ -350,20 +359,22 @@ __device__ __forceinline__ void load_weights(uint32_t sa, const bf16* wp,
   }
 }
 
-// Grid (ceil(H / TH) * ceil(W / TW), ceil(Cout / BN), splits). Block
-// (pixel tile, channel tile, z) sums the chunks [z * cps, min(chunks, (z +
-// 1) * cps)) of Cin (K27: the one K of 32) and hands each output to epi,
-// or, with work, stores it in fp32 in work[z] (Cout, H, W) for
+// Grid (ceil(H / TH) * ceil(W / TW), ceil(Cout / BN), pairs * splits).
+// Block (pixel tile, channel tile, z = pair * splits + split) sums the
+// chunks [split * cps, min(chunks, (split + 1) * cps)) of Cin (K27: the one
+// K of 32) of its pair's image and hands each output to epi (at the pair's
+// planes), or, with work, stores it in fp32 in work[z] (Cout, H, W) for
 // conv3x3_split_reduce_kernel. wp is 16-byte aligned. MULTI: a block may
 // sum more than one chunk (the next chunk's staging is compiled in); a
 // block of one chunk at BN <= 64 takes the body without it, which at BN =
 // 64 holds to 128 registers a thread, so that two blocks share an SM
-// (narrower N tiles spilled there).
-template <int BN, bool K27, bool MULTI, typename Epi>
+// (narrower N tiles spilled there). PAIRS: the instance of a batch (one
+// image: z = split, the pair arithmetic compiled out).
+template <int BN, bool K27, bool MULTI, typename Epi, bool PAIRS = false>
 __global__ void __launch_bounds__(NT, BN == 64 && !MULTI ? 2 : 1)
 conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
                      Epi epi, float* __restrict__ work, int Cin, int Cout,
-                     int H, int W, int cps) {
+                     int H, int W, int cps, int splits) {
   constexpr int TAPS = K27 ? 1 : 9;
   // taps between a slab part's loads and its store: two at BN = 64 and 128
   // (the main paths' layers), else one
@@ -381,10 +392,13 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   const int co0 = blockIdx.y * BN;
   const int cinp = K27 ? 32 : (Cin + 7) & ~7;
   const int chunks = K27 ? 1 : (Cin + BK - 1) / BK;
-  const int cb = blockIdx.z * cps;
+  const int split = PAIRS ? blockIdx.z % splits : blockIdx.z;
+  const int cb = split * cps;
   const int nch = max(0, min(chunks, cb + cps) - cb);
   const int total = nch * TAPS;
   const size_t hw = static_cast<size_t>(H) * W;
+  if constexpr (PAIRS)
+    xs += static_cast<size_t>(blockIdx.z / splits) * Cin * hw;
   const SlabPix sp = slab_pixels(H, W, h0, w0);
 
   // item it = (chunk cb + it / TAPS, tap): its weights into slot it % WS
@@ -485,86 +499,97 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
                  work == nullptr
                      ? nullptr
                      : work + static_cast<size_t>(blockIdx.z) * Cout * hw,
-                 Cout, H, W, co0, h0, w0);
+                 Cout, H, W, co0, h0, w0,
+                 PAIRS ? static_cast<size_t>(blockIdx.z / splits) * Cout * hw
+                       : 0);
 }
 
-// y = epi(work[0] + work[1] + ...): the split partials summed in split
-// order, each output handed to the epilogue once.
+// y = epi(work[0] + work[1] + ...): each pair's (blockIdx.y's) split
+// partials summed in split order, each output handed to the epilogue once.
 template <typename Epi>
 __global__ void conv3x3_split_reduce_kernel(const float* __restrict__ work,
                                             Epi epi, int splits, int Cout,
                                             int H, int W) {
   const size_t hw = static_cast<size_t>(H) * W, n = Cout * hw;
+  const float* wk = work + blockIdx.y * splits * n;
+  const size_t ob = blockIdx.y * n;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = 0.0f;
-    for (int sp = 0; sp < splits; ++sp) s += work[sp * n + i];
-    epi(i, static_cast<int>(i / hw), static_cast<int>(i % hw / W), s);
+    for (int sp = 0; sp < splits; ++sp) s += wk[sp * n + i];
+    epi(ob + i, static_cast<int>(i / hw), static_cast<int>(i % hw / W), s);
   }
 }
 
 template <typename Epi>
 int reduce_splits(float* work, Epi epi, int splits, int Cout, int H, int W,
-                  cudaStream_t st) {
+                  int pairs, cudaStream_t st) {
   if (splits > 1) {
     const long long n = static_cast<long long>(Cout) * H * W;
-    conv3x3_split_reduce_kernel<Epi><<<dpst::grid_for(n, 256, 132 * 16), 256,
-                                       0, st>>>(work, epi, splits, Cout, H, W);
+    const dim3 grid(dpst::grid_for(n, 256, std::max(1, 132 * 16 / pairs)),
+                    pairs);
+    conv3x3_split_reduce_kernel<Epi><<<grid, 256, 0, st>>>(work, epi, splits,
+                                                          Cout, H, W);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // One instance: MULTI unless the block sums one chunk at BN <= 64 (or is
-// conv1_1's K27).
-template <int BN, bool K27, bool MULTI, typename Epi>
+// conv1_1's K27); PAIRS for a batch of pairs > 1 images.
+template <int BN, bool K27, bool MULTI, bool PAIRS, typename Epi>
 int launch_inst(const void* x, const void* wp, Epi epi, float* work, int Cin,
-                int Cout, int H, int W, int splits, int cps, cudaStream_t st) {
+                int Cout, int H, int W, int splits, int cps, int pairs,
+                cudaStream_t st) {
   const int bytes = smem_bytes<BN>(slabs_for(BN, cps));
   static size_t allowed[64] = {};
-  const cudaError_t err = allow_smem(conv3x3_wgmma_kernel<BN, K27, MULTI, Epi>,
-                                     smem_bytes<BN>(2), allowed);
+  const cudaError_t err = allow_smem(
+      conv3x3_wgmma_kernel<BN, K27, MULTI, Epi, PAIRS>, smem_bytes<BN>(2),
+      allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW),
-                  (Cout + BN - 1) / BN, splits);
-  conv3x3_wgmma_kernel<BN, K27, MULTI, Epi><<<grid, NT, bytes, st>>>(
+                  (Cout + BN - 1) / BN, pairs * splits);
+  conv3x3_wgmma_kernel<BN, K27, MULTI, Epi, PAIRS><<<grid, NT, bytes, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wp), epi,
-      splits > 1 ? work : nullptr, Cin, Cout, H, W, cps);
-  return reduce_splits(work, epi, splits, Cout, H, W, st);
+      splits > 1 ? work : nullptr, Cin, Cout, H, W, cps, splits);
+  return reduce_splits(work, epi, splits, Cout, H, W, pairs, st);
 }
 
-template <int BN, bool K27, typename Epi>
+template <int BN, bool K27, bool PAIRS, typename Epi>
 int launch_bn(const void* x, const void* wp, Epi epi, float* work, int Cin,
-              int Cout, int H, int W, int splits, int cps, cudaStream_t st) {
+              int Cout, int H, int W, int splits, int cps, int pairs,
+              cudaStream_t st) {
   if constexpr (K27) {
-    return launch_inst<BN, true, false, Epi>(x, wp, epi, work, Cin, Cout, H,
-                                             W, splits, cps, st);
+    return launch_inst<BN, true, false, PAIRS, Epi>(
+        x, wp, epi, work, Cin, Cout, H, W, splits, cps, pairs, st);
   } else {
     if constexpr (BN <= 64) {
       if (cps == 1)
-        return launch_inst<BN, false, false, Epi>(x, wp, epi, work, Cin, Cout,
-                                                  H, W, splits, cps, st);
+        return launch_inst<BN, false, false, PAIRS, Epi>(
+            x, wp, epi, work, Cin, Cout, H, W, splits, cps, pairs, st);
     }
-    return launch_inst<BN, false, true, Epi>(x, wp, epi, work, Cin, Cout, H,
-                                             W, splits, cps, st);
+    return launch_inst<BN, false, true, PAIRS, Epi>(
+        x, wp, epi, work, Cin, Cout, H, W, splits, cps, pairs, st);
   }
 }
 
-// The bf16 conv on N tiles of bn output channels (one of Widths), in
-// `splits` splits of `cps` chunks of 64 input channels, each non-empty;
-// work (splits, Cout, H, W) fp32 when splits > 1. Returns
-// cudaGetLastError() after the launches.
-template <typename Epi, int... N>
+// The bf16 conv of `pairs` images (PAIRS: the batch instance, for pairs >
+// 1) on N tiles of bn output channels (one of Widths), in `splits` splits
+// of `cps` chunks of 64 input channels, each non-empty; work (pairs,
+// splits, Cout, H, W) fp32 when splits > 1. Returns cudaGetLastError()
+// after the launches.
+template <bool PAIRS, typename Epi, int... N>
 int launch(const void* x, const void* wp, Epi epi, float* work, int Cin,
-           int Cout, int H, int W, int bn, int splits, int cps,
+           int Cout, int H, int W, int bn, int splits, int cps, int pairs,
            cudaStream_t st, Widths<N...>) {
   const int chunks = (Cin + BK - 1) / BK;
   if (Cin < 1 || Cout < 1 || H < 1 || W < 1 || splits < 1 || cps < 1 ||
-      (splits - 1) * cps >= chunks || (splits > 1 && work == nullptr))
+      (splits - 1) * cps >= chunks || (splits > 1 && work == nullptr) ||
+      pairs < 1 || (pairs > 1) != PAIRS || pairs * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   int rc = static_cast<int>(cudaErrorInvalidValue);
   (void)((bn == N &&
-          (rc = launch_bn<N, false, Epi>(x, wp, epi, work, Cin, Cout, H, W,
-                                         splits, cps, st),
+          (rc = launch_bn<N, false, PAIRS, Epi>(x, wp, epi, work, Cin, Cout,
+                                                H, W, splits, cps, pairs, st),
            true)) ||
          ...);
   return rc;
@@ -576,8 +601,8 @@ int launch_k27(const void* x, const void* wp, Epi epi, int Cout, int H, int W,
                cudaStream_t st) {
   if (Cout < 1 || Cout > 64 || H < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bn<64, true, Epi>(x, wp, epi, nullptr, 3, Cout, H, W, 1, 1,
-                                  st);
+  return launch_bn<64, true, false, Epi>(x, wp, epi, nullptr, 3, Cout, H, W,
+                                         1, 1, 1, st);
 }
 
 // Resources of the instance that sums cps chunks a block at N tiles of BN,

@@ -6,9 +6,9 @@
 int conv3x3_bf16_wide(const void* x, const void* wp, void* y, void* work,
                       int Cin, int Cout, int H, int W, int bn, int splits,
                       int cps, cudaStream_t st) {
-  return conv90::launch(
+  return conv90::launch<false>(
       x, wp, conv::EpiRound<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y)},
-      static_cast<float*>(work), Cin, Cout, H, W, bn, splits, cps, st,
+      static_cast<float*>(work), Cin, Cout, H, W, bn, splits, cps, 1, st,
       conv90::Widths<72, 80, 88, 96, 104, 112, 120, 128>{});
 }
 

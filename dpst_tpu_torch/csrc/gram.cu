@@ -76,7 +76,7 @@
 // pair runs the one-pair instances) and their split partials are
 // split-major, (splits, B, C, P), so that one reduction over B C P
 // elements serves every pair. The fp32 tiles take the pair from
-// blockIdx.z. gram_wbwd runs one pair a launch.
+// blockIdx.z. gram_wbwd's batch instance lives in gram_wbwd_pairs.cu.
 //
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second
@@ -421,8 +421,8 @@ cudaError_t launch_bwd_wgmma(const void* f, const void* m2, const void* a,
 
 template <typename T>
 void launch_wbwd(const void* f, const void* m2, const void* s, void* out,
-                 int C, int P, int K, cudaStream_t st) {
-  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM);
+                 int C, int P, int K, int B, cudaStream_t st) {
+  const dim3 grid((P + TN - 1) / TN, (C + TM - 1) / TM, B);
   gram_wbwd_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const T*>(f), static_cast<const T*>(m2),
       static_cast<const T*>(s), static_cast<T*>(out), C, P, K);
@@ -513,6 +513,12 @@ extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
                                        int K, int B, int tile, int groups,
                                        int splits, void* stream);
 extern "C" int dpst_gram_relu_bwd_attrs(int which, int* out);
+// gram_wbwd's bf16 batch of B > 1 pairs, in gram_wbwd_pairs.cu.
+extern "C" int dpst_gram_wbwd_pairs_bf16(const void* f, const void* m2,
+                                         const void* a, void* work, void* out,
+                                         int C, int P, int K, int B, int tile,
+                                         int groups, int splits,
+                                         void* stream);
 
 // B pairs in one launch (the pair an index of the grid): f (B, C, P), m2
 // (B, K, P); work: (B, splits, K, C, C) fp32 scratch, unused when splits
@@ -618,23 +624,30 @@ extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f: (C, P) tap, m2: (K, P), in the compute dtype; out: dF (C, P) = sum_k
-// (S_k . F) * m2_k, each class's product in fp32, weighted after the
-// product. s is the symmetrized cotangent: in fp32 the (K, C, C) stack; in
-// bf16 the matrix A of dpst_gram_bwd, with P % 8 == 0 and C <= 512. tile,
+// B pairs in one launch: f (B, C, P) taps, m2 (B, K, P), in the compute
+// dtype; out: dF (B, C, P) = sum_k (S_bk . F_b) * m2_bk, each class's
+// product in fp32, weighted after the product. s is the symmetrized
+// cotangent: in fp32 the (B, K, C, C) stacks; in bf16 the matrices A of
+// dpst_gram_bwd (B, C, K * Cp), with P % 8 == 0 and C <= 512. tile,
 // groups, splits and work serve bf16 only: c tiles of `tile` (64 or 128)
 // rows; `groups` (1 <= groups <= ceil(P / 128)) blocks walk the 128-pixel
-// tiles of each c tile; `splits` > 1 cuts the classes into that many
-// ranges of ceil(K / splits), each non-empty, whose fp32 partials go to
-// work (splits, C, P).
+// tiles of each c tile of each pair; `splits` > 1 cuts the classes into
+// that many ranges of ceil(K / splits), each non-empty, whose fp32
+// partials go to work (splits, B, C, P). One pair runs the one-pair
+// instance here, B > 1 the batch instance of gram_wbwd_pairs.cu.
 extern "C" int dpst_gram_wbwd(const void* f, const void* m2, const void* s,
                               void* work, void* out, int C, int P, int K,
-                              int tile, int groups, int splits, int dtype,
-                              void* stream) {
+                              int B, int tile, int groups, int splits,
+                              int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
+  if (B < 1 || splits < 1 || B * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DPST_DTYPE_F32)
-    launch_wbwd<float>(f, m2, s, out, C, P, K, st);
+    launch_wbwd<float>(f, m2, s, out, C, P, K, B, st);
+  else if (dtype == DPST_DTYPE_BF16 && B > 1)
+    return dpst_gram_wbwd_pairs_bf16(f, m2, s, work, out, C, P, K, B, tile,
+                                     groups, splits, stream);
   else if (dtype == DPST_DTYPE_BF16)
     return static_cast<int>(launch_wbwd_wgmma(f, m2, s,
                                               static_cast<float*>(work), out,

@@ -1,4 +1,5 @@
-"""3×3 SAME convolution of one image: CUDA kernel and plain version.
+"""3×3 SAME convolution of an image or a batch: CUDA kernel and plain
+version.
 
 The port's counterpart of `dpst_tpu/ops/conv_pallas.py`:
 
@@ -8,7 +9,10 @@ x (Cin, H, W) NCHW planes, w (Cout, Cin, 3, 3) OIHW, y (Cout, H, W), all in
 the compute dtype; stride 1, zero padding, fp32 accumulation, the output
 rounded once to the compute dtype. No bias and no ReLU: `extract_features`
 adds them. One kernel serves both directions: the input gradient is
-`conv3x3_same(g, flip_transpose_weights(w))`.
+`conv3x3_same(g, flip_transpose_weights(w))`. A batch (N, Cin, H, W) is
+one launch, the image an index of the kernel's grid (the JAX package's
+vmapped `pallas_call`); each image's sums have the order of its own
+launch.
 
 The kernels read the weights packed as (9, Cout, Cinp) (`pack_weights`,
 and `pack_grad_weights` for the input gradient; block12's conv1_1 in bf16
@@ -114,14 +118,16 @@ def conv_blocks(cout: int, h: int, w: int) -> int:
             * -(-cout // conv_width(cout)))
 
 
-def conv_plan(cin: int, cout: int, h: int, w: int) -> tuple[int, int, int]:
-    """(bn, splits, cps) of the bf16 kernel: N tiles of bn channels, and
-    Cin's chunks of 64 cut into `splits` non-empty ranges of `cps` where
-    the tiles alone leave SMs idle. One block fits an SM, so the cost of a
-    plan is its waves of blocks times the chunks a block sums; the
-    cheapest wins, the fewest splits among equals (each split adds an fp32
-    partial of the output and a pass that sums them)."""
-    blocks = conv_blocks(cout, h, w)
+def conv_plan(cin: int, cout: int, h: int, w: int,
+              b: int = 1) -> tuple[int, int, int]:
+    """(bn, splits, cps) of the bf16 kernel on a batch of b images: N tiles
+    of bn channels, and Cin's chunks of 64 cut into `splits` non-empty
+    ranges of `cps` where the tiles of the b images alone leave SMs idle.
+    One block fits an SM, so the cost of a plan is its waves of blocks
+    times the chunks a block sums; the cheapest wins, the fewest splits
+    among equals (each split adds an fp32 partial of the output and a pass
+    that sums them)."""
+    blocks = b * conv_blocks(cout, h, w)
     chunks = -(-cin // CHUNK)
     best = None
     for s in range(1, chunks + 1):
@@ -155,18 +161,25 @@ def conv3x3_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: `conv3x3_acc`, then one cast."""
+    """Plain PyTorch version: `conv3x3_acc`, then one cast (of a batch,
+    image by image)."""
+    if x.dim() == 4:
+        return torch.stack([conv3x3_acc(xi, w).to(x.dtype) for xi in x])
     return conv3x3_acc(x, w).to(x.dtype)
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME 3×3 conv: (Cin, H, W) × weights -> (Cout, H, W). The weights
-    are OIHW (Cout, Cin, 3, 3), packed on each call, or already packed
-    (9, Cout, Cinp) by `pack_weights`. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/conv3x3.cu)."""
-    if x.dim() != 3:
-        raise ValueError(f"x must be (Cin, H, W), got {tuple(x.shape)}")
-    cin, h, wd = x.shape
+    """SAME 3×3 conv: (Cin, H, W) × weights -> (Cout, H, W), or a batch
+    (N, Cin, H, W) -> (N, Cout, H, W) in one launch. The weights are OIHW
+    (Cout, Cin, 3, 3), packed on each call, or already packed (9, Cout,
+    Cinp) by `pack_weights`. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (csrc/conv3x3.cu)."""
+    if x.dim() not in (3, 4):
+        raise ValueError(f"x must be (Cin, H, W) or (N, Cin, H, W), got "
+                         f"{tuple(x.shape)}")
+    lead = x.shape[:-3]
+    b = x.shape[0] if lead else 1
+    cin, h, wd = x.shape[-3:]
     packed = w.dim() == 3
     cout = w.shape[1] if packed else w.shape[0]
     kernels.require(x, "x")
@@ -176,14 +189,14 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3_plain(x, unpack_weights(w, cin) if packed else w)
     wp = w if packed else pack_weights(w)
     kernels.require_aligned(wp, "w")
-    bn, splits, cps = (conv_plan(cin, cout, h, wd)
+    bn, splits, cps = (conv_plan(cin, cout, h, wd, b)
                        if x.dtype == torch.bfloat16 else (0, 1, 1))
-    work = (torch.empty((splits, cout, h, wd), dtype=torch.float32,
+    work = (torch.empty((b, splits, cout, h, wd), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
-    y = torch.empty((cout, h, wd), dtype=x.dtype, device=x.device)
+    y = torch.empty((*lead, cout, h, wd), dtype=x.dtype, device=x.device)
     rc = kernels.library().dpst_conv3x3(
         kernels.ptr(x), kernels.ptr(wp), kernels.ptr(y), kernels.ptr(work),
-        cin, cout, h, wd, bn, splits, cps, kernels.DTYPE_CODES[x.dtype],
+        cin, cout, h, wd, b, bn, splits, cps, kernels.DTYPE_CODES[x.dtype],
         kernels.stream_ptr(x))
     kernels.check(rc, "conv3x3")
     kernels.LAUNCHES["conv3x3"] += 1

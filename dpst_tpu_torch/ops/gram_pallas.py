@@ -63,12 +63,12 @@ def wbwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int, int]:
     """(c tile, groups, splits) of the bf16 backward, as the kernel takes
     them: one block of two warpgroups an SM; c tiles of 64 rows for C <= 64,
     else 128; p tiles of WBWD_PIXELS. When the grid of p tiles × c tiles ×
-    B pairs (the bias+ReLU backward's batch; `gram_wbwd` runs one pair a
-    launch) fills the SMs, `groups` blocks per c tile of a pair walk its p
-    tiles and splits = 1. Else the classes are cut into `splits` ranges of
-    whole classes (a class's product must be complete before it meets its
-    mask), as many as make the grid's waves × the classes a block walks
-    least (fewest on a tie)."""
+    B pairs (a batch of `gram_wbwd` or of the bias+ReLU backward, the pair
+    an index of the grid) fills the SMs, `groups` blocks per c tile of a
+    pair walk its p tiles and splits = 1. Else the classes are cut into
+    `splits` ranges of whole classes (a class's product must be complete
+    before it meets its mask), as many as make the grid's waves × the
+    classes a block walks least (fewest on a tie)."""
     tile = 64 if c <= 64 else 128
     ctiles, ptiles = b * -(-c // tile), -(-p // WBWD_PIXELS)
     if ptiles * ctiles >= _SMS:
@@ -85,17 +85,14 @@ def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,
               s: torch.Tensor) -> torch.Tensor:
     """dF of the masked Grams, weighted after the product, of f (C, P) or a
     batch (B, C, P). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/gram.cu), once a pair (the kernel has no batch
-    grid dimension yet: a batch is a loop of one-pair launches, each
-    counted)."""
+    launch the kernel (csrc/gram.cu; a batch in one launch, the pair an
+    index of the grid, csrc/gram_wbwd_pairs.cu in bf16)."""
     _, c, _, k = check_operands(f, m2)
     kernels.require(s, "s", (*f.shape[:-2], k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
         return gram_wbwd_plain(f, m2, s)
     if f.dtype == torch.bfloat16 and c > WBWD_MAX_C:
         raise ValueError(f"gram_wbwd in bf16 takes C <= {WBWD_MAX_C}, not {c}")
-    if f.dim() == 3:
-        return per_pair(gram_wbwd, f, m2, s)
     return launch_bwd("gram_wbwd", f, m2, s, wbwd_plan)
 
 

@@ -232,9 +232,9 @@ def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
 def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
                s: torch.Tensor, plan,
                bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the backward kernel `name` ("gram_bwd", or "gram_relu_bwd"
-    with the (C,) `bias` and f the raw tap z, csrc/gram.cu; "gram_wbwd" of
-    one pair) on the CUDA (C, P) tap f, (K, P) m² and (K, C, C) cotangent
+    """Launch the backward kernel `name` ("gram_bwd", "gram_wbwd", or
+    "gram_relu_bwd" with the (C,) `bias` and f the raw tap z, csrc/gram.cu)
+    on the CUDA (C, P) tap f, (K, P) m² and (K, C, C) cotangent
     s, or a batch (B, C, P), (B, K, P) and (B, K, C, C); returns dF (C, P)
     (or (B, C, P)). In bf16 (the Hopper bodies) P is padded to a multiple
     of 8, s goes as `s_matrix(s)` and `plan(C, P, K, B)` gives (c tile,
@@ -253,10 +253,9 @@ def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
                                dtype=torch.float32, device=f.device)
     out = torch.empty_like(f)
     operands = (f, m2, s) if bias is None else (f, bias, m2, s)
-    pairs = () if name == "gram_wbwd" else (b,)
     rc = getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out), c,
-        f.shape[-1], k, *pairs, tile, groups, splits,
+        f.shape[-1], k, b, tile, groups, splits,
         kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1

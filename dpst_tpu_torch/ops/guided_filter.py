@@ -22,13 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .laplacian import _sym3_inv
-
-
-def _div(x: torch.Tensor, d) -> torch.Tensor:
-    """x / d as one rounded division (`d` a tensor or a number)."""
-    if not isinstance(d, torch.Tensor):
-        d = torch.full((), d, dtype=x.dtype, device=x.device)
-    return x / d
+from .laplacian import exact_div as _div
 
 
 def _box(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -11,9 +11,9 @@ take the kernels' plain PyTorch versions.
 
 Each kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, and nowhere else; `reset_launches()` sets all of them to 0.
-`lap_matvec`, `gram_fwd`, `gram_bwd`, `gram_relu_fwd` and `gram_relu_bwd`
-take a leading batch axis of B pairs as an index of the kernel's grid: one
-launch, one count, whatever B is.
+`lap_matvec`, `gram_fwd`, `gram_bwd`, `gram_relu_fwd`, `gram_relu_bwd`,
+`gram_wbwd` and `conv3x3` take a leading batch axis of B pairs as an index
+of the kernel's grid: one launch, one count, whatever B is.
 `block12_fwd` and `block12_fwd_res` are two counts over one entry point
 (`dpst_block12_fwd` without and with its residuals); `block12_gram_dz`
 counts calls of the backward entry points' Gram cotangent stage alone (its
@@ -139,10 +139,10 @@ def library() -> ctypes.CDLL:
         lib.dpst_gram_bwd.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dpst_gram_relu_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.dpst_gram_relu_bwd.argtypes = [p] * 6 + [i] * 8 + [p]
-        lib.dpst_gram_wbwd.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
+        lib.dpst_gram_wbwd.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.dpst_conv3x3.argtypes = [p, p, p, p] + [i] * 8 + [p]
+        lib.dpst_conv3x3.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.dpst_conv3x3_attrs.argtypes = [i, i, p]
         lib.dpst_block12_conv_attrs.argtypes = [i, p]
         lib.dpst_block12_scratch_bytes.argtypes = [i] * 6

@@ -18,6 +18,12 @@ same along rows, which the CUDA kernel (csrc/lap_matvec.cu) repeats.
 
 The photorealism loss Σ_c v_cᵀ L v_c has gradient 2·L·v_c; its autograd
 Function reuses the forward matvec, so each step pays one matvec.
+
+Every division by 9 is one rounded division on the CPU and on the card
+alike (`exact_div`): torch divides a CUDA tensor by a Python scalar
+through its reciprocal, which rounds apart from the CPU's division in
+about one element of ten, and the window covariance m2 − μμᵀ then cancels
+those last bits into Λ ≈ 1e6.
 """
 from __future__ import annotations
 
@@ -35,6 +41,14 @@ class LaplacianStats(NamedTuple):
     valid: torch.Tensor      # (H, W)       1.0 at interior window centres
     win_count: torch.Tensor  # (H, W)       n_i = #valid windows containing i
     image: torch.Tensor      # (H, W, 3)    I in [0, 1]
+
+
+def exact_div(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d as one rounded division on every device (`d` a tensor or a
+    number; a number goes as a 0-d tensor on x's device)."""
+    if not isinstance(d, torch.Tensor):
+        d = torch.full((), d, dtype=x.dtype, device=x.device)
+    return x / d
 
 
 def _shift(x: torch.Tensor, dim: int, off: int) -> torch.Tensor:
@@ -82,9 +96,9 @@ def precompute_stats(image01: torch.Tensor,
     h, w, _ = img.shape
     valid = torch.zeros((h, w), dtype=torch.float32, device=img.device)
     valid[1:-1, 1:-1] = 1.0               # interior window centres only
-    mu = _box3(img) / WIN
+    mu = exact_div(_box3(img), WIN)
     outer = img[..., :, None] * img[..., None, :]            # (H, W, 3, 3)
-    m2 = _box3(outer.reshape(h, w, 9)).reshape(h, w, 3, 3) / WIN
+    m2 = exact_div(_box3(outer.reshape(h, w, 9)).reshape(h, w, 3, 3), WIN)
     cov = m2 - mu[..., :, None] * mu[..., None, :]
     eye = torch.eye(3, dtype=torch.float32, device=img.device)
     lam = _sym3_inv(cov + (eps / WIN) * eye)
@@ -122,8 +136,8 @@ def matvec(stats: LaplacianStats, v: torch.Tensor) -> torch.Tensor:
     b = [(lam[..., m, 0, None] * t[0] + lam[..., m, 1, None] * t[1])
          + lam[..., m, 2, None] * t[2] for m in range(3)]
     mub = (mu3[0] * b[0] + mu3[1] * b[1]) + mu3[2] * b[2]
-    alpha = ((mub - s) / WIN) * valid
-    beta = [((-b[m]) / WIN) * valid for m in range(3)]
+    alpha = exact_div(mub - s, WIN) * valid
+    beta = [exact_div(-b[m], WIN) * valid for m in range(3)]
     ib = [i3[m] * _box3(beta[m]) for m in range(3)]
     y = ((stats.win_count[..., None] * v + _box3(alpha))
          + ((ib[0] + ib[1]) + ib[2]))

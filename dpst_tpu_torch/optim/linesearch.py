@@ -18,6 +18,16 @@ evaluation. Where optax computes both sides of a `jnp.where` (the cubic
 and quadratic minimizers divide through zeros and give NaN), the port
 computes the same expressions under `np.errstate` and takes the same
 validity tests.
+
+Each evaluation is a proposal (`_propose`: the stepsize, from the state's
+scalars alone), the objective at it, and the state's update from the
+value and slope found there (`_accept`). A batch of B pairs
+(`zoom_linesearch_batch`, the JAX package's search under `jax.vmap`) runs
+B such searches in lockstep, as vmap's `while_loop` does: every round
+evaluates all B pairs at their proposals in one batched evaluation and
+fetches the B values and slopes in one transfer; a pair whose search has
+ended is evaluated again at its stepsize and the result is discarded.
+Each pair's decisions are the one-pair search's on its own numbers.
 """
 from __future__ import annotations
 
@@ -26,7 +36,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .base import GradientTransformation, Vector, tree_map, vdot
+from .base import (GradientTransformation, Vector, pair_of, pair_scalars,
+                   pair_vdot, stack_pairs, tree_map, vdot)
 
 f32 = np.float32
 _INF = f32(np.inf)
@@ -181,6 +192,15 @@ def _value_and_slope_on_line(value_and_grad_fn: Callable,
     return value_step, grad_step, vdot(grad_step, state.updates)
 
 
+def _init_scalars(state: ZoomLinesearchState, v0, s0) -> ZoomLinesearchState:
+    """The state with its initial value v0 and slope s0 (host float32)
+    written to every field that starts from them."""
+    return state._replace(
+        value=v0, slope=s0, value_init=v0, slope_init=s0, value_low=v0,
+        slope_low=s0, value_high=v0, slope_high=s0, value_cubic_ref=v0,
+        safe_value=v0)
+
+
 def _resolve_init(state: ZoomLinesearchState, value_step, slope_step):
     """The evaluation's value and slope on the host, together with the
     initial value and slope where those are still on the device (the
@@ -188,10 +208,7 @@ def _resolve_init(state: ZoomLinesearchState, value_step, slope_step):
     v0, s0, value_step, slope_step = _host(
         state.value_init, state.slope_init, value_step, slope_step)
     if isinstance(state.slope_init, torch.Tensor):
-        state = state._replace(
-            value=v0, slope=s0, value_init=v0, slope_init=s0, value_low=v0,
-            slope_low=s0, value_high=v0, slope_high=s0, value_cubic_ref=v0,
-            safe_value=v0)
+        state = _init_scalars(state, v0, s0)
     return state, value_step, slope_step
 
 
@@ -204,16 +221,24 @@ def _try_safe_step(state: ZoomLinesearchState) -> ZoomLinesearchState:
     return state
 
 
-def _search_interval(state: ZoomLinesearchState, value_and_grad_fn
+def _propose(state: ZoomLinesearchState) -> tuple:
+    """The next stepsize to evaluate and the rule that gave it: the
+    interval search's guess (optax l.815: 1, then twice the last; no
+    max_stepsize), or the zoom's middle of the interval (l.971, "cubic",
+    "quadratic" or "bisection")."""
+    if state.interval_found:
+        return _zoom_middle(state.low, state.value_low, state.slope_low,
+                            state.high, state.value_high, state.cubic_ref,
+                            state.value_cubic_ref)
+    return (_STEPSIZE_GUESS if state.count == 0
+            else _INCREASE_FACTOR * state.stepsize), "interval"
+
+
+def _accept_interval(state: ZoomLinesearchState, new_stepsize,
+                     new_value_step, new_grad_step, new_slope_step
                      ) -> ZoomLinesearchState:
-    """optax l.815, Algorithm 3.5 (no max_stepsize)."""
+    """optax l.815, Algorithm 3.5, from the value and slope at the guess."""
     iter_num = state.count
-    new_stepsize = (_STEPSIZE_GUESS if iter_num == 0
-                    else _INCREASE_FACTOR * state.stepsize)
-    value_t, new_grad_step, slope_t = _value_and_slope_on_line(
-        value_and_grad_fn, state, new_stepsize)
-    state, new_value_step, new_slope_step = _resolve_init(state, value_t,
-                                                          slope_t)
     decrease_error = _decrease_error(new_stepsize, new_value_step,
                                      new_slope_step, state.value_init,
                                      state.slope_init)
@@ -242,19 +267,14 @@ def _search_interval(state: ZoomLinesearchState, value_and_grad_fn
         safe_grad=safe[2])
 
 
-def _zoom_into_interval(state: ZoomLinesearchState, value_and_grad_fn
-                        ) -> ZoomLinesearchState:
-    """optax l.971, Algorithm 3.6."""
+def _accept_zoom(state: ZoomLinesearchState, middle, value_middle,
+                 grad_middle, slope_middle) -> ZoomLinesearchState:
+    """optax l.971, Algorithm 3.6, from the value and slope at the
+    middle."""
     iter_num = state.count
     low = (state.low, state.value_low, state.slope_low)
     high = (state.high, state.value_high, state.slope_high)
     too_small_int = bool(np.abs(high[0] - low[0]) <= _INTERVAL_THRESHOLD)
-    middle, _ = _zoom_middle(*low, high[0], high[1], state.cubic_ref,
-                             state.value_cubic_ref)
-    value_t, grad_middle, slope_t = _value_and_slope_on_line(
-        value_and_grad_fn, state, middle)
-    state, value_middle, slope_middle = _resolve_init(state, value_t,
-                                                      slope_t)
     decrease_error = _decrease_error(middle, value_middle, slope_middle,
                                      state.value_init, state.slope_init)
     curvature_error = _curvature_error(slope_middle, state.slope_init)
@@ -287,12 +307,35 @@ def _zoom_into_interval(state: ZoomLinesearchState, value_and_grad_fn
         safe_stepsize=safe[0], safe_value=safe[1], safe_grad=safe[2])
 
 
+def _accept(state: ZoomLinesearchState, stepsize, value, grad: Vector,
+            slope) -> ZoomLinesearchState:
+    """optax's `step_fn` (l.1250) after its evaluation: the zoom's or the
+    interval search's update, then the safe step where the search
+    failed."""
+    accept = _accept_zoom if state.interval_found else _accept_interval
+    state = accept(state, stepsize, value, grad, slope)
+    return _try_safe_step(state) if state.failed else state
+
+
+def _trace_entry(stepsize, rule: str, value, slope,
+                 state: ZoomLinesearchState) -> dict:
+    """One evaluation of a search, for `optimize.record_evaluations`: the
+    stepsize, the rule that proposed it, the value and slope found there,
+    and the errors and verdict they gave."""
+    return {"stepsize": float(stepsize), "rule": rule, "value": float(value),
+            "slope": float(slope),
+            "decrease_error": float(state.decrease_error),
+            "curvature_error": float(state.curvature_error),
+            "done": bool(state.done), "failed": bool(state.failed)}
+
+
 def init_linesearch(updates: Vector, params: Vector, *, value,
-                    grad: Vector) -> ZoomLinesearchState:
+                    grad: Vector, slope=None) -> ZoomLinesearchState:
     """optax's `init_fn` (l.1194). `value` is a host float32 (a cached
-    value) or a 0-d tensor (a fresh evaluation); the slope stays on the
-    device until the first evaluation fetches it."""
-    slope = vdot(updates, grad)
+    value) or a 0-d tensor (a fresh evaluation); the slope ⟨updates, grad⟩
+    (unless given) stays on the device until the first evaluation fetches
+    it."""
+    slope = vdot(updates, grad) if slope is None else slope
     value = value if isinstance(value, torch.Tensor) else f32(value)
     return ZoomLinesearchState(
         count=0, params=params, updates=updates, stepsize=_ZERO,
@@ -304,16 +347,21 @@ def init_linesearch(updates: Vector, params: Vector, *, value,
         safe_stepsize=_ZERO, safe_value=value, safe_grad=grad)
 
 
-def step_linesearch(state: ZoomLinesearchState, value_and_grad_fn: Callable
-                    ) -> ZoomLinesearchState:
+def step_linesearch(state: ZoomLinesearchState, value_and_grad_fn: Callable,
+                    trace: list | None = None) -> ZoomLinesearchState:
     """optax's `step_fn` (l.1250): one evaluation, interval search or zoom;
     the safe step where the search failed. The search goes on while
-    neither `done` nor `failed` (optax's `step_cond_fn`, l.1276)."""
-    if state.interval_found:
-        state = _zoom_into_interval(state, value_and_grad_fn)
-    else:
-        state = _search_interval(state, value_and_grad_fn)
-    return _try_safe_step(state) if state.failed else state
+    neither `done` nor `failed` (optax's `step_cond_fn`, l.1276). `trace`,
+    where given, gets the evaluation's `_trace_entry`."""
+    stepsize, rule = _propose(state)
+    value_t, grad_step, slope_t = _value_and_slope_on_line(
+        value_and_grad_fn, state, stepsize)
+    state, value_step, slope_step = _resolve_init(state, value_t, slope_t)
+    state = _accept(state, stepsize, value_step, grad_step, slope_step)
+    if trace is not None:
+        trace.append(_trace_entry(stepsize, rule, value_step, slope_step,
+                                  state))
+    return state
 
 
 class ZoomLinesearchInfo(NamedTuple):
@@ -340,7 +388,9 @@ def scale_by_zoom_linesearch() -> GradientTransformation:
     value_and_grad_fn)` scales the direction `updates` by the stepsize
     found (l.1553-1622). Where optax takes `value_fn` and differentiates
     it, the port takes the function of the value and gradient itself (the
-    caller's autograd evaluation)."""
+    caller's autograd evaluation). A list passed as `trace` gets each
+    evaluation's `_trace_entry` (kept out of the state, which checkpoints
+    save)."""
 
     def init_fn(params: Vector) -> ScaleByZoomLinesearchState:
         return ScaleByZoomLinesearchState(
@@ -350,12 +400,12 @@ def scale_by_zoom_linesearch() -> GradientTransformation:
 
     def update_fn(updates: Vector, state: ScaleByZoomLinesearchState,
                   params: Vector, *, value, grad: Vector,
-                  value_and_grad_fn: Callable
+                  value_and_grad_fn: Callable, trace: list | None = None
                   ) -> tuple[Vector, ScaleByZoomLinesearchState]:
         del state   # optax reads its stepsize only for "keep" guesses
         ls = init_linesearch(updates, params, value=value, grad=grad)
         while not (ls.done or ls.failed):
-            ls = step_linesearch(ls, value_and_grad_fn)
+            ls = step_linesearch(ls, value_and_grad_fn, trace)
         stepsize = float(ls.stepsize)
         return tree_map(lambda u: u * stepsize, updates), (
             ScaleByZoomLinesearchState(
@@ -364,3 +414,126 @@ def scale_by_zoom_linesearch() -> GradientTransformation:
                                         ls.curvature_error)))
 
     return GradientTransformation(init_fn, update_fn)
+
+# --- a batch of B pairs in lockstep ---------------------------------------
+
+def fetch(*parts) -> list:
+    """Each part as host float32: the tensors among them (0-d or (B,))
+    come in one transfer, the host numbers as they are; a (B,) tensor
+    gives an array."""
+    ts = [p for p in parts if isinstance(p, torch.Tensor)]
+    flat = (torch.cat([t.reshape(-1).to(torch.float32).to(ts[0].device)
+                       for t in ts]).cpu().numpy() if ts else None)
+    out, at = [], 0
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            v = flat[at:at + p.numel()]
+            out.append(f32(v[0]) if p.dim() == 0 else v.astype(f32))
+            at += p.numel()
+        else:
+            out.append(p)
+    return out
+
+
+def _scaled(updates: Vector, stepsizes) -> Vector:
+    """Each pair's updates times its stepsize (host numbers), elementwise
+    as the one-pair `u * stepsize`."""
+    ss = pair_scalars(stepsizes, updates)
+    one = lambda u, t: u * t.reshape(t.shape + (1,) * (u.dim() - 1))
+    if isinstance(updates, torch.Tensor):
+        return one(updates, ss[0])
+    return [one(u, t) for u, t in zip(updates, ss)]
+
+
+def zoom_linesearch_batch(updates: Vector, params: Vector, *, values,
+                          grad: Vector, value_and_grad_fn: Callable):
+    """B zoom linesearches in lockstep, one a pair of a batch vector (each
+    tensor with a leading pair axis). `values` holds each pair's initial
+    value (a host float32, or a 0-d tensor of a fresh evaluation), `grad`
+    the batch's gradient there; `value_and_grad_fn(step)` gives the (B,)
+    values and the gradient of a batch point. Every round proposes each
+    live pair's stepsize, evaluates all B pairs at their points (a pair
+    whose search has ended at its stepsize, the result discarded), and
+    fetches the values and slopes in one transfer (the first round also
+    the initial values and slopes). Returns (each pair's final
+    ZoomLinesearchState, its vectors views of the batch tensors; the
+    rounds run; each pair's trace)."""
+    b = len(values)
+    slopes0 = pair_vdot(updates, grad)
+    states = None
+    traces = [[] for _ in range(b)]
+    rounds = 0
+    while states is None or not all(st.done or st.failed for st in states):
+        if states is None:
+            props = [(_STEPSIZE_GUESS, "interval")] * b
+        else:
+            props = [(st.stepsize, None) if st.done or st.failed
+                     else _propose(st) for st in states]
+        step = tree_map(torch.add, params,
+                        _scaled(updates, [p[0] for p in props]))
+        vals_t, grad_step = value_and_grad_fn(step)
+        slopes_t = pair_vdot(grad_step, updates)
+        rounds += 1
+        if states is None:
+            got = fetch(*values, slopes0, vals_t, slopes_t)
+            v0, s0, vals, slopes = got[:b], got[b], got[b + 1], got[b + 2]
+            states = [init_linesearch(
+                pair_of(updates, i), pair_of(params, i), value=v0[i],
+                grad=pair_of(grad, i), slope=s0[i]) for i in range(b)]
+        else:
+            vals, slopes = fetch(vals_t, slopes_t)
+        for i, (stepsize, rule) in enumerate(props):
+            if rule is None:
+                continue
+            states[i] = _accept(states[i], stepsize, vals[i],
+                                pair_of(grad_step, i), slopes[i])
+            traces[i].append(_trace_entry(stepsize, rule, vals[i],
+                                          slopes[i], states[i]))
+    return states, rounds, traces
+
+
+class ScaleByZoomLinesearchBatchState(NamedTuple):
+    """`ScaleByZoomLinesearchState` of a batch: lists of each pair's
+    stepsize, value and info, the batch's gradient, and the rounds (batched
+    evaluations) of the last search."""
+    learning_rate: list
+    value: list
+    grad: Vector
+    info: list
+    rounds: int
+
+
+def scale_by_zoom_linesearch_batch() -> GradientTransformation:
+    """`scale_by_zoom_linesearch` for a batch of pairs: `update(updates,
+    state, params, *, value, grad, value_and_grad_fn)` with each pair's
+    value (a list), the batch gradient and a batched `value_and_grad_fn`
+    runs `zoom_linesearch_batch` and scales each pair's direction by its
+    stepsize; a `trace` list gets each pair's trace."""
+
+    def init_fn(params: Vector) -> ScaleByZoomLinesearchBatchState:
+        b = (params if isinstance(params, torch.Tensor) else params[0]
+             ).shape[0]
+        return ScaleByZoomLinesearchBatchState(
+            learning_rate=[f32(1.0)] * b, value=[_INF] * b,
+            grad=tree_map(torch.zeros_like, params),
+            info=[ZoomLinesearchInfo(0, _INF, _INF)] * b, rounds=0)
+
+    def update_fn(updates: Vector, state, params: Vector, *, value,
+                  grad: Vector, value_and_grad_fn: Callable,
+                  trace: list | None = None):
+        del state
+        states, rounds, traces = zoom_linesearch_batch(
+            updates, params, values=value, grad=grad,
+            value_and_grad_fn=value_and_grad_fn)
+        if trace is not None:
+            trace.extend(traces)
+        sizes = [st.stepsize for st in states]
+        return _scaled(updates, sizes), ScaleByZoomLinesearchBatchState(
+            learning_rate=sizes, value=[st.value for st in states],
+            grad=stack_pairs([st.grad for st in states]),
+            info=[ZoomLinesearchInfo(st.count, st.decrease_error,
+                                     st.curvature_error) for st in states],
+            rounds=rounds)
+
+    return GradientTransformation(init_fn, update_fn)
+

@@ -15,11 +15,14 @@ axis on every tensor). Each VGG pass, loss term and kernel launch of an
 Adam step then covers all B pairs; the objective is the sum of the pairs'
 losses (they share no math, so its gradient is each pair's own), Adam and
 the clip are elementwise with bias corrections shared (every pair is at
-the same step), and the history is (B, n, 5). L-BFGS runs the pairs one
-after another, each through the one-pair loop (its linesearch is per pair
-on the host). The L-BFGS loop (`lbfgs_steps`) takes any objective of one
-image, whose parameter may be the image's row shards (`parallel/
-spatial.py`; `optim` then works shard by shard).
+the same step), and the history is (B, n, 5). L-BFGS runs the pairs as
+the JAX package's vmapped optax does: each pair with its own memory and
+zoom linesearch (on the host), the searches in lockstep, every round one
+batched evaluation of all B pairs and one sync (`optim.lbfgs(pairs=
+True)`); one image runs as a batch of one. The L-BFGS loop
+(`lbfgs_steps`) takes any objective of a batch, whose parameter may be
+the row shards (`parallel/spatial.py`; `optim` then works shard by
+shard).
 """
 from __future__ import annotations
 
@@ -75,15 +78,6 @@ class StylizeConstants(NamedTuple):
             masks={k: fn(v) for k, v in self.masks.items()},
             coverage=fn(self.coverage),
             lap_stats=None if self.lap_stats is None else fn(self.lap_stats))
-
-
-def pair_of(consts, weights: LossWeights, i: int | slice) -> tuple:
-    """Pair i of batched constants (a StylizeConstants, or anything else
-    with its `map`) and of (scalar or per-pair) weights; a slice keeps the
-    leading axis."""
-    return (consts.map(lambda t: t[i]),
-            LossWeights(*(w[i] if isinstance(w, torch.Tensor) else w
-                          for w in weights)))
 
 
 # Routing of the block-1 style taps, as the JAX package routes them on a
@@ -332,10 +326,12 @@ class Adam:
 
 def make_optimizer(cfg: StylizeConfig):
     """`dpst_tpu/optimize.py:make_optimizer`: Adam, or `optax.lbfgs()`
-    (memory 10, the zoom linesearch of at most 20 evaluations)."""
+    (memory 10, the zoom linesearch of at most 20 evaluations) of a batch
+    of pairs, as `jax.vmap` runs it (`optim.lbfgs(pairs=True)`; one pair
+    runs as a batch of one)."""
     if cfg.optimizer == "adam":
         return Adam(cfg)
-    return optim.lbfgs()
+    return optim.lbfgs(pairs=True)
 
 
 # --- L-BFGS pixel parameterization ---------------------------------------
@@ -346,8 +342,8 @@ _LOGIT_EPS = 1e-4
 
 
 def _to_logits(image: torch.Tensor) -> torch.Tensor:
-    p = torch.clamp(image.to(torch.float32) / 255.0, _LOGIT_EPS,
-                    1.0 - _LOGIT_EPS)
+    p = torch.clamp(lap.exact_div(image.to(torch.float32), 255.0),
+                    _LOGIT_EPS, 1.0 - _LOGIT_EPS)
     return torch.log(p) - torch.log1p(-p)
 
 
@@ -361,16 +357,15 @@ def logits_to_pixels(u: optim.Vector) -> optim.Vector:
 
 
 def init_opt_state(opt, cfg: StylizeConfig, image0: optim.Vector):
-    """Optimizer state for `image0`: in logit space for boxed L-BFGS, whose
-    state keeps the parameters it last stepped from; for a batch (B, H, W,
-    3) with L-BFGS, a list of the pairs' states; for the row shards of one
-    image (a list), one state over the shards."""
-    if (cfg.optimizer == "lbfgs" and isinstance(image0, torch.Tensor)
-            and image0.dim() == 4):
-        return [init_opt_state(opt, cfg, im) for im in image0]
-    if cfg.optimizer == "lbfgs" and cfg.clip_pixels:
-        return opt.init(pixels_to_logits(image0))
-    return opt.init(image0)
+    """Optimizer state for `image0` (an image, a batch (B, H, W, 3), or the
+    list of a batch's row shards): L-BFGS's of one image that of a batch of
+    one, in logit space when boxed (the state keeps the parameters it last
+    stepped from)."""
+    if cfg.optimizer == "adam":
+        return opt.init(image0)
+    if isinstance(image0, torch.Tensor) and image0.dim() == 3:
+        image0 = image0[None]
+    return opt.init(pixels_to_logits(image0) if cfg.clip_pixels else image0)
 
 
 def history_terms(cfg: StylizeConfig) -> str:
@@ -395,9 +390,16 @@ def record_evaluations():
     plus one where `value_and_grad_from_state` found no finite cached
     value), `num_linesearch_steps`, `decrease_error` and `curvature_error`
     (optax's ZoomLinesearchInfo; either error positive: the search failed
-    and took the safe step), and `value_finite` (the value the search
-    leaves for the next step is finite, so that step evaluates nothing
-    afresh)."""
+    and took the safe step), `value_finite` (the value the search leaves
+    for the next step is finite, so that step evaluates nothing afresh)
+    and `trace` (each search evaluation in order: its stepsize, the rule
+    that proposed it — "interval", or the zoom's "cubic", "quadratic" or
+    "bisection" — the value and slope found there, the errors and the
+    verdict). Of a batch's step: `evaluations` the batched evaluations it
+    ran (the most any pair's search took, plus one where a cached value
+    was not finite), `num_linesearch_steps` and the errors the largest
+    over the pairs, `value_finite` whether every pair's is, and `pairs`,
+    each pair's own record (its evaluations, search and trace)."""
     log: list = []
     _EVALUATION_RECORDS.append(log)
     try:
@@ -406,59 +408,74 @@ def record_evaluations():
         _EVALUATION_RECORDS.remove(log)
 
 
-def _lbfgs_scan_step(cfg: StylizeConfig, loss, opt, first_step: int = 0):
-    """The L-BFGS step of `run_segment` and `lbfgs_eval_trajectory`
-    (`dpst_tpu/optimize.py:557`): `step(u, state) -> (u, state, history
-    row, ZoomLinesearchInfo)`. The objective is the total of `loss(image)
-    -> (total, terms (5,))` at `to_img(u)`, u an image or its row shards;
-    each evaluation is a forward and an input gradient, and with
-    `cfg.debug_nans` raises FloatingPointError where the loss or the
-    gradient (of any shard) is not finite. Steps are numbered from
+def _record(rec: dict) -> None:
+    for log in _EVALUATION_RECORDS:
+        log.append(rec)
+
+
+def _lbfgs_step(cfg: StylizeConfig, loss, opt, first_step: int = 0):
+    """The L-BFGS step of a batch of B pairs (`dpst_tpu/optimize.py:557`
+    under `jax.vmap`): `step(u, state) -> (u, state, history rows (B, 5),
+    the pairs' ZoomLinesearchInfo)` under `loss(image) -> (Σ_b total_b,
+    terms (B, 5))` at `to_img(u)`, u a batch or its row shards, `opt` =
+    `optim.lbfgs(pairs=True)`. One evaluation (a forward and an input
+    gradient) serves all B pairs, each pair's value its total_b; with
+    `cfg.debug_nans` a non-finite loss or gradient (of any shard) raises
+    FloatingPointError naming the pair. Steps are numbered from
     `first_step`."""
     to_img = logits_to_pixels if cfg.clip_pixels else (lambda u: u)
     full_hist = history_terms(cfg) != "total"
-    counter = {"step": first_step, "evaluations": 0}
+    counter = {"step": first_step}
 
     def value_and_grad_fn(u: optim.Vector):
-        counter["evaluations"] += 1
         with torch.enable_grad():
             u = optim.tree_map(lambda x: x.detach().requires_grad_(True), u)
-            total, _ = loss(to_img(u))
+            total, terms = loss(to_img(u))
             if isinstance(u, list):
                 grad = list(torch.autograd.grad(total, u))
             else:
                 (grad,) = torch.autograd.grad(total, u)
-        total = total.detach()
+        values = terms[..., 0].detach()
         if cfg.debug_nans:
             optim.tree_map(lambda g: runtime.check_finite(
-                counter["step"], total.to(g.device), g), grad)
-        return total, grad
+                counter["step"], values.to(g.device), g), grad)
+        return values, grad
 
-    vg = optim.value_and_grad_from_state(value_and_grad_fn)
+    vg = optim.value_and_grad_from_state(value_and_grad_fn, pairs=True)
 
     def step(u: optim.Vector, st: tuple):
-        before = counter["evaluations"]
-        value, grad = vg(u, state=st)
+        stale = [not np.isfinite(v) for v in st[-1].value]
+        values, grad = vg(u, state=st)
         if full_hist:
             # the terms at the pre-update point cost one more forward
             _, terms = loss(to_img(u))
-            row = terms.cpu().numpy()
+            rows = terms.cpu().numpy()
         else:
-            row = np.zeros(5, np.float32)
-            row[0] = float(value)
-        updates, st = opt.update(grad, st, u, value=value, grad=grad,
-                                 value_and_grad_fn=value_and_grad_fn)
+            values = optim.fetch(*values)
+            rows = np.zeros((len(values), 5), np.float32)
+            rows[:, 0] = values
+        traces = []
+        updates, st = opt.update(grad, st, u, value=values, grad=grad,
+                                 value_and_grad_fn=value_and_grad_fn,
+                                 trace=traces)
         u = optim.apply_updates(u, updates)
-        info = st[-1].info
-        for log in _EVALUATION_RECORDS:
-            log.append({
-                "evaluations": counter["evaluations"] - before,
-                "num_linesearch_steps": info.num_linesearch_steps,
-                "decrease_error": float(info.decrease_error),
-                "curvature_error": float(info.curvature_error),
-                "value_finite": bool(np.isfinite(st[-1].value))})
+        ls = st[-1]
+        pairs = [{"evaluations": i.num_linesearch_steps + s,
+                  "num_linesearch_steps": i.num_linesearch_steps,
+                  "decrease_error": float(i.decrease_error),
+                  "curvature_error": float(i.curvature_error),
+                  "value_finite": bool(np.isfinite(v)), "trace": tr}
+                 for i, s, v, tr in zip(ls.info, stale, ls.value, traces)]
+        _record({"evaluations": ls.rounds + any(stale),
+                 "num_linesearch_steps": max(
+                     p["num_linesearch_steps"] for p in pairs),
+                 "decrease_error": max(p["decrease_error"] for p in pairs),
+                 "curvature_error": max(p["curvature_error"]
+                                        for p in pairs),
+                 "value_finite": all(p["value_finite"] for p in pairs),
+                 "pairs": pairs})
         counter["step"] += 1
-        return u, st, row, info
+        return u, st, rows, ls.info
 
     return step
 
@@ -466,31 +483,42 @@ def _lbfgs_scan_step(cfg: StylizeConfig, loss, opt, first_step: int = 0):
 @torch.no_grad()
 def lbfgs_steps(image: optim.Vector, opt_state, loss, n_steps: int,
                 cfg: StylizeConfig, first_step: int = 0):
-    """n_steps L-BFGS steps from `image`, an (H, W, 3) image or the list of
-    its row shards, under `loss(image) -> (total, terms (5,))`, with the
-    state `opt_state` (in logit space when boxed). Returns (u, state,
-    history (n_steps, 5) on the image's (first shard's) device,
-    evaluations of each step's linesearch (n_steps,))."""
-    step = _lbfgs_scan_step(cfg, loss, make_optimizer(cfg), first_step)
+    """n_steps L-BFGS steps from `image`, a batch (B, H, W, 3) of pairs or
+    the list of its row shards, under `loss(image) -> (Σ_b total_b, terms
+    (B, 5))`, with the state `opt_state` (`make_optimizer(cfg)`'s, in
+    logit space when boxed). Returns (u, state, history (B, n_steps, 5) on
+    the image's (first shard's) device, evaluations of each step's
+    linesearch (B, n_steps))."""
+    step = _lbfgs_step(cfg, loss, make_optimizer(cfg), first_step)
     u = pixels_to_logits(image) if cfg.clip_pixels else image
     rows, evals = [], []
     for _ in range(n_steps):
         u, opt_state, row, info = step(u, opt_state)
         rows.append(row)
-        evals.append(info.num_linesearch_steps)
+        evals.append([i.num_linesearch_steps for i in info])
+    b = optim.first_vec(image).shape[0]
     history = torch.from_numpy(
-        np.stack(rows) if rows else np.zeros((0, 5), np.float32)
+        np.stack(rows, -2) if rows else np.zeros((b, 0, 5), np.float32)
     ).to(optim.first_device(image))
-    return u, opt_state, history, torch.tensor(evals, dtype=torch.int32)
+    evals = torch.tensor(evals, dtype=torch.int32).reshape(n_steps, b)
+    return u, opt_state, history, evals.movedim(0, -1)
 
 
 def _lbfgs_loop(image, opt_state, consts, weights, vgg_params, n_steps,
                 cfg, first_step=0):
-    """`lbfgs_steps` of one (H, W, 3) image under `make_loss_fn(cfg)`."""
+    """`lbfgs_steps` under `make_loss_fn(cfg)` of a batch (B, H, W, 3), or
+    of one (H, W, 3) image as a batch of one (its constants too; u,
+    history and evaluations come back without the pair axis)."""
     loss_fn = make_loss_fn(cfg)
-    return lbfgs_steps(
+    one = image.dim() == 3
+    if one:
+        image, consts = image[None], consts.map(lambda t: t[None])
+    u, opt_state, history, evals = lbfgs_steps(
         image, opt_state, lambda im: loss_fn(im, consts, weights, vgg_params),
         n_steps, cfg, first_step)
+    if one:
+        u, history, evals = u[0], history[0], evals[0]
+    return u, opt_state, history, evals
 
 
 def lbfgs_eval_trajectory(image: torch.Tensor, opt_state,
@@ -541,14 +569,9 @@ def run_segment(image: torch.Tensor, opt_state, consts: StylizeConstants,
     the device without a sync; L-BFGS syncs once an evaluation.
     `first_step` numbers the steps in debug_nans errors. A batch (image (B,
     H, W, 3), batched constants, weights of scalars or (B,) tensors) gives
-    history (B, n_steps, 5); with L-BFGS its pairs run one after another
-    (opt_state: the list of their states)."""
-    if cfg.optimizer == "lbfgs" and image.dim() == 4:
-        outs = [run_segment(image[i], opt_state[i], *pair_of(
-            consts, weights, i), vgg_params, n_steps, cfg, first_step)
-            for i in range(image.shape[0])]
-        return (torch.stack([o[0] for o in outs]), [o[1] for o in outs],
-                torch.stack([o[2] for o in outs]))
+    history (B, n_steps, 5); with L-BFGS its pairs run as one batched loop,
+    each evaluation one sync for all pairs (one image runs as a batch of
+    one)."""
     if cfg.optimizer == "lbfgs":
         u, opt_state, history, _ = _lbfgs_loop(
             image, opt_state, consts, weights, vgg_params, n_steps, cfg,

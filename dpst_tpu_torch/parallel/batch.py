@@ -8,17 +8,21 @@ carries a leading pair axis: each VGG pass, loss term and kernel launch of
 a step covers all B pairs, the hand-written kernels (`lap_matvec`,
 `gram_fwd`, `gram_bwd`, `gram_relu_fwd`, `gram_relu_bwd`) taking the pair
 as an index of their grid and the pool backward the pairs folded into its
-channels. Pairs share no math: the objective is the sum of the pairs'
-losses, whose gradient is each pair's own, and Adam is elementwise. A
-step therefore launches each kernel as often as one pair's step does.
+channels; `gram_wbwd` and `conv3x3` (the "pallas" routes) take the pair
+as a grid index too. Pairs share no math: the objective is the sum of the
+pairs' losses, whose gradient is each pair's own, and Adam is
+elementwise. A step therefore launches each kernel as often as one pair's
+step does. L-BFGS runs the pairs in lockstep (`optim.lbfgs(pairs=True)`):
+each pair has its own memory and zoom linesearch, and every round of the
+searches is one batched evaluation of all B pairs with one sync.
 
 Over a mesh (`parallel/mesh.py`) the pairs split over its batch axis:
 each device (a group of row devices on a 2-D mesh) runs the batched loop
 on its pairs, row-sharded over its row devices on a 2-D mesh
 (`parallel/spatial.py`). The groups take their Adam steps in turns, so
 that their devices overlap; L-BFGS yields nothing between steps, so the
-groups of an L-BFGS batch run one after another, each running its pairs
-one after another (row-sharded on a 2-D mesh).
+groups of an L-BFGS batch run one after another, each one batched loop of
+its pairs (row-sharded on a 2-D mesh).
 """
 from __future__ import annotations
 
@@ -95,7 +99,7 @@ def batch_steps(images: torch.Tensor, consts: optimize.StylizeConstants,
                 cfg: StylizeConfig, n_steps: int,
                 per_pair_weights: bool = False):
     """`run_batch` as a generator that yields after each Adam step (L-BFGS
-    runs its pairs through without yielding); returns (images, history)."""
+    runs its steps through without yielding); returns (images, history)."""
     if per_pair_weights:
         weights = _pair_weights(weights, images.shape[0], images.device)
     opt = optimize.make_optimizer(cfg)

@@ -7,7 +7,7 @@ Grams and losses. Here they are written out, in one process that holds a
 tensor per shard (`parallel/mesh.py`):
 
   * every 3×3 conv exchanges one row with each neighbour
-    (`ops/laplacian_spmd.exchange_rows`) and runs `F.conv2d(ext, w,
+    (`ops/laplacian_spmd.exchange_rows`) and runs `vgg.conv2d(ext, w,
     padding=(0, 1))` on its shard (cuDNN on the card), then bias and
     `vgg._Relu` (relu′(0) = ½); the 2×2 max pool (`vgg._MaxPool2`, the
     `pool_bwd` kernel) runs per shard;
@@ -24,11 +24,12 @@ tensor per shard (`parallel/mesh.py`):
     and `lap_matvec` on every shard); the TV term takes a 1-row halo and
     the global counts;
   * Adam runs per shard with one shared count (`optimize.adam_steps`);
-    L-BFGS (`optimize.lbfgs_steps`) takes the shards as one vector, one
-    pair at a time: `optim` steps each shard on its device, keeps a ring
-    of curvature pairs a shard, and sums dot products from the shards'
-    partial dots on the first device in shard order (its scalars stay
-    there, and its linesearch syncs once an evaluation).
+    L-BFGS (`optimize.lbfgs_steps`) takes the shards as one vector of a
+    batch of pairs (`optim.lbfgs(pairs=True)`): `optim` steps each shard
+    on its device, keeps a ring of curvature pairs a shard, and sums each
+    pair's dot products from the shards' partial dots on the first device
+    in shard order (its scalars stay there, and its linesearches, one a
+    pair in lockstep, sync once a batched evaluation).
 
 Halo rows move by `.to(device)`; autograd carries their gradients back,
 so no backward is written for the exchange. The precompute runs on the
@@ -42,7 +43,6 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from .. import optimize
 from ..api import _stage_loop
@@ -206,13 +206,13 @@ def features_rows(params: dict, shards: list, layers, pooling: str, cdt,
                  else vgg._pool(x, pooling))
             continue
         if isinstance(x, list):
-            x = [vgg._Relu.apply(F.conv2d(e, params[e.device][name]["wc"],
-                                          padding=(0, 1))
+            x = [vgg._Relu.apply(vgg.conv2d(e, params[e.device][name]["wc"],
+                                            padding=(0, 1))
                                  + params[e.device][name]["bc"][:, None, None])
                  for e in exchange_rows(x, 1)]
         else:
             p = params[first][name]
-            x = vgg._Relu.apply(F.conv2d(x, p["wc"], padding=1)
+            x = vgg._Relu.apply(vgg.conv2d(x, p["wc"])
                                 + p["bc"][:, None, None])
         if name in layers:
             taps[name] = x
@@ -328,28 +328,17 @@ def spatial_segment(shards: list, sc: SpatialConstants,
                     n_steps: int, cfg: StylizeConfig):
     """Generator of `n_steps` optimizer steps of a row-sharded image batch
     from a fresh state: Adam per shard, one shared count, yielding after
-    each step; or L-BFGS over the shards, the pairs one after another,
+    each step; or L-BFGS over the shards, the pairs as one batched loop,
     yielding nothing. `cfg.debug_nans` checks every shard. Returns
     (shards, history (B, n_steps, 5) on the first device)."""
     loss = make_spatial_loss(cfg)
     if cfg.optimizer == "lbfgs":
         opt = optimize.make_optimizer(cfg)
-        outs, hists = [], []
-        for b in range(shards[0].shape[0]):
-            pair = [s[b:b + 1] for s in shards]
-            sc_b, w_b = optimize.pair_of(sc, weights, slice(b, b + 1))
-
-            def objective(x, sc_b=sc_b, w_b=w_b):
-                total, terms = loss(x, sc_b, w_b, params)
-                return total, terms[0]
-            u, _, hist, _ = optimize.lbfgs_steps(
-                pair, optimize.init_opt_state(opt, cfg, pair), objective,
-                n_steps, cfg)
-            outs.append(optimize.logits_to_pixels(u) if cfg.clip_pixels
-                        else u)
-            hists.append(hist)
-        return ([torch.cat(parts) for parts in zip(*outs)],
-                torch.stack(hists))
+        u, _, hist, _ = optimize.lbfgs_steps(
+            shards, optimize.init_opt_state(opt, cfg, shards),
+            lambda x: loss(x, sc, weights, params), n_steps, cfg)
+        return (optimize.logits_to_pixels(u) if cfg.clip_pixels else u,
+                hist)
     opt = optimize.Adam(cfg)
     shards, _, rows = yield from optimize.adam_steps(
         shards, [opt.init(s) for s in shards],

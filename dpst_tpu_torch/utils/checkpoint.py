@@ -24,7 +24,7 @@ def _to_saved(tree):
     with weights_only reads back)."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
-    if isinstance(tree, tuple):
+    if isinstance(tree, (tuple, list)):
         return [_to_saved(x) for x in tree]
     if isinstance(tree, np.generic):
         return torch.from_numpy(np.asarray(tree))
@@ -40,12 +40,14 @@ def _from_saved(like, saved):
             raise ValueError(f"checkpoint holds a {tuple(saved.shape)} "
                              f"tensor where {tuple(like.shape)} is expected")
         return saved.to(device=like.device, dtype=like.dtype)
-    if isinstance(like, tuple):
+    if isinstance(like, (tuple, list)):
         if len(saved) != len(like):
             raise ValueError("checkpoint state does not match the "
                              "optimizer's")
         vals = [_from_saved(l, s) for l, s in zip(like, saved)]
-        return type(like)(*vals) if hasattr(like, "_fields") else tuple(vals)
+        if hasattr(like, "_fields"):
+            return type(like)(*vals)
+        return type(like)(vals)
     if isinstance(like, np.generic):
         return type(like)(saved.numpy())
     return type(like)(saved)

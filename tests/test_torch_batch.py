@@ -38,6 +38,7 @@ from dpst_tpu.parallel import mesh as jmesh
 import dpst_tpu_torch
 from dpst_tpu_torch import optimize as topt
 from dpst_tpu_torch.models import vgg as tvgg
+from dpst_tpu_torch.ops import conv_cuda as tconv
 from dpst_tpu_torch.ops import gram_pallas as tgp
 from dpst_tpu_torch.ops import gram_s2d as tg2
 from dpst_tpu_torch.ops import gram_stream as tgs
@@ -316,21 +317,29 @@ def test_batch_debug_nans_names_the_pair(toy_batch, params):
 
 
 def test_lbfgs_batch_runs_the_pairs_one_by_one(toy_batch, params):
-    """With optimizer="lbfgs" the pairs run one after another through the
-    one-pair L-BFGS: each pair's rows and image equal its `stylize` run
-    alone, bit for bit (in bf16, where the batched precompute's
-    convolutions round as one image's do)."""
+    """With optimizer="lbfgs" the pairs run as one batched loop (each
+    pair's own memory and linesearch, one batched evaluation a round) that
+    takes each pair as the one-pair L-BFGS does: each pair's rows, image
+    and evaluations a step equal its `stylize` run alone, bit for bit (in
+    bf16, where the batch's convolutions round as one image's do); a step
+    runs as many batched evaluations as its longest search."""
     small = tuple(a[:2] for a in toy_batch)
     cfg_kw = dict(optimizer="lbfgs", iterations=3, compute_dtype="bfloat16")
-    img, hist = _port_batch(small, cfg_kw, params[1])
+    with topt.record_evaluations() as rec:
+        img, hist = _port_batch(small, cfg_kw, params[1])
     cfg = tbatch.resolve_config(_cfg(dpst_tpu_torch, **cfg_kw))
     for i in range(2):
-        out, h = dpst_tpu_torch.stylize(
-            small[0][i], small[1][i], cfg, content_masks=small[2][i],
-            style_masks=small[3][i], vgg_params=params[1],
-            return_history=True, device="cpu")
+        with topt.record_evaluations() as rec_i:
+            out, h = dpst_tpu_torch.stylize(
+                small[0][i], small[1][i], cfg, content_masks=small[2][i],
+                style_masks=small[3][i], vgg_params=params[1],
+                return_history=True, device="cpu")
         np.testing.assert_array_equal(hist[i], h)
         np.testing.assert_array_equal(img[i], out)
+        assert [r["pairs"][i] for r in rec] == [r["pairs"][0]
+                                                for r in rec_i]
+    assert [r["evaluations"] for r in rec] == [
+        max(p["evaluations"] for p in r["pairs"]) for r in rec]
 
 
 # --- the batched wrappers -------------------------------------------------
@@ -351,9 +360,9 @@ def _gram_operands(b, c, p, k, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,p,k", [(3, 16, 200, 2), (2, 37, 333, 5)])
 def test_batched_gram_wrappers_equal_their_loops(b, c, p, k, dtype):
-    """gram_fwd, gram_bwd, gram_relu_fwd, gram_relu_bwd (and gram_wbwd,
-    whose kernel loops) on a batch, bit for bit a loop of their 2-D calls;
-    on the CPU they launch nothing."""
+    """gram_fwd, gram_bwd, gram_relu_fwd, gram_relu_bwd and gram_wbwd on a
+    batch, bit for bit a loop of their 2-D calls; on the CPU they launch
+    nothing."""
     f, m2, s, z, bias = _gram_operands(b, c, p, k, dtype, seed=c * p)
     before = dict(kernels.LAUNCHES)
     cases = ((tgs.gram_fwd, (f, m2)), (tgs.gram_bwd, (f, m2, s)),
@@ -365,6 +374,27 @@ def test_batched_gram_wrappers_equal_their_loops(b, c, p, k, dtype):
         loop = torch.stack([fn(*(a[i] if a.dim() > 1 else a for a in args))
                             for i in range(b)])
         assert torch.equal(got, loop), fn.__name__
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,cin,cout,h,w", [(3, 16, 24, 9, 13),
+                                           (2, 70, 8, 12, 35)])
+def test_batched_conv_equals_its_loop(n, cin, cout, h, w, dtype):
+    """conv3x3_same on an (N, Cin, H, W) batch, with OIHW or packed
+    weights, is bit for bit a loop of its one-image calls; on the CPU it
+    launches nothing."""
+    r = np.random.default_rng(cin * h)
+    x = torch.from_numpy(r.normal(size=(n, cin, h, w)).astype(
+        np.float32)).to(dtype)
+    wt = torch.from_numpy(r.normal(size=(cout, cin, 3, 3)).astype(
+        np.float32)).to(dtype)
+    before = dict(kernels.LAUNCHES)
+    for weights in (wt, tconv.pack_weights(wt)):
+        got = tconv.conv3x3_same(x, weights)
+        assert got.shape == (n, cout, h, w)
+        loop = torch.stack([tconv.conv3x3_same(xi, weights) for xi in x])
+        assert torch.equal(got, loop)
     assert kernels.LAUNCHES == before
 
 
@@ -446,9 +476,9 @@ class _Recorder:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_wrappers_launch_once_for_the_batch(monkeypatch, dtype):
-    """Tensors taken as on the card: each batched wrapper calls its entry
-    point once with B and counts one launch, whatever B is; gram_wbwd (no
-    batch grid yet) calls it once a pair and counts B."""
+    """Tensors taken as on the card: each batched wrapper (the five Gram
+    kernels, `lap_matvec` and `conv3x3`) calls its entry point once with B
+    and counts one launch, whatever B is."""
     rec = _Recorder()
     monkeypatch.setattr(kernels, "on_cuda", lambda *t: True)
     monkeypatch.setattr(kernels, "library", lambda: rec)
@@ -463,19 +493,28 @@ def test_batched_wrappers_launch_once_for_the_batch(monkeypatch, dtype):
     tg2.gram_relu_fwd(z, bias, m2)
     tg2.gram_relu_bwd(z, bias, m2, s)
     tgp.gram_wbwd(f, m2, s)
+    x = torch.zeros((b, 96, 24, 40), dtype=dtype)
+    wp = tconv.pack_weights(torch.zeros((72, 96, 3, 3), dtype=dtype))
+    tconv.conv3x3_same(x, wp)
     if dtype == torch.float32:
         tlapc.lap_matvec(packed, v)
         tlapc.lap_matvec(packed[:1].expand(b, -1, -1, -1), v)
     names = [n for n, _ in rec.calls]
     lap = ["dpst_lap_matvec"] * 2 if dtype == torch.float32 else []
     assert names == (["dpst_gram_fwd", "dpst_gram_bwd", "dpst_gram_relu_fwd",
-                      "dpst_gram_relu_bwd"] + ["dpst_gram_wbwd"] * b + lap)
-    args = dict(rec.calls[:4])
+                      "dpst_gram_relu_bwd", "dpst_gram_wbwd", "dpst_conv3x3"]
+                     + lap)
+    args = dict(rec.calls[:6])
     # (C, P, K, B) follow the pointers of each batched entry point
     assert args["dpst_gram_fwd"][4:8] == (c, p, k, b)
     assert args["dpst_gram_bwd"][5:9] == (c, p, k, b)
     assert args["dpst_gram_relu_fwd"][5:9] == (c, p, k, b)
     assert args["dpst_gram_relu_bwd"][6:10] == (c, p, k, b)
+    assert args["dpst_gram_wbwd"][5:9] == (c, p, k, b)
+    # (Cin, Cout, H, W, B, bn, splits, cps) follow the conv's pointers
+    plan = (tconv.conv_plan(96, 72, 24, 40, b) if dtype == torch.bfloat16
+            else (0, 1, 1))
+    assert args["dpst_conv3x3"][4:12] == (96, 72, 24, 40, b, *plan)
     if dtype == torch.float32:
         (_, a1), (_, a2) = rec.calls[-2:]
         assert a1[3:] == (16, 16, tlapc.lap_plan(16, 16, b), b,
@@ -484,5 +523,5 @@ def test_batched_wrappers_launch_once_for_the_batch(monkeypatch, dtype):
     assert kernels.LAUNCHES["gram_fwd"] == kernels.LAUNCHES["gram_bwd"] == 1
     assert kernels.LAUNCHES["gram_relu_fwd"] == 1
     assert kernels.LAUNCHES["gram_relu_bwd"] == 1
-    assert kernels.LAUNCHES["gram_wbwd"] == b
+    assert kernels.LAUNCHES["gram_wbwd"] == kernels.LAUNCHES["conv3x3"] == 1
     assert kernels.LAUNCHES["lap_matvec"] == (2 if lap else 0)

@@ -119,7 +119,7 @@ def test_weight_gradient_is_none_and_cpu_counts_nothing():
 def test_wrapper_validates_operands():
     x, w = torch.zeros(8, 5, 6), torch.zeros(16, 8, 3, 3)
     with pytest.raises(ValueError):
-        tconv.conv3x3_same(x[None], w)                       # not (C, H, W)
+        tconv.conv3x3_same(x[None, None], w)       # not (C, H, W) or a batch
     with pytest.raises(ValueError):
         tconv.conv3x3_same(x, torch.zeros(16, 4, 3, 3))      # Cin mismatch
     with pytest.raises(ValueError):
@@ -178,7 +178,7 @@ def test_only_pallas_reaches_the_kernel_and_never_conv1_1(
     plain = tconv.conv3x3_plain
 
     def counting(x, w):
-        seen.append(x.shape[0])
+        seen.append(x.shape[-3])
         return plain(x, w)
 
     monkeypatch.setattr(tconv, "conv3x3_plain", counting)

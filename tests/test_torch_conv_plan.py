@@ -228,3 +228,88 @@ def test_conv_takes_packed_weights_and_counts_nothing_on_cpu():
     assert kernels.LAUNCHES == before
     with pytest.raises(ValueError):                   # Cinp must be 16
         tconv.conv3x3_same(x, torch.zeros(9, 16, 12))
+
+
+# --- conv3x3's batch grid dimension -----------------------------------------
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("cin,cout,h,w", [c for c in _conv_cases()
+                                          if c[2] * c[3] <= 512 * 512])
+def test_batched_plan_covers_once_and_fills_card(b, cin, cout, h, w):
+    """conv_plan(b=…): the grid of pixel tiles × channel tiles × (B pairs
+    × splits) visits every (pair, tile, chunk of Cin) once, fills the
+    card, and cuts Cin no more than one image's plan."""
+    bn, splits, cps = tconv.conv_plan(cin, cout, h, w, b)
+    assert bn == tconv.conv_plan(cin, cout, h, w)[0]
+    assert splits <= tconv.conv_plan(cin, cout, h, w)[1]
+    chunks = -(-cin // tconv.CHUNK)
+    cover = np.zeros((b, chunks), np.int64)
+    for z in range(b * splits):                     # blockIdx.z
+        pair, split = divmod(z, splits)
+        a, e = split * cps, min(chunks, (split + 1) * cps)
+        assert e > a
+        cover[pair, a:e] += 1
+    assert (cover == 1).all()
+    assert b * tconv.conv_blocks(cout, h, w) * splits >= 0.9 * SMS
+    assert tconv.conv_smem_bytes(bn, cps) <= tconv.SMEM_LIMIT
+
+
+def _conv_emulated(x, wp, splits, cps):
+    """conv3x3.cu's batched bf16 launch as its grid runs: block z = pair ·
+    splits + split reads the pair's image at Cin·H·W elements on, sums its
+    split's 64-channel chunks of Cin tap by tap in fp32, and writes its
+    partial at work[z] (the (B, splits, Cout, H, W) layout) or, with one
+    split, rounds into y at the pair's Cout·H·W elements; the reduction,
+    a grid row a pair, sums each pair's partials in split order and
+    rounds once."""
+    b, cin, h, w = x.shape
+    cout = wp.shape[1]
+    xf = x.float().reshape(-1)
+    xp_all = torch.nn.functional.pad(
+        xf.view(b, cin, h, w), (1, 1, 1, 1))
+    n = cout * h * w
+    work = torch.full((b * splits * n,), float("nan"))
+    for z in range(b * splits):
+        pair, split = divmod(z, splits)
+        xp = xp_all[pair]
+        acc = torch.zeros(cout, h * w)
+        for c0 in range(split * cps * 64, min(cin, (split + 1) * cps * 64),
+                        64):
+            chans = slice(c0, min(cin, c0 + 64))
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                tap_x = xp[chans, dy:dy + h, dx:dx + w].reshape(-1, h * w)
+                acc = acc + torch.matmul(wp[tap, :, chans].float(), tap_x)
+        work[z * n:(z + 1) * n] = acc.reshape(-1)
+    y = torch.empty(b * n)
+    for pair in range(b):                           # blockIdx.y
+        s = torch.zeros(n)
+        for sp in range(splits):
+            s = s + work[(pair * splits + sp) * n:(pair * splits + sp + 1)
+                         * n]
+        y[pair * n:(pair + 1) * n] = s
+    return y.view(b, cout, h, w).to(x.dtype)
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,splits", [(3, 128, 40, 9, 13, 2),
+                                                   (2, 70, 24, 8, 11, 1),
+                                                   (2, 200, 16, 5, 7, 4)])
+def test_batched_conv_index_math_is_the_plain_version(b, cin, cout, h, w,
+                                                      splits):
+    """The batched conv, emulated with its pair offsets, grid order and
+    (B, splits, ...) partials on integer operands, equals the plain
+    version image by image bit for bit, and each image its own one-image
+    launch."""
+    r = np.random.default_rng(cin + h)
+    x = torch.from_numpy(r.integers(-3, 4, (b, cin, h, w)).astype(
+        np.float32)).bfloat16()
+    _, wt = _int_weights(cin, cout, seed=w)
+    wt = wt.bfloat16()
+    wp = tconv.pack_weights(wt)
+    chunks = -(-cin // tconv.CHUNK)
+    cps = -(-chunks // splits)
+    got = _conv_emulated(x, wp, -(-chunks // cps), cps)
+    assert torch.equal(got, tconv.conv3x3_plain(x, wt))
+    for i in range(b):
+        one = _conv_emulated(x[i:i + 1], wp, -(-chunks // cps), cps)
+        assert torch.equal(one[0], got[i])

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from dpst_tpu.ops import losses as jlosses
+from dpst_tpu_torch.ops import gram_pallas as tgp
 from dpst_tpu_torch.ops import gram_stream as tgs
 from dpst_tpu_torch.ops import kernels
 
@@ -355,3 +356,95 @@ def test_batched_s_matrix_is_each_pairs():
     assert a.shape == (3, 37, 2 * 40)
     for i in range(3):
         assert torch.equal(a[i], tgs.s_matrix(s[i]))
+
+
+# --- gram_wbwd's batch grid dimension --------------------------------------
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("c,p", TAPS["512²"] + TAPS["1024²"][1:])
+def test_batched_wbwd_plan_covers_once_and_fills_the_card(b, c, p):
+    """wbwd_plan(b=…): the grid of groups × c tiles × B pairs × splits
+    visits every (pair, p tile, c tile, class) once, fills the card (one
+    block an SM, 90 % of them at least) where one pair's plan does, and
+    splits the classes no more than one pair's plan."""
+    k = 4
+    tile, groups, splits = tgp.wbwd_plan(c, p, k, b)
+    one = tgp.wbwd_plan(c, p, k)
+    assert tile == one[0] and splits <= one[2]
+    ptiles, ctiles = -(-p // tgp.WBWD_PIXELS), -(-c // tile)
+    kps = -(-k // splits)
+    seen = np.zeros((b, ptiles, ctiles, k), np.int64)
+    for z in range(b * splits):                       # blockIdx.z
+        pair, split = divmod(z, splits)
+        classes = range(split * kps, min(k, (split + 1) * kps))
+        assert len(classes) > 0
+        for g in range(groups):                       # blockIdx.x
+            for t in range(g, ptiles, groups):        # its p tiles
+                for ct in range(ctiles):              # blockIdx.y
+                    for kk in classes:
+                        seen[pair, t, ct, kk] += 1
+    assert (seen == 1).all()
+    blocks = groups * ctiles * b * splits
+    assert blocks >= min(0.9 * SMS, one[1] * ctiles * one[2])
+
+
+def _wbwd_emulated(f, m2, s, tile, groups, splits):
+    """gram_wbwd_pairs.cu as its grid runs: block (g, c tile, z = pair ·
+    splits + split) reads the pair's F, m² and cotangent matrix at C·P,
+    K·P and C·K·Cp elements on, walks its p tiles and its split's whole
+    classes, folds each class's product weighted by m² into its sum in
+    class order, and writes its fp32 partial at work[split][pair] (the
+    split-major (splits, B, C, P)); one reduction over B·C·P elements sums
+    the splits in order and rounds once."""
+    b, c, p = f.shape
+    k = m2.shape[1]
+    a = tgs.s_matrix(s).float()
+    cpad = a.shape[-1] // k
+    kps = -(-k // splits)
+    ff, mf, af = (t.float().reshape(-1) for t in (f, m2, a))
+    n = b * c * p
+    work = torch.full((splits * n,), float("nan"))
+    wp = tgp.WBWD_PIXELS
+    for z in range(b * splits):
+        pair, split = divmod(z, splits)
+        fz = ff[pair * c * p:(pair + 1) * c * p].reshape(c, p)
+        mz = mf[pair * k * p:(pair + 1) * k * p].reshape(k, p)
+        az = af[pair * c * k * cpad:(pair + 1) * c * k * cpad].reshape(
+            c, k * cpad)
+        for g in range(groups):
+            for t in range(g, -(-p // wp), groups):
+                px = slice(t * wp, min(p, (t + 1) * wp))
+                for c0 in range(0, c, tile):
+                    rows = slice(c0, min(c, c0 + tile))
+                    tot = torch.zeros(rows.stop - rows.start,
+                                      px.stop - px.start)
+                    for kk in range(split * kps, min(k, (split + 1) * kps)):
+                        prod = torch.matmul(
+                            az[rows, kk * cpad:kk * cpad + c], fz[:, px])
+                        tot = tot + prod * mz[kk, px]
+                    base = (split * b + pair) * c * p
+                    view = work[base:base + c * p].view(c, p)
+                    view[rows, px] = tot
+    out = torch.zeros(n)
+    for sp in range(splits):
+        out = out + work[sp * n:(sp + 1) * n]
+    return out.bfloat16().reshape(b, c, p)
+
+
+@pytest.mark.parametrize("b,c,p,k,splits", [(3, 96, 1000, 3, 2),
+                                            (2, 37, 333, 2, 1),
+                                            (3, 130, 520, 5, 3)])
+def test_batched_wbwd_index_math_is_the_plain_version(b, c, p, k, splits):
+    """gram_wbwd's batched body, emulated with its pair offsets, grid order
+    and split-major partials on exact operands, equals the plain version
+    pair by pair bit for bit: each pair's split sum runs in the order of
+    its one-pair launch."""
+    f, m2, s = _exact_batch(b, c, p, k, seed=p + 1)
+    fp, mp = tgs.pad_pixels(f), tgs.pad_pixels(m2)
+    tile = 64 if c <= 64 else 128
+    dz = _wbwd_emulated(fp, mp, s, tile, 2, splits)
+    assert torch.equal(dz[..., :p], tgp.gram_wbwd_plain(f, m2, s))
+    for i in range(b):
+        one = _wbwd_emulated(fp[i:i + 1], mp[i:i + 1], s[i:i + 1], tile, 2,
+                             splits)
+        assert torch.equal(one[0], dz[i])
