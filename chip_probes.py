@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Probes of the PyTorch/CUDA port (dpst_tpu_torch) on one NVIDIA GPU,
 outside chip_smoke.py's run: the measurements that PERF.md §6 cites for
-the 64² fp32 L-BFGS trajectory and the bf16 L-BFGS batch.
+the 64² fp32 L-BFGS trajectory, the bf16 L-BFGS batch and the batched
+kernels' plans.
 
     python3 chip_probes.py                     # the first three, one H100
     python3 chip_probes.py lbfgs64 bf16-batch  # the named ones
     python3 chip_probes.py lbfgs-host --tree DIR
+    python3 chip_probes.py batch-kernels plans-rate convs-rate
 
 Each probe prints one JSON line, and chiprun_out/chip_probes.jsonl gets
 it too.
@@ -26,9 +28,26 @@ it too.
               (`vgg._AtenConv`) and cuDNN's: forward and input gradient
               ms (CUDA events), and whether a batch of 4 is its images one
               at a time bit for bit.
+  conv-bf16   the same in bf16 on a batch of 8, in turns: `vgg.conv2d`
+              (cuDNN one image a call), one cuDNN call for the batch and
+              ATen's own; whether each is its images bit for bit.
   bf16-batch  the batch phase's bf16 L-BFGS batch of 8 512² pairs
               (chip_smoke.run_batch_lbfgs) against each pair alone, twice,
-              then with the batch's bf16 convs run image by image.
+              then with the batch's bf16 convs as one cuDNN call.
+  batch-kernels
+              chip_smoke.py's checks of the kernels on a batch (the
+              block12 entry points at B = 2 and 3, the batched Gram,
+              pool, Laplacian and conv kernels at B = 8, each pair bit
+              for bit against its one-pair launch, timed in turns with
+              one-pair launches and with the plans that split a pair's
+              reductions by B), outside the smoke run.
+  plans-rate  the batch phase's 8 pairs at 512², config3, on the shipped
+              plans and on chip_smoke.plans_split_by_b, in turns
+              (shipped, by B, by B, shipped): Adam pair-it/s over
+              BATCH_ITERS steps and the L-BFGS batch's pair-evaluations/s
+              over BATCH_LBFGS_ITERS steps, after a warm-up each.
+  convs-rate  the same, shipped (a bf16 batch's convs one cuDNN call an
+              image) against one cuDNN call for the batch.
   lbfgs-host  one pair's 512² config3 L-BFGS through `stylize`, 100
               steps three times: evaluations/s of the port in DIR (this
               checkout by default; another commit unpacked with `git
@@ -285,6 +304,46 @@ def probe_conv_fp32(dev) -> None:
                        "cudnn_ms_total": sum(r["cudnn_ms"] for r in rows)})
 
 
+def probe_conv_bf16(dev) -> None:
+    from dpst_tpu_torch.models import vgg
+    vgg.set_exact_backends("bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 32)
+    b, rows = cs.BATCH, []
+    for cin, cout, hw in CONV_SHAPES:
+        x = torch.randn((b, cin, hw, hw), device=dev,
+                        generator=gen).bfloat16()
+        w = (torch.randn((cout, cin, 3, 3), device=dev, generator=gen)
+             * 0.05).bfloat16()
+        gy = torch.randn((b, cout, hw, hw), device=dev,
+                         generator=gen).bfloat16()
+
+        def fwd_bwd(conv, xs, gys):
+            xs = xs.clone().requires_grad_(True)
+            y = conv(xs, w)
+            return y, torch.autograd.grad(y, xs, gys)[0]
+        convs = {"each_image_cudnn": lambda t, w: vgg.conv2d(t, w, 1),
+                 "one_cudnn_call": lambda t, w: F.conv2d(t, w, padding=1),
+                 "aten": lambda t, w: vgg._AtenConv.apply(t, w, 1)}
+        row = {"cin": cin, "cout": cout, "size": hw}
+        for name, conv in convs.items():
+            y, gx = fwd_bwd(conv, x, gy)
+            row[name + "_is_its_images"] = all(
+                torch.equal(a, c[i:i + 1]) for i in range(b)
+                for a, c in zip(fwd_bwd(conv, x[i:i + 1], gy[i:i + 1]),
+                                (y, gx)))
+        for name, conv in [*convs.items(), *reversed(convs.items())]:
+            row[name + "_ms"] = row.get(name + "_ms", 0.0) + cs.cuda_ms(
+                lambda conv=conv: fwd_bwd(conv, x, gy), warmup=2,
+                iters=5) / 2
+        rows.append(row)
+    emit("conv-bf16", {"what": f"a batch of {b}: forward and input "
+                       "gradient, in turns", "rows": rows, **{
+                           name + "_ms_total": sum(r[name + "_ms"]
+                                                   for r in rows)
+                           for name in ("each_image_cudnn",
+                                        "one_cudnn_call", "aten")}})
+
+
 def probe_bf16_batch(dev, smi: str) -> None:
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
@@ -302,16 +361,94 @@ def probe_bf16_batch(dev, smi: str) -> None:
                  "evaluation_steps_apart": e["evaluation_steps_apart"]}
                 for e in cs.lbfgs_batch_vs_alone(b, cfg)[-1]]
     out = {"run 1": pairs(), "run 2": pairs()}
-    shipped = vgg.conv2d
-    vgg.conv2d = lambda x, w, padding=1: torch.cat(
-        [shipped(x[i:i + 1], w, padding) for i in range(x.shape[0])])
-    try:
-        out["the batch's convs image by image"] = pairs()
-    finally:
-        vgg.conv2d = shipped
+    with bf16_convs_batched():
+        out["the batch's bf16 convs in one cuDNN call"] = pairs()
     emit("bf16-batch", {"B": cs.BATCH, "size": cs.SIZE,
                         "steps": cs.BATCH_LBFGS_ITERS, **out,
                         "seconds": time.perf_counter() - t0})
+
+
+def probe_batch_kernels(dev) -> None:
+    t0 = time.perf_counter()
+    cs.check_block12_batch(dev, torch.Generator(device=dev).manual_seed(
+        cs.SEED + 25))
+    cs.check_batched(dev, torch.Generator(device=dev).manual_seed(
+        cs.SEED + 20))
+    cs.check_batched_wbwd_conv(dev, torch.Generator(device=dev).manual_seed(
+        cs.SEED + 24))
+    emit("batch-kernels", {"seconds": time.perf_counter() - t0})
+
+
+@contextlib.contextmanager
+def bf16_convs_batched():
+    """A bf16 batch's convs on the card as one cuDNN call for the batch (the
+    port takes one call an image: `vgg.conv2d`)."""
+    from dpst_tpu_torch.models import vgg
+    shipped = vgg.conv2d
+
+    def conv(x, w, padding=1):
+        if x.dtype == torch.bfloat16:
+            return F.conv2d(x, w, padding=padding)
+        return shipped(x, w, padding)
+    vgg.conv2d = conv
+    try:
+        yield
+    finally:
+        vgg.conv2d = shipped
+
+
+def batch_rates(dev, smi: str, name: str, control) -> None:
+    """The batch phase's 8 pairs at 512², config3, as shipped and under the
+    context `control`, in turns (shipped, control, control, shipped): Adam
+    pair-it/s over BATCH_ITERS steps and the L-BFGS batch's
+    pair-evaluations/s over BATCH_LBFGS_ITERS steps, a warm-up before
+    each."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.parallel import batch as pb
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    contents = np.stack([cs.smooth_image(gen, dev, cs.SIZE)
+                         for _ in range(cs.BATCH)])
+    styles = np.stack([cs.textured_image(gen, dev, cs.SIZE)
+                       for _ in range(cs.BATCH)])
+    cm, sm = cs.batch_masks(cs.BATCH, cs.SIZE)
+    inputs = [torch.from_numpy(a).to(dev) for a in (contents, styles, cm, sm)]
+    params = vgg.get_params(seed=cs.SEED, device=dev)
+    out = {}
+    for opt, steps in (("adam", cs.BATCH_ITERS),
+                       ("lbfgs", cs.BATCH_LBFGS_ITERS)):
+        cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                                  optimizer=opt, iterations=steps)
+        rcfg = pb.resolve_config(cfg)
+        pp = vgg.pack_params(params, rcfg.compute_dtype, rcfg.conv_impl)
+        weights = optimize.LossWeights.from_config(rcfg)
+        consts, cs_, means = pb.prepare_batch_stage(
+            *inputs, pp, (cs.SIZE, cs.SIZE), rcfg)
+        img0 = optimize.init_image(rcfg, cs_, means)
+
+        def rate(n):
+            with optimize.record_evaluations() as rec:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pb.run_batch(img0, consts, weights, pp, rcfg, n)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if opt == "adam":
+                return cs.BATCH * n / dt
+            return cs.BATCH * cs.lbfgs_evaluations(rec)["E"] / dt
+        rates = {"shipped": [], "control": []}
+        for which in ("shipped", "control", "control", "shipped"):
+            ctx = control() if which == "control" else contextlib.nullcontext()
+            with ctx:
+                rate(3)
+                rates[which].append(rate(steps))
+        out[opt] = {"steps": steps, "unit": "pair-it/s" if opt == "adam"
+                    else "pair-evaluations/s", **rates,
+                    "means": {k: sum(v) / len(v) for k, v in rates.items()}}
+        del consts, cs_, means, img0
+        torch.cuda.empty_cache()
+    emit(name, {"B": cs.BATCH, "size": cs.SIZE, **out, "nvidia_smi": smi})
 
 
 def probe_lbfgs_host(dev, tree: str) -> None:
@@ -364,7 +501,13 @@ def main() -> int:
     for name in names:
         {"lbfgs64": lambda: probe_lbfgs64(dev),
          "conv-fp32": lambda: probe_conv_fp32(dev),
+         "conv-bf16": lambda: probe_conv_bf16(dev),
          "bf16-batch": lambda: probe_bf16_batch(dev, smi),
+         "batch-kernels": lambda: probe_batch_kernels(dev),
+         "plans-rate": lambda: batch_rates(dev, smi, "plans-rate",
+                                           cs.plans_split_by_b),
+         "convs-rate": lambda: batch_rates(dev, smi, "convs-rate",
+                                           bf16_convs_batched),
          "lbfgs-host": lambda: probe_lbfgs_host(dev, tree)}[name]()
     emit("device", {"nvidia_smi": smi})
     print(smi, flush=True)

@@ -53,13 +53,22 @@ no result):
                  (B = 8 distinct pairs at 512², K = 4 masks drawn per
                  pair; lap_matvec also with one pair's stats shared by
                  four, as the Γ sweep runs it), each pair against the
-                 plain version, timed in turns with B one-pair launches of
-                 the same kernel, and at shapes where the plans split; then
-                 gram_wbwd (conv1_1 … conv5_1) and conv3x3 (the 24 convs
-                 of a step) with their batch grid dimension at the
-                 pallas-route batch's shapes, the same way, in bf16 and
-                 fp32, and at B = 2-3 at ragged C, K = 1-9, a conv plan
-                 with Cin splits;
+                 plain version and bit for bit against its one-pair
+                 launch, timed in turns with B one-pair launches of the
+                 same kernel and (the Gram kernels) with the same launch
+                 on plans that split a pair's reductions by B
+                 (`plans_split_by_b`, a control), and at shapes where the
+                 plans split; then gram_wbwd (conv1_1 … conv5_1) and
+                 conv3x3 (the 24 convs of a step) with their batch grid
+                 dimension at the pallas-route batch's shapes, the same
+                 way, in bf16 and fp32, and at B = 2-3 at ragged C, K =
+                 1-9, a conv plan with Cin splits; then the block12 entry
+                 points on batches (B = 2 at 4096², B = 2 and 3 at 320 ×
+                 4096, whose groups of bands run from one pair into the
+                 next; bf16 and fp32): each pair bit for bit against its
+                 one-pair launch, "B=2" and "B=3" rows timed in turns
+                 with the one-pair launches, with the plain version's
+                 time, B pairs' bound and cuDNN's yardstick on a batch;
   4. stylize  -- the first main path through the public entry points:
                  `prepare_constants` (timed alone), then `stylize` with
                  PRESETS["config3"] on a seeded 512² pair and four band
@@ -100,7 +109,16 @@ no result):
                  the standard path (stream12=0) at 4096² for 3 steps with
                  its device time and loop peak, which must be above the
                  route's; a bit-identical rerun at 1024² (stream12=8); a
-                 256² fp32 run of the route, card against CPU;
+                 256² fp32 run of the route, card against CPU, and a
+                 batch of two there, each pair against its one-pair run;
+                 then `stylize_batch` of two distinct 4096² pairs on the
+                 route (5 Adam steps): each block12 entry point launched
+                 once a step for the batch (counters equal to one pair's
+                 run), the loss falls for each pair, output in [0, 255],
+                 a bit-identical rerun, each pair against its one-pair
+                 `stylize` run (the batch tolerances), ms a step,
+                 pair-it/s, loop peak memory, device ms a step by group
+                 and busy share beside the one-pair route's;
   8. lbfgs    -- the fifth path: `stylize` with PRESETS["config3"] and
                  optimizer="lbfgs", post_smooth=2, post_smooth_eps=1e-4 at
                  512² (100 L-BFGS steps, callback at 50, four band masks):
@@ -160,7 +178,8 @@ no result):
                  pair-it/s, busy share); and with optimizer="lbfgs" (10
                  steps, the batched L-BFGS: counters equal to one pair's
                  an evaluation × E, each pair against its one-pair run in
-                 bf16 and in fp32 (the L-BFGS golden's bounds), a rerun
+                 bf16 and in fp32 (the L-BFGS golden's bounds, the first
+                 ten rows within 1e-2 in both), a rerun
                  bit for bit, evaluations/s, busy share of an evaluation,
                  one sync an evaluation for all pairs);
   13. spatial -- the ninth path, on meshes of repeated cuda:0 (virtual:
@@ -199,13 +218,15 @@ no result):
                  name and power limit;
   15. the {"kernels": [...]} summary (the K = 4 rows, then the Gram rows at
       K = 8 as "<kernel> K=8", then the batched rows as "<kernel> B=8",
-      then "lap_matvec spmd": 4 shards at 4096², the loop's form) and the
-      nvidia-smi line;
+      then the block12 entry points on config6's batch as "<entry point>
+      B=2", then "lap_matvec spmd": 4 shards at 4096², the loop's form)
+      and the nvidia-smi line;
   16. the last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -266,6 +287,8 @@ POOL_OPS_PER_WINDOW = 13
 B12_SIZE = 4096                                # config6 (bench.py): 4096²
 B12_ITERS = 10                                 # Adam steps of the route
 B12_STD_ITERS = 3                              # the standard path beside it
+B12_BATCH = 2          # config6's batch: two pairs (one takes 18.04 GB)
+B12_BATCH_ITERS = 5    # its Adam steps
 LBFGS_ITERS = 100      # L-BFGS path steps (callback at LBFGS_ITERS // 2)
 LBFGS_SHORT = 10       # its reruns, resume halves and 64² reference
 SLA_TOL = 0.05         # smooth_local_affine, card against CPU, [0, 255]
@@ -281,8 +304,9 @@ BATCH = 8              # the batch path's pairs (BASELINE config 5)
 BATCH_ITERS = 100      # its Adam steps (500 in the preset)
 # each pair of the batch against the same pair run alone, bf16 on the card,
 # where a batch rounds apart from one image (cuDNN chooses its conv
-# algorithms per batch size; the Gram forward's plan splits P per batch)
-# and Adam carries the difference on: the first history row within
+# algorithms per batch size; every batched kernel splits a pair's sums as
+# one pair's plan does) and Adam carries the difference on: the first
+# history row within
 # BATCH_ROW0_TOL of each column's max, every row within BATCH_HIST_TOL,
 # the mean |pixel| difference within BATCH_PIXEL_TOL of [0, 255]; the same
 # pixel bound holds autotune's best image against `stylize` at its Γ
@@ -406,6 +430,15 @@ CUBLAS_SHAPE = (512, 1 << 18)   # capped max error held to fp32 cuBLAS's
 # 3.86-4.01e-5 of random operands (uncapped 0.87-3.87e-4, fp32 cuBLAS
 # 1.73e-4 at (512, 2^18); NVIDIA H100 80GB HBM3, 700.00 W)
 GRAM_FP64_TOL = 1e-4
+# (B, H, W, dtype, timed) of the batched block12 checks: config6's step
+# shape for two pairs, and three pairs of 320 × 4096 (ten bands a pair in
+# groups of eight, so that groups run from one pair into the next), timed
+# in bf16; the same in fp32, and two pairs of 320 × 4096 in bf16
+B12_BATCH_CASES = ((2, B12_SIZE, B12_SIZE, "bfloat16", True),
+                   (3, 320, 4096, "bfloat16", True),
+                   (2, 320, 4096, "bfloat16", False),
+                   (3, 320, 4096, "float32", False),
+                   (2, B12_SIZE, B12_SIZE, "float32", False))
 GRAM_DZ_CASES = (("shallow", 64, 8, 48, 4096, 4, True),
                  ("deep", 128, 8, 24, 2048, 4, True),
                  ("shallow", 64, 1, 48, 260, 1, False),
@@ -496,8 +529,9 @@ def device_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     kernels on every call, so each kernel's name appears a multiple of
     `iters` times in a whole trace. The card's profiler has also returned
     traces one record short, the same in every attempt (19 of 20 events
-    in one run): a trace with one name one short of a multiple is taken,
-    that name counted at the mean of its other launches."""
+    in one run), and two short (8 of 10 in every attempt of one run): a
+    trace whose names each come at most two short of a multiple is taken,
+    a short name counted at the mean of its other launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -509,9 +543,9 @@ def device_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         return out
 
     def whole(evs) -> bool:
-        short = [len(v) % iters for v in by_name(evs).values()
-                 if len(v) % iters]
-        return bool(evs) and (not short or short == [iters - 1])
+        return bool(evs) and all(
+            len(v) % iters in (0, iters - 1, iters - 2)
+            and len(v) >= iters - 2 for v in by_name(evs).values())
 
     per = by_name(device_events(fn, iters, whole))
     return sum(sum(v) / len(v) * round(len(v) / iters)
@@ -1449,19 +1483,20 @@ def b12_copy_bytes(h: int, w: int, k: int, isz: int) -> dict:
             "block12_bwd_deep": deep, "block12_bwd_shallow": shallow}
 
 
-def b12_cudnn(h: int, w: int, params: dict, dtype) -> dict:
+def b12_cudnn(h: int, w: int, params: dict, dtype, n: int = 1) -> dict:
     """Labelled yardsticks that do less work than each entry point: cuDNN
     on the same convs at the same shapes (no bias, ReLU, pools, masks or
-    Grams). Forward: conv1_1 … conv2_2; deep backward: the input gradients
-    of conv2_2 and conv2_1; shallow backward: the conv1_2 forward and the
-    input gradients of conv1_2 and conv1_1."""
+    Grams), on a batch of n images. Forward: conv1_1 … conv2_2; deep
+    backward: the input gradients of conv2_2 and conv2_1; shallow
+    backward: the conv1_2 forward and the input gradients of conv1_2 and
+    conv1_1."""
     dev = params["conv1_1"]["w"].device
-    wt = {n: params[n]["w"].to(dtype) for n in ("conv1_1", "conv1_2",
-                                                 "conv2_1", "conv2_2")}
-    x0 = torch.zeros((1, 3, h, w), dtype=dtype, device=dev)
-    x1 = torch.zeros((1, 64, h, w), dtype=dtype, device=dev)
-    x2 = torch.zeros((1, 64, h // 2, w // 2), dtype=dtype, device=dev)
-    x3 = torch.zeros((1, 128, h // 2, w // 2), dtype=dtype, device=dev)
+    wt = {name: params[name]["w"].to(dtype)
+          for name in ("conv1_1", "conv1_2", "conv2_1", "conv2_2")}
+    x0 = torch.zeros((n, 3, h, w), dtype=dtype, device=dev)
+    x1 = torch.zeros((n, 64, h, w), dtype=dtype, device=dev)
+    x2 = torch.zeros((n, 64, h // 2, w // 2), dtype=dtype, device=dev)
+    x3 = torch.zeros((n, 128, h // 2, w // 2), dtype=dtype, device=dev)
     grad_in = torch.nn.grad.conv2d_input
 
     def fwd():
@@ -1797,6 +1832,118 @@ def check_block12(dev, gen):
         rows.append(row)
     del x, m1, m2, dp2, res
     torch.cuda.empty_cache()
+    return rows
+
+
+def check_block12_batch(dev, gen):
+    """The block12 entry points on a batch of B distinct pairs, one launch
+    of each for the batch, at B12_BATCH_CASES (one with groups of bands
+    that run from one pair into the next: the check fails if none has
+    one): each pair's outputs bit-equal to its one-pair launch, bf16 and
+    fp32. The timed cases give "<entry point> B=<B>" rows: device time by
+    events in turns with the B one-pair launches (`looped_ms`), the plain
+    version's time on the batch (once), the bound of B pairs' work, and
+    cuDNN's yardstick on a batch of B."""
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    spans = [(b, h, w) for b, h, w, *_ in B12_BATCH_CASES
+             if any(g[0][0] != g[-1][0] for g in b12.unit_groups(b, h, w))]
+    if not spans:
+        fail("kernels", "no batched block12 case has a group of bands that "
+             "spans two pairs")
+    params = vgg.init_params(SEED, device=dev)
+    rows, equal = [], {}
+    for b, h, w, dtype, timed in B12_BATCH_CASES:
+        cdt = getattr(torch, dtype)
+        kw = dict(pooling="max", compute_dtype=dtype)
+        wts = b12.pack_weights(params, dtype)
+        x, m1, m2 = (torch.stack(t) for t in zip(
+            *(b12_forward_input(h, w, K, dev, gen) for _ in range(b))))
+        dp2 = torch.randn((b, 128, h // 4, w // 4), generator=gen,
+                          device=dev).to(cdt)
+        s1 = b12.symmetrize(torch.randn((b, K, 64, 64), generator=gen,
+                                        device=dev), dtype)
+        s2 = b12.symmetrize(torch.randn((b, K, 128, 128), generator=gen,
+                                        device=dev), dtype)
+        res = {}
+        res["fwd"] = b12.block12_fwd_res(x, m1, m2, wts, **kw)
+        a11, a21, a22 = res["fwd"][3:]
+        res["dp1"] = b12.block12_bwd_deep(a21, a22, dp2, m2, s2, wts, **kw)
+        calls = {
+            "block12_fwd": (
+                lambda: b12.block12_fwd(x, m1, m2, wts, **kw),
+                lambda i: b12.block12_fwd(x[i], m1[i], m2[i], wts, **kw),
+                lambda: b12.block12_fwd_plain(x, m1, m2, wts, "max", dtype,
+                                              False)),
+            "block12_fwd_res": (
+                lambda: b12.block12_fwd_res(x, m1, m2, wts, **kw),
+                lambda i: b12.block12_fwd_res(x[i], m1[i], m2[i], wts, **kw),
+                lambda: b12.block12_fwd_plain(x, m1, m2, wts, "max", dtype,
+                                              True)),
+            "block12_bwd_deep": (
+                lambda: b12.block12_bwd_deep(a21, a22, dp2, m2, s2, wts,
+                                             **kw),
+                lambda i: b12.block12_bwd_deep(a21[i], a22[i], dp2[i], m2[i],
+                                               s2[i], wts, **kw),
+                lambda: b12.block12_bwd_deep_plain(a21, a22, dp2, m2, s2,
+                                                   wts, "max", dtype)),
+            "block12_bwd_shallow": (
+                lambda: b12.block12_bwd_shallow(a11, res["dp1"], m1, s1,
+                                                wts, **kw),
+                lambda i: b12.block12_bwd_shallow(a11[i], res["dp1"][i],
+                                                  m1[i], s1[i], wts, **kw),
+                lambda: b12.block12_bwd_shallow_plain(
+                    a11, res["dp1"], m1, s1, wts, "max", dtype)),
+        }
+        case = f"B={b} {h}x{w} K={K} {dtype}"
+        work = b12_work(h, w, K, cdt.itemsize)
+        library = b12_cudnn(h, w, params, cdt, b) if timed else {}
+        for name, (batch, one, plain) in calls.items():
+            done = {"block12_fwd_res": "fwd", "block12_bwd_deep": "dp1"}
+            got = res[done[name]] if name in done else batch()
+            got = got if isinstance(got, tuple) else (got,)
+            diff = 0.0
+            for i in range(b):
+                alone = one(i)
+                alone = alone if isinstance(alone, tuple) else (alone,)
+                equal[f"{name} {case} pair {i}"] = all(
+                    torch.equal(g[i], a) for g, a in zip(got, alone))
+                diff = max([diff] + [float((g[i].float() - a.float()).abs()
+                                           .max())
+                                     for g, a in zip(got, alone)])
+            del got
+            torch.cuda.synchronize()
+            if not timed:
+                continue
+
+            def looped(one=one):
+                return [one(i) for i in range(b)]
+
+            k1, l1, l2, k2 = (cuda_ms(batch, warmup=1, iters=3),
+                              cuda_ms(looped, warmup=1, iters=3),
+                              cuda_ms(looped, warmup=1, iters=3),
+                              cuda_ms(batch, warmup=1, iters=3))
+            _, plain_ms = timed_once(plain)
+            nbytes, ops = work[name]
+            bnd, by = bound_ms(b * nbytes, b * ops, dtype)
+            row = {"phase": "kernel", "name": name, "B": b, "shape": [h, w],
+                   "K": K, "dtype": dtype, "pooling": "max",
+                   "groups_span_pairs": (b, h, w) in spans,
+                   "max_abs_err": diff, "ms": (k1 + k2) / 2,
+                   "looped_ms": (l1 + l2) / 2, "plain_ms": plain_ms,
+                   "bound_ms": bnd, "bound_by": by, "gflop": b * ops / 1e9,
+                   "gbytes": b * nbytes / 1e9, "library_ms": library[name],
+                   "library_call": B12_YARDSTICK[name] + f", a batch of {b}"}
+            emit(row)
+            rows.append(row)
+        del x, m1, m2, dp2, s1, s2, res, a11, a21, a22
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_block12_batch", "bit_equal_to_one_pair": equal,
+          "cases_with_groups_across_pairs": spans})
+    bad = [name for name, ok in equal.items() if not ok]
+    if bad:
+        fail("kernels", "batched block12 differs from one-pair launches: "
+             + ", ".join(bad))
     return rows
 
 
@@ -2232,7 +2379,8 @@ def run_stream12(dev, gen) -> dict:
     profile, the standard path (stream12=0) at the same size for
     1 + B12_STD_ITERS steps, profiled after the first, with its loop peak
     and its history rows held to the route's, and a bit-identical rerun at
-    1024² with stream12=8."""
+    1024² with stream12=8. Returns (the launches, the route's ms a step
+    and loop peak GB)."""
     import dpst_tpu_torch
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
@@ -2354,6 +2502,163 @@ def run_stream12(dev, gen) -> dict:
           "bit_identical": identical})
     if not identical:
         fail("rerun", "stream12 route: history of the rerun differs")
+    return launches, {"step_ms": 1e3 / loop_its, "loop_peak_gb": peak_gb}
+
+
+def run_stream12_batch(dev, gen, smi: str, one: dict) -> dict:
+    """config6's route on a batch: `stylize_batch` of B12_BATCH distinct
+    4096² pairs (K = 4 band masks drawn per pair, `batch_masks`),
+    PRESETS["config3"] with stream12_impl="pallas", bf16, B12_BATCH_ITERS
+    Adam steps. Counters reset just before and read just after, equal to
+    one pair's run of the route (`stream12_launches`: each block12 entry
+    point once a step for the batch, block12_fwd never); the loss falls
+    for every pair, the output is finite in [0, 255]; a rerun bit for
+    bit; each pair against its run alone through `stylize` (under the
+    batch's resolved config) within BATCH_ROW0_TOL, BATCH_HIST_TOL and
+    BATCH_PIXEL_TOL. Then the loop alone (after one step): ms a step and
+    pair-it/s, its peak memory, device ms a step by group and the busy
+    share, beside the one-pair route's `one` (run_stream12's)."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch import optimize
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import batch as pb
+    size, b, steps = B12_SIZE, B12_BATCH, B12_BATCH_ITERS
+    label = f"config6 batch B={b} 4096²"
+    cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                              stream12_impl="pallas", iterations=steps)
+    rcfg = pb.resolve_config(cfg)
+    if optimize.block12_route(rcfg, (size, size, 3)) != "kernel":
+        fail("stream12 batch", "config6's batch does not take the block12 "
+             "kernels")
+    contents = np.stack([smooth_image(gen, dev, size) for _ in range(b)])
+    styles = np.stack([textured_image(gen, dev, size) for _ in range(b)])
+    cm, sm = batch_masks(b, size)
+    params = vgg.get_params(seed=SEED, device=dev)
+
+    def run():
+        return dpst_tpu_torch.stylize_batch(contents, styles, cm, sm, cfg,
+                                            vgg_params=params)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    images, hist = run()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    images2, hist2 = run()
+    identical = bool(np.array_equal(hist, hist2)
+                     and np.array_equal(images, images2))
+    del images2, hist2
+
+    # the loop alone on the batch's constants
+    pp = vgg.pack_params(params, rcfg.compute_dtype, rcfg.conv_impl)
+    weights = optimize.LossWeights.from_config(rcfg)
+    consts, cs, means = pb.prepare_batch_stage(
+        *(torch.from_numpy(a).to(dev) for a in (contents, styles, cm, sm)),
+        pp, (size, size), rcfg)
+    img0 = optimize.init_image(rcfg, cs, means)
+    pb.run_batch(img0, consts, weights, pp, rcfg, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pb.run_batch(img0, consts, weights, pp, rcfg, steps)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = loop_s * 1e3 / steps
+    groups = profile_batch(
+        lambda: pb.run_batch(img0, consts, weights, pp, rcfg, 2), 2)
+    busy = sum(groups.values())
+    del consts, cs, means, img0
+    torch.cuda.empty_cache()
+
+    alone = []
+    for i in range(b):
+        out_i, hist_i = dpst_tpu_torch.stylize(
+            contents[i], styles[i], rcfg, content_masks=cm[i],
+            style_masks=sm[i], vgg_params=params, return_history=True)
+        d = np.abs(images[i] - out_i)
+        rel = np.abs(hist[i] - hist_i) / np.maximum(
+            np.abs(hist_i).max(axis=0), 1e-30)
+        alone.append({"row0_rel": float(rel[0].max()),
+                      "hist_rel": float(rel.max()),
+                      "pixel_max": float(d.max()),
+                      "pixel_mean": float(d.mean()),
+                      "bit_equal": bool(np.array_equal(images[i], out_i))})
+        del out_i
+    need = stream12_launches(steps)
+    emit({"phase": "stream12 batch", "path": label, "B": b, "size": size,
+          "K": K, "iterations": steps, "compute_dtype": cfg.compute_dtype,
+          "weights": weights_label(), "wall_s": wall_s,
+          "step_ms": step_ms, "pair_it_s": b * steps / loop_s,
+          "loop_peak_gb": peak_gb, "device_ms_per_step": groups,
+          "device_busy_ms_per_step": busy, "device_busy_share": busy / step_ms,
+          "one_pair_step_ms": one["step_ms"],
+          "one_pair_loop_peak_gb": one["loop_peak_gb"],
+          "launches": launches, "launches_implied": need,
+          "first_rows": hist[:, 0].tolist(), "last_rows": hist[:, -1].tolist(),
+          "vs_alone": alone, "row0_tol_rel": BATCH_ROW0_TOL,
+          "hist_tol_rel": BATCH_HIST_TOL, "pixel_tol": BATCH_PIXEL_TOL,
+          "rerun_bit_identical": identical, "nvidia_smi": smi})
+    bad = [f"{name} launched {launches[name]} times, one pair's route "
+           f"implies {n}" for name, n in need.items()
+           if launches[name] != n]
+    if not (hist[:, -1, 0] < hist[:, 0, 0]).all():
+        bad.append("the total loss did not fall for every pair")
+    if not hist[:, :, 3].min() >= -1.0:
+        bad.append(f"photoreal term {hist[:, :, 3].min()} < -1")
+    if not (images.shape == (b, size, size, 3) and np.isfinite(images).all()
+            and images.min() >= 0.0 and images.max() <= 255.0):
+        bad.append("output not finite (B, 4096, 4096, 3) in [0, 255]")
+    for i, e in enumerate(alone):
+        if not (e["row0_rel"] <= BATCH_ROW0_TOL
+                and e["hist_rel"] <= BATCH_HIST_TOL
+                and e["pixel_mean"] <= BATCH_PIXEL_TOL):
+            bad.append(f"pair {i} against its run alone: {e}")
+    if not identical:
+        bad.append("the rerun is not bit-identical")
+    if bad:
+        fail("stream12 batch", f"{label}: " + "; ".join(bad))
+    return launches
+
+
+def run_small_batch_reference(gen, cfg, label: str, size: int,
+                              b: int = 2) -> dict:
+    """An fp32 `stylize_batch` of b distinct pairs (3 stripe masks drawn
+    per pair, `batch_masks`) on the card, each pair against its one-pair
+    `stylize` run on the card under the batch's resolved config: history
+    rows within 1e-3 of each column's max, as `run_small_reference` holds
+    card against CPU. Returns the batch's launch counts."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    from dpst_tpu_torch.parallel import batch as pb
+    contents = np.stack([smooth_image(gen, gen.device, size)
+                         for _ in range(b)])
+    styles = np.stack([smooth_image(gen, gen.device, size)
+                       for _ in range(b)])
+    cm, sm = batch_masks(b, size, 3)
+    params = vgg.init_params(SEED)
+    kernels.reset_launches()
+    _, hist = dpst_tpu_torch.stylize_batch(contents, styles, cm, sm, cfg,
+                                           vgg_params=params)
+    launches = dict(kernels.LAUNCHES)
+    rcfg = pb.resolve_config(cfg)
+    worst = 0.0
+    for i in range(b):
+        _, h_i = dpst_tpu_torch.stylize(
+            contents[i], styles[i], rcfg, content_masks=cm[i],
+            style_masks=sm[i], vgg_params=params, return_history=True)
+        rel = np.abs(hist[i] - h_i) / np.maximum(np.abs(h_i).max(axis=0),
+                                                 1e-30)
+        worst = max(worst, float(rel.max()))
+    tol = 1e-3
+    emit({"phase": "reference", "path": f"{label} batch B={b}", "size": size,
+          "K": 3, "iterations": hist.shape[1], "compute_dtype": "float32",
+          "max_rel_err_vs_one_pair": worst, "tol_rel": tol,
+          "card_launches": launches})
+    if not worst <= tol:
+        fail("reference", f"{label} batch B={b}: pairs vs their one-pair "
+             f"runs, history rel err {worst} > {tol}")
     return launches
 
 
@@ -3147,25 +3452,141 @@ def pair_errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
+def fwd_plan_by_b(c: int, p: int, k: int, b: int = 1) -> tuple[int, int]:
+    """gram_stream.fwd_plan with B in the grid's fill: B pairs fill the
+    card with fewer splits of P each. A control (`plans_split_by_b`)."""
+    from dpst_tpu_torch.ops import gram_stream as gs
+    blocks = gs.fwd_blocks(c, k, 1) * b
+    splits = max(1, min(264 // blocks, -(-p // 256)))
+    if -(-p // splits) > gs.FWD_SPLIT_MAX:
+        splits = -(-p // gs.FWD_SPLIT_MAX)
+        splits = max(splits, -(-blocks * splits // 264) * 264 // blocks)
+    chunk = -(-(-(-p // splits)) // 128) * 128
+    return -(-p // chunk), chunk
+
+
+def bwd_plan_by_b(c: int, p: int, k: int, b: int = 1
+                  ) -> tuple[int, int, int]:
+    """gram_stream.bwd_plan with B pairs' c tiles in the wave: where they
+    fill it, one split, else fewer splits of the (k, c') items. A
+    control."""
+    tile = 64 if c <= 64 else 128
+    slots = 132 * (3 if tile == 64 else 2)
+    ctiles, ptiles = b * -(-c // tile), -(-p // 64)
+    if ptiles * ctiles >= slots:
+        return tile, min(ptiles, max(1, slots // ctiles)), 1
+    items = -(-c // 64) * k
+    splits = max(1, min(items, slots // (ptiles * ctiles)))
+    return tile, ptiles, -(-items // -(-items // splits))
+
+
+def wbwd_plan_by_b(c: int, p: int, k: int, b: int = 1
+                   ) -> tuple[int, int, int]:
+    """gram_pallas.wbwd_plan with B pairs' c tiles on the SMs: where they
+    fill them, one split, else the class splits of least cost for the B
+    pairs' grid. A control."""
+    tile = 64 if c <= 64 else 128
+    ctiles, ptiles = b * -(-c // tile), -(-p // 128)
+    if ptiles * ctiles >= 132:
+        return tile, min(ptiles, max(1, 132 // ctiles)), 1
+    cost = {}
+    for n in range(1, k + 1):
+        per = -(-k // n)
+        splits = -(-k // per)
+        cost.setdefault(splits, -(-ptiles * ctiles * splits // 132) * per)
+    return tile, ptiles, min(cost, key=lambda n: (cost[n], n))
+
+
+def relu_bwd_plan_by_b(c: int, p: int, k: int, b: int = 1
+                       ) -> tuple[int, int, int]:
+    """gram_s2d.relu_bwd_plan over `wbwd_plan_by_b` (its own body's plan,
+    one split, as shipped). A control."""
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    if c <= 64 and k <= g2.RELU_BWD_MAX_K:
+        return 64, min(-(-p // g2.RELU_BWD_PIXELS), max(1, 132 // b)), 1
+    return wbwd_plan_by_b(c, p, k, b)
+
+
+def conv_plan_by_b(cin: int, cout: int, h: int, w: int,
+                   b: int = 1) -> tuple[int, int, int]:
+    """conv_cuda.conv_plan with the b images' tiles in the waves: fewer
+    Cin splits where they fill the card. A control."""
+    from dpst_tpu_torch.ops import conv_cuda as cc
+    blocks = b * cc.conv_blocks(cout, h, w)
+    chunks = -(-cin // cc.CHUNK)
+    best = None
+    for n in range(1, chunks + 1):
+        cps = -(-chunks // n)
+        splits = -(-chunks // cps)
+        cost = -(-blocks * splits // cc.SMS) * cps
+        if best is None or cost < best[0]:
+            best = (cost, splits, cps)
+    return cc.conv_width(cout), best[1], best[2]
+
+
+@contextlib.contextmanager
+def plans_split_by_b():
+    """The batched kernels on plans that cut each pair's reductions by B
+    (P of the Gram forwards, the (k, c') items or classes of the
+    backwards, Cin of the conv: fewer splits as B grows), where the
+    shipped plans split each pair as one pair's plan does. A pair's sums
+    then round apart from its launch alone: the control that the "<kernel>
+    B=8" rows are timed against, never a path's plan."""
+    from dpst_tpu_torch.ops import conv_cuda as cc
+    from dpst_tpu_torch.ops import gram_pallas as gp
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
+    swaps = ((gs, "fwd_plan", fwd_plan_by_b), (gs, "bwd_plan", bwd_plan_by_b),
+             (gp, "wbwd_plan", wbwd_plan_by_b),
+             (g2, "relu_bwd_plan", relu_bwd_plan_by_b),
+             (cc, "conv_plan", conv_plan_by_b))
+    shipped = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, shipped):
+            setattr(mod, name, fn)
+
+
+def pairs_equal_alone(got, alone) -> bool:
+    """Each pair of a batched kernel's output bit-equal to the same
+    kernel's launch on that pair alone (`alone`: the B one-pair outputs)."""
+    return all(torch.equal(got[i], a) for i, a in enumerate(alone))
+
+
 def batched_row(name: str, shape: list, b: int, k, dtype: str, in_step: bool,
                 got, ref, tol: float, run, looped, plain, nbytes: float,
                 ops: float, lib=None, lib_call: str | None = None,
-                **extra) -> dict:
+                split_by_b: bool = False, **extra) -> dict:
     """One batched kernel's row: its B pairs against the plain version
-    pair by pair (each pair's error over its own max |ref|); its device
-    time in turns with the B one-pair launches of the same kernel
-    (`looped_ms`, the yardstick of ROADMAP item 14; never on the path),
-    back-to-back event times of both, the plain version's time, the bound
-    of the B pairs' bytes or operations and, where one PyTorch call
-    computes the same function for the batch, that call's device time."""
+    pair by pair (each pair's error over its own max |ref|) and, bit for
+    bit, against the B one-pair launches of the same kernel (`looped`,
+    whose outputs it returns); its device time in turns with those
+    launches (`looped_ms`, the yardstick of ROADMAP item 14; never on the
+    path) and, with `split_by_b`, with the same batched launch on the
+    plans that split a pair's reductions by B (`split_by_b_ms`, a control:
+    `plans_split_by_b`); back-to-back event times, the plain version's
+    time, the bound of the B pairs' bytes or operations and, where one
+    PyTorch call computes the same function for the batch, that call's
+    device time."""
     err, rel = pair_errors(got, ref)
-    times = in_turns(run, looped)
-    times["looped_ms"] = times.pop("library_ms")
-    times["looped_events_ms"] = times.pop("library_events_ms")
+    equal = pairs_equal_alone(got, looped())
+    fns = {"ms": run, "looped_ms": looped}
+    if split_by_b:
+        def run_by_b():
+            with plans_split_by_b():
+                return run()
+        fns["split_by_b_ms"] = run_by_b
+    times = plans_in_turns(fns)
+    times["events_ms"] = cuda_ms(run)
+    times["looped_events_ms"] = cuda_ms(looped)
     bnd, by = bound_ms(nbytes, ops, dtype)
     row = {"phase": "kernel", "name": name, "B": b, "shape": shape, "K": k,
            "dtype": dtype, "in_step": in_step, "max_abs_err": err,
-           "rel_err": rel, "tol_rel": tol, **times,
+           "rel_err": rel, "tol_rel": tol,
+           "bit_equal_to_one_pair_launches": equal, **times,
            "plain_ms": cuda_ms(plain, warmup=1, iters=3),
            "bound_ms": bnd, "bound_by": by,
            "library_ms": None if lib is None else device_ms(lib), **extra}
@@ -3175,6 +3596,9 @@ def batched_row(name: str, shape: list, b: int, k, dtype: str, in_step: bool,
     if not rel <= tol:
         fail("kernels", f"{name} B={b} {dtype} {shape} K={k}: rel err "
              f"{rel} > {tol}")
+    if not equal:
+        fail("kernels", f"{name} B={b} {dtype} {shape} K={k}: a pair "
+             "differs from its one-pair launch")
     return row
 
 
@@ -3235,7 +3659,8 @@ def check_batched(dev, gen):
             b * ((c * p + K * p) * 2 + K * c * c * 4), ops,
             lambda: torch.matmul(f.unsqueeze(1), (f.unsqueeze(1)
                                  * m2.unsqueeze(2)).transpose(-1, -2)),
-            "torch.matmul", plan=gs.fwd_plan(c, p, K, b)))
+            "torch.matmul", split_by_b=True, plan=gs.fwd_plan(c, p, K, b),
+            plan_split_by_b=fwd_plan_by_b(c, p, K, b)))
         if in_step:
             a = s.transpose(1, 2).reshape(b, c, K * c)
             rows.append(batched_row(
@@ -3247,7 +3672,9 @@ def check_batched(dev, gen):
                 b * (2 * c * p + K * p + K * c * c) * 2, ops,
                 lambda: torch.matmul(a, (f.unsqueeze(1) * m2.unsqueeze(2))
                                      .reshape(b, K * c, p)),
-                "torch.matmul", plan=gs.bwd_plan(c, p, K, b)))
+                "torch.matmul", split_by_b=True,
+                plan=gs.bwd_plan(c, p, K, b),
+                plan_split_by_b=bwd_plan_by_b(c, p, K, b)))
         del f, m2, s
         torch.cuda.empty_cache()
     # the fused pair at conv1_1; its yardstick: torch.matmul on the cooked
@@ -3267,7 +3694,8 @@ def check_batched(dev, gen):
         b * ((c * p + K * p) * 2 + K * c * c * 4) + c * 2, ops,
         lambda: torch.matmul(f.unsqueeze(1), (f.unsqueeze(1)
                              * m2.unsqueeze(2)).transpose(-1, -2)), yard,
-        plan=gs.fwd_plan(c, p, K, b)))
+        split_by_b=True, plan=gs.fwd_plan(c, p, K, b),
+        plan_split_by_b=fwd_plan_by_b(c, p, K, b)))
     ref = g2.gram_relu_bwd_plain(z, bias, m2, s)
     a = s.transpose(1, 2).reshape(b, c, K * c)
     rows.append(batched_row(
@@ -3281,7 +3709,8 @@ def check_batched(dev, gen):
         b * (2 * c * p + K * p + K * c * c) * 2 + c * 2, ops,
         lambda: torch.matmul(a, (f.unsqueeze(1) * m2.unsqueeze(2))
                              .reshape(b, K * c, p)), yard,
-        plan=g2.relu_bwd_plan(c, p, K, b)))
+        split_by_b=True, plan=g2.relu_bwd_plan(c, p, K, b),
+        plan_split_by_b=relu_bwd_plan_by_b(c, p, K, b)))
     del z, bias, m2, s, f, ref
     torch.cuda.empty_cache()
     # the pool backward: the pairs folded into its channels
@@ -3339,7 +3768,9 @@ def check_batched_wbwd_conv(dev, gen):
                                              * m2.unsqueeze(2))
                                          .reshape(b, K * c, p)),
                     "yardstick: gram_bwd's torch.matmul, weighting before "
-                    "the product", plan=gp.wbwd_plan(c, p, K, b),
+                    "the product", split_by_b=True,
+                    plan=gp.wbwd_plan(c, p, K, b),
+                    plan_split_by_b=wbwd_plan_by_b(c, p, K, b),
                     masks="soft"))
             else:
                 worst[f"gram_wbwd B={b} {dtype} {c}x{p}"] = rel = (
@@ -3347,6 +3778,10 @@ def check_batched_wbwd_conv(dev, gen):
                 if not rel <= tol:
                     fail("kernels", f"gram_wbwd B={b} {dtype} {c}x{p}: rel "
                          f"err {rel} > {tol}")
+                if not pairs_equal_alone(got, [gp.gram_wbwd(
+                        f[i], m2[i], s[i]) for i in range(b)]):
+                    fail("kernels", f"gram_wbwd B={b} {dtype} {c}x{p}: a "
+                         "pair differs from its one-pair launch")
             del f, m2, s, got, ref
             torch.cuda.empty_cache()
         vgg.set_exact_backends(cdt)
@@ -3372,6 +3807,11 @@ def check_batched_wbwd_conv(dev, gen):
                 key = (direction, k_in, k_out, hw)
                 if dtype == "float32" or key in timed:
                     rel = pair_errors(got, ref)[1]
+                    if not pairs_equal_alone(got, [cc.conv3x3_same(a[i], wp)
+                                                   for i in range(b)]):
+                        fail("kernels", f"conv3x3 B={b} {dtype} {direction}"
+                             f" {k_in}->{k_out} at {hw}²: a pair differs "
+                             "from its one-pair launch")
                     worst[f"conv3x3 B={b} {dtype} {direction} "
                           f"{k_in}->{k_out} {hw}²"] = rel
                     if dtype == "bfloat16":
@@ -3392,8 +3832,9 @@ def check_batched_wbwd_conv(dev, gen):
                     b * (k_in + k_out) * hw * hw * isz
                     + 9 * k_in * k_out * isz,
                     2.0 * b * 9 * k_in * k_out * hw * hw, lib, lib_name,
-                    direction=direction, plan=cc.conv_plan(k_in, k_out, hw,
-                                                           hw, b))
+                    split_by_b=True, direction=direction,
+                    plan=cc.conv_plan(k_in, k_out, hw, hw, b),
+                    plan_split_by_b=conv_plan_by_b(k_in, k_out, hw, hw, b))
                 timed[key] = row
                 rows.append(row)
             del x, wt, g, ft, got, ref
@@ -3402,19 +3843,30 @@ def check_batched_wbwd_conv(dev, gen):
         cdt = getattr(torch, dtype)
         f, _, m2, s = batched_input("gram", b_, c, p, k, cdt, dev, gen)
         ref = gp.gram_wbwd_plain(f, m2, s)
-        rel = pair_errors(gp.gram_wbwd(f, m2, s), ref)[1]
+        got = gp.gram_wbwd(f, m2, s)
+        rel = pair_errors(got, ref)[1]
         tol = max(out_tol(ref[i], dtype) for i in range(b_))
         key = f"gram_wbwd B={b_} {dtype} {c}x{p} K={k}"
         worst[key] = rel
         if not rel <= tol:
             fail("kernels", f"{key}: rel err {rel} > {tol}")
+        if not pairs_equal_alone(got, [gp.gram_wbwd(f[i], m2[i], s[i])
+                                       for i in range(b_)]):
+            fail("kernels", f"{key}: a pair differs from its one-pair "
+                 "launch")
     for b_, cin, cout, h, w, dtype in BATCH_CONV_EDGES:
         cdt = getattr(torch, dtype)
         x = torch.randn((b_, cin, h, w), generator=gen, device=dev).to(cdt)
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               * math.sqrt(2.0 / (9 * cin))).to(cdt)
         ref = cc.conv3x3_plain(x, wt)
-        rel = pair_errors(cc.conv3x3_same(x, cc.pack_weights(wt)), ref)[1]
+        wp = cc.pack_weights(wt)
+        got = cc.conv3x3_same(x, wp)
+        rel = pair_errors(got, ref)[1]
+        if not pairs_equal_alone(got, [cc.conv3x3_same(x[i], wp)
+                                       for i in range(b_)]):
+            fail("kernels", f"conv3x3 B={b_} {dtype} {cin}->{cout} {h}x{w}: "
+                 "a pair differs from its one-pair launch")
         tol = max(out_tol(ref[i], dtype) for i in range(b_))
         plan = (cc.conv_plan(cin, cout, h, w, b_) if dtype == "bfloat16"
                 else None)
@@ -3444,20 +3896,26 @@ def check_batched_edges(dev, gen) -> None:
         z, bias, rm2, rs = batched_input("relu", b, c, p, k, cdt, dev, gen)
         bf = dtype == "bfloat16"
         checks = (
-            ("gram_fwd", gs.gram_fwd(f, m2), gs.gram_fwd_plain(f, m2), 1e-3),
+            ("gram_fwd", gs.gram_fwd(f, m2), gs.gram_fwd_plain(f, m2), 1e-3,
+             lambda i: gs.gram_fwd(f[i], m2[i])),
             ("gram_bwd", gs.gram_bwd(f, m2, s), gs.gram_bwd_plain(f, m2, s),
-             1e-2 if bf else 1e-4),
+             1e-2 if bf else 1e-4, lambda i: gs.gram_bwd(f[i], m2[i], s[i])),
             ("gram_relu_fwd", g2.gram_relu_fwd(z, bias, rm2),
-             g2.gram_relu_fwd_plain(z, bias, rm2), 1e-3),
+             g2.gram_relu_fwd_plain(z, bias, rm2), 1e-3,
+             lambda i: g2.gram_relu_fwd(z[i], bias, rm2[i])),
             ("gram_relu_bwd", g2.gram_relu_bwd(z, bias, rm2, rs),
              ref := g2.gram_relu_bwd_plain(z, bias, rm2, rs),
-             max(out_tol(ref[i], dtype) for i in range(b)) if bf else 1e-4))
-        for name, got, want, tol in checks:
+             max(out_tol(ref[i], dtype) for i in range(b)) if bf else 1e-4,
+             lambda i: g2.gram_relu_bwd(z[i], bias, rm2[i], rs[i])))
+        for name, got, want, tol, one in checks:
             rel = pair_errors(got, want)[1]
             key = f"{name} B={b} {dtype} {c}x{p} K={k}"
             worst[key] = rel
             if not rel <= tol:
                 fail("kernels", f"{key}: rel err {rel} > {tol}")
+            if not pairs_equal_alone(got, [one(i) for i in range(b)]):
+                fail("kernels", f"{key}: a pair differs from its one-pair "
+                     "launch")
     for b, h, w, share in ((3, 37, 53, False), (2, 5, 700, False),
                            (4, 64, 61, True)):
         img = torch.rand((b, h, w, 3), generator=gen, device=dev)
@@ -3786,15 +4244,13 @@ def run_batch_lbfgs(dev, b: dict, smi: str) -> dict:
     of E steps); the loss falls for every pair; a rerun bit
     for bit; each pair against its one-pair L-BFGS run (`stylize` under
     the batch's resolved config) with evaluation counts within ±2 a step:
-    in bf16 (the preset) the first row within BATCH_ROW0_TOL, SSIM and all
-    rows within the L-BFGS golden's bounds; in fp32 (the same pairs and
-    steps, compute_dtype="float32") within all of the golden's bounds. (A
-    batch's bf16 rounds apart from one pair's, the Gram plans by B and
-    cuDNN's bf16 convs by batch size, which L-BFGS grows past the golden's
-    first-rows bound in some pairs within ten steps, the batch's convs
-    run image by image or not: so the first rows are not gated in bf16,
-    "rows 0-9" null in the line's `tol`. fp32 rounds apart by fp32 ulps.)
-    Then the loop
+    in bf16 (the preset) the first row within BATCH_ROW0_TOL, the first
+    ten rows, SSIM and all rows within the L-BFGS golden's bounds; in fp32
+    (the same pairs and steps, compute_dtype="float32") within all of the
+    golden's bounds. (Every batched kernel splits a pair's sums as one
+    pair's plan does, so a batch's bf16 rounds apart from one pair's only
+    where cuDNN's bf16 convs choose by batch size; fp32 rounds apart by
+    fp32 ulps.) Then the loop
     alone: evaluations/s and pair-evaluations/s, device ms of an
     evaluation by group and its busy share, and the synchronizing
     operations of one step (torch's sync debug mode): one for all pairs an
@@ -3869,7 +4325,8 @@ def run_batch_lbfgs(dev, b: dict, smi: str) -> dict:
           "launches_expected": need, "vs_alone": alone,
           "fp32_vs_alone": alone32,
           "tol": {"bf16": {"ssim_min": LBFGS_SSIM_MIN,
-                           "row0": BATCH_ROW0_TOL, "rows 0-9": None,
+                           "row0": BATCH_ROW0_TOL,
+                           "rows 0-9": LBFGS_HIST10_RTOL,
                            "all": LBFGS_HIST_RTOL},
                   "fp32": {"ssim_min": LBFGS_SSIM_MIN,
                            "row0": LBFGS_ROW0_TOL,
@@ -3890,6 +4347,7 @@ def run_batch_lbfgs(dev, b: dict, smi: str) -> dict:
     for i, (e, e32) in enumerate(zip(alone, alone32)):
         rel = np.asarray(e["rel_err_per_row"])
         if not (e["ssim"] >= LBFGS_SSIM_MIN and rel[0] <= BATCH_ROW0_TOL
+                and rel[:10].max() <= LBFGS_HIST10_RTOL
                 and rel.max() <= LBFGS_HIST_RTOL):
             bad.append(f"pair {i} against its run alone, bf16: {e}")
         bad += [f"pair {i} against its run alone, fp32: {x}"
@@ -5100,17 +5558,21 @@ def summarize(rows: list, launches: dict, k: int = K, b: int = 1) -> list:
         meta = {name: meta[name] for name in ("gram_fwd", "gram_bwd",
                                               "gram_relu_fwd",
                                               "gram_relu_bwd")}
-    if b != 1:
+    if b == BATCH:
         meta = {name: meta[name] for name in (
             "lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
             "gram_relu_bwd", "pool_bwd", "gram_wbwd", "conv3x3")}
         meta["gram_wbwd"] = ("dpst_tpu_torch/csrc/gram_wbwd_pairs.cu",
                              *meta["gram_wbwd"][1:])
+    elif b != 1:
+        meta = {name: meta[name] for name in meta if name.startswith(
+            "block12")}
     out = []
     for name, (src, replaces, also, dtype) in meta.items():
         sel = [r for r in rows if r["name"] == name and r["dtype"] == dtype
                and r.get("in_step", True) and r.get("K", K) in (k, None)
-               and r.get("B", 1) == b]
+               and r.get("B", 1) == b
+               and (b != B12_BATCH or r["shape"] == [B12_SIZE, B12_SIZE])]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel
                     if r["bound_by"] == "operations")
@@ -5232,6 +5694,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += check_block12(dev, gen)
     rows += check_gram_dz(dev, gen)
+    rows += check_block12_batch(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 25))
     seconds["block12 kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows += check_batched(dev, torch.Generator(device=dev).manual_seed(
@@ -5265,13 +5729,23 @@ def main() -> int:
     if not (ref["conv3x3"] == 24 * 5 + 21 and ref["gram_wbwd"] == 25):
         fail("reference", f"pallas route not taken at every step: {ref}")
     s12_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    launches["config6 4096² stream12 route"] = run_stream12(dev, s12_gen)
-    ref = run_small_reference(s12_gen, dpst_tpu_torch.StylizeConfig(
+    launches["config6 4096² stream12 route"], s12_one = run_stream12(
+        dev, s12_gen)
+    s12_cfg = dpst_tpu_torch.StylizeConfig(
         compute_dtype="float32", iterations=2, regularization_weight=100.0,
-        stream12=8, stream12_impl="pallas"), "stream12 route", size=256)
-    if not (ref["block12_fwd_res"] == ref["block12_bwd_deep"]
-            == ref["block12_bwd_shallow"] == 2 and ref["block12_fwd"] == 0):
-        fail("reference", f"stream12 route not taken at every step: {ref}")
+        stream12=8, stream12_impl="pallas")
+    ref = run_small_reference(s12_gen, s12_cfg, "stream12 route", size=256)
+    ref_b = run_small_batch_reference(s12_gen, s12_cfg, "stream12 route",
+                                      size=256)
+    for counts in (ref, ref_b):
+        if not (counts["block12_fwd_res"] == counts["block12_bwd_deep"]
+                == counts["block12_bwd_shallow"] == 2
+                and counts["block12_fwd"] == 0):
+            fail("reference", f"stream12 route not taken at every step "
+                 f"(once for the batch): {counts}")
+    launches_b12 = {f"config6 batch B={B12_BATCH} 4096²": run_stream12_batch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 26), smi,
+        s12_one)}
 
     seconds["main paths"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5307,7 +5781,8 @@ def main() -> int:
     print(smi, flush=True)
     emit({"kernels": summarize(rows, launches)
           + summarize(rows, launches_k8, K8)
-          + summarize(rows, launches_b, b=BATCH) + [spmd_entry]})
+          + summarize(rows, launches_b, b=BATCH)
+          + summarize(rows, launches_b12, b=B12_BATCH) + [spmd_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

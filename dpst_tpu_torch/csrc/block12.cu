@@ -60,6 +60,20 @@
 // (band, split) and are summed slot by slot in band order into the
 // result: no float atomics, so a rerun is bit-identical.
 //
+// A batch of B pairs (the reference vmaps the whole loop, so its
+// pallas_calls take the pair as a grid dimension) is one call of each
+// entry point: the walk's unit is a (pair, band), B * H / TB of them
+// pair-major, and a group is `group` consecutive units, which may run from
+// one pair's last bands into the next pair's first. The scratch is one
+// pair's, whatever B is. Each stage addresses its unit's pair: the band
+// copies read and write the pair's planes, the conv epilogues take the
+// band modulo H / TB, the Gram partials of a pair's units are summed into
+// its own sums (from zero at its first band), and the Gram cotangent
+// stage runs once for each pair the group holds, on its bands with its
+// cotangent. A band's arithmetic and a pair's order of Gram partials are
+// those of its one-pair launch, so each pair's outputs equal it bit for
+// bit.
+//
 // What bounds it on the H100: operations. A 4096^2 forward does 2 * 9 * P
 // * (3 * 64 + 64 * 64 + (64 * 128 + 128 * 128) / 4) = 3.2 TFLOP of convs
 // (3.2 ms at the bf16 peak; more with the recomputed halo, 50 % at TB =
@@ -157,13 +171,26 @@ __device__ __forceinline__ void copy_row(const Ti* __restrict__ s,
     d[i] = s ? from_f<To>(to_f(s[i])) : from_f<To>(0.0f);
 }
 
-// dst (C, NB * R, W): row r of band b is row (band0 + b) * tb - halo + r of
-// src (C, Hs, W), cast to To, or zero outside [0, Hs). A warp a row.
+// The units of a batch's walk: unit u is band u % nb of pair u / nb (nb
+// bands a pair, pair-major), and a group is NB consecutive units, which
+// may run from one pair into the next. row0 is the first row of unit u's
+// band in the pair-major (B * C, H, W) stack of a plane with C channels.
+struct Unit {
+  int pair, band;
+  __device__ __host__ Unit(int u, int nb) : pair(u / nb), band(u - u / nb * nb) {}
+  __device__ __host__ long long plane(int C, long long c) const {
+    return static_cast<long long>(pair) * C + c;
+  }
+};
+
+// dst (C, NB * R, W): row r of the stack's band b is row band * tb - halo
+// + r of its unit's pair in src (B, C, Hs, W) (unit u0 + b of nb bands a
+// pair), cast to To, or zero outside [0, Hs). A warp a row.
 template <typename Ti, typename To>
 __global__ void block12_gather_kernel(const Ti* __restrict__ src,
                                       To* __restrict__ dst, int C, int Hs,
                                       int W, int NB, int R, int tb, int halo,
-                                      int band0) {
+                                      int u0, int nb) {
   const long long per = static_cast<long long>(NB) * R, rows = C * per;
   const int lane = threadIdx.x & 31;
   const long long nw = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
@@ -172,19 +199,22 @@ __global__ void block12_gather_kernel(const Ti* __restrict__ src,
        row < rows; row += nw) {
     const long long c = row / per;
     const int rr = static_cast<int>(row - c * per);
-    const int g = (band0 + rr / R) * tb - halo + rr % R;
-    copy_row<Ti, To>(g >= 0 && g < Hs ? src + (c * Hs + g) * W : nullptr,
+    const Unit un(u0 + rr / R, nb);
+    const int g = un.band * tb - halo + rr % R;
+    copy_row<Ti, To>(g >= 0 && g < Hs ? src + (un.plane(C, c) * Hs + g) * W
+                                      : nullptr,
                      dst + row * W, W, lane);
   }
 }
 
-// dst (C, Hd, W) rows (band0 + b) * tb + [0, tb) = src (C, NB * R, W) rows
-// b * R + halo + [0, tb), cast to To. A warp a row.
+// dst (B, C, Hd, W): rows band * tb + [0, tb) of the pair of unit u0 + b =
+// src (C, NB * R, W) rows b * R + halo + [0, tb), cast to To. A warp a
+// row.
 template <typename Ti, typename To>
 __global__ void block12_scatter_kernel(const Ti* __restrict__ src,
                                        To* __restrict__ dst, int C, int Hd,
                                        int W, int NB, int R, int tb, int halo,
-                                       int band0) {
+                                       int u0, int nb) {
   const long long per = static_cast<long long>(NB) * tb, rows = C * per;
   const int lane = threadIdx.x & 31;
   const long long nw = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
@@ -194,8 +224,10 @@ __global__ void block12_scatter_kernel(const Ti* __restrict__ src,
     const long long c = row / per;
     const int rr = static_cast<int>(row - c * per);
     const int b = rr / tb, r = rr - b * tb;
+    const Unit un(u0 + b, nb);
     const long long srow = c * NB * R + static_cast<long long>(b) * R + halo + r;
-    const long long drow = c * Hd + static_cast<long long>(band0 + b) * tb + r;
+    const long long drow = un.plane(C, c) * Hd +
+                           static_cast<long long>(un.band) * tb + r;
     copy_row<Ti, To>(src + srow * W, dst + drow * W, W, lane);
   }
 }
@@ -271,12 +303,12 @@ __global__ void block12_pool_bwd_kernel(const T* __restrict__ dp,
 // Gram partials of a group: block (tile, k, b * S + s) sums the pixels
 // [s * chunk, min(P_b, (s + 1) * chunk)) of band b's own rows, P_b = tb * W,
 // into work[((b * S + s) * K + k)]. f is the stacked (C, NB * R, W) tap,
-// m the global (K, Hg, W) fp32 m^2.
+// m the global (B, K, Hg, W) fp32 m^2, band b that of unit u0 + b.
 template <typename T>
 __global__ void __launch_bounds__(gram::NT)
 block12_gram_kernel(const T* __restrict__ f, const float* __restrict__ m,
                     float* __restrict__ work, int C, int K, int W, int NB,
-                    int R, int tb, int halo, int Hg, int band0, int S,
+                    int R, int tb, int halo, int Hg, int u0, int nb, int S,
                     int chunk) {
   const int tiles = (C + gram::TN - 1) / gram::TN;
   const int i0 = (blockIdx.x / tiles) * gram::TM;
@@ -286,25 +318,33 @@ block12_gram_kernel(const T* __restrict__ f, const float* __restrict__ m,
   const int pe = min(tb * W, pb + chunk);
   const size_t ldf = static_cast<size_t>(NB) * R * W;
   const T* fb = f + (static_cast<size_t>(b) * R + halo) * W;
-  const float* mb = m + (static_cast<size_t>(k) * Hg +
-                         static_cast<size_t>(band0 + b) * tb) * W;
+  const Unit un(u0 + b, nb);
+  const float* mb = m + (static_cast<size_t>(un.plane(K, k)) * Hg +
+                         static_cast<size_t>(un.band) * tb) * W;
   float* o = work + (static_cast<size_t>(blockIdx.z) * K + k) * C * C;
   gram::gram_fwd_tile<T, false, float>(fb, ldf, nullptr, mb, o, C, i0, j0, pb,
                                        pe);
 }
 
-// The group's own rows of the fp32 m^2 (K, Hg, W), rows band0 * tb ..
-// (band0 + NB) * tb, rounded once to bf16: mb (K, NB * tb * W).
+// The group's own rows of the fp32 m^2 (B, K, Hg, W), band after band
+// (unit u0 + b, nb bands a pair, tb rows each), rounded once to bf16: mb
+// (K, NB * tb * W).
 __global__ void block12_gram_mask_kernel(const float* __restrict__ m,
                                          __nv_bfloat16* __restrict__ mb,
-                                         int K, long long hgw, long long n,
-                                         long long off) {
-  const long long total = K * n;
+                                         int K, int Hg, int W, int tb,
+                                         int n, int u0, int nb) {
+  const long long total = static_cast<long long>(K) * n;
+  const int pb = tb * W;
   for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
                        threadIdx.x;
        idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long k = idx / n;
-    mb[idx] = from_f<__nv_bfloat16>(m[k * hgw + off + idx % n]);
+    const int k = static_cast<int>(idx / n);
+    const int q = static_cast<int>(idx - static_cast<long long>(k) * n);
+    const int b = q / pb;
+    const Unit un(u0 + b, nb);
+    mb[idx] = from_f<__nv_bfloat16>(
+        m[(un.plane(K, k) * Hg + static_cast<long long>(un.band) * tb) * W +
+          (q - b * pb)]);
   }
 }
 
@@ -333,14 +373,29 @@ struct DzEpi {
   }
 };
 
-// fp32: the gram_tile.cuh tile over every pixel of the group.
+// DzEpi on the pixels [plo, phi) of each channel's P only: the pixels of
+// one pair's bands in a group that runs into the next pair's.
+template <typename T>
+struct DzEpiRange {
+  DzEpi<T> e;
+  int P, plo, phi;
+  __device__ __forceinline__ void operator()(size_t idx, float acc) const {
+    const int p = static_cast<int>(idx % P);
+    if (p >= plo && p < phi) e(idx, acc);
+  }
+};
+
+// fp32: the gram_tile.cuh tile over the pixels [plo, phi) of the group
+// (p tiles from tile0 on), with the cotangent s of their pair.
 template <typename T>
 __global__ void __launch_bounds__(gram::NT)
 block12_gram_df_kernel(const T* __restrict__ a, const T* __restrict__ m,
                        const T* __restrict__ s, const float* __restrict__ t,
-                       T* __restrict__ dz, int C, int P, int K) {
-  gram::gram_bwd_tile<T, T>(a, m, s, DzEpi<T>{t, a, dz}, C, P, K,
-                            blockIdx.x * gram::TN, blockIdx.y * gram::TM);
+                       T* __restrict__ dz, int C, int P, int K, int tile0,
+                       int plo, int phi) {
+  gram::gram_bwd_tile<T, T>(a, m, s, DzEpiRange<T>{{t, a, dz}, P, plo, phi},
+                            C, P, K, (tile0 + blockIdx.x) * gram::TN,
+                            blockIdx.y * gram::TM);
 }
 
 // The same epilogue on gram_bwd's Hopper body: (t + acc) * (a > 0) in
@@ -365,23 +420,23 @@ block12_gram_df_wgmma_kernel(gram90::BwdArgs args, BwdDz epi) {
 
 template <typename Ti, typename To>
 int gather(const void* src, void* dst, int C, int Hs, int W, int NB, int R,
-           int tb, int halo, int band0, cudaStream_t st) {
+           int tb, int halo, int u0, int nb, cudaStream_t st) {
   const long long n = static_cast<long long>(C) * NB * R * 32;  // a warp a row
   block12_gather_kernel<Ti, To><<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
                                   EW_THREADS, 0, st>>>(
       static_cast<const Ti*>(src), static_cast<To*>(dst), C, Hs, W, NB, R, tb,
-      halo, band0);
+      halo, u0, nb);
   return last_error();
 }
 
 template <typename Ti, typename To>
 int scatter(const void* src, void* dst, int C, int Hd, int W, int NB, int R,
-            int tb, int halo, int band0, cudaStream_t st) {
+            int tb, int halo, int u0, int nb, cudaStream_t st) {
   const long long n = static_cast<long long>(C) * NB * tb * 32;
   block12_scatter_kernel<Ti, To><<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
                                    EW_THREADS, 0, st>>>(
       static_cast<const Ti*>(src), static_cast<To*>(dst), C, Hd, W, NB, R, tb,
-      halo, band0);
+      halo, u0, nb);
   return last_error();
 }
 
@@ -439,21 +494,40 @@ int conv_bwd(const T* dz, const void* ft, float* y, int Cin, int Cout,
 
 int gram_splits(int p) { return (p + GRAM_CHUNK - 1) / GRAM_CHUNK; }
 
+// Sums a group's Gram partial slots (S a unit, units u0 .. u0 + NB - 1) in
+// unit order into out, the (B, n) Gram sums: each pair's run of units into
+// its own sums, from zero at its first band. A pair's sum is then one fold
+// of its bands' slots in band order, however the groups cut its bands.
+int reduce_units(const float* work, float* out, long long n, int S, int u0,
+                 int NB, int nb, cudaStream_t st) {
+  for (int u = u0; u < u0 + NB;) {
+    const Unit un(u, nb);
+    const int end = std::min(u0 + NB, (un.pair + 1) * nb);
+    block12_gram_reduce_kernel<<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
+                                 EW_THREADS, 0, st>>>(
+        work + static_cast<long long>(u - u0) * S * n, out + un.pair * n,
+        (end - u) * S, n, un.band == 0 ? 1 : 0);
+    B12_TRY(last_error());
+    u = end;
+  }
+  return 0;
+}
+
 // The Gram partials of a group into one slot per (band, split) of work,
-// summed in band order into out. bf16 rounds the group's masks once (mb,
-// K * NB * tb * W) and runs gram_fwd's Hopper body on each band's own rows;
-// fp32 runs the gram_tile.cuh tile on the fp32 masks.
+// summed in band order into each unit's pair's sums in out (B, K, C, C).
+// bf16 rounds the group's masks once (mb, K * NB * tb * W) and runs
+// gram_fwd's Hopper body on each band's own rows; fp32 runs the
+// gram_tile.cuh tile on the fp32 masks.
 template <typename T>
 int gram_partials(const T* f, const float* m, __nv_bfloat16* mb, float* work,
                   float* out, int C, int K, int W, int NB, int R, int tb,
-                  int halo, int Hg, int band0, cudaStream_t st) {
+                  int halo, int Hg, int u0, int nb, cudaStream_t st) {
   const int S = gram_splits(tb * W);
   if constexpr (sizeof(T) == 2) {
     const long long n = static_cast<long long>(NB) * tb * W;
     block12_gram_mask_kernel<<<dpst::grid_for(K * n, EW_THREADS, EW_BLOCKS),
                                EW_THREADS, 0, st>>>(
-        m, mb, K, static_cast<long long>(Hg) * W, n,
-        static_cast<long long>(band0) * tb * W);
+        m, mb, K, Hg, W, tb, static_cast<int>(n), u0, nb);
     B12_TRY(last_error());
     const size_t smem = gram90::fwd_smem();
     static size_t allowed[64] = {};
@@ -471,14 +545,11 @@ int gram_partials(const T* f, const float* m, __nv_bfloat16* mb, float* work,
     const int tiles = (C + gram::TN - 1) / gram::TN;
     const dim3 grid(tiles * tiles, K, NB * S);
     block12_gram_kernel<T><<<grid, gram::NT, 0, st>>>(
-        f, m, work, C, K, W, NB, R, tb, halo, Hg, band0, S, GRAM_CHUNK);
+        f, m, work, C, K, W, NB, R, tb, halo, Hg, u0, nb, S, GRAM_CHUNK);
   }
   B12_TRY(last_error());
-  const long long n = static_cast<long long>(K) * C * C;
-  block12_gram_reduce_kernel<<<dpst::grid_for(n, EW_THREADS, EW_BLOCKS),
-                               EW_THREADS, 0, st>>>(work, out, NB * S, n,
-                                                    band0 == 0 ? 1 : 0);
-  return last_error();
+  return reduce_units(work, out, static_cast<long long>(K) * C * C, S, u0,
+                      NB, nb, st);
 }
 
 // The bf16 Gram cotangent's walk: c tiles of `tile` rows, `groups` blocks
@@ -526,29 +597,44 @@ int gram_df_wgmma(const __nv_bfloat16* a, const __nv_bfloat16* m,
 
 // The Gram cotangent stage of a stacked group: a (C, NB * R, W) tap, m (K,
 // NB * R, W) rounded m^2, t (C, NB * R, W) fp32 conv term -> dz = round_T((t
-// + sum_k S_k . round_T(m2_k * a)) * (a > 0)). bf16: s is the (C, K * Cp)
-// matrix of gram_stream.s_matrix, and only rows [lo, hi) of each band are
-// written (the others keep what they held); fp32: s is the (K, C, C)
-// stack and every row is written.
+// + sum_k S_k . round_T(m2_k * a)) * (a > 0)), band b with the cotangent of
+// its unit's pair (unit u0 + b, nb bands a pair; s the pairs' cotangents,
+// sp elements apart). bf16: s is the (C, K * Cp) matrix of
+// gram_stream.s_matrix, and only rows [lo, hi) of each band are written
+// (the others keep what they held); fp32: s is the (K, C, C) stack and
+// every row is written. One launch a pair whose bands the group holds.
 template <typename T>
 int gram_df(const T* a, const T* m, const T* s, const float* t, T* dz, int C,
-            int K, int NB, int R, int W, int lo, int hi, cudaStream_t st) {
+            int K, int NB, int R, int W, int lo, int hi, int u0, int nb,
+            long long sp, cudaStream_t st) {
   const long long P = static_cast<long long>(NB) * R * W;
-  if constexpr (sizeof(T) == 2) {
-    const DfPlan pl = df_plan(C, NB, R, W, lo, hi);
-    const int band = R * W;
-    if (pl.tile == 64)
-      return gram_df_wgmma<64>(a, m, s, t, dz, C, K, P, band, pl, st);
-    return gram_df_wgmma<128>(a, m, s, t, dz, C, K, P, band, pl, st);
-  } else {
-    (void)lo;
-    (void)hi;
-    const dim3 grid(static_cast<unsigned>((P + gram::TN - 1) / gram::TN),
-                    (C + gram::TM - 1) / gram::TM);
-    block12_gram_df_kernel<T><<<grid, gram::NT, 0, st>>>(
-        a, m, s, t, dz, C, static_cast<int>(P), K);
-    return last_error();
+  const long long band = static_cast<long long>(R) * W;
+  for (int u = u0; u < u0 + NB;) {
+    const Unit un(u, nb);
+    const int end = std::min(u0 + NB, (un.pair + 1) * nb);
+    const T* sk = s + un.pair * sp;
+    if constexpr (sizeof(T) == 2) {
+      const long long off = (u - u0) * band;
+      const DfPlan pl = df_plan(C, end - u, R, W, lo, hi);
+      B12_TRY(pl.tile == 64
+                  ? gram_df_wgmma<64>(a + off, m + off, sk, t + off, dz + off,
+                                      C, K, P, static_cast<int>(band), pl, st)
+                  : gram_df_wgmma<128>(a + off, m + off, sk, t + off,
+                                       dz + off, C, K, P,
+                                       static_cast<int>(band), pl, st));
+    } else {
+      const int plo = static_cast<int>((u - u0) * band);
+      const int phi = static_cast<int>((end - u0) * band);
+      const int tile0 = plo / gram::TN;
+      const dim3 grid((phi + gram::TN - 1) / gram::TN - tile0,
+                      (C + gram::TM - 1) / gram::TM);
+      block12_gram_df_kernel<T><<<grid, gram::NT, 0, st>>>(
+          a, m, sk, t, dz, C, static_cast<int>(P), K, tile0, plo, phi);
+      B12_TRY(last_error());
+    }
+    u = end;
   }
+  return 0;
 }
 
 // --- scratch -----------------------------------------------------------------
@@ -566,8 +652,12 @@ struct Carve {
   }
 };
 
+// K classes, B pairs of H x W images in nb() bands each, walked NB units
+// (pair, band) a group.
 struct Geom {
-  int K, H, W, NB;
+  int K, H, W, NB, B = 1;
+  int nb() const { return H / TB; }
+  int units() const { return B * nb(); }
   int R0() const { return TB + 2 * HALO; }
   int R1() const { return R0() / 2; }
   int R2() const { return R0() / 4; }
@@ -628,6 +718,14 @@ struct ShallowScratch {
 
 // --- the three passes --------------------------------------------------------
 
+// Elements of one pair's Gram cotangent as the stage reads it: bf16 the
+// (C, K * Cp) matrix of gram_stream.s_matrix, fp32 the (K, C, C) stack.
+template <typename T>
+long long s_elems(int C, int K) {
+  return sizeof(T) == 2 ? static_cast<long long>(C) * K * ((C + 7) / 8 * 8)
+                        : static_cast<long long>(K) * C * C;
+}
+
 template <typename T>
 int run_fwd(const float* x, const float* m1, const float* m2,
             const void* const* w, const float* const* b, float* g1, float* g2,
@@ -635,13 +733,13 @@ int run_fwd(const float* x, const float* m1, const float* m2,
             bool avg, bool save_res, cudaStream_t st) {
   Carve cv{static_cast<unsigned char*>(scratch)};
   FwdScratch<T> s(cv, g);
-  const int H = g.H, W = g.W, tb = TB, K = g.K;
+  const int H = g.H, W = g.W, tb = TB, K = g.K, nb = g.nb();
   const int R0 = g.R0(), R1 = g.R1(), R2 = g.R2();
-  for (int band0 = 0; band0 < H / tb; band0 += g.NB) {
-    const int NB = std::min(g.NB, H / tb - band0);
-    const conv::BandRows rows0{R0, tb, HALO, H, band0};
-    const conv::BandRows rows1{R1, tb / 2, HALO / 2, H / 2, band0};
-    B12_TRY((gather<float, T>(x, s.xe, 3, H, W, NB, R0, tb, HALO, band0, st)));
+  for (int u0 = 0; u0 < g.units(); u0 += g.NB) {
+    const int NB = std::min(g.NB, g.units() - u0);
+    const conv::BandRows rows0{R0, tb, HALO, H, u0 % nb, nb};
+    const conv::BandRows rows1{R1, tb / 2, HALO / 2, H / 2, u0 % nb, nb};
+    B12_TRY((gather<float, T>(x, s.xe, 3, H, W, NB, R0, tb, HALO, u0, nb, st)));
     B12_TRY(conv_fwd<T>(s.xe, w[0], b[0], s.a11, 3, 64, NB * R0, W, rows0, st));
     B12_TRY(conv_fwd<T>(s.a11, w[1], b[1], s.a12, 64, 64, NB * R0, W, rows0, st));
     B12_TRY(pool<T>(s.a12, s.p1, 64, NB * R0, W, avg, st));
@@ -649,17 +747,17 @@ int run_fwd(const float* x, const float* m1, const float* m2,
     B12_TRY(conv_fwd<T>(s.a21, w[3], b[3], s.a22, 128, 128, NB * R1, W / 2, rows1, st));
     B12_TRY(pool<T>(s.a22, s.p2, 128, NB * R1, W / 2, avg, st));
     B12_TRY((scatter<T, T>(s.p2, p2, 128, H / 4, W / 4, NB, R2, tb / 4, HALO / 4,
-                           band0, st)));
+                           u0, nb, st)));
     B12_TRY(gram_partials<T>(s.a11, m1, s.mb, s.work, g1, 64, K, W, NB, R0, tb,
-                             HALO, H, band0, st));
+                             HALO, H, u0, nb, st));
     B12_TRY(gram_partials<T>(s.a21, m2, s.mb, s.work, g2, 128, K, W / 2, NB, R1,
-                             tb / 2, HALO / 2, H / 2, band0, st));
+                             tb / 2, HALO / 2, H / 2, u0, nb, st));
     if (save_res) {
-      B12_TRY((scatter<T, T>(s.a11, a11, 64, H, W, NB, R0, tb, HALO, band0, st)));
+      B12_TRY((scatter<T, T>(s.a11, a11, 64, H, W, NB, R0, tb, HALO, u0, nb, st)));
       B12_TRY((scatter<T, T>(s.a21, a21, 128, H / 2, W / 2, NB, R1, tb / 2,
-                             HALO / 2, band0, st)));
+                             HALO / 2, u0, nb, st)));
       B12_TRY((scatter<T, T>(s.a22, a22, 128, H / 2, W / 2, NB, R1, tb / 2,
-                             HALO / 2, band0, st)));
+                             HALO / 2, u0, nb, st)));
     }
   }
   return last_error();
@@ -671,23 +769,23 @@ int run_bwd_deep(const T* a21, const T* a22, const T* dp2, const float* m2,
                  void* scratch, const Geom& g, bool avg, cudaStream_t st) {
   Carve cv{static_cast<unsigned char*>(scratch)};
   DeepScratch<T> s(cv, g);
-  const int H2 = g.H / 2, W2 = g.W / 2, tb2 = TB / 2, K = g.K;
+  const int H2 = g.H / 2, W2 = g.W / 2, tb2 = TB / 2, K = g.K, nb = g.nb();
   const int R1 = g.R1(), R2 = g.R2();
-  for (int band0 = 0; band0 < g.H / TB; band0 += g.NB) {
-    const int NB = std::min(g.NB, g.H / TB - band0);
-    B12_TRY((gather<T, T>(a21, s.a21, 128, H2, W2, NB, R1, tb2, HALO / 2, band0, st)));
-    B12_TRY((gather<T, T>(a22, s.a22, 128, H2, W2, NB, R1, tb2, HALO / 2, band0, st)));
+  for (int u0 = 0; u0 < g.units(); u0 += g.NB) {
+    const int NB = std::min(g.NB, g.units() - u0);
+    B12_TRY((gather<T, T>(a21, s.a21, 128, H2, W2, NB, R1, tb2, HALO / 2, u0, nb, st)));
+    B12_TRY((gather<T, T>(a22, s.a22, 128, H2, W2, NB, R1, tb2, HALO / 2, u0, nb, st)));
     B12_TRY((gather<T, T>(dp2, s.dp2, 128, H2 / 2, W2 / 2, NB, R2, tb2 / 2,
-                          HALO / 4, band0, st)));
+                          HALO / 4, u0, nb, st)));
     B12_TRY((gather<float, T>(m2, s.m2, K, H2, W2, NB, R1, tb2, HALO / 2,
-                              band0, st)));
+                              u0, nb, st)));
     B12_TRY(pool_bwd<T>(s.dp2, s.a22, s.dz, 128, NB * R1, W2, avg, st));
     B12_TRY(conv_bwd<T>(s.dz, ft22, s.t, 128, 128, NB * R1, W2, st));
     B12_TRY(gram_df<T>(s.a21, s.m2, s2, s.t, s.dz, 128, K, NB, R1, W2,
-                       DZ_LO_DEEP, DZ_HI_DEEP, st));
+                       DZ_LO_DEEP, DZ_HI_DEEP, u0, nb, s_elems<T>(128, K), st));
     B12_TRY(conv_bwd<T>(s.dz, ft21, s.t, 128, 64, NB * R1, W2, st));
     B12_TRY((scatter<float, T>(s.t, dp1, 64, H2, W2, NB, R1, tb2, HALO / 2,
-                               band0, st)));
+                               u0, nb, st)));
   }
   return last_error();
 }
@@ -699,22 +797,23 @@ int run_bwd_shallow(const T* a11, const T* dp1, const float* m1, const T* s1,
                     bool avg, cudaStream_t st) {
   Carve cv{static_cast<unsigned char*>(scratch)};
   ShallowScratch<T> s(cv, g);
-  const int H = g.H, W = g.W, tb = TB, K = g.K;
+  const int H = g.H, W = g.W, tb = TB, K = g.K, nb = g.nb();
   const int R0 = g.R0(), R1 = g.R1();
-  for (int band0 = 0; band0 < H / tb; band0 += g.NB) {
-    const int NB = std::min(g.NB, H / tb - band0);
-    const conv::BandRows rows0{R0, tb, HALO, H, band0};
-    B12_TRY((gather<T, T>(a11, s.a11, 64, H, W, NB, R0, tb, HALO, band0, st)));
+  for (int u0 = 0; u0 < g.units(); u0 += g.NB) {
+    const int NB = std::min(g.NB, g.units() - u0);
+    const conv::BandRows rows0{R0, tb, HALO, H, u0 % nb, nb};
+    B12_TRY((gather<T, T>(a11, s.a11, 64, H, W, NB, R0, tb, HALO, u0, nb, st)));
     B12_TRY((gather<T, T>(dp1, s.dp1, 64, H / 2, W / 2, NB, R1, tb / 2, HALO / 2,
-                          band0, st)));
-    B12_TRY((gather<float, T>(m1, s.m1, K, H, W, NB, R0, tb, HALO, band0, st)));
+                          u0, nb, st)));
+    B12_TRY((gather<float, T>(m1, s.m1, K, H, W, NB, R0, tb, HALO, u0, nb, st)));
     B12_TRY(conv_fwd<T>(s.a11, w12, b12, s.a12, 64, 64, NB * R0, W, rows0, st));
     B12_TRY(pool_bwd<T>(s.dp1, s.a12, s.dz, 64, NB * R0, W, avg, st));
     B12_TRY(conv_bwd<T>(s.dz, ft12, s.t, 64, 64, NB * R0, W, st));
     B12_TRY(gram_df<T>(s.a11, s.m1, s1, s.t, s.dz, 64, K, NB, R0, W,
-                       DZ_LO_SHALLOW, DZ_HI_SHALLOW, st));
+                       DZ_LO_SHALLOW, DZ_HI_SHALLOW, u0, nb, s_elems<T>(64, K),
+                       st));
     B12_TRY(conv_bwd<T>(s.dz, ft11, s.t, 64, 3, NB * R0, W, st));
-    B12_TRY((scatter<float, float>(s.t, dx, 3, H, W, NB, R0, tb, HALO, band0, st)));
+    B12_TRY((scatter<float, float>(s.t, dx, 3, H, W, NB, R0, tb, HALO, u0, nb, st)));
   }
   return last_error();
 }
@@ -730,8 +829,9 @@ void count_scratch(int which, Carve& cv, const Geom& g) {
   }
 }
 
-bool bad_geometry(int K, int H, int W, int group) {
-  return K < 1 || H < TB || H % TB || W < 4 || W % 4 || group < 1;
+bool bad_geometry(int K, int H, int W, int group, int B = 1) {
+  return K < 1 || H < TB || H % TB || W < 4 || W % 4 || group < 1 || B < 1 ||
+         static_cast<long long>(B) * (H / TB) > (1 << 30);
 }
 
 }  // namespace
@@ -749,6 +849,14 @@ extern "C" size_t dpst_block12_scratch_bytes(int which, int K, int H, int W,
   return cv.used;
 }
 
+// A batch of B pairs: every image, mask and output below with a leading
+// pair axis (x (B, 3, H, W), g1 (B, K, 64, 64), ...), the weights shared.
+// The pipeline walks units (pair, band), pair-major, `group` of them a
+// group of the scratch (at most H / TB, the scratch one pair's), so a
+// group may run from one pair into the next; each stage addresses its
+// unit's pair. Every band's arithmetic and each pair's Gram partial order
+// are those of the pair's own launch: a pair's outputs are bit-equal to it.
+//
 // x (3, H, W) fp32 preprocessed image; m1 (K, H, W) and m2 (K, H/2, W/2)
 // fp32 m^2; w11..w22 in the compute dtype, packed (9, Cout, Cinp) by
 // ops/conv_cuda.pack_weights (w11 in bf16: (64, 32) by pack_k27),
@@ -762,12 +870,12 @@ extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
                                 const void* w22, const void* b22, void* g1,
                                 void* g2, void* p2, void* a11, void* a21,
                                 void* a22, void* scratch, int K, int H, int W,
-                                int group, int avg, int save_res, int dtype,
-                                void* stream) {
+                                int group, int B, int avg, int save_res,
+                                int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (bad_geometry(K, H, W, group))
+  if (bad_geometry(K, H, W, group, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  const Geom g{K, H, W, group < H / TB ? group : H / TB, B};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[4] = {w11, w12, w21, w22};
   const float* b[4] = {static_cast<const float*>(b11), static_cast<const float*>(b12),
@@ -795,18 +903,19 @@ extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
 // 128) stack, in bf16 the (128, K * 128) matrix of gram_stream.s_matrix; ft21
 // and ft22, the flipped, transposed weights of conv2_1 and conv2_2 packed
 // (9, 64, 128) and (9, 128, 128) (ops/conv_cuda.pack_grad_weights); dp1
-// (64, H/2, W/2) in the compute dtype.
+// (64, H/2, W/2) in the compute dtype. A batch of B pairs as for
+// dpst_block12_fwd (s2 too with a leading pair axis).
 extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
                                      const void* dp2, const void* m2,
                                      const void* s2, const void* ft21,
                                      const void* ft22, void* dp1,
                                      void* scratch, int K, int H, int W,
-                                     int group, int avg, int dtype,
+                                     int group, int B, int avg, int dtype,
                                      void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (bad_geometry(K, H, W, group))
+  if (bad_geometry(K, H, W, group, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  const Geom g{K, H, W, group < H / TB ? group : H / TB, B};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m2f = static_cast<const float*>(m2);
   if (dtype == DPST_DTYPE_F32)
@@ -828,18 +937,19 @@ extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
 // the (64, K * 64) matrix of gram_stream.s_matrix; ft11 and ft12, the
 // flipped, transposed weights of conv1_1 and conv1_2 packed (9, 3, 64) and
 // (9, 64, 64) (ops/conv_cuda.pack_grad_weights); w12 packed (9, 64, 64)
-// and b12 (64,) fp32 to recompute conv1_2; dx (3, H, W) fp32.
+// and b12 (64,) fp32 to recompute conv1_2; dx (3, H, W) fp32. A batch of
+// B pairs as for dpst_block12_fwd (s1 too with a leading pair axis).
 extern "C" int dpst_block12_bwd_shallow(const void* a11, const void* dp1,
                                         const void* m1, const void* s1,
                                         const void* ft11, const void* ft12,
                                         const void* w12, const void* b12,
                                         void* dx, void* scratch, int K, int H,
-                                        int W, int group, int avg, int dtype,
-                                        void* stream) {
+                                        int W, int group, int B, int avg,
+                                        int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (bad_geometry(K, H, W, group))
+  if (bad_geometry(K, H, W, group, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+  const Geom g{K, H, W, group < H / TB ? group : H / TB, B};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m1f = static_cast<const float*>(m1);
   const float* b12f = static_cast<const float*>(b12);
@@ -892,14 +1002,15 @@ extern "C" int dpst_block12_gram_dz(const void* f, const void* m,
     return gram_df<float>(static_cast<const float*>(f),
                           static_cast<const float*>(m),
                           static_cast<const float*>(s), tf,
-                          static_cast<float*>(dz), C, K, NB, R, W, lo, hi,
-                          st);
+                          static_cast<float*>(dz), C, K, NB, R, W, lo, hi, 0,
+                          NB, 0, st);
   if (dtype == DPST_DTYPE_BF16)
     return gram_df<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(f),
         static_cast<const __nv_bfloat16*>(m),
         static_cast<const __nv_bfloat16*>(s), tf,
-        static_cast<__nv_bfloat16*>(dz), C, K, NB, R, W, lo, hi, st);
+        static_cast<__nv_bfloat16*>(dz), C, K, NB, R, W, lo, hi, 0, NB, 0,
+        st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -86,11 +86,15 @@ struct EpiF32 {
 };
 
 // Row h of a stack of bands: band h / R, row h % R of it, which is global
-// row (band0 + h / R) * tb - halo + h % R of an image of Hg rows.
+// row b * tb - halo + h % R of an image of Hg rows in nb bands, b = (band0
+// + h / R) mod nb (a stack of a batch's bands runs on into the next pair's
+// first band; band0 < nb and a stack holds at most nb bands).
 struct BandRows {
-  int R, tb, halo, Hg, band0;
+  int R, tb, halo, Hg, band0, nb;
   __device__ __forceinline__ bool inside(int h) const {
-    const int g = (band0 + h / R) * tb - halo + h % R;
+    int b = band0 + h / R;
+    if (b >= nb) b -= nb;
+    const int g = b * tb - halo + h % R;
     return g >= 0 && g < Hg;
   }
 };

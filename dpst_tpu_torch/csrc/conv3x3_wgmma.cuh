@@ -75,7 +75,9 @@
 //     axis in its grid) is one launch: z = pair * splits + split, the
 //     PAIRS instance offsetting the block's input and output planes by its
 //     pair (x (B, Cin, H, W), y (B, Cout, H, W), partials (B, splits,
-//     Cout, H, W), each pair's splits summed in split order). The one-image
+//     Cout, H, W), each pair's splits summed in split order; conv_plan
+//     gives a batch one image's splits, so an image rounds as alone). The
+//     one-image
 //     instance (PAIRS = false, block12's stages among its callers) has the
 //     pair arithmetic compiled out, register for register as before.
 //   * The epilogue stages the pixel-major accumulators in shared memory as

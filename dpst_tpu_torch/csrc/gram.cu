@@ -76,7 +76,11 @@
 // pair runs the one-pair instances) and their split partials are
 // split-major, (splits, B, C, P), so that one reduction over B C P
 // elements serves every pair. The fp32 tiles take the pair from
-// blockIdx.z. gram_wbwd's batch instance lives in gram_wbwd_pairs.cu.
+// blockIdx.z. gram_wbwd's batch instance lives in gram_wbwd_pairs.cu. The
+// caller's plans (ops/gram_stream.fwd_plan, bwd_plan, gram_pallas.
+// wbwd_plan, gram_s2d.relu_bwd_plan) split each pair's reduction as one
+// pair's plan does, so a pair's sums round in a batch as they do alone;
+// B changes only the blocks that walk a pair's p tiles.
 //
 // The forward reduces over P, which is 1048576 at 1024^2, so P is split
 // across blocks. Each split writes its own fp32 partial and a second

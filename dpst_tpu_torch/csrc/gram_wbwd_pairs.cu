@@ -8,9 +8,10 @@
 //   dF_b = round( sum_k (S_bk . F_b) * m2_bk )
 // each class's product in fp32, weighted after the product and folded in
 // class order. Its bound is gram_wbwd's, B times over: operations
-// (2 K C^2 P a pair) at the deep taps, bytes at conv1_1. The batch adds
-// blocks where one pair's grid leaves SMs idle (ops/gram_pallas.wbwd_plan
-// takes B), so fewer class splits are needed.
+// (2 K C^2 P a pair) at the deep taps, bytes at conv1_1. The batch cuts
+// each pair's classes as one pair's plan does (ops/gram_pallas.wbwd_plan:
+// B sets only the blocks that walk a pair's p tiles), so that a pair's dF
+// rounds in a batch as it does alone.
 //
 // The one-pair launch keeps the one-pair instance in gram.cu: a pair's
 // offsets cost a batch instance registers (PR 12 measured this on the

@@ -141,10 +141,10 @@ def preprocess(image: torch.Tensor) -> torch.Tensor:
 def preprocess_noflip(image: torch.Tensor) -> torch.Tensor:
     """[0,255] RGB (H, W, 3) -> the (3, H, W) fp32 planes of the means
     subtracted in RGB order (`dpst_tpu/models/vgg.py:_preprocess_noflip`);
-    the BGR flip is folded into conv1_1's weights instead
-    (`ops/block12_pallas.pack_weights`)."""
+    a batch (B, H, W, 3) -> (B, 3, H, W). The BGR flip is folded into
+    conv1_1's weights instead (`ops/block12_pallas.pack_weights`)."""
     return (image.to(torch.float32) - _means(image.device, rgb=True)
-            ).permute(2, 0, 1).contiguous()
+            ).movedim(-1, -3).contiguous()
 
 
 class _Relu(torch.autograd.Function):
@@ -296,16 +296,24 @@ class _AtenConv(torch.autograd.Function):
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, padding=1) -> torch.Tensor:
     """3×3 conv of an (N, C, H, W) batch: `F.conv2d` (cuDNN on the card),
-    but in fp32 on the card ATen's own convolution (`_AtenConv`). cuDNN's
-    fp32 algorithms round apart by shape (a row shard's conv from the
-    whole image's, a batch from its images one at a time) and from the
-    CPU, and the near-ties of ReLU and max pooling let an optimizer grow
-    that rounding: 10 steps of 64² fp32 L-BFGS ended at SSIM 0.80 card
-    against CPU and 0.94 sharded against unsharded on the card, an fp32
-    `autotune` candidate 0.9-1.9 of 255 from its `stylize` run after 5
-    Adam steps. bf16 keeps cuDNN and one call for the batch."""
+    but in fp32 on the card ATen's own convolution (`_AtenConv`), and in
+    bf16 on the card one cuDNN call an image. cuDNN's algorithms round
+    apart by shape (a row shard's conv from the whole image's, a batch
+    from its images one at a time) and from the CPU, and the near-ties of
+    ReLU and max pooling let an optimizer grow that rounding: 10 steps of
+    64² fp32 L-BFGS ended at SSIM 0.80 card against CPU and 0.94 sharded
+    against unsharded on the card, an fp32 `autotune` candidate 0.9-1.9
+    of 255 from its `stylize` run after 5 Adam steps, and a bf16 L-BFGS
+    batch of 8 at 512² one pair 1.15e-2 from its run alone in the first
+    ten rows after 10 steps (the batch's bf16 input gradients 3.6e-3 of
+    max|g| off; image by image, 1.3e-7; NVIDIA H100 80GB HBM3, 700.00 W).
+    So a batch's images take cuDNN's bf16 forward and backward as each
+    image alone does."""
     if x.is_cuda and x.dtype == torch.float32:
         return _AtenConv.apply(x, w, padding)
+    if x.is_cuda and x.shape[0] > 1:
+        return torch.cat([F.conv2d(xi[None], w, padding=padding)
+                          for xi in x.unbind(0)])
     return F.conv2d(x, w, padding=padding)
 
 

@@ -36,8 +36,16 @@ and every input-gradient conv (the flipped, transposed weights) packed by
 `conv_cuda.pack_weights` and `pack_grad_weights`, conv1_1 in bf16 as one
 contraction of depth 32 (`conv_cuda.pack_k27`).
 
+A batch of B pairs takes a leading pair axis on every image, mask, output
+and cotangent (the weights are shared): the reference vmaps the loop, so
+its pallas_calls take the pair as a grid dimension; here each entry point
+is one call that walks the B pairs' bands, `unit_groups` of them at a time
+(a group may run from one pair into the next), each pair's outputs equal
+to its own call's bit for bit.
+
 CPU tensors take the plain versions, which walk the same bands in the same
-order; CUDA tensors launch `csrc/block12.cu` or raise. The backwards' Gram
+order (a batch pair by pair); CUDA tensors launch `csrc/block12.cu` or
+raise. The backwards' Gram
 cotangent stage (`gram_dz_plain`, and `block12_gram_dz` alone on the card)
 is per pixel: in bf16 the kernels compute it only on the rows `DZ_ROWS`
 that reach an own output row, and take the cotangent as
@@ -119,6 +127,19 @@ def pack_weights(params: dict, compute_dtype) -> Block12Weights:
 def group_bands(h: int, w: int) -> int:
     """Bands the kernels process at once at an h × w image."""
     return max(1, min(h // TB, GROUP_PIXELS // (TB * w)))
+
+
+def unit_groups(b: int, h: int, w: int,
+                group: int | None = None) -> list[list[tuple[int, int]]]:
+    """The groups of csrc/block12.cu's walk over a batch of b pairs of h × w
+    images: units (pair, band), pair-major, `group` (by default
+    `group_bands(h, w)`, at most h // TB) a group, so that a group may hold
+    the last bands of one pair and the first of the next. The scratch
+    holds one group whatever b is."""
+    nb = h // TB
+    group = min(group or group_bands(h, w), nb)
+    units = [divmod(u, nb) for u in range(b * nb)]
+    return [units[i:i + group] for i in range(0, len(units), group)]
 
 
 def gram_dz_plan(c: int, nb: int, r: int, w: int,
@@ -262,10 +283,29 @@ def gram_dz_plain(f: torch.Tensor, msq: torch.Tensor, s: torch.Tensor,
     return ((t + _gram_df(f, msq, s, cdt)) * _relu_grad(f)).to(cdt)
 
 
+def _pairwise(fn, *batch):
+    """fn on each pair of the batched operands (a leading pair axis), its
+    outputs stacked: a tuple of stacks for a tuple of outputs."""
+    outs = [fn(*(t[i] for t in batch)) for i in range(batch[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(col) for col in zip(*outs))
+    return torch.stack(outs)
+
+
 def block12_fwd_plain(x, m1sq, m2sq, weights, pooling="max",
                       compute_dtype="bfloat16", save_res=True):
     """Plain PyTorch forward, band by band: (g1, g2, p2) and with
-    `save_res` also (a11, a21, a22)."""
+    `save_res` also (a11, a21, a22); a batch (x (B, 3, H, W)) pair by
+    pair."""
+    if x.dim() == 4:
+        return _pairwise(lambda *t: _fwd_plain_one(
+            *t, weights, pooling, compute_dtype, save_res), x, m1sq, m2sq)
+    return _fwd_plain_one(x, m1sq, m2sq, weights, pooling, compute_dtype,
+                          save_res)
+
+
+def _fwd_plain_one(x, m1sq, m2sq, weights, pooling, compute_dtype,
+                   save_res):
     cdt = torch_dtype(compute_dtype)
     w11, b11, w12, b12, w21, b21, w22, b22 = weights[:8]
     h = x.shape[1]
@@ -302,7 +342,17 @@ def block12_fwd_plain(x, m1sq, m2sq, weights, pooling="max",
 
 def block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights, pooling="max",
                            compute_dtype="bfloat16"):
-    """Plain PyTorch deep backward: dp1 (64, H/2, W/2) in cdt."""
+    """Plain PyTorch deep backward: dp1 (64, H/2, W/2) in cdt; a batch
+    (a21 (B, 128, H/2, W/2)) pair by pair."""
+    if a21.dim() == 4:
+        return _pairwise(lambda *t: _bwd_deep_plain_one(
+            *t, weights, pooling, compute_dtype), a21, a22, dp2, m2sq, s2)
+    return _bwd_deep_plain_one(a21, a22, dp2, m2sq, s2, weights, pooling,
+                               compute_dtype)
+
+
+def _bwd_deep_plain_one(a21, a22, dp2, m2sq, s2, weights, pooling,
+                        compute_dtype):
     cdt = torch_dtype(compute_dtype)
     ft21 = flip_transpose_weights(weights[4])
     ft22 = flip_transpose_weights(weights[6])
@@ -322,7 +372,17 @@ def block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights, pooling="max",
 
 def block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights, pooling="max",
                               compute_dtype="bfloat16"):
-    """Plain PyTorch shallow backward: dx (3, H, W) fp32."""
+    """Plain PyTorch shallow backward: dx (3, H, W) fp32; a batch (a11 (B,
+    64, H, W)) pair by pair."""
+    if a11.dim() == 4:
+        return _pairwise(lambda *t: _bwd_shallow_plain_one(
+            *t, weights, pooling, compute_dtype), a11, dp1, m1sq, s1)
+    return _bwd_shallow_plain_one(a11, dp1, m1sq, s1, weights, pooling,
+                                  compute_dtype)
+
+
+def _bwd_shallow_plain_one(a11, dp1, m1sq, s1, weights, pooling,
+                           compute_dtype):
     cdt = torch_dtype(compute_dtype)
     ft11 = flip_transpose_weights(weights[0])
     ft12 = flip_transpose_weights(weights[2])
@@ -370,6 +430,10 @@ def _check_weights(weights: tuple, cdt) -> Block12Weights:
     return wts
 
 
+def _pairs(lead: tuple[int, ...]) -> int:
+    return lead[0] if lead else 1
+
+
 def _scratch(which: int, k: int, h: int, w: int, cdt,
              device) -> tuple[torch.Tensor, int]:
     group = group_bands(h, w)
@@ -378,27 +442,39 @@ def _scratch(which: int, k: int, h: int, w: int, cdt,
     return torch.empty(n, dtype=torch.uint8, device=device), group
 
 
+def _lead(t: torch.Tensor, what: str, dims: int) -> tuple[int, ...]:
+    """() for a `dims`-D operand of one pair, (B,) for a batch of B."""
+    if t.dim() not in (dims, dims + 1):
+        raise ValueError(f"block12: {what} must be {dims}-D, or {dims + 1}-D "
+                         f"with a leading pair axis; got {tuple(t.shape)}")
+    return tuple(t.shape[:t.dim() - dims])
+
+
 def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
     cdt = torch_dtype(compute_dtype)
-    if x.dim() != 3 or x.shape[0] != 3:
-        raise ValueError(f"block12: x must be (3, H, W), got {tuple(x.shape)}")
-    _, h, w = x.shape
-    k = m1sq.shape[0]
+    lead = _lead(x, "x", 3)
+    if x.shape[-3] != 3:
+        raise ValueError(f"block12: x must be (3, H, W) or (B, 3, H, W), "
+                         f"got {tuple(x.shape)}")
+    h, w = x.shape[-2:]
+    k = m1sq.shape[-3]
     _check_geometry(h, w, pooling)
     kernels.require(x, "x", None, torch.float32)
-    kernels.require(m1sq, "m1sq", (k, h, w), torch.float32)
-    kernels.require(m2sq, "m2sq", (k, h // 2, w // 2), torch.float32)
+    kernels.require(m1sq, "m1sq", (*lead, k, h, w), torch.float32)
+    kernels.require(m2sq, "m2sq", (*lead, k, h // 2, w // 2), torch.float32)
     wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(x, m1sq, m2sq, *weights):
         return block12_fwd_plain(x, m1sq, m2sq, weights, pooling, cdt,
                                  save_res)
     dev = x.device
-    g1 = torch.empty((k, 64, 64), dtype=torch.float32, device=dev)
-    g2 = torch.empty((k, 128, 128), dtype=torch.float32, device=dev)
-    p2 = torch.empty((128, h // 4, w // 4), dtype=cdt, device=dev)
-    res = ((torch.empty((64, h, w), dtype=cdt, device=dev),
-            torch.empty((128, h // 2, w // 2), dtype=cdt, device=dev),
-            torch.empty((128, h // 2, w // 2), dtype=cdt, device=dev))
+
+    def out(*shape, dtype=cdt):
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
+
+    g1 = out(k, 64, 64, dtype=torch.float32)
+    g2 = out(k, 128, 128, dtype=torch.float32)
+    p2 = out(128, h // 4, w // 4)
+    res = ((out(64, h, w), out(128, h // 2, w // 2), out(128, h // 2, w // 2))
            if save_res else (None, None, None))
     scratch, group = _scratch(0, k, h, w, cdt, dev)
     name = "block12_fwd_res" if save_res else "block12_fwd"
@@ -406,7 +482,7 @@ def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
         *map(kernels.ptr, (x, m1sq, m2sq, wts.k11, wts.b11, wts.k12, wts.b12,
                            wts.k21, wts.b21, wts.k22, wts.b22, g1, g2, p2,
                            *res, scratch)),
-        k, h, w, group, int(pooling == "avg"), int(save_res),
+        k, h, w, group, _pairs(lead), int(pooling == "avg"), int(save_res),
         kernels.DTYPE_CODES[cdt], kernels.stream_ptr(x))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
@@ -417,8 +493,9 @@ def block12_fwd(x: torch.Tensor, m1sq: torch.Tensor, m2sq: torch.Tensor,
                 weights: tuple, *, pooling: str = "max",
                 compute_dtype="bfloat16") -> tuple:
     """x (3, H, W) fp32 preprocessed planes, m1sq (K, H, W) and m2sq (K,
-    H/2, W/2) fp32 squared masks, `pack_weights` -> (g1, g2, p2). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    H/2, W/2) fp32 squared masks, `pack_weights` -> (g1, g2, p2); a batch
+    of B pairs with a leading pair axis on each (one launch). CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     return _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, False)
 
 
@@ -431,15 +508,18 @@ def block12_fwd_res(x: torch.Tensor, m1sq: torch.Tensor, m2sq: torch.Tensor,
 
 
 def symmetrize(dg: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """round(dG_k + dG_kᵀ) in the compute dtype, the sum in fp32."""
+    """round(dG_k + dG_kᵀ) in the compute dtype, the sum in fp32; dg (...,
+    K, C, C)."""
     d = dg.to(torch.float32)
-    return (d + d.transpose(1, 2)).to(torch_dtype(compute_dtype)).contiguous()
+    return (d + d.transpose(-1, -2)).to(torch_dtype(compute_dtype)
+                                        ).contiguous()
 
 
 def _cotangent(s: torch.Tensor) -> torch.Tensor:
     """s = `symmetrize(dG)` as the entry points' Gram cotangent stage reads
     it: in bf16 the (C, K·C) matrix of `gram_stream.s_matrix` (the wgmma
-    body's operand), in fp32 the (K, C, C) stack itself."""
+    body's operand), in fp32 the (K, C, C) stack itself (a batch with its
+    leading pair axis)."""
     if s.dtype == torch.bfloat16:
         return gram_stream.s_matrix(s).contiguous()
     return s
@@ -493,29 +573,31 @@ def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
                      ) -> torch.Tensor:
     """pool2 → conv2_2 → conv2_1 backward with the conv2_1 Gram term: dp1
     (64, H/2, W/2) in the compute dtype from the residuals a21, a22, the
-    pool2 cotangent dp2 and s2 = `symmetrize(dG2)`."""
+    pool2 cotangent dp2 and s2 = `symmetrize(dG2)`; a batch of B pairs
+    with a leading pair axis on each (one launch)."""
     cdt = torch_dtype(compute_dtype)
-    _, h2, w2 = a21.shape
+    lead = _lead(a21, "a21", 3)
+    h2, w2 = a21.shape[-2:]
     h, w = 2 * h2, 2 * w2
-    k = m2sq.shape[0]
+    k = m2sq.shape[-3]
     _check_geometry(h, w, pooling)
-    kernels.require(a21, "a21", (128, h2, w2), cdt)
-    kernels.require(a22, "a22", (128, h2, w2), cdt)
-    kernels.require(dp2, "dp2", (128, h // 4, w // 4), cdt)
-    kernels.require(m2sq, "m2sq", (k, h2, w2), torch.float32)
-    kernels.require(s2, "s2", (k, 128, 128), cdt)
+    kernels.require(a21, "a21", (*lead, 128, h2, w2), cdt)
+    kernels.require(a22, "a22", (*lead, 128, h2, w2), cdt)
+    kernels.require(dp2, "dp2", (*lead, 128, h // 4, w // 4), cdt)
+    kernels.require(m2sq, "m2sq", (*lead, k, h2, w2), torch.float32)
+    kernels.require(s2, "s2", (*lead, k, 128, 128), cdt)
     wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(a21, a22, dp2, m2sq, s2, *weights):
         return block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights,
                                       pooling, cdt)
-    dp1 = torch.empty((64, h2, w2), dtype=cdt, device=a21.device)
+    dp1 = torch.empty((*lead, 64, h2, w2), dtype=cdt, device=a21.device)
     scratch, group = _scratch(1, k, h, w, cdt, a21.device)
     sm = _cotangent(s2)
     rc = kernels.library().dpst_block12_bwd_deep(
         *map(kernels.ptr, (a21, a22, dp2, m2sq, sm, wts.t21, wts.t22, dp1,
                            scratch)),
-        k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
-        kernels.stream_ptr(a21))
+        k, h, w, group, _pairs(lead), int(pooling == "avg"),
+        kernels.DTYPE_CODES[cdt], kernels.stream_ptr(a21))
     kernels.check(rc, "block12_bwd_deep")
     kernels.LAUNCHES["block12_bwd_deep"] += 1
     return dp1
@@ -526,27 +608,30 @@ def block12_bwd_shallow(a11, dp1, m1sq, s1, weights, *,
                         ) -> torch.Tensor:
     """conv1_2 recomputed from a11, then pool1 → conv1_2 → conv1_1 backward
     with the conv1_1 Gram term: dx (3, H, W) fp32 from dp1 and s1 =
-    `symmetrize(dG1)`."""
+    `symmetrize(dG1)`; a batch of B pairs with a leading pair axis on each
+    (one launch)."""
     cdt = torch_dtype(compute_dtype)
-    _, h, w = a11.shape
-    k = m1sq.shape[0]
+    lead = _lead(a11, "a11", 3)
+    h, w = a11.shape[-2:]
+    k = m1sq.shape[-3]
     _check_geometry(h, w, pooling)
-    kernels.require(a11, "a11", (64, h, w), cdt)
-    kernels.require(dp1, "dp1", (64, h // 2, w // 2), cdt)
-    kernels.require(m1sq, "m1sq", (k, h, w), torch.float32)
-    kernels.require(s1, "s1", (k, 64, 64), cdt)
+    kernels.require(a11, "a11", (*lead, 64, h, w), cdt)
+    kernels.require(dp1, "dp1", (*lead, 64, h // 2, w // 2), cdt)
+    kernels.require(m1sq, "m1sq", (*lead, k, h, w), torch.float32)
+    kernels.require(s1, "s1", (*lead, k, 64, 64), cdt)
     wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(a11, dp1, m1sq, s1, *weights):
         return block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights,
                                          pooling, cdt)
-    dx = torch.empty((3, h, w), dtype=torch.float32, device=a11.device)
+    dx = torch.empty((*lead, 3, h, w), dtype=torch.float32,
+                     device=a11.device)
     scratch, group = _scratch(2, k, h, w, cdt, a11.device)
     sm = _cotangent(s1)
     rc = kernels.library().dpst_block12_bwd_shallow(
         *map(kernels.ptr, (a11, dp1, m1sq, sm, wts.t11, wts.t12, wts.k12,
                            wts.b12, dx, scratch)),
-        k, h, w, group, int(pooling == "avg"), kernels.DTYPE_CODES[cdt],
-        kernels.stream_ptr(a11))
+        k, h, w, group, _pairs(lead), int(pooling == "avg"),
+        kernels.DTYPE_CODES[cdt], kernels.stream_ptr(a11))
     kernels.check(rc, "block12_bwd_shallow")
     kernels.LAUNCHES["block12_bwd_shallow"] += 1
     return dx
@@ -556,7 +641,8 @@ def block12_bwd(a11, a21, a22, dp2, m1sq, m2sq, dg1, dg2, weights, *,
                 pooling: str = "max", compute_dtype="bfloat16"
                 ) -> torch.Tensor:
     """Backward of `block12_fwd_res` wrt the image planes: the deep half,
-    then the shallow half; dx (3, H, W) fp32."""
+    then the shallow half; dx (3, H, W) fp32 (a batch with its leading
+    pair axis)."""
     kw = dict(pooling=pooling, compute_dtype=compute_dtype)
     dp1 = block12_bwd_deep(a21, a22, dp2, m2sq,
                            symmetrize(dg2, compute_dtype), weights, **kw)
@@ -593,8 +679,9 @@ class Block12(torch.autograd.Function):
 
 def make_block12_fused(*, pooling: str = "max", compute_dtype="bfloat16"):
     """The differentiable blocks-1-2 op: f(x, m1sq, m2sq, weights) -> (g1,
-    g2, p2), with x the (3, H, W) fp32 `preprocess_noflip` planes and
-    `weights` from `pack_weights`."""
+    g2, p2), with x the (3, H, W) fp32 `preprocess_noflip` planes, or a
+    batch (B, 3, H, W) with masks (B, K, ...) in one launch of each entry
+    point, and `weights` from `pack_weights`."""
     opts = (pooling, compute_dtype)
 
     def fused(x, m1sq, m2sq, weights):

@@ -120,14 +120,17 @@ def conv_blocks(cout: int, h: int, w: int) -> int:
 
 def conv_plan(cin: int, cout: int, h: int, w: int,
               b: int = 1) -> tuple[int, int, int]:
-    """(bn, splits, cps) of the bf16 kernel on a batch of b images: N tiles
-    of bn channels, and Cin's chunks of 64 cut into `splits` non-empty
-    ranges of `cps` where the tiles of the b images alone leave SMs idle.
-    One block fits an SM, so the cost of a plan is its waves of blocks
-    times the chunks a block sums; the cheapest wins, the fewest splits
-    among equals (each split adds an fp32 partial of the output and a pass
-    that sums them)."""
-    blocks = b * conv_blocks(cout, h, w)
+    """(bn, splits, cps) of the bf16 kernel: N tiles of bn channels, and
+    Cin's chunks of 64 cut into `splits` non-empty ranges of `cps` where
+    one image's tiles alone leave SMs idle. One block fits an SM, so the
+    cost of a plan is its waves of blocks times the chunks a block sums;
+    the cheapest wins, the fewest splits among equals (each split adds an
+    fp32 partial of the output and a pass that sums them). The splits cut
+    each image's sum over Cin, so a batch of b images takes one image's
+    plan (an image then rounds in a batch as alone), on a grid b times as
+    long."""
+    del b   # a batch splits each image as one image's plan does
+    blocks = conv_blocks(cout, h, w)
     chunks = -(-cin // CHUNK)
     best = None
     for s in range(1, chunks + 1):

@@ -62,23 +62,30 @@ def gram_wbwd_plain(f: torch.Tensor, m2: torch.Tensor,
 def wbwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int, int]:
     """(c tile, groups, splits) of the bf16 backward, as the kernel takes
     them: one block of two warpgroups an SM; c tiles of 64 rows for C <= 64,
-    else 128; p tiles of WBWD_PIXELS. When the grid of p tiles × c tiles ×
-    B pairs (a batch of `gram_wbwd` or of the bias+ReLU backward, the pair
-    an index of the grid) fills the SMs, `groups` blocks per c tile of a
-    pair walk its p tiles and splits = 1. Else the classes are cut into
-    `splits` ranges of whole classes (a class's product must be complete
+    else 128; p tiles of WBWD_PIXELS. `splits` is one pair's: 1 when one
+    pair's grid of p tiles × c tiles fills the SMs, else the classes cut
+    into ranges of whole classes (a class's product must be complete
     before it meets its mask), as many as make the grid's waves × the
-    classes a block walks least (fewest on a tie)."""
+    classes a block walks least (fewest on a tie). A batch of B pairs (of
+    `gram_wbwd` or of the bias+ReLU backward, the pair an index of the
+    grid) keeps those splits, so each pair's dF rounds as alone. With one
+    split, `groups` blocks per c tile of each pair walk its p tiles, as
+    many as fill the SMs; with more, every p tile of every pair has its
+    block."""
     tile = 64 if c <= 64 else 128
-    ctiles, ptiles = b * -(-c // tile), -(-p // WBWD_PIXELS)
-    if ptiles * ctiles >= _SMS:
-        return tile, min(ptiles, max(1, _SMS // ctiles)), 1
-    cost = {}
-    for n in range(1, k + 1):
-        per = -(-k // n)
-        splits = -(-k // per)
-        cost.setdefault(splits, -(-ptiles * ctiles * splits // _SMS) * per)
-    return tile, ptiles, min(cost, key=lambda n: (cost[n], n))
+    ctiles, ptiles = -(-c // tile), -(-p // WBWD_PIXELS)
+    splits = 1
+    if ptiles * ctiles < _SMS:
+        cost = {}
+        for n in range(1, k + 1):
+            per = -(-k // n)
+            n_splits = -(-k // per)
+            cost.setdefault(n_splits,
+                            -(-ptiles * ctiles * n_splits // _SMS) * per)
+        splits = min(cost, key=lambda n: (cost[n], n))
+    if splits > 1:
+        return tile, ptiles, splits
+    return tile, min(ptiles, max(1, _SMS // (b * ctiles))), 1
 
 
 def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,

@@ -33,7 +33,8 @@ gives either its grid.
 
 A batch of B pairs, z (B, C, P) with one shared bias and m² (B, K, P), runs
 both in one launch each, the pair an index of the grid (`gram_stream`'s
-batch), and both plans take B.
+batch), and both plans take B: the forward splits each pair as one pair's
+plan does, and the backward's B sets only its blocks over p tiles.
 """
 from __future__ import annotations
 

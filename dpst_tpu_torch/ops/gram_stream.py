@@ -20,8 +20,11 @@ dropped) and hands the backward its cotangent as the matrix `s_matrix(s)`.
 
 A batch of B pairs, f (B, C, P) and m² (B, K, P), gives G (B, K, C, C)
 (and dF (B, C, P) from s (B, K, C, C)) in one launch, the pair an index of
-the kernel's grid; the plans take B, so that B pairs fill the card with
-fewer splits of each. The plain versions take a batch pair by pair.
+the kernel's grid. The plans take B, but B only sets what cuts
+independent outputs (the backward's blocks over p tiles): a pair's
+reductions are split as one pair's plan splits them, so that each pair's
+sums round in a batch as they do alone. The plain versions take a batch
+pair by pair.
 """
 from __future__ import annotations
 
@@ -102,12 +105,15 @@ def fwd_splits(c: int, p: int, k: int) -> tuple[int, int]:
 def fwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int]:
     """(splits, chunk) of the bf16 forward: P cut into `splits` ranges of
     `chunk` pixels (a multiple of the 128-pixel stage): as many as keep
-    the grid of tiles × class groups × B pairs × splits within one wave of
+    one pair's grid of tiles × class groups × splits within one wave of
     two blocks for each of the H100's SMs, each split at least two stages
     deep; where those would exceed FWD_SPLIT_MAX pixels (a multiple of
     128), enough more to keep within it, raised to fill the grid's last
-    wave."""
-    blocks = fwd_blocks(c, k, 1) * b
+    wave. The splits cut each pair's reduction over P, so B pairs take
+    one pair's plan (a pair's Grams then round in a batch as alone) and
+    the grid is B times as long."""
+    del b   # a batch splits each pair as one pair's plan does
+    blocks = fwd_blocks(c, k, 1)
     splits = max(1, min(_WG_BLOCKS // blocks, -(-p // (2 * _WG_DEPTH))))
     if -(-p // splits) > FWD_SPLIT_MAX:
         splits = -(-p // FWD_SPLIT_MAX)
@@ -126,21 +132,25 @@ def fwd_blocks(c: int, k: int, splits: int) -> int:
 
 def bwd_plan(c: int, p: int, k: int, b: int = 1) -> tuple[int, int, int]:
     """(c tile, groups, splits) of the bf16 backward, as the kernel takes
-    them. The c tile has 64 rows for C <= 64, else 128. When the grid of
-    64-pixel p tiles × c tiles × B pairs fills one wave of resident
-    blocks, `groups` blocks per c tile of a pair walk its p tiles and
-    `splits` = 1; else every p tile has its block and the reduction over
-    (k, c') items of 64 channels is cut into `splits` non-empty ranges to
-    fill the wave."""
+    them. The c tile has 64 rows for C <= 64, else 128. `splits` is one
+    pair's: when one pair's grid of 64-pixel p tiles × c tiles fills one
+    wave of resident blocks, 1; else the reduction over (k, c') items of
+    64 channels is cut into `splits` non-empty ranges to fill the wave.
+    A batch keeps those splits (each pair's dF then rounds as alone).
+    With one split, `groups` blocks per c tile of each of the B pairs walk
+    its p tiles, as many as fill the wave; with more, every p tile of
+    every pair has its block."""
     tile = 64 if c <= 64 else 128
     slots = _SMS * _BWD_RESIDENT[tile]
-    ctiles, ptiles = b * -(-c // tile), -(-p // 64)
-    if ptiles * ctiles >= slots:
-        return tile, min(ptiles, max(1, slots // ctiles)), 1
-    items = -(-c // 64) * k
-    splits = max(1, min(items, slots // (ptiles * ctiles)))
-    per = -(-items // splits)
-    return tile, ptiles, -(-items // per)
+    ctiles, ptiles = -(-c // tile), -(-p // 64)
+    splits = 1
+    if ptiles * ctiles < slots:
+        items = -(-c // 64) * k
+        splits = max(1, min(items, slots // (ptiles * ctiles)))
+        splits = -(-items // -(-items // splits))
+    if splits > 1:
+        return tile, ptiles, splits
+    return tile, min(ptiles, max(1, slots // (b * ctiles))), 1
 
 
 def s_matrix(s: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ Each kernel wrapper adds one to its entry in `LAUNCHES` where it launches
 its kernel, and nowhere else; `reset_launches()` sets all of them to 0.
 `lap_matvec`, `gram_fwd`, `gram_bwd`, `gram_relu_fwd`, `gram_relu_bwd`,
 `gram_wbwd` and `conv3x3` take a leading batch axis of B pairs as an index
-of the kernel's grid: one launch, one count, whatever B is.
+of the kernel's grid, and the block12 entry points walk the B pairs' bands
+in one call: one launch, one count, whatever B is.
 `block12_fwd` and `block12_fwd_res` are two counts over one entry point
 (`dpst_block12_fwd` without and with its residuals); `block12_gram_dz`
 counts calls of the backward entry points' Gram cotangent stage alone (its
@@ -147,9 +148,9 @@ def library() -> ctypes.CDLL:
         lib.dpst_block12_conv_attrs.argtypes = [i, p]
         lib.dpst_block12_scratch_bytes.argtypes = [i] * 6
         lib.dpst_block12_scratch_bytes.restype = ctypes.c_size_t
-        lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
-        lib.dpst_block12_bwd_deep.argtypes = [p] * 9 + [i] * 6 + [p]
-        lib.dpst_block12_bwd_shallow.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 8 + [p]
+        lib.dpst_block12_bwd_deep.argtypes = [p] * 9 + [i] * 7 + [p]
+        lib.dpst_block12_bwd_shallow.argtypes = [p] * 10 + [i] * 7 + [p]
         lib.dpst_block12_gram_dz.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dpst_block12_df_plan.argtypes = [i] * 6 + [p]
         lib.dpst_block12_df_attrs.argtypes = [i, p]

@@ -240,22 +240,19 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
             return feats, {l: losses.masked_grams(
                 feats[l], consts.masks[l], compute_dtype=cfg.compute_dtype,
                 norm=norm) for l in b12_layers}
+        # every pair of the batch in one launch of each block12 entry
+        # point, as the reference's vmap runs its kernels
         op = b12.make_block12_fused(pooling=cfg.pooling,
                                     compute_dtype=cfg.compute_dtype)
-        # the block12 kernels have no batch grid dimension: one pair a call
-        g_out, p2 = {"conv1_1": [], "conv2_1": []}, []
-        for i in range(image.shape[0]):
-            m1 = consts.masks["conv1_1"][i].to(torch.float32)
-            m2 = consts.masks["conv2_1"][i].to(torch.float32)
-            g1, g2, p2_i = op(vgg.preprocess_noflip(image[i]), m1 * m1,
-                              m2 * m2, vgg_params.block12)
-            g_out["conv1_1"].append(normalize(g1, m1, norm))
-            g_out["conv2_1"].append(normalize(g2, m2, norm))
-            p2.append(p2_i)
+        m1 = consts.masks["conv1_1"].to(torch.float32)
+        m2 = consts.masks["conv2_1"].to(torch.float32)
+        g1, g2, p2 = op(vgg.preprocess_noflip(image), m1 * m1, m2 * m2,
+                        vgg_params.block12)
         feats = vgg.extract_tail(
-            vgg_params, torch.stack(p2), deep_layers, pooling=cfg.pooling,
+            vgg_params, p2, deep_layers, pooling=cfg.pooling,
             compute_dtype=cfg.compute_dtype, conv_impl=cfg.conv_impl)
-        return feats, {l: torch.stack(g) for l, g in g_out.items()}
+        return feats, {"conv1_1": normalize(g1, m1, norm),
+                       "conv2_1": normalize(g2, m2, norm)}
 
     def batch_loss(image: torch.Tensor, consts: StylizeConstants,
                    weights: LossWeights, vgg_params: dict):

@@ -158,8 +158,9 @@ def test_batch_matches_sequential(toy_batch, params, dtype):
 
 def test_pallas_route_batch_matches_sequential(toy_batch, params):
     """conv_impl="pallas" and gram_impl="pallas" on a batch of two (the
-    conv kernel and gram_wbwd loop over the pairs: no batch grid yet), bf16:
-    each pair equals its `stylize` run alone bit for bit."""
+    conv kernel and gram_wbwd each one launch for both pairs on the card,
+    the pair a grid index, each pair split as one pair's plan splits it),
+    bf16: each pair equals its `stylize` run alone bit for bit."""
     small = tuple(a[:2] for a in toy_batch)
     cfg_kw = dict(compute_dtype="bfloat16", conv_impl="pallas",
                   gram_impl="pallas", iterations=2)

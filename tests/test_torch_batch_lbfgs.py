@@ -420,8 +420,10 @@ def test_fp32_convs_on_the_card_leave_cudnn(monkeypatch, padding):
     unsharded one (0.94): `vgg.conv2d` sends an fp32 tensor on the card to
     ATen's own convolution, cuDNN off for the forward and for the input
     gradient (the two calls under cuDNN's flag seen here), the same
-    function as F.conv2d bit for bit; bf16, and every tensor on the CPU,
-    keep F.conv2d."""
+    function as F.conv2d bit for bit; every tensor on the CPU keeps one
+    F.conv2d; a bf16 batch on the card takes F.conv2d (cuDNN) one image a
+    call, forward and input gradient each image's alone bit for bit (a
+    bf16 L-BFGS batch's pairs then meet their runs alone)."""
     r = np.random.default_rng(5)
     x = torch.from_numpy(r.normal(size=(2, 6, 7, 9)).astype(np.float32))
     w = torch.from_numpy(r.normal(size=(4, 6, 3, 3)).astype(np.float32))
@@ -449,9 +451,21 @@ def test_fp32_convs_on_the_card_leave_cudnn(monkeypatch, padding):
     assert torch.equal(gx.as_subclass(torch.Tensor), gref)
     seen.clear()
     tvgg.conv2d(x, w, padding=padding)
-    tvgg.conv2d(x.to(torch.bfloat16).as_subclass(_AsCuda),
-                w.to(torch.bfloat16), padding=padding)
+    assert seen == [("fwd", True)]
+    # bf16 on the card: cuDNN one image a call, forward and backward as
+    # each image alone (a batch's bf16 rounds as its images alone do)
+    seen.clear()
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    xbc = xb.as_subclass(_AsCuda).requires_grad_(True)
+    y = tvgg.conv2d(xbc, wb, padding=padding)
     assert seen == [("fwd", True), ("fwd", True)]
+    (gx,) = torch.autograd.grad(y, xbc, g.to(torch.bfloat16))
+    for i in range(x.shape[0]):
+        xi = xb[i:i + 1].clone().requires_grad_(True)
+        yi = conv(xi, wb, padding=padding)
+        (gi,) = torch.autograd.grad(yi, xi, g[i:i + 1].to(torch.bfloat16))
+        assert torch.equal(y[i:i + 1].as_subclass(torch.Tensor), yi)
+        assert torch.equal(gx[i:i + 1].as_subclass(torch.Tensor), gi)
 
 
 def test_lbfgs_64_search_decisions_are_jax_on_the_cpu(params):

@@ -238,10 +238,10 @@ def test_conv_takes_packed_weights_and_counts_nothing_on_cpu():
 def test_batched_plan_covers_once_and_fills_card(b, cin, cout, h, w):
     """conv_plan(b=…): the grid of pixel tiles × channel tiles × (B pairs
     × splits) visits every (pair, tile, chunk of Cin) once, fills the
-    card, and cuts Cin no more than one image's plan."""
+    card, and cuts Cin as one image's plan does (each image's sums then
+    round in the batch as alone)."""
     bn, splits, cps = tconv.conv_plan(cin, cout, h, w, b)
-    assert bn == tconv.conv_plan(cin, cout, h, w)[0]
-    assert splits <= tconv.conv_plan(cin, cout, h, w)[1]
+    assert (bn, splits, cps) == tconv.conv_plan(cin, cout, h, w)
     chunks = -(-cin // tconv.CHUNK)
     cover = np.zeros((b, chunks), np.int64)
     for z in range(b * splits):                     # blockIdx.z

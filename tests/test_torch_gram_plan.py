@@ -80,10 +80,11 @@ def test_forward_plan_small_shapes(c, p, k):
     assert chunk % 128 == 0 and (covered == 1).all()
 
 
-def _uncapped_plan(c, p, k, b=1):
-    """(splits, chunk) of the bf16 forward without FWD_SPLIT_MAX: one wave
-    of 2 × 132 blocks, splits at least two 128-pixel stages deep."""
-    blocks = tgs.fwd_blocks(c, k, 1) * b
+def _uncapped_plan(c, p, k):
+    """(splits, chunk) of one pair's bf16 forward without FWD_SPLIT_MAX:
+    one wave of 2 × 132 blocks, splits at least two 128-pixel stages
+    deep."""
+    blocks = tgs.fwd_blocks(c, k, 1)
     splits = max(1, min(2 * SMS // blocks, -(-p // 256)))
     chunk = -(-(-(-p // splits)) // 128) * 128
     return -(-p // chunk), chunk
@@ -95,14 +96,16 @@ def _uncapped_plan(c, p, k, b=1):
                                       for c, p in taps])
 def test_forward_plan_caps_a_split(b, size, c, p):
     """No split of the bf16 forward sums more than FWD_SPLIT_MAX pixels in
-    its accumulators. Where it does not bind (every 512² tap, one pair or
-    eight), the plan is the uncapped one; every 4096² tap binds."""
+    its accumulators. Where it does not bind (every 512² tap), the plan is
+    one pair's uncapped one; every 4096² tap binds. A batch of eight takes
+    one pair's plan: the splits cut each pair's sum over P."""
     splits, chunk = tgs.fwd_plan(c, p, 4, b)
+    assert (splits, chunk) == tgs.fwd_plan(c, p, 4)
     assert chunk % 128 == 0 and chunk <= tgs.FWD_SPLIT_MAX
     ranges = _covered(splits, chunk, p)
     assert ranges[-1][1] == p and all(hi > lo for lo, hi in ranges)
     assert b * splits <= 65535                   # the grid's z extent
-    uncapped = _uncapped_plan(c, p, 4, b)
+    uncapped = _uncapped_plan(c, p, 4)
     if uncapped[1] <= tgs.FWD_SPLIT_MAX:
         assert (splits, chunk) == uncapped
     if size == "512²":
@@ -248,16 +251,17 @@ def _exact_batch(b, c, p, k, seed):
 @pytest.mark.parametrize("c,p", TAPS["512²"])
 def test_batched_plans_fill_the_card_with_fewer_splits(b, c, p):
     """B pairs share the card: the forward's grid of tiles × class groups ×
-    B × splits and the backward's grid still fill it, each with no more
-    splits than one pair takes."""
+    B × splits and the backward's grid still fill it, each with one pair's
+    splits (a pair's sums then round in the batch as alone: the splits cut
+    its reductions, and only the backward's blocks over p tiles take B)."""
     splits, chunk = tgs.fwd_plan(c, p, 4, b)
-    assert splits <= tgs.fwd_plan(c, p, 4)[0]
+    assert (splits, chunk) == tgs.fwd_plan(c, p, 4)
     assert tgs.fwd_blocks(c, 4, splits) * b >= SMS
     ranges = _covered(splits, chunk, p)
     assert ranges[0][0] == 0 and ranges[-1][1] == p
     assert all(hi > lo for lo, hi in ranges)
     tile, groups, bsplits = tgs.bwd_plan(c, p, 4, b)
-    assert bsplits <= tgs.bwd_plan(c, p, 4)[2]
+    assert (tile, bsplits) == tgs.bwd_plan(c, p, 4)[::2]
     assert 1 <= groups <= -(-p // 64)
     assert groups * -(-c // tile) * bsplits * b >= SMS
 
@@ -366,11 +370,12 @@ def test_batched_wbwd_plan_covers_once_and_fills_the_card(b, c, p):
     """wbwd_plan(b=…): the grid of groups × c tiles × B pairs × splits
     visits every (pair, p tile, c tile, class) once, fills the card (one
     block an SM, 90 % of them at least) where one pair's plan does, and
-    splits the classes no more than one pair's plan."""
+    splits the classes as one pair's plan does (each pair's dF then rounds
+    as alone)."""
     k = 4
     tile, groups, splits = tgp.wbwd_plan(c, p, k, b)
     one = tgp.wbwd_plan(c, p, k)
-    assert tile == one[0] and splits <= one[2]
+    assert tile == one[0] and splits == one[2]
     ptiles, ctiles = -(-p // tgp.WBWD_PIXELS), -(-c // tile)
     kps = -(-k // splits)
     seen = np.zeros((b, ptiles, ctiles, k), np.int64)

@@ -247,17 +247,17 @@ def test_batched_relu_walk_is_the_plain_version(c, p, k):
 
 
 def test_batched_wbwd_plan_counts_the_pairs():
-    """Past the resident body the plan is gram_wbwd's for B pairs: where
-    the grid of p tiles × c tiles × B fills the SMs, no class splits and
-    the SMs shared among the pairs' c tiles; else every p tile its block,
-    with no more class splits than one pair takes."""
+    """Past the resident body the plan is gram_wbwd's for B pairs: the
+    class splits one pair takes (each pair's dF then rounds as alone);
+    with one split the SMs shared among the pairs' c tiles, else every p
+    tile of every pair its block."""
     for c, p, k in ((128, 4096, 4), (256, 1 << 14, 4), (512, 4096, 4),
                     (512, 1024, 4)):
         one, eight = tgp.wbwd_plan(c, p, k), tgp.wbwd_plan(c, p, k, 8)
         assert tg2.relu_bwd_plan(c, p, k, 8) == eight
-        assert eight[2] <= one[2]
+        assert eight[0] == one[0] and eight[2] == one[2]
         ctiles, ptiles = -(-c // eight[0]), -(-p // tgp.WBWD_PIXELS)
-        if ptiles * ctiles * 8 >= SMS:
-            assert eight[1:] == (min(ptiles, SMS // (ctiles * 8)), 1)
+        if one[2] == 1:
+            assert eight[1] == min(ptiles, max(1, SMS // (ctiles * 8)))
         else:
             assert eight[1] == ptiles
