@@ -85,18 +85,20 @@ def _prepare_stage(content: torch.Tensor, style: torch.Tensor,
     masks to `hw` (only where the size differs; masks clipped to [0, 1])
     and precompute the stage's constants. Returns (constants, the stage's
     content image, the style image's (1, 1, 3) mean); of a batch, batched
-    constants, (B, h, w, 3) contents and (B, 1, 1, 3) means."""
-    if tuple(content.shape[-3:-1]) != tuple(hw):
-        content = resize_image(content, hw)
-        style = resize_image(style, hw)
-        cmasks = torch.clamp(resize_image(cmasks[..., None], hw)[..., 0],
-                             0.0, 1.0)
-        smasks = torch.clamp(resize_image(smasks[..., None], hw)[..., 0],
-                             0.0, 1.0)
-    consts = prepare_constants(content, style, cmasks, smasks, cfg,
-                               vgg_params)
-    style_mean = torch.mean(style, dim=(-3, -2), keepdim=True)
-    return consts, content, style_mean
+    constants, (B, h, w, 3) contents and (B, 1, 1, 3) means. The span
+    `precompute`."""
+    with runtime.span("precompute"):
+        if tuple(content.shape[-3:-1]) != tuple(hw):
+            content = resize_image(content, hw)
+            style = resize_image(style, hw)
+            cmasks = torch.clamp(
+                resize_image(cmasks[..., None], hw)[..., 0], 0.0, 1.0)
+            smasks = torch.clamp(
+                resize_image(smasks[..., None], hw)[..., 0], 0.0, 1.0)
+        consts = prepare_constants(content, style, cmasks, smasks, cfg,
+                                   vgg_params)
+        style_mean = torch.mean(style, dim=(-3, -2), keepdim=True)
+        return consts, content, style_mean
 
 
 def _carry_image(image: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:

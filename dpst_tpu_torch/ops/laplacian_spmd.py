@@ -24,12 +24,15 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import ROW_AXIS, Mesh, current_mesh
+from ..utils import runtime
 from .laplacian_cuda import lap_matvec
 
 HALO = 2
-# torch.profiler range of every halo exchange (and level gather): its
-# device time is the "halo copies" group of a profile
-HALO_RANGE = "dpst::halo"
+# `runtime.span` of every halo exchange (and level gather), the
+# torch.profiler range HALO_RANGE: its device time is the "halo copies"
+# group of a profile
+HALO_SPAN = "halo"
+HALO_RANGE = runtime.PREFIX + HALO_SPAN
 
 
 def exchange_rows(shards: list, halo: int = HALO) -> list:
@@ -41,7 +44,7 @@ def exchange_rows(shards: list, halo: int = HALO) -> list:
         return x.new_zeros((*x.shape[:-2], halo, x.shape[-1]))
 
     out = []
-    with torch.profiler.record_function(HALO_RANGE):
+    with runtime.span(HALO_SPAN):
         for i, x in enumerate(shards):
             top = shards[i - 1][..., -halo:, :].to(x.device) if i else edge(x)
             bot = (shards[i + 1][..., :halo, :].to(x.device)
@@ -69,7 +72,7 @@ def gather_rows(shards: list, dev: torch.device, dim: int = -2
                 ) -> torch.Tensor:
     """The shards' rows concatenated on `dev` (a result, or a level
     gather)."""
-    with torch.profiler.record_function(HALO_RANGE):
+    with runtime.span(HALO_SPAN):
         return torch.cat([s.to(dev) for s in shards], dim=dim)
 
 

@@ -214,7 +214,8 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
     (B, 5). One pair runs as a batch of one. Blocks 1-2 take
     `block12_route`'s route, decided on one pair's shapes. With
     `laplacian_impl="spmd"` the photorealism term's matvec splits its rows
-    over the ambient mesh (`ops/laplacian_spmd.AmbientMatvec`)."""
+    over the ambient mesh (`ops/laplacian_spmd.AmbientMatvec`). The VGG
+    forward is the span `features`, the terms and the total `loss`."""
     style_lw = dict(zip(cfg.style_layers, cfg.style_layer_weights))
     all_layers, b12_layers, deep_layers = _block12_layers(cfg)
     norm = "m1" if cfg.style_norm == "paper" else "m2"
@@ -256,25 +257,27 @@ def make_loss_fn(cfg: StylizeConfig) -> Callable[..., tuple]:
 
     def batch_loss(image: torch.Tensor, consts: StylizeConstants,
                    weights: LossWeights, vgg_params: dict):
-        feats, g_out = features(image, consts, vgg_params)
-        zero = torch.zeros(image.shape[:1], dtype=torch.float32,
-                           device=image.device)
-        l_content = zero
-        for layer in cfg.content_layers:
-            l_content = l_content + losses.content_loss(
-                feats[layer], consts.content_feats[layer])
-        l_style = losses.style_loss(
-            feats, consts.style_grams, consts.masks, consts.coverage,
-            style_lw, compute_dtype=cfg.compute_dtype,
-            style_norm=cfg.style_norm, gram_impl=cfg.gram_impl,
-            g_out=g_out)
-        l_reg = (lap.photoreal_loss(consts.lap_stats, image, matvec)
-                 if consts.lap_stats is not None else zero)
-        l_tv = losses.tv_loss(image) if cfg.tv_weight else zero
-        total = (weights.content * l_content + weights.style * l_style
-                 + weights.reg * l_reg + weights.tv * l_tv)
-        terms = torch.stack([total, l_content, l_style, l_reg, l_tv], -1)
-        return torch.sum(total), terms
+        with runtime.span("features"):
+            feats, g_out = features(image, consts, vgg_params)
+        with runtime.span("loss"):
+            zero = torch.zeros(image.shape[:1], dtype=torch.float32,
+                               device=image.device)
+            l_content = zero
+            for layer in cfg.content_layers:
+                l_content = l_content + losses.content_loss(
+                    feats[layer], consts.content_feats[layer])
+            l_style = losses.style_loss(
+                feats, consts.style_grams, consts.masks, consts.coverage,
+                style_lw, compute_dtype=cfg.compute_dtype,
+                style_norm=cfg.style_norm, gram_impl=cfg.gram_impl,
+                g_out=g_out)
+            l_reg = (lap.photoreal_loss(consts.lap_stats, image, matvec)
+                     if consts.lap_stats is not None else zero)
+            l_tv = losses.tv_loss(image) if cfg.tv_weight else zero
+            total = (weights.content * l_content + weights.style * l_style
+                     + weights.reg * l_reg + weights.tv * l_tv)
+            terms = torch.stack([total, l_content, l_style, l_reg, l_tv], -1)
+            return torch.sum(total), terms
 
     def loss_fn(image: torch.Tensor, consts: StylizeConstants,
                 weights: LossWeights, vgg_params: dict):
@@ -586,26 +589,31 @@ def adam_steps(params: list, states: list, loss, n_steps: int,
     under `loss(params) -> (total, terms)`: each step the loss and its
     gradient for every tensor, the check of `cfg.debug_nans` (a batch's
     names the pair), the update and the clip of each tensor. Yields after
-    each step; returns (params, states, the steps' detached terms)."""
+    each step; returns (params, states, the steps' detached terms). A step
+    is the span `step`, around `backward` (the gradient) and `update`;
+    `make_loss_fn`'s loss adds `features` and `loss` before them."""
     opt = Adam(cfg)
     rows = []
     for i in range(n_steps):
-        leaves = [p.detach().requires_grad_(True) for p in params]
-        total, terms = loss(leaves)
-        grads = torch.autograd.grad(total, leaves)
-        if cfg.debug_nans:
-            for g in grads:
-                runtime.check_finite(first_step + i,
-                                     terms[..., 0].to(g.device), g)
-        rows.append(terms.detach())
-        params, new_states = [], []
-        for leaf, g, st in zip(leaves, grads, states):
-            update, st = opt.update(g, st)
-            p = leaf.detach() + update
-            params.append(torch.clamp(p, 0.0, 255.0) if cfg.clip_pixels
-                          else p)
-            new_states.append(st)
-        states = new_states
+        with runtime.span("step"):
+            leaves = [p.detach().requires_grad_(True) for p in params]
+            total, terms = loss(leaves)
+            with runtime.span("backward"):
+                grads = torch.autograd.grad(total, leaves)
+            if cfg.debug_nans:
+                for g in grads:
+                    runtime.check_finite(first_step + i,
+                                         terms[..., 0].to(g.device), g)
+            with runtime.span("update"):
+                rows.append(terms.detach())
+                params, new_states = [], []
+                for leaf, g, st in zip(leaves, grads, states):
+                    update, st = opt.update(g, st)
+                    p = leaf.detach() + update
+                    params.append(torch.clamp(p, 0.0, 255.0)
+                                  if cfg.clip_pixels else p)
+                    new_states.append(st)
+                states = new_states
         yield
     return params, states, rows
 

@@ -51,8 +51,9 @@ from ..models import vgg
 from ..ops import losses
 from ..ops.gram_stream import mask_norms, masked_grams_raw, normalize
 from ..ops.kernels import torch_dtype
-from ..ops.laplacian_spmd import (HALO, HALO_RANGE, exchange_rows,
+from ..ops.laplacian_spmd import (HALO, HALO_SPAN, exchange_rows,
                                   gather_rows, photoreal_shards, row_devices)
+from ..utils import runtime
 from . import mesh as mesh_lib
 from .mesh import ROW_AXIS, Mesh, NamedSharding
 
@@ -275,7 +276,7 @@ def tv_rows(shards: list, first: torch.device) -> torch.Tensor:
     for i, x in enumerate(shards):
         ext = x
         if i + 1 < len(shards):
-            with torch.profiler.record_function(HALO_RANGE):
+            with runtime.span(HALO_SPAN):
                 ext = torch.cat([x, shards[i + 1][..., :1, :, :].to(
                     x.device)], dim=-3)
         dh.append(_sum_sq(ext[..., 1:, :, :] - ext[..., :-1, :, :]))

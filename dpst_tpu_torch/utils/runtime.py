@@ -5,6 +5,9 @@ card unless the caller names one; `params_on` moves a weight dict there.
 The rest is the counterpart of `dpst_tpu/utils/runtime.py`.
 `maybe_profile` traces a block with torch.profiler (the CPU, and CUDA
 where there is a card) and writes a Chrome trace into the directory.
+`span(name)` marks a stage of the program (`dpst::step`, `dpst::features`,
+…) in such a trace, and times it on the card; `spans()` reads those
+times. Both cost nothing beyond one check while no profiler is recording.
 `check_finite` is what `StylizeConfig.debug_nans` turns on: the
 optimization loop calls it after each evaluation of the objective, and it
 raises FloatingPointError naming the step where the loss or the gradient
@@ -73,14 +76,73 @@ def check_finite(step: int, loss: torch.Tensor, grad: torch.Tensor) -> None:
             f"debug_nans: non-finite loss or gradient at {where}")
 
 
+PREFIX = "dpst::"
+_profiling = torch._C._autograd._profiler_enabled
+_UNTRACED = contextlib.nullcontext()
+# (range name, start event, end event) of each span closed while a
+# profiler recorded, on a CUDA device; `maybe_profile` empties it
+_SPANS: list = []
+
+
+class _Span:
+    """A `record_function` range `dpst::<name>` on the profiler's clock
+    and, where CUDA is in use, a pair of timing events on the current
+    stream at its entry and exit, kept in `_SPANS` at its exit."""
+
+    __slots__ = ("name", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = PREFIX + name
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start = None
+        if torch.cuda.is_initialized():
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+    def __exit__(self, *exc):
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            _SPANS.append((self.name, self.start, end))
+        self.range.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager marking a stage of the program as the range
+    `dpst::<name>` where a torch profiler is recording, timed on the card
+    by CUDA events (read by `spans()`); a no-op otherwise. Spans nest on
+    one thread, and none stays open across a generator's `yield`."""
+    if not _profiling():
+        return _UNTRACED
+    return _Span(name)
+
+
+def spans() -> list:
+    """(range name, device ms) of each span recorded since the record was
+    last emptied, in the order they closed (a nested span before the one
+    around it); waits for their events."""
+    for _, _, end in _SPANS:
+        end.synchronize()
+    return [(name, start.elapsed_time(end)) for name, start, end in _SPANS]
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
+
+
 @contextlib.contextmanager
 def maybe_profile(profile_dir: str):
     """torch.profiler over the block when `profile_dir` is set (else a
     no-op); the trace goes to `profile_dir/dpst_<time>_<pid>.pt.trace.json`
-    (chrome://tracing, Perfetto)."""
+    (chrome://tracing, Perfetto), with the program's `span` ranges, whose
+    record it empties first."""
     if not profile_dir:
         yield
         return
+    clear_spans()
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(profile_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
