@@ -8,6 +8,7 @@ kernels' plans.
     python3 chip_probes.py lbfgs64 bf16-batch  # the named ones
     python3 chip_probes.py lbfgs-host --tree DIR
     python3 chip_probes.py batch-kernels plans-rate convs-rate
+    python3 chip_probes.py band-rows
 
 Each probe prints one JSON line, and chiprun_out/chip_probes.jsonl gets
 it too.
@@ -48,6 +49,12 @@ it too.
               over BATCH_LBFGS_ITERS steps, after a warm-up each.
   convs-rate  the same, shipped (a bf16 batch's convs one cuDNN call an
               image) against one cuDNN call for the batch.
+  band-rows   the four block12 entry points at config6's 4096² step in
+              bands of each of chip_smoke.B12_HEIGHTS rows (32 … 256;
+              `band_rows` picks 256 there): every output against bands of
+              32 rows (bit-equal, max |diff|), device ms by CUDA events in
+              turns (32 … 256, 256 … 32), device ms by kernel group at
+              each height, and the scratch each takes.
   lbfgs-host  one pair's 512² config3 L-BFGS through `stylize`, 100
               steps three times: evaluations/s of the port in DIR (this
               checkout by default; another commit unpacked with `git
@@ -379,6 +386,49 @@ def probe_batch_kernels(dev) -> None:
     emit("batch-kernels", {"seconds": time.perf_counter() - t0})
 
 
+def probe_band_rows(dev) -> None:
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    t0 = time.perf_counter()
+    h = w = cs.B12_SIZE
+    params = vgg.init_params(cs.SEED, device=dev)
+    calls, res = cs.b12_step_calls(
+        params, dev, torch.Generator(device=dev).manual_seed(cs.SEED + 27))
+    got = calls["block12_fwd_res"][0]()
+    res["a11"], res["a21_a22"] = got[3], got[4:]
+    del got
+    res["dp1"] = calls["block12_bwd_deep"][0]()
+    equal = cs.b12_heights_equal(calls, cs.B12_HEIGHTS[1:])
+    heights = list(cs.B12_HEIGHTS)
+    ms = {name: {rows: [] for rows in heights} for name in calls}
+    for name, (kernel, _) in calls.items():
+        for rows in heights + heights[::-1]:
+            with cs.b12_bands_of(rows):
+                ms[name][rows].append(cs.cuda_ms(kernel, warmup=1, iters=3))
+    stages, scratch = {}, {}
+    for rows in heights:
+        group = b12.group_bands(h, w, rows)
+        scratch[rows] = [b12.scratch_bytes(which, cs.K, h, w, group,
+                                           "bfloat16", rows) / 1e9
+                         for which in range(3)]
+        with cs.b12_bands_of(rows):
+            stages[rows] = {name: cs.stage_ms(kernel)
+                            for name, (kernel, _) in calls.items()}
+    emit("band-rows", {
+        "shape": [h, w], "K": cs.K, "dtype": "bfloat16",
+        "band_rows": b12.band_rows(h, w),
+        "equal_max_abs_diff_to_32_rows": equal,
+        "all_equal": all(same for same, _ in equal.values()),
+        "ms_in_turns": ms,
+        "ms": {name: {rows: sum(v) / len(v) for rows, v in by.items()}
+               for name, by in ms.items()},
+        "device_ms_by_stage": stages,
+        "scratch_gb_fwd_deep_shallow": scratch,
+        "seconds": time.perf_counter() - t0})
+    del calls, res
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def bf16_convs_batched():
     """A bf16 batch's convs on the card as one cuDNN call for the batch (the
@@ -508,6 +558,7 @@ def main() -> int:
                                            cs.plans_split_by_b),
          "convs-rate": lambda: batch_rates(dev, smi, "convs-rate",
                                            bf16_convs_batched),
+         "band-rows": lambda: probe_band_rows(dev),
          "lbfgs-host": lambda: probe_lbfgs_host(dev, tree)}[name]()
     emit("device", {"nvidia_smi": smi})
     print(smi, flush=True)

@@ -349,24 +349,34 @@ BATCH_CONV_EDGES = ((2, 512, 512, 32, 32, "bfloat16"),
                     (3, 64, 8, 20, 20, "bfloat16"),
                     (2, 130, 72, 19, 45, "float32"),
                     (3, 16, 24, 9, 13, "float32"))
-# (H, W, K, dtype, pooling, ties) of the block12 kernel checks: the main
-# shape (256 rows of the 4096-wide image), 512 rows (two groups of eight
-# bands), avg pooling, one band with tied maxima, five classes, and W = 260
-# (W/4 = 65: band copies whose rows start off 16-byte boundaries, and their
-# scalar tails); the 4096² step shape is checked where it is timed
+# (H, W, K, dtype, pooling, ties) of the block12 kernel checks, in the
+# bands `band_rows` picks: 256 rows of the 4096-wide image (one band of
+# 256), 512 rows (two groups of one band), 320 and 192 rows (groups of
+# four bands of 64 stacked: five bands, and three), 96 × 256 (a group of
+# three bands of 32), avg pooling, one band with tied maxima, five classes,
+# and W = 260 (W/4 = 65: band copies whose rows start off 16-byte
+# boundaries, and their scalar tails); the 4096² step shape is checked
+# where it is timed
 B12_CASES = ((256, 4096, 4, "bfloat16", "max", False),
              (512, 4096, 4, "bfloat16", "max", False),
+             (320, 4096, 4, "bfloat16", "max", False),
              (256, 4096, 4, "float32", "max", False),
              (256, 4096, 4, "float32", "avg", False),
+             (192, 4096, 4, "float32", "max", False),
+             (96, 256, 3, "bfloat16", "avg", False),
              (32, 256, 1, "bfloat16", "max", True),
              (32, 256, 1, "float32", "max", True),
              (64, 256, 5, "bfloat16", "max", False),
              (64, 260, 3, "bfloat16", "max", False),
              (64, 260, 2, "float32", "avg", False))
-# (stage, C, bands, rows a band, W, K, timed) of the checks of the
+# Band heights of the block12 probe at the 4096² step (chip_probes.py
+# band-rows), against which `band_rows` was chosen
+B12_HEIGHTS = (32, 64, 128, 256)
+# (stage, C, bands, own rows a band, W, K, timed) of the checks of the
 # backwards' bf16 Gram cotangent stage alone: the shallow and deep groups of
-# the 4096² step (eight bands; timed), then K = 1 and 5 at W = 260 and its
-# half, 130 (walked rows that start off 16-byte boundaries)
+# the 4096² step (one band of 256 own rows; timed), the same at the 32-row
+# bands of the TPU kernel (eight a group), then K = 1 and 5 at W = 260 and
+# its half, 130 (walked rows that start off 16-byte boundaries)
 SP_SIZE = 4096         # the spatial path's image: 4096², as config6
 SP_SHARDS = 4          # its row shards (a virtual mesh: all on the one card)
 SP_ITERS = 10          # its Adam steps
@@ -431,20 +441,23 @@ CUBLAS_SHAPE = (512, 1 << 18)   # capped max error held to fp32 cuBLAS's
 # 1.73e-4 at (512, 2^18); NVIDIA H100 80GB HBM3, 700.00 W)
 GRAM_FP64_TOL = 1e-4
 # (B, H, W, dtype, timed) of the batched block12 checks: config6's step
-# shape for two pairs, and three pairs of 320 × 4096 (ten bands a pair in
-# groups of eight, so that groups run from one pair into the next), timed
-# in bf16; the same in fp32, and two pairs of 320 × 4096 in bf16
+# shape for two pairs, and three pairs of 320 × 4096 (five bands of 64
+# rows a pair in groups of four, so that groups run from one pair into the
+# next), timed in bf16; the same in fp32, and two pairs of 320 × 4096 in
+# bf16
 B12_BATCH_CASES = ((2, B12_SIZE, B12_SIZE, "bfloat16", True),
                    (3, 320, 4096, "bfloat16", True),
                    (2, 320, 4096, "bfloat16", False),
                    (3, 320, 4096, "float32", False),
                    (2, B12_SIZE, B12_SIZE, "float32", False))
-GRAM_DZ_CASES = (("shallow", 64, 8, 48, 4096, 4, True),
-                 ("deep", 128, 8, 24, 2048, 4, True),
-                 ("shallow", 64, 1, 48, 260, 1, False),
-                 ("deep", 128, 3, 24, 130, 5, False),
-                 ("shallow", 64, 2, 48, 260, 5, False),
-                 ("deep", 128, 1, 24, 130, 1, False))
+GRAM_DZ_CASES = (("shallow", 64, 1, 256, 4096, 4, True),
+                 ("deep", 128, 1, 256, 2048, 4, True),
+                 ("shallow", 64, 8, 32, 4096, 4, False),
+                 ("deep", 128, 8, 32, 2048, 4, False),
+                 ("shallow", 64, 1, 32, 260, 1, False),
+                 ("deep", 128, 3, 32, 130, 5, False),
+                 ("shallow", 64, 2, 64, 260, 5, False),
+                 ("deep", 128, 1, 64, 130, 1, False))
 
 
 def emit(obj) -> None:
@@ -1469,10 +1482,14 @@ def b12_work(h: int, w: int, k: int, isz: int) -> dict:
 def b12_copy_bytes(h: int, w: int, k: int, isz: int) -> dict:
     """Bytes each block12 entry point's band copies must move at an H × W
     image with K classes, each element read once and written once: a
-    gathered band stacks TB + 2·HALO rows for TB own rows (1.5×; the rows
-    outside the image are only written), a scatter moves the own rows; the
-    image, masks and dx in fp32, the rest in the compute dtype."""
-    p, p2, p4, stack = h * w, h * w // 4, h * w // 16, 1.5
+    gathered band stacks tb + 2·HALO rows for tb own rows (tb =
+    `band_rows(h, w)`: 1.0625× at 4096², 1.5× at 32 rows; the rows outside
+    the image are only written), a scatter moves the own rows; the image,
+    masks and dx in fp32, the rest in the compute dtype."""
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    tb = b12.band_rows(h, w)
+    p, p2, p4 = h * w, h * w // 4, h * w // 16
+    stack = (tb + 2 * b12.HALO) / tb
     fwd = 3 * p * stack * (4 + isz) + 128 * p4 * 2 * isz
     res = (64 * p + 2 * 128 * p2) * 2 * isz
     deep = (stack * (2 * 128 * p2 + 128 * p4) * 2 * isz
@@ -1631,8 +1648,9 @@ def check_gram_dz(dev, gen):
     lib = kernels.library()
     cdt = torch.bfloat16
     rows, errs = [], {}
-    for stage, c, nb, r, w, k, timed in GRAM_DZ_CASES:
-        lo, hi = b12.DZ_ROWS[stage]
+    for stage, c, nb, tb, w, k, timed in GRAM_DZ_CASES:
+        r = (tb + 2 * b12.HALO) // (1 if stage == "shallow" else 2)
+        lo, hi = b12.dz_rows(stage, tb)
         plan = (ctypes.c_int * 7)()
         lib.dpst_block12_df_plan(c, nb, r, w, lo, hi, plan)
         want = b12.gram_dz_plan(c, nb, r, w, (lo, hi))
@@ -1699,22 +1717,24 @@ def check_gram_dz(dev, gen):
 def check_scratch_layout(lib) -> None:
     """The scratch each block12 entry point takes (csrc/block12.cu's count)
     equal to `block12_pallas.scratch_bytes`, the layout the CPU tests hold,
-    at every B12_CASES geometry and at the 4096² step."""
+    at every B12_CASES geometry and at the 4096² step, in the bands
+    `band_rows` picks and in bands of 32 rows."""
     from dpst_tpu_torch.ops import block12_pallas as b12
     from dpst_tpu_torch.ops import kernels
     geoms = {(h, w, k, dtype) for h, w, k, dtype, *_ in B12_CASES}
     geoms.add((B12_SIZE, B12_SIZE, K, "bfloat16"))
     for h, w, k, dtype in sorted(geoms):
-        group = b12.group_bands(h, w)
-        for which in range(3):
-            got = lib.dpst_block12_scratch_bytes(
-                which, k, h, w, group, kernels.DTYPE_CODES[getattr(torch,
-                                                                   dtype)])
-            want = b12.scratch_bytes(which, k, h, w, group, dtype)
-            if got != want:
-                fail("kernels", f"block12 scratch {which} at {h}x{w} K={k} "
-                     f"{dtype}: the kernel counts {got}, scratch_bytes "
-                     f"{want}")
+        for tb in sorted({b12.band_rows(h, w), 32}):
+            group = b12.group_bands(h, w, tb)
+            for which in range(3):
+                got = lib.dpst_block12_scratch_bytes(
+                    which, k, h, w, group, tb,
+                    kernels.DTYPE_CODES[getattr(torch, dtype)])
+                want = b12.scratch_bytes(which, k, h, w, group, dtype, tb)
+                if got != want:
+                    fail("kernels", f"block12 scratch {which} at {h}x{w} "
+                         f"K={k} {dtype}, bands of {tb}: the kernel counts "
+                         f"{got}, scratch_bytes {want}")
 
 
 def stage_ms(fn) -> dict:
@@ -1740,30 +1760,28 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def check_block12(dev, gen):
-    """The block12 entry points against their plain versions at B12_CASES
-    (one of which spans more than one group of bands), then at the 4096²
-    step shape of config6 (K = 4, bf16, max pooling): each output against
-    the plain version's, and each entry point's kernel time, its device
-    time by stage, plain time, bound and cuDNN yardstick."""
-    from dpst_tpu_torch.models import vgg
+@contextlib.contextmanager
+def b12_bands_of(rows: int):
+    """The block12 entry points, and the plain versions they fall back to,
+    in bands of `rows` rows whatever the shape (both read
+    `block12_pallas.band_rows`)."""
     from dpst_tpu_torch.ops import block12_pallas as b12
-    from dpst_tpu_torch.ops import kernels
-    if not any(h // b12.TB > b12.group_bands(h, w) for h, w, *_ in B12_CASES):
-        fail("kernels", "no block12 case spans two groups of bands")
-    check_scratch_layout(kernels.library())
-    params = vgg.init_params(SEED, device=dev)
-    errs = {}
-    for h, w, k, dtype, pooling, ties in B12_CASES:
-        errs.update(check_block12_case(h, w, k, dtype, pooling, ties, dev,
-                                       gen, params))
-        torch.cuda.empty_cache()
+    pick = b12.band_rows
+    b12.band_rows = lambda h, w: rows
+    try:
+        yield
+    finally:
+        b12.band_rows = pick
 
-    # the step shape: outputs held to the plain versions' (timed once),
-    # then the kernels timed
+
+def b12_step_calls(params: dict, dev, gen) -> tuple[dict, dict]:
+    """The four block12 entry points at config6's step shape (4096², K =
+    4, bf16, max pooling) on drawn inputs: {name: (kernel, plain)}, and the
+    dict the backwards read their inputs from, which the caller fills:
+    "a21_a22" and "a11" from the forward, "dp1" from the deep backward."""
+    from dpst_tpu_torch.ops import block12_pallas as b12
     h = w = B12_SIZE
     k, dtype, pooling = K, "bfloat16", "max"
-    case = f"{h}x{w} K={k} {dtype} {pooling}"
     cdt = torch.bfloat16
     kw = dict(pooling=pooling, compute_dtype=dtype)
     wts = b12.pack_weights(params, dtype)
@@ -1791,6 +1809,64 @@ def check_block12(dev, gen):
             lambda: b12.block12_bwd_shallow_plain(
                 res["a11"], res["dp1"], m1, s1, wts, pooling, dtype)),
     }
+    return calls, res
+
+
+def b12_heights_equal(calls: dict, heights) -> dict:
+    """{"<entry point> <output> <rows> rows": (bit-equal, max |diff|)} of
+    each kernel of `calls` ({name: (kernel, plain)}, `b12_step_calls`') in
+    bands of each of `heights` rows against the same kernel in bands of 32
+    rows, on the same inputs."""
+    def outs(fn):
+        got = fn()
+        return got if isinstance(got, tuple) else (got,)
+    with b12_bands_of(32):
+        ref = {name: outs(kernel) for name, (kernel, _) in calls.items()}
+    equal = {}
+    for rows in heights:
+        with b12_bands_of(rows):
+            for name, (kernel, _) in calls.items():
+                for what, g, r in zip(B12_OUTS[name], outs(kernel),
+                                      ref[name]):
+                    equal[f"{name} {what} {rows} rows"] = (
+                        torch.equal(g, r),
+                        float((g.float() - r.float()).abs().max()))
+    del ref
+    torch.cuda.empty_cache()
+    return equal
+
+
+def check_block12(dev, gen):
+    """The block12 entry points against their plain versions at B12_CASES
+    (one of which spans more than one group of bands, and one stacks
+    several bands in a group), then at the 4096² step shape of config6 (K =
+    4, bf16, max pooling): each output against the plain version's and bit
+    for bit against the same kernel in bands of 32 rows, and each entry
+    point's kernel time, its device time by stage, plain time, bound and
+    cuDNN yardstick."""
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import block12_pallas as b12
+    from dpst_tpu_torch.ops import kernels
+    if not any(h // b12.band_rows(h, w) > b12.group_bands(h, w)
+               for h, w, *_ in B12_CASES):
+        fail("kernels", "no block12 case spans two groups of bands")
+    if not any(b12.group_bands(h, w) > 1 for h, w, *_ in B12_CASES):
+        fail("kernels", "no block12 case stacks two bands in a group")
+    check_scratch_layout(kernels.library())
+    params = vgg.init_params(SEED, device=dev)
+    errs = {}
+    for h, w, k, dtype, pooling, ties in B12_CASES:
+        errs.update(check_block12_case(h, w, k, dtype, pooling, ties, dev,
+                                       gen, params))
+        torch.cuda.empty_cache()
+
+    # the step shape: outputs held to the plain versions' (timed once),
+    # then to the same kernels in bands of 32 rows, then the kernels timed
+    h = w = B12_SIZE
+    k, dtype, pooling = K, "bfloat16", "max"
+    case = f"{h}x{w} K={k} {dtype} {pooling}"
+    cdt = torch.bfloat16
+    calls, res = b12_step_calls(params, dev, gen)
     plain_ms = {}
     for name, (kernel, plain) in calls.items():
         ref, plain_ms[name] = timed_once(plain)
@@ -1807,6 +1883,14 @@ def check_block12(dev, gen):
     bad = [name for name, (e, tol, _) in errs.items() if not e <= tol]
     if bad:
         fail("kernels", "block12 beyond tolerance: " + ", ".join(bad))
+    tb = b12.band_rows(h, w)
+    equal = b12_heights_equal(calls, (tb,))
+    emit({"phase": "kernel_block12_band_rows", "band_rows": tb,
+          "equal_max_abs_diff_to_32_rows": equal})
+    bad = [name for name, (same, _) in equal.items() if not same]
+    if bad:
+        fail("kernels", f"block12 in bands of {tb} rows differs from "
+             "bands of 32: " + ", ".join(bad))
 
     work = b12_work(h, w, k, 2)
     copies = b12_copy_bytes(h, w, k, 2)
@@ -1817,10 +1901,12 @@ def check_block12(dev, gen):
         bnd, by = bound_ms(nbytes, ops, dtype)
         case_errs = [v for n, v in errs.items()
                      if n.startswith(name + " ") and "bfloat16" in n]
+        ms = cuda_ms(kernel, warmup=1, iters=3)
         row = {"phase": "kernel", "name": name, "shape": [h, w], "K": k,
                "dtype": dtype, "pooling": pooling,
-               "max_abs_err": max(v[2] for v in case_errs),
-               "ms": cuda_ms(kernel, warmup=1, iters=3),
+               "band_rows": b12.last_band_rows,
+               "rows_walked": b12.last_rows_walked,
+               "max_abs_err": max(v[2] for v in case_errs), "ms": ms,
                "device_ms_by_stage": stage_ms(kernel),
                "copies_gbytes": copies[name] / 1e9,
                "copies_bound_ms": copies[name] / HBM_BYTES_PER_S * 1e3,
@@ -1830,7 +1916,7 @@ def check_block12(dev, gen):
                "library_call": B12_YARDSTICK[name]}
         emit(row)
         rows.append(row)
-    del x, m1, m2, dp2, res
+    del calls, res
     torch.cuda.empty_cache()
     return rows
 
@@ -2384,6 +2470,7 @@ def run_stream12(dev, gen) -> dict:
     import dpst_tpu_torch
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import block12_pallas as b12
     from dpst_tpu_torch.ops import kernels
 
     size = B12_SIZE
@@ -2438,7 +2525,9 @@ def run_stream12(dev, gen) -> dict:
           "precompute_s": precompute_s, "loop_it_s": loop_its,
           "wall_s": wall_s, "first_row": hist[0].tolist(),
           "last_row": hist[-1].tolist(), "launches": launches,
-          "launches_implied": need, "loop_peak_gb": peak_gb})
+          "launches_implied": need, "loop_peak_gb": peak_gb,
+          "block12_band_rows": b12.last_band_rows,
+          "block12_rows_walked": b12.last_rows_walked})
     bad = [f"{name} launched {launches[name]} times, the route implies {n}"
            for name, n in need.items() if launches[name] != n]
     if bad:

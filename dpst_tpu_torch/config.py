@@ -33,9 +33,9 @@ multiple of 4 and at least 32, w % 4 == 0, a tap past pool2) and every
 block-1/2 tap is a style tap and no content tap. Then, with
 `stream12_impl="pallas"`, block-1/2 taps exactly (conv1_1, conv2_1),
 w % 256 == 0 and h % 32 == 0, blocks 1-2 run on the block12 kernels
-(`ops/block12_pallas.py`): bands of 32 rows, the Gram sums of conv1_1 and
-conv2_1 and pool2, no block-1/2 activation at full resolution but three
-residuals; the tail (`vgg.extract_tail`) goes on from pool2. Otherwise
+(`ops/block12_pallas.py`): bands of up to 256 rows (`band_rows`, from the
+image shape), the Gram sums of conv1_1 and conv2_1 and pool2, no block-1/2
+activation at full resolution but three residuals; the tail (`vgg.extract_tail`) goes on from pool2. Otherwise
 (`stream12_impl="scan"`, or a gate fails) the port keeps its standard path:
 the TPU's strip scan is a memory lowering it does not carry. But the
 block-1/2 style taps then take the fused Gram route (`gram_fwd`,

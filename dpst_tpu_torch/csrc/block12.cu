@@ -28,12 +28,16 @@
 // Design. The TPU kernel holds a whole 32-row tile of all four layers in
 // VMEM; one such tile at W = 4096 is 16 MB of conv1_1 activations against
 // the H100's 227 KB of shared memory. So each entry point walks the image
-// in bands of TB = 32 own rows (the TPU's tb_f / tb_b) with the TPU
-// kernel's halo (8 rows at full resolution, 4 at half, 2 at quarter) and
-// recomputes the halo as it does. A group of `group` consecutive bands is
-// processed at once, each band's rows (own rows plus halo) stacked one band
-// after another in a scratch the wrapper allocates for that group only
-// (the launches then fill the card). For a group, each stage is one launch
+// in bands of tb own rows with the TPU kernel's halo (8 rows at full
+// resolution, 4 at half, 2 at quarter) and recomputes the halo as it does.
+// The bands live in device memory, not on chip, so tb is not the TPU's 32:
+// the wrapper picks it from the image shape (block12_pallas.band_rows: the
+// tallest of 256, 128, 64, 32 that divides H with at most 2^20 own pixels a
+// band), and every stage walks (tb + 16) / tb of the own rows, 1.0625 at
+// 4096^2. A group of `group` consecutive bands is processed at once, each
+// band's rows (own rows plus halo) stacked one band after another in a
+// scratch the wrapper allocates for that group only (the launches then
+// fill the card). For a group, each stage is one launch
 // on the current stream: the band copies (gather with zero fill and a cast,
 // scatter of the own rows; a warp a row, the source row found once a row,
 // 16-byte vectors along W with a scalar tail, scalars where a row does not
@@ -51,9 +55,10 @@
 // as the (C, K * C) matrix of gram_stream.s_matrix), one split, with an
 // epilogue that adds the fp32 conv term and multiplies by relu' before the
 // one rounding; the masks are gathered already rounded to bf16, and it
-// walks only the rows of each band that reach an own output row (DZ_LO_*,
-// DZ_HI_*: 34 of 48, 18 of 24). In fp32 it is the gram_bwd tile of
-// gram_tile.cuh on every row, with the same epilogue. A conv reading the
+// walks only the rows of each band that reach an own output row (Geom's
+// dz_lo, dz_hi: tb + 2 of tb + 16, tb / 2 + 2 of tb / 2 + 8). In fp32 it
+// is the gram_bwd tile of gram_tile.cuh on every row, with the same
+// epilogue. A conv reading the
 // stacked bands sees the next band's first row where the TPU kernel sees
 // a zero pad: both only reach rows of the halo that the shrinking valid
 // region drops before the own rows. The Gram partials go to one slot per
@@ -62,12 +67,12 @@
 //
 // A batch of B pairs (the reference vmaps the whole loop, so its
 // pallas_calls take the pair as a grid dimension) is one call of each
-// entry point: the walk's unit is a (pair, band), B * H / TB of them
+// entry point: the walk's unit is a (pair, band), B * H / tb of them
 // pair-major, and a group is `group` consecutive units, which may run from
 // one pair's last bands into the next pair's first. The scratch is one
 // pair's, whatever B is. Each stage addresses its unit's pair: the band
 // copies read and write the pair's planes, the conv epilogues take the
-// band modulo H / TB, the Gram partials of a pair's units are summed into
+// band modulo H / tb, the Gram partials of a pair's units are summed into
 // its own sums (from zero at its first band), and the Gram cotangent
 // stage runs once for each pair the group holds, on its bands with its
 // cotangent. A band's arithmetic and a pair's order of Gram partials are
@@ -76,17 +81,19 @@
 //
 // What bounds it on the H100: operations. A 4096^2 forward does 2 * 9 * P
 // * (3 * 64 + 64 * 64 + (64 * 128 + 128 * 128) / 4) = 3.2 TFLOP of convs
-// (3.2 ms at the bf16 peak; more with the recomputed halo, 50 % at TB =
-// 32), the Grams 0.1 TFLOP; it reads 0.5 GB of image and masks. By stage,
-// at 4096^2, K = 4, bf16: the convs by operations; the Gram cotangent by
-// bytes (each walked pixel reads its tap, m^2 and fp32 conv term and writes
-// dz: 520 bytes at C = 64, 1032 at 128; 9.3 + 4.9 GB, 2.8 + 1.5 ms, against
-// 0.58 + 0.62 TFLOP); the band copies and pools by bytes. The convs,
-// Gram partials and Gram cotangent run on the tensor cores through wgmma
-// (PERF.md has their times); the pools keep their first design, the halo
-// is recomputed, and a fusion of the stages into one kernel is left for
-// later work. Every offset that can pass 2^31 is 64-bit (a group's pixel
-// indices fit an int) and every entry point returns
+// (3.2 ms at the bf16 peak), the Grams 0.1 TFLOP; it reads 0.5 GB of image
+// and masks. The recomputed halo adds 16 / tb of every stage's rows: 50 %
+// at tb = 32, 6.25 % at the tb = 256 that 4096^2 takes, so the band height
+// is the largest the scratch of one group allows. By stage, at 4096^2, K
+// = 4, bf16: the convs by operations; the Gram cotangent by bytes (each
+// walked pixel reads its tap, m^2 and fp32 conv term and writes dz: 520
+// bytes at C = 64, 1032 at 128; 8.8 + 4.4 GB, 2.6 + 1.3 ms at tb = 256,
+// against 0.55 + 0.56 TFLOP); the band copies and pools by bytes. The
+// convs, Gram partials and Gram cotangent run on the tensor cores through
+// wgmma (PERF.md has their times); the pools keep their first design, the
+// halo is recomputed, and a fusion of the stages into one kernel is left
+// for later work. Every offset that can pass 2^31 is 64-bit (a group's
+// pixel indices fit an int) and every entry point returns
 // cudaGetLastError() after its last launch, or the first error of an
 // earlier one.
 #include <algorithm>
@@ -103,15 +110,9 @@ namespace {
 using dpst::from_f;
 using dpst::to_f;
 
-constexpr int TB = 32;            // own rows of a band (block12_pallas.TB)
+constexpr int TB_MIN = 32;        // own rows of a band divide by it
 constexpr int HALO = 8;           // full-resolution halo rows on each side
 constexpr int GRAM_CHUNK = 4096;  // pixels of a Gram split (a multiple of 128)
-// Rows of a band whose Gram cotangent reaches an own output row (the 3x3
-// input-gradient conv after it reads one row past each side): dz11 on the
-// shallow backward's bands of TB + 2 * HALO rows, dz21 on the deep
-// backward's bands of half as many (block12_pallas.DZ_ROWS).
-constexpr int DZ_LO_SHALLOW = HALO - 1, DZ_HI_SHALLOW = HALO + TB + 1;
-constexpr int DZ_LO_DEEP = HALO / 2 - 1, DZ_HI_DEEP = HALO / 2 + TB / 2 + 1;
 constexpr int EW_THREADS = 256;
 constexpr int EW_BLOCKS = 132 * 16;
 
@@ -652,18 +653,26 @@ struct Carve {
   }
 };
 
-// K classes, B pairs of H x W images in nb() bands each, walked NB units
-// (pair, band) a group.
+// K classes, B pairs of H x W images in nb() bands of tb own rows each
+// (block12_pallas.band_rows), walked NB units (pair, band) a group.
 struct Geom {
-  int K, H, W, NB, B = 1;
-  int nb() const { return H / TB; }
+  int K, H, W, NB, tb, B = 1;
+  int nb() const { return H / tb; }
   int units() const { return B * nb(); }
-  int R0() const { return TB + 2 * HALO; }
+  int R0() const { return tb + 2 * HALO; }
   int R1() const { return R0() / 2; }
   int R2() const { return R0() / 4; }
   long long P0() const { return static_cast<long long>(NB) * R0() * W; }
   long long P1() const { return static_cast<long long>(NB) * R1() * (W / 2); }
   long long P2() const { return static_cast<long long>(NB) * R2() * (W / 4); }
+  // Rows [dz_lo, dz_hi) of a band whose Gram cotangent reaches an own
+  // output row (the 3x3 input-gradient conv after it reads one row past
+  // each side): dz11 on the shallow backward's bands of R0 rows, dz21 on
+  // the deep backward's of R1 (block12_pallas.dz_rows).
+  int dz_lo(bool deep) const { return (deep ? HALO / 2 : HALO) - 1; }
+  int dz_hi(bool deep) const {
+    return deep ? HALO / 2 + tb / 2 + 1 : HALO + tb + 1;
+  }
 };
 
 template <typename T>
@@ -679,12 +688,12 @@ struct FwdScratch {
     a21 = cv.take<T>(128 * g.P1());
     a22 = cv.take<T>(128 * g.P1());
     p2 = cv.take<T>(128 * g.P2());
-    const long long w1 = static_cast<long long>(g.NB) * gram_splits(TB * g.W) * g.K * 64 * 64;
-    const long long w2 = static_cast<long long>(g.NB) * gram_splits(TB / 2 * (g.W / 2)) *
+    const long long w1 = static_cast<long long>(g.NB) * gram_splits(g.tb * g.W) * g.K * 64 * 64;
+    const long long w2 = static_cast<long long>(g.NB) * gram_splits(g.tb / 2 * (g.W / 2)) *
                          g.K * 128 * 128;
     work = cv.take<float>(w1 > w2 ? w1 : w2);
     if (sizeof(T) == 2)
-      mb = cv.take<__nv_bfloat16>(static_cast<long long>(g.K) * g.NB * TB * g.W);
+      mb = cv.take<__nv_bfloat16>(static_cast<long long>(g.K) * g.NB * g.tb * g.W);
   }
 };
 
@@ -733,7 +742,7 @@ int run_fwd(const float* x, const float* m1, const float* m2,
             bool avg, bool save_res, cudaStream_t st) {
   Carve cv{static_cast<unsigned char*>(scratch)};
   FwdScratch<T> s(cv, g);
-  const int H = g.H, W = g.W, tb = TB, K = g.K, nb = g.nb();
+  const int H = g.H, W = g.W, tb = g.tb, K = g.K, nb = g.nb();
   const int R0 = g.R0(), R1 = g.R1(), R2 = g.R2();
   for (int u0 = 0; u0 < g.units(); u0 += g.NB) {
     const int NB = std::min(g.NB, g.units() - u0);
@@ -769,7 +778,7 @@ int run_bwd_deep(const T* a21, const T* a22, const T* dp2, const float* m2,
                  void* scratch, const Geom& g, bool avg, cudaStream_t st) {
   Carve cv{static_cast<unsigned char*>(scratch)};
   DeepScratch<T> s(cv, g);
-  const int H2 = g.H / 2, W2 = g.W / 2, tb2 = TB / 2, K = g.K, nb = g.nb();
+  const int H2 = g.H / 2, W2 = g.W / 2, tb2 = g.tb / 2, K = g.K, nb = g.nb();
   const int R1 = g.R1(), R2 = g.R2();
   for (int u0 = 0; u0 < g.units(); u0 += g.NB) {
     const int NB = std::min(g.NB, g.units() - u0);
@@ -782,7 +791,8 @@ int run_bwd_deep(const T* a21, const T* a22, const T* dp2, const float* m2,
     B12_TRY(pool_bwd<T>(s.dp2, s.a22, s.dz, 128, NB * R1, W2, avg, st));
     B12_TRY(conv_bwd<T>(s.dz, ft22, s.t, 128, 128, NB * R1, W2, st));
     B12_TRY(gram_df<T>(s.a21, s.m2, s2, s.t, s.dz, 128, K, NB, R1, W2,
-                       DZ_LO_DEEP, DZ_HI_DEEP, u0, nb, s_elems<T>(128, K), st));
+                       g.dz_lo(true), g.dz_hi(true), u0, nb, s_elems<T>(128, K),
+                       st));
     B12_TRY(conv_bwd<T>(s.dz, ft21, s.t, 128, 64, NB * R1, W2, st));
     B12_TRY((scatter<float, T>(s.t, dp1, 64, H2, W2, NB, R1, tb2, HALO / 2,
                                u0, nb, st)));
@@ -797,7 +807,7 @@ int run_bwd_shallow(const T* a11, const T* dp1, const float* m1, const T* s1,
                     bool avg, cudaStream_t st) {
   Carve cv{static_cast<unsigned char*>(scratch)};
   ShallowScratch<T> s(cv, g);
-  const int H = g.H, W = g.W, tb = TB, K = g.K, nb = g.nb();
+  const int H = g.H, W = g.W, tb = g.tb, K = g.K, nb = g.nb();
   const int R0 = g.R0(), R1 = g.R1();
   for (int u0 = 0; u0 < g.units(); u0 += g.NB) {
     const int NB = std::min(g.NB, g.units() - u0);
@@ -810,8 +820,8 @@ int run_bwd_shallow(const T* a11, const T* dp1, const float* m1, const T* s1,
     B12_TRY(pool_bwd<T>(s.dp1, s.a12, s.dz, 64, NB * R0, W, avg, st));
     B12_TRY(conv_bwd<T>(s.dz, ft12, s.t, 64, 64, NB * R0, W, st));
     B12_TRY(gram_df<T>(s.a11, s.m1, s1, s.t, s.dz, 64, K, NB, R0, W,
-                       DZ_LO_SHALLOW, DZ_HI_SHALLOW, u0, nb, s_elems<T>(64, K),
-                       st));
+                       g.dz_lo(false), g.dz_hi(false), u0, nb,
+                       s_elems<T>(64, K), st));
     B12_TRY(conv_bwd<T>(s.dz, ft11, s.t, 64, 3, NB * R0, W, st));
     B12_TRY((scatter<float, float>(s.t, dx, 3, H, W, NB, R0, tb, HALO, u0, nb, st)));
   }
@@ -829,18 +839,27 @@ void count_scratch(int which, Carve& cv, const Geom& g) {
   }
 }
 
-bool bad_geometry(int K, int H, int W, int group, int B = 1) {
-  return K < 1 || H < TB || H % TB || W < 4 || W % 4 || group < 1 || B < 1 ||
-         static_cast<long long>(B) * (H / TB) > (1 << 30);
+// H and tb multiples of TB_MIN, tb a divisor of H.
+bool bad_geometry(int K, int H, int W, int group, int tb, int B = 1) {
+  return K < 1 || H < TB_MIN || H % TB_MIN || tb < TB_MIN || tb % TB_MIN ||
+         H % tb || W < 4 || W % 4 || group < 1 || B < 1 ||
+         static_cast<long long>(B) * (H / tb) > (1 << 30);
+}
+
+// The walk of a launch: `group` units a group, at most a pair's H / tb.
+Geom geom(int K, int H, int W, int group, int tb, int B = 1) {
+  return Geom{K, H, W, group < H / tb ? group : H / tb, tb, B};
 }
 
 }  // namespace
 
 // Bytes of scratch an entry point needs: which = 0 forward, 1 deep backward,
-// 2 shallow backward; dtype as for the entry points.
+// 2 shallow backward; tb and dtype as for the entry points (0 for a
+// geometry they refuse).
 extern "C" size_t dpst_block12_scratch_bytes(int which, int K, int H, int W,
-                                             int group, int dtype) {
-  const Geom g{K, H, W, group < H / TB ? group : H / TB};
+                                             int group, int tb, int dtype) {
+  if (bad_geometry(K, H, W, group, tb)) return 0;
+  const Geom g = geom(K, H, W, group, tb);
   Carve cv{nullptr};
   if (dtype == DPST_DTYPE_F32)
     count_scratch<float>(which, cv, g);
@@ -849,10 +868,11 @@ extern "C" size_t dpst_block12_scratch_bytes(int which, int K, int H, int W,
   return cv.used;
 }
 
-// A batch of B pairs: every image, mask and output below with a leading
-// pair axis (x (B, 3, H, W), g1 (B, K, 64, 64), ...), the weights shared.
-// The pipeline walks units (pair, band), pair-major, `group` of them a
-// group of the scratch (at most H / TB, the scratch one pair's), so a
+// Bands of tb own rows (block12_pallas.band_rows: a multiple of 32 that
+// divides H). A batch of B pairs: every image, mask and output below with a
+// leading pair axis (x (B, 3, H, W), g1 (B, K, 64, 64), ...), the weights
+// shared. The pipeline walks units (pair, band), pair-major, `group` of
+// them a group of the scratch (at most H / tb, the scratch one pair's), so a
 // group may run from one pair into the next; each stage addresses its
 // unit's pair. Every band's arithmetic and each pair's Gram partial order
 // are those of the pair's own launch: a pair's outputs are bit-equal to it.
@@ -870,12 +890,12 @@ extern "C" int dpst_block12_fwd(const void* x, const void* m1, const void* m2,
                                 const void* w22, const void* b22, void* g1,
                                 void* g2, void* p2, void* a11, void* a21,
                                 void* a22, void* scratch, int K, int H, int W,
-                                int group, int B, int avg, int save_res,
-                                int dtype, void* stream) {
+                                int group, int tb, int B, int avg,
+                                int save_res, int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (bad_geometry(K, H, W, group, B))
+  if (bad_geometry(K, H, W, group, tb, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g{K, H, W, group < H / TB ? group : H / TB, B};
+  const Geom g = geom(K, H, W, group, tb, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[4] = {w11, w12, w21, w22};
   const float* b[4] = {static_cast<const float*>(b11), static_cast<const float*>(b12),
@@ -910,12 +930,12 @@ extern "C" int dpst_block12_bwd_deep(const void* a21, const void* a22,
                                      const void* s2, const void* ft21,
                                      const void* ft22, void* dp1,
                                      void* scratch, int K, int H, int W,
-                                     int group, int B, int avg, int dtype,
-                                     void* stream) {
+                                     int group, int tb, int B, int avg,
+                                     int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (bad_geometry(K, H, W, group, B))
+  if (bad_geometry(K, H, W, group, tb, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g{K, H, W, group < H / TB ? group : H / TB, B};
+  const Geom g = geom(K, H, W, group, tb, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m2f = static_cast<const float*>(m2);
   if (dtype == DPST_DTYPE_F32)
@@ -944,12 +964,12 @@ extern "C" int dpst_block12_bwd_shallow(const void* a11, const void* dp1,
                                         const void* ft11, const void* ft12,
                                         const void* w12, const void* b12,
                                         void* dx, void* scratch, int K, int H,
-                                        int W, int group, int B, int avg,
-                                        int dtype, void* stream) {
+                                        int W, int group, int tb, int B,
+                                        int avg, int dtype, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
-  if (bad_geometry(K, H, W, group, B))
+  if (bad_geometry(K, H, W, group, tb, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g{K, H, W, group < H / TB ? group : H / TB, B};
+  const Geom g = geom(K, H, W, group, tb, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m1f = static_cast<const float*>(m1);
   const float* b12f = static_cast<const float*>(b12);

@@ -14,11 +14,19 @@ H/2, W/2). The backward gives the image cotangent dx (3, H, W) fp32 from
 (dg1, dg2, dp2): `block12_bwd_deep` (pool2 → conv2_2 → conv2_1 and the
 conv2_1 Gram term → dp1) then `block12_bwd_shallow` (conv1_2 recomputed
 from a11, then pool1 → conv1_2 → conv1_1 and the conv1_1 Gram term → dx).
-Every function walks the image in bands of TB = 32 own rows (the TPU's
-`tb_f` / `tb_b`) with a halo of 8
-rows at full resolution (4 at half, 2 at quarter), recomputed per band, and
-adds the Gram partials of the bands in band order; no block-1/2 activation
-but the three residuals exists at full resolution.
+Every function walks the image in bands of `band_rows(H, W)` own rows with a
+halo of 8 rows at full resolution (4 at half, 2 at quarter), recomputed per
+band, and adds the Gram partials of the bands in band order; no block-1/2
+activation but the three residuals exists at full resolution. The TPU
+kernel's bands (`tb_f` / `tb_b`) are 32 rows, a tile it keeps in VMEM; here
+a band lives in a device-memory scratch, so it is as tall as that scratch
+allows (256 rows at 4096²), and the halo's recompute falls from 50 % of the
+own rows at 32 to 6.25 % at 256. A band's own rows come out the same
+whatever its height: each pixel's sums keep their order, and the kernels'
+Gram splits (`GRAM_CHUNK` pixels of a band's own rows, in band order) cut
+the image as at 32 rows wherever W is a multiple of 512 (16 half-resolution
+rows, 8 · W pixels, a multiple of `GRAM_CHUNK`): the Grams too are the same
+bits there, as at 4096².
 
 Rounding points are the TPU kernel's (see `csrc/block12.cu`): forward convs
 sum in fp32, add the bias in fp32, ReLU, zero the rows outside the image and
@@ -47,7 +55,7 @@ CPU tensors take the plain versions, which walk the same bands in the same
 order (a batch pair by pair); CUDA tensors launch `csrc/block12.cu` or
 raise. The backwards' Gram
 cotangent stage (`gram_dz_plain`, and `block12_gram_dz` alone on the card)
-is per pixel: in bf16 the kernels compute it only on the rows `DZ_ROWS`
+is per pixel: in bf16 the kernels compute it only on the rows `dz_rows`
 that reach an own output row, and take the cotangent as
 `gram_stream.s_matrix(s)`.
 """
@@ -63,22 +71,46 @@ from .conv_cuda import (conv3x3_acc, flip_transpose_weights,
                         pack_weights as pack_conv)
 from .kernels import torch_dtype
 
-TB = 32                      # own rows of a band, as csrc/block12.cu's TB
 HALO = 8                     # full-resolution halo rows on each side
+# The band heights `band_rows` picks from, tallest first: multiples of 32,
+# as H is on the block12 route (csrc/block12.cu's TB_MIN)
+BAND_ROWS = (256, 128, 64, 32)
 B12 = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")
 _CINOUT = {"conv1_1": (3, 64), "conv1_2": (64, 64), "conv2_1": (64, 128),
            "conv2_2": (128, 128)}
-# Own pixels of the group of bands the kernels process at once: the scratch
-# holds one group (about 0.7 GB in bf16 at W = 4096, 8 bands of 32 rows)
+# Own pixels of the group of bands the kernels process at once, and of a
+# band at most: the scratch holds one group (0.51 GB forward, 0.76 GB
+# shallow backward in bf16 at 4096², one band of 256 rows)
 GROUP_PIXELS = 1 << 20
 GRAM_CHUNK = 4096            # pixels of a forward Gram split (csrc/block12.cu)
-# Rows [lo, hi) of a band whose Gram cotangent reaches an own output row of
-# the backward (the 3×3 input-gradient conv after the stage reads one row
-# past each side of the own rows): dz11 in the shallow backward's bands of
-# TB + 2·HALO rows, dz21 in the deep backward's bands of half as many. The
-# bf16 kernels walk only these rows (csrc/block12.cu's DZ_LO_*, DZ_HI_*).
-DZ_ROWS = {"shallow": (HALO - 1, HALO + TB + 1),
-           "deep": (HALO // 2 - 1, HALO // 2 + TB // 2 + 1)}
+
+# The last entry point call's walk, whichever route it took: its band
+# height and the rows each stage walks over the own rows, (tb + 2·HALO) / tb
+last_band_rows: int | None = None
+last_rows_walked: float | None = None
+
+
+def band_rows(h: int, w: int) -> int:
+    """Own rows of a band at an h × w image: the tallest of BAND_ROWS that
+    divides h with at most GROUP_PIXELS own pixels a band, else 32. Every
+    call at one shape walks the same bands, so a batch's pairs walk as
+    alone."""
+    for tb in BAND_ROWS:
+        if h % tb == 0 and tb * w <= GROUP_PIXELS:
+            return tb
+    return BAND_ROWS[-1]
+
+
+def dz_rows(which: str, tb: int) -> tuple[int, int]:
+    """Rows [lo, hi) of a band of tb own rows whose Gram cotangent reaches
+    an own output row of the backward (the 3×3 input-gradient conv after
+    the stage reads one row past each side of the own rows): dz11 in the
+    shallow backward's bands of tb + 2·HALO rows, dz21 in the deep
+    backward's bands of half as many. The bf16 kernels walk only these rows
+    (csrc/block12.cu's `Geom::dz_lo`, `dz_hi`)."""
+    if which == "shallow":
+        return HALO - 1, HALO + tb + 1
+    return HALO // 2 - 1, HALO // 2 + tb // 2 + 1
 
 
 class Block12Weights(NamedTuple):
@@ -124,20 +156,24 @@ def pack_weights(params: dict, compute_dtype) -> Block12Weights:
     return Block12Weights(*oihw, *fwd, *bwd)
 
 
-def group_bands(h: int, w: int) -> int:
-    """Bands the kernels process at once at an h × w image."""
-    return max(1, min(h // TB, GROUP_PIXELS // (TB * w)))
+def group_bands(h: int, w: int, tb: int | None = None) -> int:
+    """Bands of tb rows (by default `band_rows(h, w)`) the kernels process
+    at once at an h × w image."""
+    tb = tb or band_rows(h, w)
+    return max(1, min(h // tb, GROUP_PIXELS // (tb * w)))
 
 
-def unit_groups(b: int, h: int, w: int,
-                group: int | None = None) -> list[list[tuple[int, int]]]:
+def unit_groups(b: int, h: int, w: int, group: int | None = None,
+                tb: int | None = None) -> list[list[tuple[int, int]]]:
     """The groups of csrc/block12.cu's walk over a batch of b pairs of h × w
-    images: units (pair, band), pair-major, `group` (by default
-    `group_bands(h, w)`, at most h // TB) a group, so that a group may hold
-    the last bands of one pair and the first of the next. The scratch
-    holds one group whatever b is."""
-    nb = h // TB
-    group = min(group or group_bands(h, w), nb)
+    images in bands of tb rows (by default `band_rows(h, w)`): units (pair,
+    band), pair-major, `group` (by default `group_bands(h, w, tb)`, at most
+    h // tb) a group, so that a group may hold the last bands of one pair
+    and the first of the next. The scratch holds one group whatever b
+    is."""
+    tb = tb or band_rows(h, w)
+    nb = h // tb
+    group = min(group or group_bands(h, w, tb), nb)
     units = [divmod(u, nb) for u in range(b * nb)]
     return [units[i:i + group] for i in range(0, len(units), group)]
 
@@ -161,25 +197,27 @@ def gram_dz_plan(c: int, nb: int, r: int, w: int,
 
 
 def scratch_bytes(which: int, k: int, h: int, w: int, group: int,
-                  compute_dtype) -> int:
-    """Bytes of scratch an entry point takes, as csrc/block12.cu's
-    `dpst_block12_scratch_bytes` counts them (buffers 256-byte aligned):
-    which = 0 forward, 1 deep backward, 2 shallow backward."""
+                  compute_dtype, tb: int | None = None) -> int:
+    """Bytes of scratch an entry point takes in bands of tb rows (by default
+    `band_rows(h, w)`), as csrc/block12.cu's `dpst_block12_scratch_bytes`
+    counts them (buffers 256-byte aligned): which = 0 forward, 1 deep
+    backward, 2 shallow backward."""
     isz = torch_dtype(compute_dtype).itemsize
-    nb = min(group, h // TB)
-    r0 = TB + 2 * HALO
+    tb = tb or band_rows(h, w)
+    nb = min(group, h // tb)
+    r0 = tb + 2 * HALO
     p0, p1 = nb * r0 * w, nb * (r0 // 2) * (w // 2)
     p2 = nb * (r0 // 4) * (w // 4)
     if which == 0:
         def splits(p):
             return -(-p // GRAM_CHUNK)
-        work = max(nb * splits(TB * w) * k * 64 * 64,
-                   nb * splits(TB // 2 * (w // 2)) * k * 128 * 128)
+        work = max(nb * splits(tb * w) * k * 64 * 64,
+                   nb * splits(tb // 2 * (w // 2)) * k * 128 * 128)
         parts = [(n, isz) for n in (3 * p0, 64 * p0, 64 * p0, 64 * p1,
                                     128 * p1, 128 * p1, 128 * p2)]
         parts.append((work, 4))
         if isz == 2:
-            parts.append((k * nb * TB * w, 2))     # the group's rounded m²
+            parts.append((k * nb * tb * w, 2))     # the group's rounded m²
     elif which == 1:      # a21, a22, dp2, dz, m², t
         parts = [(128 * p1, isz), (128 * p1, isz), (128 * p2, isz),
                  (128 * p1, isz), (k * p1, isz), (128 * p1, 4)]
@@ -293,19 +331,22 @@ def _pairwise(fn, *batch):
 
 
 def block12_fwd_plain(x, m1sq, m2sq, weights, pooling="max",
-                      compute_dtype="bfloat16", save_res=True):
-    """Plain PyTorch forward, band by band: (g1, g2, p2) and with
+                      compute_dtype="bfloat16", save_res=True, tb=None):
+    """Plain PyTorch forward, band by band in bands of tb rows (by default
+    `band_rows(H, W)`, the kernels' walk): (g1, g2, p2) and with
     `save_res` also (a11, a21, a22); a batch (x (B, 3, H, W)) pair by
     pair."""
+    tb = tb or band_rows(*x.shape[-2:])
     if x.dim() == 4:
         return _pairwise(lambda *t: _fwd_plain_one(
-            *t, weights, pooling, compute_dtype, save_res), x, m1sq, m2sq)
+            *t, weights, pooling, compute_dtype, save_res, tb),
+            x, m1sq, m2sq)
     return _fwd_plain_one(x, m1sq, m2sq, weights, pooling, compute_dtype,
-                          save_res)
+                          save_res, tb)
 
 
 def _fwd_plain_one(x, m1sq, m2sq, weights, pooling, compute_dtype,
-                   save_res):
+                   save_res, tb):
     cdt = torch_dtype(compute_dtype)
     w11, b11, w12, b12, w21, b21, w22, b22 = weights[:8]
     h = x.shape[1]
@@ -314,26 +355,26 @@ def _fwd_plain_one(x, m1sq, m2sq, weights, pooling, compute_dtype,
     g1 = torch.zeros((k, 64, 64), dtype=torch.float32, device=dev)
     g2 = torch.zeros((k, 128, 128), dtype=torch.float32, device=dev)
     p2s, a11s, a21s, a22s = [], [], [], []
-    for i in range(h // TB):
-        xe = _band(x, i, TB, HALO).to(cdt)
+    for i in range(h // tb):
+        xe = _band(x, i, tb, HALO).to(cdt)
         r0 = xe.shape[1]
-        rm0 = _row_mask(i, TB, HALO, h, r0, dev)
-        rm1 = _row_mask(i, TB // 2, HALO // 2, h // 2, r0 // 2, dev)
+        rm0 = _row_mask(i, tb, HALO, h, r0, dev)
+        rm1 = _row_mask(i, tb // 2, HALO // 2, h // 2, r0 // 2, dev)
         a11 = _conv_bias_relu(xe, w11, b11, rm0, cdt)
         a12 = _conv_bias_relu(a11, w12, b12, rm0, cdt)
         a21 = _conv_bias_relu(_pool(a12, pooling), w21, b21, rm1, cdt)
         a22 = _conv_bias_relu(a21, w22, b22, rm1, cdt)
         p2 = _pool(a22, pooling)
-        f11 = a11[:, HALO:HALO + TB]
-        f21 = a21[:, HALO // 2:HALO // 2 + TB // 2]
-        g1 = g1 + _partial_gram(f11, m1sq[:, i * TB:(i + 1) * TB], cdt)
+        f11 = a11[:, HALO:HALO + tb]
+        f21 = a21[:, HALO // 2:HALO // 2 + tb // 2]
+        g1 = g1 + _partial_gram(f11, m1sq[:, i * tb:(i + 1) * tb], cdt)
         g2 = g2 + _partial_gram(
-            f21, m2sq[:, i * TB // 2:(i + 1) * TB // 2], cdt)
-        p2s.append(p2[:, HALO // 4:HALO // 4 + TB // 4])
+            f21, m2sq[:, i * tb // 2:(i + 1) * tb // 2], cdt)
+        p2s.append(p2[:, HALO // 4:HALO // 4 + tb // 4])
         if save_res:
             a11s.append(f11)
             a21s.append(f21)
-            a22s.append(a22[:, HALO // 2:HALO // 2 + TB // 2])
+            a22s.append(a22[:, HALO // 2:HALO // 2 + tb // 2])
     out = (g1, g2, torch.cat(p2s, dim=1))
     if save_res:
         out += tuple(torch.cat(t, dim=1) for t in (a11s, a21s, a22s))
@@ -341,28 +382,32 @@ def _fwd_plain_one(x, m1sq, m2sq, weights, pooling, compute_dtype,
 
 
 def block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights, pooling="max",
-                           compute_dtype="bfloat16"):
-    """Plain PyTorch deep backward: dp1 (64, H/2, W/2) in cdt; a batch
-    (a21 (B, 128, H/2, W/2)) pair by pair."""
+                           compute_dtype="bfloat16", tb=None):
+    """Plain PyTorch deep backward in bands of tb full-resolution rows (by
+    default `band_rows(H, W)`): dp1 (64, H/2, W/2) in cdt; a batch (a21 (B,
+    128, H/2, W/2)) pair by pair."""
+    h2, w2 = a21.shape[-2:]
+    tb = tb or band_rows(2 * h2, 2 * w2)
     if a21.dim() == 4:
         return _pairwise(lambda *t: _bwd_deep_plain_one(
-            *t, weights, pooling, compute_dtype), a21, a22, dp2, m2sq, s2)
+            *t, weights, pooling, compute_dtype, tb), a21, a22, dp2, m2sq,
+            s2)
     return _bwd_deep_plain_one(a21, a22, dp2, m2sq, s2, weights, pooling,
-                               compute_dtype)
+                               compute_dtype, tb)
 
 
 def _bwd_deep_plain_one(a21, a22, dp2, m2sq, s2, weights, pooling,
-                        compute_dtype):
+                        compute_dtype, tb):
     cdt = torch_dtype(compute_dtype)
     ft21 = flip_transpose_weights(weights[4])
     ft22 = flip_transpose_weights(weights[6])
     h2 = a21.shape[1]
-    tb2, h1 = TB // 2, HALO // 2
+    tb2, h1 = tb // 2, HALO // 2
     outs = []
-    for i in range(2 * h2 // TB):
+    for i in range(2 * h2 // tb):
         a21e = _band(a21, i, tb2, h1)
         a22e = _band(a22, i, tb2, h1)
-        dp2e = _band(dp2, i, TB // 4, HALO // 4)
+        dp2e = _band(dp2, i, tb // 4, HALO // 4)
         m2e = _band(m2sq, i, tb2, h1)
         dz22 = _pool_bwd(dp2e, a22e, pooling, cdt) * _relu_grad(a22e).to(cdt)
         dz21 = gram_dz_plain(a21e, m2e, s2, conv3x3_acc(dz22, ft22), cdt)
@@ -371,43 +416,52 @@ def _bwd_deep_plain_one(a21, a22, dp2, m2sq, s2, weights, pooling,
 
 
 def block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights, pooling="max",
-                              compute_dtype="bfloat16"):
-    """Plain PyTorch shallow backward: dx (3, H, W) fp32; a batch (a11 (B,
-    64, H, W)) pair by pair."""
+                              compute_dtype="bfloat16", tb=None):
+    """Plain PyTorch shallow backward in bands of tb rows (by default
+    `band_rows(H, W)`): dx (3, H, W) fp32; a batch (a11 (B, 64, H, W)) pair
+    by pair."""
+    tb = tb or band_rows(*a11.shape[-2:])
     if a11.dim() == 4:
         return _pairwise(lambda *t: _bwd_shallow_plain_one(
-            *t, weights, pooling, compute_dtype), a11, dp1, m1sq, s1)
+            *t, weights, pooling, compute_dtype, tb), a11, dp1, m1sq, s1)
     return _bwd_shallow_plain_one(a11, dp1, m1sq, s1, weights, pooling,
-                                  compute_dtype)
+                                  compute_dtype, tb)
 
 
 def _bwd_shallow_plain_one(a11, dp1, m1sq, s1, weights, pooling,
-                           compute_dtype):
+                           compute_dtype, tb):
     cdt = torch_dtype(compute_dtype)
     ft11 = flip_transpose_weights(weights[0])
     ft12 = flip_transpose_weights(weights[2])
     h = a11.shape[1]
     outs = []
-    for i in range(h // TB):
-        a11e = _band(a11, i, TB, HALO)
-        dp1e = _band(dp1, i, TB // 2, HALO // 2)
-        m1e = _band(m1sq, i, TB, HALO)
-        rm0 = _row_mask(i, TB, HALO, h, a11e.shape[1], a11.device)
+    for i in range(h // tb):
+        a11e = _band(a11, i, tb, HALO)
+        dp1e = _band(dp1, i, tb // 2, HALO // 2)
+        m1e = _band(m1sq, i, tb, HALO)
+        rm0 = _row_mask(i, tb, HALO, h, a11e.shape[1], a11.device)
         a12e = _conv_bias_relu(a11e, weights[2], weights[3], rm0, cdt)
         dz12 = _pool_bwd(dp1e, a12e, pooling, cdt) * _relu_grad(a12e).to(cdt)
         dz11 = gram_dz_plain(a11e, m1e, s1, conv3x3_acc(dz12, ft12), cdt)
-        outs.append(conv3x3_acc(dz11, ft11)[:, HALO:HALO + TB])
+        outs.append(conv3x3_acc(dz11, ft11)[:, HALO:HALO + tb])
     return torch.cat(outs, dim=1)
 
 
 # --- kernel wrappers ----------------------------------------------------------
 
-def _check_geometry(h: int, w: int, pooling: str) -> None:
-    if h % TB or w % 4:
-        raise ValueError(f"block12: needs H % {TB} == 0 and W % 4 == 0; "
-                         f"got H={h}, W={w}")
+def _walk(h: int, w: int, pooling: str) -> int:
+    """An entry point's band height at an h × w image, `band_rows(h, w)`,
+    after checking the geometry and pooling; recorded in `last_band_rows`
+    and `last_rows_walked`."""
+    global last_band_rows, last_rows_walked
+    if h % BAND_ROWS[-1] or w % 4:
+        raise ValueError(f"block12: needs H % {BAND_ROWS[-1]} == 0 and "
+                         f"W % 4 == 0; got H={h}, W={w}")
     if pooling not in ("max", "avg"):
         raise ValueError(f"block12: unknown pooling {pooling!r}")
+    tb = band_rows(h, w)
+    last_band_rows, last_rows_walked = tb, (tb + 2 * HALO) / tb
+    return tb
 
 
 def _check_weights(weights: tuple, cdt) -> Block12Weights:
@@ -434,11 +488,11 @@ def _pairs(lead: tuple[int, ...]) -> int:
     return lead[0] if lead else 1
 
 
-def _scratch(which: int, k: int, h: int, w: int, cdt,
+def _scratch(which: int, k: int, h: int, w: int, tb: int, cdt,
              device) -> tuple[torch.Tensor, int]:
-    group = group_bands(h, w)
+    group = group_bands(h, w, tb)
     n = kernels.library().dpst_block12_scratch_bytes(
-        which, k, h, w, group, kernels.DTYPE_CODES[cdt])
+        which, k, h, w, group, tb, kernels.DTYPE_CODES[cdt])
     return torch.empty(n, dtype=torch.uint8, device=device), group
 
 
@@ -458,14 +512,14 @@ def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
                          f"got {tuple(x.shape)}")
     h, w = x.shape[-2:]
     k = m1sq.shape[-3]
-    _check_geometry(h, w, pooling)
+    tb = _walk(h, w, pooling)
     kernels.require(x, "x", None, torch.float32)
     kernels.require(m1sq, "m1sq", (*lead, k, h, w), torch.float32)
     kernels.require(m2sq, "m2sq", (*lead, k, h // 2, w // 2), torch.float32)
     wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(x, m1sq, m2sq, *weights):
         return block12_fwd_plain(x, m1sq, m2sq, weights, pooling, cdt,
-                                 save_res)
+                                 save_res, tb)
     dev = x.device
 
     def out(*shape, dtype=cdt):
@@ -476,14 +530,14 @@ def _fwd(x, m1sq, m2sq, weights, pooling, compute_dtype, save_res):
     p2 = out(128, h // 4, w // 4)
     res = ((out(64, h, w), out(128, h // 2, w // 2), out(128, h // 2, w // 2))
            if save_res else (None, None, None))
-    scratch, group = _scratch(0, k, h, w, cdt, dev)
+    scratch, group = _scratch(0, k, h, w, tb, cdt, dev)
     name = "block12_fwd_res" if save_res else "block12_fwd"
     rc = kernels.library().dpst_block12_fwd(
         *map(kernels.ptr, (x, m1sq, m2sq, wts.k11, wts.b11, wts.k12, wts.b12,
                            wts.k21, wts.b21, wts.k22, wts.b22, g1, g2, p2,
                            *res, scratch)),
-        k, h, w, group, _pairs(lead), int(pooling == "avg"), int(save_res),
-        kernels.DTYPE_CODES[cdt], kernels.stream_ptr(x))
+        k, h, w, group, tb, _pairs(lead), int(pooling == "avg"),
+        int(save_res), kernels.DTYPE_CODES[cdt], kernels.stream_ptr(x))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return (g1, g2, p2) + (res if save_res else ())
@@ -580,7 +634,7 @@ def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
     h2, w2 = a21.shape[-2:]
     h, w = 2 * h2, 2 * w2
     k = m2sq.shape[-3]
-    _check_geometry(h, w, pooling)
+    tb = _walk(h, w, pooling)
     kernels.require(a21, "a21", (*lead, 128, h2, w2), cdt)
     kernels.require(a22, "a22", (*lead, 128, h2, w2), cdt)
     kernels.require(dp2, "dp2", (*lead, 128, h // 4, w // 4), cdt)
@@ -589,14 +643,14 @@ def block12_bwd_deep(a21, a22, dp2, m2sq, s2, weights, *,
     wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(a21, a22, dp2, m2sq, s2, *weights):
         return block12_bwd_deep_plain(a21, a22, dp2, m2sq, s2, weights,
-                                      pooling, cdt)
+                                      pooling, cdt, tb)
     dp1 = torch.empty((*lead, 64, h2, w2), dtype=cdt, device=a21.device)
-    scratch, group = _scratch(1, k, h, w, cdt, a21.device)
+    scratch, group = _scratch(1, k, h, w, tb, cdt, a21.device)
     sm = _cotangent(s2)
     rc = kernels.library().dpst_block12_bwd_deep(
         *map(kernels.ptr, (a21, a22, dp2, m2sq, sm, wts.t21, wts.t22, dp1,
                            scratch)),
-        k, h, w, group, _pairs(lead), int(pooling == "avg"),
+        k, h, w, group, tb, _pairs(lead), int(pooling == "avg"),
         kernels.DTYPE_CODES[cdt], kernels.stream_ptr(a21))
     kernels.check(rc, "block12_bwd_deep")
     kernels.LAUNCHES["block12_bwd_deep"] += 1
@@ -614,7 +668,7 @@ def block12_bwd_shallow(a11, dp1, m1sq, s1, weights, *,
     lead = _lead(a11, "a11", 3)
     h, w = a11.shape[-2:]
     k = m1sq.shape[-3]
-    _check_geometry(h, w, pooling)
+    tb = _walk(h, w, pooling)
     kernels.require(a11, "a11", (*lead, 64, h, w), cdt)
     kernels.require(dp1, "dp1", (*lead, 64, h // 2, w // 2), cdt)
     kernels.require(m1sq, "m1sq", (*lead, k, h, w), torch.float32)
@@ -622,15 +676,15 @@ def block12_bwd_shallow(a11, dp1, m1sq, s1, weights, *,
     wts = _check_weights(weights, cdt)
     if not kernels.on_cuda(a11, dp1, m1sq, s1, *weights):
         return block12_bwd_shallow_plain(a11, dp1, m1sq, s1, weights,
-                                         pooling, cdt)
+                                         pooling, cdt, tb)
     dx = torch.empty((*lead, 3, h, w), dtype=torch.float32,
                      device=a11.device)
-    scratch, group = _scratch(2, k, h, w, cdt, a11.device)
+    scratch, group = _scratch(2, k, h, w, tb, cdt, a11.device)
     sm = _cotangent(s1)
     rc = kernels.library().dpst_block12_bwd_shallow(
         *map(kernels.ptr, (a11, dp1, m1sq, sm, wts.t11, wts.t12, wts.k12,
                            wts.b12, dx, scratch)),
-        k, h, w, group, _pairs(lead), int(pooling == "avg"),
+        k, h, w, group, tb, _pairs(lead), int(pooling == "avg"),
         kernels.DTYPE_CODES[cdt], kernels.stream_ptr(a11))
     kernels.check(rc, "block12_bwd_shallow")
     kernels.LAUNCHES["block12_bwd_shallow"] += 1

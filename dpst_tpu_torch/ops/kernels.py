@@ -146,11 +146,11 @@ def library() -> ctypes.CDLL:
         lib.dpst_conv3x3.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.dpst_conv3x3_attrs.argtypes = [i, i, p]
         lib.dpst_block12_conv_attrs.argtypes = [i, p]
-        lib.dpst_block12_scratch_bytes.argtypes = [i] * 6
+        lib.dpst_block12_scratch_bytes.argtypes = [i] * 7
         lib.dpst_block12_scratch_bytes.restype = ctypes.c_size_t
-        lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 8 + [p]
-        lib.dpst_block12_bwd_deep.argtypes = [p] * 9 + [i] * 7 + [p]
-        lib.dpst_block12_bwd_shallow.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.dpst_block12_fwd.argtypes = [p] * 18 + [i] * 9 + [p]
+        lib.dpst_block12_bwd_deep.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.dpst_block12_bwd_shallow.argtypes = [p] * 10 + [i] * 8 + [p]
         lib.dpst_block12_gram_dz.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dpst_block12_df_plan.argtypes = [i] * 6 + [p]
         lib.dpst_block12_df_attrs.argtypes = [i, p]

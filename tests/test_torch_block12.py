@@ -198,7 +198,7 @@ def test_wrappers_validate_and_count_nothing_on_cpu(params):
     before = dict(kernels.LAUNCHES)
     tb.block12_fwd(x, m1, m2, w, compute_dtype="float32")
     assert kernels.LAUNCHES == before
-    with pytest.raises(ValueError):          # H not a multiple of TB
+    with pytest.raises(ValueError):          # H not a multiple of 32
         tb.block12_fwd(torch.zeros((3, 48, 64)), torch.zeros((2, 48, 64)),
                        torch.zeros((2, 24, 32)), w, compute_dtype="float32")
     with pytest.raises(ValueError):          # weights of another dtype

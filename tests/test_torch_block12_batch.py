@@ -9,11 +9,12 @@ a leading pair axis; one launch of each entry point on the card):
     that run from one pair into the next, a scratch of one pair's group
     whatever B is; and the walk itself, with the kernels' index math (the
     band gathers and scatters with their unit's pair, the conv epilogues'
-    row mask with the band taken modulo H / TB, each pair's Gram partials
+    row mask with the band taken modulo H / tb, each pair's Gram partials
     folded into its own sums from its first band, the Gram cotangent stage
     with its pair's cotangent) on the plain versions' per-band arithmetic,
     equal to the batched plain versions bit for bit at a group that spans
-    pairs.
+    pairs; both at bands of 32, 64 and 128 rows, and at the height
+    `band_rows` picks.
 
 Every pair has its own image, masks and cotangents, drawn with numpy from
 a seed, so that a stage reading another pair's operands would show."""
@@ -26,7 +27,9 @@ from dpst_tpu_torch.ops import block12_pallas as tb
 from dpst_tpu_torch.ops import kernels
 from dpst_tpu_torch.ops.conv_cuda import conv3x3_acc, flip_transpose_weights
 
-TB, HALO = tb.TB, tb.HALO
+HALO = tb.HALO
+# The band heights the walk tests take besides `band_rows`' own pick
+HEIGHTS = (32, 64, 128)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -137,16 +140,24 @@ def test_wrappers_validate_a_batch(params):
 
 # --- the unit walk -----------------------------------------------------------
 
+WALK_SHAPES = [(64, 64), (320, 4096), (384, 4096), (4096, 4096),
+               (1024, 2048), (96, 16384)]
+
+
 @pytest.mark.parametrize("b", [1, 2, 3, 8])
-@pytest.mark.parametrize("h,w", [(64, 64), (320, 4096), (384, 4096),
-                                 (4096, 4096), (1024, 2048), (96, 16384)])
-def test_unit_walk_covers_each_band_once(b, h, w):
-    """Every (pair, band) once, pair-major, in groups of group_bands(h, w)
-    units (the last group shorter), the scratch one pair's group whatever
-    b is; where the bands of a pair are not a whole number of groups and
-    b > 1, some group runs from one pair into the next."""
-    groups = tb.unit_groups(b, h, w)
-    nb, group = h // TB, tb.group_bands(h, w)
+@pytest.mark.parametrize("h,w,rows", [
+    (h, w, rows) for h, w in WALK_SHAPES for rows in (None,) + HEIGHTS
+    if rows is None or h % rows == 0])
+def test_unit_walk_covers_each_band_once(b, h, w, rows):
+    """Every (pair, band) once, pair-major, in groups of group_bands(h, w,
+    rows) units (the last group shorter), the scratch one pair's group
+    whatever b is; where the bands of a pair are not a whole number of
+    groups and b > 1, some group runs from one pair into the next. rows
+    None: the height `band_rows(h, w)` picks."""
+    groups = tb.unit_groups(b, h, w, tb=rows)
+    rows = rows or tb.band_rows(h, w)
+    nb, group = h // rows, tb.group_bands(h, w, rows)
+    assert group == max(1, min(nb, tb.GROUP_PIXELS // (rows * w)))
     assert [u for g in groups for u in g] == [(i, j) for i in range(b)
                                               for j in range(nb)]
     assert all(len(g) == group for g in groups[:-1])
@@ -157,9 +168,11 @@ def test_unit_walk_covers_each_band_once(b, h, w):
 
 
 def test_real_sizes_have_a_group_that_spans_pairs():
-    """The shapes the card's checks use: 320 × 4096 (10 bands a pair,
-    groups of 8) spans pairs at B = 2 and 3; config6's 4096² does not (128
-    bands, groups of 8)."""
+    """The shapes the card's checks use: 320 × 4096 (5 bands of 64 rows a
+    pair, groups of 4) spans pairs at B = 2 and 3; config6's 4096² does not
+    (16 bands of 256 rows, groups of 1)."""
+    assert (tb.band_rows(320, 4096), tb.group_bands(320, 4096)) == (64, 4)
+    assert (tb.band_rows(4096, 4096), tb.group_bands(4096, 4096)) == (256, 1)
     for b in (2, 3):
         assert any(g[0][0] != g[-1][0] for g in tb.unit_groups(b, 320, 4096))
     assert not any(g[0][0] != g[-1][0]
@@ -221,14 +234,15 @@ def _reduce_units(slots, out, u0, n, nb):
         u = end
 
 
-def _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group):
+def _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group, rows):
     """The forward, deep and shallow backward as csrc/block12.cu walks a
-    batch: groups of `group` units, each stage with the kernels' index
-    math; each band's arithmetic the plain version's. Returns (g1, g2, p2,
-    a11, a21, a22, dp1, dx)."""
+    batch: bands of `rows` own rows, groups of `group` units, each stage
+    with the kernels' index math; each band's arithmetic the plain version's.
+    Returns (g1, g2, p2, a11, a21, a22, dp1, dx)."""
     b, _, h, w = x.shape
-    k, nb = m1.shape[1], h // TB
-    r0, r1, r2 = TB + 2 * HALO, (TB + 2 * HALO) // 2, (TB + 2 * HALO) // 4
+    k, nb = m1.shape[1], h // rows
+    r0 = rows + 2 * HALO
+    r1, r2 = r0 // 2, r0 // 4
     w11, b11, w12, b12, w21, b21, w22, b22 = wts[:8]
     # the Gram sums start unwritten, as the wrapper's torch.empty
     g1 = torch.full((b, k, 64, 64), float("nan"))
@@ -242,12 +256,12 @@ def _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group):
     units = b * nb
     for u0 in range(0, units, group):
         n = min(group, units - u0)
-        xe = _gather(x, u0, n, r0, TB, HALO, nb).to(cdt)
+        xe = _gather(x, u0, n, r0, rows, HALO, nb).to(cdt)
         st = {name: [] for name in ("a11", "a21", "a22", "p2", "s1", "s2")}
         for i in range(n):
             rows0 = range(i * r0, (i + 1) * r0)
-            rm0 = _band_rows(r0, TB, HALO, h, u0 % nb, nb, rows0)
-            rm1 = _band_rows(r1, TB // 2, HALO // 2, h // 2, u0 % nb, nb,
+            rm0 = _band_rows(r0, rows, HALO, h, u0 % nb, nb, rows0)
+            rm1 = _band_rows(r1, rows // 2, HALO // 2, h // 2, u0 % nb, nb,
                              range(i * r1, (i + 1) * r1))
             e11 = tb._conv_bias_relu(xe[:, i * r0:(i + 1) * r0], w11, b11,
                                      rm0, cdt)
@@ -259,29 +273,29 @@ def _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group):
                             ("p2", tb._pool(e22, pooling))):
                 st[name].append(t)
         stack = {name: torch.cat(t, dim=1) for name, t in st.items() if t}
-        _scatter(stack["p2"], p2, u0, n, r2, TB // 4, HALO // 4, nb)
-        _scatter(stack["a11"], a11, u0, n, r0, TB, HALO, nb)
-        _scatter(stack["a21"], a21, u0, n, r1, TB // 2, HALO // 2, nb)
-        _scatter(stack["a22"], a22, u0, n, r1, TB // 2, HALO // 2, nb)
+        _scatter(stack["p2"], p2, u0, n, r2, rows // 4, HALO // 4, nb)
+        _scatter(stack["a11"], a11, u0, n, r0, rows, HALO, nb)
+        _scatter(stack["a21"], a21, u0, n, r1, rows // 2, HALO // 2, nb)
+        _scatter(stack["a22"], a22, u0, n, r1, rows // 2, HALO // 2, nb)
         # the mask kernel: each band's own rows of its pair's m²
-        own1 = _gather(m1, u0, n, TB, TB, 0, nb)
-        own2 = _gather(m2, u0, n, TB // 2, TB // 2, 0, nb)
+        own1 = _gather(m1, u0, n, rows, rows, 0, nb)
+        own2 = _gather(m2, u0, n, rows // 2, rows // 2, 0, nb)
         slots1 = [tb._partial_gram(
-            stack["a11"][:, i * r0 + HALO:i * r0 + HALO + TB],
-            own1[:, i * TB:(i + 1) * TB], cdt) for i in range(n)]
+            stack["a11"][:, i * r0 + HALO:i * r0 + HALO + rows],
+            own1[:, i * rows:(i + 1) * rows], cdt) for i in range(n)]
         slots2 = [tb._partial_gram(
-            stack["a21"][:, i * r1 + HALO // 2:i * r1 + HALO // 2 + TB // 2],
-            own2[:, i * TB // 2:(i + 1) * TB // 2], cdt) for i in range(n)]
+            stack["a21"][:, i * r1 + HALO // 2:i * r1 + HALO // 2 + rows // 2],
+            own2[:, i * rows // 2:(i + 1) * rows // 2], cdt) for i in range(n)]
         _reduce_units(slots1, g1, u0, n, nb)
         _reduce_units(slots2, g2, u0, n, nb)
     ft21, ft22 = flip_transpose_weights(w21), flip_transpose_weights(w22)
     ft11, ft12 = flip_transpose_weights(w11), flip_transpose_weights(w12)
     for u0 in range(0, units, group):                  # the deep backward
         n = min(group, units - u0)
-        sa21 = _gather(a21, u0, n, r1, TB // 2, HALO // 2, nb)
-        sa22 = _gather(a22, u0, n, r1, TB // 2, HALO // 2, nb)
-        sdp2 = _gather(dp2, u0, n, r2, TB // 4, HALO // 4, nb)
-        sm2 = _gather(m2, u0, n, r1, TB // 2, HALO // 2, nb)
+        sa21 = _gather(a21, u0, n, r1, rows // 2, HALO // 2, nb)
+        sa22 = _gather(a22, u0, n, r1, rows // 2, HALO // 2, nb)
+        sdp2 = _gather(dp2, u0, n, r2, rows // 4, HALO // 4, nb)
+        sm2 = _gather(m2, u0, n, r1, rows // 2, HALO // 2, nb)
         outs = []
         for i in range(n):
             band = slice(i * r1, (i + 1) * r1)
@@ -292,17 +306,17 @@ def _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group):
                                     s2[_Unit(u0 + i, nb).pair],
                                     conv3x3_acc(dz22, ft22), cdt)
             outs.append(conv3x3_acc(dz21, ft21).to(cdt))
-        _scatter(torch.cat(outs, dim=1), dp1, u0, n, r1, TB // 2, HALO // 2,
+        _scatter(torch.cat(outs, dim=1), dp1, u0, n, r1, rows // 2, HALO // 2,
                  nb)
     for u0 in range(0, units, group):                  # the shallow one
         n = min(group, units - u0)
-        sa11 = _gather(a11, u0, n, r0, TB, HALO, nb)
-        sdp1 = _gather(dp1, u0, n, r1, TB // 2, HALO // 2, nb)
-        sm1 = _gather(m1, u0, n, r0, TB, HALO, nb)
+        sa11 = _gather(a11, u0, n, r0, rows, HALO, nb)
+        sdp1 = _gather(dp1, u0, n, r1, rows // 2, HALO // 2, nb)
+        sm1 = _gather(m1, u0, n, r0, rows, HALO, nb)
         outs = []
         for i in range(n):
             band = slice(i * r0, (i + 1) * r0)
-            rm0 = _band_rows(r0, TB, HALO, h, u0 % nb, nb,
+            rm0 = _band_rows(r0, rows, HALO, h, u0 % nb, nb,
                              range(i * r0, (i + 1) * r0))
             e12 = tb._conv_bias_relu(sa11[:, band], w12, b12, rm0, cdt)
             dz12 = (tb._pool_bwd(sdp1[:, i * r1:(i + 1) * r1], e12, pooling,
@@ -311,31 +325,35 @@ def _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group):
                                     s1[_Unit(u0 + i, nb).pair],
                                     conv3x3_acc(dz12, ft12), cdt)
             outs.append(conv3x3_acc(dz11, ft11))
-        _scatter(torch.cat(outs, dim=1), dx, u0, n, r0, TB, HALO, nb)
+        _scatter(torch.cat(outs, dim=1), dx, u0, n, r0, rows, HALO, nb)
     return g1, g2, p2, a11, a21, a22, dp1, dx
 
 
+@pytest.mark.parametrize("rows", HEIGHTS)
 @pytest.mark.parametrize("dtype,pooling", [("bfloat16", "max"),
                                            ("float32", "avg")])
 def test_walk_with_groups_across_pairs_is_the_plain_batch(params, dtype,
-                                                          pooling):
-    """Three pairs of 96 × 64 (3 bands each) walked two units a group, so
-    that a group runs from pair 0's last band into pair 1's first and the
-    next starts mid-pair: the walk's outputs equal the batched plain
-    versions' bit for bit."""
-    b, h, w, k, group = 3, 96, 64, 2, 2
-    assert [[u[0] for u in g] for g in tb.unit_groups(b, h, w, group)] == [
+                                                          pooling, rows):
+    """Three pairs of 3·rows × 64 (3 bands of `rows` each, the height
+    `band_rows` picks there) walked two units a group, so that a group runs
+    from pair 0's last band into pair 1's first and the next starts
+    mid-pair: the walk's outputs equal the batched plain versions' bit for
+    bit."""
+    b, h, w, k, group = 3, 3 * rows, 64, 2, 2
+    assert tb.band_rows(h, w) == rows
+    assert [[u[0] for u in g]
+            for g in tb.unit_groups(b, h, w, group, rows)] == [
         [0, 0], [0, 1], [1, 1], [2, 2], [2]]
     x, m1, m2, dg1, dg2, dp2 = _batch(b, h, w, k, dtype, seed=31)
     wts = tb.pack_weights(params, dtype)
     cdt = getattr(torch, dtype)
     s1, s2 = tb.symmetrize(dg1, dtype), tb.symmetrize(dg2, dtype)
-    got = _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group)
-    fwd = tb.block12_fwd_plain(x, m1, m2, wts, pooling, dtype)
+    got = _walk(x, m1, m2, s1, s2, dp2, wts, pooling, cdt, group, rows)
+    fwd = tb.block12_fwd_plain(x, m1, m2, wts, pooling, dtype, tb=rows)
     dp1 = tb.block12_bwd_deep_plain(fwd[4], fwd[5], dp2, m2, s2, wts,
-                                    pooling, dtype)
+                                    pooling, dtype, tb=rows)
     dx = tb.block12_bwd_shallow_plain(fwd[3], dp1, m1, s1, wts, pooling,
-                                      dtype)
+                                      dtype, tb=rows)
     names = ("g1", "g2", "p2", "a11", "a21", "a22", "dp1", "dx")
     for name, g, want in zip(names, got, fwd + (dp1, dx)):
         assert torch.equal(g, want), name

@@ -23,9 +23,15 @@ from dpst_tpu_torch.ops import kernels
 from dpst_tpu_torch.ops.conv_cuda import conv3x3_acc, flip_transpose_weights
 from dpst_tpu_torch.ops.gram_stream import s_matrix
 
-# (stage, C, rows a band, width divisor) of the two backwards' stages
-STAGES = {"shallow": (64, tb.TB + 2 * tb.HALO, 1),
-          "deep": (128, (tb.TB + 2 * tb.HALO) // 2, 2)}
+# The band heights the walk tests take
+HEIGHTS = (32, 64, 128)
+
+
+def _stage(which, rows):
+    """(C, rows a band, width divisor) of a backward's stage on bands of
+    `rows` own rows."""
+    r0 = rows + 2 * tb.HALO
+    return (64, r0, 1) if which == "shallow" else (128, r0 // 2, 2)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -110,18 +116,18 @@ def _shallow_inputs(h, w, k, dtype, seed):
     return a11.clamp_min(0).to(cdt), dp1.to(cdt), m1, s1
 
 
-def _deep_before(a21, a22, dp2, m2sq, s2, weights, pooling, cdt):
+def _deep_before(a21, a22, dp2, m2sq, s2, weights, pooling, cdt, rows):
     """`block12_bwd_deep_plain` as it read before the Gram cotangent stage
-    was factored out."""
+    was factored out, in bands of `rows` rows."""
     ft21 = flip_transpose_weights(weights[4])
     ft22 = flip_transpose_weights(weights[6])
     h2 = a21.shape[1]
-    tb2, h1 = tb.TB // 2, tb.HALO // 2
+    tb2, h1 = rows // 2, tb.HALO // 2
     outs = []
-    for i in range(2 * h2 // tb.TB):
+    for i in range(2 * h2 // rows):
         a21e = tb._band(a21, i, tb2, h1)
         a22e = tb._band(a22, i, tb2, h1)
-        dp2e = tb._band(dp2, i, tb.TB // 4, tb.HALO // 4)
+        dp2e = tb._band(dp2, i, rows // 4, tb.HALO // 4)
         m2e = tb._band(m2sq, i, tb2, h1)
         dz22 = (tb._pool_bwd(dp2e, a22e, pooling, cdt)
                 * tb._relu_grad(a22e).to(cdt))
@@ -131,84 +137,94 @@ def _deep_before(a21, a22, dp2, m2sq, s2, weights, pooling, cdt):
     return torch.cat(outs, dim=1)
 
 
-def _shallow_before(a11, dp1, m1sq, s1, weights, pooling, cdt):
+def _shallow_before(a11, dp1, m1sq, s1, weights, pooling, cdt, rows):
     """`block12_bwd_shallow_plain` as it read before the stage was
-    factored out."""
+    factored out, in bands of `rows` rows."""
     ft11 = flip_transpose_weights(weights[0])
     ft12 = flip_transpose_weights(weights[2])
     h = a11.shape[1]
     outs = []
-    for i in range(h // tb.TB):
-        a11e = tb._band(a11, i, tb.TB, tb.HALO)
-        dp1e = tb._band(dp1, i, tb.TB // 2, tb.HALO // 2)
-        m1e = tb._band(m1sq, i, tb.TB, tb.HALO)
-        rm0 = tb._row_mask(i, tb.TB, tb.HALO, h, a11e.shape[1], a11.device)
+    for i in range(h // rows):
+        a11e = tb._band(a11, i, rows, tb.HALO)
+        dp1e = tb._band(dp1, i, rows // 2, tb.HALO // 2)
+        m1e = tb._band(m1sq, i, rows, tb.HALO)
+        rm0 = tb._row_mask(i, rows, tb.HALO, h, a11e.shape[1], a11.device)
         a12e = tb._conv_bias_relu(a11e, weights[2], weights[3], rm0, cdt)
         dz12 = (tb._pool_bwd(dp1e, a12e, pooling, cdt)
                 * tb._relu_grad(a12e).to(cdt))
         da11 = conv3x3_acc(dz12, ft12) + tb._gram_df(a11e, m1e, s1, cdt)
         dz11 = (da11 * tb._relu_grad(a11e)).to(cdt)
-        outs.append(conv3x3_acc(dz11, ft11)[:, tb.HALO:tb.HALO + tb.TB])
+        outs.append(conv3x3_acc(dz11, ft11)[:, tb.HALO:tb.HALO + rows])
     return torch.cat(outs, dim=1)
 
 
-def _run(which, h, w, k, dtype, pooling, seed):
-    """The plain backward `which` on seeded inputs, and its inputs."""
+def _run(which, h, w, k, dtype, pooling, seed, rows):
+    """The plain backward `which` in bands of `rows` rows on seeded
+    inputs, and its inputs."""
     weights = tb.pack_weights(_params(seed), dtype)
     if which == "deep":
         args = _deep_inputs(h, w, k, dtype, seed)
-        return tb.block12_bwd_deep_plain(*args, weights, pooling, dtype), \
-            args, weights
+        return tb.block12_bwd_deep_plain(*args, weights, pooling, dtype,
+                                         tb=rows), args, weights
     args = _shallow_inputs(h, w, k, dtype, seed)
-    return tb.block12_bwd_shallow_plain(*args, weights, pooling, dtype), \
-        args, weights
+    return tb.block12_bwd_shallow_plain(*args, weights, pooling, dtype,
+                                        tb=rows), args, weights
 
 
+@pytest.mark.parametrize("rows", HEIGHTS)
 @pytest.mark.parametrize("which", ["deep", "shallow"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("pooling", ["max", "avg"])
-def test_plain_stage_equals_the_backwards_before(which, dtype, pooling):
+def test_plain_stage_equals_the_backwards_before(which, dtype, pooling,
+                                                 rows):
     """The plain backwards that call `gram_dz_plain` give what they gave
-    when they computed round((t + g) · (a > 0)) inline."""
-    got, args, weights = _run(which, 32, 64, 3, dtype, pooling, seed=11)
+    when they computed round((t + g) · (a > 0)) inline, in bands of `rows`
+    rows: one band at rows = 32, two at 64, three at 128."""
+    h = {32: 32, 64: 128, 128: 384}[rows]
+    got, args, weights = _run(which, h, 64, 3, dtype, pooling, seed=11,
+                              rows=rows)
     before = _deep_before if which == "deep" else _shallow_before
-    ref = before(*args, weights, pooling, getattr(torch, dtype))
+    ref = before(*args, weights, pooling, getattr(torch, dtype), rows)
     assert got.dtype == ref.dtype and torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("which", ["deep", "shallow"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("pooling", ["max", "avg"])
-@pytest.mark.parametrize("h,w", [(64, 256), (32, 260)])
+@pytest.mark.parametrize("h,w,rows", [
+    (2 * rows, 256, rows) for rows in HEIGHTS] + [
+    (rows, 260, rows) for rows in HEIGHTS])
 def test_rows_outside_dz_rows_reach_no_own_row(monkeypatch, which, dtype,
-                                               pooling, h, w):
-    """The bf16 kernels compute the Gram cotangent only on DZ_ROWS of each
-    band: with dz NaN on every other row, the own rows of dp1 (deep) and
-    dx (shallow) stay bit-identical and finite."""
-    ref, _, _ = _run(which, h, w, 2, dtype, pooling, seed=h + w)
-    lo, hi = tb.DZ_ROWS[which]
+                                               pooling, h, w, rows):
+    """The bf16 kernels compute the Gram cotangent only on `dz_rows` of
+    each band: with dz NaN on every other row, the own rows of dp1 (deep)
+    and dx (shallow) stay bit-identical and finite, in bands of `rows`
+    rows (two bands at W = 256, one at W = 260)."""
+    ref, _, _ = _run(which, h, w, 2, dtype, pooling, seed=h + w, rows=rows)
+    lo, hi = tb.dz_rows(which, rows)
     plain, calls = tb.gram_dz_plain, []
 
     def poisoned(f, msq, s, t, cdt):
         dz = plain(f, msq, s, t, cdt).clone()
-        assert dz.shape[1] == STAGES[which][1]
+        assert dz.shape[1] == _stage(which, rows)[1]
         dz[:, :lo] = float("nan")
         dz[:, hi:] = float("nan")
         calls.append(1)
         return dz
 
     monkeypatch.setattr(tb, "gram_dz_plain", poisoned)
-    got, _, _ = _run(which, h, w, 2, dtype, pooling, seed=h + w)
-    assert len(calls) == h // tb.TB
+    got, _, _ = _run(which, h, w, 2, dtype, pooling, seed=h + w, rows=rows)
+    assert len(calls) == h // rows
     assert torch.isfinite(got.float()).all()
     assert torch.equal(got, ref)
 
 
 # --- the stage's plan and the scratch
 
-def _groups(h, w):
-    """Band counts of the groups the entry points walk at an h × w image."""
-    nb, bands = tb.group_bands(h, w), h // tb.TB
+def _groups(h, w, rows):
+    """Band counts of the groups the entry points walk at an h × w image
+    in bands of `rows` rows."""
+    nb, bands = tb.group_bands(h, w, rows), h // rows
     return sorted({nb} | ({bands % nb} if bands % nb else set()))
 
 
@@ -216,13 +232,18 @@ GEOMS = sorted({(h, w) for h, w, *_ in chip_smoke.B12_CASES}
                | {(chip_smoke.B12_SIZE, chip_smoke.B12_SIZE)})
 
 
-@pytest.mark.parametrize("h,w", GEOMS)
+@pytest.mark.parametrize("h,w,rows", [
+    (h, w, rows) for h, w in GEOMS for rows in (None,) + HEIGHTS
+    if rows is None or h % rows == 0])
 @pytest.mark.parametrize("which", ["shallow", "deep"])
-def test_stage_plan_covers_the_needed_pixels_once(h, w, which):
-    c, r, div = STAGES[which]
+def test_stage_plan_covers_the_needed_pixels_once(h, w, which, rows):
+    """The stage's plan at every group shape of the walk, in bands of
+    `rows` rows (None: the height `band_rows` picks)."""
+    rows = rows or tb.band_rows(h, w)
+    c, r, div = _stage(which, rows)
     wl = w // div
-    lo, hi = tb.DZ_ROWS[which]
-    for nb in _groups(h, w):
+    lo, hi = tb.dz_rows(which, rows)
+    for nb in _groups(h, w, rows):
         tile, groups, splits, pb, pe, tpb, ptiles = tb.gram_dz_plan(
             c, nb, r, wl, (lo, hi))
         assert splits == 1                # the epilogue sees the whole sum
@@ -244,12 +265,12 @@ def test_stage_plan_covers_the_needed_pixels_once(h, w, which):
         assert hits.sum() == nb * (pe - pb)
 
 
-def _scratch_before(which, k, h, w, group, dtype):
+def _scratch_before(which, k, h, w, group, dtype, rows):
     """The backwards' scratch before this layout: the gathered masks in
     fp32 whatever the compute dtype."""
     isz = getattr(torch, dtype).itemsize
-    nb = min(group, h // tb.TB)
-    r0 = tb.TB + 2 * tb.HALO
+    nb = min(group, h // rows)
+    r0 = rows + 2 * tb.HALO
     p0, p1 = nb * r0 * w, nb * (r0 // 2) * (w // 2)
     p2 = nb * (r0 // 4) * (w // 4)
     if which == 1:
@@ -266,10 +287,11 @@ def _scratch_before(which, k, h, w, group, dtype):
     | {(chip_smoke.B12_SIZE, chip_smoke.B12_SIZE, chip_smoke.K,
         "bfloat16")}))
 def test_scratch_does_not_grow(h, w, k, dtype):
+    rows = tb.band_rows(h, w)
     group = tb.group_bands(h, w)
     for which in (1, 2):
         new = tb.scratch_bytes(which, k, h, w, group, dtype)
-        old = _scratch_before(which, k, h, w, group, dtype)
+        old = _scratch_before(which, k, h, w, group, dtype, rows)
         assert new < old if dtype == "bfloat16" else new == old
     assert tb.scratch_bytes(0, k, h, w, group, dtype) > 0
 

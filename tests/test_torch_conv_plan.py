@@ -172,14 +172,15 @@ def test_band_split_gram_matches_block12_plain_exactly(h, w, k):
     m1 = torch.from_numpy(rng.choice(quarter, (k, h, w)))
     m2 = torch.from_numpy(rng.choice(quarter, (k, h // 2, w // 2)))
     wts = tb.pack_weights(_sparse_params(h), "bfloat16")
+    rows = 32                                   # bands of 32 rows
     g1, g2, _, a11, a21, _ = tb.block12_fwd_plain(x, m1, m2, wts, "max",
-                                                  "bfloat16", True)
+                                                  "bfloat16", True, rows)
     assert float(a11.float().abs().max()) <= 256
     assert float(a21.float().abs().max()) <= 256
-    for g, f, m, tbl in ((g1, a11, m1, tb.TB), (g2, a21, m2, tb.TB // 2)):
+    for g, f, m, tbl in ((g1, a11, m1, rows), (g2, a21, m2, rows // 2)):
         c = f.shape[0]
         want = torch.zeros((k, c, c))
-        for band in range(h // tb.TB):
+        for band in range(h // rows):
             own = slice(band * tbl, (band + 1) * tbl)
             want = want + tgs.gram_fwd_plain(
                 f[:, own].reshape(c, -1),
