@@ -1,7 +1,14 @@
 """How `correct` is decided: what the timed path produced in the window's
-first request, up to its first stamp, against the plain reference
-(`reference/objective.py`) run afterwards to the same step on the same
-weights and pairs.
+first request, up to its first stamp, against the plain reference run
+afterwards to the same step on the same weights and pairs.
+
+The reference is the module under `reference/` that the configuration
+file names (`"reference"`; `objective`, the deep-photo objective under
+Adam, where it names none). Its `reference_run(config, params, pairs,
+steps, prec, rows, halo, device)` returns the history rows (B, steps, 5)
+and the images (B, H, W, 3), both float64; it computes with TF32 off, at
+the precision `prec`, and imports nothing of `dpst_tpu_torch`, `dpst_tpu`
+or JAX (`reference/__init__.py` sets out the contract).
 
 The request's history rows up to its first stamp are the loss terms at the
 content image and at the images its first Adam steps made: they take in
@@ -24,6 +31,7 @@ Each number has the limit that `checks/<cell>.json` gives it.
 """
 from __future__ import annotations
 
+import importlib
 import math
 
 import numpy as np
@@ -35,15 +43,16 @@ NUMBERS = (*TERMS, "change_gap")
 
 def reference(config: dict, params: dict, pairs, steps: int, checks: dict,
               precision: str, device) -> tuple[np.ndarray, np.ndarray]:
-    """(rows (B, steps, 5), images (B, H, W, 3)) of the reference at
-    `precision` ("float32", or "fp8" for the control) on the pairs of a
-    request, `steps` Adam steps from each content image, walked in the
-    blocks of rows that `checks` sets."""
-    from port_bench.reference import objective, precision as prec_mod
+    """(rows (B, steps, 5), images (B, H, W, 3)) of the configuration's
+    reference at `precision` ("float32", or "fp8" for the control) on the
+    pairs of a request, `steps` steps from each content image, walked in
+    the blocks of rows that `checks` sets."""
+    from port_bench.reference import precision as prec_mod
     prec = {"float32": prec_mod.PLAIN, "fp8": prec_mod.FP8}[precision]
-    return objective.reference_run(config, params, pairs, steps, prec,
-                                   checks["block_rows"], checks["halo"],
-                                   device)
+    module = importlib.import_module(
+        f"port_bench.reference.{config.get('reference', 'objective')}")
+    return module.reference_run(config, params, pairs, steps, prec,
+                                checks["block_rows"], checks["halo"], device)
 
 
 def gaps(got, ref, contents: np.ndarray) -> dict:

@@ -10,7 +10,9 @@ between its callbacks), so that the image at each stamp is seen.
 
 The request's precompute (its inputs to the card, the weights packed as
 `stylize_batch` packs them, the batched constants) is synchronized and
-timed; its steps are stamped by a sync every `stamp_every` steps.
+timed; its steps are stamped by a sync every `stamp_every` steps. It
+takes the traffic's masks: a traffic that leaves them to the program
+(`"masks": "program"`) is refused.
 """
 from __future__ import annotations
 
@@ -31,6 +33,10 @@ def run_request(ctx, pairs, request: Request) -> None:
     from dpst_tpu_torch.parallel import batch as pb
 
     cfg, dev = ctx.cfg, ctx.device
+    if any(p.content_masks is None for p in pairs):
+        raise ValueError(
+            f"traffic {ctx.traffic!r}: the batch entry takes the traffic's "
+            "masks, and this traffic leaves them to the program")
     request.begin()
     with torch.profiler.record_function("port_bench.precompute"):
         arrays = [torch.from_numpy(np.stack([p[i] for p in pairs])).to(dev)

@@ -84,6 +84,7 @@ class Context:
     cfg: object
     params: dict
     device: torch.device
+    traffic: str          # the traffic mix's name, for the entries' errors
 
 
 def _sync(device):
@@ -184,7 +185,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool,
     b = traffic["pairs_per_request"]
     every = traffic["stamp_every"]
     params, pool, input_s = draw(cell, seed, dev)
-    ctx = Context(cfg, params, dev)
+    ctx = Context(cfg, params, dev, cell["traffic"])
 
     slices = len(pool) // b
     warm = Request(every, every, sync)

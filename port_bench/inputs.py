@@ -8,7 +8,9 @@ calls. The image generators are frozen copies of `chip_smoke.py`'s
 as float32 numpy arrays in [0, 255], as a caller of the program holds
 them. The band masks follow `chip_smoke.py`'s `band_masks`: K bands that
 cover the image, so every class is non-empty; each pair draws its axes and
-cyclic offsets from the seed.
+cyclic offsets from the seed. A traffic file with `"masks": "program"`
+(`"bands"` where it names none) makes the same draws and hands over no
+masks, so that the program makes its own from the same photos.
 """
 from __future__ import annotations
 
@@ -87,19 +89,28 @@ def band_masks(k: int, size: int, axis: int, shift: int) -> np.ndarray:
 
 
 class Pair(NamedTuple):
-    content: np.ndarray        # (H, W, 3) float32 [0, 255]
-    style: np.ndarray          # (H, W, 3) float32 [0, 255]
-    content_masks: np.ndarray  # (K, H, W) float32
-    style_masks: np.ndarray    # (K, H, W) float32
+    content: np.ndarray               # (H, W, 3) float32 [0, 255]
+    style: np.ndarray                 # (H, W, 3) float32 [0, 255]
+    content_masks: np.ndarray | None  # (K, H, W) float32; None: the
+    style_masks: np.ndarray | None    # program's own masks
+
+
+MASKS = ("bands", "program")
 
 
 def make_pairs(traffic: dict, gen: torch.Generator, device) -> list[Pair]:
     """The pool of distinct pairs a run's requests take, in order: a
     smooth content image, a textured (or smooth) style image, and K band
     masks for each, the content's bands across one axis and the style's
-    across the other, each at an offset drawn from the seed."""
+    across the other, each at an offset drawn from the seed. Under
+    `"masks": "program"` the offsets are drawn all the same and both
+    masks are None."""
     size, k = traffic["size"], traffic["classes"]
     n = traffic["pairs_per_request"] * traffic["pool_requests"]
+    masks = traffic.get("masks", "bands")
+    if masks not in MASKS:
+        raise ValueError(f"masks {masks!r}: a traffic's masks are one of "
+                         f"{MASKS}")
     style_fn = (textured_image if traffic["style"] == "textured"
                 else smooth_image)
     pairs = []
@@ -109,6 +120,9 @@ def make_pairs(traffic: dict, gen: torch.Generator, device) -> list[Pair]:
         axis, c_shift, s_shift = (int(v) for v in torch.randint(
             0, size, (3,), generator=gen, device=device).cpu())
         axis %= 2
+        if masks == "program":
+            pairs.append(Pair(content, style, None, None))
+            continue
         pairs.append(Pair(content, style,
                           band_masks(k, size, axis, c_shift),
                           band_masks(k, size, 1 - axis, s_shift)))

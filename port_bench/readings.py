@@ -41,7 +41,7 @@ def main(argv=None) -> int:
     steps = cell["traffic_file"]["stamp_every"]
     for seed in args.seeds:
         params, pool, _ = harness.draw(cell, seed, dev)
-        ctx = harness.Context(cfg, params, dev)
+        ctx = harness.Context(cfg, params, dev, cell["traffic"])
         got = {}
         for name in ["program", *args.fault]:
             with (faults.FAULTS[name]() if name != "program"

@@ -233,6 +233,10 @@ def reference_run(config: dict, params: dict, pairs, steps: int,
     """(history rows (B, steps, 5), images after `steps` steps (B, H, W,
     3)) of each pair ((content, style, content masks, style masks) numpy
     arrays) under `config`, computed on `device` with TF32 off."""
+    if any(pr[2] is None for pr in pairs):
+        raise ValueError("the objective reference takes the traffic's masks; "
+                         "a traffic that leaves them to the program needs a "
+                         "reference module that makes its own")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     obj = Objective.from_config(config)

@@ -6,14 +6,15 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import run_small, small_cell
+from conftest import ROOT, run_small, small_cell
 from port_bench import check, faults, harness, inputs
 
-CELL_FAULTS = [("config3.batch8_512", "unchanged"),
-               ("config3.batch8_512", "half_batch"),
-               ("config3.batch8_512", "altered"),
-               ("config6.single_4096", "unchanged"),
-               ("config6.single_4096", "altered")]
+SPEC = harness.load_spec(ROOT)
+CELLS = [w["name"] for w in SPEC["workloads"]]
+# half of the batch left out is a fault only a cell of several pairs can have
+CELL_FAULTS = [(cell, fault) for cell in CELLS for fault in faults.FAULTS
+               if fault != "half_batch" or harness.load_cell(SPEC, cell)[
+                   "traffic_file"]["pairs_per_request"] > 1]
 
 
 @pytest.mark.parametrize("cell,fault", CELL_FAULTS)
@@ -23,8 +24,7 @@ def test_a_broken_step_is_not_correct(cell, fault):
     assert result["correct"] is False and result["failed"] == 1
 
 
-@pytest.mark.parametrize("cell", ["config3.batch8_512",
-                                  "config6.single_4096"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_control_is_not_correct(cell):
     c = small_cell(cell)
     traffic = c["traffic_file"]

@@ -1,8 +1,9 @@
 """What the harness finds by name, what it loads, and when it refuses:
 a cell, a configuration, a traffic mix and a per-layer metric added as
-files and entries alone; no module of JAX or the JAX package after a run;
-a reference that imports nothing of the program; no result without a card
-or without the program."""
+files and entries alone, and so a configuration's own reference module
+and a traffic that leaves the masks to the program; no module of JAX or
+the JAX package after a run; references that import nothing of the
+program; no result without a card or without the program."""
 import ast
 import json
 import os
@@ -92,6 +93,93 @@ def test_new_cell_config_traffic_and_metric_are_found(tmp_path):
     assert "block12_roofline_pct" not in out["layer"]
 
 
+# A reference module of a configuration of its own: the objective over one
+# uniform class, which is what the program makes where it gets no masks
+# and does not segment; it refuses pairs that carry masks.
+UNIFORM_REFERENCE = """
+import numpy as np
+
+from port_bench.inputs import Pair
+from port_bench.reference import objective
+
+
+def reference_run(config, params, pairs, steps, prec, rows, halo, device):
+    assert all(p.content_masks is None and p.style_masks is None
+               for p in pairs), "the traffic handed over masks"
+    one = [Pair(p.content, p.style,
+                np.ones((1, *p.content.shape[:2]), np.float32),
+                np.ones((1, *p.style.shape[:2]), np.float32))
+           for p in pairs]
+    return objective.reference_run(config, params, one, steps, prec, rows,
+                                   halo, device)
+"""
+
+
+def test_new_reference_module_and_program_masks_are_found(tmp_path):
+    """A configuration that names a reference module of its own and a
+    traffic with `"masks": "program"`, added as files and entries alone:
+    the program gets no masks, makes its own, and is held to that module,
+    which is what the check and the readings reach."""
+    root = copy_bench(tmp_path)
+    existing = {p.relative_to(root): p.read_bytes()
+                for p in (root / "port_bench").rglob("*") if p.is_file()}
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    config = json.loads((BENCH / "configs" / "config6.json").read_text())
+    config.update(name="uniform", reference="uniform_ref")
+    config["stylize"].update(iterations=4, compute_dtype="float32",
+                             use_segmentation=False)
+    (root / "port_bench/configs/uniform.json").write_text(json.dumps(config))
+    (root / "port_bench/reference/uniform_ref.py").write_text(
+        UNIFORM_REFERENCE)
+    traffic = json.loads((BENCH / "traffic/single_4096.json").read_text())
+    traffic.update(size=32, masks="program", stamp_every=2, trace_from=2,
+                   trace_steps=2)
+    (root / "port_bench/traffic/own_masks.json").write_text(
+        json.dumps(traffic))
+    (root / "port_bench/checks/uniform.own_masks.json").write_text(
+        json.dumps({"block_rows": 32, "halo": 0,
+                    "limits": {"total_gap": 1e-4, "style_gap": 1e-4,
+                               "change_gap": 1e-2}}))
+    spec["configs"].append({"name": "uniform", "source": "https://example.org",
+                            "file": "port_bench/configs/uniform.json",
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": "uniform.own_masks",
+                              "config": "uniform", "traffic": "own_masks",
+                              "chips": 1, "why": "a test"})
+    for m in spec["end_to_end"]:
+        if m["name"] == "gpu_s_per_image":
+            m["workloads"].append("uniform.own_masks")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    proc = run_python("""
+        import json, time
+        from pathlib import Path
+        import torch
+        from port_bench import check, harness, inputs
+        spec = harness.load_spec(Path("."))
+        cell = harness.load_cell(spec, "uniform.own_masks")
+        res = harness.run(cell, 2 ** 31 + 5, 2.0, False, time.perf_counter(),
+                          "cpu", spec)
+        params, pool, _ = harness.draw(cell, 2 ** 31 + 5,
+                                       torch.device("cpu"))
+        pairs = inputs.request_pairs(pool, 1, 0)
+        control = check.reference(cell["config_file"], params, pairs, 2,
+                                  cell["check_file"], "fp8", "cpu")
+        fp8 = harness.judge(cell, params, pool, control, "cpu")
+        print(json.dumps({"result": res, "masks": [p.content_masks is None
+                                                   for p in pool],
+                          "control": check.correct(fp8)}))
+    """, root, [ROOT])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["masks"] == [True, True]
+    assert out["result"]["correct"] is True, out["result"]["check"]
+    assert out["result"]["check"]["total_gap"]["value"] < 1e-4
+    assert out["control"] is False
+    # nothing that was there before was touched
+    for rel, data in existing.items():
+        assert (root / rel).read_bytes() == data, rel
+
+
 def test_no_jax_after_a_run():
     proc = run_python("""
         import sys, time
@@ -117,7 +205,11 @@ def test_forbidden_names_compare_whole_top_level_names():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in (BENCH / "reference").glob("*.py"):
+    """Every module under reference/, by its source and by what importing
+    it loads."""
+    modules = sorted((BENCH / "reference").glob("*.py"))
+    assert {p.stem for p in modules} >= {"__init__", "objective"}
+    for path in modules:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             names = ([a.name for a in node.names]
@@ -128,8 +220,10 @@ def test_reference_imports_nothing_of_the_program():
                 assert name.split(".")[0] not in (
                     "dpst_tpu_torch", "dpst_tpu", "jax"), (path, name)
     proc = run_python("""
-        import sys
-        import port_bench.reference.objective
+        import importlib, pkgutil, sys
+        import port_bench.reference as ref
+        for m in pkgutil.iter_modules(ref.__path__):
+            importlib.import_module(f"port_bench.reference.{m.name}")
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("dpst_tpu_torch", "dpst_tpu",
                                             "jax")))

@@ -1,13 +1,16 @@
 """The plain reference: its Laplacian against the matrix written out from
-Levin's definition, its walk over blocks of rows against one block, and
-its history against the port's plain CPU path at 48 px."""
+Levin's definition, its walk over blocks of rows against one block, its
+history against the port's plain CPU path at 48 px, and the check's
+dispatch to the configuration's reference module."""
 import numpy as np
 import pytest
 import torch
 
-from conftest import run_small, small_cell
+from conftest import ROOT, run_small, small_cell
 from port_bench import check, harness, inputs
 from port_bench.reference import laplacian, objective, precision
+
+SPEC = harness.load_spec(ROOT)
 
 
 def dense_laplacian(img: np.ndarray, eps: float) -> np.ndarray:
@@ -72,8 +75,7 @@ def test_blocks_of_rows_agree_with_one_block():
     assert float((g2 - g1).abs().max() / g1.abs().max()) < 1e-5
 
 
-@pytest.mark.parametrize("cell", ["config3.batch8_512",
-                                  "config6.single_4096"])
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_reference_against_the_port_on_the_cpu(cell):
     """The port's plain CPU path in float32 against the reference: the
     terms of the first rows agree to float32 rounding (the photorealism
@@ -90,3 +92,29 @@ def test_reference_against_the_port_on_the_cpu(cell):
     assert values["content_gap"] < 1e-3
     assert values["photoreal_gap"] < 5e-3
     assert values["change_gap"] < 1e-3
+
+
+@pytest.mark.parametrize("named", [False, True])
+def test_default_reference_is_the_objective_bit_for_bit(named):
+    """A configuration that names no reference module gets
+    `objective.reference_run`, bit for bit, in float32 and in the fp8
+    control; one that names `objective` gets the same."""
+    c = small_cell("config3.batch8_512", size=32)
+    config = dict(c["config_file"])
+    assert "reference" not in config
+    if named:
+        config["reference"] = "objective"
+    traffic = dict(c["traffic_file"], pairs_per_request=2, pool_requests=1)
+    gen = torch.Generator().manual_seed(2 ** 31 + 11)
+    params = inputs.vgg_weights(config["vgg19_blocks"], gen, "cpu")
+    pairs = inputs.make_pairs(traffic, gen, "cpu")
+    for name, prec in (("float32", precision.PLAIN),
+                       ("fp8", precision.FP8)):
+        got = check.reference(config, params, pairs, 2, c["check_file"],
+                              name, "cpu")
+        want = objective.reference_run(c["config_file"], params, pairs, 2,
+                                       prec, c["check_file"]["block_rows"],
+                                       c["check_file"]["halo"], "cpu")
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.float64
+            np.testing.assert_array_equal(g, w)

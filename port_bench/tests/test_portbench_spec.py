@@ -86,8 +86,7 @@ def test_cell_files(cell):
         "change_gap"}
 
 
-@pytest.mark.parametrize("cell", ["config3.batch8_512",
-                                  "config6.single_4096"])
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_result_line(cell):
     result = run_small(small_cell(cell))
     assert list(result) == ["correct", "attempted", "failed", "metrics",
@@ -109,8 +108,7 @@ def test_result_line(cell):
     json.dumps(result)
 
 
-@pytest.mark.parametrize("cell", ["config3.batch8_512",
-                                  "config6.single_4096"])
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_traced_result_line_on_the_card(card, cell):
     """A traced run of each cell at 128² in bf16 on the card: the per-layer
     metrics the cell reports, the device's busy and window seconds, the
