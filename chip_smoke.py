@@ -3216,8 +3216,9 @@ def run_automatic(dev, gen, seg_params: dict) -> dict:
     seg_s = time.perf_counter() - t0
     cm2, sm2, ids2 = segmentation.automatic_masks(content, style, cfg, seg,
                                                   device=dev)
-    masks_rerun = bool(np.array_equal(cm, cm2) and np.array_equal(sm, sm2)
+    masks_rerun = bool(torch.equal(cm, cm2) and torch.equal(sm, sm2)
                        and ids == ids2)
+    cm, sm = cm.cpu().numpy(), sm.cpu().numpy()
     precompute_s = precompute_seconds(dev, cfg, params, content, style,
                                       cm, sm)
     marks = {}
@@ -3313,6 +3314,7 @@ def run_automatic_reference(dev, gen, seg_params: dict, size: int = 64
         flips.append(label_flips(card.argmax(1), card, scores["cpu"]))
     cm, sm, ids = segmentation.automatic_masks(content, style, cfg,
                                                seg_params, device="cpu")
+    cm, sm = cm.numpy(), sm.numpy()
     _, h_cpu = dpst_tpu_torch.stylize(content, style, cfg, vgg_params=params,
                                       seg_params=seg_params,
                                       return_history=True, device="cpu")

@@ -184,24 +184,24 @@ def _inputs(content, style, cfg: StylizeConfig, size, content_masks,
     content_np = io.load_image(content, size)
     hw = content_np.shape[:2]
     style_np = io.load_image(style, hw)
-    if content_masks is None:
-        if cfg.use_segmentation:
-            content_masks, style_masks, _ = segmentation.automatic_masks(
-                content_np, style_np, cfg, seg_params, device=dev)
-        else:
+    if content_masks is None and cfg.use_segmentation:
+        # at the images' sizes, made on `dev` from the merged labels
+        cmasks, smasks, _ = segmentation.automatic_masks(
+            content_np, style_np, cfg, seg_params, device=dev)
+    else:
+        if content_masks is None:
             content_masks = segmentation.uniform_masks(hw)
             style_masks = segmentation.uniform_masks(style_np.shape[:2])
-    content_masks = _fit_masks(np.asarray(content_masks, np.float32), hw)
-    style_masks = _fit_masks(np.asarray(style_masks, np.float32),
-                             style_np.shape[:2])
+        cmasks = torch.from_numpy(_fit_masks(
+            np.asarray(content_masks, np.float32), hw)).to(dev)
+        smasks = torch.from_numpy(_fit_masks(
+            np.asarray(style_masks, np.float32), style_np.shape[:2])).to(dev)
     if vgg_params is None:
         vgg_params = vgg.get_params(seed=cfg.seed, device=dev)
     vgg_params = vgg.pack_params(params_on(vgg_params, dev),
                                  cfg.compute_dtype, cfg.conv_impl)
     return (torch.from_numpy(content_np).to(dev),
-            torch.from_numpy(style_np).to(dev),
-            torch.from_numpy(content_masks).to(dev),
-            torch.from_numpy(style_masks).to(dev), vgg_params)
+            torch.from_numpy(style_np).to(dev), cmasks, smasks, vgg_params)
 
 
 def stylize(content, style, config: StylizeConfig | None = None, *,

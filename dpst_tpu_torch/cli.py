@@ -398,6 +398,7 @@ def _load_pair_and_masks(args, cfg, size, device):
     elif cfg.use_segmentation:
         cmask, smask, _ = segmentation.automatic_masks(content, style, cfg,
                                                        device=device)
+        cmask, smask = cmask.cpu().numpy(), smask.cpu().numpy()
     else:
         cmask = segmentation.uniform_masks(hw)
         smask = segmentation.uniform_masks(style.shape[:2])

@@ -12,7 +12,8 @@ bias in that dtype, the head's logits in fp32; every conv and the stem's
 max pool pad as XLA's "SAME" does (lo = total // 2, hi = the rest, which is
 asymmetric for stride 2 at even sizes), with explicit `F.pad`. On CUDA the
 convs run with `vgg.set_exact_backends`, so a rerun repeats the label maps
-bit for bit.
+bit for bit. Each forward of `segment` and `segment_batch` is a
+`runtime.timed("pspnet", ...)` block, which `segmentation` counts and times.
 
 Weights: `weights/pspnet50_ade20k.npz` ($DPST_PSPNET_WEIGHTS) in the JAX
 package's bundle format if present, else a seeded He init; the
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import torch_dtype
 from ..ops.resize import resize_image
-from ..utils import assets
+from ..utils import assets, runtime
 from .vgg import set_exact_backends
 
 N_CLASSES = 150
@@ -274,7 +275,9 @@ def _scale_process(params: dict, image: torch.Tensor,
     crops = torch.stack([padded[sh:sh + crop, sw:sw + crop]
                          for sh, sw in origins])
     batch = torch.cat([crops, crops.flip(2)]) if flip else crops
-    probs = torch.softmax(_forward(params, batch, compute_dtype), dim=1)
+    with runtime.timed("pspnet", batch):
+        logits = _forward(params, batch, compute_dtype)
+    probs = torch.softmax(logits, dim=1)
     if flip:
         n = len(origins)
         probs = 0.5 * (probs[:n] + probs[n:].flip(3))
@@ -295,8 +298,9 @@ def _labels_resize(params: dict, images: torch.Tensor,
     (antialiased where they shrink), argmax -> (n, H, W) int32."""
     h, w = images.shape[1:3]
     x = resize_image(images.to(torch.float32), (EVAL_SIZE, EVAL_SIZE))
-    logits = _bilinear(_forward(params, x, compute_dtype), (h, w),
-                            antialias=True)
+    with runtime.timed("pspnet", x):
+        logits = _forward(params, x, compute_dtype)
+    logits = _bilinear(logits, (h, w), antialias=True)
     return torch.argmax(logits, dim=1).to(torch.int32)
 
 

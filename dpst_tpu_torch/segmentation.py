@@ -6,9 +6,21 @@ The automatic pipeline (`dpst_tpu/segmentation.py`): PSPNet
 ADE20K label maps on the device, the maps come back to the host as int32
 numpy, `semantic_merge.merge_classes` aligns the two label sets there, and
 `masks_from_labels` turns the merged maps into one-hot (K_max, H, W) mask
-stacks, zero-padded to `max_classes`.
+stacks, zero-padded to `max_classes`, on the device (so that the labels
+cross to the card, and no mask stack does).
+
+Each automatic call marks its two stages with spans (`utils/runtime.span`):
+`dpst::segment` around both photos' PSPNet stage, up to the label maps on
+the host, and `dpst::merge` around the merge and the mask stacks. It
+leaves a `SegmentRecord` in `last_call` whether or not a profiler records:
+the stages' host seconds, and the device ms of the PSPNet forwards
+(`runtime.timer`), read after the labels' copy to the host has synced (so
+the record adds no sync).
 """
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -16,7 +28,34 @@ import torch
 from . import semantic_merge
 from .models import pspnet
 from .ops.resize import mask_pyramid
+from .utils import runtime
 from .utils.runtime import params_on, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentRecord:
+    """What the last automatic call (`automatic_masks` or
+    `automatic_masks_batch`) did and took."""
+    segment_s: float             # host s: PSPNet, to the labels on the host
+    merge_s: float               # host s: the class merge and the masks
+    forward_ms: float | None     # device ms of the forwards; None off CUDA
+    forwards: int                # images through PSPNet, at eval_size²
+    eval_size: int
+    classes: int                 # merged classes (of a batch, its most)
+    k: int                       # the class axis after padding
+
+
+# The record of the last automatic call; None before the first
+last_call: SegmentRecord | None = None
+
+
+def _record(forwards: runtime.Timer, t0: float, t1: float, t2: float,
+            classes: int, cfg) -> None:
+    global last_call
+    last_call = SegmentRecord(
+        segment_s=t1 - t0, merge_s=t2 - t1, forward_ms=forwards.ms(),
+        forwards=forwards.items, eval_size=pspnet.EVAL_SIZE,
+        classes=classes, k=cfg.max_classes)
 
 
 def segment_images(content: np.ndarray, style: np.ndarray,
@@ -41,8 +80,9 @@ def segment_images(content: np.ndarray, style: np.ndarray,
 
 
 def masks_from_labels(labels: np.ndarray, class_ids: list[int],
-                      max_classes: int) -> np.ndarray:
-    """One-hot (K_max, H, W) float32 masks for `class_ids`, zero-padded.
+                      max_classes: int, device="cpu") -> torch.Tensor:
+    """One-hot (K_max, H, W) float32 masks for `class_ids`, zero-padded,
+    made on `device` from the labels.
 
     `class_ids` is the merged class list shared by content and style
     (`semantic_merge.merge_classes`); its order is the class axis."""
@@ -50,60 +90,81 @@ def masks_from_labels(labels: np.ndarray, class_ids: list[int],
         raise ValueError(
             f"{len(class_ids)} merged classes > max_classes={max_classes}; "
             "raise StylizeConfig.max_classes")
-    h, w = labels.shape
-    masks = np.zeros((max_classes, h, w), dtype=np.float32)
-    for k, cid in enumerate(class_ids):
-        masks[k] = (labels == cid)
+    labels = torch.as_tensor(np.ascontiguousarray(labels)).to(device)
+    ids = torch.as_tensor(class_ids, dtype=labels.dtype, device=labels.device)
+    masks = torch.zeros((max_classes,) + labels.shape, dtype=torch.float32,
+                        device=labels.device)
+    masks[:len(class_ids)] = labels[None] == ids[:, None, None]
     return masks
 
 
-def _merged_masks(seg_c: np.ndarray, seg_s: np.ndarray, cfg
-                  ) -> tuple[np.ndarray, np.ndarray, list[int]]:
+def _merged_masks(seg_c: np.ndarray, seg_s: np.ndarray, cfg, device="cpu"):
     merged_c, merged_s, class_ids = semantic_merge.merge_classes(
         seg_c, seg_s, metric=cfg.similarity_metric,
         threshold=cfg.similarity_threshold, max_classes=cfg.max_classes)
-    return (masks_from_labels(merged_c, class_ids, cfg.max_classes),
-            masks_from_labels(merged_s, class_ids, cfg.max_classes),
+    return (masks_from_labels(merged_c, class_ids, cfg.max_classes, device),
+            masks_from_labels(merged_s, class_ids, cfg.max_classes, device),
             class_ids)
 
 
 def automatic_masks(content: np.ndarray, style: np.ndarray, cfg,
                     params: dict | None = None, device=None
-                    ) -> tuple[np.ndarray, np.ndarray, list[int]]:
+                    ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
     """The automatic pipeline for one pair: segment both on `device`, merge
-    the label sets on the host -> aligned (K_max, H, W) mask stacks for
-    content and style, and the merged class ids."""
-    seg_c, seg_s = segment_images(content, style, params, cfg.compute_dtype,
-                                  protocol=cfg.seg_protocol,
-                                  seg_scales=cfg.seg_scales, device=device)
-    return _merged_masks(seg_c, seg_s, cfg)
+    the label sets on the host -> aligned (K_max, H, W) float32 mask stacks
+    for content and style, made on `device` as `stylize` takes them, and
+    the merged class ids. Spans `segment` and `merge`; leaves its
+    `last_call` record."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    with runtime.timer("pspnet") as forwards, runtime.span("segment"):
+        seg_c, seg_s = segment_images(content, style, params,
+                                      cfg.compute_dtype,
+                                      protocol=cfg.seg_protocol,
+                                      seg_scales=cfg.seg_scales, device=dev)
+    t1 = time.perf_counter()
+    with runtime.span("merge"):
+        out = _merged_masks(seg_c, seg_s, cfg, dev)
+    _record(forwards, t0, t1, time.perf_counter(), len(out[2]), cfg)
+    return out
 
 
 def automatic_masks_batch(contents: np.ndarray, style: np.ndarray, cfg,
-                          params: dict | None = None, device=None
-                          ) -> tuple[np.ndarray, np.ndarray]:
+                          params: dict | None = None, device=None):
     """`automatic_masks` for N content images sharing one style:
-    (N, H, W, 3) + (H, W, 3) -> ((N, K, H, W), (N, K, H, W)). With the
+    (N, H, W, 3) + (H, W, 3) -> ((N, K, H, W), (N, K, H, W)) numpy. With the
     resize protocol the contents go through `pspnet.segment_batch` and the
     style is segmented once; the merge stays per pair. The sliding
-    protocol's window geometry is per image, so it loops over the pairs."""
+    protocol's window geometry is per image, so it segments pair by pair.
+    Spans `segment` and `merge`; leaves its `last_call` record."""
     dev = resolve_device(device)
-    params = (pspnet.get_params(device=dev) if params is None
-              else params_on(params, dev))
-    if cfg.seg_protocol != "resize":
-        pairs = [automatic_masks(c, style, cfg, params, dev)
-                 for c in contents]
-        return (np.stack([p[0] for p in pairs]),
-                np.stack([p[1] for p in pairs]))
-    seg_c_all = pspnet.segment_batch(
-        params, torch.as_tensor(np.asarray(contents, np.float32)).to(dev),
-        cfg.compute_dtype).cpu().numpy()
-    seg_s = pspnet.segment(
-        params, torch.as_tensor(np.asarray(style, np.float32)).to(dev),
-        cfg.compute_dtype).cpu().numpy()
-    pairs = [_merged_masks(seg_c, seg_s, cfg)[:2] for seg_c in seg_c_all]
-    return (np.stack([p[0] for p in pairs]),
-            np.stack([p[1] for p in pairs]))
+    t0 = time.perf_counter()
+    with runtime.timer("pspnet") as forwards, runtime.span("segment"):
+        params = (pspnet.get_params(device=dev) if params is None
+                  else params_on(params, dev))
+        if cfg.seg_protocol != "resize":
+            segs = [segment_images(c, style, params, cfg.compute_dtype,
+                                   protocol=cfg.seg_protocol,
+                                   seg_scales=cfg.seg_scales, device=dev)
+                    for c in contents]
+        else:
+            seg_c_all = pspnet.segment_batch(
+                params, torch.as_tensor(np.asarray(contents, np.float32)
+                                        ).to(dev),
+                cfg.compute_dtype).cpu().numpy()
+            seg_s = pspnet.segment(
+                params, torch.as_tensor(np.asarray(style, np.float32)
+                                        ).to(dev),
+                cfg.compute_dtype).cpu().numpy()
+            segs = [(seg_c, seg_s) for seg_c in seg_c_all]
+    t1 = time.perf_counter()
+    with runtime.span("merge"):
+        pairs = [_merged_masks(seg_c, seg_s, cfg) for seg_c, seg_s in segs]
+        out = (torch.stack([p[0] for p in pairs]).numpy(),
+               torch.stack([p[1] for p in pairs]).numpy())
+    _record(forwards, t0, t1, time.perf_counter(),
+            max(len(p[2]) for p in pairs), cfg)
+    return out
 
 
 def uniform_masks(hw: tuple[int, int], max_classes: int = 1) -> np.ndarray:

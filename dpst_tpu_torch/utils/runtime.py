@@ -8,6 +8,8 @@ where there is a card) and writes a Chrome trace into the directory.
 `span(name)` marks a stage of the program (`dpst::step`, `dpst::features`,
 …) in such a trace, and times it on the card; `spans()` reads those
 times. Both cost nothing beyond one check while no profiler is recording.
+`timer(name)` counts and times, profiler or not, the `timed(name, batch)`
+blocks inside it (PSPNet's forwards, for `segmentation`'s record).
 `check_finite` is what `StylizeConfig.debug_nans` turns on: the
 optimization loop calls it after each evaluation of the objective, and it
 raises FloatingPointError naming the step where the loss or the gradient
@@ -131,6 +133,61 @@ def spans() -> list:
 
 def clear_spans() -> None:
     _SPANS.clear()
+
+
+# the `timer`s open, by name, that `timed` blocks report to
+_TIMERS: dict = {}
+
+
+class Timer:
+    """What the `timed` blocks of one name did while their `timer` was
+    open, kept whether or not a profiler records: the items they took and,
+    on a CUDA device, a pair of timing events around each."""
+
+    def __init__(self):
+        self.items = 0
+        self.events = []
+
+    def ms(self) -> float | None:
+        """Device ms of the blocks (waits for their events), or None where
+        none ran on CUDA."""
+        if not self.events:
+            return None
+        self.events[-1][1].synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+@contextlib.contextmanager
+def timer(name: str):
+    """Opens a `Timer` that the `timed(name, ...)` blocks inside report
+    to."""
+    _TIMERS[name] = t = Timer()
+    try:
+        yield t
+    finally:
+        del _TIMERS[name]
+
+
+@contextlib.contextmanager
+def timed(name: str, batch: torch.Tensor):
+    """A block of work on `batch` (its first axis the items), counted by
+    the open timer `name` and, on CUDA, timed by events on the batch's
+    current stream; nothing where no such timer is open."""
+    t = _TIMERS.get(name)
+    if t is None:
+        yield
+        return
+    t.items += batch.shape[0]
+    if batch.device.type != "cuda":
+        yield
+        return
+    stream = torch.cuda.current_stream(batch.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    yield
+    end.record(stream)
+    t.events.append((start, end))
 
 
 @contextlib.contextmanager
