@@ -46,7 +46,13 @@ no result):
                  beside "cook with torch, then gram_fwd" on the same
                  operands) and gram_wbwd (also at config6's conv3_1 and the
                  4096² stream taps) in turns with their yardsticks; then
-                 each kernel at shapes that do not fill its tiles; then the
+                 each kernel at shapes that do not fill its tiles; then
+                 the bias+ReLU pair (bias_relu_fwd, bias_relu_bwd) bit for
+                 bit against the ATen composite at the 13 conv shapes of a
+                 2048² step, the batch's and ragged or misaligned ones
+                 (bf16, fp32; signed zeros, exact zeros of z + b, ±inf,
+                 NaN), timed against its byte bound, and its launches in
+                 one 2048² step (13 each way); then the
                  five kernels with a batch grid dimension (lap_matvec,
                  gram_fwd, gram_bwd, gram_relu_fwd, gram_relu_bwd) and
                  pool_bwd on folded channels at the batch path's shapes
@@ -259,6 +265,23 @@ GRAM_SHAPES_1024 = ((128, 262144), (256, 65536), (512, 16384), (512, 4096))
 GRAM_SHAPES_4096 = ((512, 1 << 18), (512, 1 << 16))
 POOL_SHAPES = ((64, 512, 512), (128, 256, 256), (256, 128, 128),
                (512, 64, 64))                 # (C, H, W) into pool1..pool4
+# (N, C, H, W) of the bias+ReLU of conv1_1 … conv5_1 at 2048² (the 13 convs
+# of a step, distinct shapes once), of the batch's 8 pairs at 512², and
+# ragged: H·W not a multiple of 8 (planes off their 16-byte boundaries),
+# and more planes than a grid has rows (65535)
+BIAS_RELU_SHAPES_2048 = ((1, 64, 2048, 2048), (1, 128, 1024, 1024),
+                         (1, 256, 512, 512), (1, 512, 256, 256),
+                         (1, 512, 128, 128))
+BIAS_RELU_SHAPES_BATCH = ((8, 64, 512, 512), (8, 128, 256, 256),
+                          (8, 256, 128, 128), (8, 512, 64, 64),
+                          (8, 512, 32, 32))
+BIAS_RELU_SHAPES_RAGGED = ((3, 5, 7, 9), (2, 64, 33, 37), (1, 3, 1, 1),
+                           (7, 10000, 1, 3))
+# launches of one config3 step at 2048² and of its precompute (10 convs of
+# the content, 13 of the style)
+BIAS_RELU_STEP_LAUNCHES = {
+    "per_step": {"bias_relu_fwd": 13, "bias_relu_bwd": 13},
+    "precompute": {"bias_relu_fwd": 23, "bias_relu_bwd": 0}}
 # (Cin, Cout, H = W) of conv1_2 … conv5_1 at 512², the convs that
 # conv_impl="pallas" sends to the conv3x3 kernel (conv1_1 stays on cuDNN)
 CONV_SHAPES = ((64, 64, 512), (64, 128, 256), (128, 128, 256),
@@ -1284,6 +1307,129 @@ def check_pool(dev, gen):
     return rows
 
 
+def bias_relu_input(shape, dtype, dev, gen):
+    """z with exact zeros of z + b (z = -b in the dtype), -0.0 (channel 0's
+    bias is -0.0, so -0 + -0 stays -0), ±inf and NaN; b; a cotangent g."""
+    c = shape[-3]
+    b = (torch.randn((c,), generator=gen, device=dev) * 0.5).to(dtype)
+    b[0] = -0.0
+    z = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    zero = torch.rand(shape, generator=gen, device=dev) < 0.1
+    z = torch.where(zero, -b[:, None, None].expand(shape), z).contiguous()
+    flat = z.view(-1)
+    n = flat.numel()
+    flat[0] = -0.0
+    for i, v in enumerate((-0.0, float("nan"), float("inf"),
+                           -float("inf")), start=1):
+        flat[i * n // 5] = v
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return z, b, g
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (signed zeros and NaN payloads included)."""
+    as_int = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(torch.equal(a.view(as_int), b.view(as_int))))
+
+
+def offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a view one element into a larger buffer: every plane
+    starts off its 16-byte boundary, and off that of a fresh output."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_bias_relu(dev, gen) -> None:
+    """The bias+ReLU kernels (ops/bias_relu_cuda.py) against their plain
+    versions, the ATen composite they replace, bit for bit: at the 13 conv
+    shapes of a 2048² step (BIAS_RELU_SHAPES_2048), the batch's
+    (8, C, H, W) at 512² and ragged or misaligned shapes, in bf16 and fp32;
+    each kernel timed by device time and by events against its byte bound
+    (read z and write y; read z and g and write dz). Then the launches of
+    one 2048² config3 step (BIAS_RELU_STEP_LAUNCHES)."""
+    from dpst_tpu_torch.ops import bias_relu_cuda as br
+    cases = ([(s, "2048² step", True) for s in BIAS_RELU_SHAPES_2048]
+             + [(s, "batch 512²", True) for s in BIAS_RELU_SHAPES_BATCH]
+             + [(s, "ragged", False) for s in BIAS_RELU_SHAPES_RAGGED])
+    for dtype in ("bfloat16", "float32"):
+        isz = 2 if dtype == "bfloat16" else 4
+        for shape, where, timed in cases:
+            z, b, g = bias_relu_input(shape, getattr(torch, dtype), dev, gen)
+            y, dz = br.bias_relu_fwd(z, b), br.bias_relu_bwd(z, b, g)
+            equal = {
+                "fwd": same_bits(y, br.bias_relu_fwd_plain(z, b)),
+                "bwd": same_bits(dz, br.bias_relu_bwd_plain(z, b, g))}
+            if not timed:
+                # planes off their 16-byte boundaries, the tensors apart
+                zo, go = offset_copy(z), offset_copy(g)
+                equal["fwd offset"] = same_bits(br.bias_relu_fwd(zo, b), y)
+                equal["bwd offset"] = same_bits(
+                    br.bias_relu_bwd(zo, b, go), dz)
+            torch.cuda.synchronize()
+            n = z.numel()
+            for name in ("bias_relu_fwd", "bias_relu_bwd"):
+                fwd = name == "bias_relu_fwd"
+                row = {"phase": "kernel", "name": name, "shape": list(shape),
+                       "case": where, "dtype": dtype, "tol": "bit-exact",
+                       "bit_equal": {k: v for k, v in equal.items()
+                                     if k.startswith(name[-3:])}}
+                if timed:
+                    run = ((lambda: br.bias_relu_fwd(z, b)) if fwd
+                           else (lambda: br.bias_relu_bwd(z, b, g)))
+                    plain = ((lambda: br.bias_relu_fwd_plain(z, b)) if fwd
+                             else (lambda: br.bias_relu_bwd_plain(z, b, g)))
+                    bound, by = bound_ms((2 if fwd else 3) * n * isz,
+                                         (2 if fwd else 3) * n, dtype)
+                    ms = device_ms(run)
+                    row.update({"ms": ms, "events_ms": cuda_ms(run),
+                                "plain_ms": device_ms(plain, iters=5),
+                                "bound_ms": bound, "bound_by": by,
+                                "share_of_bound": bound / ms})
+                emit(row)
+            if not all(equal.values()):
+                fail("kernels", f"bias_relu {dtype} {list(shape)} not "
+                     f"bit-equal: {equal}")
+            del z, b, g, y, dz
+    bias_relu_step_launches(dev)
+
+
+def bias_relu_step_launches(dev) -> None:
+    """The bias+ReLU launches of one Adam step of config3 at 2048² (the
+    standard path, 13 convs to conv5_1 each way), as the difference of a
+    3-step and a 1-step `stylize` (each with its precompute: the content
+    to conv4_2 and the style to conv5_1, forwards only)."""
+    import dpst_tpu_torch
+    from dpst_tpu_torch.models import vgg
+    from dpst_tpu_torch.ops import kernels
+    size = 2048
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    content, style = smooth_image(gen, dev, size), textured_image(
+        gen, dev, size)
+    cmask, smask = band_masks(0, size), band_masks(1, size)
+    params = vgg.get_params(seed=SEED, device=dev)
+    counts = {}
+    for steps in (1, 3):
+        cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
+                                  iterations=steps)
+        kernels.reset_launches()
+        dpst_tpu_torch.stylize(content, style, cfg, content_masks=cmask,
+                               style_masks=smask, vgg_params=params)
+        counts[steps] = {k: kernels.LAUNCHES[k]
+                         for k in ("bias_relu_fwd", "bias_relu_bwd")}
+    per_step = {k: (counts[3][k] - counts[1][k]) // 2 for k in counts[1]}
+    precompute = {k: counts[1][k] - per_step[k] for k in counts[1]}
+    row = {"phase": "kernel", "check": "bias_relu launches", "size": size,
+           "per_step": per_step, "precompute": precompute,
+           "expected": BIAS_RELU_STEP_LAUNCHES}
+    emit(row)
+    if {"per_step": per_step, "precompute": precompute} != \
+            BIAS_RELU_STEP_LAUNCHES:
+        fail("kernels", f"bias_relu launches at 2048²: {row}")
+
+
 # conv shapes whose plans make a block sum two chunks of Cin: (Cin, Cout,
 # H, W) -> the (bn, splits, cps) of the forward and of the input gradient
 CONV_MULTI_PLANS = {(256, 40, 128, 128): ((40, 2, 2), (128, 1, 1)),
@@ -2163,7 +2309,8 @@ def run_main_path(dev, gen) -> dict:
 
     def check(launches):
         need = {"lap_matvec": ITERS, "gram_fwd": 5 * ITERS,
-                "gram_bwd": 5 * ITERS, "pool_bwd": 4 * ITERS}
+                "gram_bwd": 5 * ITERS, "pool_bwd": 4 * ITERS,
+                "bias_relu_fwd": 13 * ITERS, "bias_relu_bwd": 13 * ITERS}
         bad = [f"{name} launched {launches[name]} times, expected >= {lo}"
                for name, lo in need.items() if launches[name] < lo]
         bad += [f"{name} launched {launches[name]} times, expected 0"
@@ -2180,13 +2327,15 @@ def pallas_route_launches(steps: int) -> dict:
     conv2_1 … conv5_1 on the Pallas Gram route (gram_fwd, gram_wbwd), and
     conv1_1 on the fused bias+ReLU pair (the route is no longer "fused",
     so a TPU's s2d Gram kernel takes it); one Laplacian matvec; four pool
-    backwards. Precompute: 9 convs of the content (to conv4_2) and 12 of
-    the style (to conv5_1), and the five style Grams on the fused route
-    (gram_fwd)."""
+    backwards; the bias+ReLU of all 13 convs each way. Precompute: 9 convs
+    of the content (to conv4_2) and 12 of the style (to conv5_1) on
+    conv3x3, the bias+ReLU of all 10 and 13, and the five style Grams on
+    the fused route (gram_fwd)."""
     return {"conv3x3": 24 * steps + 9 + 12, "gram_fwd": 4 * steps + 5,
             "gram_wbwd": 4 * steps, "gram_relu_fwd": steps,
             "gram_relu_bwd": steps, "gram_bwd": 0, "lap_matvec": steps,
-            "pool_bwd": 4 * steps}
+            "pool_bwd": 4 * steps, "bias_relu_fwd": 13 * steps + 10 + 13,
+            "bias_relu_bwd": 13 * steps}
 
 
 def run_pallas_route(dev, gen) -> dict:
@@ -2445,14 +2594,17 @@ def stream12_launches(steps: int) -> dict:
     conv1_1 and conv2_1 Grams); the tail's style taps conv3_1 (2^30
     elements of the weighted block, past 2^29: "stream", so gram_fwd +
     gram_wbwd), conv4_1 and conv5_1 (fused: gram_fwd + gram_bwd); pool3
-    and pool4 backward; one Laplacian matvec. Precompute: the five style
-    Grams (gram_fwd). Nothing else."""
+    and pool4 backward; one Laplacian matvec; the tail's nine bias+ReLU
+    each way (conv3_1 … conv5_1). Precompute: the five style Grams
+    (gram_fwd) and the bias+ReLU of the content's 10 convs and the
+    style's 13 on the standard path. Nothing else."""
     return {"block12_fwd_res": steps, "block12_bwd_deep": steps,
             "block12_bwd_shallow": steps, "block12_fwd": 0,
             "gram_fwd": 5 + 3 * steps, "gram_wbwd": steps,
             "gram_bwd": 2 * steps, "pool_bwd": 2 * steps,
             "lap_matvec": steps, "gram_relu_fwd": 0, "gram_relu_bwd": 0,
-            "conv3x3": 0}
+            "conv3x3": 0, "bias_relu_fwd": 23 + 9 * steps,
+            "bias_relu_bwd": 9 * steps}
 
 
 def run_stream12(dev, gen) -> dict:
@@ -2755,12 +2907,14 @@ def lbfgs_launches(evals: int) -> dict:
     """What the L-BFGS path launches at 512², K = 4, for `evals`
     evaluations of the objective (each a forward and an input gradient:
     one Laplacian matvec, the five masked Grams forward and backward, four
-    pool backwards) and the precompute's five style Grams; nothing else
-    (the post-smoothing is plain PyTorch)."""
+    pool backwards, the 13 convs' bias+ReLU each way) and the precompute's
+    five style Grams and bias+ReLU of 10 + 13 convs; nothing else (the
+    post-smoothing is plain PyTorch)."""
     from dpst_tpu_torch.ops import kernels
     need = dict.fromkeys(kernels.KERNELS, 0)
     need.update(lap_matvec=evals, gram_fwd=5 * evals + 5,
-                gram_bwd=5 * evals, pool_bwd=4 * evals)
+                gram_bwd=5 * evals, pool_bwd=4 * evals,
+                bias_relu_fwd=13 * evals + 23, bias_relu_bwd=13 * evals)
     return need
 
 
@@ -3179,11 +3333,13 @@ def automatic_launches(steps: int) -> dict:
     """What config3 with automatic masks launches at 512², K8 classes:
     the main path's kernels (segmentation and the class merge launch
     none): per step five Grams forward and backward, four pool backwards,
-    one Laplacian matvec; the precompute's five style Grams."""
+    one Laplacian matvec, the 13 convs' bias+ReLU each way; the
+    precompute's five style Grams and bias+ReLU of 10 + 13 convs."""
     from dpst_tpu_torch.ops import kernels
     need = dict.fromkeys(kernels.KERNELS, 0)
     need.update(lap_matvec=steps, gram_fwd=5 * steps + 5,
-                gram_bwd=5 * steps, pool_bwd=4 * steps)
+                gram_bwd=5 * steps, pool_bwd=4 * steps,
+                bias_relu_fwd=13 * steps + 23, bias_relu_bwd=13 * steps)
     return need
 
 
@@ -3346,13 +3502,15 @@ def autotune_launches(steps: int) -> dict:
     batch, whose kernels launch once for all of them): the resolved
     config's conv1_1 on the fused pair (one each a step), the other four
     style taps on gram_fwd / gram_bwd, four pool backwards, one Laplacian
-    matvec a step; the precompute's five style Grams once a call (NIMA and
+    matvec, the 13 convs' bias+ReLU each way a step; the precompute's five
+    style Grams and bias+ReLU of 10 + 13 convs once a call (NIMA and
     PSPNet launch none)."""
     from dpst_tpu_torch.ops import kernels
     need = dict.fromkeys(kernels.KERNELS, 0)
     need.update(lap_matvec=steps, gram_fwd=4 * steps + 5,
                 gram_bwd=4 * steps, gram_relu_fwd=steps,
-                gram_relu_bwd=steps, pool_bwd=4 * steps)
+                gram_relu_bwd=steps, pool_bwd=4 * steps,
+                bias_relu_fwd=13 * steps + 23, bias_relu_bwd=13 * steps)
     return need
 
 
@@ -4045,13 +4203,15 @@ def batch_launches(steps: int) -> dict:
     of all pairs: one pair's count (the batch's kernels launch once for all
     pairs). Its resolved config (s2d_gram="pallas") puts conv1_1 on the
     fused pair, one each a step; conv2_1 … conv5_1 on gram_fwd / gram_bwd;
-    four pool backwards; one Laplacian matvec; and the precompute's five
-    style Grams, batched (gram_fwd)."""
+    four pool backwards; one Laplacian matvec; the 13 convs' bias+ReLU
+    each way; and the precompute's five style Grams, batched (gram_fwd),
+    and bias+ReLU of 10 + 13 convs."""
     from dpst_tpu_torch.ops import kernels
     need = dict.fromkeys(kernels.KERNELS, 0)
     need.update(lap_matvec=steps, gram_fwd=4 * steps + 5,
                 gram_bwd=4 * steps, gram_relu_fwd=steps,
-                gram_relu_bwd=steps, pool_bwd=4 * steps)
+                gram_relu_bwd=steps, pool_bwd=4 * steps,
+                bias_relu_fwd=13 * steps + 23, bias_relu_bwd=13 * steps)
     return need
 
 
@@ -4542,13 +4702,17 @@ def spatial_launches(plan: tuple, n: int, steps: int) -> dict:
     gathered one. A step: the five style taps' Grams (conv{b}_1 at level
     b-1: gram_fwd and gram_bwd), the four pool backwards (pool b on level
     b's shards, or whole where level b is gathered), the Laplacian on every
-    shard (level 0); the precompute (on the first device, unsharded): the
-    five style Grams (gram_fwd)."""
+    shard (level 0), the bias+ReLU of each conv each way (level b-1 holds
+    block b's convs: 2, 2, 4, 4 and conv5_1); the precompute (on the first
+    device, unsharded): the five style Grams (gram_fwd) and bias+ReLU of
+    10 + 13 convs."""
     from dpst_tpu_torch.ops import kernels
     per = [n if sharded else 1 for sharded in plan]
+    relus = steps * sum(c * k for c, k in zip((2, 2, 4, 4, 1), per))
     need = dict.fromkeys(kernels.KERNELS, 0)
     need.update(gram_fwd=5 + steps * sum(per), gram_bwd=steps * sum(per),
-                pool_bwd=steps * sum(per[1:]), lap_matvec=steps * n)
+                pool_bwd=steps * sum(per[1:]), lap_matvec=steps * n,
+                bias_relu_fwd=23 + relus, bias_relu_bwd=relus)
     return need
 
 
@@ -5405,7 +5569,9 @@ def run_mesh_batch(dev, b: dict) -> None:
     steps = b["cfg"].iterations
     need = dict.fromkeys(kernels.KERNELS, 0)
     need.update(lap_matvec=m * steps, gram_fwd=m * (5 * steps + 5),
-                gram_bwd=m * 5 * steps, pool_bwd=m * 4 * steps)
+                gram_bwd=m * 5 * steps, pool_bwd=m * 4 * steps,
+                bias_relu_fwd=m * (13 * steps + 23),
+                bias_relu_bwd=m * 13 * steps)
     errs = []
     for i in range(BATCH):
         rel = np.abs(hist[i] - b["hist"][i]) / np.maximum(
@@ -5781,6 +5947,7 @@ def main() -> int:
     rows += check_gram_wbwd(dev, gen)
     rows += check_conv(dev, gen)
     check_edges(dev, gen)
+    check_bias_relu(dev, torch.Generator(device=dev).manual_seed(SEED + 50))
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows += check_block12(dev, gen)

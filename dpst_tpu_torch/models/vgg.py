@@ -13,7 +13,8 @@ packed forward and input-gradient weights, and blocks 1-2's
 Two gradient conventions of the JAX package differ from PyTorch's
 defaults, so both are autograd Functions here:
   * ReLU's gradient at exactly 0 is 0.5, as for `jnp.maximum(x, 0)`
-    (torch.relu gives 0);
+    (torch.relu gives 0); the bias add and the ReLU run as one kernel
+    each way on CUDA tensors (`ops/bias_relu_cuda.py`);
   * the 2×2 max pool splits its cotangent equally among tied maxima
     (F.max_pool2d's backward gives it all to the first); its backward is
     the CUDA kernel of `ops/pool_cuda.py` on CUDA tensors.
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import block12_pallas
+from ..ops.bias_relu_cuda import bias_relu_bwd, bias_relu_fwd
 from ..ops.conv_cuda import conv3x3_same, pack_grad_weights, pack_weights
 from ..ops.gram_s2d import RawTap
 from ..ops.kernels import torch_dtype
@@ -147,19 +149,23 @@ def preprocess_noflip(image: torch.Tensor) -> torch.Tensor:
             ).movedim(-1, -3).contiguous()
 
 
-class _Relu(torch.autograd.Function):
-    """max(x, 0) with gradient 1 above 0, 0 below and 0.5 at exactly 0."""
+class _BiasRelu(torch.autograd.Function):
+    """max(z + b_c, 0) of a conv's raw output z ((N, C, H, W) or (C, H, W))
+    and its (C,) bias, with gradient 1 above 0, 0 below and 0.5 at exactly
+    0: apply(z, b), one kernel each way on the card
+    (`ops/bias_relu_cuda.py`). It saves z and b and recomputes z + b in the
+    backward. No gradient flows to b (the VGG weights are constants)."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return torch.clamp_min(x, 0)
+    def forward(ctx, z, b):
+        z = z.contiguous()
+        ctx.save_for_backward(z, b)
+        return bias_relu_fwd(z, b)
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return torch.where(x > 0, g, torch.where(x == 0, g * 0.5,
-                                                 torch.zeros_like(g)))
+        z, b = ctx.saved_tensors
+        return bias_relu_bwd(z, b, g.contiguous()), None
 
 
 class _MaxPool2(torch.autograd.Function):
@@ -333,7 +339,7 @@ def _run_layers(params: PackedParams, x: torch.Tensor, names, layers,
         else:
             z = conv2d(x, p["wc"])
         b = p["bc"]
-        x = _Relu.apply(z + b[:, None, None])
+        x = _BiasRelu.apply(z, b)
         if name in raw_taps:
             taps[name] = RawTap(z, b)
         elif name in layers:

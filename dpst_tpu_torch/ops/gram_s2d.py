@@ -12,9 +12,9 @@ kernels (`_fwd_kernel`, `_bwd_kernel`, `"pallas1"`) compute one function:
 z is the raw conv output (no bias) as its (C, P) NCHW planes and b the (C,)
 bias, both in the compute dtype; z + b is formed in fp32 and F rounded to
 the compute dtype; relu′ is 1 above 0, ½ at exactly 0 and 0 below (the
-subgradient of `jnp.maximum`, as `models.vgg._Relu` has it); the sum over
-classes is fp32 in class order, rounded once. No gradient flows to b or
-to the masks.
+subgradient of `jnp.maximum`, as `models.vgg._BiasRelu` has it); the sum
+over classes is fp32 in class order, rounded once. No gradient flows to b
+or to the masks.
 
 The TPU kernels read the tap as a space-to-depth parity grid, contract it
 in two-half 128-lane diagonal blocks and pack the masks into lanes. Those

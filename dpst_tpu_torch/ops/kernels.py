@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
            "gram_relu_bwd", "gram_wbwd", "pool_bwd", "conv3x3",
            "block12_fwd", "block12_fwd_res", "block12_bwd_deep",
-           "block12_bwd_shallow", "block12_gram_dz")
+           "block12_bwd_shallow", "block12_gram_dz", "bias_relu_fwd",
+           "bias_relu_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,6 +155,8 @@ def library() -> ctypes.CDLL:
         lib.dpst_block12_gram_dz.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dpst_block12_df_plan.argtypes = [i] * 6 + [p]
         lib.dpst_block12_df_attrs.argtypes = [i, p]
+        lib.dpst_bias_relu_fwd.argtypes = [p, p, p, ll, i, ll, i, p]
+        lib.dpst_bias_relu_bwd.argtypes = [p, p, p, p, ll, i, ll, i, p]
         for fn in (lib.dpst_lap_matvec, lib.dpst_lap_div9_mismatches,
                    lib.dpst_gram_fwd,
                    lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
@@ -163,7 +166,8 @@ def library() -> ctypes.CDLL:
                    lib.dpst_block12_bwd_shallow, lib.dpst_gram_wgmma_attrs,
                    lib.dpst_conv3x3_attrs, lib.dpst_block12_conv_attrs,
                    lib.dpst_block12_gram_dz, lib.dpst_block12_df_plan,
-                   lib.dpst_block12_df_attrs):
+                   lib.dpst_block12_df_attrs, lib.dpst_bias_relu_fwd,
+                   lib.dpst_bias_relu_bwd):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p

@@ -9,8 +9,8 @@ tensor per shard (`parallel/mesh.py`):
   * every 3×3 conv exchanges one row with each neighbour
     (`ops/laplacian_spmd.exchange_rows`) and runs `vgg.conv2d(ext, w,
     padding=(0, 1))` on its shard (cuDNN on the card), then bias and
-    `vgg._Relu` (relu′(0) = ½); the 2×2 max pool (`vgg._MaxPool2`, the
-    `pool_bwd` kernel) runs per shard;
+    ReLU (`vgg._BiasRelu`, relu′(0) = ½); the 2×2 max pool
+    (`vgg._MaxPool2`, the `pool_bwd` kernel) runs per shard;
   * `level_plan` says which VGG levels stay sharded; the first that
     cannot, and every deeper one, is gathered onto the mesh's first
     device and runs there;
@@ -207,14 +207,14 @@ def features_rows(params: dict, shards: list, layers, pooling: str, cdt,
                  else vgg._pool(x, pooling))
             continue
         if isinstance(x, list):
-            x = [vgg._Relu.apply(vgg.conv2d(e, params[e.device][name]["wc"],
-                                            padding=(0, 1))
-                                 + params[e.device][name]["bc"][:, None, None])
+            x = [vgg._BiasRelu.apply(
+                     vgg.conv2d(e, params[e.device][name]["wc"],
+                                padding=(0, 1)),
+                     params[e.device][name]["bc"])
                  for e in exchange_rows(x, 1)]
         else:
             p = params[first][name]
-            x = vgg._Relu.apply(vgg.conv2d(x, p["wc"])
-                                + p["bc"][:, None, None])
+            x = vgg._BiasRelu.apply(vgg.conv2d(x, p["wc"]), p["bc"])
         if name in layers:
             taps[name] = x
     return taps

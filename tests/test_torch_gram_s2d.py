@@ -63,7 +63,7 @@ def _jax_grams(z, b, masks, norm="m2"):
 
 
 def _unfused(zt, bt, mt, norm="m2"):
-    f = tvgg._Relu.apply(zt + bt[:, None, None])
+    f = tvgg._BiasRelu.apply(zt, bt)
     return tlosses.masked_grams(f, mt, norm=norm)
 
 

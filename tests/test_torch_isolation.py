@@ -260,10 +260,10 @@ def test_kernel_wrappers_never_fall_back():
 
 def test_build_hash_covers_sources():
     srcs = {p.name for p in kernels._sources()}
-    assert srcs == {"block12.cu", "conv3x3.cu", "conv3x3_wide.cu",
-                    "conv3x3_pairs.cu", "conv3x3_pairs_wide.cu", "gram.cu",
-                    "gram_relu_bwd.cu", "gram_wbwd_pairs.cu", "lap_matvec.cu",
-                    "pool_bwd.cu"}
+    assert srcs == {"bias_relu.cu", "block12.cu", "conv3x3.cu",
+                    "conv3x3_wide.cu", "conv3x3_pairs.cu",
+                    "conv3x3_pairs_wide.cu", "gram.cu", "gram_relu_bwd.cu",
+                    "gram_wbwd_pairs.cu", "lap_matvec.cu", "pool_bwd.cu"}
     headers = {p.name for p in kernels.CSRC.glob("*.cuh")}
     assert headers == {"conv3x3_tile.cuh", "conv3x3_wgmma.cuh",
                        "dpst_common.cuh", "gram_tile.cuh", "gram_wgmma.cuh",

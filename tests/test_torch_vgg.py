@@ -106,9 +106,10 @@ def test_input_gradient_relu_tie_is_half(params):
 
 
 def test_relu_gradient_at_zero():
-    x = torch.tensor([-1.0, 0.0, 2.0], requires_grad=True)
-    (g,) = torch.autograd.grad(tvgg._Relu.apply(x).sum(), x)
-    np.testing.assert_array_equal(g.numpy(), [0.0, 0.5, 1.0])
+    x = torch.tensor([-1.0, 0.0, 2.0]).reshape(1, 1, 3).requires_grad_(True)
+    (g,) = torch.autograd.grad(
+        tvgg._BiasRelu.apply(x, torch.zeros(1)).sum(), x)
+    np.testing.assert_array_equal(g.numpy().ravel(), [0.0, 0.5, 1.0])
 
 
 def test_preprocess_matches_jax():
