@@ -61,11 +61,9 @@ no result):
                  four, as the Γ sweep runs it), each pair against the
                  plain version and bit for bit against its one-pair
                  launch, timed in turns with B one-pair launches of the
-                 same kernel and (the Gram kernels) with the same launch
-                 on plans that split a pair's reductions by B
-                 (`plans_split_by_b`, a control), and at shapes where the
-                 plans split; then gram_wbwd (conv1_1 … conv5_1) and
-                 conv3x3 (the 24 convs of a step) with their batch grid
+                 same kernel, and at shapes where the plans split; then
+                 gram_wbwd (conv1_1 … conv5_1) and conv3x3 (the 24
+                 convs of a step) with their batch grid
                  dimension at the pallas-route batch's shapes, the same
                  way, in bf16 and fp32, and at B = 2-3 at ragged C, K =
                  1-9, a conv plan with Cin splits; then the block12 entry
@@ -228,7 +226,9 @@ no result):
       B=2", then "lap_matvec spmd": 4 shards at 4096², the loop's form)
       and the nvidia-smi line;
   16. the last line: {"ok": true, "device": {...}}.
-It imports nothing of JAX and nothing of the JAX package.
+It imports nothing of JAX and nothing of the JAX package. Its kernel
+groups, roofline bounds and seeded images and masks are the benchmark's
+(`port_bench.trace`, `port_bench.work`, `port_bench.inputs`).
 """
 from __future__ import annotations
 
@@ -247,14 +247,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from port_bench.inputs import band_masks, smooth_image, textured_image
+from port_bench.trace import kernel_group
+from port_bench.work import peaks
+from port_bench.work.block12 import b12_work
+from port_bench.work.conv import conv_work
+from port_bench.work.gram import gram_bwd_work, gram_fwd_work
+
 ITERS = 100            # main-path Adam steps (callback at ITERS // 2)
 RERUN_ITERS = 10       # the bit-identical rerun
 SIZE = 512
 K = 4
 K8 = 8                 # the automatic path's masks: max_classes, padded
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC; fp32 CUDA cores
 GRAM_SHAPES = ((64, 262144), (128, 65536), (256, 16384), (512, 4096),
                (512, 1024))                   # (C, P) of conv1_1..conv5_1
 # (C, P) of conv2_1 … conv5_1 at config4's 1024² stage (conv1_1 takes the
@@ -392,9 +397,6 @@ B12_CASES = ((256, 4096, 4, "bfloat16", "max", False),
              (64, 256, 5, "bfloat16", "max", False),
              (64, 260, 3, "bfloat16", "max", False),
              (64, 260, 2, "float32", "avg", False))
-# Band heights of the block12 probe at the 4096² step (chip_probes.py
-# band-rows), against which `band_rows` was chosen
-B12_HEIGHTS = (32, 64, 128, 256)
 # (stage, C, bands, own rows a band, W, K, timed) of the checks of the
 # backwards' bf16 Gram cotangent stage alone: the shallow and deep groups of
 # the 4096² step (one band of 256 own rows; timed), the same at the 32-row
@@ -501,9 +503,10 @@ def weights_label() -> str:
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """`peaks.bound_s` in ms, and which of the two bounds it."""
+    t = peaks.bound_s(nbytes, ops, dtype)
+    by = "bytes" if t == nbytes / peaks.HBM_BYTES_PER_S else "operations"
+    return t * 1e3, by
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -738,7 +741,6 @@ def check_gram(dev, gen):
         m2 = (m * m).to(cdt)
         d = torch.randn((k, c, c), generator=rng, device=dev)
         s = (d + d.transpose(1, 2)).to(cdt).contiguous()
-        ops = 2.0 * k * c * c * p
         # forward: raw Grams in fp32 from identical bf16/fp32 operands
         g = gs.gram_fwd(f, m2)
         g_ref = gs.gram_fwd_plain(f, m2)
@@ -755,7 +757,7 @@ def check_gram(dev, gen):
                  "plain": rel_err(g_ref.double(), g64)[1]}
         del fw64, g64
         lib = lambda: torch.matmul(f, f.t().unsqueeze(0) * m2.unsqueeze(2))
-        b, by = bound_ms((c * p + k * p) * isz + k * c * c * 4, ops, dtype)
+        b, by = bound_ms(*gram_fwd_work(c, p, k, isz), dtype)
         row = {"phase": "kernel", "name": "gram_fwd", "shape": [c, p],
                "K": k, "dtype": dtype, "in_step": in_step,
                "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
@@ -777,7 +779,7 @@ def check_gram(dev, gen):
         a = s.permute(1, 0, 2).reshape(c, k * c)
         lib = lambda: torch.matmul(
             a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(k * c, p))
-        b, by = bound_ms((2 * c * p + k * p + k * c * c) * isz, ops, dtype)
+        b, by = bound_ms(*gram_bwd_work(c, p, k, isz), dtype)
         row = {"phase": "kernel", "name": "gram_bwd", "shape": [c, p],
                "K": k, "dtype": dtype, "in_step": in_step,
                "max_abs_err": err, "rel_err": rel, "tol_rel": tol,
@@ -1012,8 +1014,7 @@ def check_gram_wbwd(dev, gen):
         a = s.permute(1, 0, 2).reshape(c, K * c)
         lib = lambda: torch.matmul(
             a, (f.unsqueeze(0) * m2.unsqueeze(1)).reshape(K * c, p))
-        b, by = bound_ms((2 * c * p + K * p + K * c * c) * isz,
-                         2.0 * K * c * c * p, dtype)
+        b, by = bound_ms(*gram_bwd_work(c, p, K, isz), dtype)
         run = lambda: gp.gram_wbwd(f, m2, s)
         times = (in_turns(run, lib) if dtype == "bfloat16" else
                  {"ms": cuda_ms(run), "library_ms": cuda_ms(lib)})
@@ -1087,9 +1088,8 @@ def check_conv(dev, gen):
                 err, rel = rel_err(y, ref)
                 tol = out_tol(ref, dtype)
                 k_in, k_out = b.shape[1], b.shape[0]
-                bnd, by = bound_ms(
-                    ((k_in + k_out) * hw * hw + 9 * k_in * k_out) * isz,
-                    2.0 * 9 * k_in * k_out * hw * hw, dtype)
+                bnd, by = bound_ms(*conv_work(k_in, k_out, hw, hw, isz),
+                                   dtype)
                 key = (dtype, direction, k_in, k_out, hw)
                 if key not in timed:
                     timed[key] = (len(rows), {
@@ -1406,9 +1406,9 @@ def bias_relu_step_launches(dev) -> None:
     from dpst_tpu_torch.ops import kernels
     size = 2048
     gen = torch.Generator(device=dev).manual_seed(SEED + 51)
-    content, style = smooth_image(gen, dev, size), textured_image(
-        gen, dev, size)
-    cmask, smask = band_masks(0, size), band_masks(1, size)
+    content = smooth_image(gen, dev, size).cpu().numpy()
+    style = textured_image(gen, dev, size).cpu().numpy()
+    cmask, smask = band_masks(K, size, 0, 0), band_masks(K, size, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
     counts = {}
     for steps in (1, 3):
@@ -1597,32 +1597,6 @@ def b12_shallow_input(h: int, w: int, k: int, params: dict, dtype, dev,
                       device=dev).to(cdt)
     dg1 = torch.randn((k, 64, 64), generator=gen, device=dev)
     return a11.to(cdt), dp1, wts, dg1
-
-
-def b12_work(h: int, w: int, k: int, isz: int) -> dict:
-    """(bytes, operations) each block12 entry point must move and do at an
-    H × W image with K classes: inputs read once, outputs written once;
-    the convs at their real channel counts over the image (no halo), the
-    Grams and Gram cotangents, no recompute beyond what the function is."""
-    p, p2 = h * w, h * w // 4
-    conv = lambda cin, cout, n: 2.0 * 9 * cin * cout * n
-    fwd_ops = (conv(3, 64, p) + conv(64, 64, p) + conv(64, 128, p2)
-               + conv(128, 128, p2) + 2.0 * k * (64 * 64 * p
-                                                 + 128 * 128 * p2))
-    fwd_bytes = (3 * p * 4 + k * (p + p2) * 4 + k * (64 * 64 + 128 * 128) * 4
-                 + 128 * p // 16 * isz)
-    res_bytes = (64 * p + 2 * 128 * p2) * isz
-    deep_ops = conv(128, 128, p2) + conv(64, 128, p2) + 2.0 * k * 128 * 128 * p2
-    deep_bytes = ((2 * 128 * p2 + 128 * p // 16 + 64 * p2) * isz
-                  + k * p2 * 4 + k * 128 * 128 * isz)
-    shallow_ops = (2 * conv(64, 64, p) + conv(3, 64, p)
-                   + 2.0 * k * 64 * 64 * p)
-    shallow_bytes = ((64 * p + 64 * p2) * isz + k * p * 4 + 3 * p * 4
-                     + k * 64 * 64 * isz)
-    return {"block12_fwd": (fwd_bytes, fwd_ops),
-            "block12_fwd_res": (fwd_bytes + res_bytes, fwd_ops),
-            "block12_bwd_deep": (deep_bytes, deep_ops),
-            "block12_bwd_shallow": (shallow_bytes, shallow_ops)}
 
 
 def b12_copy_bytes(h: int, w: int, k: int, isz: int) -> dict:
@@ -2055,7 +2029,8 @@ def check_block12(dev, gen):
                "max_abs_err": max(v[2] for v in case_errs), "ms": ms,
                "device_ms_by_stage": stage_ms(kernel),
                "copies_gbytes": copies[name] / 1e9,
-               "copies_bound_ms": copies[name] / HBM_BYTES_PER_S * 1e3,
+               "copies_bound_ms": copies[name] / peaks.HBM_BYTES_PER_S
+               * 1e3,
                "plain_ms": plain_ms[name],
                "bound_ms": bnd, "bound_by": by, "gflop": ops / 1e9,
                "gbytes": nbytes / 1e9, "library_ms": library[name],
@@ -2179,40 +2154,6 @@ def check_block12_batch(dev, gen):
     return rows
 
 
-def band_masks(axis: int, size: int = SIZE) -> np.ndarray:
-    m = np.zeros((K, size, size), np.float32)
-    band = size // K
-    for k in range(K):
-        if axis == 0:
-            m[k, k * band:(k + 1) * band] = 1
-        else:
-            m[k, :, k * band:(k + 1) * band] = 1
-    return m
-
-
-def smooth_image(gen, dev, size: int) -> np.ndarray:
-    """A seeded photo-like image: low-frequency colour fields plus noise."""
-    low = torch.rand((1, 3, size // 32, size // 32), generator=gen,
-                     device=dev)
-    img = F.interpolate(low, size=(size, size), mode="bicubic",
-                        align_corners=False)[0].permute(1, 2, 0)
-    img = img + 0.05 * torch.randn((size, size, 3), generator=gen,
-                                   device=dev)
-    return (img.clamp(0, 1) * 255).contiguous().cpu().numpy()
-
-
-def textured_image(gen, dev, size: int) -> np.ndarray:
-    """A seeded style photo with texture: `smooth_image` plus per-pixel
-    noise of 40 grey levels. At 4096² two smooth images of random colour
-    fields have nearly the same masked Gram statistics, and the
-    photorealism term (λ = 1e4 on a sum over 16.7 M pixels) then
-    outweighs the style term after Adam's first step; a textured style
-    gives the style term its weight, as a real style photo does."""
-    img = torch.from_numpy(smooth_image(gen, dev, size)).to(dev)
-    img = img + 40.0 * torch.randn(img.shape, generator=gen, device=dev)
-    return img.clamp(0, 255).contiguous().cpu().numpy()
-
-
 def precompute_seconds(dev, cfg, params, *arrays) -> float:
     """`prepare_constants` alone, through the public entry point, on
     (content, style, content masks, style masks): warm, then timed."""
@@ -2237,9 +2178,9 @@ def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
 
-    content = smooth_image(gen, dev, SIZE)
-    style = smooth_image(gen, dev, SIZE)
-    cmask, smask = band_masks(0), band_masks(1)
+    content = smooth_image(gen, dev, SIZE).cpu().numpy()
+    style = smooth_image(gen, dev, SIZE).cpu().numpy()
+    cmask, smask = band_masks(K, SIZE, 0, 0), band_masks(K, SIZE, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
 
     precompute_s = precompute_seconds(dev, cfg, params, content, style,
@@ -2357,36 +2298,6 @@ def run_pallas_route(dev, gen) -> dict:
                             check)
 
 
-def kernel_group(name: str) -> str:
-    """Which part of a main-path step a device kernel belongs to. The
-    block12 entry points share their kernels: their groups are by stage."""
-    for key, group in (("block12_gram_df", "block12_* Gram cotangent"),
-                       ("block12_gram", "block12_* Gram partials"),
-                       ("block12_pool_bwd", "block12_* pool backward"),
-                       ("block12_pool", "block12_* pool forward"),
-                       ("block12_gather", "block12_* band copies"),
-                       ("block12_scatter", "block12_* band copies"),
-                       ("EpiBiasRelu", "block12_* convs (bias+ReLU)"),
-                       ("EpiF32", "block12_* convs (input gradient)"),
-                       ("gram_relu_fwd", "gram_relu_fwd"),
-                       ("gram_relu_bwd", "gram_relu_bwd"),
-                       ("gram_fwd", "gram_fwd"),
-                       ("gram_reduce", "gram_fwd (+ gram_relu_fwd's reduce)"),
-                       ("gram_wbwd", "gram_wbwd"),
-                       ("gram_bwd", "gram_bwd"), ("pool2_bwd", "pool_bwd"),
-                       ("lap_matvec", "lap_matvec"),
-                       ("conv3x3", "conv3x3")):
-        if key in name:
-            return group
-    low = name.lower()
-    if any(k in low for k in ("conv", "xmma", "cudnn", "gemm", "sm90",
-                              "dgrad", "implicit")):
-        return "conv (cuDNN)"
-    if "max_pool" in low:
-        return "max_pool forward"
-    return "other (elementwise, reductions, copies)"
-
-
 def profile_loop(run, cfg, first: int, steps: int):
     """Run `run(cfg, callback)` for first + steps Adam steps and profile
     steps first+1 … first+steps by kernel group with torch.profiler; the
@@ -2453,8 +2364,8 @@ def run_small_reference(gen, cfg, label: str, size: int = 64,
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
-    content = smooth_image(gen, gen.device, size)
-    style = smooth_image(gen, gen.device, size)
+    content = smooth_image(gen, gen.device, size).cpu().numpy()
+    style = smooth_image(gen, gen.device, size).cpu().numpy()
     cm, sm = stripe_masks(k, size)
     params = vgg.init_params(SEED)
     hists = {}
@@ -2486,9 +2397,9 @@ def run_multiscale(dev, gen) -> dict:
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
 
-    content = smooth_image(gen, dev, MS_SIZE)
-    style = smooth_image(gen, dev, MS_SIZE)
-    cmask, smask = band_masks(0, MS_SIZE), band_masks(1, MS_SIZE)
+    content = smooth_image(gen, dev, MS_SIZE).cpu().numpy()
+    style = smooth_image(gen, dev, MS_SIZE).cpu().numpy()
+    cmask, smask = band_masks(K, MS_SIZE, 0, 0), band_masks(K, MS_SIZE, 1, 0)
     half = MS_ITERS[0] // 2
     cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config4"],
                               scale_iters=MS_ITERS,
@@ -2631,9 +2542,9 @@ def run_stream12(dev, gen) -> dict:
                               intermediate_interval=1)
     if optimize.block12_route(cfg, (size, size, 3)) != "kernel":
         fail("stream12", "config6 does not take the block12 kernels")
-    content = smooth_image(gen, dev, size)
-    style = textured_image(gen, dev, size)
-    cmask, smask = band_masks(0, size), band_masks(1, size)
+    content = smooth_image(gen, dev, size).cpu().numpy()
+    style = textured_image(gen, dev, size).cpu().numpy()
+    cmask, smask = band_masks(K, size, 0, 0), band_masks(K, size, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
 
     args = [torch.from_numpy(a).to(dev) for a in (content, style, cmask,
@@ -2731,8 +2642,9 @@ def run_stream12(dev, gen) -> dict:
 
     # a short run at 1024² with stream12=8, twice: bit-identical rows
     small = 1024
-    c1, s1 = smooth_image(gen, dev, small), smooth_image(gen, dev, small)
-    m1, m2 = band_masks(0, small), band_masks(1, small)
+    c1 = smooth_image(gen, dev, small).cpu().numpy()
+    s1 = smooth_image(gen, dev, small).cpu().numpy()
+    m1, m2 = band_masks(K, small, 0, 0), band_masks(K, small, 1, 0)
     short = dataclasses.replace(cfg, stream12=8, iterations=3)
     if optimize.block12_route(short, (small, small, 3)) != "kernel":
         fail("rerun", "1024² with stream12=8 does not take the kernels")
@@ -2772,8 +2684,10 @@ def run_stream12_batch(dev, gen, smi: str, one: dict) -> dict:
     if optimize.block12_route(rcfg, (size, size, 3)) != "kernel":
         fail("stream12 batch", "config6's batch does not take the block12 "
              "kernels")
-    contents = np.stack([smooth_image(gen, dev, size) for _ in range(b)])
-    styles = np.stack([textured_image(gen, dev, size) for _ in range(b)])
+    contents = torch.stack([smooth_image(gen, dev, size)
+                            for _ in range(b)]).cpu().numpy()
+    styles = torch.stack([textured_image(gen, dev, size)
+                          for _ in range(b)]).cpu().numpy()
     cm, sm = batch_masks(b, size)
     params = vgg.get_params(seed=SEED, device=dev)
 
@@ -2873,10 +2787,10 @@ def run_small_batch_reference(gen, cfg, label: str, size: int,
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
     from dpst_tpu_torch.parallel import batch as pb
-    contents = np.stack([smooth_image(gen, gen.device, size)
-                         for _ in range(b)])
-    styles = np.stack([smooth_image(gen, gen.device, size)
-                       for _ in range(b)])
+    contents = torch.stack([smooth_image(gen, gen.device, size)
+                            for _ in range(b)]).cpu().numpy()
+    styles = torch.stack([smooth_image(gen, gen.device, size)
+                          for _ in range(b)]).cpu().numpy()
     cm, sm = batch_masks(b, size, 3)
     params = vgg.init_params(SEED)
     kernels.reset_launches()
@@ -2958,9 +2872,9 @@ def run_lbfgs(dev, gen, smi: str) -> dict:
     from dpst_tpu_torch.ops.guided_filter import smooth_local_affine
 
     label = "config3 L-BFGS 512²"
-    content = smooth_image(gen, dev, SIZE)
-    style = smooth_image(gen, dev, SIZE)
-    cmask, smask = band_masks(0), band_masks(1)
+    content = smooth_image(gen, dev, SIZE).cpu().numpy()
+    style = smooth_image(gen, dev, SIZE).cpu().numpy()
+    cmask, smask = band_masks(K, SIZE, 0, 0), band_masks(K, SIZE, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
     cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
                               optimizer="lbfgs", post_smooth=2,
@@ -3106,8 +3020,8 @@ def run_lbfgs_reference(gen, size: int = 64, k: int = 3) -> None:
     import dpst_tpu_torch
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
-    content = smooth_image(gen, gen.device, size)
-    style = smooth_image(gen, gen.device, size)
+    content = smooth_image(gen, gen.device, size).cpu().numpy()
+    style = smooth_image(gen, gen.device, size).cpu().numpy()
     cm, sm = stripe_masks(k, size)
     params = vgg.init_params(SEED)
     cfg = dpst_tpu_torch.StylizeConfig(
@@ -3218,7 +3132,7 @@ def run_segmentation(dev, gen) -> dict:
     params = {k: {n: t.to(dev) for n, t in p.items()}
               for k, p in params_cpu.items()}
     n_weights = sum(p["w"].numel() for p in params_cpu.values())
-    x = torch.from_numpy(smooth_image(gen, dev, SEG_SIZE))[None]
+    x = smooth_image(gen, dev, SEG_SIZE).cpu()[None]
     logits = pspnet._forward(params, x.to(dev), "float32").cpu()
     t0 = time.perf_counter()
     ref = pspnet._forward(params_cpu, x, "float32")
@@ -3231,8 +3145,8 @@ def run_segmentation(dev, gen) -> dict:
     finite16 = bool(torch.isfinite(logits16).all())
     del logits16
 
-    imgs = torch.from_numpy(np.stack([smooth_image(gen, dev, SIZE)
-                                      for _ in range(SEG_BATCH)])).to(dev)
+    imgs = torch.stack([smooth_image(gen, dev, SIZE)
+                        for _ in range(SEG_BATCH)])
     batch = pspnet.segment_batch(params, imgs, "bfloat16", chunk=SEG_BATCH)
     single = torch.stack([pspnet.segment(params, imgs[i], "bfloat16")
                           for i in range(SEG_BATCH)])
@@ -3266,7 +3180,7 @@ def run_segmentation(dev, gen) -> dict:
         seg()
     torch.cuda.synchronize()
     images_s = 3 * SEG_BATCH / (time.perf_counter() - t0)
-    wide = torch.from_numpy(smooth_image(gen, dev, 768)[:512]).to(dev)
+    wide = smooth_image(gen, dev, 768)[:512]
     slide = lambda: pspnet.segment(params, wide, "bfloat16",
                                    protocol="sliding", base_size=512,
                                    flip=True)
@@ -3357,8 +3271,8 @@ def run_automatic(dev, gen, seg_params: dict) -> dict:
     from dpst_tpu_torch.ops import kernels
 
     label = "config3 automatic 512²"
-    content = smooth_image(gen, dev, SIZE)
-    style = textured_image(gen, dev, SIZE)
+    content = smooth_image(gen, dev, SIZE).cpu().numpy()
+    style = textured_image(gen, dev, SIZE).cpu().numpy()
     params = vgg.get_params(seed=SEED, device=dev)
     seg = {k: {n: t.to(dev) for n, t in p.items()}
            for k, p in seg_params.items()}
@@ -3445,8 +3359,8 @@ def run_automatic_reference(dev, gen, seg_params: dict, size: int = 64
     from dpst_tpu_torch.models import pspnet, vgg
     from dpst_tpu_torch.ops import kernels
     from dpst_tpu_torch.ops.resize import resize_image
-    content = smooth_image(gen, gen.device, size)
-    style = textured_image(gen, gen.device, size)
+    content = smooth_image(gen, gen.device, size).cpu().numpy()
+    style = textured_image(gen, gen.device, size).cpu().numpy()
     cfg = dpst_tpu_torch.StylizeConfig(
         compute_dtype="float32", iterations=5, regularization_weight=100.0)
     params = vgg.init_params(SEED)
@@ -3538,8 +3452,8 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
     tune = importlib.import_module("dpst_tpu_torch.autotune")
 
     label = "config3 autotune 512²"
-    content = smooth_image(gen, dev, SIZE)
-    style = textured_image(gen, dev, SIZE)
+    content = smooth_image(gen, dev, SIZE).cpu().numpy()
+    style = textured_image(gen, dev, SIZE).cpu().numpy()
     params = vgg.get_params(seed=SEED, device=dev)
     seg = {k: {n: t.to(dev) for n, t in p.items()}
            for k, p in seg_params.items()}
@@ -3647,8 +3561,8 @@ def run_autotune_reference(gen, params: dict, size: int = 64) -> None:
     import dpst_tpu_torch
     from dpst_tpu_torch.models import nima
     tune = importlib.import_module("dpst_tpu_torch.autotune")
-    content = smooth_image(gen, gen.device, size)
-    style = textured_image(gen, gen.device, size)
+    content = smooth_image(gen, gen.device, size).cpu().numpy()
+    style = textured_image(gen, gen.device, size).cpu().numpy()
     cm, sm = stripe_masks(3, size)
     cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
                                        regularization_weight=100.0)
@@ -3701,104 +3615,6 @@ def pair_errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def fwd_plan_by_b(c: int, p: int, k: int, b: int = 1) -> tuple[int, int]:
-    """gram_stream.fwd_plan with B in the grid's fill: B pairs fill the
-    card with fewer splits of P each. A control (`plans_split_by_b`)."""
-    from dpst_tpu_torch.ops import gram_stream as gs
-    blocks = gs.fwd_blocks(c, k, 1) * b
-    splits = max(1, min(264 // blocks, -(-p // 256)))
-    if -(-p // splits) > gs.FWD_SPLIT_MAX:
-        splits = -(-p // gs.FWD_SPLIT_MAX)
-        splits = max(splits, -(-blocks * splits // 264) * 264 // blocks)
-    chunk = -(-(-(-p // splits)) // 128) * 128
-    return -(-p // chunk), chunk
-
-
-def bwd_plan_by_b(c: int, p: int, k: int, b: int = 1
-                  ) -> tuple[int, int, int]:
-    """gram_stream.bwd_plan with B pairs' c tiles in the wave: where they
-    fill it, one split, else fewer splits of the (k, c') items. A
-    control."""
-    tile = 64 if c <= 64 else 128
-    slots = 132 * (3 if tile == 64 else 2)
-    ctiles, ptiles = b * -(-c // tile), -(-p // 64)
-    if ptiles * ctiles >= slots:
-        return tile, min(ptiles, max(1, slots // ctiles)), 1
-    items = -(-c // 64) * k
-    splits = max(1, min(items, slots // (ptiles * ctiles)))
-    return tile, ptiles, -(-items // -(-items // splits))
-
-
-def wbwd_plan_by_b(c: int, p: int, k: int, b: int = 1
-                   ) -> tuple[int, int, int]:
-    """gram_pallas.wbwd_plan with B pairs' c tiles on the SMs: where they
-    fill them, one split, else the class splits of least cost for the B
-    pairs' grid. A control."""
-    tile = 64 if c <= 64 else 128
-    ctiles, ptiles = b * -(-c // tile), -(-p // 128)
-    if ptiles * ctiles >= 132:
-        return tile, min(ptiles, max(1, 132 // ctiles)), 1
-    cost = {}
-    for n in range(1, k + 1):
-        per = -(-k // n)
-        splits = -(-k // per)
-        cost.setdefault(splits, -(-ptiles * ctiles * splits // 132) * per)
-    return tile, ptiles, min(cost, key=lambda n: (cost[n], n))
-
-
-def relu_bwd_plan_by_b(c: int, p: int, k: int, b: int = 1
-                       ) -> tuple[int, int, int]:
-    """gram_s2d.relu_bwd_plan over `wbwd_plan_by_b` (its own body's plan,
-    one split, as shipped). A control."""
-    from dpst_tpu_torch.ops import gram_s2d as g2
-    if c <= 64 and k <= g2.RELU_BWD_MAX_K:
-        return 64, min(-(-p // g2.RELU_BWD_PIXELS), max(1, 132 // b)), 1
-    return wbwd_plan_by_b(c, p, k, b)
-
-
-def conv_plan_by_b(cin: int, cout: int, h: int, w: int,
-                   b: int = 1) -> tuple[int, int, int]:
-    """conv_cuda.conv_plan with the b images' tiles in the waves: fewer
-    Cin splits where they fill the card. A control."""
-    from dpst_tpu_torch.ops import conv_cuda as cc
-    blocks = b * cc.conv_blocks(cout, h, w)
-    chunks = -(-cin // cc.CHUNK)
-    best = None
-    for n in range(1, chunks + 1):
-        cps = -(-chunks // n)
-        splits = -(-chunks // cps)
-        cost = -(-blocks * splits // cc.SMS) * cps
-        if best is None or cost < best[0]:
-            best = (cost, splits, cps)
-    return cc.conv_width(cout), best[1], best[2]
-
-
-@contextlib.contextmanager
-def plans_split_by_b():
-    """The batched kernels on plans that cut each pair's reductions by B
-    (P of the Gram forwards, the (k, c') items or classes of the
-    backwards, Cin of the conv: fewer splits as B grows), where the
-    shipped plans split each pair as one pair's plan does. A pair's sums
-    then round apart from its launch alone: the control that the "<kernel>
-    B=8" rows are timed against, never a path's plan."""
-    from dpst_tpu_torch.ops import conv_cuda as cc
-    from dpst_tpu_torch.ops import gram_pallas as gp
-    from dpst_tpu_torch.ops import gram_s2d as g2
-    from dpst_tpu_torch.ops import gram_stream as gs
-    swaps = ((gs, "fwd_plan", fwd_plan_by_b), (gs, "bwd_plan", bwd_plan_by_b),
-             (gp, "wbwd_plan", wbwd_plan_by_b),
-             (g2, "relu_bwd_plan", relu_bwd_plan_by_b),
-             (cc, "conv_plan", conv_plan_by_b))
-    shipped = [getattr(mod, name) for mod, name, _ in swaps]
-    try:
-        for mod, name, fn in swaps:
-            setattr(mod, name, fn)
-        yield
-    finally:
-        for (mod, name, _), fn in zip(swaps, shipped):
-            setattr(mod, name, fn)
-
-
 def pairs_equal_alone(got, alone) -> bool:
     """Each pair of a batched kernel's output bit-equal to the same
     kernel's launch on that pair alone (`alone`: the B one-pair outputs)."""
@@ -3808,27 +3624,18 @@ def pairs_equal_alone(got, alone) -> bool:
 def batched_row(name: str, shape: list, b: int, k, dtype: str, in_step: bool,
                 got, ref, tol: float, run, looped, plain, nbytes: float,
                 ops: float, lib=None, lib_call: str | None = None,
-                split_by_b: bool = False, **extra) -> dict:
+                **extra) -> dict:
     """One batched kernel's row: its B pairs against the plain version
     pair by pair (each pair's error over its own max |ref|) and, bit for
     bit, against the B one-pair launches of the same kernel (`looped`,
     whose outputs it returns); its device time in turns with those
     launches (`looped_ms`, the yardstick of ROADMAP item 14; never on the
-    path) and, with `split_by_b`, with the same batched launch on the
-    plans that split a pair's reductions by B (`split_by_b_ms`, a control:
-    `plans_split_by_b`); back-to-back event times, the plain version's
-    time, the bound of the B pairs' bytes or operations and, where one
-    PyTorch call computes the same function for the batch, that call's
-    device time."""
+    path); back-to-back event times, the plain version's time, the bound
+    of the B pairs' bytes or operations and, where one PyTorch call
+    computes the same function for the batch, that call's device time."""
     err, rel = pair_errors(got, ref)
     equal = pairs_equal_alone(got, looped())
-    fns = {"ms": run, "looped_ms": looped}
-    if split_by_b:
-        def run_by_b():
-            with plans_split_by_b():
-                return run()
-        fns["split_by_b_ms"] = run_by_b
-    times = plans_in_turns(fns)
+    times = plans_in_turns({"ms": run, "looped_ms": looped})
     times["events_ms"] = cuda_ms(run)
     times["looped_events_ms"] = cuda_ms(looped)
     bnd, by = bound_ms(nbytes, ops, dtype)
@@ -3898,18 +3705,17 @@ def check_batched(dev, gen):
         in_step = c != 64
         f, _, m2, s = batched_input("gram", b, c, p, K, torch.bfloat16, dev,
                                     gen)
-        ops = 2.0 * b * K * c * c * p
+        nbytes, ops = gram_fwd_work(c, p, K, 2)
         rows.append(batched_row(
             "gram_fwd", [c, p], b, K, "bfloat16", in_step,
             gs.gram_fwd(f, m2), gs.gram_fwd_plain(f, m2), 1e-3,
             lambda: gs.gram_fwd(f, m2),
             lambda: [gs.gram_fwd(f[i], m2[i]) for i in range(b)],
             lambda: gs.gram_fwd_plain(f, m2),
-            b * ((c * p + K * p) * 2 + K * c * c * 4), ops,
+            b * nbytes, b * ops,
             lambda: torch.matmul(f.unsqueeze(1), (f.unsqueeze(1)
                                  * m2.unsqueeze(2)).transpose(-1, -2)),
-            "torch.matmul", split_by_b=True, plan=gs.fwd_plan(c, p, K, b),
-            plan_split_by_b=fwd_plan_by_b(c, p, K, b)))
+            "torch.matmul", plan=gs.fwd_plan(c, p, K, b)))
         if in_step:
             a = s.transpose(1, 2).reshape(b, c, K * c)
             rows.append(batched_row(
@@ -3918,12 +3724,10 @@ def check_batched(dev, gen):
                 lambda: gs.gram_bwd(f, m2, s),
                 lambda: [gs.gram_bwd(f[i], m2[i], s[i]) for i in range(b)],
                 lambda: gs.gram_bwd_plain(f, m2, s),
-                b * (2 * c * p + K * p + K * c * c) * 2, ops,
+                b * gram_bwd_work(c, p, K, 2)[0], b * ops,
                 lambda: torch.matmul(a, (f.unsqueeze(1) * m2.unsqueeze(2))
                                      .reshape(b, K * c, p)),
-                "torch.matmul", split_by_b=True,
-                plan=gs.bwd_plan(c, p, K, b),
-                plan_split_by_b=bwd_plan_by_b(c, p, K, b)))
+                "torch.matmul", plan=gs.bwd_plan(c, p, K, b)))
         del f, m2, s
         torch.cuda.empty_cache()
     # the fused pair at conv1_1; its yardstick: torch.matmul on the cooked
@@ -3943,8 +3747,7 @@ def check_batched(dev, gen):
         b * ((c * p + K * p) * 2 + K * c * c * 4) + c * 2, ops,
         lambda: torch.matmul(f.unsqueeze(1), (f.unsqueeze(1)
                              * m2.unsqueeze(2)).transpose(-1, -2)), yard,
-        split_by_b=True, plan=gs.fwd_plan(c, p, K, b),
-        plan_split_by_b=fwd_plan_by_b(c, p, K, b)))
+        plan=gs.fwd_plan(c, p, K, b)))
     ref = g2.gram_relu_bwd_plain(z, bias, m2, s)
     a = s.transpose(1, 2).reshape(b, c, K * c)
     rows.append(batched_row(
@@ -3958,8 +3761,7 @@ def check_batched(dev, gen):
         b * (2 * c * p + K * p + K * c * c) * 2 + c * 2, ops,
         lambda: torch.matmul(a, (f.unsqueeze(1) * m2.unsqueeze(2))
                              .reshape(b, K * c, p)), yard,
-        split_by_b=True, plan=g2.relu_bwd_plan(c, p, K, b),
-        plan_split_by_b=relu_bwd_plan_by_b(c, p, K, b)))
+        plan=g2.relu_bwd_plan(c, p, K, b)))
     del z, bias, m2, s, f, ref
     torch.cuda.empty_cache()
     # the pool backward: the pairs folded into its channels
@@ -4005,21 +3807,19 @@ def check_batched_wbwd_conv(dev, gen):
             tol = max(out_tol(ref[i], dtype) for i in range(b))
             if dtype == "bfloat16":
                 a = s.transpose(1, 2).reshape(b, c, K * c)
+                nbytes, ops = gram_bwd_work(c, p, K, isz)
                 rows.append(batched_row(
                     "gram_wbwd", [c, p], b, K, dtype, c != 64, got, ref, tol,
                     lambda: gp.gram_wbwd(f, m2, s),
                     lambda: [gp.gram_wbwd(f[i], m2[i], s[i])
                              for i in range(b)],
                     lambda: gp.gram_wbwd_plain(f, m2, s),
-                    b * (2 * c * p + K * p + K * c * c) * isz,
-                    2.0 * b * K * c * c * p,
+                    b * nbytes, b * ops,
                     lambda: torch.matmul(a, (f.unsqueeze(1)
                                              * m2.unsqueeze(2))
                                          .reshape(b, K * c, p)),
                     "yardstick: gram_bwd's torch.matmul, weighting before "
-                    "the product", split_by_b=True,
-                    plan=gp.wbwd_plan(c, p, K, b),
-                    plan_split_by_b=wbwd_plan_by_b(c, p, K, b),
+                    "the product", plan=gp.wbwd_plan(c, p, K, b),
                     masks="soft"))
             else:
                 worst[f"gram_wbwd B={b} {dtype} {c}x{p}"] = rel = (
@@ -4081,9 +3881,8 @@ def check_batched_wbwd_conv(dev, gen):
                     b * (k_in + k_out) * hw * hw * isz
                     + 9 * k_in * k_out * isz,
                     2.0 * b * 9 * k_in * k_out * hw * hw, lib, lib_name,
-                    split_by_b=True, direction=direction,
-                    plan=cc.conv_plan(k_in, k_out, hw, hw, b),
-                    plan_split_by_b=conv_plan_by_b(k_in, k_out, hw, hw, b))
+                    direction=direction,
+                    plan=cc.conv_plan(k_in, k_out, hw, hw, b))
                 timed[key] = row
                 rows.append(row)
             del x, wt, g, ft, got, ref
@@ -4255,10 +4054,10 @@ def run_batch_path(dev, gen, smi: str) -> dict:
     from dpst_tpu_torch.parallel import batch as pb
 
     label = f"config3 batch B={BATCH} 512²"
-    contents = np.stack([smooth_image(gen, dev, SIZE)
-                         for _ in range(BATCH)])
-    styles = np.stack([textured_image(gen, dev, SIZE)
-                       for _ in range(BATCH)])
+    contents = torch.stack([smooth_image(gen, dev, SIZE)
+                            for _ in range(BATCH)]).cpu().numpy()
+    styles = torch.stack([textured_image(gen, dev, SIZE)
+                          for _ in range(BATCH)]).cpu().numpy()
     cm, sm = batch_masks(BATCH)
     params = vgg.get_params(seed=SEED, device=dev)
     cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
@@ -4665,10 +4464,10 @@ def run_batch_reference(gen, size: int = 64, b: int = 2) -> None:
     1e-3 of the CPU's (of each column's max), as the one-pair reference."""
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
-    contents = np.stack([smooth_image(gen, gen.device, size)
-                         for _ in range(b)])
-    styles = np.stack([smooth_image(gen, gen.device, size)
-                       for _ in range(b)])
+    contents = torch.stack([smooth_image(gen, gen.device, size)
+                            for _ in range(b)]).cpu().numpy()
+    styles = torch.stack([smooth_image(gen, gen.device, size)
+                          for _ in range(b)]).cpu().numpy()
     cm, sm = batch_masks(b, size, 3)
     cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
                                        regularization_weight=100.0,
@@ -4904,9 +4703,9 @@ def run_spatial(dev, gen, smi: str, batch_run: dict) -> tuple[dict, dict]:
     n, size = SP_SHARDS, SP_SIZE
     label = (f"config3 spatial {size}², {n} row shards "
              f"(virtual mesh, one card)")
-    content = smooth_image(gen, dev, size)
-    style = textured_image(gen, dev, size)
-    cm, sm = band_masks(0, size), band_masks(1, size)
+    content = smooth_image(gen, dev, size).cpu().numpy()
+    style = textured_image(gen, dev, size).cpu().numpy()
+    cm, sm = band_masks(K, size, 0, 0), band_masks(K, size, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
     cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
                               laplacian_impl="pallas", iterations=SP_ITERS)
@@ -5165,9 +4964,9 @@ def run_spatial_small(dev, gen, mesh) -> None:
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.parallel import spatial as sp
-    content = smooth_image(gen, dev, SIZE)
-    style = textured_image(gen, dev, SIZE)
-    cm, sm = band_masks(0, SIZE), band_masks(1, SIZE)
+    content = smooth_image(gen, dev, SIZE).cpu().numpy()
+    style = textured_image(gen, dev, SIZE).cpu().numpy()
+    cm, sm = band_masks(K, SIZE, 0, 0), band_masks(K, SIZE, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
     cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
                               laplacian_impl="pallas",
@@ -5199,8 +4998,8 @@ def run_spatial_small(dev, gen, mesh) -> None:
              f"{rel[0].max()}, rerun identical {identical}")
 
     size, k = 64, 3
-    content = smooth_image(gen, dev, size)
-    style = smooth_image(gen, dev, size)
+    content = smooth_image(gen, dev, size).cpu().numpy()
+    style = smooth_image(gen, dev, size).cpu().numpy()
     cm, sm = stripe_masks(k, size)
     cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
                                        regularization_weight=100.0)
@@ -5407,9 +5206,9 @@ def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
     from dpst_tpu_torch import optimize
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.parallel import spatial as sp
-    content = smooth_image(gen, dev, SIZE)
-    style = textured_image(gen, dev, SIZE)
-    cm, sm = band_masks(0, SIZE), band_masks(1, SIZE)
+    content = smooth_image(gen, dev, SIZE).cpu().numpy()
+    style = textured_image(gen, dev, SIZE).cpu().numpy()
+    cm, sm = band_masks(K, SIZE, 0, 0), band_masks(K, SIZE, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
     cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
                               optimizer="lbfgs", laplacian_impl="pallas",
@@ -5445,8 +5244,8 @@ def run_spatial_lbfgs_small(dev, gen, mesh) -> None:
         fail("spatial", "512² sharded L-BFGS: " + "; ".join(bad))
 
     size, k = 64, 3
-    content = smooth_image(gen, dev, size)
-    style = smooth_image(gen, dev, size)
+    content = smooth_image(gen, dev, size).cpu().numpy()
+    style = smooth_image(gen, dev, size).cpu().numpy()
     cm, sm = stripe_masks(k, size)
     cfg = dpst_tpu_torch.StylizeConfig(
         compute_dtype="float32", iterations=LBFGS_SHORT, optimizer="lbfgs",
@@ -5600,10 +5399,10 @@ def run_mesh_batch(dev, b: dict) -> None:
 
     size = 64
     gen = torch.Generator().manual_seed(SEED + 31)
-    contents = np.stack([smooth_image(gen, gen.device, size)
-                         for _ in range(2)])
-    styles = np.stack([smooth_image(gen, gen.device, size)
-                       for _ in range(2)])
+    contents = torch.stack([smooth_image(gen, gen.device, size)
+                            for _ in range(2)]).cpu().numpy()
+    styles = torch.stack([smooth_image(gen, gen.device, size)
+                          for _ in range(2)]).cpu().numpy()
     cm, sm = batch_masks(2, size, 3)
     cfg = dpst_tpu_torch.StylizeConfig(compute_dtype="float32", iterations=5,
                                        regularization_weight=100.0)
@@ -5672,13 +5471,16 @@ def run_cli(dev, gen, smi: str) -> None:
     torch.cuda.empty_cache()  # the subprocesses take memory of their own
     with tempfile.TemporaryDirectory(prefix="dpst_cli_") as d:
         j = lambda *parts: os.path.join(d, *parts)
-        io.save_image(smooth_image(gen, dev, SIZE), j("content.png"))
-        io.save_image(textured_image(gen, dev, SIZE), j("style.png"))
-        np.save(j("cm.npy"), band_masks(0))
-        np.save(j("sm.npy"), band_masks(1))
+        io.save_image(smooth_image(gen, dev, SIZE).cpu().numpy(),
+                      j("content.png"))
+        io.save_image(textured_image(gen, dev, SIZE).cpu().numpy(),
+                      j("style.png"))
+        np.save(j("cm.npy"), band_masks(K, SIZE, 0, 0))
+        np.save(j("sm.npy"), band_masks(K, SIZE, 1, 0))
         os.makedirs(j("dir"))
         for i in range(CLI_DIR_IMAGES):
-            io.save_image(smooth_image(gen, dev, SIZE), j("dir", f"{i}.png"))
+            io.save_image(smooth_image(gen, dev, SIZE).cpu().numpy(),
+                          j("dir", f"{i}.png"))
         pair = ["--content", j("content.png"), "--style", j("style.png"),
                 "--preset", "config3", "--size", str(SIZE)]
         masks = ["--content-masks", j("cm.npy"), "--style-masks", j("sm.npy")]
