@@ -246,6 +246,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from port_bench.inputs import band_masks, smooth_image, textured_image
 from port_bench.trace import kernel_group
@@ -283,10 +284,20 @@ BIAS_RELU_SHAPES_BATCH = ((8, 64, 512, 512), (8, 128, 256, 256),
 BIAS_RELU_SHAPES_RAGGED = ((3, 5, 7, 9), (2, 64, 33, 37), (1, 3, 1, 1),
                            (7, 10000, 1, 3))
 # launches of one config3 step at 2048² and of its precompute (10 convs of
-# the content, 13 of the style)
+# the content, 13 of the style): the NHWC forms, the activations being
+# channels_last on the bf16 cuDNN route
 BIAS_RELU_STEP_LAUNCHES = {
-    "per_step": {"bias_relu_fwd": 13, "bias_relu_bwd": 13},
-    "precompute": {"bias_relu_fwd": 23, "bias_relu_bwd": 0}}
+    "per_step": {"bias_relu_fwd_nhwc": 13, "bias_relu_bwd_nhwc": 13},
+    "precompute": {"bias_relu_fwd_nhwc": 23, "bias_relu_bwd_nhwc": 0}}
+# (C, H, W) of the taps of a 2048² step: conv1_1 (the fused pair's raw
+# tap), conv2_1 … conv5_1 (gram_fwd, gram_bwd; conv2_1 also at K = 8,
+# where it takes gram_wbwd), and the pools' inputs
+NHWC_TAPS_2048 = ((64, 2048, 2048), (128, 1024, 1024), (256, 512, 512),
+                  (512, 256, 256), (512, 128, 128))
+NHWC_POOLS_2048 = ((64, 2048, 2048), (128, 1024, 1024), (256, 512, 512),
+                   (512, 256, 256))
+# cuDNN's layout transposes, which a channels_last step must not launch
+CUDNN_TRANSPOSES = ("nchwToNhwcKernel", "nhwcToNchwKernel")
 # (Cin, Cout, H = W) of conv1_2 … conv5_1 at 512², the convs that
 # conv_impl="pallas" sends to the conv3x3 kernel (conv1_1 stays on cuDNN)
 CONV_SHAPES = ((64, 64, 512), (64, 128, 256), (128, 128, 256),
@@ -493,6 +504,26 @@ def fail(phase: str, msg: str) -> None:
     emit({"phase": phase, "ok": False, "error": msg})
     print(f"chip_smoke: {phase} failed: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def launch_counts() -> dict:
+    """`kernels.LAUNCHES` with the launches of each NHWC or (P, C) form
+    (`kernels.NHWC_FORMS`) added to its NCHW twin's: a path's gates count
+    a kernel whatever layout its operands lie in. The forms keep their own
+    entries, which `check_nhwc_route` holds apart."""
+    from dpst_tpu_torch.ops import kernels
+    out = dict(kernels.LAUNCHES)
+    for form, twin in kernels.NHWC_FORMS.items():
+        out[twin] += out[form]
+    return out
+
+
+def twin_kernels() -> tuple:
+    """The kernels a path's launch gates name: every counter but the NHWC
+    and (P, C) forms, whose launches `launch_counts` adds to their
+    twins'."""
+    from dpst_tpu_torch.ops import kernels
+    return tuple(k for k in kernels.KERNELS if k not in kernels.NHWC_FORMS)
 
 
 def weights_label() -> str:
@@ -849,7 +880,7 @@ def fwd_at_plan(name: str, f: torch.Tensor, m2: torch.Tensor, plan,
     operands = (f, m2) if bias is None else (f, bias, m2)
     kernels.check(getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out),
-        c, p, k, 1, splits, chunk, kernels.DTYPE_CODES[f.dtype],
+        c, p, k, 1, splits, chunk, kernels.DTYPE_CODES[f.dtype], 0,
         kernels.stream_ptr(f)), name)
     return out
 
@@ -1348,8 +1379,8 @@ def check_bias_relu(dev, gen) -> None:
     shapes of a 2048² step (BIAS_RELU_SHAPES_2048), the batch's
     (8, C, H, W) at 512² and ragged or misaligned shapes, in bf16 and fp32;
     each kernel timed by device time and by events against its byte bound
-    (read z and write y; read z and g and write dz). Then the launches of
-    one 2048² config3 step (BIAS_RELU_STEP_LAUNCHES)."""
+    (read z and write y; read z and g and write dz). Then the
+    channels_last route of a 2048² config3 step (`check_nhwc_route`)."""
     from dpst_tpu_torch.ops import bias_relu_cuda as br
     cases = ([(s, "2048² step", True) for s in BIAS_RELU_SHAPES_2048]
              + [(s, "batch 512²", True) for s in BIAS_RELU_SHAPES_BATCH]
@@ -1393,14 +1424,214 @@ def check_bias_relu(dev, gen) -> None:
                 fail("kernels", f"bias_relu {dtype} {list(shape)} not "
                      f"bit-equal: {equal}")
             del z, b, g, y, dz
-    bias_relu_step_launches(dev)
+    check_nhwc_route(dev)
 
 
-def bias_relu_step_launches(dev) -> None:
-    """The bias+ReLU launches of one Adam step of config3 at 2048² (the
-    standard path, 13 convs to conv5_1 each way), as the difference of a
-    3-step and a 1-step `stylize` (each with its precompute: the content
-    to conv4_2 and the style to conv5_1, forwards only)."""
+def check_nhwc_forms(dev, gen) -> list:
+    """The kernels' forms on channels_last operands beside their twins at
+    the shapes of a 2048² step, in bf16 (the route's dtype): the bias+ReLU
+    pair's and the pool backward's NHWC forms, bit for bit their NCHW
+    forms; the Gram kernels' (P, C) forms (gram_fwd and gram_bwd at conv2_1
+    … conv5_1, K = 4; gram_wbwd at conv2_1, K = 8; the fused pair at
+    conv1_1, K = 4), bit for bit their (C, P) forms. Each form is also held
+    to its plain version on the same channels_last operands, at the
+    tolerance its twin's own check holds the twin to: bit for bit for the
+    bias+ReLU pair and the pool; 1e-2 of max|dF| for gram_bwd, one bf16
+    ulp of max|dF| for gram_wbwd and gram_relu_bwd; 1e-3 of max|G| for
+    the forwards below 2^20 pixels (`check_gram`'s shapes). The forwards
+    are held besides to the fp64 product of the same bf16 operands within
+    GRAM_FP64_TOL, as `check_gram_split_cap` holds them at 4096²: from
+    2^20 pixels on (conv2_1's 2^20, conv1_1's 2^22) that is their only
+    gate, since fp32 cuBLAS's own sums there drift from fp64 by 1e-3 and
+    more (1.02e-3 of max|G| at (128, 2^20), 4.26e-3 at (64, 2^22), the
+    forms 3.9e-5 and 3.1e-5; NVIDIA H100 80GB HBM3, 700.00 W); each row
+    records both errors against fp64. Each row gives both
+    device times in turns ("ms" the form's, "twin_ms" the twin's) and the
+    bound of `port_bench/work/` (the pair's and the pool's as their twins'
+    rows count them)."""
+    from dpst_tpu_torch.ops import bias_relu_cuda as br
+    from dpst_tpu_torch.ops import gram_pallas as gp
+    from dpst_tpu_torch.ops import gram_s2d as g2
+    from dpst_tpu_torch.ops import gram_stream as gs
+    from dpst_tpu_torch.ops import pool_cuda
+    cl, rows, bf = torch.channels_last, [], torch.bfloat16
+
+    def row(name, twin, shape, k, run, twin_run, plain_run, tol, nbytes,
+            ops, fp64=None):
+        """`run` the form, `twin_run` its twin and `plain_run` the plain
+        version on the form's operands; `tol` relative to max|plain| (0:
+        bit for bit, None: recorded only); `fp64` the forward's fp64
+        product."""
+        got = run()
+        equal = same_bits(got, twin_run())
+        ref = plain_run()
+        torch.cuda.synchronize()
+        # bit for bit: NaN and ±inf among the bias+ReLU pair's operands
+        rel = None if tol == 0 else rel_err(got, ref)[1]
+        plain_ok = (same_bits(got, ref) if tol == 0
+                    else tol is None or rel <= tol)
+        errs = None
+        if fp64 is not None:
+            g64 = fp64()
+            errs = {"form": fp64_errors(got, g64),
+                    "plain (fp32 cuBLAS)": fp64_errors(ref, g64)}
+            del g64
+        del got, ref
+        times = in_turns(run, twin_run)
+        bound, by = bound_ms(nbytes, ops, "bfloat16")
+        r = {"phase": "kernel", "name": name, "twin": twin,
+             "shape": list(shape), "K": k, "dtype": "bfloat16",
+             "in_step": False, "bit_equal": equal, "tol": "bit-exact",
+             "plain_rel_err": rel,
+             "plain_tol_rel": "bit-exact" if tol == 0 else tol,
+             "fp64": errs, "tol_max_rel_fp64": GRAM_FP64_TOL if errs else None,
+             "ms": times["ms"], "twin_ms": times["library_ms"],
+             "bound_ms": bound, "bound_by": by,
+             "share_of_bound": bound / times["ms"]}
+        emit(r)
+        rows.append(r)
+        if not equal:
+            fail("kernels", f"{name} {list(shape)} K={k} not bit-equal to "
+                 f"{twin}")
+        if not plain_ok:
+            fail("kernels", f"{name} {list(shape)} K={k}: off its plain "
+                 f"version ({rel} of max|ref|, tol {tol or 'bit-exact'})")
+        if errs and not errs["form"]["max_rel"] <= GRAM_FP64_TOL:
+            fail("kernels", f"{name} {list(shape)} K={k}: "
+                 f"{errs['form']['max_rel']} of max|G| from fp64")
+
+    for c, h, w in NHWC_TAPS_2048:
+        z, b, g = bias_relu_input((1, c, h, w), bf, dev, gen)
+        zc, gc = z.contiguous(memory_format=cl), g.contiguous(memory_format=cl)
+        n = z.numel()
+        row("bias_relu_fwd_nhwc", "bias_relu_fwd", (1, c, h, w), None,
+            lambda: br.bias_relu_fwd(zc, b), lambda: br.bias_relu_fwd(z, b),
+            lambda: br.bias_relu_fwd_plain(zc, b), 0, 4 * n, 2 * n)
+        row("bias_relu_bwd_nhwc", "bias_relu_bwd", (1, c, h, w), None,
+            lambda: br.bias_relu_bwd(zc, b, gc),
+            lambda: br.bias_relu_bwd(z, b, g),
+            lambda: br.bias_relu_bwd_plain(zc, b, gc), 0, 6 * n, 3 * n)
+        del z, g, zc, gc
+    for c, h, w in NHWC_POOLS_2048:
+        x, y, g = tied_pool_input(c, h, w, bf, dev, gen)
+        xc, yc, gc = (t[None].contiguous(memory_format=cl) for t in (x, y, g))
+        n = c * h * w
+        row("pool_bwd_nhwc", "pool_bwd", (1, c, h, w), None,
+            lambda: pool_cuda.maxpool2_bwd_nhwc(xc, yc, gc),
+            lambda: pool_cuda.maxpool2_bwd(x, y, g)[None],
+            lambda: pool_cuda.maxpool2_bwd_nhwc_plain(xc, yc, gc), 0,
+            2.5 * n * 2, POOL_OPS_PER_WINDOW * n / 4)
+        del x, y, g, xc, yc, gc
+    torch.cuda.empty_cache()
+    for i, (c, h, w) in enumerate(NHWC_TAPS_2048):
+        p = h * w
+        for k in (K, K8) if i == 1 else (K,):
+            m = torch.rand((k, p), generator=gen, device=dev)
+            m2 = (m * m).to(bf)
+            d = torch.randn((k, c, c), generator=gen, device=dev)
+            s = (d + d.transpose(1, 2)).to(bf).contiguous()
+            t = torch.randn((p, c), generator=gen, device=dev).to(bf)
+            if i == 0:
+                z_pc = t.t()
+                z = z_pc.contiguous()
+                bias = (0.5 * torch.randn((c,), generator=gen,
+                                          device=dev)).to(bf)
+                row("gram_relu_fwd_pc", "gram_relu_fwd", (c, p), k,
+                    lambda: g2.gram_relu_fwd(z_pc, bias, m2),
+                    lambda: g2.gram_relu_fwd(z, bias, m2),
+                    lambda: g2.gram_relu_fwd_plain(z_pc, bias, m2),
+                    1e-3 if p < 1 << 20 else None,
+                    (c * p + k * p + c) * 2 + k * c * c * 4,
+                    2.0 * k * c * c * p,
+                    lambda: gram_fp64(g2._cook(z, bias), m2))
+                dz_ref = g2.gram_relu_bwd_plain(z_pc, bias, m2, s)
+                row("gram_relu_bwd_pc", "gram_relu_bwd", (c, p), k,
+                    lambda: g2.gram_relu_bwd(z_pc, bias, m2, s),
+                    lambda: g2.gram_relu_bwd(z, bias, m2, s),
+                    lambda: g2.gram_relu_bwd_plain(z_pc, bias, m2, s),
+                    out_tol(dz_ref, "bfloat16"),
+                    (2 * c * p + k * p + k * c * c + c) * 2,
+                    2.0 * k * c * c * p)
+                del z_pc, z, dz_ref
+            else:
+                f_pc = t.abs().t()
+                f = f_pc.contiguous()
+                if k == K:
+                    row("gram_fwd_pc", "gram_fwd", (c, p), k,
+                        lambda: gs.gram_fwd(f_pc, m2),
+                        lambda: gs.gram_fwd(f, m2),
+                        lambda: gs.gram_fwd_plain(f_pc, m2),
+                        1e-3 if p < 1 << 20 else None,
+                        *gram_fwd_work(c, p, k, 2),
+                        lambda: gram_fp64(f, m2))
+                    row("gram_bwd_pc", "gram_bwd", (c, p), k,
+                        lambda: gs.gram_bwd(f_pc, m2, s),
+                        lambda: gs.gram_bwd(f, m2, s),
+                        lambda: gs.gram_bwd_plain(f_pc, m2, s), 1e-2,
+                        *gram_bwd_work(c, p, k, 2))
+                else:
+                    df_ref = gp.gram_wbwd_plain(f_pc, m2, s)
+                    row("gram_wbwd_pc", "gram_wbwd", (c, p), k,
+                        lambda: gp.gram_wbwd(f_pc, m2, s),
+                        lambda: gp.gram_wbwd(f, m2, s),
+                        lambda: gp.gram_wbwd_plain(f_pc, m2, s),
+                        out_tol(df_ref, "bfloat16"),
+                        *gram_bwd_work(c, p, k, 2))
+                    del df_ref
+                del f_pc, f
+            del t, m, m2, d, s
+            torch.cuda.empty_cache()
+    return rows
+
+
+class LayoutCopies(TorchDispatchMode):
+    """Records the ATen copies (copy_, clone, _to_copy) that keep a bf16
+    tensor's dtype and move as many elements as one of `sizes`, and counts
+    the convolution backwards it saw (so that a gate on it can tell that
+    the autograd thread's ops passed through it too)."""
+
+    def __init__(self, sizes):
+        super().__init__()
+        self.sizes, self.copies, self.conv_backwards = set(sizes), [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name == "convolution_backward":
+            self.conv_backwards += 1
+        if name in ("copy_", "clone", "_to_copy"):
+            src = args[1] if name == "copy_" else args[0]
+            if (isinstance(src, torch.Tensor) and isinstance(out, torch.Tensor)
+                    and src.dtype == out.dtype == torch.bfloat16
+                    and src.numel() in self.sizes):
+                self.copies.append([name, list(src.shape), list(src.stride()),
+                                    list(out.stride())])
+        return out
+
+
+def vgg_activation_sizes(size: int) -> set:
+    """Elements of every VGG activation to conv5_1 of one size² image."""
+    out, hw = set(), size * size
+    for b, (n, c) in enumerate(((2, 64), (2, 128), (4, 256), (4, 512),
+                                (4, 512))):
+        out.add(c * hw)
+        if b < 4:
+            hw //= 4
+            out.add(c * hw)
+    return out
+
+
+def check_nhwc_route(dev) -> None:
+    """The channels_last route of config3's standard path at 2048² (the
+    cells config6.single_2048 and config3_pspnet.auto_2048 run it): the
+    launches of one Adam step and of the precompute, as the difference of
+    a 3-step and a 1-step `stylize` (each with its precompute: the content
+    to conv4_2 and the style to conv5_1, forwards only), with the NHWC and
+    (P, C) forms launched and every NCHW twin idle (`kernels.NHWC_FORMS`);
+    the bias+ReLU pair's counts as BIAS_RELU_STEP_LAUNCHES; then a
+    profiled 1-step `stylize` that launches none of cuDNN's layout
+    transposes (CUDNN_TRANSPOSES) and, under `LayoutCopies`, no ATen copy
+    of an activation's size."""
     import dpst_tpu_torch
     from dpst_tpu_torch.models import vgg
     from dpst_tpu_torch.ops import kernels
@@ -1410,24 +1641,64 @@ def bias_relu_step_launches(dev) -> None:
     style = textured_image(gen, dev, size).cpu().numpy()
     cmask, smask = band_masks(K, size, 0, 0), band_masks(K, size, 1, 0)
     params = vgg.get_params(seed=SEED, device=dev)
-    counts = {}
-    for steps in (1, 3):
+
+    def run(steps):
         cfg = dataclasses.replace(dpst_tpu_torch.PRESETS["config3"],
                                   iterations=steps)
+        return dpst_tpu_torch.stylize(content, style, cfg,
+                                      content_masks=cmask,
+                                      style_masks=smask, vgg_params=params)
+
+    counts = {}
+    for steps in (1, 3):
         kernels.reset_launches()
-        dpst_tpu_torch.stylize(content, style, cfg, content_masks=cmask,
-                               style_masks=smask, vgg_params=params)
-        counts[steps] = {k: kernels.LAUNCHES[k]
-                         for k in ("bias_relu_fwd", "bias_relu_bwd")}
+        run(steps)
+        counts[steps] = dict(kernels.LAUNCHES)
     per_step = {k: (counts[3][k] - counts[1][k]) // 2 for k in counts[1]}
     precompute = {k: counts[1][k] - per_step[k] for k in counts[1]}
-    row = {"phase": "kernel", "check": "bias_relu launches", "size": size,
-           "per_step": per_step, "precompute": precompute,
-           "expected": BIAS_RELU_STEP_LAUNCHES}
+    names = tuple(BIAS_RELU_STEP_LAUNCHES["per_step"])
+    bias_relu = {"per_step": {k: per_step[k] for k in names},
+                 "precompute": {k: precompute[k] for k in names}}
+    forms = {k: per_step[k] for k in kernels.NHWC_FORMS}
+    twins = {t: per_step[t] + precompute[t]
+             for t in kernels.NHWC_FORMS.values()}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(1)
+        torch.cuda.synchronize()
+    transposes = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and any(
+                k in evt.name for k in CUDNN_TRANSPOSES):
+            transposes[evt.name] = transposes.get(evt.name, 0) + 1
+    kernels_seen = sum(1 for evt in prof.events()
+                       if evt.device_type == torch.autograd.DeviceType.CUDA)
+    with LayoutCopies(vgg_activation_sizes(size)) as copies:
+        run(1)
+    row = {"phase": "kernel", "check": "channels_last route", "size": size,
+           "bias_relu": bias_relu, "expected": BIAS_RELU_STEP_LAUNCHES,
+           "forms_per_step": forms, "twins_per_run": twins,
+           "device_kernels_profiled": kernels_seen,
+           "cudnn_transposes": transposes,
+           "layout_copies": copies.copies,
+           "conv_backwards_seen": copies.conv_backwards}
     emit(row)
-    if {"per_step": per_step, "precompute": precompute} != \
-            BIAS_RELU_STEP_LAUNCHES:
+    if bias_relu != BIAS_RELU_STEP_LAUNCHES:
         fail("kernels", f"bias_relu launches at 2048²: {row}")
+    idle = [k for k in ("bias_relu_fwd_nhwc", "bias_relu_bwd_nhwc",
+                        "pool_bwd_nhwc", "gram_fwd_pc", "gram_bwd_pc",
+                        "gram_relu_fwd_pc", "gram_relu_bwd_pc")
+            if not forms[k]]
+    if idle or any(twins.values()):
+        fail("kernels", f"2048² step off the channels_last route: forms "
+             f"not launched {idle}, NCHW twins launched {twins}")
+    if not kernels_seen or transposes:
+        fail("kernels", f"2048² step launched cuDNN's layout transposes "
+             f"{transposes} ({kernels_seen} kernels profiled)")
+    if not copies.conv_backwards or copies.copies:
+        fail("kernels", f"2048² step copied activations {copies.copies} "
+             f"({copies.conv_backwards} conv backwards seen)")
 
 
 # conv shapes whose plans make a block sum two chunks of Cin: (Cin, Cout,
@@ -2203,7 +2474,7 @@ def run_single_scale(dev, gen, cfg, label: str, check_launches) -> dict:
     t0 = time.perf_counter()
     out, hist = run(cfg, callback)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     half = ITERS // 2
     loop_its = half / (marks[ITERS] - marks[half])
     emit({"phase": "stylize", "path": label, "size": SIZE, "K": K,
@@ -2375,7 +2646,7 @@ def run_small_reference(gen, cfg, label: str, size: int = 64,
             content, style, cfg, content_masks=cm, style_masks=sm,
             vgg_params=params, return_history=True, device=where)
         if where == "cuda":
-            launches = dict(kernels.LAUNCHES)
+            launches = launch_counts()
     rel = np.abs(hists["cuda"] - hists["cpu"]) / np.maximum(
         np.abs(hists["cpu"]).max(axis=0), 1e-30)
     worst = float(rel.max())
@@ -2439,7 +2710,7 @@ def run_multiscale(dev, gen) -> dict:
     t0 = time.perf_counter()
     out, hist = run(cfg, callback)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loop_its, ends, start = [], [], 0
     for _, _, n in stages:
@@ -2576,7 +2847,7 @@ def run_stream12(dev, gen) -> dict:
     t0 = time.perf_counter()
     out, hist = run(cfg, callback)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     half = B12_ITERS // 2
     loop_its = (B12_ITERS - half) / (marks[B12_ITERS] - marks[half])
@@ -2621,7 +2892,7 @@ def run_stream12(dev, gen) -> dict:
           "loop_peak_gb": peak_s, "route_loop_peak_gb": peak_gb,
           "first_row": hist_s[0].tolist(),
           "route_first_row": hist[0].tolist(),
-          "launches": dict(kernels.LAUNCHES)})
+          "launches": launch_counts()})
     if kernels.LAUNCHES["block12_fwd_res"]:
         fail("stream12", "the standard path launched block12 kernels")
     # the same loss on the same inputs: the route's first rows against the
@@ -2698,7 +2969,7 @@ def run_stream12_batch(dev, gen, smi: str, one: dict) -> dict:
     t0 = time.perf_counter()
     images, hist = run()
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     images2, hist2 = run()
     identical = bool(np.array_equal(hist, hist2)
                      and np.array_equal(images, images2))
@@ -2796,7 +3067,7 @@ def run_small_batch_reference(gen, cfg, label: str, size: int,
     kernels.reset_launches()
     _, hist = dpst_tpu_torch.stylize_batch(contents, styles, cm, sm, cfg,
                                            vgg_params=params)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     rcfg = pb.resolve_config(cfg)
     worst = 0.0
     for i in range(b):
@@ -2825,7 +3096,7 @@ def lbfgs_launches(evals: int) -> dict:
     five style Grams and bias+ReLU of 10 + 13 convs; nothing else (the
     post-smoothing is plain PyTorch)."""
     from dpst_tpu_torch.ops import kernels
-    need = dict.fromkeys(kernels.KERNELS, 0)
+    need = dict.fromkeys(twin_kernels(), 0)
     need.update(lap_matvec=evals, gram_fwd=5 * evals + 5,
                 gram_bwd=5 * evals, pool_bwd=4 * evals,
                 bias_relu_fwd=13 * evals + 23, bias_relu_bwd=13 * evals)
@@ -2902,7 +3173,7 @@ def run_lbfgs(dev, gen, smi: str) -> dict:
         t0 = time.perf_counter()
         out, hist = run(cfg, callback)
         wall_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ev = lbfgs_evaluations(rec)
     half = LBFGS_ITERS // 2
@@ -3250,7 +3521,7 @@ def automatic_launches(steps: int) -> dict:
     one Laplacian matvec, the 13 convs' bias+ReLU each way; the
     precompute's five style Grams and bias+ReLU of 10 + 13 convs."""
     from dpst_tpu_torch.ops import kernels
-    need = dict.fromkeys(kernels.KERNELS, 0)
+    need = dict.fromkeys(twin_kernels(), 0)
     need.update(lap_matvec=steps, gram_fwd=5 * steps + 5,
                 gram_bwd=5 * steps, pool_bwd=4 * steps,
                 bias_relu_fwd=13 * steps + 23, bias_relu_bwd=13 * steps)
@@ -3308,7 +3579,7 @@ def run_automatic(dev, gen, seg_params: dict) -> dict:
     t0 = time.perf_counter()
     out, hist = run(cfg, callback)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     half = AUTO_ITERS // 2
     loop_its = half / (marks[AUTO_ITERS] - marks[half])
@@ -3393,7 +3664,7 @@ def run_automatic_reference(dev, gen, seg_params: dict, size: int = 64
                                        content_masks=cm, style_masks=sm,
                                        vgg_params=params,
                                        return_history=True, device=dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     rel = np.abs(h_card - h_cpu) / np.maximum(np.abs(h_cpu).max(axis=0),
                                               1e-30)
     worst, tol = float(rel.max()), 1e-3
@@ -3420,7 +3691,7 @@ def autotune_launches(steps: int) -> dict:
     style Grams and bias+ReLU of 10 + 13 convs once a call (NIMA and
     PSPNet launch none)."""
     from dpst_tpu_torch.ops import kernels
-    need = dict.fromkeys(kernels.KERNELS, 0)
+    need = dict.fromkeys(twin_kernels(), 0)
     need.update(lap_matvec=steps, gram_fwd=4 * steps + 5,
                 gram_bwd=4 * steps, gram_relu_fwd=steps,
                 gram_relu_bwd=steps, pool_bwd=4 * steps,
@@ -3471,7 +3742,7 @@ def run_autotune(dev, gen, seg_params: dict) -> dict:
     res = dpst_tpu_torch.autotune(content, style, cfg, rounds=TUNE_ROUNDS,
                                   **kw)
     call_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     # a one-round call (its time: the call's less one sweep), then the
     # same call profiled: device time by kernel group over its steps
@@ -4006,7 +4277,7 @@ def batch_launches(steps: int) -> dict:
     each way; and the precompute's five style Grams, batched (gram_fwd),
     and bias+ReLU of 10 + 13 convs."""
     from dpst_tpu_torch.ops import kernels
-    need = dict.fromkeys(kernels.KERNELS, 0)
+    need = dict.fromkeys(twin_kernels(), 0)
     need.update(lap_matvec=steps, gram_fwd=4 * steps + 5,
                 gram_bwd=4 * steps, gram_relu_fwd=steps,
                 gram_relu_bwd=steps, pool_bwd=4 * steps,
@@ -4070,7 +4341,7 @@ def run_batch_path(dev, gen, smi: str) -> dict:
     images, hist = dpst_tpu_torch.stylize_batch(contents, styles, cm, sm,
                                                 cfg, vgg_params=params)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     # the precompute alone (warm), then the loop as one timed segment
@@ -4189,7 +4460,7 @@ def run_batch_pallas(dev, b: dict, smi: str) -> dict:
     images, hist = dpst_tpu_torch.stylize_batch(
         b["contents"], b["styles"], b["cm"], b["sm"], cfg,
         vgg_params=b["params"])
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     rcfg = pb.resolve_config(cfg)
     pp = vgg.pack_params(b["params"], rcfg.compute_dtype, rcfg.conv_impl)
     weights = optimize.LossWeights.from_config(rcfg)
@@ -4263,7 +4534,7 @@ def lbfgs_batch_vs_alone(b: dict, cfg) -> tuple:
         images, hist = dpst_tpu_torch.stylize_batch(
             b["contents"], b["styles"], b["cm"], b["sm"], cfg,
             vgg_params=b["params"])
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
     counts = np.asarray([[p["evaluations"] for p in r["pairs"]]
                          for r in rec]).T          # (B, steps)
     rcfg = pb.resolve_config(cfg)
@@ -4508,7 +4779,7 @@ def spatial_launches(plan: tuple, n: int, steps: int) -> dict:
     from dpst_tpu_torch.ops import kernels
     per = [n if sharded else 1 for sharded in plan]
     relus = steps * sum(c * k for c, k in zip((2, 2, 4, 4, 1), per))
-    need = dict.fromkeys(kernels.KERNELS, 0)
+    need = dict.fromkeys(twin_kernels(), 0)
     need.update(gram_fwd=5 + steps * sum(per), gram_bwd=steps * sum(per),
                 pool_bwd=steps * sum(per[1:]), lap_matvec=steps * n,
                 bias_relu_fwd=23 + relus, bias_relu_bwd=relus)
@@ -4720,13 +4991,14 @@ def run_spatial(dev, gen, smi: str, batch_run: dict) -> tuple[dict, dict]:
     img, hist = sp.stylize_spatial(content, style, cm, sm, cfg, params, mesh)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     img, hist = img.cpu().numpy(), hist.cpu().numpy()
 
     # the precompute alone (warm), then the loop as one timed segment
     pp = vgg.params_by_device(params, [dev], rcfg.compute_dtype,
-                              rcfg.conv_impl)
+                              rcfg.conv_impl,
+                              "rows")   # as spatial_stages
     arrays = [torch.from_numpy(a).to(dev)[None]
               for a in (content, style, cm, sm)]
     dpst_tpu_torch.prepare_constants(*arrays, rcfg, pp[mesh.first])
@@ -5073,7 +5345,7 @@ def run_spatial_lbfgs(dev, content, style, cm, sm, params, mesh,
                                        mesh)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     img, hist = img.cpu().numpy(), hist.cpu().numpy()
     ev = lbfgs_evaluations(rec)
@@ -5081,7 +5353,8 @@ def run_spatial_lbfgs(dev, content, style, cm, sm, params, mesh,
 
     # the loop alone: the constants precomputed and sharded once
     pp = vgg.params_by_device(params, list(mesh.devices.flat),
-                              rcfg.compute_dtype, rcfg.conv_impl)
+                              rcfg.compute_dtype, rcfg.conv_impl,
+                              "rows")   # as spatial_stages
     arrays = [torch.from_numpy(a).to(dev)[None]
               for a in (content, style, cm, sm)]
     consts = dpst_tpu_torch.prepare_constants(*arrays, rcfg, pp[mesh.first])
@@ -5326,7 +5599,8 @@ def sharded_value_grad(image, where: str, cfg, params, content, style, cm,
     mesh = sp.make_spatial_mesh(devices=[where] * SP_SHARDS)
     rcfg = cfg.spmd_safe()
     pp = vgg.params_by_device(params, list(mesh.devices.flat),
-                              rcfg.compute_dtype, rcfg.conv_impl)
+                              rcfg.compute_dtype, rcfg.conv_impl,
+                              "rows")   # as spatial_stages
     arrays = [torch.from_numpy(np.asarray(a)).to(mesh.first)[None]
               for a in (content, style, cm, sm, image)]
     consts = dpst_tpu_torch.prepare_constants(*arrays[:4], rcfg,
@@ -5364,9 +5638,9 @@ def run_mesh_batch(dev, b: dict) -> None:
         b["contents"], b["styles"], b["cm"], b["sm"], b["cfg"],
         vgg_params=b["params"], mesh=ml.make_mesh(devices=[dev] * m))
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     steps = b["cfg"].iterations
-    need = dict.fromkeys(kernels.KERNELS, 0)
+    need = dict.fromkeys(twin_kernels(), 0)
     need.update(lap_matvec=m * steps, gram_fwd=m * (5 * steps + 5),
                 gram_bwd=m * 5 * steps, pool_bwd=m * 4 * steps,
                 bias_relu_fwd=m * (13 * steps + 23),
@@ -5750,6 +6024,8 @@ def main() -> int:
     rows += check_conv(dev, gen)
     check_edges(dev, gen)
     check_bias_relu(dev, torch.Generator(device=dev).manual_seed(SEED + 50))
+    rows += check_nhwc_forms(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 52))
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows += check_block12(dev, gen)

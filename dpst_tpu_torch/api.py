@@ -199,7 +199,8 @@ def _inputs(content, style, cfg: StylizeConfig, size, content_masks,
     if vgg_params is None:
         vgg_params = vgg.get_params(seed=cfg.seed, device=dev)
     vgg_params = vgg.pack_params(params_on(vgg_params, dev),
-                                 cfg.compute_dtype, cfg.conv_impl)
+                                 cfg.compute_dtype, cfg.conv_impl,
+                                 optimize.block12_route(cfg, content_np.shape))
     return (torch.from_numpy(content_np).to(dev),
             torch.from_numpy(style_np).to(dev), cmasks, smasks, vgg_params)
 

@@ -25,6 +25,15 @@
 // (H*W not a multiple of the vector width) its head and tail run element
 // by element; where the tensors' starts differ modulo 16 bytes the whole
 // plane does. No shared memory, no atomics, no scratch.
+//
+// The NHWC form (dpst_bias_relu_fwd_nhwc, dpst_bias_relu_bwd_nhwc) takes z
+// as a channels_last activation holds it, rows of C channels, with the
+// same arithmetic element for element: the bias is indexed by the fastest
+// dimension. Where C is a multiple of the vector width, the tensors start
+// on 16-byte boundaries and the grid's stride in vectors is a multiple of
+// C / V (every C up to 2048 whose vectors a row divides 256), each thread's
+// vectors all hold the same V channels, so it loads their biases once;
+// otherwise it walks element by element.
 #include <stdint.h>
 
 #include "dpst_common.cuh"
@@ -151,6 +160,63 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
+// NHWC: z, y (n elements) as rows of C channels. vec: the thread's vectors
+// share the channels c0 .. c0 + V - 1 (see the header).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    bias_relu_fwd_nhwc_kernel(const T* __restrict__ z,
+                              const T* __restrict__ bias, T* __restrict__ y,
+                              long long n, int C, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long t0 = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  if (vec) {
+    const int c0 = static_cast<int>(t0 % (C / V)) * V;
+    float b[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) b[k] = to_f(bias[c0 + k]);
+    for (long long i = t0; i < n / V; i += stride) {
+      Pack<T> r = load_pack(z + i * V);
+#pragma unroll
+      for (int k = 0; k < V; ++k) r.v[k] = relu_fwd(add_bias(r.v[k], b[k]));
+      store_pack(y + i * V, r);
+    }
+  } else {
+    for (long long e = t0; e < n; e += stride)
+      y[e] = relu_fwd(add_bias(z[e], to_f(bias[e % C])));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    bias_relu_bwd_nhwc_kernel(const T* __restrict__ z,
+                              const T* __restrict__ bias,
+                              const T* __restrict__ g, T* __restrict__ dz,
+                              long long n, int C, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long t0 = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  if (vec) {
+    const int c0 = static_cast<int>(t0 % (C / V)) * V;
+    float b[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) b[k] = to_f(bias[c0 + k]);
+    for (long long i = t0; i < n / V; i += stride) {
+      const Pack<T> zr = load_pack(z + i * V);
+      Pack<T> gr = load_pack(g + i * V);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        gr.v[k] = relu_bwd(add_bias(zr.v[k], b[k]), gr.v[k]);
+      store_pack(dz + i * V, gr);
+    }
+  } else {
+    for (long long e = t0; e < n; e += stride)
+      dz[e] = relu_bwd(add_bias(z[e], to_f(bias[e % C])), g[e]);
+  }
+}
+
 // The grid: a block row a plane (up to 65535, the rest walked by the
 // rows), and enough blocks along a plane that about 32 blocks of 256
 // threads land on each of the 132 SMs (four waves of the 8 an SM holds;
@@ -169,6 +235,21 @@ dim3 plane_grid(long long planes, long long hw, int vec_width) {
 bool together(const void* a, const void* b) {
   return ((reinterpret_cast<uintptr_t>(a) ^ reinterpret_cast<uintptr_t>(b)) &
           15) == 0;
+}
+
+// The NHWC grid: about 32 blocks of 256 threads an SM, as plane_grid, no
+// more than the vectors (or elements) ask for.
+int nhwc_blocks(long long units) {
+  return dpst::grid_for(units, kThreads, 132 * 32);
+}
+
+// Whether the NHWC kernels can walk vectors of V channels that keep their
+// channels along the grid's stride (a multiple of kThreads vectors).
+bool nhwc_vec(const void* const* ptrs, int nptr, int C, int V) {
+  if (C % V != 0 || kThreads % (C / V) != 0) return false;
+  for (int i = 0; i < nptr; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return false;
+  return true;
 }
 
 }  // namespace
@@ -220,6 +301,63 @@ extern "C" int dpst_bias_relu_bwd(const void* z, const void* bias,
             static_cast<const __nv_bfloat16*>(bias),
             static_cast<const __nv_bfloat16*>(g),
             static_cast<__nv_bfloat16*>(dz), planes, C, hw, vec);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z, y: n elements as rows of C channels (a channels_last activation);
+// bias (C,)
+extern "C" int dpst_bias_relu_fwd_nhwc(const void* z, const void* bias,
+                                       void* y, long long n, int C,
+                                       int dtype, void* stream) {
+  cudaGetLastError();
+  if (n <= 0 || C <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[] = {z, y};
+  if (dtype == DPST_DTYPE_F32) {
+    const bool vec = nhwc_vec(ptrs, 2, C, 4);
+    bias_relu_fwd_nhwc_kernel<float>
+        <<<nhwc_blocks(vec ? n / 4 : n), kThreads, 0, s>>>(
+            static_cast<const float*>(z), static_cast<const float*>(bias),
+            static_cast<float*>(y), n, C, vec);
+  } else if (dtype == DPST_DTYPE_BF16) {
+    const bool vec = nhwc_vec(ptrs, 2, C, 8);
+    bias_relu_fwd_nhwc_kernel<__nv_bfloat16>
+        <<<nhwc_blocks(vec ? n / 8 : n), kThreads, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(z),
+            static_cast<const __nv_bfloat16*>(bias),
+            static_cast<__nv_bfloat16*>(y), n, C, vec);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z, g, dz: n elements as rows of C channels; bias (C,)
+extern "C" int dpst_bias_relu_bwd_nhwc(const void* z, const void* bias,
+                                       const void* g, void* dz, long long n,
+                                       int C, int dtype, void* stream) {
+  cudaGetLastError();
+  if (n <= 0 || C <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[] = {z, g, dz};
+  if (dtype == DPST_DTYPE_F32) {
+    const bool vec = nhwc_vec(ptrs, 3, C, 4);
+    bias_relu_bwd_nhwc_kernel<float>
+        <<<nhwc_blocks(vec ? n / 4 : n), kThreads, 0, s>>>(
+            static_cast<const float*>(z), static_cast<const float*>(bias),
+            static_cast<const float*>(g), static_cast<float*>(dz), n, C,
+            vec);
+  } else if (dtype == DPST_DTYPE_BF16) {
+    const bool vec = nhwc_vec(ptrs, 3, C, 8);
+    bias_relu_bwd_nhwc_kernel<__nv_bfloat16>
+        <<<nhwc_blocks(vec ? n / 8 : n), kThreads, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(z),
+            static_cast<const __nv_bfloat16*>(bias),
+            static_cast<const __nv_bfloat16*>(g),
+            static_cast<__nv_bfloat16*>(dz), n, C, vec);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

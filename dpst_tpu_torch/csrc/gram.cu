@@ -331,14 +331,21 @@ gram_relu_fwd_wgmma_kernel(gram90::FwdArgs a) {
 // bf16 forward on the Hopper body (RELU: gram_relu_fwd, f the raw tap z
 // and bias its b): class groups of gram90::KG, the B pairs as the body's
 // bands (f (B, C, P), m2 (B, K, P)), then the fixed-order sum of each
-// pair's split partials.
-template <bool RELU>
+// pair's split partials. PC: the (P, C) form (gram_pc.cu) on f (B, P, C)
+// in memory, C % 8 == 0, with m2 (B, K, P8), P8 = P rounded up to 8.
+template <bool RELU, bool PC>
 cudaError_t launch_fwd_wgmma(const void* f, const void* bias, const void* m2,
                              float* work, float* out, int C, int P, int K,
                              int B, int splits, int chunk, cudaStream_t st) {
-  if (P % 8 != 0 || chunk % (gram90::BK * gram90::FWD_HALVES) != 0)
+  const int P8 = (P + 7) & ~7;
+  if ((PC ? C : P) % 8 != 0 || P < 1 ||
+      chunk % (gram90::BK * gram90::FWD_HALVES) != 0 ||
+      (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
-  auto* kern = RELU ? gram_relu_fwd_wgmma_kernel : gram_fwd_wgmma_kernel;
+  const void* kern =
+      PC ? gram_pc::fwd_kernel(RELU)
+         : reinterpret_cast<const void*>(RELU ? gram_relu_fwd_wgmma_kernel
+                                              : gram_fwd_wgmma_kernel);
   const size_t smem = gram90::fwd_smem();
   static size_t allowed[64] = {};  // one record for each variant
   cudaError_t err = hopper::allow_smem(kern, smem, allowed);
@@ -346,14 +353,16 @@ cudaError_t launch_fwd_wgmma(const void* f, const void* bias, const void* m2,
   const int tiles = (C + 63) / 64;
   const dim3 grid(tiles * tiles, (K + gram90::KG - 1) / gram90::KG,
                   B * splits);
-  const gram90::FwdArgs args{static_cast<const __nv_bfloat16*>(f),
-                             static_cast<const __nv_bfloat16*>(m2),
-                             splits == 1 ? out : work, P, P,
-                             static_cast<long long>(C) * P,
-                             static_cast<long long>(K) * P, C, P, K,
-                             splits, chunk,
-                             static_cast<const __nv_bfloat16*>(bias)};
-  kern<<<grid, gram90::NT, smem, st>>>(args);
+  gram90::FwdArgs args{static_cast<const __nv_bfloat16*>(f),
+                       static_cast<const __nv_bfloat16*>(m2),
+                       splits == 1 ? out : work, PC ? C : P, P8,
+                       static_cast<long long>(C) * P,
+                       static_cast<long long>(K) * P8, C, P8, K,
+                       splits, chunk,
+                       static_cast<const __nv_bfloat16*>(bias)};
+  if (PC) args.prows = P;
+  err = gram90::launch(kern, grid, gram90::NT, smem, st, args);
+  if (err != cudaSuccess) return err;
   if (splits > 1) reduce_fwd(work, out, C, K, B, splits, st);
   return cudaGetLastError();
 }
@@ -370,21 +379,26 @@ gram_bwd_wgmma_kernel(gram90::BwdArgs a) {
 // share the p tiles of each c tile of each of the B pairs, `splits` cut
 // the reduction (then work holds the fp32 partials (splits, B, C, P),
 // summed in a fixed order and rounded by gram_bwd_reduce_kernel). One
-// pair runs the body's one-pair instance, B > 1 its PAIRS instance.
-template <int N, bool PAIRS>
+// pair runs the body's one-pair instance, B > 1 its PAIRS instance. PC:
+// the (P, C) form (gram_pc.cu), f and out (B, P, C) in memory, m2 (B, K,
+// P8), the partials (splits, B, P, C).
+template <int N, bool PAIRS, bool PC>
 cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
                                float* work, void* out, int C, int P, int K,
                                int B, int groups, int splits,
                                cudaStream_t st) {
+  const int P8 = (P + 7) & ~7;
   const int nit = (C + 63) / 64 * K;
   const int ipb = (nit + splits - 1) / splits;
   if (groups < 1 || groups > (P + 63) / 64 || splits < 1 ||
       (splits - 1) * ipb >= nit || (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
+  const void* kern =
+      PC ? gram_pc::bwd_kernel(N, PAIRS)
+         : reinterpret_cast<const void*>(gram_bwd_wgmma_kernel<N, PAIRS>);
   const size_t smem = gram90::bwd_smem<N>();
   static size_t allowed[64] = {};  // one record for each instance
-  cudaError_t err =
-      hopper::allow_smem(gram_bwd_wgmma_kernel<N, PAIRS>, smem, allowed);
+  cudaError_t err = hopper::allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(groups, (C + N - 1) / N, B * splits);
   auto* o = static_cast<__nv_bfloat16*>(out);
@@ -393,12 +407,13 @@ cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
   const gram90::BwdArgs args{static_cast<const __nv_bfloat16*>(f),
                              static_cast<const __nv_bfloat16*>(m2),
                              static_cast<const __nv_bfloat16*>(a), o,
-                             splits > 1 ? work : nullptr, P, P, 0, 0, P,
-                             ptiles, ptiles, C, K, ipb, cp,
-                             static_cast<long long>(K) * P,
+                             splits > 1 ? work : nullptr, PC ? C : P, P8, 0,
+                             0, P, ptiles, ptiles, C, K, ipb, cp,
+                             static_cast<long long>(K) * P8,
                              static_cast<long long>(C) * K * ((C + 7) & ~7),
                              B};
-  gram_bwd_wgmma_kernel<N, PAIRS><<<grid, gram90::NT, smem, st>>>(args);
+  err = gram90::launch(kern, grid, gram90::NT, smem, st, args);
+  if (err != cudaSuccess) return err;
   if (splits > 1) {
     const long long n = B * cp;
     gram90::gram_bwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0,
@@ -407,18 +422,19 @@ cudaError_t launch_bwd_wgmma_n(const void* f, const void* m2, const void* a,
   return cudaGetLastError();
 }
 
+template <bool PC>
 cudaError_t launch_bwd_wgmma(const void* f, const void* m2, const void* a,
                              float* work, void* out, int C, int P, int K,
                              int B, int tile, int groups, int splits,
                              cudaStream_t st) {
-  if (P % 8 != 0) return cudaErrorInvalidValue;
+  if ((PC ? C : P) % 8 != 0 || P < 1) return cudaErrorInvalidValue;
   if (tile == 64)
-    return (B > 1 ? launch_bwd_wgmma_n<64, true>
-                  : launch_bwd_wgmma_n<64, false>)(
+    return (B > 1 ? launch_bwd_wgmma_n<64, true, PC>
+                  : launch_bwd_wgmma_n<64, false, PC>)(
         f, m2, a, work, out, C, P, K, B, groups, splits, st);
   if (tile == 128)
-    return (B > 1 ? launch_bwd_wgmma_n<128, true>
-                  : launch_bwd_wgmma_n<128, false>)(
+    return (B > 1 ? launch_bwd_wgmma_n<128, true, PC>
+                  : launch_bwd_wgmma_n<128, false, PC>)(
         f, m2, a, work, out, C, P, K, B, groups, splits, st);
   return cudaErrorInvalidValue;
 }
@@ -448,50 +464,63 @@ __global__ void gram_wbwd_reduce_kernel(const float* __restrict__ work,
 }
 
 // bf16 weighted-after backward: c tiles of N rows; `groups` blocks share
-// the 128-pixel p tiles of each c tile; `splits` cut the classes into
-// ranges of ceil(K / splits), each non-empty (then work holds the fp32
-// partials).
-template <int N>
+// the 128-pixel p tiles of each c tile of each of the B pairs; `splits`
+// cut the classes into ranges of ceil(K / splits), each non-empty (then
+// work holds the fp32 partials (splits, B, C, P)). The (C, P) form runs
+// one pair here (B > 1: gram_wbwd_pairs.cu); PC, the (P, C) form
+// (gram_pc_wbwd.cu) on f and out (B, P, C) in memory and m2 (B, K, P8),
+// any B (its PAIRS instance for B > 1).
+template <int N, bool PC>
 cudaError_t launch_wbwd_wgmma_n(const void* f, const void* m2, const void* a,
                                 float* work, void* out, int C, int P, int K,
-                                int groups, int splits, cudaStream_t st) {
+                                int B, int groups, int splits,
+                                cudaStream_t st) {
+  const int P8 = (P + 7) & ~7;
   const int ptiles = (P + gram90::WPIX - 1) / gram90::WPIX;
   const int kps = splits < 1 ? 0 : (K + splits - 1) / splits;
   if (C > gram90::WMAXC || groups < 1 || groups > ptiles || splits < 1 ||
-      (splits - 1) * kps >= K || (splits > 1 && work == nullptr))
+      (splits - 1) * kps >= K || (splits > 1 && work == nullptr) ||
+      (!PC && B != 1))
     return cudaErrorInvalidValue;
+  const void* kern =
+      PC ? gram_pc::wbwd_kernel(N, B > 1)
+         : reinterpret_cast<const void*>(gram_wbwd_wgmma_kernel<N>);
   const size_t smem = gram90::wbwd_smem<N, gram90::WSTAGES>(C);
-  static size_t allowed[64] = {};  // one record for each N
-  cudaError_t err =
-      hopper::allow_smem(gram_wbwd_wgmma_kernel<N>, smem, allowed);
+  static size_t allowed[2][64] = {};  // one record for each kernel
+  cudaError_t err = hopper::allow_smem(kern, smem, allowed[B > 1]);
   if (err != cudaSuccess) return err;
-  const dim3 grid(groups, (C + N - 1) / N, splits);
+  const dim3 grid(groups, (C + N - 1) / N, B * splits);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const gram90::WbwdArgs args{static_cast<const __nv_bfloat16*>(f),
                               static_cast<const __nv_bfloat16*>(m2),
                               static_cast<const __nv_bfloat16*>(a), o,
-                              splits > 1 ? work : nullptr, P, P, C, P, K,
-                              kps};
-  gram_wbwd_wgmma_kernel<N><<<grid, gram90::WNT, smem, st>>>(args);
+                              splits > 1 ? work : nullptr, PC ? C : P, P8,
+                              C, P, K, kps, static_cast<long long>(C) * P,
+                              static_cast<long long>(K) * P8,
+                              static_cast<long long>(C) * K * ((C + 7) & ~7),
+                              B};
+  err = gram90::launch(kern, grid, gram90::WNT, smem, st, args);
+  if (err != cudaSuccess) return err;
   if (splits > 1) {
-    const long long n = static_cast<long long>(C) * P;
+    const long long n = static_cast<long long>(B) * C * P;
     gram_wbwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
         work, o, splits, n);
   }
   return cudaGetLastError();
 }
 
+template <bool PC>
 cudaError_t launch_wbwd_wgmma(const void* f, const void* m2, const void* a,
                               float* work, void* out, int C, int P, int K,
-                              int tile, int groups, int splits,
+                              int B, int tile, int groups, int splits,
                               cudaStream_t st) {
-  if (P % 8 != 0) return cudaErrorInvalidValue;
+  if ((PC ? C : P) % 8 != 0 || P < 1) return cudaErrorInvalidValue;
   if (tile == 64)
-    return launch_wbwd_wgmma_n<64>(f, m2, a, work, out, C, P, K, groups,
-                                   splits, st);
+    return launch_wbwd_wgmma_n<64, PC>(f, m2, a, work, out, C, P, K, B,
+                                       groups, splits, st);
   if (tile == 128)
-    return launch_wbwd_wgmma_n<128>(f, m2, a, work, out, C, P, K, groups,
-                                    splits, st);
+    return launch_wbwd_wgmma_n<128, PC>(f, m2, a, work, out, C, P, K, B,
+                                        groups, splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -515,7 +544,7 @@ extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
                                        const void* m2, const void* s,
                                        void* work, void* out, int C, int P,
                                        int K, int B, int tile, int groups,
-                                       int splits, void* stream);
+                                       int splits, int pc, void* stream);
 extern "C" int dpst_gram_relu_bwd_attrs(int which, int* out);
 // gram_wbwd's bf16 batch of B > 1 pairs, in gram_wbwd_pairs.cu.
 extern "C" int dpst_gram_wbwd_pairs_bf16(const void* f, const void* m2,
@@ -528,21 +557,26 @@ extern "C" int dpst_gram_wbwd_pairs_bf16(const void* f, const void* m2,
 // (B, K, P); work: (B, splits, K, C, C) fp32 scratch, unused when splits
 // == 1; out: (B, K, C, C) fp32. Each split covers `chunk` pixels: a
 // multiple of 32 in fp32; in bf16 a multiple of 128, with P % 8 == 0.
+// pc = 1 (bf16 only): the (P, C) form, f (B, P, C) in memory (the tap of a
+// channels_last activation) with C % 8 == 0, any P, m2 (B, K, P8) with P8
+// = P rounded up to 8 and the pad zero, the chunk that of a P8 plan.
 extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
                              void* out, int C, int P, int K, int B,
-                             int splits, int chunk, int dtype, void* stream) {
+                             int splits, int chunk, int dtype, int pc,
+                             void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   if (B < 1 || splits < 1 || B * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
-  if (dtype == DPST_DTYPE_F32)
+  if (dtype == DPST_DTYPE_F32 && !pc)
     launch_fwd<float, false>(f, nullptr, m2, w, o, C, P, K, B, splits, chunk,
                              st);
   else if (dtype == DPST_DTYPE_BF16)
-    return static_cast<int>(launch_fwd_wgmma<false>(
-        f, nullptr, m2, w, o, C, P, K, B, splits, chunk, st));
+    return static_cast<int>(
+        (pc ? launch_fwd_wgmma<false, true> : launch_fwd_wgmma<false, false>)(
+            f, nullptr, m2, w, o, C, P, K, B, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -557,46 +591,50 @@ extern "C" int dpst_gram_fwd(const void* f, const void* m2, void* work,
 // groups <= ceil(P / 64)) blocks walk the 64-pixel tiles of each c tile of
 // each pair; `splits` > 1 cuts the reduction over (k, c') into that many
 // ranges of ceil(ceil(C / 64) * K / splits) items, each non-empty, whose
-// fp32 partials go to work (splits, B, C, P).
+// fp32 partials go to work (splits, B, C, P). pc = 1 (bf16 only): the (P,
+// C) form, f, out and work's partials (.., P, C) in memory, m2 (B, K, P8),
+// as for dpst_gram_fwd.
 extern "C" int dpst_gram_bwd(const void* f, const void* m2, const void* s,
                              void* work, void* out, int C, int P, int K,
                              int B, int tile, int groups, int splits,
-                             int dtype, void* stream) {
+                             int dtype, int pc, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   if (B < 1 || splits < 1 || B * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DPST_DTYPE_F32)
+  if (dtype == DPST_DTYPE_F32 && !pc)
     launch_bwd<float>(f, m2, s, out, C, P, K, B, st);
   else if (dtype == DPST_DTYPE_BF16)
-    return static_cast<int>(launch_bwd_wgmma(f, m2, s,
-                                             static_cast<float*>(work), out,
-                                             C, P, K, B, tile, groups, splits,
-                                             st));
+    return static_cast<int>(
+        (pc ? launch_bwd_wgmma<true> : launch_bwd_wgmma<false>)(
+            f, m2, s, static_cast<float*>(work), out, C, P, K, B, tile,
+            groups, splits, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 // z: (B, C, P) raw conv output, bias: (C,) shared by the pairs, both in
-// the compute dtype; m2, work and out as for dpst_gram_fwd (in bf16: the
-// Hopper body, P % 8 == 0 and chunk a multiple of 128).
+// the compute dtype; m2, work, out and pc as for dpst_gram_fwd (in bf16:
+// the Hopper body, P % 8 == 0 and chunk a multiple of 128).
 extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
                                   const void* m2, void* work, void* out,
                                   int C, int P, int K, int B, int splits,
-                                  int chunk, int dtype, void* stream) {
+                                  int chunk, int dtype, int pc,
+                                  void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   if (B < 1 || splits < 1 || B * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
-  if (dtype == DPST_DTYPE_F32)
+  if (dtype == DPST_DTYPE_F32 && !pc)
     launch_fwd<float, true>(z, bias, m2, w, o, C, P, K, B, splits, chunk,
                             st);
   else if (dtype == DPST_DTYPE_BF16)
-    return static_cast<int>(launch_fwd_wgmma<true>(
-        z, bias, m2, w, o, C, P, K, B, splits, chunk, st));
+    return static_cast<int>(
+        (pc ? launch_fwd_wgmma<true, true> : launch_fwd_wgmma<true, false>)(
+            z, bias, m2, w, o, C, P, K, B, splits, chunk, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -608,21 +646,23 @@ extern "C" int dpst_gram_relu_fwd(const void* z, const void* bias,
 // dpst_gram_bwd (in bf16 the matrices A, P % 8 == 0, C <= 512, work
 // (splits, B, C, P)); in bf16 with C <= 64, K <= 8 and splits == 1 the
 // tile is 64 and `groups` blocks of each pair walk its p tiles of
-// gram90::RPIX pixels.
+// gram90::RPIX pixels. pc = 1 (bf16 only): the (P, C) form, z, out and
+// work's partials (.., P, C) in memory, m2 (B, K, P8), as for
+// dpst_gram_fwd.
 extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
                                   const void* m2, const void* s, void* work,
                                   void* out, int C, int P, int K, int B,
                                   int tile, int groups, int splits, int dtype,
-                                  void* stream) {
+                                  int pc, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   if (B < 1 || splits < 1 || B * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DPST_DTYPE_F32)
+  if (dtype == DPST_DTYPE_F32 && !pc)
     launch_relu_bwd<float>(z, bias, m2, s, out, C, P, K, B, st);
   else if (dtype == DPST_DTYPE_BF16)
     return dpst_gram_relu_bwd_bf16(z, bias, m2, s, work, out, C, P, K, B,
-                                   tile, groups, splits, stream);
+                                   tile, groups, splits, pc, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -638,25 +678,29 @@ extern "C" int dpst_gram_relu_bwd(const void* z, const void* bias,
 // tiles of each c tile of each pair; `splits` > 1 cuts the classes into
 // that many ranges of ceil(K / splits), each non-empty, whose fp32
 // partials go to work (splits, B, C, P). One pair runs the one-pair
-// instance here, B > 1 the batch instance of gram_wbwd_pairs.cu.
+// instance here, B > 1 the batch instance of gram_wbwd_pairs.cu. pc = 1
+// (bf16 only): the (P, C) form, f, out and work's partials (.., P, C) in
+// memory, m2 (B, K, P8), as for dpst_gram_fwd, any B here.
 extern "C" int dpst_gram_wbwd(const void* f, const void* m2, const void* s,
                               void* work, void* out, int C, int P, int K,
                               int B, int tile, int groups, int splits,
-                              int dtype, void* stream) {
+                              int dtype, int pc, void* stream) {
   cudaGetLastError();  // clear an error left by an earlier call
   if (B < 1 || splits < 1 || B * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DPST_DTYPE_F32)
+  float* w = static_cast<float*>(work);
+  if (dtype == DPST_DTYPE_F32 && !pc)
     launch_wbwd<float>(f, m2, s, out, C, P, K, B, st);
+  else if (dtype == DPST_DTYPE_BF16 && pc)
+    return static_cast<int>(launch_wbwd_wgmma<true>(
+        f, m2, s, w, out, C, P, K, B, tile, groups, splits, st));
   else if (dtype == DPST_DTYPE_BF16 && B > 1)
     return dpst_gram_wbwd_pairs_bf16(f, m2, s, work, out, C, P, K, B, tile,
                                      groups, splits, stream);
   else if (dtype == DPST_DTYPE_BF16)
-    return static_cast<int>(launch_wbwd_wgmma(f, m2, s,
-                                              static_cast<float*>(work), out,
-                                              C, P, K, tile, groups, splits,
-                                              st));
+    return static_cast<int>(launch_wbwd_wgmma<false>(
+        f, m2, s, w, out, C, P, K, 1, tile, groups, splits, st));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,9 @@
 // gram_wbwd_body with its bias+ReLU steps (C <= 512), on gram_wbwd's plan.
 // The kernels live in a translation unit of their own, so that gram_wbwd's
 // kernels in gram.cu compile as they do without them (in one unit with
-// them, gram_wbwd's 64-row kernel compiled to other registers).
+// them, gram_wbwd's 64-row kernel compiled to other registers). The launch
+// code, templated on PC, also launches the (P, C) form's instances
+// (gram_pc_wbwd.cu) on z and dz (B, P, C) in memory.
 #include "gram_wgmma.cuh"
 
 namespace {
@@ -46,8 +48,8 @@ __global__ void relu_bwd_reduce_kernel(const float* __restrict__ work,
 // gram_wbwd's body with the bias+ReLU steps: c tiles of N rows, `groups`
 // blocks on the 128-pixel p tiles of each c tile of each of args.pairs
 // pairs, `splits` ranges of ceil(K / splits) whole classes (then work
-// holds the fp32 partials (splits, pairs, C, P)).
-template <int N, bool PAIRS>
+// holds the fp32 partials (splits, pairs, C, P)); PC: the (P, C) form's.
+template <int N, bool PAIRS, bool PC>
 cudaError_t launch_wbwd_body(const gram90::ReluBwdArgs& args, int groups,
                              int splits, cudaStream_t st) {
   const int C = args.C, P = args.P, K = args.K, kps = args.kps;
@@ -55,13 +57,16 @@ cudaError_t launch_wbwd_body(const gram90::ReluBwdArgs& args, int groups,
   if (C > gram90::WMAXC || groups < 1 || groups > ptiles || kps < 1 ||
       (splits - 1) * kps >= K || (splits > 1 && args.work == nullptr))
     return cudaErrorInvalidValue;
+  const void* kern =
+      PC ? gram_pc::relu_bwd_kernel(N, PAIRS)
+         : reinterpret_cast<const void*>(gram_relu_bwd_wgmma_kernel<N, PAIRS>);
   const size_t smem = gram90::wbwd_smem<N, gram90::WSTAGES>(C);
   static size_t allowed[64] = {};  // one record for each instance
-  cudaError_t err = hopper::allow_smem(gram_relu_bwd_wgmma_kernel<N, PAIRS>,
-                                       smem, allowed);
+  cudaError_t err = hopper::allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(groups, (C + N - 1) / N, args.pairs * splits);
-  gram_relu_bwd_wgmma_kernel<N, PAIRS><<<grid, gram90::WNT, smem, st>>>(args);
+  err = gram90::launch(kern, grid, gram90::WNT, smem, st, args);
+  if (err != cudaSuccess) return err;
   if (splits > 1) {
     const long long n = static_cast<long long>(args.pairs) * C * P;
     relu_bwd_reduce_kernel<<<dpst::grid_for(n, 256, 132 * 16), 256, 0, st>>>(
@@ -71,22 +76,42 @@ cudaError_t launch_wbwd_body(const gram90::ReluBwdArgs& args, int groups,
 }
 
 // gram_relu_bwd64_body: `groups` blocks a pair, at most one an SM, on
-// the RPIX-pixel p tiles of each of args.pairs pairs.
-template <bool PAIRS>
+// the RPIX-pixel p tiles of each of args.pairs pairs; PC: the (P, C)
+// form's.
+template <bool PAIRS, bool PC>
 cudaError_t launch_body64(const gram90::ReluBwdArgs& args, int groups,
                           cudaStream_t st) {
   const int ptiles = (args.P + gram90::RPIX - 1) / gram90::RPIX;
   if (args.K < 1 || groups < 1 || groups > ptiles)
     return cudaErrorInvalidValue;
-  const size_t smem = gram90::relu_bwd64_smem(args.K);
+  const void* kern =
+      PC ? gram_pc::relu_bwd64_kernel(PAIRS)
+         : reinterpret_cast<const void*>(gram_relu_bwd64_wgmma_kernel<PAIRS>);
+  const size_t smem = PC ? gram90::relu_bwd64_pc_smem(args.K)
+                         : gram90::relu_bwd64_smem(args.K);
   static size_t allowed[64] = {};
-  cudaError_t err = hopper::allow_smem(gram_relu_bwd64_wgmma_kernel<PAIRS>,
-                                       smem, allowed);
+  cudaError_t err = hopper::allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  gram_relu_bwd64_wgmma_kernel<PAIRS>
-      <<<dim3(groups, args.pairs), gram90::RWG * gram90::NT, smem, st>>>(
-          args);
+  err = gram90::launch(kern, dim3(groups, args.pairs),
+                       gram90::RWG * gram90::NT, smem, st, args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool PC>
+cudaError_t launch_relu_bwd(const gram90::ReluBwdArgs& args, int tile,
+                            int groups, int splits, cudaStream_t st) {
+  const bool pairs = args.pairs > 1;
+  if (tile == 64 && splits == 1 && args.C <= 64 && args.K <= gram90::RMAXK)
+    return pairs ? launch_body64<true, PC>(args, groups, st)
+                 : launch_body64<false, PC>(args, groups, st);
+  if (tile == 64)
+    return pairs ? launch_wbwd_body<64, true, PC>(args, groups, splits, st)
+                 : launch_wbwd_body<64, false, PC>(args, groups, splits, st);
+  if (tile == 128)
+    return pairs ? launch_wbwd_body<128, true, PC>(args, groups, splits, st)
+                 : launch_wbwd_body<128, false, PC>(args, groups, splits, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -95,35 +120,30 @@ cudaError_t launch_body64(const gram90::ReluBwdArgs& args, int groups,
 // output, bias (C,) shared, m2 (B, K, P), a the cotangent matrices of
 // dpst_gram_bwd (B, C, K * Cp), P % 8 == 0; tile, groups and splits from
 // ops/gram_s2d.py:relu_bwd_plan (at C <= 64, K <= 8 and one split the tile
-// is 64 and gram_relu_bwd64_body runs).
+// is 64 and gram_relu_bwd64_body runs). pc = 1: the (P, C) form, z and out
+// (B, P, C) in memory with C % 8 == 0, any P, m2 (B, K, P8) with P8 = P
+// rounded up to 8, the partials (splits, B, P, C).
 extern "C" int dpst_gram_relu_bwd_bf16(const void* z, const void* bias,
                                        const void* m2, const void* a,
                                        void* work, void* out, int C, int P,
                                        int K, int B, int tile, int groups,
-                                       int splits, void* stream) {
+                                       int splits, int pc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P % 8 != 0 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int P8 = (P + 7) & ~7;
+  if ((pc ? C : P) % 8 != 0 || P < 1 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const gram90::ReluBwdArgs args{
       {static_cast<const __nv_bfloat16*>(z),
        static_cast<const __nv_bfloat16*>(m2),
        static_cast<const __nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
-       splits > 1 ? static_cast<float*>(work) : nullptr, P, P, C, P, K,
-       (K + splits - 1) / splits, static_cast<long long>(C) * P,
-       static_cast<long long>(K) * P,
+       splits > 1 ? static_cast<float*>(work) : nullptr, pc ? C : P, P8, C,
+       P, K, (K + splits - 1) / splits, static_cast<long long>(C) * P,
+       static_cast<long long>(K) * P8,
        static_cast<long long>(C) * K * ((C + 7) & ~7), B},
       static_cast<const __nv_bfloat16*>(bias)};
-  cudaError_t err = cudaErrorInvalidValue;
-  const bool pairs = B > 1;
-  if (tile == 64 && splits == 1 && C <= 64 && K <= gram90::RMAXK)
-    err = pairs ? launch_body64<true>(args, groups, st)
-                : launch_body64<false>(args, groups, st);
-  else if (tile == 64)
-    err = pairs ? launch_wbwd_body<64, true>(args, groups, splits, st)
-                : launch_wbwd_body<64, false>(args, groups, splits, st);
-  else if (tile == 128)
-    err = pairs ? launch_wbwd_body<128, true>(args, groups, splits, st)
-                : launch_wbwd_body<128, false>(args, groups, splits, st);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      (pc ? launch_relu_bwd<true> : launch_relu_bwd<false>)(
+          args, tile, groups, splits, st));
 }
 
 // dpst_gram_wgmma_attrs for which = 6 (gram_relu_bwd64_body, its shared

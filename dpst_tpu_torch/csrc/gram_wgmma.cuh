@@ -85,6 +85,23 @@
 //     times F, F read transposed). See gram_relu_bwd64_body.
 // Rows need 16-byte alignment: P % 8 == 0 (the wrapper pads P with zero
 // columns, which add nothing to G and whose dF is dropped).
+//
+// The (P, C) form (template parameter PC, false by default: gram.cu's,
+// gram_relu_bwd.cu's, gram_wbwd_pairs.cu's and block12.cu's instances are
+// the (C, P) form's code): the tap as a channels_last activation holds it,
+// P rows of C channels (C % 8 == 0), read where it lies and never copied to
+// (C, P). A tile then holds 64 pixel rows of 64 channels (the same 128-byte
+// swizzle), which the bodies read through the other orientation of each
+// operand (ldmatrix with or without .trans, a descriptor read K-major or
+// MN-major), so every product, weighting, fold and rounding is the (C, P)
+// form's; dF and dz leave in (P, C) order, a pixel's channels in 16-byte
+// pieces, so autograd hands the bias+ReLU backward a channels_last
+// cotangent. Only the masks need P % 8 == 0 (the wrapper pads them; F's
+// pixel rows are checked one by one). gram_pc.cu and gram_pc_wbwd.cu
+// instantiate them (translation units of their own, so that the (C, P)
+// kernels compile as they did without them) and hand their kernels out as
+// handles (namespace gram_pc, at the end): each form is launched by its
+// twin's launch code, templated on PC, through `launch`.
 #pragma once
 
 #include <cstdint>
@@ -137,6 +154,7 @@ struct FwdArgs {
   long long ldf, ldm, fband, mband;
   int C, P, K, S, chunk;
   const bf16* bias = nullptr;  // (C,): the bias+ReLU variant's b
+  int prows = 0;  // the (P, C) form's pixel rows of F (P may pad past them)
 };
 
 // Two bf16 of the raw tap (low half first) cooked as the plain version
@@ -150,6 +168,29 @@ __device__ __forceinline__ uint32_t cook2(uint32_t x, float b) {
   uint32_t out;
   memcpy(&out, &r, 4);
   return out;
+}
+
+// Two bf16 of the raw tap of two channels (low half first) cooked with
+// their own biases: the (P, C) form's pieces hold 8 channels of a pixel.
+__device__ __forceinline__ uint32_t cook2b(uint32_t x, float b0, float b1) {
+  __nv_bfloat162 v;
+  memcpy(&v, &x, 4);
+  const float2 zf = __bfloat1622float2(v);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      fmaxf(__fadd_rn(zf.x, b0), 0.0f), fmaxf(__fadd_rn(zf.y, b1), 0.0f));
+  uint32_t out;
+  memcpy(&out, &r, 4);
+  return out;
+}
+
+// A 16-byte piece of a (P, C) tile, 8 channels of one pixel, cooked with
+// the 8 channels' biases.
+__device__ __forceinline__ uint4 cook16b(uint4 v, const float (&b)[8]) {
+  v.x = cook2b(v.x, b[0], b[1]);
+  v.y = cook2b(v.y, b[2], b[3]);
+  v.z = cook2b(v.z, b[4], b[5]);
+  v.w = cook2b(v.w, b[6], b[7]);
+  return v;
 }
 
 // Cook a landed 64-row tile in place. Thread tid takes the 16-byte pieces
@@ -170,6 +211,19 @@ __device__ __forceinline__ void cook_tile(unsigned char* tile,
   }
 }
 
+// Cook a landed 64-pixel tile of the (P, C) form in place: thread tid
+// takes the pieces tid + NT * i, i < 4, all of channel chunk tid & 7, whose
+// 8 biases are b (0 past C, where the zero fill then stays 0).
+__device__ __forceinline__ void cook_tile_pc(unsigned char* tile,
+                                             const float (&b)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = threadIdx.x + NT * i;
+    uint4* q = reinterpret_cast<uint4*>(tile + swz(e >> 3, e & 7));
+    *q = cook16b(*q, b);
+  }
+}
+
 // Forward body of one block; the kernels that launch it (gram.cu's
 // gram_fwd_wgmma_kernel, block12.cu's block12_gram_wgmma_kernel) give it a
 // grid (tiles * tiles, ceil(K / KG), bands * S). Block (tile, class group,
@@ -183,7 +237,14 @@ __device__ __forceinline__ void cook_tile(unsigned char* tile,
 // partials) that step is compiled out. A cooked zero fill is relu(b), not
 // 0: pixels past the split or padded by the wrapper still add nothing,
 // since their masks are zero and round(F * 0) = 0.
-template <bool RELU = false>
+// PC (gram_pc.cu): F is the tap as it lies in a channels_last activation,
+// P rows of C channels (C % 8 == 0, ldf the row stride, fband a pair's),
+// of which the first a.prows are pixels. A stage brings 64H pixel rows of
+// the F_j and F_i tiles (16-byte rows of 8 channels, swizzled as wgmma
+// reads a MN-major operand): the A fragments of F_j come by ldmatrix.trans
+// and F_i is wgmma's B operand read transposed, so the products, the
+// weighting and the stores are the (C, P) form's, term for term.
+template <bool RELU = false, bool PC = false>
 __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
   constexpr int H = FWD_HALVES, S = FWD_STAGES;
   // a slot: F_j halves, F_i halves, then the group's masks (KG x 64H bf16)
@@ -210,18 +271,37 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
   auto load = [&](int s) {
     const uint32_t sa = smem_addr(sm + (s % S) * SLOT);
     const int p0 = pb + s * BK * H;
+    if constexpr (PC) {
+      // pixel rows p0 .. p0 + 64H, 8 channels a piece; tile h holds rows
+      // 64h .. 64h + 63
 #pragma unroll
-    for (int e = tid; e < 64 * 8 * H; e += NT) {
-      const int hr = e >> 3, c = e & 7, h = hr >> 6, r = hr & 63;
-      const int p = p0 + h * 64 + c * 8;
-      const bool pv = p < pe;
-      const bool vj = pv && j0 + r < C;
-      cp_async16(sa + h * TILE_BYTES + swz(r, c),
-                 vj ? f + (j0 + r) * ldf + p : f, vj);
-      if (!diag) {
-        const bool vi = pv && i0 + r < C;
-        cp_async16(sa + (H + h) * TILE_BYTES + swz(r, c),
-                   vi ? f + (i0 + r) * ldf + p : f, vi);
+      for (int e = tid; e < 64 * 8 * H; e += NT) {
+        const int hr = e >> 3, c = e & 7, h = hr >> 6, r = hr & 63;
+        const int p = p0 + hr;
+        const bool pv = p < pe && p < a.prows;
+        const bool vj = pv && j0 + c * 8 < C;
+        cp_async16(sa + h * TILE_BYTES + swz(r, c),
+                   vj ? f + p * ldf + j0 + c * 8 : f, vj);
+        if (!diag) {
+          const bool vi = pv && i0 + c * 8 < C;
+          cp_async16(sa + (H + h) * TILE_BYTES + swz(r, c),
+                     vi ? f + p * ldf + i0 + c * 8 : f, vi);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = tid; e < 64 * 8 * H; e += NT) {
+        const int hr = e >> 3, c = e & 7, h = hr >> 6, r = hr & 63;
+        const int p = p0 + h * 64 + c * 8;
+        const bool pv = p < pe;
+        const bool vj = pv && j0 + r < C;
+        cp_async16(sa + h * TILE_BYTES + swz(r, c),
+                   vj ? f + (j0 + r) * ldf + p : f, vj);
+        if (!diag) {
+          const bool vi = pv && i0 + r < C;
+          cp_async16(sa + (H + h) * TILE_BYTES + swz(r, c),
+                     vi ? f + (i0 + r) * ldf + p : f, vi);
+        }
       }
     }
     if (tid < kn * 8 * H) {
@@ -238,9 +318,17 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[q][i] = 0.0f;
 
-  // the biases of the rows this thread cooks (cook_tile), of F_j and F_i
-  float bj[4], bi[4];
-  if constexpr (RELU) {
+  // the biases of the rows this thread cooks (cook_tile), of F_j and F_i;
+  // PC: of the 8 channels of its chunk tid & 7 (cook_tile_pc)
+  float bj[PC ? 8 : 4], bi[PC ? 8 : 4];
+  if constexpr (RELU && PC) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = (tid & 7) * 8 + i;
+      bj[i] = j0 + c < C ? to_f(a.bias[j0 + c]) : 0.0f;
+      bi[i] = i0 + c < C ? to_f(a.bias[i0 + c]) : 0.0f;
+    }
+  } else if constexpr (RELU) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = (tid >> 3) + 16 * i;
@@ -263,12 +351,20 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
     if constexpr (RELU) {
       // each landed tile once: on a diagonal tile F_i is F_j
 #pragma unroll
-      for (int h = 0; h < H; ++h)
-        cook_tile(sm + (s % S) * SLOT + h * TILE_BYTES, bj);
+      for (int h = 0; h < H; ++h) {
+        if constexpr (PC)
+          cook_tile_pc(sm + (s % S) * SLOT + h * TILE_BYTES, bj);
+        else
+          cook_tile(sm + (s % S) * SLOT + h * TILE_BYTES, bj);
+      }
       if (!diag) {
 #pragma unroll
-        for (int h = 0; h < H; ++h)
-          cook_tile(sm + (s % S) * SLOT + (H + h) * TILE_BYTES, bi);
+        for (int h = 0; h < H; ++h) {
+          if constexpr (PC)
+            cook_tile_pc(sm + (s % S) * SLOT + (H + h) * TILE_BYTES, bi);
+          else
+            cook_tile(sm + (s % S) * SLOT + (H + h) * TILE_BYTES, bi);
+        }
       }
       fence_proxy_async();  // generic stores, then wgmma's async reads
       __syncthreads();
@@ -286,9 +382,17 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
       // 16-pixel steps of this half
       uint32_t fa[4][4];
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        ldmatrix_x4(fa[ks], sa + h * TILE_BYTES + swz(w * 16 + (lane & 15),
-                                                    ks * 2 + (lane >> 4)));
+      for (int ks = 0; ks < 4; ++ks) {
+        if constexpr (PC)
+          // the tile's rows are pixels: A[j][p] = F[p][j], transposed
+          ldmatrix_x4_trans(fa[ks], sa + h * TILE_BYTES +
+                                        swz(ks * 16 + ((lane >> 4) << 3) +
+                                                (lane & 7),
+                                            2 * w + ((lane >> 3) & 1)));
+        else
+          ldmatrix_x4(fa[ks], sa + h * TILE_BYTES + swz(w * 16 + (lane & 15),
+                                                      ks * 2 + (lane >> 4)));
+      }
 #pragma unroll
       for (int q = 0; q < KG; ++q) {
         if (q < kn) {
@@ -315,8 +419,12 @@ __device__ __forceinline__ void gram_fwd_body(const FwdArgs& a) {
           }
           wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma_64(acc[q], wa[q & 1][ks], desc + 2 * ks);
+          for (int ks = 0; ks < 4; ++ks) {
+            if constexpr (PC)
+              wgmma_64rt(acc[q], wa[q & 1][ks], desc + 128 * ks);
+            else
+              wgmma_64(acc[q], wa[q & 1][ks], desc + 2 * ks);
+          }
           wgmma_commit();
         }
       }
@@ -405,13 +513,22 @@ struct BwdRound {
 // tiles, so a block's next tile loads while it finishes this one. Without
 // PAIRS (one pair) the pair arithmetic compiles out, and the body is the
 // one-pair body register for register.
-template <int N, typename Epi, bool PAIRS = false>
+// PC (gram_pc.cu): F and dF lie as in a channels_last activation, pixel
+// rows of ldf elements (C % 8 == 0), one band [0, pe): a chunk's F tile
+// holds 64 pixel rows of 64 channels, whose A fragments come by a plain
+// ldmatrix, so the products are the (C, P) form's; dF leaves through a
+// staging tile of pixel rows, and split partials are (splits, pairs, pe,
+// C). Only gram.cu's rounding epilogue (no kReads) takes it.
+template <int N, typename Epi, bool PAIRS = false, bool PC = false>
 __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
                                               const Epi& epi) {
   constexpr int SLOT = TILE_BYTES + N * 128;  // F chunk, cotangent tile
   constexpr int D = STAGES - 2;               // items loaded ahead
   constexpr int LDT = 72;                     // epilogue tile row (bf16)
+  constexpr int LDP = N + 8;  // PC: epilogue tile row (bf16), a pixel's
   static_assert(N * LDT * 2 <= SLOT, "the epilogue tile fits a slot");
+  static_assert(!PC || (64 * LDP * 2 <= SLOT && !Epi::kReads),
+                "the (P, C) epilogue tile fits a slot, and rounds only");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   bf16* msk = reinterpret_cast<bf16*>(sm + STAGES * SLOT);  // [STAGES][64]
@@ -469,11 +586,23 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
     const int slot = it % STAGES;
     const uint32_t sa = smem_addr(sm + slot * SLOT);
     if (q.k == 0 || q.n == 0) {
+      if constexpr (PC) {
+        // pixel rows p0 .. p0 + 63, channels 64j .. 64j + 63
 #pragma unroll
-      for (int e = tid; e < 64 * 8; e += NT) {
-        const int r = e >> 3, c = e & 7, cr = q.j * 64 + r, p = q.p0 + c * 8;
-        const bool v = cr < C && p < q.pe;
-        cp_async16(sa + swz(r, c), v ? f + cr * ldf + p : f, v);
+        for (int e = tid; e < 64 * 8; e += NT) {
+          const int r = e >> 3, c = e & 7, cr = q.j * 64 + c * 8;
+          const int p = q.p0 + r;
+          const bool v = cr < C && p < q.pe;
+          cp_async16(sa + swz(r, c), v ? f + p * ldf + cr : f, v);
+        }
+      } else {
+#pragma unroll
+        for (int e = tid; e < 64 * 8; e += NT) {
+          const int r = e >> 3, c = e & 7, cr = q.j * 64 + r;
+          const int p = q.p0 + c * 8;
+          const bool v = cr < C && p < q.pe;
+          cp_async16(sa + swz(r, c), v ? f + cr * ldf + p : f, v);
+        }
       }
     }
     if (tid < 8) {
@@ -514,7 +643,44 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
   auto epilogue = [&](const Pos& q, unsigned char* slot) {
     wgmma_wait<0>();
     fence_regs(acc);
-    if (ar.work == nullptr) {
+    if constexpr (PC) {
+      if (ar.work == nullptr) {
+        __syncthreads();  // every warp is done reading the slot
+        bf16* tb = reinterpret_cast<bf16*>(slot);  // [64 pixels][LDP]
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(
+                tb + (w * 16 + g + 8 * h) * LDP + 8 * n + 2 * t) =
+                __floats2bfloat162_rn(acc[4 * n + 2 * h],
+                                      acc[4 * n + 2 * h + 1]);
+        __syncthreads();
+#pragma unroll
+        for (int e = tid; e < 64 * (N / 8); e += NT) {
+          const int r = e / (N / 8), c = e % (N / 8);
+          const int p = q.p0 + r, cr = c0 + c * 8;
+          if (cr < C && p < q.pe)
+            *reinterpret_cast<uint4*>(out + p * ldf + cr) =
+                *reinterpret_cast<const uint4*>(tb + r * LDP + c * 8);
+        }
+      } else {
+        float* wk = ar.work +
+                    static_cast<size_t>(PAIRS ? split * ar.pairs + pair
+                                              : split) * ar.pf;
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cr = c0 + 8 * n + 2 * t + e;
+              const int p = q.p0 + w * 16 + g + 8 * h;
+              if (cr < C && p < q.pe)
+                wk[p * ldf + cr] = acc[4 * n + 2 * h + e];
+            }
+      }
+    } else if (ar.work == nullptr) {
       // epi's loads all issued before the staging stores
       if constexpr (Epi::kReads) {
 #pragma unroll
@@ -585,11 +751,17 @@ __device__ __forceinline__ void gram_bwd_body(const BwdArgs& ar,
     const uint32_t sa = smem_addr(sp);
     if (qc.k == 0 || qc.n == 0) {
       // A[p][c'] = F[c'][p]: rows p0 + 16w .., the chunk's 16-deep steps
+      // (PC: the tile's rows are the pixels, A as it lies)
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        ldmatrix_x4_trans(ff[ks], sa + swz(ks * 16 + ((lane >> 4) << 3) +
-                                               (lane & 7),
-                                           2 * w + ((lane >> 3) & 1)));
+      for (int ks = 0; ks < 4; ++ks) {
+        if constexpr (PC)
+          ldmatrix_x4(ff[ks], sa + swz(w * 16 + (lane & 15),
+                                       ks * 2 + (lane >> 4)));
+        else
+          ldmatrix_x4_trans(ff[ks], sa + swz(ks * 16 + ((lane >> 4) << 3) +
+                                                 (lane & 7),
+                                             2 * w + ((lane >> 3) & 1)));
+      }
     }
     // this thread's A rows are pixels 16w + g and 16w + g + 8
     const float mlo = to_f(msk[slot * 64 + w * 16 + g]);
@@ -707,8 +879,15 @@ __host__ __device__ constexpr int wbwd_fslots(int C, int NS) {
 // split partials may take it one by one). Without RELU (gram_wbwd) both
 // steps are compiled out.
 // PAIRS: a batch's instance (see gram_bwd_body); gram_wbwd runs one pair.
+// PC (gram_pc_wbwd.cu): F and dF lie as in a channels_last activation, P
+// pixel rows of ldf elements (C % 8 == 0), a pair's pf apart; an F chunk is
+// two tiles of 64 pixel rows of its 64 channels, which wgmma reads as a
+// K-major A operand (the same products as the (C, P) form's transposed
+// read), each tile cooked with the 8 biases of a piece's channels; dF
+// leaves through a staging tile of pixel rows, and split partials are
+// (splits, pairs, P, C).
 template <int N, int NS, bool RELU = false, typename Args = WbwdArgs,
-          bool PAIRS = false>
+          bool PAIRS = false, bool PC = false>
 __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
   constexpr int SBYTES = N * 128;  // a cotangent tile: N rows of 64 c'
   constexpr int D = NS - 2;        // items loaded ahead
@@ -767,12 +946,25 @@ __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
     const int slot = it % NS;
     if (q.k == kb) {
       const uint32_t fa = smem_addr(fslot(q));
+      if constexpr (PC) {
+        // pixel rows p0 .. p0 + WPIX, channels 64j ..: tile r >> 6
 #pragma unroll
-      for (int e = tid; e < 64 * 16; e += WNT) {
-        const int r = e >> 4, c = e & 15, cr = q.j * 64 + r, p = q.p0 + c * 8;
-        const bool v = cr < C && p < P;
-        cp_async16(fa + (c >> 3) * TILE_BYTES + swz(r, c & 7),
-                   v ? f + cr * ldf + p : f, v);
+        for (int e = tid; e < WPIX * 8; e += WNT) {
+          const int r = e >> 3, c = e & 7, cr = q.j * 64 + c * 8;
+          const int p = q.p0 + r;
+          const bool v = cr < C && p < P;
+          cp_async16(fa + (r >> 6) * TILE_BYTES + swz(r & 63, c),
+                     v ? f + p * ldf + cr : f, v);
+        }
+      } else {
+#pragma unroll
+        for (int e = tid; e < 64 * 16; e += WNT) {
+          const int r = e >> 4, c = e & 15, cr = q.j * 64 + r;
+          const int p = q.p0 + c * 8;
+          const bool v = cr < C && p < P;
+          cp_async16(fa + (c >> 3) * TILE_BYTES + swz(r, c & 7),
+                     v ? f + cr * ldf + p : f, v);
+        }
       }
     }
     if (q.j == nch - 1 && tid < WPIX / 8) {
@@ -824,12 +1016,54 @@ __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
             const int p = px0 + w * 16 + g + 8 * h;
             if (cr < C && p < P) {
               float& v = tot[4 * n + 2 * h + e];
-              v = __fmul_rn(v, relu_grad(__fadd_rn(to_f(f[cr * ldf + p]),
+              const size_t zi = PC ? p * ldf + cr : cr * ldf + p;
+              v = __fmul_rn(v, relu_grad(__fadd_rn(to_f(f[zi]),
                                                    to_f(ar.bias[cr]))));
             }
           }
     }
-    if (ar.work == nullptr) {
+    if constexpr (PC) {
+      if (ar.work == nullptr) {
+        __syncthreads();  // both warpgroups are done with the two slots
+        unsigned char* tb =
+            ring + (wg == 0 ? slot : (slot + NS - 1) % NS) * SBYTES;
+        // row r (a pixel) of N channels, 16-byte pieces XOR-swizzled by r
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = w * 16 + g + 8 * h;
+            *reinterpret_cast<__nv_bfloat162*>(
+                tb + r * (2 * N) + ((n ^ (r & 7)) << 4) + t * 4) =
+                __floats2bfloat162_rn(tot[4 * n + 2 * h],
+                                      tot[4 * n + 2 * h + 1]);
+          }
+        __syncthreads();
+#pragma unroll
+        for (int e = tid & (NT - 1); e < 64 * (N / 8); e += NT) {
+          const int r = e / (N / 8), c = e % (N / 8);
+          const int p = px0 + r, cr = c0 + c * 8;
+          if (cr < C && p < P)
+            *reinterpret_cast<uint4*>(out + p * ldf + cr) =
+                *reinterpret_cast<const uint4*>(tb + r * (2 * N) +
+                                                ((c ^ (r & 7)) << 4));
+        }
+      } else {
+        float* wk = ar.work +
+                    static_cast<size_t>(PAIRS ? split * ar.pairs + pair
+                                              : split) * ar.pf;
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cr = c0 + 8 * n + 2 * t + e;
+              const int p = px0 + w * 16 + g + 8 * h;
+              if (cr < C && p < P) wk[p * ldf + cr] = tot[4 * n + 2 * h + e];
+            }
+      }
+    } else if (ar.work == nullptr) {
       __syncthreads();  // both warpgroups are done with the two slots
       unsigned char* tb =
           ring + (wg == 0 ? slot : (slot + NS - 1) % NS) * SBYTES;
@@ -889,13 +1123,30 @@ __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
       if (qc.k == kb) {
         // the chunk landed with this item: cook it before any product
         unsigned char* fc = fslot(qc);
+        if constexpr (PC) {
+          // pieces tid + WNT i: pixel rows, all of channel chunk tid & 7
+          float b8[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e = tid + WNT * i, r = e >> 4, c = e & 15;
-          const int cr = qc.j * 64 + r;
-          uint4* q = reinterpret_cast<uint4*>(fc + (c >> 3) * TILE_BYTES +
-                                              swz(r, c & 7));
-          *q = cook16(*q, cr < C ? to_f(ar.bias[cr]) : 0.0f);
+          for (int i = 0; i < 8; ++i) {
+            const int cr = qc.j * 64 + (tid & 7) * 8 + i;
+            b8[i] = cr < C ? to_f(ar.bias[cr]) : 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = tid + WNT * i, r = e >> 3;
+            uint4* q = reinterpret_cast<uint4*>(fc + (r >> 6) * TILE_BYTES +
+                                                swz(r & 63, e & 7));
+            *q = cook16b(*q, b8);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = tid + WNT * i, r = e >> 4, c = e & 15;
+            const int cr = qc.j * 64 + r;
+            uint4* q = reinterpret_cast<uint4*>(fc + (c >> 3) * TILE_BYTES +
+                                                swz(r, c & 7));
+            *q = cook16(*q, cr < C ? to_f(ar.bias[cr]) : 0.0f);
+          }
         }
         fence_proxy_async();  // generic stores, then wgmma's async reads
         __syncthreads();
@@ -903,13 +1154,18 @@ __device__ __forceinline__ void gram_wbwd_body(const Args& ar) {
     }
     const int slot = it % NS;
     // A = F^T: the warpgroup's tile of the chunk, 16 channel rows a step
+    // (PC: the tile's rows are the pixels, A K-major as it lies)
     const uint64_t adesc =
         make_desc(smem_addr(fslot(qc)) + wg * TILE_BYTES);
     const uint64_t bdesc = make_desc(smem_addr(ring + slot * SBYTES));
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      if constexpr (N == 64)
+      if constexpr (PC && N == 64)
+        wgmma_64kk(prod, adesc + 2 * ks, bdesc + 2 * ks);
+      else if constexpr (PC)
+        wgmma_128kk(prod, adesc + 2 * ks, bdesc + 2 * ks);
+      else if constexpr (N == 64)
         wgmma_64t(prod, adesc + 128 * ks, bdesc + 2 * ks);
       else
         wgmma_128t(prod, adesc + 128 * ks, bdesc + 2 * ks);
@@ -987,7 +1243,15 @@ __device__ __forceinline__ void wg_sync(int wg) {
 // zeros, cook to relu(b), meet zero masks and are never stored; rows past
 // C cook to 0, meet zero cotangent columns and are never stored.
 // PAIRS: a batch's instance (see gram_bwd_body).
-template <int NS, int NWG, bool PAIRS = false>
+// PC (gram_pc_wbwd.cu): z and dz lie as in a channels_last activation, P
+// pixel rows of ldf elements (C % 8 == 0), a pair's pf apart. A z tile then
+// holds 64 pixel rows of the C channels, and a class's product is taken
+// the other way round, F (A, the F tile, K-major) times S_k (B, the
+// resident tile, K-major): the accumulators hold channel pairs of two
+// pixels, as the gram_wbwd body's do, the masks meet them by pixel row,
+// and z, the biases (from a table of the 64 in shared memory) and the
+// staged dz move as channel pairs.
+template <int NS, int NWG, bool PAIRS = false, bool PC = false>
 __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -1012,6 +1276,10 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
   unsigned char* zr = sm + (K + NWG + wg * NS) * TILE_BYTES;
   unsigned char* mr =
       sm + (K + NWG + NWG * NS) * TILE_BYTES + wg * NS * K * 128;
+  // PC: the biases of the 64 channels, fp32, behind the mask slots
+  float* bsm = reinterpret_cast<float*>(sm + (K + NWG + NWG * NS) *
+                                                 TILE_BYTES +
+                                        NWG * NS * K * 128);
 
   // the warpgroup's part of its u-th p tile: z rows into slot u % NS (row
   // r a channel, 16-byte pieces swizzled as wgmma reads F), the masks
@@ -1020,11 +1288,21 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
     const int s = u % NS;
     const int p0 = (bx + u * gx) * (64 * NWG) + wg * 64;
     const uint32_t za = smem_addr(zr + s * TILE_BYTES);
+    if constexpr (PC) {
+      // pixel rows p0 .. p0 + 63, 8 channels a piece
 #pragma unroll
-    for (int e = wt; e < 64 * 8; e += NT) {
-      const int r = e >> 3, c = e & 7, p = p0 + c * 8;
-      const bool v = r < C && p < P;
-      cp_async16(za + swz(r, c), v ? z + r * ldf + p : z, v);
+      for (int e = wt; e < 64 * 8; e += NT) {
+        const int r = e >> 3, c = e & 7, p = p0 + r;
+        const bool v = c * 8 < C && p < P;
+        cp_async16(za + swz(r, c), v ? z + p * ldf + c * 8 : z, v);
+      }
+    } else {
+#pragma unroll
+      for (int e = wt; e < 64 * 8; e += NT) {
+        const int r = e >> 3, c = e & 7, p = p0 + c * 8;
+        const bool v = r < C && p < P;
+        cp_async16(za + swz(r, c), v ? z + r * ldf + p : z, v);
+      }
     }
     if (wt < K * 8) {
       const int q = wt >> 3, c = wt & 7, p = p0 + c * 8;
@@ -1051,17 +1329,27 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
 
   // the biases of the rows this thread cooks (pieces wt + NT i: rows
   // (wt >> 3) + 16 i) and of the channels its accumulators hold (16w + g
-  // and 16w + g + 8); 0 past C
-  float bc[4], bo[2];
+  // and 16w + g + 8); 0 past C. PC: of the 8 channels of the chunk wt & 7
+  // that its pieces hold, and the table of all 64
+  float bc[PC ? 8 : 4], bo[2];
+  if constexpr (PC) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = (wt >> 3) + 16 * i;
-    bc[i] = r < C ? to_f(ar.bias[r]) : 0.0f;
-  }
+    for (int i = 0; i < 8; ++i) {
+      const int c = (wt & 7) * 8 + i;
+      bc[i] = c < C ? to_f(ar.bias[c]) : 0.0f;
+    }
+    if (tid < 64) bsm[tid] = tid < C ? to_f(ar.bias[tid]) : 0.0f;
+  } else {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 16 * w + g + 8 * h;
-    bo[h] = r < C ? to_f(ar.bias[r]) : 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      const int r = (wt >> 3) + 16 * i;
+      bc[i] = r < C ? to_f(ar.bias[r]) : 0.0f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + g + 8 * h;
+      bo[h] = r < C ? to_f(ar.bias[r]) : 0.0f;
+    }
   }
 
   cp_async_wait<NS - 1>();  // the cotangent landed (every thread's part)
@@ -1089,8 +1377,12 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
     for (int i = 0; i < 4; ++i) {
       const int e = wt + NT * i;
       const uint32_t off = swz(e >> 3, e & 7);
-      *reinterpret_cast<uint4*>(ft + off) =
-          cook16(*reinterpret_cast<const uint4*>(zs + off), bc[i]);
+      if constexpr (PC)
+        *reinterpret_cast<uint4*>(ft + off) =
+            cook16b(*reinterpret_cast<const uint4*>(zs + off), bc);
+      else
+        *reinterpret_cast<uint4*>(ft + off) =
+            cook16(*reinterpret_cast<const uint4*>(zs + off), bc[i]);
     }
     fence_proxy_async();  // generic stores, then wgmma's async reads
     wg_sync(wg);
@@ -1106,15 +1398,31 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
           wgmma_fence();
           const uint64_t adesc = make_desc(cot_a + (k0 + q) * TILE_BYTES);
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            wgmma_64tb(acc[q], adesc + 2 * ks, fdesc + 128 * ks);
+          for (int ks = 0; ks < 4; ++ks) {
+            if constexpr (PC)
+              wgmma_64kk(acc[q], fdesc + 2 * ks, adesc + 2 * ks);
+            else
+              wgmma_64tb(acc[q], adesc + 2 * ks, fdesc + 128 * ks);
+          }
           wgmma_commit();
         }
       }
       wgmma_wait<0>();
 #pragma unroll
       for (int q = 0; q < RKA; ++q) {
-        if (k0 + q < K) {
+        if (k0 + q < K && PC) {
+          fence_regs(acc[q]);
+          if constexpr (PC) {
+            // acc[q][4n + 2h + e]: pixel 16w + g + 8h, channel 8n + 2t + e
+            const bf16* mq = reinterpret_cast<const bf16*>(
+                                 ms + (k0 + q) * 128) + 16 * w + g;
+            const float mlo = to_f(mq[0]), mhi = to_f(mq[8]);
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              tot[i] = __fadd_rn(tot[i],
+                                 __fmul_rn(acc[q][i], (i & 2) ? mhi : mlo));
+          }
+        } else if (k0 + q < K) {
           fence_regs(acc[q]);
 #pragma unroll
           for (int n = 0; n < 8; ++n) {
@@ -1135,28 +1443,55 @@ __device__ __forceinline__ void gram_relu_bwd64_body(const ReluBwdArgs& ar) {
     wg_sync(wg);  // every warp's products are done: the F tile is free
 
     // dz = round(tot * relu'(z + b)), pixel pairs staged in the F tile's
-    // layout
+    // layout (PC: channel pairs of a pixel, their biases from the table)
+    if constexpr (PC) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * n + 2 * h;
-        const uint32_t off = swz(16 * w + g + 8 * h, n) + t * 4;
-        const float2 zf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(zs + off));
-        *reinterpret_cast<__nv_bfloat162*>(ft + off) = __floats2bfloat162_rn(
-            __fmul_rn(tot[i], relu_grad(__fadd_rn(zf.x, bo[h]))),
-            __fmul_rn(tot[i + 1], relu_grad(__fadd_rn(zf.y, bo[h]))));
-        tot[i] = tot[i + 1] = 0.0f;
-      }
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * n + 2 * h;
+          const uint32_t off = swz(16 * w + g + 8 * h, n) + t * 4;
+          const float2 zf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(zs + off));
+          const float2 bb =
+              *reinterpret_cast<const float2*>(bsm + 8 * n + 2 * t);
+          *reinterpret_cast<__nv_bfloat162*>(ft + off) =
+              __floats2bfloat162_rn(
+                  __fmul_rn(tot[i], relu_grad(__fadd_rn(zf.x, bb.x))),
+                  __fmul_rn(tot[i + 1], relu_grad(__fadd_rn(zf.y, bb.y))));
+          tot[i] = tot[i + 1] = 0.0f;
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * n + 2 * h;
+          const uint32_t off = swz(16 * w + g + 8 * h, n) + t * 4;
+          const float2 zf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(zs + off));
+          *reinterpret_cast<__nv_bfloat162*>(ft + off) = __floats2bfloat162_rn(
+              __fmul_rn(tot[i], relu_grad(__fadd_rn(zf.x, bo[h]))),
+              __fmul_rn(tot[i + 1], relu_grad(__fadd_rn(zf.y, bo[h]))));
+          tot[i] = tot[i + 1] = 0.0f;
+        }
+    }
     wg_sync(wg);
     const int p0 = (bx + u * gx) * (64 * NWG) + wg * 64;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int e = wt + NT * i, r = e >> 3, c = e & 7, p = p0 + c * 8;
-      if (r < C && p < P)
-        *reinterpret_cast<uint4*>(out + r * ldf + p) =
-            *reinterpret_cast<const uint4*>(ft + swz(r, c));
+      const int e = wt + NT * i, r = e >> 3, c = e & 7;
+      if constexpr (PC) {
+        const int p = p0 + r;
+        if (c * 8 < C && p < P)
+          *reinterpret_cast<uint4*>(out + p * ldf + c * 8) =
+              *reinterpret_cast<const uint4*>(ft + swz(r, c));
+      } else {
+        const int p = p0 + c * 8;
+        if (r < C && p < P)
+          *reinterpret_cast<uint4*>(out + r * ldf + p) =
+              *reinterpret_cast<const uint4*>(ft + swz(r, c));
+      }
     }
   }
   cp_async_wait<0>();
@@ -1200,6 +1535,8 @@ inline size_t relu_bwd64_smem(int K) {
   return static_cast<size_t>(K + RWG + RWG * RNS) * TILE_BYTES +
          RWG * RNS * K * 128 + 1024;
 }
+// the (P, C) form's: its table of 64 fp32 biases besides
+inline size_t relu_bwd64_pc_smem(int K) { return relu_bwd64_smem(K) + 256; }
 
 // Resources of kernel fn for the record (dpst_gram_wgmma_attrs): out =
 // registers a thread, local memory bytes a thread (spills and stack),
@@ -1222,5 +1559,25 @@ inline int record_attrs(const void* fn, size_t smem, int threads, int* out) {
   return 0;
 }
 
+// Launch the kernel `fn` (a __global__ function's handle, from this unit or
+// another: gram_pc's (P, C) instances) on its one argument struct.
+template <typename Args>
+cudaError_t launch(const void* fn, dim3 grid, int threads, size_t smem,
+                   cudaStream_t st, Args args) {
+  void* params[] = {&args};
+  return cudaLaunchKernel(fn, grid, dim3(threads), params, smem, st);
+}
+
 }  // namespace gram90
 }  // namespace
+
+// The (P, C) instances of the bodies (gram_pc.cu, gram_pc_wbwd.cu), by the
+// template arguments of their (C, P) twins: n the c tile's rows, pairs the
+// batch instance.
+namespace gram_pc {
+const void* fwd_kernel(bool relu);                 // gram_fwd_body
+const void* bwd_kernel(int n, bool pairs);         // gram_bwd_body
+const void* wbwd_kernel(int n, bool pairs);        // gram_wbwd_body
+const void* relu_bwd_kernel(int n, bool pairs);    // its bias+ReLU steps
+const void* relu_bwd64_kernel(bool pairs);         // gram_relu_bwd64_body
+}  // namespace gram_pc

@@ -1,4 +1,5 @@
-"""VGG-19 feature extractor (PyTorch, NCHW).
+"""VGG-19 feature extractor (PyTorch; NCHW shapes, NCHW or channels_last
+memory).
 
 The port's counterpart of `dpst_tpu/models/vgg.py`: Caffe-style BGR +
 ImageNet-mean preprocessing, the 16 3×3 convs truncated at the deepest
@@ -25,6 +26,20 @@ of them; the port's own conv kernel (`conv_impl="pallas"`) has no batch
 grid dimension and runs once an image. A single (H, W, 3) image is a batch
 of one, and its taps come back without the batch axis.
 
+Activations keep their (N, C, H, W) shapes; their memory follows the
+input. On the card's bf16 cuDNN route (`channels_last_route`: a CUDA
+device, bf16, cuDNN's convs, and a route that runs the VGG through
+`extract_features`; `pack_params` packs the weights for it, once, and
+`extract_features` follows them) `extract_features` hands conv1_1 the
+channels_last view of the HWC image and every activation, tap and
+cotangent stays channels_last: cuDNN's bf16 kernels are NHWC, so NCHW
+activations cost a transpose of each conv's input and output both ways,
+and the hand-written kernels that meet the activations (the bias+ReLU
+pair, the pool backward, the Gram kernels) take them as they lie. A tap
+is then a (C, P) operand with stride 1 on C. fp32 (ATen's own convs), the
+port's conv kernel, `extract_tail` and the row shards of
+`parallel.spatial` stay NCHW.
+
 The TPU lowerings of the JAX package (s2b strips, space-to-depth block 1,
 the BGR weight fold, post-activation pooling) are exact re-expressions of
 the same math and are not carried here.
@@ -38,12 +53,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops import block12_pallas
+from ..ops import block12_pallas, kernels
 from ..ops.bias_relu_cuda import bias_relu_bwd, bias_relu_fwd
 from ..ops.conv_cuda import conv3x3_same, pack_grad_weights, pack_weights
 from ..ops.gram_s2d import RawTap
 from ..ops.kernels import torch_dtype
-from ..ops.pool_cuda import maxpool2_bwd
+from ..ops.pool_cuda import maxpool2_bwd, maxpool2_bwd_nhwc
 from ..utils import assets
 from ..utils.runtime import canonical, params_on
 
@@ -132,12 +147,16 @@ def _means(device: torch.device, rgb: bool = False) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-def preprocess(image: torch.Tensor) -> torch.Tensor:
+def preprocess(image: torch.Tensor, channels_last: bool = False
+               ) -> torch.Tensor:
     """[0,255] RGB (H, W, 3), or a batch (N, H, W, 3) -> mean-subtracted
-    BGR as an (N, 3, H, W) batch (N = 1 for one image)."""
+    BGR as an (N, 3, H, W) batch (N = 1 for one image), contiguous, or
+    with `channels_last` the channels_last view of the HWC values (no
+    copy: the image's gradient comes back in HWC as it is)."""
     bgr = image.to(torch.float32).flip(-1)
     x = (bgr - _means(image.device)).movedim(-1, -3)
-    return (x if x.dim() == 4 else x[None]).contiguous()
+    x = x if x.dim() == 4 else x[None]
+    return x if channels_last else x.contiguous()
 
 
 def preprocess_noflip(image: torch.Tensor) -> torch.Tensor:
@@ -153,25 +172,29 @@ class _BiasRelu(torch.autograd.Function):
     """max(z + b_c, 0) of a conv's raw output z ((N, C, H, W) or (C, H, W))
     and its (C,) bias, with gradient 1 above 0, 0 below and 0.5 at exactly
     0: apply(z, b), one kernel each way on the card
-    (`ops/bias_relu_cuda.py`). It saves z and b and recomputes z + b in the
-    backward. No gradient flows to b (the VGG weights are constants)."""
+    (`ops/bias_relu_cuda.py`), in z's layout (NCHW or channels_last). It
+    saves z and b and recomputes z + b in the backward. No gradient flows
+    to b (the VGG weights are constants)."""
 
     @staticmethod
     def forward(ctx, z, b):
-        z = z.contiguous()
+        z = z if kernels.channels_last(z) else z.contiguous()
         ctx.save_for_backward(z, b)
         return bias_relu_fwd(z, b)
 
     @staticmethod
     def backward(ctx, g):
         z, b = ctx.saved_tensors
-        return bias_relu_bwd(z, b, g.contiguous()), None
+        fmt = (torch.channels_last if kernels.channels_last(z)
+               else torch.contiguous_format)
+        return bias_relu_bwd(z, b, g.contiguous(memory_format=fmt)), None
 
 
 class _MaxPool2(torch.autograd.Function):
     """2×2/2 max pool of an (N, C, H, W) batch with the tie-splitting
     backward, one launch for the batch: its N·C planes are the kernel's
-    channels."""
+    channels, or, for a channels_last batch, the kernel's NHWC form (ATen's
+    forward keeps channels_last)."""
 
     @staticmethod
     def forward(ctx, x):
@@ -182,6 +205,10 @@ class _MaxPool2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
+        if kernels.channels_last(x):
+            cl = torch.channels_last
+            return maxpool2_bwd_nhwc(x, y.contiguous(memory_format=cl),
+                                     g.contiguous(memory_format=cl))
         fold = lambda t: t.reshape(-1, *t.shape[2:])
         return maxpool2_bwd(fold(x), fold(y),
                             fold(g.contiguous())).reshape(x.shape)
@@ -218,46 +245,73 @@ class PackedParams(dict):
     """A run's weight dict ({layer: {"w", "b"}}, as `params_from_numpy`)
     with the forms the kernels read, made once (`pack_params`): each
     layer also holds "wc" and "bc", its weights and bias in the compute
-    dtype, and with `conv_impl="pallas"` each layer the conv kernel takes
-    holds "wp" and "ftp", its packed weights and packed input-gradient
-    weights; `block12` is blocks 1-2's `block12_pallas.pack_weights`, and
-    `key` the (compute dtype, pallas conv) it was packed for."""
+    dtype ("wc" channels_last where `channels_last`), and with
+    `conv_impl="pallas"` each layer the conv kernel takes holds "wp" and
+    "ftp", its packed weights and packed input-gradient weights; `block12`
+    is blocks 1-2's `block12_pallas.pack_weights`, and `key` the (compute
+    dtype, pallas conv) it was packed for, `channels_last` the layout of
+    its "wc"."""
 
     key: tuple
     block12: tuple
+    channels_last: bool
 
 
-def pack_params(params: dict, compute_dtype,
-                conv_impl: str = "auto") -> PackedParams:
+def channels_last_route(device, compute_dtype, conv_impl: str,
+                        route: str = "standard") -> bool:
+    """Whether a VGG pass keeps its activations channels_last: on a CUDA
+    device, in bf16, with cuDNN's convs (not `conv_impl="pallas"`, whose
+    kernel reads NCHW; fp32 takes ATen's own NCHW convs, `_AtenConv`), on
+    a `route` that runs the VGG through `extract_features`
+    (`optimize.block12_route`'s "standard" and "stream-standard"). Blocks
+    1-2 on the stream12 kernels ("kernel": `extract_tail` takes block12's
+    NCHW pool2 output) and `parallel.spatial`'s row shards ("rows") run
+    NCHW."""
+    return (route not in ("kernel", "rows")
+            and torch.device(device).type == "cuda"
+            and torch_dtype(compute_dtype) == torch.bfloat16
+            and conv_impl != "pallas")
+
+
+def pack_params(params: dict, compute_dtype, conv_impl: str = "auto",
+                route: str = "standard") -> PackedParams:
     """`params` with the compute-dtype and packed forms of its weights, for
-    a run in `compute_dtype` with `conv_impl` (see `PackedParams`). A dict
-    already packed for both comes back as it is."""
+    a run in `compute_dtype` with `conv_impl` on `route` (see
+    `PackedParams`; "wc" is channels_last, once, where
+    `channels_last_route` holds on the weights' device). A dict already
+    packed for the dtype and the conv comes back as it is, in its layout
+    (`conv2d` matches the weights to the activations where they differ)."""
     cdt = torch_dtype(compute_dtype)
     key = (cdt, conv_impl == "pallas")
     if getattr(params, "key", None) == key:
         return params
+    first = next(iter(params.values()))["w"]
+    cl = channels_last_route(first.device, cdt, conv_impl, route)
+    fmt = torch.channels_last if cl else torch.contiguous_format
     out = PackedParams()
     for name, p in params.items():
-        layer = {"w": p["w"], "b": p["b"], "wc": p["w"].to(cdt),
+        layer = {"w": p["w"], "b": p["b"],
+                 "wc": p["w"].to(dtype=cdt, memory_format=fmt),
                  "bc": p["b"].to(cdt)}
         if _use_pallas_conv(conv_impl, CONV_SHAPES[name][0]):
             layer["wp"] = pack_weights(layer["wc"])
             layer["ftp"] = pack_grad_weights(layer["wc"])
         out[name] = layer
     out.key = key
+    out.channels_last = cl
     out.block12 = block12_pallas.pack_weights(params, cdt)
     return out
 
 
 def params_by_device(params: dict, devices, compute_dtype,
-                     conv_impl: str = "auto") -> dict:
+                     conv_impl: str = "auto", route: str = "standard") -> dict:
     """{device: `pack_params` of `params` on it} for each distinct device
     of `devices`, keyed as tensors name their devices
     (`runtime.canonical`): packed once, on the first, and moved packed
     (`runtime.params_on`) to the others."""
     devs = list(dict.fromkeys(map(canonical, devices)))
     packed = pack_params(params_on(params, devs[0]), compute_dtype,
-                         conv_impl)
+                         conv_impl, route)
     return {d: params_on(packed, d) for d in devs}
 
 
@@ -314,20 +368,43 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, padding=1) -> torch.Tensor:
     ten rows after 10 steps (the batch's bf16 input gradients 3.6e-3 of
     max|g| off; image by image, 1.3e-7; NVIDIA H100 80GB HBM3, 700.00 W).
     So a batch's images take cuDNN's bf16 forward and backward as each
-    image alone does."""
+    image alone does (`per_image_conv2d`). The weights follow x's memory
+    format (a no-op where `pack_params` packed them for it), so the output
+    lies as x does."""
+    w = w.contiguous(memory_format=torch.channels_last
+                     if kernels.channels_last(x) else torch.contiguous_format)
     if x.is_cuda and x.dtype == torch.float32:
         return _AtenConv.apply(x, w, padding)
     if x.is_cuda and x.shape[0] > 1:
-        return torch.cat([F.conv2d(xi[None], w, padding=padding)
-                          for xi in x.unbind(0)])
+        return per_image_conv2d(x, w, padding)
     return F.conv2d(x, w, padding=padding)
+
+
+def per_image_conv2d(x: torch.Tensor, w: torch.Tensor,
+                     padding=1) -> torch.Tensor:
+    """`F.conv2d` of an (N, C, H, W) batch, one call an image. A
+    channels_last batch is cut and joined along its (N, H, W, C) memory
+    view, where each image is one contiguous block: the pieces are
+    channels_last images, as a batch of one is, and the joins (the
+    forward's `cat`, the backward's split of the gradient) copy whole
+    blocks. Cut as NCHW images, a channels_last batch's gradient would
+    come back NCHW from `unbind`'s backward, and cost a strided copy at
+    every layer."""
+    if kernels.channels_last(x):
+        return torch.cat([
+            F.conv2d(xi.permute(0, 3, 1, 2), w,
+                     padding=padding).permute(0, 2, 3, 1)
+            for xi in x.permute(0, 2, 3, 1).split(1)]).permute(0, 3, 1, 2)
+    return torch.cat([F.conv2d(xi[None], w, padding=padding)
+                      for xi in x.unbind(0)])
 
 
 def _run_layers(params: PackedParams, x: torch.Tensor, names, layers,
                 pooling: str, conv_impl: str, raw_taps=()) -> dict:
     """Run the layers `names` (in LAYER_ORDER) on the (N, C, H, W) batch x
     with `pack_params`' weights; returns the (N, C_l, H_l, W_l) taps of
-    those in `layers` (see extract_features)."""
+    those in `layers` (see extract_features). Every activation lies as x
+    does, NCHW or channels_last (the port's conv kernel reads NCHW)."""
     taps = {}
     for name in names:
         if name.startswith("pool"):
@@ -362,9 +439,12 @@ def extract_features(params: dict, image: torch.Tensor,
     params: {layer: {"w": OIHW, "b": (Cout,)}} (see params_from_numpy),
     packed here unless `pack_params` already packed it for this call.
     image: (H, W, 3) float RGB in [0, 255], or a batch (N, H, W, 3).
-    Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype
-    (NCHW planes of the one image: a tap is the contiguous (C, P) operand
-    of the Gram kernels), or (N, C_l, H_l, W_l) for a batch. `conv_impl` picks the conv of every layer but
+    Returns {layer: (C_l, H_l, W_l)} post-ReLU taps in the compute dtype,
+    or (N, C_l, H_l, W_l) for a batch: NCHW planes, a tap the contiguous
+    (C, P) operand of the Gram kernels, or, where `pack_params` packed the
+    weights channels_last (`channels_last_route`), channels_last, a tap
+    the (C, P) operand with stride 1 on C, which the Gram kernels' (P, C)
+    forms read as it lies. `conv_impl` picks the conv of every layer but
     conv1_1 (see the module docstring). A layer also in `raw_taps` is
     returned as a `RawTap` of its raw conv output and its bias (the
     counterpart of the JAX package's `S2dTap`), for the fused bias+ReLU
@@ -375,10 +455,10 @@ def extract_features(params: dict, image: torch.Tensor,
     if image.device.type == "cuda":
         set_exact_backends(cdt)
     deepest = max(LAYER_ORDER.index(l) for l in layers)
-    taps = _run_layers(pack_params(params, cdt, conv_impl),
-                       preprocess(image).to(cdt),
-                       LAYER_ORDER[:deepest + 1], layers, pooling, conv_impl,
-                       raw_taps)
+    packed = pack_params(params, cdt, conv_impl)
+    x = preprocess(image, packed.channels_last).to(cdt)
+    taps = _run_layers(packed, x, LAYER_ORDER[:deepest + 1], layers, pooling,
+                       conv_impl, raw_taps)
     return taps if image.dim() == 4 else _one(taps)
 
 
@@ -388,9 +468,9 @@ def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
     """Run VGG-19 from the pool2 output x (128, H/4, W/4), or a batch (N,
     128, H/4, W/4), to the deepest layer in `layers`
     (`dpst_tpu/models/vgg.py:extract_tail`): the continuation of the
-    streamed blocks 1-2, with extract_features' convs, ReLU and pools.
-    Returns {layer: (C_l, H_l, W_l)} taps ((N, C_l, H_l, W_l) for a
-    batch)."""
+    streamed blocks 1-2, with extract_features' convs, ReLU and pools,
+    NCHW whatever the weights' layout. Returns {layer: (C_l, H_l, W_l)}
+    taps ((N, C_l, H_l, W_l) for a batch)."""
     cdt = torch_dtype(compute_dtype)
     if x.device.type == "cuda":
         set_exact_backends(cdt)
@@ -399,7 +479,7 @@ def extract_tail(params: dict, x: torch.Tensor, layers: tuple[str, ...],
         raise ValueError("extract_tail: a tap before pool2")
     deepest = max(LAYER_ORDER.index(l) for l in layers)
     taps = _run_layers(pack_params(params, cdt, conv_impl),
-                       (x if x.dim() == 4 else x[None]).to(cdt),
+                       (x if x.dim() == 4 else x[None]).to(cdt).contiguous(),
                        LAYER_ORDER[start:deepest + 1], layers, pooling,
                        conv_impl)
     return taps if x.dim() == 4 else _one(taps)

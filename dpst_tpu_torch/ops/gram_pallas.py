@@ -9,7 +9,9 @@ backward kernels compute the same function:
     forward   G_k[i, j] = Σ_p round(F_ip · m²_kp) · F_jp
     backward  dF = Σ_k (S_k · F) ∘ m²_k,   S_k = round(dG_k + dG_kᵀ)
 
-F is a VGG tap as its (C, P) NCHW planes in the compute dtype. The forward
+F is a VGG tap as its (C, P) planes in the compute dtype, NCHW or
+channels_last (stride 1 on C: the kernels' (P, C) forms take it as
+it lies and return dF in its layout). The forward
 is `gram_stream.gram_fwd`'s function with each G_k transposed (the TPU
 kernels put the weighted operand on the left; the fused route and
 `gram_fwd` on the right). The backward differs from `gram_stream.gram_bwd`
@@ -32,7 +34,8 @@ import torch
 
 from . import kernels
 from .gram_stream import (_SMS, check_operands, gram_fwd, launch_bwd,
-                          normalize, per_pair, symmetrize)
+                          like_tap, normalize, per_pair, symmetrize,
+                          tap_operand)
 from .kernels import torch_dtype
 
 WBWD_PIXELS = 128   # pixels of the bf16 backward's p tile
@@ -97,7 +100,7 @@ def gram_wbwd(f: torch.Tensor, m2: torch.Tensor,
     _, c, _, k = check_operands(f, m2)
     kernels.require(s, "s", (*f.shape[:-2], k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
-        return gram_wbwd_plain(f, m2, s)
+        return like_tap(f, gram_wbwd_plain(f, m2, s))
     if f.dtype == torch.bfloat16 and c > WBWD_MAX_C:
         raise ValueError(f"gram_wbwd in bf16 takes C <= {WBWD_MAX_C}, not {c}")
     return launch_bwd("gram_wbwd", f, m2, s, wbwd_plan)
@@ -135,9 +138,10 @@ def masked_grams_pallas(feat: torch.Tensor, masks: torch.Tensor,
     """All K masked Grams: (C, H, W) tap × (K, H, W) masks -> (K, C, C)
     (a batch: (B, C, H, W) × (B, K, H, W) -> (B, K, C, C)), normalized by
     max(Σ m², eps) ("m2") or max(Σ m, eps) ("m1"), operands in
-    `compute_dtype`, accumulation in fp32."""
+    `compute_dtype`, accumulation in fp32. A channels_last tap is read as
+    it lies, never copied."""
     cdt = torch_dtype(compute_dtype)
-    f = feat.to(cdt).flatten(-2).contiguous()
+    f = tap_operand(feat.to(cdt).flatten(-2))
     m2 = (masks * masks).to(cdt).flatten(-2).contiguous()
     return normalize(weighted_grams(f, m2, weighted_left), masks, norm, eps)
 

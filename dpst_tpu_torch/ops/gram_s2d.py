@@ -9,8 +9,10 @@ kernels (`_fwd_kernel`, `_bwd_kernel`, `"pallas1"`) compute one function:
     forward   F = round(max(z + b, 0)),   G_k = F · (F ∘ m²_k)ᵀ
     backward  dz = relu′(z + b) ∘ Σ_k (S_k · F) ∘ m²_k,   S_k = dG_k + dG_kᵀ
 
-z is the raw conv output (no bias) as its (C, P) NCHW planes and b the (C,)
-bias, both in the compute dtype; z + b is formed in fp32 and F rounded to
+z is the raw conv output (no bias) as its (C, P) planes, NCHW or
+channels_last (the kernels' (P, C) forms read it as it lies and write dz
+in its layout), and b the (C,) bias, both in the
+compute dtype; z + b is formed in fp32 and F rounded to
 the compute dtype; relu′ is 1 above 0, ½ at exactly 0 and 0 below (the
 subgradient of `jnp.maximum`, as `models.vgg._BiasRelu` has it); the sum
 over classes is fp32 in class order, rounded once. No gradient flows to b
@@ -45,7 +47,8 @@ import torch
 from . import kernels
 from .gram_pallas import WBWD_MAX_C, class_sum_plain, wbwd_plan
 from .gram_stream import (_SMS, _fwd_one, check_operands, launch_bwd,
-                          launch_fwd, normalize, per_pair, symmetrize)
+                          launch_fwd, like_tap, normalize, per_pair,
+                          symmetrize, tap_operand)
 
 RELU_BWD_MAX_K = 8   # classes whose cotangent tiles the C <= 64 body keeps
 RELU_BWD_PIXELS = 256  # pixels of its p tile, 64 for each of 4 warpgroups
@@ -133,7 +136,7 @@ def gram_relu_bwd(z: torch.Tensor, b: torch.Tensor, m2: torch.Tensor,
     _, c, p, k = _check(z, b, m2)
     kernels.require(s, "s", (*z.shape[:-2], k, c, c), z.dtype)
     if not kernels.on_cuda(z, b, m2, s):
-        return gram_relu_bwd_plain(z, b, m2, s)
+        return like_tap(z, gram_relu_bwd_plain(z, b, m2, s))
     if z.dtype == torch.bfloat16 and c > WBWD_MAX_C:
         raise ValueError(f"gram_relu_bwd in bf16 takes C <= {WBWD_MAX_C}, "
                          f"not {c}")
@@ -162,9 +165,8 @@ def masked_grams_relu(z: torch.Tensor, b: torch.Tensor, masks: torch.Tensor,
     (K, H, W) masks -> (K, C, C), normalized like `losses.masked_grams`
     (a batch: (B, C, H, W) × (B, K, H, W) -> (B, K, C, C)). The operands
     stay in z's dtype (the compute dtype the tap was made in); b is rounded
-    to it."""
-    lead = z.shape[:-3]
+    to it. A channels_last z is read as it lies, never copied."""
     m2 = (masks * masks).to(z.dtype).flatten(-2).contiguous()
-    g = GramReluRaw.apply(z.reshape(*lead, z.shape[-3], -1).contiguous(),
+    g = GramReluRaw.apply(tap_operand(z.flatten(-2)),
                           b.to(z.dtype).contiguous(), m2)
     return normalize(g, masks, norm, eps)

@@ -7,10 +7,17 @@ The port's counterpart of `dpst_tpu/ops/gram_stream.py` (and of
     forward   G_k = F · (F ∘ m²_k)ᵀ              f (C, P), m² (K, P) -> (K, C, C)
     backward  dF  = Σ_k S_k · (F ∘ m²_k),  S_k = dG_k + dG_kᵀ
 
-F is a VGG tap as its (C, P) NCHW planes, in the compute dtype; F ∘ m²_k
-is rounded to that dtype; every product accumulates in fp32; G is fp32,
-dF is in the compute dtype. Masks are constants of the optimization: the
+F is a VGG tap as its (C, P) planes, in the compute dtype; F ∘ m²_k is
+rounded to that dtype; every product accumulates in fp32; G is fp32, dF
+is in the compute dtype. Masks are constants of the optimization: the
 Function returns no gradient for them.
+
+F lies either as NCHW planes (contiguous) or as a channels_last
+activation holds it, (C, P) with stride 1 on C (`kernels.channels_last(f,
+-2)`): the kernels then take their (P, C) forms (the entry points' pc
+flag; csrc/gram_pc.cu, gram_pc_wbwd.cu), which read F where it lies, sum
+in the same order, and return dF in F's layout; the plain versions take
+either layout, and return dF in F's layout too.
 
 Any C and any K are accepted (the TPU's s2d Gram kernel hard-coded C = 64;
 this one does not). In bf16 the kernels are the Hopper bodies of
@@ -174,7 +181,8 @@ def pad_pixels(t: torch.Tensor) -> torch.Tensor:
 
 def check_operands(f: torch.Tensor, m2: torch.Tensor, name: str = "f"
                    ) -> tuple[int, int, int, int]:
-    """(B, C, P, K) of a (C, P) tap or a (B, C, P) batch and its (K, P) or
+    """(B, C, P, K) of a (C, P) tap or a (B, C, P) batch, contiguous or
+    (P, C) in memory (`kernels.channels_last(f, -2)`), and its (K, P) or
     (B, K, P) m², validated for a kernel."""
     if f.dim() not in (2, 3) or m2.dim() != f.dim():
         raise ValueError(f"takes {name} (C, P) and m2 (K, P), or a batch "
@@ -183,9 +191,33 @@ def check_operands(f: torch.Tensor, m2: torch.Tensor, name: str = "f"
     b = f.shape[0] if f.dim() == 3 else 1
     c, p = f.shape[-2:]
     k = m2.shape[-2]
-    kernels.require(f, name)
+    kernels.require(f.transpose(-1, -2) if kernels.channels_last(f, -2)
+                    else f, name)
     kernels.require(m2, "m2", (*f.shape[:-2], k, p), f.dtype)
     return b, c, p, k
+
+
+def pc_kernel(f: torch.Tensor) -> bool:
+    """Whether a CUDA tap takes a kernel's (P, C) form: it lies (P, C),
+    in bf16 (the Hopper bodies), with 16-byte pixel rows (C % 8 == 0).
+    Another (P, C) tap is copied to (C, P) for the kernel."""
+    return (kernels.channels_last(f, -2) and f.dtype == torch.bfloat16
+            and f.shape[-2] % _ROW == 0)
+
+
+def tap_operand(f: torch.Tensor) -> torch.Tensor:
+    """A flattened tap as the kernels take it: as it lies where it is
+    contiguous or (P, C), else a contiguous copy."""
+    return (f if f.is_contiguous() or kernels.channels_last(f, -2)
+            else f.contiguous())
+
+
+def like_tap(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out, a (C, P) result of a plain version or a (C, P) kernel, in
+    the layout of the tap f (contiguous or (P, C))."""
+    if kernels.channels_last(f, -2) and not kernels.channels_last(out, -2):
+        return torch.empty_like(f).copy_(out)
+    return out
 
 
 def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
@@ -198,6 +230,7 @@ def gram_fwd(f: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     return launch_fwd("gram_fwd", f, m2)
 
 
+
 def launch_fwd(name: str, f: torch.Tensor, m2: torch.Tensor,
                bias: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the split-P forward kernel `name` ("gram_fwd", or
@@ -205,23 +238,28 @@ def launch_fwd(name: str, f: torch.Tensor, m2: torch.Tensor,
     tap f and (K, P) m², or a batch (B, C, P) and (B, K, P); returns the
     (K, C, C) (or (B, K, C, C)) fp32 Grams. In bf16 (the Hopper body) P is
     padded to a multiple of 8 and cut by `fwd_plan`; fp32 takes
-    `fwd_splits`."""
+    `fwd_splits`. A tap that lies (P, C) (`pc_kernel`) takes the kernel's
+    (P, C) form as it lies, only the masks padded, and counts under
+    `name`_pc."""
     lead = f.shape[:-2]
     b = f.shape[0] if lead else 1
     c, k = f.shape[-2], m2.shape[-2]
+    pc = pc_kernel(f)
+    f = f if pc else f.contiguous()
     if f.dtype == torch.bfloat16:
-        f, m2 = pad_pixels(f), pad_pixels(m2)
-        splits, chunk = fwd_plan(c, f.shape[-1], k, b)
+        f, m2 = (f if pc else pad_pixels(f)), pad_pixels(m2)
+        splits, chunk = fwd_plan(c, m2.shape[-1], k, b)
     else:
         splits, chunk = fwd_splits(c, f.shape[-1], k)
-    operands = (f, m2) if bias is None else (f, bias, m2)
     out = torch.empty((*lead, k, c, c), dtype=torch.float32, device=f.device)
+    operands = (f, m2) if bias is None else (f, bias, m2)
     work = (torch.empty((b, splits, k, c, c), dtype=torch.float32,
                         device=f.device) if splits > 1 else out)
     rc = getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out),
         c, f.shape[-1], k, b, splits, chunk, kernels.DTYPE_CODES[f.dtype],
-        kernels.stream_ptr(f))
+        int(pc), kernels.stream_ptr(f))
+    name += "_pc" if pc else ""
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return out
@@ -235,7 +273,7 @@ def gram_bwd(f: torch.Tensor, m2: torch.Tensor,
     _, c, _, k = check_operands(f, m2)
     kernels.require(s, "s", (*f.shape[:-2], k, c, c), f.dtype)
     if not kernels.on_cuda(f, m2, s):
-        return gram_bwd_plain(f, m2, s)
+        return like_tap(f, gram_bwd_plain(f, m2, s))
     return launch_bwd("gram_bwd", f, m2, s, bwd_plan)
 
 
@@ -246,30 +284,39 @@ def launch_bwd(name: str, f: torch.Tensor, m2: torch.Tensor,
     "gram_relu_bwd" with the (C,) `bias` and f the raw tap z, csrc/gram.cu)
     on the CUDA (C, P) tap f, (K, P) m² and (K, C, C) cotangent
     s, or a batch (B, C, P), (B, K, P) and (B, K, C, C); returns dF (C, P)
-    (or (B, C, P)). In bf16 (the Hopper bodies) P is padded to a multiple
-    of 8, s goes as `s_matrix(s)` and `plan(C, P, K, B)` gives (c tile,
-    groups, splits), with fp32 split partials where splits > 1."""
+    (or (B, C, P)) in f's layout. In bf16 (the Hopper bodies) P is padded
+    to a multiple of 8, s goes as `s_matrix(s)` and `plan(C, P, K, B)`
+    gives (c tile, groups, splits), with fp32 split partials where splits
+    > 1. A tap that lies (P, C) (`pc_kernel`) takes the kernel's (P, C)
+    form as it lies, only the masks padded, on the same plan, dF coming
+    back (P, C) in memory, and counts under `name`_pc; another (P, C) tap
+    is copied, and its dF copied back."""
     lead = f.shape[:-2]
     b = f.shape[0] if lead else 1
     c, p = f.shape[-2:]
     k = m2.shape[-2]
+    tap, pc = f, pc_kernel(f)
+    f = f if pc else f.contiguous()
     tile = groups = splits = 1
     work = None
     if f.dtype == torch.bfloat16:
-        f, m2, s = pad_pixels(f), pad_pixels(m2), s_matrix(s).contiguous()
-        tile, groups, splits = plan(c, f.shape[-1], k, b)
+        f, m2 = (f if pc else pad_pixels(f)), pad_pixels(m2)
+        s = s_matrix(s).contiguous()
+        tile, groups, splits = plan(c, m2.shape[-1], k, b)
         if splits > 1:
-            work = torch.empty((splits, b, c, f.shape[-1]),
+            work = torch.empty((splits, b, *f.shape[-2:]),
                                dtype=torch.float32, device=f.device)
-    out = torch.empty_like(f)
+    out = torch.empty_like(f)          # (P, C) in memory where f lies so
     operands = (f, m2, s) if bias is None else (f, bias, m2, s)
     rc = getattr(kernels.library(), "dpst_" + name)(
         *map(kernels.ptr, operands), kernels.ptr(work), kernels.ptr(out), c,
         f.shape[-1], k, b, tile, groups, splits,
-        kernels.DTYPE_CODES[f.dtype], kernels.stream_ptr(f))
+        kernels.DTYPE_CODES[f.dtype], int(pc), kernels.stream_ptr(f))
+    name += "_pc" if pc else ""
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
-    return out if out.shape[-1] == p else out[..., :p].contiguous()
+    return like_tap(tap, out if out.shape[-1] == p
+                    else out[..., :p].contiguous())
 
 
 def symmetrize(d: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -20,6 +20,10 @@ in one call: one launch, one count, whatever B is.
 counts calls of the backward entry points' Gram cotangent stage alone (its
 kernel runs inside `block12_bwd_deep` and `block12_bwd_shallow`, which
 count those launches).
+The forms that take channels_last activations as they lie count under
+names of their own (`NHWC_FORMS`: the twin's name with `_nhwc`, or `_pc`
+for the Gram kernels' (P, C) operand), so that a run shows which layout
+its path took.
 """
 from __future__ import annotations
 
@@ -44,6 +48,14 @@ KERNELS = ("lap_matvec", "gram_fwd", "gram_bwd", "gram_relu_fwd",
            "block12_fwd", "block12_fwd_res", "block12_bwd_deep",
            "block12_bwd_shallow", "block12_gram_dz", "bias_relu_fwd",
            "bias_relu_bwd")
+# {form on channels_last operands: its NCHW / (C, P) twin}
+NHWC_FORMS = {"bias_relu_fwd_nhwc": "bias_relu_fwd",
+              "bias_relu_bwd_nhwc": "bias_relu_bwd",
+              "pool_bwd_nhwc": "pool_bwd", "gram_fwd_pc": "gram_fwd",
+              "gram_relu_fwd_pc": "gram_relu_fwd", "gram_bwd_pc": "gram_bwd",
+              "gram_relu_bwd_pc": "gram_relu_bwd",
+              "gram_wbwd_pc": "gram_wbwd"}
+KERNELS += tuple(NHWC_FORMS)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -137,11 +149,11 @@ def library() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dpst_lap_matvec.argtypes = [p, p, p, i, i, i, i, ll, p]
         lib.dpst_lap_div9_mismatches.argtypes = [p, p]
-        lib.dpst_gram_fwd.argtypes = [p] * 4 + [i] * 7 + [p]
-        lib.dpst_gram_bwd.argtypes = [p] * 5 + [i] * 8 + [p]
-        lib.dpst_gram_relu_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
-        lib.dpst_gram_relu_bwd.argtypes = [p] * 6 + [i] * 8 + [p]
-        lib.dpst_gram_wbwd.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.dpst_gram_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
+        lib.dpst_gram_bwd.argtypes = [p] * 5 + [i] * 9 + [p]
+        lib.dpst_gram_relu_fwd.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.dpst_gram_relu_bwd.argtypes = [p] * 6 + [i] * 9 + [p]
+        lib.dpst_gram_wbwd.argtypes = [p] * 5 + [i] * 9 + [p]
         lib.dpst_gram_wgmma_attrs.argtypes = [i, p]
         lib.dpst_pool2_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.dpst_conv3x3.argtypes = [p, p, p, p] + [i] * 9 + [p]
@@ -157,6 +169,9 @@ def library() -> ctypes.CDLL:
         lib.dpst_block12_df_attrs.argtypes = [i, p]
         lib.dpst_bias_relu_fwd.argtypes = [p, p, p, ll, i, ll, i, p]
         lib.dpst_bias_relu_bwd.argtypes = [p, p, p, p, ll, i, ll, i, p]
+        lib.dpst_bias_relu_fwd_nhwc.argtypes = [p, p, p, ll, i, i, p]
+        lib.dpst_bias_relu_bwd_nhwc.argtypes = [p, p, p, p, ll, i, i, p]
+        lib.dpst_pool2_bwd_nhwc.argtypes = [p] * 4 + [i] * 5 + [p]
         for fn in (lib.dpst_lap_matvec, lib.dpst_lap_div9_mismatches,
                    lib.dpst_gram_fwd,
                    lib.dpst_gram_bwd, lib.dpst_gram_relu_fwd,
@@ -167,7 +182,8 @@ def library() -> ctypes.CDLL:
                    lib.dpst_conv3x3_attrs, lib.dpst_block12_conv_attrs,
                    lib.dpst_block12_gram_dz, lib.dpst_block12_df_plan,
                    lib.dpst_block12_df_attrs, lib.dpst_bias_relu_fwd,
-                   lib.dpst_bias_relu_bwd):
+                   lib.dpst_bias_relu_bwd, lib.dpst_bias_relu_fwd_nhwc,
+                   lib.dpst_bias_relu_bwd_nhwc, lib.dpst_pool2_bwd_nhwc):
             fn.restype = ctypes.c_int
         lib.dpst_error_string.argtypes = [i]
         lib.dpst_error_string.restype = ctypes.c_char_p
@@ -205,6 +221,16 @@ def require(t: torch.Tensor, name: str, shape: tuple | None = None,
                          "(float32 or bfloat16)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def channels_last(t: torch.Tensor, channels: int = -3) -> bool:
+    """True for a tensor whose `channels` axis lies fastest in memory, the
+    rest in order, and that is not also contiguous: an (N, C, H, W) or (C,
+    H, W) activation that lies channels_last (`channels` = -3, the NHWC
+    forms' operand), or a flattened tap, (C, P) or (B, C, P), that lies
+    (P, C) (`channels` = -2, the Gram kernels' (P, C) forms' operand)."""
+    return (t.dim() >= -channels and not t.is_contiguous()
+            and t.movedim(channels, -1).is_contiguous())
 
 
 def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:

@@ -1,8 +1,10 @@
 """Loss terms: content, masked Gram style, total variation.
 
 The port's counterpart of `dpst_tpu/ops/losses.py`. VGG taps arrive as
-NCHW planes (C, H, W) of one image, so a tap is already the contiguous
-(C, P) operand of the Gram kernels. `gram_route` resolves `gram_impl` per
+(C, H, W) planes of one image, NCHW or, on the card's bf16 cuDNN route,
+channels_last: flattened, a tap is the (C, P) operand of the Gram kernels,
+contiguous, or with stride 1 on C, which their (P, C) forms read as it
+lies (no tap is copied). `gram_route` resolves `gram_impl` per
 layer as the JAX package does on a TPU: the fused route (and "dotg" and
 "scan") takes `gram_stream.masked_grams_raw`, whose backward weights by m²
 before the product (`gram_fwd`, `gram_bwd`); "pallas", "stream" and
@@ -20,16 +22,23 @@ from __future__ import annotations
 
 import torch
 
+from . import kernels
 from .gram_pallas import masked_grams_pallas, use_pallas
 from .gram_s2d import RawTap, masked_grams_relu
-from .gram_stream import masked_grams_raw, normalize
+from .gram_stream import masked_grams_raw, normalize, tap_operand
 from .kernels import torch_dtype
 
 
 def content_loss(feat_out: torch.Tensor, feat_content: torch.Tensor
                  ) -> torch.Tensor:
     """½·mean squared feature difference over (C, H, W): a scalar, or (B,)
-    for a batch."""
+    for a batch. Channels_last features are read in their memory order
+    (H, W, C), so that the gradient comes back channels_last: one in NCHW
+    order would cost the tap's gradient sum a strided add and the
+    bias+ReLU backward a copy."""
+    if kernels.channels_last(feat_out):
+        feat_out = feat_out.movedim(-3, -1)
+        feat_content = feat_content.movedim(-3, -1)
     d = feat_out.to(torch.float32) - feat_content.to(torch.float32)
     return 0.5 * torch.mean(d * d, dim=(-3, -2, -1))
 
@@ -45,9 +54,9 @@ def masked_grams(feat: torch.Tensor, masks: torch.Tensor,
     are in `compute_dtype`; accumulation is fp32.
     """
     cdt = torch_dtype(compute_dtype)
-    f = feat.to(cdt).flatten(-2)
+    f = tap_operand(feat.to(cdt).flatten(-2))
     m2 = (masks * masks).to(cdt).flatten(-2).contiguous()
-    return normalize(masked_grams_raw(f.contiguous(), m2), masks, norm, eps)
+    return normalize(masked_grams_raw(f, m2), masks, norm, eps)
 
 
 # dpst_tpu/ops/losses.py:_FUSED_MAX_ELEMENTS: the largest (P, K·C) weighted

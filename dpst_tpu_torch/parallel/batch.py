@@ -195,8 +195,9 @@ def stylize_batch(contents, styles, cmasks, smasks,
         split = mesh_lib.shard_batch(
             list(_pair_weights(weights, b, torch.device("cpu"))), firsts)
     shares = mesh_lib.shard_batch(batch, firsts)
-    packed = vgg.params_by_device(vgg_params, groups[:, 0],
-                                  cfg.compute_dtype, cfg.conv_impl)
+    packed = vgg.params_by_device(
+        vgg_params, groups[:, 0], cfg.compute_dtype, cfg.conv_impl,
+        optimize.block12_route(cfg, batch[0].shape[1:]))
     gens = []
     for i, group in enumerate(groups):
         share = [a[i] for a in shares]

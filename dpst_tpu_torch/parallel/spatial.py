@@ -192,7 +192,8 @@ def features_rows(params: dict, shards: list, layers, pooling: str, cdt,
     after `plan`'s first gathered one on `first`. `params` maps each
     device to its `vgg.pack_params` weights. Returns {layer: shards} at a
     sharded level, {layer: tensor on first} at a gathered one, (B, C, h,
-    W) post-ReLU taps in `cdt`."""
+    W) post-ReLU taps in `cdt`, NCHW (`spatial_stages` packs the weights
+    so)."""
     if first.type == "cuda":
         vgg.set_exact_backends(cdt)
     x = [vgg.preprocess(s).to(cdt) for s in shards]
@@ -367,7 +368,7 @@ def spatial_stages(contents, styles, cmasks, smasks, cfg: StylizeConfig,
                          f"{mesh.shape[ROW_AXIS]}")
     first = mesh.first
     packed = vgg.params_by_device(params, mesh.devices.flat,
-                                  cfg.compute_dtype, cfg.conv_impl)
+                                  cfg.compute_dtype, cfg.conv_impl, "rows")
     coarse_cfg = (dataclasses.replace(cfg, laplacian_impl="xla")
                   if cfg.laplacian_impl == "spmd" else cfg)
 

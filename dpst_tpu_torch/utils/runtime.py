@@ -60,6 +60,7 @@ def params_on(params: dict, dev: torch.device) -> dict:
         return out
     out = type(params)(out)
     out.key = params.key
+    out.channels_last = params.channels_last
     out.block12 = type(params.block12)(*(t.to(dev) for t in params.block12))
     return out
 
